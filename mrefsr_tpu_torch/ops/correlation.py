@@ -1,0 +1,169 @@
+"""Dense input<->ref patch correlation with top-1 matching.
+
+Port of ``mrefsr_tpu/ops/correlation.py``. Features are ``(..., H, W, C)``
+(the JAX package's ``(H, W, C)``, with optional leading batch dims that
+are matched pair by pair). Both sides are unfolded into patch matrices
+and each ref patch is divided by its norm in PyTorch; the scores and the
+running max/argmax over ref patches run in ``csrc/feature_match.cu`` on a
+CUDA tensor, and in :func:`_match_patches_ref` (a chunked matmul with a
+running max, as the JAX scan does) on a CPU tensor.
+"""
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from ._build import Kernel
+
+feature_match_kernel = Kernel(
+    'feature_match', 'feature_match_launch',
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p])
+
+
+def sample_patches(feat, patch_size=3, stride=1):
+    """Sliding patches, row-major: ``(..., H, W, C)`` ->
+    ``(..., n_patches, patch_size * patch_size * C)``, element order
+    ``(i, j, c)`` as in the JAX package."""
+    h, w, c = feat.shape[-3:]
+    ph = (h - patch_size) // stride + 1
+    pw = (w - patch_size) // stride + 1
+    taps = [feat[..., i:i + (ph - 1) * stride + 1:stride,
+                 j:j + (pw - 1) * stride + 1:stride, :]
+            for i in range(patch_size) for j in range(patch_size)]
+    patches = torch.stack(taps, dim=-2)  # (..., ph, pw, k, c)
+    return patches.reshape(feat.shape[:-3]
+                           + (ph * pw, patch_size * patch_size * c))
+
+
+def _match_patches_ref(pin, pref, chunk):
+    """Plain version of the kernel: ``pin (P, n_in, d)``, ``pref
+    (P, n_ref, d)`` -> ``(idx (P, n_in) int32, val (P, n_in) f32)``.
+    Ref patches are scored in tiles of ``chunk``; inside a tile the first
+    max wins, across tiles a strict ``>``: the lowest index among equal
+    maxima."""
+    best_val = torch.full(pin.shape[:2], -torch.inf, dtype=torch.float32,
+                          device=pin.device)
+    best_idx = torch.zeros(pin.shape[:2], dtype=torch.int32,
+                           device=pin.device)
+    for base in range(0, pref.shape[1], chunk):
+        scores = torch.matmul(pin, pref[:, base:base + chunk].transpose(1, 2))
+        val_c, idx_c = scores.max(dim=2)
+        take = val_c > best_val
+        best_val = torch.where(take, val_c, best_val)
+        best_idx = torch.where(take, idx_c.to(torch.int32) + base, best_idx)
+    return best_idx, best_val
+
+
+def _match_patches_cuda(pin, pref, chunk=None):
+    """The CUDA kernel, same contract as :func:`_match_patches_ref`; the
+    kernel tiles the ref patches by itself, so ``chunk`` is unused."""
+    if pin.dtype != torch.float32 or pref.dtype != torch.float32:
+        raise TypeError('feature_match kernel takes float32 patches, got '
+                        f'{pin.dtype} and {pref.dtype}')
+    pairs, n_in, d = pin.shape
+    n_ref = pref.shape[1]
+    if pref.shape != (pairs, n_ref, d) or pref.device != pin.device:
+        raise ValueError(f'patch matrices do not pair up: {tuple(pin.shape)} '
+                         f'on {pin.device}, {tuple(pref.shape)} on '
+                         f'{pref.device}')
+    if n_in == 0 or n_ref == 0 or d == 0:
+        raise ValueError(f'empty patch matrix: {tuple(pin.shape)}, '
+                         f'{tuple(pref.shape)}')
+    pin = pin.contiguous()
+    pref = pref.contiguous()
+    idx = torch.empty((pairs, n_in), dtype=torch.int32, device=pin.device)
+    val = torch.empty((pairs, n_in), dtype=torch.float32, device=pin.device)
+    with torch.cuda.device(pin.device):
+        feature_match_kernel(pin.data_ptr(), pref.data_ptr(), pairs, n_in,
+                             n_ref, d, idx.data_ptr(), val.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+    return idx, val
+
+
+def _feature_match(feat_input, feat_ref, patch_size, input_stride,
+                   ref_stride, is_norm, norm_input, chunk, match):
+    if feat_input.shape[:-3] != feat_ref.shape[:-3]:
+        raise ValueError(f'batch dims differ: {tuple(feat_input.shape)} vs '
+                         f'{tuple(feat_ref.shape)}')
+    batch = feat_input.shape[:-3]
+    h, w = feat_input.shape[-3:-1]
+    pin = sample_patches(feat_input, patch_size, input_stride)
+    pref = sample_patches(feat_ref, patch_size, ref_stride)
+    pin = pin.reshape((-1,) + pin.shape[-2:])
+    pref = pref.reshape((-1,) + pref.shape[-2:])
+    if is_norm:
+        pref = pref / (torch.linalg.vector_norm(pref, dim=2, keepdim=True)
+                       + 1e-5)
+    idx, val = match(pin, pref, chunk)
+    if norm_input:
+        val = val / (torch.linalg.vector_norm(pin, dim=2) + 1e-5)
+    ph = (h - patch_size) // input_stride + 1
+    pw = (w - patch_size) // input_stride + 1
+    return idx.reshape(batch + (ph, pw)), val.reshape(batch + (ph, pw))
+
+
+def feature_match_index(feat_input, feat_ref, patch_size=3, input_stride=1,
+                        ref_stride=1, is_norm=True, norm_input=False,
+                        chunk=2048):
+    """Top-1 patch matching between input and reference features.
+
+    Args:
+        feat_input, feat_ref: ``(..., H, W, C)`` float32; equal leading
+            dims are matched pair by pair.
+        is_norm: divide each ref patch by its L2 norm + 1e-5.
+        norm_input: divide the best score by the input patch norm + 1e-5
+            (changes ``val`` only).
+        chunk: ref-patch tile of the plain (CPU) version; the CUDA kernel
+            tiles by itself, and the result does not depend on it.
+
+    Returns:
+        ``max_idx (..., ph, pw)`` int32, row-major into the ref patch grid,
+        the lowest index among equal maxima; ``max_val (..., ph, pw)``.
+    """
+    if feat_input.is_cuda:
+        match = _match_patches_cuda
+    elif feat_input.device.type == 'cpu':
+        match = _match_patches_ref
+    else:
+        raise RuntimeError(f'feature_match_index runs on cuda or cpu '
+                           f'tensors, got {feat_input.device}')
+    return _feature_match(feat_input, feat_ref, patch_size, input_stride,
+                          ref_stride, is_norm, norm_input, chunk, match)
+
+
+def feature_match_index_ref(feat_input, feat_ref, patch_size=3,
+                            input_stride=1, ref_stride=1, is_norm=True,
+                            norm_input=False, chunk=2048):
+    """:func:`feature_match_index` through the plain PyTorch version on any
+    device: the yardstick the CUDA kernel is held against."""
+    return _feature_match(feat_input, feat_ref, patch_size, input_stride,
+                          ref_stride, is_norm, norm_input, chunk,
+                          _match_patches_ref)
+
+
+def index_to_flow(max_idx):
+    """Match-index map -> flow: matched position - own position, last dim
+    (x, y), zero-padded by 2 at the bottom/right so it covers the feature
+    map. ``(..., h, w)`` int -> ``(..., h + 2, w + 2, 2)`` float32."""
+    h, w = max_idx.shape[-2:]
+    flow_w = (max_idx % w).to(torch.float32)
+    flow_h = torch.div(max_idx, w, rounding_mode='floor').to(torch.float32)
+    grid_y, grid_x = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=max_idx.device),
+        torch.arange(w, dtype=torch.float32, device=max_idx.device),
+        indexing='ij')
+    flow = torch.stack([flow_w - grid_x, flow_h - grid_y], dim=-1)
+    return F.pad(flow, (0, 0, 0, 2, 0, 2))
+
+
+def tensor_shift(x, shift=(2, 2), fill_val=0.):
+    """Shift ``(..., h, w, c)`` down/right by ``shift``, filling the vacated
+    rows and columns with ``fill_val``."""
+    h, w = x.shape[-3:-1]
+    sh, sw = shift
+    if sh == 0 and sw == 0:
+        return x
+    x = F.pad(x, (0, 0, sw, 0, sh, 0), value=fill_val)
+    return x[..., :h, :w, :]

@@ -1,0 +1,15 @@
+"""Small shared helpers of the port."""
+import torch
+
+
+def resolve_device(device=None):
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another. With no CUDA device and no explicit choice this raises: the
+    port never carries on on the CPU unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'no CUDA device is available; pass device="cpu" to run '
+                'the plain PyTorch path on the CPU')
+        return torch.device('cuda')
+    return torch.device(device)

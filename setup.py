@@ -18,7 +18,10 @@ setup(
                 '(JAX/XLA rebuild of the MRefSR/BasicSR toolbox)',
     packages=find_packages(exclude=('tests', 'options', 'scripts',
                                     'inference', 'native')),
-    package_data={'mrefsr_tpu.metrics': ['niqe_pris_params.npz']},
+    package_data={'mrefsr_tpu.metrics': ['niqe_pris_params.npz'],
+                  # CUDA sources of the PyTorch port, built by nvcc at
+                  # first use (mrefsr_tpu_torch/ops/_build.py)
+                  'mrefsr_tpu_torch.ops': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'numpy', 'opencv-python', 'Pillow',

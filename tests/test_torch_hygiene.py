@@ -1,0 +1,176 @@
+"""Boundaries of the port: it imports nothing of JAX or the JAX package,
+its entry points never fall back to the CPU unasked, a CPU tensor never
+reaches a CUDA kernel, and a kernel that fails to build or launch
+raises."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mrefsr_tpu_torch.models import build_model
+from mrefsr_tpu_torch.ops import _build, correlation, dcn
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'mrefsr_tpu'}
+PORT_FILES = sorted((REPO / 'mrefsr_tpu_torch').rglob('*.py')) \
+    + [REPO / 'chip_smoke.py']
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split('.')[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split('.')[0])
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, 'attr', getattr(node.func, 'id', '')) in (
+                    'import_module', '__import__') and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            roots.add(str(node.args[0].value).split('.')[0])
+    return roots
+
+
+@pytest.mark.parametrize('path', PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_scan_sees_forbidden_imports(tmp_path):
+    bad = tmp_path / 'bad.py'
+    bad.write_text('import jax.numpy as jnp\n'
+                   'from mrefsr_tpu.ops import dcn\n'
+                   'import importlib\nimportlib.import_module("flax")\n')
+    assert _imported_roots(bad) & FORBIDDEN == {'jax', 'mrefsr_tpu', 'flax'}
+
+
+def _tiny_opt():
+    return {
+        'model_type': 'MultiRefRestorationModel', 'manual_seed': 0,
+        'network_g': {'type': 'MRAPARestorationNet', 'ngf': 8,
+                      'n_blocks': 1, 'groups': 2},
+        'network_map': {'type': 'CorrespondenceGenerationArch'},
+        'network_extractor': {'type': 'ContrasMultiExtractorSep'},
+        'path': {},
+    }
+
+
+def test_model_without_device_raises_on_a_host_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        build_model(_tiny_opt())
+
+
+def test_model_refuses_what_is_not_ported():
+    opt = _tiny_opt()
+    opt['network_g']['alignment'] = 'flow'
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        build_model(opt, device='cpu')
+    opt = _tiny_opt()
+    opt['is_train'] = True
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        build_model(opt, device='cpu')
+
+
+def test_seeded_weights_are_reproducible():
+    a = build_model(_tiny_opt(), device='cpu').net_g.state_dict()
+    b = build_model(_tiny_opt(), device='cpu').net_g.state_dict()
+    for key in a:
+        torch.testing.assert_close(a[key], b[key], rtol=0, atol=0)
+
+
+def _refuse(*_):
+    raise AssertionError('a CUDA kernel was reached from CPU tensors')
+
+
+def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
+    monkeypatch.setattr(correlation, '_match_patches_cuda', _refuse)
+    monkeypatch.setattr(dcn, '_im2col_cuda', _refuse)
+    before = (correlation.feature_match_kernel.launches,
+              dcn.mdcn_im2col_kernel.launches)
+    model = build_model(_tiny_opt(), device='cpu')
+    rng = np.random.RandomState(0)
+    model.feed_data({
+        'img_in_lq': rng.rand(1, 4, 4, 3), 'img_in_up': rng.rand(1, 16, 16, 3),
+        'img_ref_list': rng.rand(1, 2, 16, 16, 3)})
+    model.test()
+    assert np.isfinite(model.get_current_visuals()['rlt']).all()
+    assert (correlation.feature_match_kernel.launches,
+            dcn.mdcn_im2col_kernel.launches) == before
+    assert _build._libs == {}
+
+
+def test_ops_refuse_other_devices():
+    x = torch.empty((1, 4, 4, 8), device='meta')
+    with pytest.raises(RuntimeError, match='cuda or cpu'):
+        correlation.feature_match_index(x[0], x[0])
+    with pytest.raises(RuntimeError, match='cuda or cpu'):
+        dcn.modulated_deform_conv2d(
+            x, torch.empty((1, 4, 4, 1, 9, 2), device='meta'),
+            torch.empty((1, 4, 4, 1, 9), device='meta'),
+            torch.empty((3, 3, 8, 8), device='meta'))
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path))
+    monkeypatch.setenv('PATH', str(tmp_path))
+    monkeypatch.setattr(_build, 'BUILD_DIR', tmp_path / 'build')
+    with pytest.raises(RuntimeError, match='nvcc'):
+        _build.build()
+
+
+class _FakeFunction:
+    """Stands in for a ctypes function: takes argtypes, returns ``ret``."""
+
+    def __init__(self, ret):
+        self.ret = ret
+
+    def __call__(self, *args):
+        return self.ret
+
+
+class _FakeLibrary:
+    def __init__(self, code):
+        self.feature_match_launch = _FakeFunction(code)
+        self.cuda_error_string = _FakeFunction(b'fake error')
+
+
+@pytest.mark.parametrize('code', [0, 9])
+def test_launch_error_raises_and_is_not_counted(monkeypatch, code):
+    kernel = _build.Kernel('feature_match', 'feature_match_launch', [])
+    monkeypatch.setattr(_build, 'load_library',
+                        lambda name: _FakeLibrary(code))
+    if code:
+        with pytest.raises(RuntimeError, match='CUDA error 9'):
+            kernel()
+        assert kernel.launches == 0
+    else:
+        kernel()
+        kernel()
+        assert kernel.launches == 2
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('PYTHONPATH', 'CUDA_VISIBLE_DEVICES')}
+    return subprocess.run([sys.executable, 'chip_smoke.py'], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_a_gpu_or_alone(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip('this host has a CUDA device; the smoke run would run')
+    here = _run_smoke(REPO)
+    assert here.returncode != 0 and '"ok"' not in here.stdout
+    shutil.copy(REPO / 'chip_smoke.py', tmp_path)
+    alone = _run_smoke(tmp_path)
+    assert alone.returncode != 0 and '"ok"' not in alone.stdout
+    assert 'mrefsr_tpu_torch' in alone.stderr
