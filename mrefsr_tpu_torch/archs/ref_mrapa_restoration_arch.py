@@ -3,9 +3,10 @@
 
 An SRNTT-style 3-scale decoder: at each VGG level (relu3_1 256 ch,
 relu2_1 128 ch, relu1_1 64 ch) every ref is aligned by a DynAgg
-deformable conv seeded with the match pre-offsets, the T aligned refs are
-fused by per-pixel attention (MRAPAFusion), and a x2 pixel shuffle moves
-between scales; a bilinear x4 residual closes the net.
+deformable conv seeded with the match pre-offsets (or, with
+``alignment='flow'``, by a FlowAgg warp seeded with their centre tap), the
+T aligned refs are fused by per-pixel attention (MRAPAFusion), and a x2
+pixel shuffle moves between scales; a bilinear x4 residual closes the net.
 
 The alignment parameters are shared across refs, so the T refs run
 folded into the batch (the JAX package scans over them to bound XLA's
@@ -15,7 +16,7 @@ channels-last tensor.
 import torch
 from torch import nn
 
-from mrefsr_tpu_torch.ops import (modulated_deform_conv2d,
+from mrefsr_tpu_torch.ops import (deform_sample, modulated_deform_conv2d,
                                   offset_mask_from_conv_out)
 from mrefsr_tpu_torch.utils.registry import ARCH_REGISTRY
 
@@ -70,6 +71,42 @@ class DynAgg(nn.Module):
             padding=self.padding, dilation=self.dilation,
             deform_groups=self.deform_groups)
         return out.permute(0, 3, 1, 2)
+
+
+class FlowAgg(nn.Module):
+    """Flow-warp aggregation, the alternative to DynAgg (JAX package
+    ref_mrapa_restoration_arch.py:101-145). Same call ``(x, feat,
+    pre_offset)``: ``conv_flow_gate`` predicts one flow residual (dy, dx)
+    and one gate per pixel and deform group from ``feat``; the flow is
+    seeded with the centre tap of ``pre_offset``; ``x`` is warped by one
+    grouped bilinear sample (``ops.deform_sample``), gated per group, and
+    passed through a dense 3x3 conv.
+
+    Its parameters are not the reference's DynAgg ones:
+    ``convert.dcn_to_flow_state_dict`` warm-starts them from a DCN
+    checkpoint.
+    """
+
+    def __init__(self, in_channels, out_channels, deform_groups=8):
+        super().__init__()
+        self.deform_groups = deform_groups
+        self.conv_flow_gate = nn.Conv2d(in_channels, deform_groups * 3, 3,
+                                        1, 1)
+        self.conv_after_warp = nn.Conv2d(in_channels, out_channels, 3, 1, 1)
+
+    def forward(self, x, feat, pre_offset):
+        dg = self.deform_groups
+        n, c, h, w = x.shape
+        head = self.conv_flow_gate(feat).permute(0, 2, 3, 1)
+        gate = torch.sigmoid(head[..., dg * 2:])             # (N, H, W, dg)
+        # seed with the centre tap (4 of the 9 row-major taps),
+        # (x, y) -> (dy, dx), broadcast over the deform groups
+        flow = head[..., :dg * 2].reshape(n, h, w, dg, 2) \
+            + pre_offset[:, :, :, 4].flip(-1)[:, :, :, None]
+        warped = deform_sample(x.permute(0, 2, 3, 1), flow)  # (N, H, W, C)
+        warped = (warped.reshape(n, h, w, dg, c // dg)
+                  * gate[..., None]).reshape(n, h, w, c)
+        return self.conv_after_warp(warped.permute(0, 3, 1, 2))
 
 
 class ContentExtractor(nn.Module):
@@ -137,8 +174,9 @@ class MRAPAFusion(nn.Module):
 
 class DynamicAggregationRestoration(nn.Module):
     """The 3-scale decoder (reference :140-259). Per scale ``p`` in
-    small / medium / large: offset convs -> DynAgg per ref -> MRAPAFusion
-    -> residual blocks -> tail.
+    small / medium / large: offset convs -> DynAgg (``p_dyn_agg``) or,
+    with ``alignment='flow'``, FlowAgg (``p_flow_agg``) per ref ->
+    MRAPAFusion -> residual blocks -> tail.
 
     Call ``(x (B, ngf, h, w), pre_offset {level: (B, T, H, W, 9, 2)},
     img_ref_feat {level: (B, T, C, H, W)})``.
@@ -147,15 +185,22 @@ class DynamicAggregationRestoration(nn.Module):
     _SCALES = (('small', 'relu3_1', 256), ('medium', 'relu2_1', 128),
                ('large', 'relu1_1', 64))
 
-    def __init__(self, ngf=64, n_blocks=16, groups=8):
+    def __init__(self, ngf=64, n_blocks=16, groups=8, alignment='dcn'):
         super().__init__()
+        if alignment not in ('dcn', 'flow'):
+            raise ValueError(f"alignment is 'dcn' or 'flow', got "
+                             f'{alignment!r}')
+        self._agg = 'flow_agg' if alignment == 'flow' else 'dyn_agg'
         for p, _, ref_nf in self._SCALES:
             setattr(self, f'{p}_offset_conv1',
                     nn.Conv2d(ngf + ref_nf, ref_nf, 3, 1, 1))
             setattr(self, f'{p}_offset_conv2',
                     nn.Conv2d(ref_nf, ref_nf, 3, 1, 1))
-            setattr(self, f'{p}_dyn_agg',
-                    DynAgg(ref_nf, ref_nf, 3, deform_groups=groups))
+            if alignment == 'flow':
+                agg = FlowAgg(ref_nf, ref_nf, deform_groups=groups)
+            else:
+                agg = DynAgg(ref_nf, ref_nf, 3, deform_groups=groups)
+            setattr(self, f'{p}_{self._agg}', agg)
             setattr(self, f'head_{p}', MRAPAFusion(nf=ngf, ref_nf=ref_nf))
             setattr(self, f'body_{p}',
                     make_layer(ResidualBlockNoBN, n_blocks, num_feat=ngf))
@@ -172,7 +217,7 @@ class DynamicAggregationRestoration(nn.Module):
         off = torch.cat([x_t, refs], 1)
         off = lrelu(getattr(self, f'{p}_offset_conv1')(off))
         off = lrelu(getattr(self, f'{p}_offset_conv2')(off))
-        swapped = lrelu(getattr(self, f'{p}_dyn_agg')(
+        swapped = lrelu(getattr(self, f'{p}_{self._agg}')(
             refs, off, pre_offset.flatten(0, 1)))
         h = getattr(self, f'head_{p}')(x, swapped.unflatten(0, (b, t)))
         h = getattr(self, f'body_{p}')(h) + x
@@ -194,21 +239,18 @@ class MRAPARestorationNet(nn.Module):
     Call ``(x (B, 3, h, w) LR input, pre_offset {level: (B, T, H, W, 9, 2)},
     img_ref_feat {level: (B, T, C, H, W)})``; returns (B, 3, 4h, 4w).
 
-    ``ref_unroll``, ``dcn_outer_remat`` and ``fusion_remat`` shape only
-    how XLA holds the JAX package's memory; they are accepted and ignored
-    here. ``alignment='flow'`` (FlowAgg) is not ported yet.
+    ``alignment`` is ``'dcn'`` (DynAgg, loads the reference's
+    checkpoints) or ``'flow'`` (FlowAgg). ``ref_unroll``,
+    ``dcn_outer_remat`` and ``fusion_remat`` shape only how XLA holds the
+    JAX package's memory; they are accepted and ignored here.
     """
 
     def __init__(self, ngf=64, n_blocks=16, groups=8, ref_unroll=1,
                  dcn_outer_remat=False, fusion_remat=False, alignment='dcn'):
         super().__init__()
-        if alignment != 'dcn':
-            raise NotImplementedError(
-                f'alignment={alignment!r} (FlowAgg) is not ported yet '
-                '(ROADMAP A8)')
         self.content_extractor = ContentExtractor(ngf, n_blocks)
-        self.dyn_agg_restore = DynamicAggregationRestoration(ngf, n_blocks,
-                                                             groups)
+        self.dyn_agg_restore = DynamicAggregationRestoration(
+            ngf, n_blocks, groups, alignment)
 
     def forward(self, x, pre_offset, img_ref_feat):
         base = nn.functional.interpolate(x, scale_factor=4, mode='bilinear',
@@ -221,7 +263,8 @@ class MRAPARestorationNet(nn.Module):
     def init_weights(self, generator):
         """The reference's init: N(0, 0.02) for every conv and DynAgg
         weight, zero biases, PReLU 0.25, and zero ``conv_offset_mask``
-        (``re_init_dcn_offset``: sampling starts at the pre-offsets)."""
+        and ``conv_flow_gate`` (``re_init_dcn_offset``: sampling starts at
+        the pre-offsets)."""
         srntt_normal_init_(self, generator)
         for m in self.modules():
             if isinstance(m, DynAgg):
@@ -229,3 +272,6 @@ class MRAPARestorationNet(nn.Module):
                 m.bias.zero_()
                 m.conv_offset_mask.weight.zero_()
                 m.conv_offset_mask.bias.zero_()
+            elif isinstance(m, FlowAgg):
+                m.conv_flow_gate.weight.zero_()
+                m.conv_flow_gate.bias.zero_()

@@ -7,7 +7,11 @@ modules keep (so ``load_state_dict(strict=True)`` takes them unchanged):
 * the flax parameter tree of the JAX package (:func:`state_dict_from_flax`,
   numpy in, torch state dict out): a kernel ``(kh, kw, I, O)`` becomes the
   weight ``(O, I, kh, kw)``, a dense kernel ``(I, O)`` becomes ``(O, I)``,
-  a norm scale becomes ``weight``, anything else keeps its leaf name.
+  a norm scale becomes ``weight``, anything else keeps its leaf name
+  (DynAgg's and FlowAgg's parameters included).
+
+:func:`dcn_to_flow_state_dict` warm-starts a flow-alignment net from a
+DCN-alignment checkpoint.
 
 A copy of the numpy-only half of ``mrefsr_tpu/convert.py``, so the port
 imports nothing of the JAX package.
@@ -101,3 +105,87 @@ def state_dict_from_flax(params):
     dict of contiguous float tensors, ready for
     ``load_state_dict(strict=True)``."""
     return {k: torch.tensor(v) for k, v in flax_to_torch(params).items()}
+
+
+def dcn_to_flow_state_dict(sd, deform_groups=8, kernel_size=3):
+    """Warm-start a flow-alignment (FlowAgg) state dict from a
+    DCN-alignment (DynAgg) one, in the reference's torch key layout
+    (copy of ``mrefsr_tpu/convert.py::dcn_to_flow_state_dict``).
+
+    The pre-offsets are tap-shifted copies of one flow field, so a DynAgg
+    whose learned offset residual is zero is a 3x3 conv over the
+    flow-warped ref, which is FlowAgg's structure. Per ``*_dyn_agg``:
+
+    * ``conv_flow_gate`` flow rows <- the centre-tap offset rows of
+      ``conv_offset_mask``, per deform group; gate rows <- zero (gate 0.5);
+    * ``conv_after_warp.weight[o, ci, ky, kx]`` <- ``weight * 2 *
+      sigmoid(mask_bias[g, t])`` with ``g = ci // cg``, ``t = ky*K + kx``
+      (the 2 makes up for the 0.5 gate); ``conv_after_warp.bias`` <- bias;
+    * every other tensor passes through.
+
+    Dropped: the other taps' offset residuals and the part of the mask
+    that depends on the features. Exact for interior pixels when the
+    offset residual is zero and the flow is constant.
+
+    ``sd`` holds torch tensors or numpy arrays; the result holds the same
+    kind, with FlowAgg keys.
+    """
+    k2 = kernel_size * kernel_size
+    dg = deform_groups
+    center = (kernel_size // 2) * kernel_size + kernel_size // 2
+
+    def as_numpy(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+
+    def like(arr, ref):
+        return torch.from_numpy(np.ascontiguousarray(arr)) \
+            if isinstance(ref, torch.Tensor) else arr
+
+    suffix = '_dyn_agg.conv_offset_mask.weight'
+    bases = sorted({key[:-len('.conv_offset_mask.weight')] for key in sd
+                    if key.endswith(suffix)})
+    out, converted = {}, set()
+    for base in bases:
+        w_om = as_numpy(sd[f'{base}.conv_offset_mask.weight'])
+        b_om = as_numpy(sd[f'{base}.conv_offset_mask.bias'])
+        w_dyn = as_numpy(sd[f'{base}.weight'])
+        b_dyn = as_numpy(sd[f'{base}.bias'])
+        cin = w_dyn.shape[1]
+        if w_om.shape[0] != 3 * dg * k2 or cin % dg:
+            raise ValueError(
+                f'{base}: conv_offset_mask has {w_om.shape[0]} outputs and '
+                f'the conv {cin} inputs; expected 3*dg*K = {3 * dg * k2} '
+                f'and a multiple of dg = {dg}')
+        cg = cin // dg
+
+        w_fg = np.zeros((dg * 3,) + w_om.shape[1:], w_om.dtype)
+        b_fg = np.zeros((dg * 3,), b_om.dtype)
+        for g in range(dg):
+            for j in range(2):  # (dy, dx)
+                src = g * 2 * k2 + 2 * center + j
+                w_fg[2 * g + j] = w_om[src]
+                b_fg[2 * g + j] = b_om[src]
+
+        mask_bias = b_om[2 * dg * k2:].reshape(dg, k2)
+        m_hat = 1.0 / (1.0 + np.exp(-mask_bias))            # (dg, K)
+        scale = np.repeat(2.0 * m_hat, cg, axis=0)          # (cin, K)
+        scale = scale.reshape(cin, kernel_size, kernel_size)
+        w_cv = (w_dyn * scale[None]).astype(w_dyn.dtype)
+
+        flow_base = base.replace('_dyn_agg', '_flow_agg')
+        ref = sd[f'{base}.weight']
+        out[f'{flow_base}.conv_flow_gate.weight'] = like(w_fg, ref)
+        out[f'{flow_base}.conv_flow_gate.bias'] = like(b_fg, ref)
+        out[f'{flow_base}.conv_after_warp.weight'] = like(w_cv, ref)
+        out[f'{flow_base}.conv_after_warp.bias'] = like(b_dyn.copy(), ref)
+        converted.update({f'{base}.conv_offset_mask.weight',
+                          f'{base}.conv_offset_mask.bias',
+                          f'{base}.weight', f'{base}.bias'})
+
+    for key, val in sd.items():
+        if key not in converted:
+            if '_dyn_agg' in key:
+                raise ValueError(f'unmapped DynAgg key {key}')
+            out[key] = val
+    return out

@@ -1,0 +1,117 @@
+"""BaseModel: what every training strategy of the port shares (port of
+``mrefsr_tpu/models/base_model.py``): the device, the schedulers and the
+learning-rate log, and checkpoints in the reference's formats.
+
+* ``<label>_<iter>.pth`` holds ``{'params': state_dict}`` with the
+  reference's torch key names, so one file loads into the reference, the
+  JAX package (``mrefsr_tpu.convert``) and this package.
+* ``<iter>.state`` holds ``{'epoch', 'iter', 'optimizers', 'schedulers'}``
+  (reference base_model.py:308-341), written with ``torch.save``.
+"""
+import os
+
+import torch
+
+from mrefsr_tpu_torch.convert import load_torch_state_dict, rename_keys
+from mrefsr_tpu_torch.utils import resolve_device
+
+from .lr_scheduler import ScheduleLR, build_schedule
+
+
+class BaseModel:
+
+    def __init__(self, opt, device=None):
+        self.opt = opt
+        self.device = resolve_device(device)
+        self.is_train = bool(opt.get('is_train'))
+        self.optimizers = []
+        self.schedulers = []
+        self.log_dict = {}
+
+    # ----------------------------------------------------------- schedulers
+    def setup_schedulers(self):
+        """One :class:`ScheduleLR` per optimizer, from ``train.scheduler``
+        and ``train.warmup_iter`` (reference base_model.py:106-124). Call
+        after the optimizers exist."""
+        train_opt = self.opt['train']
+        base_lr = (train_opt.get('optim_g') or {}).get('lr') \
+            or train_opt.get('lr_g') or 1.0
+        self.schedule_fn = build_schedule(train_opt.get('scheduler'),
+                                          train_opt.get('warmup_iter', -1),
+                                          base_lr=base_lr)
+        self.schedulers = [ScheduleLR(optimizer, self.schedule_fn)
+                           for optimizer in self.optimizers]
+
+    def update_learning_rate(self, current_iter, warmup_iter=-1):
+        """Set the rates iteration ``current_iter`` trains with. The
+        warm-up is part of the schedule (``train.warmup_iter``);
+        ``warmup_iter`` is accepted for the reference's call signature."""
+        for scheduler in self.schedulers:
+            scheduler.step(current_iter)
+
+    def get_current_learning_rate(self):
+        """The first optimizer's rate per parameter group."""
+        return self.schedulers[0].get_last_lr() if self.schedulers else [0.0]
+
+    def get_current_log(self):
+        """The last step's losses as python floats. Converting waits for
+        the device, so the step itself keeps them as tensors."""
+        return {k: float(v) for k, v in self.log_dict.items()}
+
+    # ---------------------------------------------------------- checkpoints
+    def save_network(self, net, net_label, current_iter, param_key='params'):
+        """Write ``net``'s state dict as a reference-format ``.pth``
+        (reference base_model.py:198-243) into ``path.models``; iteration
+        -1 is named ``latest``. Returns the file's path."""
+        name = 'latest' if current_iter == -1 else current_iter
+        path = os.path.join(self.opt['path']['models'],
+                            f'{net_label}_{name}.pth')
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        state = {k: v.detach().cpu().contiguous()
+                 for k, v in net.state_dict().items()}
+        torch.save({param_key: state}, path)
+        return path
+
+    def load_network(self, net, load_path, strict=True, param_key='params',
+                     rename=None):
+        """Load a reference-format ``.pth`` into ``net`` (reference
+        base_model.py:280-306, the ``params_ema`` -> ``params`` fall-back
+        included). ``rename(key) -> key or None`` maps or drops keys."""
+        state = load_torch_state_dict(load_path, param_key=param_key)
+        if rename is not None:
+            state = rename_keys(state, rename)
+        net.load_state_dict(state, strict=strict)
+
+    def save_training_state(self, epoch, current_iter):
+        """Write the trainer's state into ``path.training_states`` as
+        ``<iter>.state``. Returns the file's path (None for iteration
+        -1, which the reference does not save either)."""
+        if current_iter == -1:
+            return None
+        state = {'epoch': epoch, 'iter': current_iter,
+                 'optimizers': [o.state_dict() for o in self.optimizers],
+                 'schedulers': [s.state_dict() for s in self.schedulers]}
+        path = os.path.join(self.opt['path']['training_states'],
+                            f'{current_iter}.state')
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(state, path)
+        return path
+
+    def load_training_state(self, path):
+        return torch.load(path, map_location=self.device, weights_only=True)
+
+    def resume_training(self, resume_state):
+        """Restore optimizers and schedulers from a loaded ``.state``
+        (reference base_model.py:343-356)."""
+        optimizers = resume_state['optimizers']
+        schedulers = resume_state['schedulers']
+        if len(optimizers) != len(self.optimizers) \
+                or len(schedulers) != len(self.schedulers):
+            raise ValueError(
+                f'the state holds {len(optimizers)} optimizers and '
+                f'{len(schedulers)} schedulers, the model '
+                f'{len(self.optimizers)} and {len(self.schedulers)}')
+        for optimizer, state in zip(self.optimizers, optimizers):
+            optimizer.load_state_dict(state)
+        for scheduler, state in zip(self.schedulers, schedulers):
+            scheduler.load_state_dict(state)

@@ -1,11 +1,12 @@
-"""Multi-reference restoration model, eval half
-(port of ``mrefsr_tpu/models/multi_ref_restoration_model.py``).
+"""Multi-reference restoration model: eval, and the pixel phase of
+training (port of ``mrefsr_tpu/models/multi_ref_restoration_model.py``).
 
 Three nets: the contrastive VGG16 extractor (``network_extractor``), the
 correspondence generator (``network_map``: patch matching + VGG19 ref
 features) and the MRAPA restoration net (``network_g``). A request goes
-``feed_data`` -> ``test`` -> ``get_current_visuals`` with the JAX model's
-sample dict: NHWC ``img_in_lq``, ``img_in_up``, ``img_in`` and
+``feed_data`` -> ``test`` -> ``get_current_visuals`` and a training step
+``feed_data`` -> ``optimize_parameters`` -> ``get_current_log``, with the
+JAX model's sample dict: NHWC ``img_in_lq``, ``img_in_up``, ``img_in`` and
 ``img_ref_list`` of shape (B, T, H, W, 3).
 """
 import os
@@ -15,34 +16,54 @@ import torch
 
 from mrefsr_tpu_torch.archs import build_network
 from mrefsr_tpu_torch.archs.vgg_arch import vgg_rename
-from mrefsr_tpu_torch.convert import (drop_buffer_keys, load_torch_state_dict,
-                                      rename_keys, state_dict_from_flax)
-from mrefsr_tpu_torch.utils import resolve_device
+from mrefsr_tpu_torch.convert import drop_buffer_keys, state_dict_from_flax
+from mrefsr_tpu_torch.losses import legacy_losses
 from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY
+
+from .base_model import BaseModel
+
+# the Adam groups of net_g, in the order of the learning-rate log
+PARAM_GROUPS = ('g', 'offset', 'relu3_offset', 'relu2_offset')
+
+
+def param_group_of(name):
+    """The Adam group of a net_g parameter, by its name (reference
+    multi_ref_restoration_model.py:60-89): the offset convs of the small
+    (relu3_1) and medium (relu2_1) scales train at their own rates."""
+    if 'offset' in name:
+        if 'small' in name:
+            return 'relu3_offset'
+        if 'medium' in name:
+            return 'relu2_offset'
+        return 'offset'
+    return 'g'
 
 
 @MODEL_REGISTRY.register()
-class MultiRefRestorationModel:
-    """Eval forward of the LMR multi-reference model.
+class MultiRefRestorationModel(BaseModel):
+    """The LMR multi-reference model: eval forward and pixel-loss training.
 
     Weights come from ``path.pretrain_network_g``,
     ``path.pretrain_network_feature_extractor`` and
     ``path.vgg_pretrain_path`` where those files exist, from
     :meth:`load_from_flax`, and otherwise from ``manual_seed`` through a
     ``torch.Generator``. Runs on ``device`` (``cuda`` unless named).
+
+    With ``is_train`` the extractor and the map stay frozen and run under
+    ``torch.no_grad()``; ``net_g`` trains in f32 with one Adam of four
+    parameter groups. The GAN phase (``network_d``, ``gan_type``,
+    ``perceptual_opt``, ``style_opt``) and ``train.mixed_precision`` are
+    not ported and raise.
     """
 
     def __init__(self, opt, device=None):
-        self.opt = opt
-        self.device = resolve_device(device)
-        if opt.get('is_train'):
-            raise NotImplementedError(
-                'training is not ported yet (ROADMAP A4); build with '
-                'is_train false')
+        super().__init__(opt, device)
         if (opt.get('val') or {}).get('mixed_precision'):
             raise NotImplementedError(
                 'val.mixed_precision (bf16 serving) is not ported yet')
-        # The eval path is f32, as the JAX package's default is. cuDNN
+        if self.is_train:
+            self._refuse_unported_training()
+        # The model is f32, as the JAX package's default is. cuDNN
         # runs f32 convolutions in TF32 (about three decimal digits)
         # unless told otherwise, so both TF32 switches are set off here;
         # they are process-wide.
@@ -61,6 +82,8 @@ class MultiRefRestorationModel:
         self._load_pretrained()
         self._to_channels_last()
         self.output = None
+        if self.is_train:
+            self.init_training_settings()
 
     def _nets(self):
         return self.net_extractor, self.net_map, self.net_g
@@ -74,26 +97,24 @@ class MultiRefRestorationModel:
         strict = path.get('strict_load', True)
         file = path.get('pretrain_network_feature_extractor')
         if file and os.path.isfile(file):
-            sd = rename_keys(load_torch_state_dict(file), drop_buffer_keys)
-            self.net_extractor.load_state_dict(sd, strict=strict)
+            self.load_network(self.net_extractor, file, strict,
+                              rename=drop_buffer_keys)
         file = path.get('vgg_pretrain_path')
         if file and os.path.isfile(file):
             rename = vgg_rename(self.net_map.vgg_type)
+            # torchvision's VGG goes deeper than the taps the map uses
+            own = self.net_map.state_dict()
 
             def map_key(key):
                 key = rename(key)
-                return key and f'vgg.{key}'
+                key = key and f'vgg.{key}'
+                return key if key in own else None
 
-            # torchvision's VGG goes deeper than the taps the map uses
-            own = self.net_map.state_dict()
-            sd = rename_keys(load_torch_state_dict(file, param_key=None),
-                             map_key)
-            self.net_map.load_state_dict(
-                {k: v for k, v in sd.items() if k in own}, strict=True)
+            self.load_network(self.net_map, file, True, param_key=None,
+                              rename=map_key)
         file = path.get('pretrain_network_g')
         if file and os.path.isfile(file):
-            self.net_g.load_state_dict(load_torch_state_dict(file),
-                                       strict=strict)
+            self.load_network(self.net_g, file, strict)
 
     def load_from_flax(self, vars_ex, vars_map, vars_g):
         """Take the JAX package's flax variables of the three nets."""
@@ -111,9 +132,81 @@ class MultiRefRestorationModel:
         self.match_img_in = self._tensor(data['img_in_up'])
         self.gt = self._tensor(data['img_in']) if 'img_in' in data else None
 
+    # ------------------------------------------------------------- training
+    def _refuse_unported_training(self):
+        train_opt = self.opt['train']
+        if train_opt.get('mixed_precision'):
+            raise NotImplementedError(
+                f"train.mixed_precision: {train_opt['mixed_precision']} is "
+                'not ported yet (ROADMAP A4, bf16 training): the step is '
+                'f32; leave the key out')
+        for key in ('perceptual_opt', 'style_opt', 'gan_type'):
+            if train_opt.get(key):
+                raise NotImplementedError(
+                    f'train.{key} belongs to the GAN phase, which is not '
+                    'ported yet (ROADMAP A9)')
+        if self.opt.get('network_d'):
+            raise NotImplementedError(
+                'network_d belongs to the GAN phase, which is not ported '
+                'yet (ROADMAP A9)')
+
+    def init_training_settings(self):
+        """Pixel loss, the four-group Adam and its schedule (JAX package
+        multi_ref_restoration_model.py:76-185). ``steps_per_dispatch`` is
+        accepted: steps run one at a time, which gives the same
+        trajectory."""
+        train_opt = self.opt['train']
+        if not train_opt['pixel_weight'] > 0:
+            raise ValueError('train.pixel_weight must be > 0: the pixel '
+                             'loss is the only one ported (ROADMAP A9)')
+        self.cri_pix = getattr(legacy_losses, train_opt['pixel_criterion'])(
+            loss_weight=train_opt['pixel_weight'], reduction='mean')
+        self.net_g.train().requires_grad_(True)
+        groups = {label: [] for label in PARAM_GROUPS}
+        for name, param in self.net_g.named_parameters():
+            groups[param_group_of(name)].append(param)
+        lrs = {'g': train_opt['lr_g'], 'offset': train_opt['lr_offset'],
+               'relu3_offset': train_opt['lr_relu3_offset'],
+               'relu2_offset': train_opt['lr_relu2_offset']}
+        # torch's Adam decays as the reference does: coupled L2
+        self.optimizer_g = torch.optim.Adam(
+            [{'params': groups[label], 'lr': lrs[label]}
+             for label in PARAM_GROUPS],
+            weight_decay=train_opt.get('weight_decay_g', 0),
+            betas=tuple(train_opt.get('beta_g', (0.9, 0.999))))
+        self.optimizers = [self.optimizer_g]
+        self.setup_schedulers()
+
+    def optimize_parameters(self, step):
+        """One pixel-loss step of ``net_g`` on the batch of
+        :meth:`feed_data`, at iteration ``step`` (1 on the first)."""
+        if not self.is_train:
+            raise RuntimeError('the model was built with is_train false')
+        self.update_learning_rate(step)
+        self.optimizer_g.zero_grad(set_to_none=True)
+        l_pix = self.cri_pix(self._forward(
+            self.match_img_in, self.img_ref_list, self.img_in_lq), self.gt)
+        l_pix.backward()
+        self.optimizer_g.step()
+        self.log_dict = OrderedDict(l_pix=l_pix.detach())
+
+    def save(self, epoch, current_iter):
+        self.save_network(self.net_g, 'net_g', current_iter)
+        self.save_training_state(epoch, current_iter)
+
+    # -------------------------------------------------------------- forward
     def _forward(self, match_img_in, refs, lq):
         """NHWC in, NHWC out; the nets run NCHW in channels-last memory,
-        which is what an NHWC tensor permuted to NCHW already is."""
+        which is what an NHWC tensor permuted to NCHW already is. The
+        frozen extractor and map run without a graph."""
+        with torch.no_grad():
+            pre_offset, img_ref_feat = self._ref_inputs(match_img_in, refs)
+        out = self.net_g(lq.permute(0, 3, 1, 2), pre_offset, img_ref_feat)
+        return out.permute(0, 2, 3, 1)
+
+    def _ref_inputs(self, match_img_in, refs):
+        """``(pre_offset, img_ref_feat)`` of ``net_g``, (B, T, ...)
+        leaves."""
         b, t = refs.shape[:2]
         refs = refs.permute(0, 1, 4, 2, 3)                # (B, T, 3, H, W)
         feats = self.net_extractor(match_img_in.permute(0, 3, 1, 2), refs)
@@ -126,8 +219,7 @@ class MultiRefRestorationModel:
         pre_offset = {k: v.unflatten(0, (b, t)) for k, v in pre_offset.items()}
         img_ref_feat = {k: v.unflatten(0, (b, t))
                         for k, v in img_ref_feat.items()}
-        out = self.net_g(lq.permute(0, 3, 1, 2), pre_offset, img_ref_feat)
-        return out.permute(0, 2, 3, 1)
+        return pre_offset, img_ref_feat
 
     def test(self):
         with torch.inference_mode():

@@ -5,8 +5,8 @@ loaded with ``ctypes``. Nothing is built when a module is imported: a
 :class:`Kernel` builds its library on its first launch, and
 :func:`build` builds every source at once, one ``nvcc`` process per
 source, all started together. Libraries are named by a hash of their
-source and flags, so an edited source is rebuilt and an unchanged one is
-reused. A failed build raises.
+source, the headers beside it and the flags, so an edited source is rebuilt
+and an unchanged one is reused. A failed build raises.
 """
 import ctypes
 import hashlib
@@ -41,7 +41,10 @@ def _nvcc():
 
 
 def _target(source):
-    digest = hashlib.sha256(source.read_bytes()
+    # the headers (csrc/*.cuh) count for every source that may include them
+    text = b''.join(p.read_bytes() for p in [source,
+                                             *sorted(CSRC.glob('*.cuh'))])
+    digest = hashlib.sha256(text
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f'{source.stem}-{digest[:16]}.so'
 

@@ -1,11 +1,19 @@
-"""Modulated deformable convolution (DCNv2), forward, conv groups == 1.
+"""Modulated deformable convolution (DCNv2, conv groups == 1) and the
+per-pixel grouped bilinear warp ``deform_sample``, each with its gradient.
 
-Port of ``mrefsr_tpu/ops/dcn.py``. The sampling half (deformable im2col)
-runs in ``csrc/mdcn.cu`` on a CUDA tensor and in :func:`_im2col_ref` on a
-CPU tensor; the contraction over (tap, channel) is one matmul with the
-reshaped weight, as the JAX package leaves it to an XLA einsum. Rows are
-processed in chunks so that the column scratch stays under
-:data:`COL_CAP_BYTES`.
+Port of ``mrefsr_tpu/ops/dcn.py``. The sampling half of the conv
+(deformable im2col) runs in ``csrc/mdcn.cu`` on a CUDA tensor and in
+:func:`_im2col_ref` on a CPU tensor; the contraction over (tap, channel)
+is one matmul with the reshaped weight, as the JAX package leaves it to an
+XLA einsum. Rows are processed in chunks so that the column scratch stays
+under :data:`COL_CAP_BYTES`. On a CUDA tensor the gradient is a
+``torch.autograd.Function`` that keeps ``x, offset, mask, weight`` only and
+recomputes each chunk's columns (the JAX package's default, full remat):
+grad weight and grad columns are matmuls, and the kernel ``mdcn_col2im``
+turns the grad columns into grad offset, grad mask and, where ``x`` needs
+one, grad x. On a CPU tensor autograd runs through the plain version.
+``deform_sample`` is the K = 1 case without mask or weight
+(``csrc/deform_sample.cu``, forward and backward kernels).
 
 Layouts (the JAX package's, NHWC / HWIO):
     x:      (N, H, W, C)
@@ -13,10 +21,12 @@ Layouts (the JAX package's, NHWC / HWIO):
     mask:   (N, Ho, Wo, dg, K)      already sigmoid-ed by the caller
     weight: (kh, kw, C, Cout)
     bias:   (Cout,) or None
+    flow:   (N, H, W, dg, 2)        last dim (dy, dx)
 """
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ._build import Kernel
 
@@ -26,9 +36,22 @@ from ._build import Kernel
 # within an int.
 COL_CAP_BYTES = 512 << 20
 
-mdcn_im2col_kernel = Kernel(
-    'mdcn', 'mdcn_im2col_launch',
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+_GEOM = [ctypes.c_int] * 16 + [ctypes.c_void_p]  # row0 ... dg, stream
+mdcn_im2col_kernel = Kernel('mdcn', 'mdcn_im2col_launch',
+                            [ctypes.c_void_p] * 4 + _GEOM)
+# the backward, without and with the scatter-add into grad x
+mdcn_col2im_kernel = Kernel('mdcn', 'mdcn_col2im_launch',
+                            [ctypes.c_void_p] * 6 + _GEOM)
+mdcn_col2im_scatter_kernel = Kernel('mdcn', 'mdcn_col2im_scatter_launch',
+                                    [ctypes.c_void_p] * 7 + _GEOM)
+_SHAPE = [ctypes.c_int] * 5 + [ctypes.c_void_p]  # n, h, w, c, dg, stream
+deform_sample_fwd_kernel = Kernel('deform_sample', 'deform_sample_fwd_launch',
+                                  [ctypes.c_void_p] * 3 + _SHAPE)
+deform_sample_bwd_kernel = Kernel('deform_sample', 'deform_sample_bwd_launch',
+                                  [ctypes.c_void_p] * 4 + _SHAPE)
+deform_sample_bwd_scatter_kernel = Kernel(
+    'deform_sample', 'deform_sample_bwd_scatter_launch',
+    [ctypes.c_void_p] * 5 + _SHAPE)
 
 
 def _pair(v):
@@ -85,32 +108,69 @@ def _im2col_ref(x, offset, mask, row0, rows, geom):
     return out.permute(0, 2, 1, 3).reshape(rows, k, c)
 
 
+def _check_cuda_inputs(name, x, *others, backward=False):
+    """What the kernels take: float32 tensors on one device, C and the
+    channels of a deform group multiples of 4; for a backward kernel the
+    group's runs of 4 channels a power of two <= 32 (they are summed by
+    warp shuffles)."""
+    dg = others[0].shape[3]
+    c = x.shape[-1]
+    if any(t.dtype != torch.float32 for t in (x, *others)):
+        raise TypeError(f'{name} kernel takes float32 tensors, got '
+                        f'{[t.dtype for t in (x, *others)]}')
+    if c % 4 or (c // dg) % 4:
+        raise ValueError(f'{name} kernel needs C and C/deform_groups to be '
+                         f'multiples of 4, got C={c}, deform_groups={dg}')
+    if any(t.device != x.device for t in others):
+        raise ValueError(f'{name}: tensors lie on '
+                         f'{[str(t.device) for t in (x, *others)]}')
+    cg4 = c // dg // 4
+    if backward and (cg4 > 32 or cg4 & (cg4 - 1)):
+        raise ValueError(f'{name} backward kernel needs C/deform_groups/4 '
+                         f'to be a power of two <= 32, got {cg4}')
+
+
+def _geom_args(geom, dg):
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo) = geom
+    return (ho, wo, kh, kw, sh, sw, ph, pw, dh, dw, dg,
+            torch.cuda.current_stream().cuda_stream)
+
+
 def _im2col_cuda(x, offset, mask, row0, rows, geom):
     """The CUDA kernel, same contract as :func:`_im2col_ref`."""
-    (kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo) = geom
     n, h, w, c = x.shape
-    dg = offset.shape[3]
-    if x.dtype != torch.float32 or offset.dtype != torch.float32 \
-            or mask.dtype != torch.float32:
-        raise TypeError('mdcn kernel takes float32 x, offset and mask, got '
-                        f'{x.dtype}, {offset.dtype}, {mask.dtype}')
-    if c % 4 or (c // dg) % 4:
-        raise ValueError(f'mdcn kernel needs C and C/deform_groups to be '
-                         f'multiples of 4, got C={c}, deform_groups={dg}')
-    if not (x.device == offset.device == mask.device):
-        raise ValueError(f'x, offset and mask lie on {x.device}, '
-                         f'{offset.device}, {mask.device}')
+    _check_cuda_inputs('mdcn', x, offset, mask)
+    (kh, kw) = geom[0]
     col = torch.empty((rows, kh * kw, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         mdcn_im2col_kernel(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-                           col.data_ptr(), row0, rows, h, w, c, ho, wo, kh,
-                           kw, sh, sw, ph, pw, dh, dw, dg,
-                           torch.cuda.current_stream().cuda_stream)
+                           col.data_ptr(), row0, rows, h, w, c,
+                           *_geom_args(geom, offset.shape[3]))
     return col
 
 
-def _mdcn(x, offset, mask, weight, bias, stride, padding, dilation, groups,
-          deform_groups, im2col):
+def _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask, grad_x,
+                 row0, rows, geom):
+    """The backward kernel for the rows ``[row0, row0 + rows)``:
+    ``grad_col`` is ``(rows, K, C)``; these rows of ``grad_offset`` and
+    ``grad_mask`` are written, and ``grad_x`` (whole, zeroed by the caller)
+    is added into unless it is None."""
+    n, h, w, c = x.shape
+    _check_cuda_inputs('mdcn', x, offset, mask, grad_col, backward=True)
+    tail = (row0, rows, h, w, c, *_geom_args(geom, offset.shape[3]))
+    head = (grad_col.data_ptr(), x.data_ptr(), offset.data_ptr(),
+            mask.data_ptr(), grad_offset.data_ptr(), grad_mask.data_ptr())
+    with torch.cuda.device(x.device):
+        if grad_x is None:
+            mdcn_col2im_kernel(*head, *tail)
+        else:
+            mdcn_col2im_scatter_kernel(*head, grad_x.data_ptr(), *tail)
+
+
+def _geometry(x, offset, mask, weight, stride, padding, dilation, groups,
+              deform_groups):
+    """Check the shapes; return ``((kh, kw), (sh, sw), (ph, pw), (dh, dw),
+    (ho, wo))``."""
     sh, sw = _pair(stride)
     ph, pw = _pair(padding)
     dh, dw = _pair(dilation)
@@ -133,49 +193,189 @@ def _mdcn(x, offset, mask, weight, bias, stride, padding, dilation, groups,
     if c % dg or cin_g != c:
         raise ValueError(f'C={c} must divide by deform_groups={dg} and '
                          f'equal the weight input channels {cin_g}')
-    x = x.contiguous()
-    offset = offset.contiguous()
-    mask = mask.contiguous()
+    return (kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo)
+
+
+def _row_chunks(total, k, c, element_size):
+    chunk = max(1, COL_CAP_BYTES // (k * c * element_size))
+    return [(row0, min(chunk, total - row0))
+            for row0 in range(0, total, chunk)]
+
+
+def _mdcn_forward(x, offset, mask, weight, bias, geom, im2col):
+    x, offset, mask = x.contiguous(), offset.contiguous(), mask.contiguous()
+    (kh, kw), (ho, wo) = geom[0], geom[4]
+    n, c = x.shape[0], x.shape[3]
+    k, cout = kh * kw, weight.shape[3]
     w2d = weight.reshape(k * c, cout)
-    geom = ((kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo))
-    total = n * ho * wo
-    chunk = max(1, COL_CAP_BYTES // (k * c * x.element_size()))
-    out = torch.empty((total, cout), dtype=x.dtype, device=x.device)
-    for row0 in range(0, total, chunk):
-        rows = min(chunk, total - row0)
+    pieces = []
+    for row0, rows in _row_chunks(n * ho * wo, k, c, x.element_size()):
         col = im2col(x, offset, mask, row0, rows, geom).reshape(rows, k * c)
-        if bias is None:
-            torch.mm(col, w2d, out=out[row0:row0 + rows])
-        else:
-            torch.addmm(bias, col, w2d, out=out[row0:row0 + rows])
+        pieces.append(torch.mm(col, w2d) if bias is None
+                      else torch.addmm(bias, col, w2d))
+        del col
+    out = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
     return out.reshape(n, ho, wo, cout)
+
+
+class _ModulatedDeformConv2d(torch.autograd.Function):
+    """The CUDA path with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias, geom):
+        x, offset, mask = x.contiguous(), offset.contiguous(), \
+            mask.contiguous()
+        ctx.geom = geom
+        ctx.save_for_backward(x, offset, mask, weight)
+        return _mdcn_forward(x, offset, mask, weight, bias, geom,
+                             _im2col_cuda)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        x, offset, mask, weight = ctx.saved_tensors
+        need_x, need_offset, need_mask, need_weight, need_bias = \
+            ctx.needs_input_grad[:5]
+        geom = ctx.geom
+        kh, kw = geom[0]
+        c, cout = x.shape[3], weight.shape[3]
+        k = kh * kw
+        # grad_out comes as a permuted view of a channels-last tensor
+        go = grad_out.reshape(-1, cout).contiguous()
+        w2d = weight.reshape(k * c, cout)
+        grad_w2d = torch.zeros_like(w2d) if need_weight else None
+        need_col2im = need_x or need_offset or need_mask
+        grad_x = torch.zeros_like(x) if need_x else None
+        if need_col2im:
+            grad_offset = torch.empty_like(offset)
+            grad_mask = torch.empty_like(mask)
+        # each chunk's columns are recomputed, and freed before the next
+        for row0, rows in _row_chunks(go.shape[0], k, c, x.element_size()):
+            go_chunk = go[row0:row0 + rows]
+            if need_weight:
+                col = _im2col_cuda(x, offset, mask, row0, rows, geom)
+                grad_w2d.addmm_(col.reshape(rows, k * c).t(), go_chunk)
+                del col
+            if need_col2im:
+                grad_col = torch.mm(go_chunk, w2d.t())
+                _col2im_cuda(grad_col, x, offset, mask, grad_offset,
+                             grad_mask, grad_x, row0, rows, geom)
+                del grad_col
+        return (grad_x, grad_offset if need_offset else None,
+                grad_mask if need_mask else None,
+                grad_w2d.reshape(weight.shape) if need_weight else None,
+                go.sum(0) if need_bias else None, None)
 
 
 def modulated_deform_conv2d(x, offset, mask, weight, bias=None, stride=1,
                             padding=1, dilation=1, groups=1,
                             deform_groups=1):
-    """DCNv2 forward with mmcv semantics: sampling positions are
+    """DCNv2 with mmcv semantics, differentiable in ``x``, ``offset``,
+    ``mask``, ``weight`` and ``bias``: sampling positions are
     ``p_out * stride - pad + tap * dilation + offset``, bilinear, and a
-    corner outside the image contributes zero. Layouts in the module
+    corner outside the image contributes zero. ``floor`` carries no
+    gradient, so at an integer position the gradient in the offset is the
+    one-sided difference towards the next pixel. Layouts in the module
     docstring. ``groups > 1`` raises ``NotImplementedError``."""
+    geom = _geometry(x, offset, mask, weight, stride, padding, dilation,
+                     groups, deform_groups)
     if x.is_cuda:
-        im2col = _im2col_cuda
-    elif x.device.type == 'cpu':
-        im2col = _im2col_ref
-    else:
+        return _ModulatedDeformConv2d.apply(x, offset, mask, weight, bias,
+                                            geom)
+    if x.device.type != 'cpu':
         raise RuntimeError(f'modulated_deform_conv2d runs on cuda or cpu '
                            f'tensors, got {x.device}')
-    return _mdcn(x, offset, mask, weight, bias, stride, padding, dilation,
-                 groups, deform_groups, im2col)
+    return _mdcn_forward(x, offset, mask, weight, bias, geom, _im2col_ref)
 
 
 def modulated_deform_conv2d_ref(x, offset, mask, weight, bias=None,
                                 stride=1, padding=1, dilation=1, groups=1,
                                 deform_groups=1):
-    """:func:`modulated_deform_conv2d` through the plain PyTorch im2col on
-    any device: the yardstick the CUDA kernel is held against."""
-    return _mdcn(x, offset, mask, weight, bias, stride, padding, dilation,
-                 groups, deform_groups, _im2col_ref)
+    """:func:`modulated_deform_conv2d` through the plain PyTorch im2col and
+    autograd on any device: the yardstick the CUDA kernels are held
+    against."""
+    geom = _geometry(x, offset, mask, weight, stride, padding, dilation,
+                     groups, deform_groups)
+    return _mdcn_forward(x, offset, mask, weight, bias, geom, _im2col_ref)
+
+
+def _check_flow(x, flow):
+    n, h, w, c = x.shape
+    if flow.dim() != 5 or flow.shape != (n, h, w, flow.shape[3], 2):
+        raise ValueError(f'flow shape {tuple(flow.shape)} != '
+                         f'{(n, h, w, "dg", 2)}')
+    if c % flow.shape[3]:
+        raise ValueError(f'C={c} must divide by the flow\'s '
+                         f'{flow.shape[3]} deform groups')
+
+
+def deform_sample_ref(x, flow):
+    """Plain version of :func:`deform_sample` on any device: the K = 1
+    case of :func:`_im2col_ref`'s gather, differentiable by autograd."""
+    _check_flow(x, flow)
+    n, h, w, c = x.shape
+    geom = ((1, 1), (1, 1), (0, 0), (1, 1), (h, w))
+    mask = torch.ones(flow.shape[:4] + (1,), dtype=x.dtype, device=x.device)
+    col = _im2col_ref(x, flow[..., None, :], mask, 0, n * h * w,
+                      geom)
+    return col.reshape(n, h, w, c)
+
+
+class _DeformSample(torch.autograd.Function):
+    """The CUDA kernels of ``csrc/deform_sample.cu``."""
+
+    @staticmethod
+    def forward(ctx, x, flow):
+        x, flow = x.contiguous(), flow.contiguous()
+        _check_cuda_inputs('deform_sample', x, flow)
+        if x.numel() // 4 >= 2 ** 31:
+            raise ValueError(f'deform_sample kernel indexes runs of 4 '
+                             f'channels with an int; x has {x.numel()} '
+                             f'elements')
+        ctx.save_for_backward(x, flow)
+        out = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            deform_sample_fwd_kernel(
+                x.data_ptr(), flow.data_ptr(), out.data_ptr(), *x.shape,
+                flow.shape[3], torch.cuda.current_stream().cuda_stream)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        x, flow = ctx.saved_tensors
+        need_x = ctx.needs_input_grad[0]
+        go = grad_out.contiguous()
+        _check_cuda_inputs('deform_sample', x, flow, go, backward=True)
+        grad_flow = torch.empty_like(flow)
+        grad_x = torch.zeros_like(x) if need_x else None
+        head = (go.data_ptr(), x.data_ptr(), flow.data_ptr(),
+                grad_flow.data_ptr())
+        with torch.cuda.device(x.device):
+            tail = (*x.shape, flow.shape[3],
+                    torch.cuda.current_stream().cuda_stream)
+            if need_x:
+                deform_sample_bwd_scatter_kernel(*head, grad_x.data_ptr(),
+                                                 *tail)
+            else:
+                deform_sample_bwd_kernel(*head, *tail)
+        return grad_x, grad_flow if ctx.needs_input_grad[1] else None
+
+
+def deform_sample(x, flow):
+    """Per-pixel grouped bilinear sampling, the flow alignment's warp:
+    group ``g`` of the output at ``(y, x)`` is group ``g`` of ``x``
+    sampled bilinearly at ``(y, x) + flow[n, y, x, g]``, mmcv zero-outside
+    corners, f32 coordinates. ``x`` is ``(N, H, W, C)``, ``flow``
+    ``(N, H, W, dg, 2)`` as (dy, dx); returns ``(N, H, W, C)``.
+    Differentiable in ``x`` and ``flow``."""
+    _check_flow(x, flow)
+    if x.is_cuda:
+        return _DeformSample.apply(x, flow)
+    if x.device.type != 'cpu':
+        raise RuntimeError(f'deform_sample runs on cuda or cpu tensors, '
+                           f'got {x.device}')
+    return deform_sample_ref(x, flow)
 
 
 def offset_mask_from_conv_out(out, deform_groups, kernel_size=(3, 3)):

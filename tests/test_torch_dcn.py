@@ -1,6 +1,7 @@
 """The port's modulated deformable conv (``mrefsr_tpu_torch.ops.dcn``)
-against the JAX package's, on the CPU, where the port runs the plain
-version of its CUDA im2col kernel."""
+against the JAX package's, forward and gradients, on the CPU, where the
+port runs the plain version of its CUDA kernels."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,3 +113,83 @@ def test_offset_mask_from_conv_out_matches_jax():
     np.testing.assert_array_equal(mask.numpy(), np.asarray(mask_j))
     assert off.shape == (2, 3, 4, dg, k, 2)
     assert off[0, 0, 0, 1, 2].tolist() == [2 * k + 4, 2 * k + 5]
+
+
+def _grads_both(x, offset, mask, weight, bias, cot, **kw):
+    """Gradients of ``sum(out * cot)`` in (x, offset, mask, weight, bias)
+    from ``jax.grad`` and from the port's autograd."""
+    def loss(*args):
+        return (jax_dcn.modulated_deform_conv2d(*args, **kw)
+                * jnp.asarray(cot)).sum()
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (x, offset, mask, weight, bias)))
+    args = [torch.from_numpy(a).requires_grad_() for a in
+            (x, offset, mask, weight, bias)]
+    (dcn.modulated_deform_conv2d(*args, **kw)
+     * torch.from_numpy(cot)).sum().backward()
+    return [a.grad.numpy() for a in args], [np.asarray(g) for g in want]
+
+
+def _assert_grads_close(got, want):
+    """Each gradient within 1e-5 of its own largest entry (f32 sums in
+    another order); a gradient that is all zero must be exactly so."""
+    for name, g, w in zip(('x', 'offset', 'mask', 'weight', 'bias'), got,
+                          want):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize('spread', [0.7, 4.0])
+def test_mdcn_gradients_match_jax(spread):
+    x, offset, mask, weight, bias = _case(5, 2, 7, 9, 16, 12, 4,
+                                          spread=spread)
+    cot = np.random.RandomState(6).randn(2, 7, 9, 12).astype(np.float32)
+    got, want = _grads_both(x, offset, mask, weight, bias, cot,
+                            deform_groups=4)
+    assert all(np.abs(w).max() > 0 for w in want)
+    _assert_grads_close(got, want)
+
+
+def test_mdcn_gradients_at_integer_offsets_match_jax():
+    """Integer offsets, as a fresh net has them: every sample sits on a
+    pixel (wy1 = 0) and the gradient in the offset is the one-sided
+    difference towards the next pixel, not a symmetric one and not zero."""
+    x, offset, mask, weight, bias = _case(7, 1, 6, 6, 8, 4, 2)
+    offset = np.round(offset)
+    cot = np.random.RandomState(8).randn(1, 6, 6, 4).astype(np.float32)
+    got, want = _grads_both(x, offset, mask, weight, bias, cot,
+                            deform_groups=2)
+    _assert_grads_close(got, want)
+    # by hand for one sample well inside the image: tap 4 of pixel (2, 2)
+    # with a zero offset reads x[2, 2]; d/dfy is x[3, 2] - x[2, 2]
+    offset[:] = 0
+    args = [torch.from_numpy(a) for a in (x, offset, mask, weight, bias)]
+    args[1].requires_grad_()
+    (dcn.modulated_deform_conv2d(*args, deform_groups=2)
+     * torch.from_numpy(cot)).sum().backward()
+    w2d = weight.reshape(9, 8, 4)
+    g_col = (cot[0, 2, 2] * w2d[4]).sum(-1)              # (C,)
+    want_fy = (g_col[:4] * (x[0, 3, 2, :4] - x[0, 2, 2, :4])).sum() \
+        * mask[0, 2, 2, 0, 4]
+    np.testing.assert_allclose(args[1].grad[0, 2, 2, 0, 4, 0].item(),
+                               want_fy, rtol=1e-4)
+
+
+def test_mdcn_gradients_on_the_border_match_jax():
+    """Samples at exactly -1 and H - 1 (W - 1): one corner row (column)
+    outside the image."""
+    n, h, w, c, dg = 1, 5, 6, 8, 2
+    x, offset, mask, weight, bias = _case(9, n, h, w, c, 4, dg)
+    oy = np.arange(h)[:, None, None, None] - 1 \
+        + (np.arange(9) // 3)[None, None, None, :]
+    ox = np.arange(w)[None, :, None, None] - 1 \
+        + (np.arange(9) % 3)[None, None, None, :]
+    cot = np.random.RandomState(10).randn(n, h, w, 4).astype(np.float32)
+    for ty, tx in [(-1.0, 2.0), (h - 1.0, 2.5), (1.5, -1.0),
+                   (2.0, w - 1.0), (-1.0, w - 1.0)]:
+        offset[0, ..., 0] = ty - oy
+        offset[0, ..., 1] = tx - ox
+        got, want = _grads_both(x, offset, mask, weight, bias, cot,
+                                deform_groups=dg)
+        _assert_grads_close(got, want)

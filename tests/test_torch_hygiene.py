@@ -22,6 +22,17 @@ PORT_FILES = sorted((REPO / 'mrefsr_tpu_torch').rglob('*.py')) \
     + [REPO / 'chip_smoke.py']
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _two_torch_threads():
+    """The tensors here are tiny, and the test workers of one run share
+    the host's cores: more threads per process only get in each other's
+    way."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _imported_roots(path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -68,15 +79,34 @@ def test_model_without_device_raises_on_a_host_without_cuda(monkeypatch):
         build_model(_tiny_opt())
 
 
-def test_model_refuses_what_is_not_ported():
-    opt = _tiny_opt()
-    opt['network_g']['alignment'] = 'flow'
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_model(opt, device='cpu')
+def _tiny_train_opt():
     opt = _tiny_opt()
     opt['is_train'] = True
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_model(opt, device='cpu')
+    opt['train'] = {'lr_g': 1e-4, 'lr_offset': 1e-4, 'lr_relu3_offset': 1e-6,
+                    'lr_relu2_offset': 1e-5, 'pixel_criterion': 'L1Loss',
+                    'pixel_weight': 1.0}
+    return opt
+
+
+def test_model_refuses_what_is_not_ported():
+    """Options of parts that are not ported raise and name the roadmap
+    item; none is silently ignored. The options without any of them
+    build."""
+    assert build_model(_tiny_train_opt(), device='cpu').is_train
+    for where, key, value, item in [
+            ('train', 'mixed_precision', 'bfloat16', 'ROADMAP A4'),
+            ('train', 'perceptual_opt', {'layer_weights': {'relu5_1': 1.0}},
+             'ROADMAP A9'),
+            ('train', 'style_opt', {'layer_weights': {'relu1_1': 1.0}},
+             'ROADMAP A9'),
+            ('train', 'gan_type', 'wgan', 'ROADMAP A9'),
+            (None, 'network_d', {'type': 'ImageDiscriminator'},
+             'ROADMAP A9'),
+            ('val', 'mixed_precision', 'bfloat16', 'not ported')]:
+        opt = _tiny_train_opt()
+        (opt if where is None else opt.setdefault(where, {}))[key] = value
+        with pytest.raises(NotImplementedError, match=item):
+            build_model(opt, device='cpu')
 
 
 def test_seeded_weights_are_reproducible():
@@ -90,20 +120,35 @@ def _refuse(*_):
     raise AssertionError('a CUDA kernel was reached from CPU tensors')
 
 
+KERNELS = (correlation.feature_match_kernel, dcn.mdcn_im2col_kernel,
+           dcn.mdcn_col2im_kernel, dcn.mdcn_col2im_scatter_kernel,
+           dcn.deform_sample_fwd_kernel, dcn.deform_sample_bwd_kernel,
+           dcn.deform_sample_bwd_scatter_kernel)
+
+
 def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
+    """A request and a training step on the CPU, with either alignment,
+    launch no kernel and build no library."""
     monkeypatch.setattr(correlation, '_match_patches_cuda', _refuse)
     monkeypatch.setattr(dcn, '_im2col_cuda', _refuse)
-    before = (correlation.feature_match_kernel.launches,
-              dcn.mdcn_im2col_kernel.launches)
-    model = build_model(_tiny_opt(), device='cpu')
+    monkeypatch.setattr(dcn, '_col2im_cuda', _refuse)
+    monkeypatch.setattr(dcn._DeformSample, 'apply', _refuse)
+    before = [kernel.launches for kernel in KERNELS]
     rng = np.random.RandomState(0)
-    model.feed_data({
-        'img_in_lq': rng.rand(1, 4, 4, 3), 'img_in_up': rng.rand(1, 16, 16, 3),
-        'img_ref_list': rng.rand(1, 2, 16, 16, 3)})
-    model.test()
-    assert np.isfinite(model.get_current_visuals()['rlt']).all()
-    assert (correlation.feature_match_kernel.launches,
-            dcn.mdcn_im2col_kernel.launches) == before
+    for alignment in ('dcn', 'flow'):
+        opt = _tiny_train_opt()
+        opt['network_g']['alignment'] = alignment
+        model = build_model(opt, device='cpu')
+        model.feed_data({
+            'img_in': rng.rand(1, 16, 16, 3),
+            'img_in_lq': rng.rand(1, 4, 4, 3),
+            'img_in_up': rng.rand(1, 16, 16, 3),
+            'img_ref_list': rng.rand(1, 2, 16, 16, 3)})
+        model.test()
+        assert np.isfinite(model.get_current_visuals()['rlt']).all()
+        model.optimize_parameters(1)
+        assert np.isfinite(model.get_current_log()['l_pix'])
+    assert [kernel.launches for kernel in KERNELS] == before
     assert _build._libs == {}
 
 
@@ -116,6 +161,30 @@ def test_ops_refuse_other_devices():
             x, torch.empty((1, 4, 4, 1, 9, 2), device='meta'),
             torch.empty((1, 4, 4, 1, 9), device='meta'),
             torch.empty((3, 3, 8, 8), device='meta'))
+    with pytest.raises(RuntimeError, match='cuda or cpu'):
+        dcn.deform_sample(x, torch.empty((1, 4, 4, 2, 2), device='meta'))
+
+
+def test_backward_kernels_refuse_group_widths_they_cannot_sum():
+    """The backward kernels add a deform group's runs of 4 channels with
+    warp shuffles: C / dg / 4 must be a power of two <= 32."""
+    x = torch.zeros((1, 4, 4, 24))
+    flow = torch.zeros((1, 4, 4, 2, 2))
+    dcn._check_cuda_inputs('deform_sample', x, flow)           # cg4 = 3
+    with pytest.raises(ValueError, match='power of two'):
+        dcn._check_cuda_inputs('deform_sample', x, flow, backward=True)
+    with pytest.raises(ValueError, match='multiples of 4'):
+        dcn._check_cuda_inputs('deform_sample', x[..., :6], flow)
+    with pytest.raises(TypeError, match='float32'):
+        dcn._check_cuda_inputs('deform_sample', x.double(), flow)
+
+
+def test_every_cuda_source_has_its_kernel_objects():
+    """Each ``csrc/*.cu`` is bound by at least one ``Kernel``, and the
+    headers count for the library names (an edited header rebuilds)."""
+    bound = {k.library for k in KERNELS}
+    assert bound == {p.stem for p in _build.CSRC.glob('*.cu')}
+    assert list(_build.CSRC.glob('*.cuh'))
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
