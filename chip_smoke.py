@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Drive the port's main paths on one NVIDIA GPU: the 5-ref CUFED5 eval
-forward and the stage-3 training step with both alignments.
+forward, the stage-3 training step with both alignments, and StyleGAN2
+sampling and training.
 
     python3 chip_smoke.py        # from the root of a checkout
+    python3 chip_smoke.py --repeat-grads 20   # only the whole-net gradient
+                                              # comparisons, 21 times a path
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``). Phases, one JSON line each (one per shape where a
@@ -23,32 +26,62 @@ phase runs several):
 6. deform_sample (kernel K4, forward and backward) against its plain
    version at the three training shapes, and bit for bit against ``x``
    indexed at the shifted positions for integer flows;
-7. slice: ``MultiRefRestorationModel`` at full width (ngf 64, 16 blocks,
+7. upfirdn2d (kernel K7) against its plain version, forward, backward and
+   double backward, at every shape of a 1024x1024 16-sample generator
+   forward and of a 256x256 B = 8 generator and discriminator forward
+   (the smoothing filter after a transposed conv and before a strided
+   conv, the x2 upsampling of the RGB skip), and at two odd cases (a
+   stride, a negative pad, a 3x5 filter, a non-square map);
+8. fused_act (kernel K8) the same, at the 4-D and 2-D shapes of those
+   forwards, with and without bias, NCHW and channels-last, with exact
+   zeros planted (the derivative there must be 1);
+9. slice: ``MultiRefRestorationModel`` at full width (ngf 64, 16 blocks,
    8 deform groups) with seeded weights answers 2 requests of B = 1,
-   T = 5 on a 500x500 canvas; the kernels' launch counts over those
-   requests; then one request through the kernels and through the plain
-   versions, compared; profile: one more request under
-   ``torch.profiler``, device time by kernel and the device's idle share;
-8. train_dcn and train_flow: the same model built for training
-   (``alignment`` dcn, then flow) takes one warm-up and five timed steps
-   at B = 6, gt 160, T = 5, f32 on one repeated batch; the launch counts
-   over the five steps (no launch may scatter a grad x: the sampled
-   features are frozen); at B = 1, from the fresh and from the trained
-   weights, every parameter's gradient through the kernels against the
-   plain versions; then a profile of one step;
-9. the ``kernels`` line.
+   T = 5 on a 500x500 canvas; the kernels' launch counts over them; then
+   one request through the kernels and through the plain versions,
+   compared; profile: one more request under ``torch.profiler``, device
+   time by kernel and the device's idle share;
+10. train_dcn and train_flow: the same model built for training
+    (``alignment`` dcn, then flow) takes one warm-up and five timed
+    steps at B = 6, gt 160, T = 5, f32 on one repeated batch; the launch
+    counts over the timed steps (no launch may scatter a grad x: the
+    sampled features are frozen); at B = 1, from the fresh and from the
+    trained weights, every parameter's gradient through the kernels
+    against the plain versions behind the same forward (see
+    ``TRAIN_GRAD_REL_TOL``), and the two outputs; then a profile of one
+    step;
+11. stylegan2_serve: the FFHQ config-f generator at full width (1024,
+    512 style features, 8 MLP layers, channel multiplier 2) with seeded
+    weights, through the inference module: the mean latent of 4096 codes,
+    two grids of 16 samples at truncation 0.7; launch counts per grid;
+    one grid through the kernels and through the plain versions,
+    compared; a profile of one grid;
+12. stylegan2_train: ``StyleGAN2Model`` at 256x256, channel multiplier 2,
+    B = 8 (wgan_softplus, R1 every 16, path-length penalty every 4): from
+    fresh weights every net_d gradient of the D loss with R1 and every
+    net_g gradient of the G loss with the path penalty (by a two-part
+    rule, see ``SG2_PATH_GRAD_TOL``) through the kernels against the
+    plain versions, and the losses; a warm-up step of each kind, then
+    two timed steps of each kind (plain, path penalty, iteration 16 with
+    both penalties); launch counts per kind of step, forward, backward and
+    double backward; a save and reload of both nets, the EMA and both
+    optimizers; a profile of one step of each kind;
+13. the ``kernels`` line.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero without the last line. Times come from CUDA events
-(phases 3 to 6), the host clock around ``torch.cuda.synchronize()``
-(phases 7, 8) and the profiler's device times. Bounds use the H100 SXM's
+(phases 3 to 8), the host clock around ``torch.cuda.synchronize()``
+(phases 9 to 12) and the profiler's device times. Bounds use the H100 SXM's
 published 67 TFLOP/s f32 (CUDA cores) and 3.35 TB/s.
 """
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -545,6 +578,393 @@ def phase_deform_sample(dcn):
                 'library_call': call + ': its autograd in the grid'}))
 
 
+# ---------------------------------------------------------- StyleGAN2 ops
+SG2_FIR = (1, 3, 3, 1)
+SG2_SERVE = {'out_size': 1024, 'num_style_feat': 512, 'num_mlp': 8,
+             'channel_multiplier': 2}
+SG2_SERVE_SAMPLES = 16
+SG2_TRAIN_SIZE, SG2_TRAIN_B = 256, 8
+K7_REL_TOL = 1e-5    # max |kernel - plain| / max |plain|: f32 sums of at
+#                      most 16 taps in another order than cuDNN's
+K8_REL_TOL = 1e-6    # one rounding apart at most; the forward is bit-equal
+
+
+def _sg2_channels(cmul=2):
+    return {4: 512, 8: 512, 16: 512, 32: 512, 64: 256 * cmul,
+            128: 128 * cmul, 256: 64 * cmul, 512: 32 * cmul,
+            1024: 16 * cmul}
+
+
+def _resolutions(size, low=8):
+    return [2 ** i for i in range(int(math.log2(low)),
+                                  int(math.log2(size)) + 1)]
+
+
+def _k7_generator_cases(size, batch):
+    """upfirdn2d's calls in one generator forward: per resolution the
+    smoothing of the transposed conv's (2H + 1)-wide output and the x2
+    upsampling of the RGB skip. (n, c, h, up, down, pad, FIR gain)."""
+    ch = _sg2_channels()
+    for res in _resolutions(size):
+        yield (batch, ch[res], res + 1, 1, 1, (1, 1), 4.0)
+        yield (batch, 3, res // 2, 2, 1, (2, 1), 4.0)
+
+
+def _k7_discriminator_cases(size, batch):
+    """upfirdn2d's calls in one discriminator forward: per ResBlock the
+    smoothing before the 3x3 and before the 1x1 stride-2 conv."""
+    ch = _sg2_channels()
+    for res in reversed(_resolutions(size)):
+        yield (batch, ch[res], res, 1, 1, (2, 2), 1.0)
+        yield (batch, ch[res], res, 1, 1, (1, 1), 1.0)
+
+
+def _k8_generator_cases(size, batch):
+    """The shapes fused_leaky_relu sees in one generator forward: the 8
+    mapping layers, then one style conv at 4x4 and two per resolution
+    above."""
+    ch = _sg2_channels()
+    for _ in range(8):
+        yield (batch, 512)
+    yield (batch, ch[4], 4, 4)
+    for res in _resolutions(size):
+        for _ in range(2):
+            yield (batch, ch[res], res, res)
+
+
+def _k8_discriminator_cases(size, batch):
+    """The shapes fused_leaky_relu sees in one discriminator forward."""
+    ch = _sg2_channels()
+    yield (batch, ch[size], size, size)
+    for res in reversed(_resolutions(size)):
+        yield (batch, ch[res], res, res)
+        yield (batch, ch[res // 2], res // 2, res // 2)
+    yield (batch, ch[4], 4, 4)
+    yield (batch, ch[4])
+
+
+def _counted(cases):
+    """``[(case, how often)]`` in first-seen order."""
+    counts = {}
+    for case in cases:
+        counts[case] = counts.get(case, 0) + 1
+    return list(counts.items())
+
+
+def _three_orders(fn, x, extra=()):
+    """``fn``'s output on ``x`` (and ``extra`` inputs that take a
+    gradient), its gradient for a fixed cotangent, and the gradient of
+    ``sum(gradient ** 2)`` in the cotangent: forward, backward and double
+    backward. The cotangent comes from the output's shape alone, so two
+    implementations get the same one."""
+    inputs = [t.detach().requires_grad_() for t in (x, *extra)]
+    out = fn(*inputs)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 9)
+    cot = torch.randn(out.shape, generator=gen,
+                      device='cuda').requires_grad_()
+    grads = torch.autograd.grad(out, inputs, cot, create_graph=True)
+    second, = torch.autograd.grad(sum((g ** 2).sum() for g in grads), cot)
+    return [out.detach(), *(g.detach() for g in grads), second]
+
+
+def _time_orders(fn, x, reps=3):
+    """ms of ``fn``'s forward, of its backward (the gradient in ``x``) and
+    of its double backward (the gradient of that gradient in the
+    cotangent), each alone."""
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: fn(x), reps=reps)
+        cot = torch.randn_like(fn(x))
+    xg = x.detach().requires_grad_()
+    out = fn(xg)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, xg, cot,
+                                              retain_graph=True), reps=reps)
+    cotg = cot.requires_grad_()
+    grad, = torch.autograd.grad(out, xg, cotg, create_graph=True)
+    seed = torch.randn_like(grad)
+    bwd2 = cuda_ms(lambda: torch.autograd.grad(grad, cotg, seed,
+                                               retain_graph=True), reps=reps)
+    return {'fwd': fwd, 'bwd': bwd, 'bwd2': bwd2}
+
+
+def _upfirdn2d_library(x, fir, up, down, pad):
+    """The same function in PyTorch's own convolutions: ``F.pad``
+    (negative pads crop) and one depthwise ``F.conv2d`` for ``up == 1``;
+    for ``up > 1`` one depthwise ``F.conv_transpose2d``, which convolves
+    the zero-stuffed map in full, cut to the op's window."""
+    func = torch.nn.functional
+    c = x.shape[1]
+    kh, kw = fir.shape
+    if up == 1:
+        weight = torch.flip(fir, [0, 1]).to(x).expand(c, 1, kh, kw)
+        return func.conv2d(func.pad(x, [pad[0], pad[1], pad[0], pad[1]]),
+                           weight, groups=c, stride=down)
+    full = func.conv_transpose2d(x, fir.to(x).expand(c, 1, kh, kw),
+                                 stride=up, groups=c)
+    out_h = (x.shape[2] * up + pad[0] + pad[1] - kh) // down + 1
+    out_w = (x.shape[3] * up + pad[0] + pad[1] - kw) // down + 1
+    y0, x0 = kh - 1 - pad[0], kw - 1 - pad[0]
+    check(y0 >= 0 and y0 + (out_h - 1) * down < full.shape[2]
+          and x0 >= 0 and x0 + (out_w - 1) * down < full.shape[3],
+          'the library composition does not cover this upfirdn2d case')
+    return full[:, :, y0:y0 + (out_h - 1) * down + 1:down,
+                x0:x0 + (out_w - 1) * down + 1:down]
+
+
+def _sum_orders(name_prefix, rows, order, note):
+    """One ``kernels`` entry for ``order`` out of per-case rows: each row
+    holds times per order for the kernel, the plain and the library
+    version, its multiplicity on the path, bytes and operations."""
+    total = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
+    nbytes = flops = 0.0
+    for row in rows:
+        times = row['times']
+        total['ms'] += times['kernel'][order] * row['count']
+        total['plain_ms'] += times['plain'][order] * row['count']
+        total['library_ms'] += times['library'][order] * row['count']
+        nbytes += row['bytes'][order] * row['count']
+        flops += row['flops'][order] * row['count']
+    bound_ms, bound_by = bound(flops, nbytes)
+    return {'name': f'{name_prefix}_{order}', **total, 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'launches_summed':
+                sum(row['count'] for row in rows), 'library_call': note}
+
+
+def phase_upfirdn2d(ops_upfirdn2d):
+    """K7 against its plain version on the card, to second order, at every
+    shape of the serving and the training path."""
+    from mrefsr_tpu_torch.archs.stylegan2_arch import make_resample_kernel
+    upfirdn2d = ops_upfirdn2d.upfirdn2d
+    upfirdn2d_ref = ops_upfirdn2d.upfirdn2d_ref
+    base = make_resample_kernel(SG2_FIR)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    paths = {
+        'serve': _counted(_k7_generator_cases(SG2_SERVE['out_size'],
+                                              SG2_SERVE_SAMPLES)),
+        'train': _counted([
+            *_k7_generator_cases(SG2_TRAIN_SIZE, SG2_TRAIN_B),
+            *_k7_discriminator_cases(SG2_TRAIN_SIZE, SG2_TRAIN_B)]),
+    }
+    worst_abs, rows = 0.0, {'serve': [], 'train': []}
+    for path, cases in paths.items():
+        for (n, c, h, up, down, pad, gain), count in cases:
+            fir = base * gain
+            x = torch.randn((n, c, h, h), generator=gen).cuda()
+
+            def kernel(t):
+                return upfirdn2d(t, fir, up, down, pad)
+
+            def plain(t):
+                return upfirdn2d_ref(t, fir, up, down, pad)
+
+            def library(t):
+                return _upfirdn2d_library(t, fir, up, down, pad)
+
+            errs = {}
+            got, want = _three_orders(kernel, x), _three_orders(plain, x)
+            for order, g, w in zip(('fwd', 'bwd', 'bwd2'), got, want):
+                errs[order] = _rel_err(g, w)
+                worst_abs = max(worst_abs, float((g - w).abs().max()))
+                check(errs[order] <= K7_REL_TOL, f'upfirdn2d {order} at '
+                      f'{(n, c, h, up, down, pad)}: {errs[order]} of max')
+            with torch.no_grad():
+                lib_err = _rel_err(library(x), want[0])
+            check(lib_err <= K7_REL_TOL, f'the library composition differs '
+                  f'from the plain version by {lib_err}')
+            del got, want
+            if path == 'serve':      # no gradient runs when serving
+                with torch.no_grad():
+                    times = {key: {'fwd': cuda_ms(lambda f=f: f(x))}
+                             for key, f in (('kernel', kernel),
+                                            ('plain', plain),
+                                            ('library', library))}
+            else:
+                # one run each of the plain and the library version: cuDNN
+                # takes seconds for some of their double backwards
+                times = {'kernel': _time_orders(kernel, x),
+                         'plain': _time_orders(plain, x, reps=1),
+                         'library': _time_orders(library, x, reps=1)}
+            out_numel = float(n * c) * ((h * up + sum(pad) - 4) // down
+                                        + 1) ** 2
+            moved = 4.0 * (x.numel() + out_numel)
+            # multiply-adds: the taps that fall on a sample, per output of
+            # the forward (and of the double backward), per input of the
+            # backward
+            macs = {'fwd': 16.0 / up ** 2 * out_numel,
+                    'bwd': 16.0 / down ** 2 * x.numel(),
+                    'bwd2': 16.0 / up ** 2 * out_numel}
+            row = {'count': count, 'times': times,
+                   'bytes': {o: moved for o in macs},
+                   'flops': {o: 2 * m for o, m in macs.items()}}
+            rows[path].append(row)
+            emit({'phase': 'upfirdn2d', 'path': path, 'n': n, 'c': c,
+                  'h': h, 'w': h, 'up': up, 'down': down, 'pad': pad,
+                  'launches_per_pass': count, 'rel_err': errs,
+                  'tolerance': K7_REL_TOL, 'ms': times['kernel'],
+                  'plain_ms': times['plain'], 'library_ms': times['library'],
+                  'bound_ms': moved / PEAK_BYTES * 1e3, 'bound_by': 'bytes'})
+            del x
+            torch.cuda.empty_cache()
+
+    # the other code paths of the kernel: a stride with the 4x4 filter,
+    # and the general loop (3x5 filter, non-square map, a negative pad)
+    odd = {}
+    for label, fir, shape, up, down, pad in (
+            ('down2', base, (2, 8, 33, 31), 1, 2, (1, 1)),
+            ('general', torch.randn((3, 5), generator=gen), (2, 3, 17, 22),
+             3, 2, (2, -1))):
+        x = torch.randn(shape, generator=gen).cuda()
+        got = _three_orders(lambda t: upfirdn2d(t, fir, up, down, pad), x)
+        want = _three_orders(lambda t: upfirdn2d_ref(t, fir, up, down, pad),
+                             x)
+        odd[label] = [_rel_err(g, w) for g, w in zip(got, want)]
+        check(max(odd[label]) <= K7_REL_TOL,
+              f'upfirdn2d, case {label}: {odd[label]} of max')
+    emit({'phase': 'upfirdn2d', 'case': 'odd', 'rel_err': odd,
+          'tolerance': K7_REL_TOL})
+
+    note = ('F.pad + one depthwise F.conv2d (up 1) or one depthwise '
+            'F.conv_transpose2d cut to the window (up 2), and autograd '
+            'through them')
+    recs = []
+    for order in ('fwd', 'bwd', 'bwd2'):
+        path = 'serve' if order == 'fwd' else 'train'
+        rec = _sum_orders('upfirdn2d', rows[path], order, note)
+        rec.update(max_abs_err=worst_abs, shapes=(
+            'one 1024x1024 generator forward of 16 samples'
+            if path == 'serve' else 'one 256x256 B 8 generator pass and '
+            'one discriminator pass'))
+        if order == 'fwd':
+            rec['train_shape'] = _sum_orders('upfirdn2d', rows['train'],
+                                             order, note)
+        recs.append(rec)
+    return recs
+
+
+def phase_fused_act(fused_act):
+    """K8 against its plain version on the card, to second order: the
+    shapes of the serving and the training path, with a bias; then
+    without a bias, channels-last, and with exact zeros planted."""
+    fused = fused_act.fused_leaky_relu
+    fused_ref = fused_act.fused_leaky_relu_ref
+    func = torch.nn.functional
+    gen = torch.Generator().manual_seed(SEED + 8)
+    size, b = SG2_SERVE['out_size'], SG2_SERVE_SAMPLES
+    paths = {
+        'serve': _counted(_k8_generator_cases(size, b)),
+        'train': _counted([
+            *_k8_generator_cases(SG2_TRAIN_SIZE, SG2_TRAIN_B),
+            *_k8_discriminator_cases(SG2_TRAIN_SIZE, SG2_TRAIN_B)]),
+    }
+    worst_abs, rows = 0.0, {'serve': [], 'train': []}
+    orders = ('fwd', 'bwd', 'bwd_bias', 'bwd2')
+
+    def compare(label, x, bias, tol=K8_REL_TOL):
+        nonlocal worst_abs
+        extra = () if bias is None else (bias,)
+        got = _three_orders(lambda t, *bb: fused(t, *bb), x, extra)
+        want = _three_orders(lambda t, *bb: fused_ref(t, *bb), x, extra)
+        names = [o for o in orders if bias is not None or o != 'bwd_bias']
+        errs = {}
+        for order, g, w in zip(names, got, want):
+            errs[order] = _rel_err(g, w)
+            worst_abs = max(worst_abs, float((g - w).abs().max()))
+            # grad bias sums up to 16 M terms in another order
+            limit = 1e-4 if order == 'bwd_bias' else tol
+            check(errs[order] <= limit,
+                  f'fused_leaky_relu {order}, {label}: {errs[order]} of max')
+        errs['fwd_bit_equal'] = bool(torch.equal(got[0], want[0]))
+        check(errs['fwd_bit_equal'], f'fused_leaky_relu forward, {label}: '
+              f'not bit-equal to the plain version')
+        return errs
+
+    for path, cases in paths.items():
+        for shape, count in cases:
+            x = torch.randn(shape, generator=gen).cuda()
+            bias = (torch.randn((shape[1],), generator=gen) * 0.5).cuda()
+            errs = compare(str(shape), x, bias)
+            rest = (1, -1) + (1,) * (len(shape) - 2)
+
+            def kernel(t):
+                return fused(t, bias)
+
+            def plain(t):
+                return fused_ref(t, bias)
+
+            def library(t):
+                return func.leaky_relu(t + bias.view(rest), 0.2) * 2 ** 0.5
+
+            if path == 'serve':
+                with torch.no_grad():
+                    times = {key: {'fwd': cuda_ms(lambda f=f: f(x))}
+                             for key, f in (('kernel', kernel),
+                                            ('plain', plain),
+                                            ('library', library))}
+            else:
+                times = {'kernel': _time_orders(kernel, x),
+                         'plain': _time_orders(plain, x),
+                         'library': _time_orders(library, x)}
+            numel = float(x.numel())
+            # forward: x in, out out; backward and double backward: the
+            # incoming gradient and the saved output in, one gradient out
+            row = {'count': count, 'times': times,
+                   'bytes': {'fwd': 8.0 * numel, 'bwd': 12.0 * numel,
+                             'bwd2': 12.0 * numel},
+                   'flops': {'fwd': 3.0 * numel, 'bwd': 2.0 * numel,
+                             'bwd2': 2.0 * numel}}
+            rows[path].append(row)
+            emit({'phase': 'fused_act', 'path': path, 'shape': shape,
+                  'launches_per_pass': count, 'rel_err': errs,
+                  'tolerance': K8_REL_TOL, 'ms': times['kernel'],
+                  'plain_ms': times['plain'], 'library_ms': times['library'],
+                  'bound_ms': {o: v / PEAK_BYTES * 1e3
+                               for o, v in row['bytes'].items()},
+                  'bound_by': 'bytes'})
+            del x, bias
+            torch.cuda.empty_cache()
+
+    # without a bias; channels-last memory; exact zeros (zero bias on a
+    # tensor with planted zeros): the derivative there is 1, not the slope
+    x = torch.randn((4, 64, 33, 31), generator=gen).cuda()
+    bias = (torch.randn((64,), generator=gen) * 0.5).cuda()
+    special = {'no_bias_4d': compare('no bias, 4-D', x, None),
+               'no_bias_2d': compare('no bias, 2-D', x[:, :, 0, 0], None),
+               'channels_last': compare(
+                   'channels-last',
+                   x.contiguous(memory_format=torch.channels_last), bias)}
+    planted = x.clone()
+    planted[:, ::2, ::3] = 0.0
+    zero_bias = torch.zeros_like(bias)
+    special['planted_zeros'] = compare('planted zeros', planted, zero_bias)
+    pg = planted.detach().requires_grad_()
+    grad, = torch.autograd.grad(fused(pg, zero_bias).sum(), pg)
+    at_zero = grad[planted == 0]
+    check(at_zero.numel() > 0 and bool((at_zero == grad.max()).all()),
+          'fused_leaky_relu: the derivative at exactly 0 is not 1 * scale')
+    lib_grad, = torch.autograd.grad((func.leaky_relu(pg, 0.2)
+                                     * 2 ** 0.5).sum(), pg)
+    special['planted_zeros']['zeros'] = int(at_zero.numel())
+    special['planted_zeros']['grad_at_zero'] = float(at_zero[0])
+    special['planted_zeros']['F_leaky_relu_grad_at_zero'] = float(
+        lib_grad[planted == 0][0])
+    emit({'phase': 'fused_act', 'case': 'special', **special,
+          'tolerance': K8_REL_TOL})
+
+    note = 'F.leaky_relu(x + bias, 0.2) * 2 ** 0.5 in eager, and its autograd'
+    recs = []
+    for order in ('fwd', 'bwd', 'bwd2'):
+        path = 'serve' if order == 'fwd' else 'train'
+        rec = _sum_orders('fused_leaky_relu', rows[path], order, note)
+        rec.update(max_abs_err=worst_abs, shapes=(
+            'one 1024x1024 generator forward of 16 samples'
+            if path == 'serve' else 'one 256x256 B 8 generator pass and '
+            'one discriminator pass'))
+        if order == 'fwd':
+            rec['train_shape'] = _sum_orders('fused_leaky_relu',
+                                             rows['train'], order, note)
+        recs.append(rec)
+    return recs
+
+
 def _cufed5_opt():
     """The network blocks of options/test/test_5ref_cufed5.yml."""
     return {
@@ -697,59 +1117,109 @@ def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels):
 
 
 # max |kernel - plain| / max |plain| of each parameter's gradient after a
-# whole backward of net_g. From fresh weights both paths sample on whole
-# pixels and their forwards agree bit for bit, so the gradients differ by
-# the order of f32 sums only (cuDNN's weight gradients alone move by about
-# 2e-5 of a tensor's max from run to run). After a few steps the samples
-# are fractional, the two forwards differ in the last bit, and here and
-# there a ReLU gate of a residual block falls on the other side: one gate
-# moves the gradient of the conv before it by about 1 / sqrt(positions) of
-# its size (1 % at 40x40). So the trained comparison asks for most tensors
-# within TOL and every tensor within LOOSE.
+# whole backward of a net. Two numerically different forwards cannot be
+# held to a tolerance this way: where they differ in the last bit, here and
+# there a ReLU gate falls on the other side, one gate moves the gradient of
+# the conv before it by about 1 / sqrt(positions) of its size (1 % at
+# 40x40), and a gate late in the net moves every tensor before it: in 21
+# comparisons a path (``--repeat-grads 20``, H100) the worst tensor was
+# off by up to 2 % and the median one by up to 8e-4, and an earlier run
+# of this script found 62 % of its tensors beyond 1e-3. So the backward
+# kernels are held against the plain versions behind THE SAME FORWARD: the
+# autograd Functions of the CUDA path run with the plain versions' values
+# in their forward, the gates agree bit for bit, every backward launch is
+# the kernel's, and every tensor must agree within TRAIN_GRAD_REL_TOL (2.2e-5
+# at most in those comparisons; cuDNN's weight gradients alone move by
+# about 2e-5 of a tensor's max from run to run). The forward kernels in
+# the net are held by the outputs. A one-element gradient (a PReLU slope,
+# a noise strength) is a sum over every position of terms of both signs
+# that may cancel to next to nothing, and has no other element to lend it
+# a scale (up to 7e-4 behind the same forward, 13 % behind the kernels'
+# own): these are held by their median. The gradients behind the kernels'
+# own forward are reported beside, and held too where the two forwards
+# agree bit for bit (fresh weights sample on whole pixels).
 TRAIN_GRAD_REL_TOL = 1e-3
-TRAIN_GRAD_LOOSE_TOL = 5e-2
-TRAIN_GRAD_SHARE = 0.8
 
 
-def _grads_by_name(model, arch, dcn, batch):
+def _rel_grad_errors(got, want):
+    """Each tensor's error as a share of the plain gradient's max, those
+    of one element apart."""
+    rel, rel_one = {}, []
+    for name, ref in want.items():
+        scale = float(ref.abs().max())
+        err = float((got[name] - ref).abs().max())
+        err = err / scale if scale else float(err > 0)
+        if ref.numel() == 1:
+            rel_one.append(err)
+        else:
+            rel[name] = err
+    worst = max(rel, key=rel.get)
+    return {'tensors': len(rel), 'worst': rel[worst], 'worst_name': worst,
+            'median': float(np.median(list(rel.values()))),
+            'one_element_tensors': len(rel_one),
+            'one_element_worst': max(rel_one, default=0.),
+            'one_element_median': float(np.median(rel_one or [0.]))}
+
+
+def _check_grad_errors(label, errors, tol=TRAIN_GRAD_REL_TOL,
+                       median_tol=TRAIN_GRAD_REL_TOL):
+    check(errors['worst'] <= tol and errors['median'] <= median_tol
+          and errors['one_element_median'] <= median_tol,
+          f'{label}: kernels and plain versions give other gradients: '
+          f'{errors}')
+
+
+def _compare_grads(model, arch, dcn, batch):
     """One backward of net_g's pixel loss from the current weights on
-    fixed reference inputs, through the kernels (key False) and through
-    the plain versions (key True)."""
+    fixed reference inputs, three times: through the kernels, through the
+    kernels' Functions with the plain forward values (the forward kernel
+    launches replaced, the backward ones not), and through the plain
+    versions. Every parameter's gradient of the first two against the
+    third, and the first output against the third."""
     model.feed_data(batch)
     with torch.no_grad():
         pre_offset, img_ref_feat = model._ref_inputs(model.match_img_in,
                                                      model.img_ref_list)
-    out = {}
-    for use_plain in (False, True):
+
+    def backward(plain_ops=False, plain_forward=False):
         model.net_g.zero_grad(set_to_none=True)
-        with mock.patch.object(
-                arch, 'modulated_deform_conv2d',
-                dcn.modulated_deform_conv2d_ref if use_plain
-                else dcn.modulated_deform_conv2d), mock.patch.object(
-                    arch, 'deform_sample', dcn.deform_sample_ref
-                    if use_plain else dcn.deform_sample):
+        with contextlib.ExitStack() as stack:
+            if plain_ops:
+                stack.enter_context(mock.patch.object(
+                    arch, 'modulated_deform_conv2d',
+                    dcn.modulated_deform_conv2d_ref))
+                stack.enter_context(mock.patch.object(
+                    arch, 'deform_sample', dcn.deform_sample_ref))
+            if plain_forward:
+                stack.enter_context(mock.patch.object(
+                    dcn, '_im2col_cuda', dcn._im2col_ref))
+                stack.enter_context(mock.patch.object(
+                    dcn, '_deform_sample_fwd_cuda', dcn.deform_sample_ref))
             rlt = model.net_g(model.img_in_lq.permute(0, 3, 1, 2),
                               pre_offset, img_ref_feat).permute(0, 2, 3, 1)
-            model.cri_pix(rlt, model.gt).backward()
-        out[use_plain] = {name: p.grad.clone()
-                          for name, p in model.net_g.named_parameters()}
+            loss = model.cri_pix(rlt, model.gt)
+        loss.backward()          # outside: the backward kernels all launch
+        return rlt.detach(), {name: p.grad.clone() for name, p
+                              in model.net_g.named_parameters()}
+
+    out_k, own = backward()
+    out_s, same = backward(plain_forward=True)
+    out_p, plain = backward(plain_ops=True)
     model.net_g.zero_grad(set_to_none=True)
-    return out
+    return {'same_forward': _rel_grad_errors(same, plain),
+            'same_forward_bit_equal': bool(torch.equal(out_s, out_p)),
+            'own_forward': _rel_grad_errors(own, plain),
+            'own_forward_bit_equal': bool(torch.equal(out_k, out_p)),
+            'out_max_abs_diff': float((out_k - out_p).abs().max())}
 
 
-def _compare_grads(model, arch, dcn, batch):
-    """Every net_g parameter's gradient through the kernels against the
-    plain versions, each error as a share of the plain gradient's max."""
-    grads = _grads_by_name(model, arch, dcn, batch)
-    rel = {}
-    for name, want in grads[True].items():
-        scale = float(want.abs().max())
-        err = float((grads[False][name] - want).abs().max())
-        rel[name] = err / scale if scale else float(err > 0)
-    worst = max(rel, key=rel.get)
-    return {'tensors': len(rel), 'worst': rel[worst], 'worst_name': worst,
-            'share_within_tol': sum(v <= TRAIN_GRAD_REL_TOL
-                                    for v in rel.values()) / len(rel)}
+def _check_grads(label, cmp):
+    _check_grad_errors(f'{label}, behind the same forward',
+                       cmp['same_forward'])
+    check(cmp['out_max_abs_diff'] <= SLICE_TOL,
+          f'{label}: kernels and plain versions give other outputs: {cmp}')
+    if cmp['own_forward_bit_equal']:
+        _check_grad_errors(label, cmp['own_forward'])
 
 
 def phase_train(alignment, build_model, arch, dcn, kernels):
@@ -767,9 +1237,7 @@ def phase_train(alignment, build_model, arch, dcn, kernels):
     rng = np.random.RandomState(SEED + 6)
     batch, small = _train_batch(rng, TRAIN_B), _train_batch(rng, 1)
     fresh = _compare_grads(model, arch, dcn, small)
-    check(fresh['worst'] <= TRAIN_GRAD_REL_TOL, f'{alignment}, fresh '
-          f'weights: kernels and plain versions give other gradients: '
-          f'{fresh}')
+    _check_grads(f'{alignment}, fresh weights', fresh)
     model.feed_data(batch)
     model.optimize_parameters(1)                           # warm-up
     warmup_loss = model.get_current_log()['l_pix']
@@ -795,10 +1263,7 @@ def phase_train(alignment, build_model, arch, dcn, kernels):
     check(lrs == [1e-4, 1e-4, 1e-6, 1e-5], f'learning rates {lrs}')
 
     trained = _compare_grads(model, arch, dcn, small)
-    check(trained['share_within_tol'] >= TRAIN_GRAD_SHARE
-          and trained['worst'] <= TRAIN_GRAD_LOOSE_TOL,
-          f'{alignment}, after 6 steps: kernels and plain versions give '
-          f'other gradients: {trained}')
+    _check_grads(f'{alignment}, after 6 steps', trained)
     mean_ms = sum(step_ms) / len(step_ms)
     emit({'phase': f'train_{alignment}', 'batch': TRAIN_B, 'gt': TRAIN_GT,
           'refs': T, 'network_g': opt['network_g'], 'dtype': 'float32',
@@ -807,9 +1272,7 @@ def phase_train(alignment, build_model, arch, dcn, kernels):
           'warmup_loss': warmup_loss, 'losses': losses,
           'learning_rates': lrs, 'launches_5_steps': launches,
           'grads_fresh_weights': fresh, 'grads_after_6_steps': trained,
-          'grad_tolerance': TRAIN_GRAD_REL_TOL,
-          'grad_loose_tolerance': TRAIN_GRAD_LOOSE_TOL,
-          'grad_share_required': TRAIN_GRAD_SHARE})
+          'grad_tolerance': TRAIN_GRAD_REL_TOL, 'out_tolerance': SLICE_TOL})
 
     def one_step():
         model.feed_data(batch)
@@ -819,13 +1282,348 @@ def phase_train(alignment, build_model, arch, dcn, kernels):
     return launches, mean_ms
 
 
+# ------------------------------------------------------- StyleGAN2 paths
+SG2_TOL = 1e-4                # max |kernel - plain| / max |plain out|
+SG2_KERNELS = ('upfirdn2d_fwd', 'upfirdn2d_bwd', 'upfirdn2d_bwd2',
+               'fused_leaky_relu_fwd', 'fused_leaky_relu_bwd',
+               'fused_leaky_relu_bwd2')
+
+
+@contextlib.contextmanager
+def _plain_ops(arch, ops_upfirdn2d, fused_act, plain=True):
+    """While this is open (and ``plain``), the StyleGAN2 nets run through
+    the plain versions of both ops."""
+    if not plain:
+        yield
+        return
+    with mock.patch.object(arch, 'upfirdn2d', ops_upfirdn2d.upfirdn2d_ref), \
+            mock.patch.object(arch, 'fused_leaky_relu',
+                              fused_act.fused_leaky_relu_ref):
+        yield
+
+
+def _liven(net, gen):
+    """Seeded non-zero noise strengths and activation biases: a fresh net
+    has zeros there, which would leave the injected noise and the bias add
+    out of every comparison."""
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith('activate.bias') or (
+                    p.shape == (1,) and name.endswith('.weight')):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+
+
+def phase_stylegan2_serve(infer, arch, ops_upfirdn2d, fused_act, kernels):
+    """The FFHQ config-f generator at full width through the inference
+    module: mean latent, two grids, one grid against the plain versions."""
+    size, samples = SG2_SERVE['out_size'], SG2_SERVE_SAMPLES
+    args = infer.parse_args([
+        '--size', str(size), '--sample', str(samples), '--pics', '1',
+        '--truncation', '0.7', '--truncation_mean', '4096', '--seed',
+        str(SEED), '--ckpt', '', '--channel_multiplier',
+        str(SG2_SERVE['channel_multiplier'])])
+    net = infer.build_generator(args, torch.device('cuda'))
+    _liven(net, torch.Generator().manual_seed(SEED + 10))
+    check(next(net.parameters()).is_cuda, 'generator not on the card')
+    generator = torch.Generator(device='cuda').manual_seed(SEED)
+
+    reset_counts(kernels)
+    latent = infer.mean_latent(net, args, generator)
+    torch.cuda.synchronize()
+    launches_latent = read_counts(kernels, ('fused_leaky_relu_fwd',))
+    check(launches_latent['fused_leaky_relu_fwd'] == 8
+          and launches_latent['upfirdn2d_fwd'] == 0,
+          f'mean latent launched {launches_latent}')
+    check(latent.shape == (1, 512) and bool(torch.isfinite(latent).all()),
+          'mean latent')
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    grid_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        grid, = infer.generate(args, net, latent, generator, write=False)
+        torch.cuda.synchronize()
+        grid_ms.append((time.perf_counter() - t0) * 1e3)
+        side = 4 * size + 3 * 2       # 4 x 4 images, 2 pixels between
+        check(grid.shape == (side, side, 3) and grid.dtype == np.uint8,
+              f'grid {grid.shape} {grid.dtype}')
+        check(float(grid.std()) > 0, 'the grid is flat')
+    launches = read_counts(kernels, ('upfirdn2d_fwd', 'fused_leaky_relu_fwd'))
+    peak = torch.cuda.max_memory_allocated()
+    check(launches['upfirdn2d_fwd'] == 2 * 16
+          and launches['fused_leaky_relu_fwd'] == 2 * 25,
+          f'two grids launched {launches}, expected 16 of K7 and 25 of K8 '
+          f'a grid')
+    check(all(launches[k] == 0 for k in SG2_KERNELS if 'bwd' in k),
+          f'serving launched a backward kernel: {launches}')
+
+    # one grid through the kernels and through the plain versions, with
+    # the same codes and the same (stored) noise
+    codes = torch.randn((samples, 512), generator=generator, device='cuda')
+
+    def sample():
+        with torch.inference_mode():
+            return net([codes], truncation=args.truncation,
+                       truncation_latent=latent, randomize_noise=False)[0]
+
+    out_k = sample()
+    with _plain_ops(arch, ops_upfirdn2d, fused_act):
+        out_p = sample()
+    check(out_k.shape == (samples, 3, size, size)
+          and bool(torch.isfinite(out_k).all()), 'sampled images')
+    scale = float(out_p.abs().max())
+    diff = float((out_k - out_p).abs().max())
+    check(diff <= SG2_TOL * scale, f'serve: kernels vs plain differ by '
+          f'{diff} against max |out| {scale}')
+    del out_k, out_p
+    emit({'phase': 'stylegan2_serve', **SG2_SERVE, 'samples': samples,
+          'truncation': 0.7, 'truncation_mean': 4096, 'dtype': 'float32',
+          'grid_ms': grid_ms, 'peak_mem_bytes': peak,
+          'launches_mean_latent': launches_latent,
+          'launches_2_grids': launches,
+          'plain_vs_kernel_max_abs_diff': diff, 'max_abs_out': scale,
+          'tolerance': SG2_TOL})
+
+    def one_grid():
+        infer.generate(args, net, latent, generator, write=False)
+
+    phase_profile('stylegan2_serve', one_grid)
+    return {k: launches[k] + launches_latent[k] for k in launches}
+
+
+def _sg2_train_opt(root):
+    """The reference's FFHQ 256 recipe (its YAML is not in the repository;
+    batch 8 is this script's choice)."""
+    net = {'out_size': SG2_TRAIN_SIZE, 'channel_multiplier': 2}
+    return {
+        'name': 'stylegan2_256', 'model_type': 'StyleGAN2Model',
+        'manual_seed': SEED, 'is_train': True,
+        'network_g': {'type': 'StyleGAN2Generator', 'num_style_feat': 512,
+                      'num_mlp': 8, **net},
+        'network_d': {'type': 'StyleGAN2Discriminator', **net},
+        'path': {'models': os.path.join(root, 'models'),
+                 'training_states': os.path.join(root, 'training_states'),
+                 'visualization': os.path.join(root, 'visualization')},
+        'val': {'num_val_samples': 16},
+        'train': {
+            'optim_g': {'type': 'Adam', 'lr': 2e-3},
+            'optim_d': {'type': 'Adam', 'lr': 2e-3},
+            'scheduler': {'type': 'MultiStepLR', 'milestones': [600000],
+                          'gamma': 0.5},
+            'gan_opt': {'type': 'GANLoss', 'gan_type': 'wgan_softplus',
+                        'loss_weight': 1.0},
+            'r1_reg_weight': 10, 'path_reg_weight': 2, 'net_g_reg_every': 4,
+            'net_d_reg_every': 16, 'mixing_prob': 0.9,
+            'path_batch_shrink': 2, 'total_iter': 800000,
+            'warmup_iter': -1}}
+
+
+# The path-length penalty differentiates twice a random projection of the
+# image (``fake_img * noise``): every sum on the way is of terms of both
+# signs, and in f32 the plain versions' own gradients move from run to run
+# (cuDNN's atomics) by up to 1.8e-3 of a tensor's max, 3.7e-4 in the
+# median and 7 % for a noise strength, and the kernels' differ from them
+# by as much: 2.1e-3, 2.2e-4, 4 % (``--repeat-grads 20``, H100). So the
+# G loss with the penalty gets a two-part rule (every tensor of more than
+# one element, and the medians), and the plain versions' own spread is
+# measured beside it; the D loss with R1 agrees to 2e-6 and gets
+# TRAIN_GRAD_REL_TOL.
+SG2_PATH_GRAD_TOL = 5e-2
+SG2_PATH_GRAD_MEDIAN_TOL = 5e-3
+SG2_LOSS_REL_TOL = 1e-3
+
+
+def _sg2_compare_grads(model, arch, ops_upfirdn2d, fused_act, real,
+                       seed=SEED + 11):
+    """From the model's current weights, on fixed images, codes and noise,
+    through the kernels and through the plain versions: every net_d
+    gradient of the D loss with R1 and every net_g gradient of the G loss
+    with the path penalty (the plain versions twice, for their own
+    spread)."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    b = real.shape[0]
+    net_g, net_d = model.net_g, model.net_d
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda')
+
+    def noises(n):
+        return [randn(n, 1, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2))
+                for i in range(net_g.num_layers)]
+
+    styles, noise = [randn(b, 512), randn(b, 512)], noises(b)
+    path = {'styles': [randn(b // 2, 512), randn(b // 2, 512)],
+            'noise': noises(b // 2),
+            'img_noise': randn(b // 2, 3, SG2_TRAIN_SIZE, SG2_TRAIN_SIZE)}
+    with torch.no_grad():
+        fake = net_g(styles, inject_index=5, noise=noise)[0]
+
+    def grads_of(net, loss):
+        net.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = {name: p.grad.clone() for name, p in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    def backward(plain):
+        with _plain_ops(arch, ops_upfirdn2d, fused_act, plain):
+            net_d.requires_grad_(True)
+            d = grads_of(net_d, model.d_loss(real, fake, do_r1=True)[0])
+            net_d.requires_grad_(False)
+            g = grads_of(net_g, model.g_loss(styles, 5, noise=noise,
+                                             path=path)[0])
+        return {'d_r1': d, 'g_path': g}
+
+    kernels, plain, plain_again = backward(False), backward(True), \
+        backward(True)
+    out = {f'grads_{loss}': _rel_grad_errors(kernels[loss][1],
+                                             plain[loss][1])
+           for loss in plain}
+    out['grads_g_path_plain_twice'] = _rel_grad_errors(
+        plain_again['g_path'][1], plain['g_path'][1])
+    out['losses_kernels'] = {loss: kernels[loss][0] for loss in plain}
+    out['losses_plain'] = {loss: plain[loss][0] for loss in plain}
+    return out
+
+
+def _sg2_check_grads(label, cmp):
+    _check_grad_errors(f'{label}, D loss with R1', cmp['grads_d_r1'])
+    _check_grad_errors(f'{label}, G loss with the path penalty',
+                       cmp['grads_g_path'], SG2_PATH_GRAD_TOL,
+                       SG2_PATH_GRAD_MEDIAN_TOL)
+    check(all(abs(cmp['losses_kernels'][loss] - want)
+              <= SG2_LOSS_REL_TOL * abs(want)
+              for loss, want in cmp['losses_plain'].items()),
+          f'{label}: kernels and plain versions give other losses: {cmp}')
+
+
+def _sg2_train_batch():
+    rng = np.random.RandomState(SEED + 12)
+    return {'gt': (rng.rand(SG2_TRAIN_B, SG2_TRAIN_SIZE, SG2_TRAIN_SIZE, 3)
+                   * 2 - 1).astype(np.float32)}
+
+
+def phase_stylegan2_train(build_model, arch, ops_upfirdn2d, fused_act,
+                          kernels, root):
+    """``StyleGAN2Model`` at 256x256, channel multiplier 2, B 8: the
+    gradient comparison from fresh weights, then warm-up and timed steps
+    of each kind, a save and a reload."""
+    opt = _sg2_train_opt(root)
+    model = build_model(opt)
+    check(model.device.type == 'cuda', f'model built on {model.device}')
+    batch = _sg2_train_batch()
+    model.feed_data(batch)
+    fresh = _sg2_compare_grads(model, arch, ops_upfirdn2d, fused_act,
+                               model.real_img)
+    _sg2_check_grads('stylegan2, fresh weights', fresh)
+    kinds = {'plain': (1, 17, 18), 'path': (4, 20, 24), 'both': (16, 32, 48)}
+    for iters in kinds.values():                            # warm-up
+        model.feed_data(batch)
+        model.optimize_parameters(iters[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, logs, launches = {}, {}, {}
+    total = {name: 0 for name in kernels}
+    for kind, iters in kinds.items():
+        step_ms[kind] = []
+        for it in iters[1:]:
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            model.feed_data(batch)
+            model.optimize_parameters(it)
+            torch.cuda.synchronize()
+            step_ms[kind].append((time.perf_counter() - t0) * 1e3)
+            launches[kind] = read_counts(
+                kernels, ('upfirdn2d_fwd', 'upfirdn2d_bwd',
+                          'fused_leaky_relu_fwd', 'fused_leaky_relu_bwd'))
+            for name, count in launches[kind].items():
+                total[name] += count
+            logs[it] = model.get_current_log()
+            check(all(np.isfinite(v) for v in logs[it].values()),
+                  f'iteration {it}: non-finite log {logs[it]}')
+        mpl = float(model.mean_path_length)
+        if kind != 'plain':
+            check(np.isfinite(mpl) and mpl > 0, f'mean path length {mpl}')
+    peak = torch.cuda.max_memory_allocated()
+    # a plain step: G 12 + D 12 + D 12 launches of K7 forward in the D
+    # update and G 12 + D 12 in the G update; as many backward launches
+    # as forward ones with a graph (D twice, then D and G); no double
+    # backward. The penalties, and only they, differentiate twice.
+    check(launches['plain']['upfirdn2d_fwd'] == 60
+          and launches['plain']['upfirdn2d_bwd'] == 48,
+          f'a plain step launched {launches["plain"]}')
+    check(all(launches['plain'][k] == 0 for k in SG2_KERNELS if 'bwd2' in k),
+          f'a plain step launched a double backward: {launches["plain"]}')
+    for kind in ('path', 'both'):
+        check(all(launches[kind][k] > 0 for k in SG2_KERNELS),
+              f'a {kind} step left a kernel out: {launches[kind]}')
+    check('l_g_path' in logs[24] and 'l_g_path' in logs[48]
+          and logs[48]['l_d_r1'] > 0 and logs[24]['l_d_r1'] == 0,
+          f'the penalties did not fall on their iterations: {logs}')
+
+    # save, then reload into a fresh model: both nets, the EMA, both Adams
+    model.save(0, 48)
+    opt2 = _sg2_train_opt(root)
+    opt2['path'].update(
+        pretrain_network_g=os.path.join(opt['path']['models'],
+                                        'net_g_48.pth'),
+        pretrain_network_d=os.path.join(opt['path']['models'],
+                                        'net_d_48.pth'))
+    other = build_model(opt2)
+    other.resume_training(other.load_training_state(os.path.join(
+        opt['path']['training_states'], '48.state')))
+    for label in ('net_g', 'net_g_ema', 'net_d'):
+        mine = getattr(model, label).state_dict()
+        theirs = getattr(other, label).state_dict()
+        check(mine.keys() == theirs.keys() and all(
+            torch.equal(mine[k], theirs[k]) for k in mine),
+            f'{label} changed over save and reload')
+    check(not torch.equal(model.net_g.state_dict()['style_conv1.activate.bias'],
+                          model.net_g_ema.state_dict()[
+                              'style_conv1.activate.bias']),
+          'the EMA generator equals the generator after 9 steps')
+    for mine, theirs in zip(model.optimizers, other.optimizers):
+        a, b = mine.state_dict()['state'], theirs.state_dict()['state']
+        check(a.keys() == b.keys() and all(
+            torch.equal(a[k]['exp_avg_sq'], b[k]['exp_avg_sq']) for k in a),
+            'an optimizer changed over save and resume')
+    del other
+
+    mean_ms = {kind: sum(v) / len(v) for kind, v in step_ms.items()}
+    emit({'phase': 'stylegan2_train', 'out_size': SG2_TRAIN_SIZE,
+          'channel_multiplier': 2, 'batch': SG2_TRAIN_B, 'dtype': 'float32',
+          'gan_type': 'wgan_softplus', 'net_g_reg_every': 4,
+          'net_d_reg_every': 16, 'iterations': {k: v[1:] for k, v in
+                                                kinds.items()},
+          'step_ms': step_ms, 'mean_step_ms': mean_ms,
+          'img_per_s': {k: SG2_TRAIN_B / v * 1e3
+                        for k, v in mean_ms.items()},
+          'peak_mem_bytes': peak, 'logs': logs, 'mean_path_length': mpl,
+          'launches_per_step': launches, 'grads_fresh_weights': fresh,
+          'grad_tolerance': TRAIN_GRAD_REL_TOL,
+          'path_grad_tolerance': SG2_PATH_GRAD_TOL,
+          'path_grad_median_tolerance': SG2_PATH_GRAD_MEDIAN_TOL,
+          'loss_tolerance': SG2_LOSS_REL_TOL,
+          'learning_rates': model.get_current_learning_rate()})
+
+    for kind, it in (('plain', 49), ('path', 52), ('both', 64)):
+        def one_step(it=it):
+            model.feed_data(batch)
+            model.optimize_parameters(it)
+
+        phase_profile(f'stylegan2_train_{kind}', one_step)
+    return total
+
+
 # how the profile sorts device kernels: the hand-written ones by name,
 # cuDNN's and cuBLAS's (convolutions, their layout changes and FFTs, and
 # matmuls) by these marks, the rest (element-wise, reductions, copies,
 # Adam) as other
 OWN_KERNELS = ('feature_match_kernel', 'mdcn_im2col_kernel',
                'mdcn_col2im_kernel', 'deform_sample_fwd_kernel',
-               'deform_sample_bwd_kernel')
+               'deform_sample_bwd_kernel', 'upfirdn2d_kernel',
+               'fused_leaky_relu_fwd_kernel', 'fused_leaky_relu_bwd_kernel')
 LIBRARY_MARKS = ('xmma', 'cudnn', 'cutlass', 'gemm', 'gemv', 'DSE::',
                  'fft', 'region_transform', 'cublas', 'wgrad', 'dgrad')
 
@@ -866,9 +1664,14 @@ def phase_profile(path, run, top=12):
 
 
 def main():
+    import importlib
     from mrefsr_tpu_torch.archs import ref_mrapa_restoration_arch as arch
+    from mrefsr_tpu_torch.archs import stylegan2_arch
+    from mrefsr_tpu_torch.inference import inference_stylegan2
     from mrefsr_tpu_torch.models import build_model
-    from mrefsr_tpu_torch.ops import _build, correlation, dcn
+    from mrefsr_tpu_torch.ops import _build, correlation, dcn, fused_act
+    # the package exports the function under the module's name
+    ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
 
     device, smi = phase_device()
     # f32 throughout, the yardsticks included: no TF32 in cuDNN or cuBLAS
@@ -883,6 +1686,8 @@ def main():
     k2['train_shape'] = phase_mdcn(dcn, n=TRAIN_B * T, shapes=TRAIN_SHAPES)
     k2b = phase_mdcn_backward(dcn)
     k4f, k4b = phase_deform_sample(dcn)
+    k7 = phase_upfirdn2d(ops_upfirdn2d)
+    k8 = phase_fused_act(fused_act)
     kernels = {'feature_match': correlation.feature_match_kernel,
                'mdcn_im2col': dcn.mdcn_im2col_kernel,
                'mdcn_col2im': dcn.mdcn_col2im_kernel,
@@ -890,7 +1695,14 @@ def main():
                'deform_sample_fwd': dcn.deform_sample_fwd_kernel,
                'deform_sample_bwd': dcn.deform_sample_bwd_kernel,
                'deform_sample_bwd_scatter':
-                   dcn.deform_sample_bwd_scatter_kernel}
+                   dcn.deform_sample_bwd_scatter_kernel,
+               'upfirdn2d_fwd': ops_upfirdn2d.upfirdn2d_fwd_kernel,
+               'upfirdn2d_bwd': ops_upfirdn2d.upfirdn2d_bwd_kernel,
+               'upfirdn2d_bwd2': ops_upfirdn2d.upfirdn2d_bwd2_kernel,
+               'fused_leaky_relu_fwd': fused_act.fused_leaky_relu_fwd_kernel,
+               'fused_leaky_relu_bwd': fused_act.fused_leaky_relu_bwd_kernel,
+               'fused_leaky_relu_bwd2':
+                   fused_act.fused_leaky_relu_bwd2_kernel}
     by_path = {}
     by_path['slice'], model, batch = phase_slice(
         build_model, arch.DynAgg, correlation, dcn, kernels)
@@ -909,6 +1721,14 @@ def main():
         torch.cuda.empty_cache()
     emit({'phase': 'train_ratio',
           'flow_steps_per_dcn_step': step_ms['dcn'] / step_ms['flow']})
+    sg2 = (stylegan2_arch, ops_upfirdn2d, fused_act, kernels)
+    by_path['stylegan2_serve'] = phase_stylegan2_serve(inference_stylegan2,
+                                                       *sg2)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        by_path['stylegan2_train'] = phase_stylegan2_train(build_model, *sg2,
+                                                           root)
+    torch.cuda.empty_cache()
 
     csrc = 'mrefsr_tpu_torch/ops/csrc/'
     described = (
@@ -916,7 +1736,11 @@ def main():
         (k2, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
         (k2b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
         (k4f, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
-        (k4b, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'))
+        (k4b, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
+        *((rec, 'upfirdn2d.cu', 'mrefsr_tpu/ops/upfirdn2d.py:13')
+          for rec in k7),
+        *((rec, 'fused_act.cu', 'mrefsr_tpu/ops/fused_act.py:12')
+          for rec in k8))
     for rec, source, replaces in described:
         paths = {path: counts[rec['name']]
                  for path, counts in by_path.items()}
@@ -927,6 +1751,78 @@ def main():
     emit({'ok': True, 'device': device})
 
 
+def main_repeat_grads(rounds):
+    """``--repeat-grads N``: the whole-net gradient comparisons of the
+    three training paths alone, from fresh weights and then N times more,
+    each after further training steps and on other inputs. Every
+    comparison is held to the checks of the phases; the last line of each
+    path sums up the spread, which the tolerances above are set by."""
+    import importlib
+    from mrefsr_tpu_torch.archs import ref_mrapa_restoration_arch as arch
+    from mrefsr_tpu_torch.archs import stylegan2_arch
+    from mrefsr_tpu_torch.models import build_model
+    from mrefsr_tpu_torch.ops import _build, dcn, fused_act
+    ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
+
+    _, smi = phase_device()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+
+    def sum_up(path, records, keys):
+        worst = {}
+        for key in keys:
+            for stat in ('worst', 'median', 'one_element_worst',
+                         'one_element_median'):
+                worst[f'{key}.{stat}'] = max(r[key][stat] for r in records)
+        emit({'phase': 'repeat_grads_summary', 'path': path,
+              'comparisons': len(records), 'largest': worst, 'card': smi})
+
+    for alignment in ('dcn', 'flow'):
+        model = build_model(_train_opt(alignment))
+        rng = np.random.RandomState(SEED + 6)
+        batch = _train_batch(rng, TRAIN_B)
+        records, step = [], 0
+        for rnd in range(rounds + 1):
+            cmp = _compare_grads(model, arch, dcn, _train_batch(rng, 1))
+            emit({'phase': 'repeat_grads', 'path': f'train_{alignment}',
+                  'steps_taken': step, **cmp})
+            _check_grads(f'{alignment}, after {step} steps', cmp)
+            records.append(cmp)
+            for _ in range(3):
+                step += 1
+                model.feed_data(batch)
+                model.optimize_parameters(step)
+        check(all(r['same_forward_bit_equal'] for r in records),
+              f'{alignment}: the plain forward values did not give the '
+              f'plain forward')
+        sum_up(f'train_{alignment}', records, ('same_forward', 'own_forward'))
+        del model
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        model = build_model(_sg2_train_opt(root))
+        batch = _sg2_train_batch()
+        records, step = [], 0
+        for rnd in range(rounds + 1):
+            model.feed_data(batch)
+            cmp = _sg2_compare_grads(model, stylegan2_arch, ops_upfirdn2d,
+                                     fused_act, model.real_img,
+                                     seed=SEED + 11 + rnd)
+            emit({'phase': 'repeat_grads', 'path': 'stylegan2_train',
+                  'steps_taken': step, **cmp})
+            _sg2_check_grads(f'stylegan2, after {step} steps', cmp)
+            records.append(cmp)
+            for _ in range(2):
+                step += 1
+                model.optimize_parameters(step)
+        sum_up('stylegan2_train', records,
+               ('grads_d_r1', 'grads_g_path', 'grads_g_path_plain_twice'))
+
+
 if __name__ == '__main__':
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    main()
+    if sys.argv[1:2] == ['--repeat-grads']:
+        main_repeat_grads(int(sys.argv[2]))
+    else:
+        main()

@@ -8,7 +8,9 @@ modules keep (so ``load_state_dict(strict=True)`` takes them unchanged):
   numpy in, torch state dict out): a kernel ``(kh, kw, I, O)`` becomes the
   weight ``(O, I, kh, kw)``, a dense kernel ``(I, O)`` becomes ``(O, I)``,
   a norm scale becomes ``weight``, anything else keeps its leaf name
-  (DynAgg's and FlowAgg's parameters included).
+  (DynAgg's and FlowAgg's parameters included);
+  :func:`stylegan2_state_dict_from_flax` adds what the StyleGAN2 nets
+  need on top.
 
 :func:`dcn_to_flow_state_dict` warm-starts a flow-alignment net from a
 DCN-alignment checkpoint.
@@ -105,6 +107,40 @@ def state_dict_from_flax(params):
     dict of contiguous float tensors, ready for
     ``load_state_dict(strict=True)``."""
     return {k: torch.tensor(v) for k, v in flax_to_torch(params).items()}
+
+
+def stylegan2_state_dict_from_flax(params):
+    """Flax parameters of the JAX package's ``StyleGAN2Generator`` or
+    ``StyleGAN2Discriminator`` -> a torch state dict with the reference's
+    names and shapes: :func:`flax_to_torch`, then the inverse of the JAX
+    package's ``stylegan2_rename`` and of its loader's fix-ups:
+    ``modulated_conv.mod_weight`` -> ``modulated_conv.weight`` (already
+    (1, out, in, k, k)), ``constant_input.const`` NHWC ->
+    ``constant_input.weight`` NCHW, ``noises.noise{i}`` NHWC -> NCHW."""
+    out = {}
+    for key, val in flax_to_torch(params).items():
+        if key.endswith('modulated_conv.mod_weight'):
+            key = key[:-len('mod_weight')] + 'weight'
+        elif key == 'constant_input.const':
+            key, val = 'constant_input.weight', val.transpose(0, 3, 1, 2)
+        elif key.startswith('noises.noise'):
+            val = val.transpose(0, 3, 1, 2)
+        out[key] = torch.tensor(np.ascontiguousarray(val))
+    return out
+
+
+def load_stylegan2_from_flax(net, params):
+    """Load the JAX package's flax parameters into the port's StyleGAN2
+    generator or discriminator, strictly: every parameter must be there
+    and nothing else. Only the generator's ``noises.noise{i}`` buffers may
+    be missing (flax holds them only when it was initialised with
+    ``randomize_noise=False``); they keep their values."""
+    state = stylegan2_state_dict_from_flax(params)
+    own = net.state_dict()
+    for key in own:
+        if key.startswith('noises.noise') and key not in state:
+            state[key] = own[key]
+    net.load_state_dict(state, strict=True)
 
 
 def dcn_to_flow_state_dict(sd, deform_groups=8, kernel_size=3):

@@ -1,5 +1,23 @@
 """Losses of the port (port of ``mrefsr_tpu/losses``). The multi-ref
-models fetch theirs by name from :mod:`.legacy_losses`."""
-from .losses import L1Loss, MSELoss
+models fetch theirs by name from :mod:`.legacy_losses`; a ``gan_opt`` block
+names its class by ``type``, which :func:`build_loss` looks up here."""
+from copy import deepcopy
 
-__all__ = ['L1Loss', 'MSELoss']
+from .losses import (GANLoss, L1Loss, MSELoss, g_path_regularize,
+                     r1_penalty)
+
+__all__ = ['GANLoss', 'L1Loss', 'MSELoss', 'build_loss',
+           'g_path_regularize', 'r1_penalty']
+
+_LOSSES = {'GANLoss': GANLoss, 'L1Loss': L1Loss, 'MSELoss': MSELoss}
+
+
+def build_loss(opt):
+    """Instantiate a loss from its options dict (``type`` plus the
+    constructor's keyword arguments)."""
+    opt = deepcopy(opt)
+    loss_type = opt.pop('type')
+    if loss_type not in _LOSSES:
+        raise KeyError(f'loss {loss_type!r} is not ported; available: '
+                       f'{sorted(_LOSSES)}')
+    return _LOSSES[loss_type](**opt)

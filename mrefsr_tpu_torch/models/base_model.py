@@ -2,11 +2,13 @@
 ``mrefsr_tpu/models/base_model.py``): the device, the schedulers and the
 learning-rate log, and checkpoints in the reference's formats.
 
-* ``<label>_<iter>.pth`` holds ``{'params': state_dict}`` with the
-  reference's torch key names, so one file loads into the reference, the
-  JAX package (``mrefsr_tpu.convert``) and this package.
+* ``<label>_<iter>.pth`` holds ``{'params': state_dict}`` (or one state
+  dict per key, e.g. ``params`` and ``params_ema``) with the reference's
+  torch key names, so one file loads into the reference, the JAX package
+  (``mrefsr_tpu.convert``) and this package.
 * ``<iter>.state`` holds ``{'epoch', 'iter', 'optimizers', 'schedulers'}``
-  (reference base_model.py:308-341), written with ``torch.save``.
+  (reference base_model.py:308-341), one entry per optimizer, written
+  with ``torch.save``.
 """
 import os
 
@@ -58,18 +60,34 @@ class BaseModel:
         the device, so the step itself keeps them as tensors."""
         return {k: float(v) for k, v in self.log_dict.items()}
 
+    # ------------------------------------------------------------------ EMA
+    @staticmethod
+    @torch.no_grad()
+    def ema_update(net_ema, net, decay):
+        """``ema = decay * ema + (1 - decay) * net`` over the parameters,
+        in place (reference ``model_ema``, base_model.py:75-82)."""
+        for ema, param in zip(net_ema.parameters(), net.parameters()):
+            ema.mul_(decay).add_(param, alpha=1 - decay)
+
     # ---------------------------------------------------------- checkpoints
     def save_network(self, net, net_label, current_iter, param_key='params'):
         """Write ``net``'s state dict as a reference-format ``.pth``
         (reference base_model.py:198-243) into ``path.models``; iteration
-        -1 is named ``latest``. Returns the file's path."""
+        -1 is named ``latest``. ``net`` and ``param_key`` may be lists of
+        equal length: one file then holds one state dict per key (a
+        generator and its EMA under ``params`` and ``params_ema``).
+        Returns the file's path."""
+        nets = net if isinstance(net, list) else [net]
+        keys = param_key if isinstance(param_key, list) else [param_key]
+        if len(nets) != len(keys):
+            raise ValueError(f'{len(nets)} nets for the keys {keys}')
         name = 'latest' if current_iter == -1 else current_iter
         path = os.path.join(self.opt['path']['models'],
                             f'{net_label}_{name}.pth')
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        state = {k: v.detach().cpu().contiguous()
-                 for k, v in net.state_dict().items()}
-        torch.save({param_key: state}, path)
+        torch.save({key: {k: v.detach().cpu().contiguous()
+                          for k, v in one.state_dict().items()}
+                    for one, key in zip(nets, keys)}, path)
         return path
 
     def load_network(self, net, load_path, strict=True, param_key='params',

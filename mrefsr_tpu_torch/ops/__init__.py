@@ -1,14 +1,18 @@
 """Ops of the port: PyTorch around hand-written CUDA kernels
-(``csrc/feature_match.cu``, ``csrc/mdcn.cu``, ``csrc/deform_sample.cu``),
-each with its plain PyTorch version beside it for CPU tensors."""
+(``csrc/feature_match.cu``, ``csrc/mdcn.cu``, ``csrc/deform_sample.cu``,
+``csrc/upfirdn2d.cu``, ``csrc/fused_act.cu``), each with its plain PyTorch
+version beside it for CPU tensors."""
 from .correlation import (feature_match_index, feature_match_index_ref,
                           index_to_flow, sample_patches, tensor_shift)
 from .dcn import (deform_sample, deform_sample_ref, modulated_deform_conv2d,
                   modulated_deform_conv2d_ref, offset_mask_from_conv_out)
+from .fused_act import fused_leaky_relu, fused_leaky_relu_ref
+from .upfirdn2d import upfirdn2d, upfirdn2d_ref
 
 __all__ = [
     'feature_match_index', 'feature_match_index_ref', 'index_to_flow',
     'sample_patches', 'tensor_shift', 'deform_sample', 'deform_sample_ref',
     'modulated_deform_conv2d', 'modulated_deform_conv2d_ref',
-    'offset_mask_from_conv_out',
+    'offset_mask_from_conv_out', 'fused_leaky_relu', 'fused_leaky_relu_ref',
+    'upfirdn2d', 'upfirdn2d_ref',
 ]

@@ -321,24 +321,30 @@ def deform_sample_ref(x, flow):
     return col.reshape(n, h, w, c)
 
 
+def _deform_sample_fwd_cuda(x, flow):
+    """The forward kernel on contiguous ``x`` and ``flow``, same contract
+    as :func:`deform_sample_ref`."""
+    _check_cuda_inputs('deform_sample', x, flow)
+    if x.numel() // 4 >= 2 ** 31:
+        raise ValueError(f'deform_sample kernel indexes runs of 4 '
+                         f'channels with an int; x has {x.numel()} '
+                         f'elements')
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        deform_sample_fwd_kernel(
+            x.data_ptr(), flow.data_ptr(), out.data_ptr(), *x.shape,
+            flow.shape[3], torch.cuda.current_stream().cuda_stream)
+    return out
+
+
 class _DeformSample(torch.autograd.Function):
     """The CUDA kernels of ``csrc/deform_sample.cu``."""
 
     @staticmethod
     def forward(ctx, x, flow):
         x, flow = x.contiguous(), flow.contiguous()
-        _check_cuda_inputs('deform_sample', x, flow)
-        if x.numel() // 4 >= 2 ** 31:
-            raise ValueError(f'deform_sample kernel indexes runs of 4 '
-                             f'channels with an int; x has {x.numel()} '
-                             f'elements')
         ctx.save_for_backward(x, flow)
-        out = torch.empty_like(x)
-        with torch.cuda.device(x.device):
-            deform_sample_fwd_kernel(
-                x.data_ptr(), flow.data_ptr(), out.data_ptr(), *x.shape,
-                flow.shape[3], torch.cuda.current_stream().cuda_stream)
-        return out
+        return _deform_sample_fwd_cuda(x, flow)
 
     @staticmethod
     @once_differentiable

@@ -1,6 +1,10 @@
 """Small shared helpers of the port."""
 import torch
 
+from .img_util import imwrite, tensor2img
+
+__all__ = ['imwrite', 'resolve_device', 'tensor2img']
+
 
 def resolve_device(device=None):
     """The device an entry point runs on: ``cuda`` unless the caller names

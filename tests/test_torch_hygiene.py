@@ -3,6 +3,7 @@ its entry points never fall back to the CPU unasked, a CPU tensor never
 reaches a CUDA kernel, and a kernel that fails to build or launch
 raises."""
 import ast
+import importlib
 import os
 import shutil
 import subprocess
@@ -14,7 +15,10 @@ import pytest
 import torch
 
 from mrefsr_tpu_torch.models import build_model
-from mrefsr_tpu_torch.ops import _build, correlation, dcn
+from mrefsr_tpu_torch.ops import _build, correlation, dcn, fused_act
+
+# the package exports the function under its module's name
+ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'mrefsr_tpu'}
@@ -62,6 +66,13 @@ def test_scan_sees_forbidden_imports(tmp_path):
     assert _imported_roots(bad) & FORBIDDEN == {'jax', 'mrefsr_tpu', 'flax'}
 
 
+def test_scan_covers_the_inference_modules():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert 'mrefsr_tpu_torch/inference/inference_stylegan2.py' in names
+    assert 'mrefsr_tpu_torch/inference/__init__.py' in names
+    assert 'chip_smoke.py' in names
+
+
 def _tiny_opt():
     return {
         'model_type': 'MultiRefRestorationModel', 'manual_seed': 0,
@@ -77,6 +88,33 @@ def test_model_without_device_raises_on_a_host_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         build_model(_tiny_opt())
+
+
+def _tiny_stylegan2_opt():
+    return {
+        'name': 'sg2', 'model_type': 'StyleGAN2Model', 'manual_seed': 0,
+        'is_train': True,
+        'network_g': {'type': 'StyleGAN2Generator', 'out_size': 16,
+                      'num_style_feat': 8, 'num_mlp': 2,
+                      'channel_multiplier': 1, 'narrow': 0.0625},
+        'network_d': {'type': 'StyleGAN2Discriminator', 'out_size': 16,
+                      'channel_multiplier': 1, 'narrow': 0.0625,
+                      'stddev_group': 2},
+        'path': {},
+        'train': {'optim_g': {'type': 'Adam', 'lr': 2e-3},
+                  'optim_d': {'type': 'Adam', 'lr': 2e-3},
+                  'gan_opt': {'type': 'GANLoss',
+                              'gan_type': 'wgan_softplus'},
+                  'r1_reg_weight': 10, 'path_reg_weight': 2,
+                  'net_g_reg_every': 1, 'net_d_reg_every': 1,
+                  'mixing_prob': 0.9}}
+
+
+def test_stylegan2_model_without_device_raises_on_a_host_without_cuda(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        build_model(_tiny_stylegan2_opt())
 
 
 def _tiny_train_opt():
@@ -123,7 +161,11 @@ def _refuse(*_):
 KERNELS = (correlation.feature_match_kernel, dcn.mdcn_im2col_kernel,
            dcn.mdcn_col2im_kernel, dcn.mdcn_col2im_scatter_kernel,
            dcn.deform_sample_fwd_kernel, dcn.deform_sample_bwd_kernel,
-           dcn.deform_sample_bwd_scatter_kernel)
+           dcn.deform_sample_bwd_scatter_kernel,
+           *ops_upfirdn2d.upfirdn2d_kernels,
+           fused_act.fused_leaky_relu_fwd_kernel,
+           fused_act.fused_leaky_relu_bwd_kernel,
+           fused_act.fused_leaky_relu_bwd2_kernel)
 
 
 def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
@@ -152,6 +194,46 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
     assert _build._libs == {}
 
 
+def test_cpu_tensors_never_reach_the_stylegan2_kernels(monkeypatch):
+    """A StyleGAN2 training step with both penalties (the double backward
+    included) and a sample on the CPU launch no kernel and build no
+    library."""
+    monkeypatch.setattr(ops_upfirdn2d, '_upfirdn2d_cuda', _refuse)
+    monkeypatch.setattr(ops_upfirdn2d._UpFirDn2d, 'apply', _refuse)
+    monkeypatch.setattr(fused_act._FusedLeakyReLU, 'apply', _refuse)
+    monkeypatch.setattr(fused_act._FusedLeakyReLUBackward, 'apply', _refuse)
+    before = [kernel.launches for kernel in KERNELS]
+    model = build_model(_tiny_stylegan2_opt(), device='cpu')
+    rng = np.random.RandomState(0)
+    model.feed_data({'gt': rng.rand(2, 16, 16, 3) * 2 - 1})
+    model.optimize_parameters(1)
+    log = model.get_current_log()
+    assert log['l_d_r1'] > 0 and log['l_g_path'] >= 0
+    assert all(np.isfinite(v) for v in log.values())
+    model.test()
+    assert torch.isfinite(model.output).all()
+    assert [kernel.launches for kernel in KERNELS] == before
+    assert _build._libs == {}
+
+
+def test_stylegan2_kernel_wrappers_take_cuda_tensors_only():
+    """The wrappers that launch K7 and K8 refuse a tensor that is not a
+    float32 CUDA tensor before they build or launch anything."""
+    x = torch.zeros((1, 2, 4, 4))
+    fir = torch.ones((2, 2))
+    with pytest.raises(TypeError, match='float32 CUDA'):
+        ops_upfirdn2d._upfirdn2d_cuda(x, fir, 1, 1, (0, 0, 0, 0), 0)
+    with pytest.raises(ValueError, match='at most 64 taps'):
+        ops_upfirdn2d._upfirdn2d_cuda(
+            torch.zeros((1, 1, 16, 16)), torch.ones((9, 9)), 1, 1,
+            (0, 0, 0, 0), 0)
+    with pytest.raises(TypeError, match='float32 CUDA'):
+        fused_act._FusedLeakyReLU.apply(x, None, 0.2, 1.0)
+    with pytest.raises(TypeError, match='float32 CUDA'):
+        fused_act._FusedLeakyReLUBackward.apply(x, x, 0.2, 1.0, 1)
+    assert _build._libs == {}
+
+
 def test_ops_refuse_other_devices():
     x = torch.empty((1, 4, 4, 8), device='meta')
     with pytest.raises(RuntimeError, match='cuda or cpu'):
@@ -163,6 +245,10 @@ def test_ops_refuse_other_devices():
             torch.empty((3, 3, 8, 8), device='meta'))
     with pytest.raises(RuntimeError, match='cuda or cpu'):
         dcn.deform_sample(x, torch.empty((1, 4, 4, 2, 2), device='meta'))
+    with pytest.raises(RuntimeError, match='cuda or cpu'):
+        ops_upfirdn2d.upfirdn2d(x, torch.ones((2, 2)))
+    with pytest.raises(RuntimeError, match='cuda or cpu'):
+        fused_act.fused_leaky_relu(x, torch.empty((4,), device='meta'))
 
 
 def test_backward_kernels_refuse_group_widths_they_cannot_sum():
