@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's main paths on one NVIDIA GPU: the 5-ref CUFED5 eval
-forward, the stage-3 training step with both alignments, and StyleGAN2
-sampling and training.
+forward, the stage-3 training step with both alignments, StyleGAN2
+sampling and training, and video SR inference (BasicVSR++, EDVR,
+BasicVSR).
 
     python3 chip_smoke.py        # from the root of a checkout
     python3 chip_smoke.py --repeat-grads 20   # only the whole-net gradient
@@ -26,22 +27,26 @@ phase runs several):
 6. deform_sample (kernel K4, forward and backward) against its plain
    version at the three training shapes, and bit for bit against ``x``
    indexed at the shifted positions for integer flows;
-7. upfirdn2d (kernel K7) against its plain version, forward, backward and
+7. mdcn_groups (K3, DCNv2 with conv groups 2 and 8) and dcn_v1 (K5, DCNv1
+   at padding 0, groups 1 and 8) against their plain versions, forward and
+   every gradient, at EDVR-M's L1 shape (5, 180, 320, 64), deform groups
+   8; with groups 1 the K3 entry point's columns bit-equal to K2's;
+8. upfirdn2d (kernel K7) against its plain version, forward, backward and
    double backward, at every shape of a 1024x1024 16-sample generator
    forward and of a 256x256 B = 8 generator and discriminator forward
    (the smoothing filter after a transposed conv and before a strided
    conv, the x2 upsampling of the RGB skip), and at two odd cases (a
    stride, a negative pad, a 3x5 filter, a non-square map);
-8. fused_act (kernel K8) the same, at the 4-D and 2-D shapes of those
+9. fused_act (kernel K8) the same, at the 4-D and 2-D shapes of those
    forwards, with and without bias, NCHW and channels-last, with exact
    zeros planted (the derivative there must be 1);
-9. slice: ``MultiRefRestorationModel`` at full width (ngf 64, 16 blocks,
-   8 deform groups) with seeded weights answers 2 requests of B = 1,
-   T = 5 on a 500x500 canvas; the kernels' launch counts over them; then
-   one request through the kernels and through the plain versions,
-   compared; profile: one more request under ``torch.profiler``, device
-   time by kernel and the device's idle share;
-10. train_dcn and train_flow: the same model built for training
+10. slice: ``MultiRefRestorationModel`` at full width (ngf 64, 16 blocks,
+    8 deform groups) with seeded weights answers 2 requests of B = 1,
+    T = 5 on a 500x500 canvas; the kernels' launch counts over them; then
+    one request through the kernels and through the plain versions,
+    compared; profile: one more request under ``torch.profiler``, device
+    time by kernel and the device's idle share;
+11. train_dcn and train_flow: the same model built for training
     (``alignment`` dcn, then flow) takes one warm-up and five timed
     steps at B = 6, gt 160, T = 5, f32 on one repeated batch; the launch
     counts over the timed steps (no launch may scatter a grad x: the
@@ -50,13 +55,13 @@ phase runs several):
     against the plain versions behind the same forward (see
     ``TRAIN_GRAD_REL_TOL``), and the two outputs; then a profile of one
     step;
-11. stylegan2_serve: the FFHQ config-f generator at full width (1024,
+12. stylegan2_serve: the FFHQ config-f generator at full width (1024,
     512 style features, 8 MLP layers, channel multiplier 2) with seeded
     weights, through the inference module: the mean latent of 4096 codes,
     two grids of 16 samples at truncation 0.7; launch counts per grid;
     one grid through the kernels and through the plain versions,
     compared; a profile of one grid;
-12. stylegan2_train: ``StyleGAN2Model`` at 256x256, channel multiplier 2,
+13. stylegan2_train: ``StyleGAN2Model`` at 256x256, channel multiplier 2,
     B = 8 (wgan_softplus, R1 every 16, path-length penalty every 4): from
     fresh weights every net_d gradient of the D loss with R1 and every
     net_g gradient of the G loss with the path penalty (by a two-part
@@ -66,14 +71,27 @@ phase runs several):
     both penalties); launch counts per kind of step, forward, backward and
     double backward; a save and reload of both nets, the EMA and both
     optimizers; a profile of one step of each kind;
-13. the ``kernels`` line.
+14. basicvsrpp_serve: the BasicVSR++ REDS configuration of
+    ``inference/inference_basicvsrpp.py`` (mid 64, 7 blocks, residue 10)
+    with seeded weights and live offset convs, through the port's
+    ``inference``: a warm-up and two timed 15-frame chunks of 180x320
+    frames (exactly 56 K2 launches a chunk, nothing else); the chunk
+    through the kernels against the plain versions; a profile;
+15. edvr: EDVR-M x4 (64 features, 5 frames, 8 deform groups, 5 + 10
+    blocks, TSA) on one 5-frame 180x320 window -> one 720x1280 frame, the
+    frames folded into the batch for the alignment: a warm-up and three
+    timed windows, launches, kernels against plain, a profile;
+16. basicvsr_serve: BasicVSR (64 features, 30 blocks) through
+    ``inference`` on one 15-frame chunk: time only (no kernel of this
+    repository on its path);
+17. the ``kernels`` line.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero without the last line. Times come from CUDA events
-(phases 3 to 8), the host clock around ``torch.cuda.synchronize()``
-(phases 9 to 12) and the profiler's device times. Bounds use the H100 SXM's
-published 67 TFLOP/s f32 (CUDA cores) and 3.35 TB/s.
+(phases 3 to 9), the host clock around ``torch.cuda.synchronize()``
+(phases 10 to 16) and the profiler's device times. Bounds use the H100
+SXM's published 67 TFLOP/s f32 (CUDA cores) and 3.35 TB/s.
 """
 import contextlib
 import json
@@ -576,6 +594,177 @@ def phase_deform_sample(dcn):
     return (_sum_records('deform_sample_fwd', fwd, {'library_call': call}),
             _sum_records('deform_sample_bwd', bwd, {
                 'library_call': call + ': its autograd in the grid'}))
+
+
+# ------------------------------------ K3 (conv groups > 1) and K5 (DCNv1)
+EDVR_L1 = (T, 180, 320, 64)   # EDVR-M's L1 features of a 5-frame REDS window
+DCN_VARIANT_TOL = 1e-4        # max |kernel - plain| / max |plain|, forward
+#                               and every gradient (K2_REL_TOL, GRAD_REL_TOL)
+
+
+def _grads_all(fn, args, cot):
+    inputs = [a.detach().requires_grad_() for a in args]
+    out = fn(*inputs)
+    return [out.detach(), *torch.autograd.grad(out, inputs, cot)]
+
+
+def _dcn_variant(dcn, gen, groups, masked, padding):
+    """One K3 (``masked``, ``groups > 1``) or K5 (not ``masked``) case at
+    EDVR-M's L1 shape, deform groups 8: forward and every gradient through
+    the kernels against the plain version, then the times of the forward,
+    of the backward as a training step would ask it (no grad x) and of
+    their kernels alone. Returns the forward and backward records."""
+    n, h, w, c = EDVR_L1
+    dg, cout = 8, 64
+    ho, wo = h + 2 * padding - 2, w + 2 * padding - 2
+    x = torch.randn((n, h, w, c), generator=gen).cuda()
+    offset = (torch.randn((n, ho, wo, dg, 9, 2), generator=gen) * 4).cuda()
+    mask = torch.rand((n, ho, wo, dg, 9), generator=gen).cuda()
+    weight = (torch.randn((3, 3, c // groups, cout), generator=gen)
+              * 0.05).cuda()
+    bias = torch.randn((cout,), generator=gen).cuda()
+    cot = torch.randn((n, ho, wo, cout), generator=gen).cuda()
+    kw = dict(padding=padding, groups=groups, deform_groups=dg)
+    if masked:
+        args, names = (x, offset, mask, weight, bias), ('out', 'x', 'offset',
+                                                        'mask', 'weight',
+                                                        'bias')
+
+        def kernel(*a):
+            return dcn.modulated_deform_conv2d(*a, **kw)
+
+        def plain(*a):
+            return dcn.modulated_deform_conv2d_ref(*a, **kw)
+    else:
+        args, names = (x, offset, weight), ('out', 'x', 'offset', 'weight')
+
+        def kernel(*a):
+            return dcn.deform_conv2d(*a, **kw)
+
+        def plain(*a):
+            return dcn.deform_conv2d_ref(*a, **kw)
+    got, want = _grads_all(kernel, args, cot), _grads_all(plain, args, cot)
+    errs = {name: _rel_err(g, wt) for name, g, wt in zip(names, got, want)}
+    abs_err = max(float((g - wt).abs().max()) for g, wt in zip(got, want))
+    label = (f'{"mdcn" if masked else "deform_conv2d"} groups={groups} '
+             f'padding={padding}')
+    for name, e in errs.items():
+        check(e <= DCN_VARIANT_TOL, f'{label}: {name} differs by {e} of its '
+              f'max')
+    del got, want
+
+    rows = n * ho * wo
+    geom = ((3, 3), (1, 1), (padding, padding), (1, 1), (ho, wo))
+    chunks = dcn._row_chunks(rows, 9, c, 4)
+    m = mask if masked else None
+    grad_col = torch.randn((groups, chunks[0][1], 9, c // groups),
+                           device='cuda')
+    g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
+    g_x = torch.zeros_like(x)
+
+    def im2col_only():
+        for row0, nrows in chunks:
+            dcn._im2col_cuda(x, offset, m, row0, nrows, geom, groups)
+
+    def col2im_only(grad_x=None):
+        for row0, nrows in chunks:
+            part = grad_col.flatten()[:nrows * 9 * c].view(groups, nrows, 9,
+                                                           c // groups)
+            dcn._col2im_cuda(part, x, offset, m, g_off, g_mask, grad_x, row0,
+                             nrows, geom, groups)
+
+    # as a training step would ask it: x is a frozen feature, no grad x
+    wrt = [a.detach().requires_grad_(i > 0) for i, a in enumerate(args)]
+    out_k, out_p = kernel(*wrt), plain(*wrt)
+    x_nchw = x.permute(0, 3, 1, 2).requires_grad_()
+    w_oihw = weight.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    b_lib = bias.detach().requires_grad_() if masked else None
+    lib_in = [t for t in (x_nchw, w_oihw, b_lib) if t is not None]
+
+    def library():
+        return torch.nn.functional.conv2d(x_nchw, w_oihw, b_lib,
+                                          padding=padding, groups=groups)
+
+    out_l = library()
+    with torch.no_grad():
+        fwd = {'ms': cuda_ms(lambda: kernel(*args)),
+               'kernel_only_ms': cuda_ms(im2col_only),
+               'plain_ms': cuda_ms(lambda: plain(*args), reps=1),
+               'library_ms': cuda_ms(library)}
+    bwd = {'ms': cuda_ms(lambda: torch.autograd.grad(
+               out_k, wrt[1:], cot, retain_graph=True)),
+           'kernel_only_ms': cuda_ms(col2im_only),
+           'kernel_only_with_grad_x_ms': cuda_ms(lambda: col2im_only(g_x)),
+           'plain_ms': cuda_ms(lambda: torch.autograd.grad(
+               out_p, wrt[1:], cot, retain_graph=True), reps=1),
+           'library_ms': cuda_ms(lambda: torch.autograd.grad(
+               out_l, lib_in, cot.permute(0, 3, 1, 2), retain_graph=True))}
+    macs = rows * 9.0 * c * cout / groups
+    n_mask = mask.numel() if masked else 0
+    n_bias = bias.numel() if masked else 0
+    fwd.update(flops=2 * macs + 9.0 * rows * 9 * c,
+               bytes=4.0 * (x.numel() + offset.numel() + n_mask
+                            + weight.numel() + n_bias + rows * cout))
+    bwd.update(flops=4 * macs + 20.0 * rows * 9 * c,
+               bytes=4.0 * (cot.numel() + x.numel() + 2 * offset.numel()
+                            + 2 * n_mask + 2 * weight.numel() + n_bias))
+    for rec in (fwd, bwd):
+        rec['bound_ms'], rec['bound_by'] = bound(rec['flops'], rec['bytes'])
+        rec['max_abs_err'], rec['max_rel_err'] = abs_err, max(errs.values())
+    emit({'phase': 'mdcn_groups' if masked else 'dcn_v1', 'n': n, 'h': h,
+          'w': w, 'c': c, 'cout': cout, 'deform_groups': dg, 'groups': groups,
+          'padding': padding, 'chunks': len(chunks), 'rel_err': errs,
+          'tolerance': DCN_VARIANT_TOL, 'forward': fwd, 'backward': bwd})
+    return fwd, bwd
+
+
+def phase_mdcn_groups(dcn):
+    """K3: DCNv2 with conv groups 2 and 8 at EDVR-M's L1 shape against its
+    plain version, forward and every gradient; and with groups 1 the
+    group-major columns of the K3 entry point bit-equal to K2's."""
+    gen = torch.Generator().manual_seed(SEED + 16)
+    recs = [_dcn_variant(dcn, gen, g, True, 1) for g in (2, 8)]
+    n, h, w, c = EDVR_L1
+    x = torch.randn((n, h, w, c), generator=gen).cuda()
+    offset = (torch.randn((n, h, w, 8, 9, 2), generator=gen) * 4).cuda()
+    mask = torch.rand((n, h, w, 8, 9), generator=gen).cuda()
+    geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, w))
+    rows = dcn._row_chunks(n * h * w, 9, c, 4)[0][1]
+    col_k2 = dcn._im2col_cuda(x, offset, mask, 0, rows, geom, 1)
+    col_k3 = torch.empty_like(col_k2)
+    with torch.cuda.device(x.device):
+        dcn.mdcn_im2col_groups_kernel(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            col_k3.data_ptr(), 0, rows, h, w, c,
+            *dcn._geom_args(geom, 8, 1))
+    same = bool(torch.equal(col_k2, col_k3))
+    check(same, 'groups 1: the K3 entry point does not give K2\'s columns')
+    emit({'phase': 'mdcn_groups', 'case': 'groups 1 through both entry '
+          'points', 'rows': rows, 'bit_equal': same})
+    call = ('F.conv2d (cuDNN) with groups={2, 8}: the same conv with zero '
+            'offsets and unit mask')
+    return (_sum_records('mdcn_im2col_groups', [r[0] for r in recs], {
+                'library_call': call, 'shapes': 'groups 2 and 8 at '
+                '(5, 180, 320, 64), deform groups 8'}),
+            _sum_records('mdcn_col2im_groups', [r[1] for r in recs], {
+                'library_call': 'autograd of ' + call, 'shapes':
+                'groups 2 and 8 at (5, 180, 320, 64), deform groups 8'}))
+
+
+def phase_dcn_v1(dcn):
+    """K5: DCNv1 (no mask, no bias) at its default padding 0 with groups 1
+    and 8 at EDVR-M's L1 shape against its plain version, forward and every
+    gradient."""
+    gen = torch.Generator().manual_seed(SEED + 17)
+    recs = [_dcn_variant(dcn, gen, g, False, 0) for g in (1, 8)]
+    call = 'F.conv2d (cuDNN), no bias, padding 0, groups={1, 8}'
+    return (_sum_records('deform_im2col', [r[0] for r in recs], {
+                'library_call': call, 'shapes': 'groups 1 and 8 at '
+                '(5, 180, 320, 64), deform groups 8, padding 0'}),
+            _sum_records('deform_col2im', [r[1] for r in recs], {
+                'library_call': 'autograd of ' + call, 'shapes': 'groups 1 '
+                'and 8 at (5, 180, 320, 64), deform groups 8, padding 0'}))
 
 
 # ---------------------------------------------------------- StyleGAN2 ops
@@ -1282,6 +1471,183 @@ def phase_train(alignment, build_model, arch, dcn, kernels):
     return launches, mean_ms
 
 
+# ------------------------------------------------------------ video paths
+VSR_T, VSR_H, VSR_W = 15, 180, 320     # one --interval chunk of REDS frames
+VIDEO_TOL = 1e-4                       # max |kernel - plain| / max |out|
+EDVR_M = {'num_feat': 64, 'num_frame': 5, 'deformable_groups': 8,
+          'num_extract_block': 5, 'num_reconstruct_block': 10,
+          'with_tsa': True}            # EDVR_M_x4_SR_REDS
+
+
+def _video_frames(seed, t, h, w):
+    """``t`` frames ``(T, H, W, 3)`` float32 in [0, 1] of one smooth scene
+    moving by 1 pixel down and 2 right a frame, so that SpyNet has motion
+    to find."""
+    gen = torch.Generator().manual_seed(seed)
+    ch, cw = h // 8 + 4, w // 8 + 4
+    base = torch.nn.functional.interpolate(
+        torch.rand((1, 3, ch, cw), generator=gen), size=(ch * 8, cw * 8),
+        mode='bicubic', align_corners=False).clamp(0, 1)[0]
+    return torch.stack([base[:, i:i + h, 2 * i:2 * i + w] for i in range(t)]
+                       ).permute(0, 2, 3, 1).contiguous().numpy()
+
+
+def _only(kernels, launches, expect):
+    """Every kernel of ``expect`` launched, and no other: serving runs no
+    backward, scatter or other variant."""
+    others = {k: v for k, v in launches.items() if k not in expect and v}
+    check(all(launches[k] > 0 for k in expect) and not others,
+          f'expected launches of {expect} only, got {launches}')
+
+
+def _kernel_vs_plain(run, dcn):
+    """``run()``'s output through the kernels and with the plain im2col in
+    their place; returns both and the largest difference."""
+    with torch.inference_mode():
+        out_k = run()
+        with mock.patch.object(dcn, '_im2col_cuda', dcn._im2col_ref):
+            out_p = run()
+    return out_k, out_p, float((out_k - out_p).abs().max())
+
+
+def phase_basicvsrpp_serve(infer, infer_pp, dcn, kernels):
+    """The port's ``inference`` of the repo's BasicVSR++ REDS configuration
+    (mid 64, 7 blocks, residue 10, low-resolution input) on one 15-frame
+    chunk of 180x320 frames, seeded weights with live offset convs: time
+    per chunk, launches, the kernels against the plain version, a
+    profile."""
+    from mrefsr_tpu_torch.archs.basicvsrpp_arch import BasicVSRPlusPlus
+    model = infer.build_model(BasicVSRPlusPlus, infer_pp.REDS_KWARGS, '',
+                              torch.device('cuda'))
+    gen = torch.Generator().manual_seed(SEED + 13)
+    with torch.no_grad():       # offsets and masks that leave the flows
+        for align in model.deform_align.values():
+            last = align.conv_offset[-1]
+            last.weight.copy_(torch.randn(last.weight.shape, generator=gen)
+                              * 0.01)
+            last.bias.copy_(torch.randn(last.bias.shape, generator=gen) * 0.1)
+    imgs = _video_frames(SEED + 14, VSR_T, VSR_H, VSR_W)
+    infer.inference(imgs, model)                  # warm-up: cuDNN's set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chunk_ms = []
+    for _ in range(2):
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        frames = infer.inference(imgs, model)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_counts(kernels, ('mdcn_im2col',))
+        _only(kernels, launches, ('mdcn_im2col',))
+    peak = torch.cuda.max_memory_allocated()
+    # 4 branches x 14 aligned frames, one column chunk each
+    check(launches['mdcn_im2col'] == 4 * (VSR_T - 1),
+          f'a chunk launched K2 {launches["mdcn_im2col"]} times, expected 56')
+    check(len(frames) == VSR_T and all(
+        f.shape == (4 * VSR_H, 4 * VSR_W, 3) and f.dtype == np.uint8
+        for f in frames) and float(np.std(frames[7])) > 0, 'output frames')
+
+    x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2)[None]
+    out_k, out_p, diff = _kernel_vs_plain(lambda: model(x), dcn)
+    scale = float(out_p.abs().max())
+    check(bool(torch.isfinite(out_k).all()), 'non-finite output')
+    check(diff <= VIDEO_TOL * scale, f'basicvsrpp: kernels vs plain differ '
+          f'by {diff} against max |out| {scale}')
+    del out_k, out_p
+    mean_ms = sum(chunk_ms) / len(chunk_ms)
+    emit({'phase': 'basicvsrpp_serve', 'network_g': infer_pp.REDS_KWARGS,
+          'frames': VSR_T, 'h': VSR_H, 'w': VSR_W, 'dtype': 'float32',
+          'chunk_ms': chunk_ms, 'frame_ms': mean_ms / VSR_T,
+          'frames_per_s': VSR_T / mean_ms * 1e3, 'peak_mem_bytes': peak,
+          'launches_per_chunk': launches,
+          'plain_vs_kernel_max_abs_diff': diff, 'max_abs_out': scale,
+          'tolerance': VIDEO_TOL})
+    phase_profile('basicvsrpp_serve', lambda: infer.inference(imgs, model))
+    return launches
+
+
+def phase_edvr(edvr_arch, arch_util, dcn, kernels):
+    """EDVR-M x4 (REDS) on one window of 5 frames of 180x320 -> one
+    720x1280 frame: seeded weights with live offset convs; times,
+    launches, the kernels against the plain version, a profile."""
+    with torch.device('meta'):
+        net = edvr_arch.EDVR(**EDVR_M)
+    net.to_empty(device='cuda')
+    net.init_weights(torch.Generator().manual_seed(SEED))
+    net.eval().requires_grad_(False)
+    gen = torch.Generator().manual_seed(SEED + 15)
+    with torch.no_grad():       # fractional sampling: non-zero offset convs
+        for m in net.modules():
+            if isinstance(m, arch_util.DCNv2Pack):
+                w = m.conv_offset.weight
+                w.copy_(torch.randn(w.shape, generator=gen) * 0.01)
+                b = m.conv_offset.bias
+                b.copy_(torch.rand(b.shape, generator=gen) * 2 - 1)
+    x = torch.from_numpy(_video_frames(SEED + 16, 5, VSR_H, VSR_W)).cuda() \
+        .permute(0, 3, 1, 2)[None]
+
+    def window():
+        with torch.inference_mode():
+            return net(x)
+
+    window()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    window_ms = []
+    for _ in range(3):
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        out = window()
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_counts(kernels, ('mdcn_im2col',))
+        _only(kernels, launches, ('mdcn_im2col',))
+    peak = torch.cuda.max_memory_allocated()
+    check(out.shape == (1, 3, 4 * VSR_H, 4 * VSR_W)
+          and bool(torch.isfinite(out).all()), f'output {tuple(out.shape)}')
+    out_k, out_p, diff = _kernel_vs_plain(window, dcn)
+    scale = float(out_p.abs().max())
+    check(diff <= VIDEO_TOL * scale, f'edvr: kernels vs plain differ by '
+          f'{diff} against max |out| {scale}')
+    del out_k, out_p, out
+    emit({'phase': 'edvr', 'network_g': EDVR_M, 'frames': 5, 'h': VSR_H,
+          'w': VSR_W, 'dtype': 'float32', 'window_ms': window_ms,
+          'peak_mem_bytes': peak, 'launches_per_window': launches,
+          'plain_vs_kernel_max_abs_diff': diff, 'max_abs_out': scale,
+          'tolerance': VIDEO_TOL})
+    phase_profile('edvr', window)
+    return launches
+
+
+def phase_basicvsr_serve(infer, kernels):
+    """The port's ``inference`` of BasicVSR (64 features, 30 blocks) on one
+    15-frame chunk: time only; it runs no kernel of this repository."""
+    from mrefsr_tpu_torch.archs.basicvsr_arch import BasicVSR
+    model = infer.build_model(BasicVSR, {'num_feat': 64, 'num_block': 30},
+                              '', torch.device('cuda'))
+    imgs = _video_frames(SEED + 17, VSR_T, VSR_H, VSR_W)
+    infer.inference(imgs, model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    chunk_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        frames = infer.inference(imgs, model)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts(kernels, ())
+    check(not any(launches.values()), f'BasicVSR launched {launches}')
+    check(len(frames) == VSR_T and frames[0].shape == (4 * VSR_H, 4 * VSR_W,
+                                                       3), 'output frames')
+    mean_ms = sum(chunk_ms) / len(chunk_ms)
+    emit({'phase': 'basicvsr_serve', 'num_feat': 64, 'num_block': 30,
+          'frames': VSR_T, 'h': VSR_H, 'w': VSR_W, 'dtype': 'float32',
+          'chunk_ms': chunk_ms, 'frame_ms': mean_ms / VSR_T,
+          'peak_mem_bytes': torch.cuda.max_memory_allocated()})
+    return launches
+
+
 # ------------------------------------------------------- StyleGAN2 paths
 SG2_TOL = 1e-4                # max |kernel - plain| / max |plain out|
 SG2_KERNELS = ('upfirdn2d_fwd', 'upfirdn2d_bwd', 'upfirdn2d_bwd2',
@@ -1665,9 +2031,12 @@ def phase_profile(path, run, top=12):
 
 def main():
     import importlib
+    from mrefsr_tpu_torch.archs import arch_util, edvr_arch
     from mrefsr_tpu_torch.archs import ref_mrapa_restoration_arch as arch
     from mrefsr_tpu_torch.archs import stylegan2_arch
-    from mrefsr_tpu_torch.inference import inference_stylegan2
+    from mrefsr_tpu_torch.inference import (inference_basicvsr,
+                                            inference_basicvsrpp,
+                                            inference_stylegan2)
     from mrefsr_tpu_torch.models import build_model
     from mrefsr_tpu_torch.ops import _build, correlation, dcn, fused_act
     # the package exports the function under the module's name
@@ -1686,12 +2055,24 @@ def main():
     k2['train_shape'] = phase_mdcn(dcn, n=TRAIN_B * T, shapes=TRAIN_SHAPES)
     k2b = phase_mdcn_backward(dcn)
     k4f, k4b = phase_deform_sample(dcn)
+    torch.cuda.empty_cache()
+    k3f, k3b = phase_mdcn_groups(dcn)
+    torch.cuda.empty_cache()
+    k5f, k5b = phase_dcn_v1(dcn)
+    torch.cuda.empty_cache()
     k7 = phase_upfirdn2d(ops_upfirdn2d)
     k8 = phase_fused_act(fused_act)
     kernels = {'feature_match': correlation.feature_match_kernel,
                'mdcn_im2col': dcn.mdcn_im2col_kernel,
                'mdcn_col2im': dcn.mdcn_col2im_kernel,
                'mdcn_col2im_scatter': dcn.mdcn_col2im_scatter_kernel,
+               'mdcn_im2col_groups': dcn.mdcn_im2col_groups_kernel,
+               'mdcn_col2im_groups': dcn.mdcn_col2im_groups_kernel,
+               'mdcn_col2im_groups_scatter':
+                   dcn.mdcn_col2im_groups_scatter_kernel,
+               'deform_im2col': dcn.deform_im2col_kernel,
+               'deform_col2im': dcn.deform_col2im_kernel,
+               'deform_col2im_scatter': dcn.deform_col2im_scatter_kernel,
                'deform_sample_fwd': dcn.deform_sample_fwd_kernel,
                'deform_sample_bwd': dcn.deform_sample_bwd_kernel,
                'deform_sample_bwd_scatter':
@@ -1729,12 +2110,24 @@ def main():
         by_path['stylegan2_train'] = phase_stylegan2_train(build_model, *sg2,
                                                            root)
     torch.cuda.empty_cache()
+    by_path['basicvsrpp_serve'] = phase_basicvsrpp_serve(
+        inference_basicvsr, inference_basicvsrpp, dcn, kernels)
+    torch.cuda.empty_cache()
+    by_path['edvr'] = phase_edvr(edvr_arch, arch_util, dcn, kernels)
+    torch.cuda.empty_cache()
+    by_path['basicvsr_serve'] = phase_basicvsr_serve(inference_basicvsr,
+                                                     kernels)
+    torch.cuda.empty_cache()
 
     csrc = 'mrefsr_tpu_torch/ops/csrc/'
     described = (
         (k1, 'feature_match.cu', 'mrefsr_tpu/ops/correlation.py:42'),
         (k2, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
         (k2b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
+        (k3f, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:214'),
+        (k3b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:214'),
+        (k5f, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:345'),
+        (k5b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:345'),
         (k4f, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
         (k4b, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
         *((rec, 'upfirdn2d.cu', 'mrefsr_tpu/ops/upfirdn2d.py:13')

@@ -34,26 +34,26 @@ class DynAgg(nn.Module):
 
     Call ``(x, feat, pre_offset)``: ``x`` (N, C, H, W) is the ref feature
     to sample, ``feat`` (N, C, H, W) drives ``conv_offset_mask``, and
-    ``pre_offset`` is (N, H, W, 9, 2) with last dim (x, y).
+    ``pre_offset`` is (N, H, W, 9, 2) with last dim (x, y). ``groups > 1``
+    splits the conv's channels into groups (weight ``(out, in // groups,
+    k, k)``, as the JAX module's ``(k, k, in // groups, out)`` kernel).
     """
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  padding=1, dilation=1, groups=1, deform_groups=8):
         super().__init__()
-        if groups != 1:
-            raise NotImplementedError(
-                'DynAgg with conv groups > 1 is not ported yet (ROADMAP B4)')
         k = kernel_size
         self.kernel_size = k
         self.stride = stride
         self.padding = padding
         self.dilation = dilation
+        self.groups = groups
         self.deform_groups = deform_groups
         self.conv_offset_mask = nn.Conv2d(in_channels,
                                           deform_groups * 3 * k * k, k,
                                           stride, padding)
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
-                                               k, k))
+        self.weight = nn.Parameter(torch.empty(out_channels,
+                                               in_channels // groups, k, k))
         self.bias = nn.Parameter(torch.empty(out_channels))
 
     def forward(self, x, feat, pre_offset):
@@ -68,7 +68,7 @@ class DynAgg(nn.Module):
         out = modulated_deform_conv2d(
             x.permute(0, 2, 3, 1), offset, mask,
             self.weight.permute(2, 3, 1, 0), self.bias, stride=self.stride,
-            padding=self.padding, dilation=self.dilation,
+            padding=self.padding, dilation=self.dilation, groups=self.groups,
             deform_groups=self.deform_groups)
         return out.permute(0, 3, 1, 2)
 

@@ -10,7 +10,9 @@ modules keep (so ``load_state_dict(strict=True)`` takes them unchanged):
   a norm scale becomes ``weight``, anything else keeps its leaf name
   (DynAgg's and FlowAgg's parameters included);
   :func:`stylegan2_state_dict_from_flax` adds what the StyleGAN2 nets
-  need on top.
+  need on top, and :func:`load_from_flax` loads a net whose constant
+  buffers flax does not hold (SpyNet's ImageNet mean and std, in the
+  video nets).
 
 :func:`dcn_to_flow_state_dict` warm-starts a flow-alignment net from a
 DCN-alignment checkpoint.
@@ -107,6 +109,20 @@ def state_dict_from_flax(params):
     dict of contiguous float tensors, ready for
     ``load_state_dict(strict=True)``."""
     return {k: torch.tensor(v) for k, v in flax_to_torch(params).items()}
+
+
+def load_from_flax(net, params):
+    """Load flax parameters into a port net strictly: every parameter must
+    be there and nothing else. The net's buffers that the tree lacks keep
+    their values: a reference ``.pth`` carries SpyNet's ``mean`` and
+    ``std``, a flax tree does not."""
+    state = state_dict_from_flax(params)
+    buffers = dict(net.named_buffers())
+    for key, val in net.state_dict().items():
+        if key in buffers:
+            state.setdefault(key, val)
+    net.load_state_dict(state, strict=True)
+    return net
 
 
 def stylegan2_state_dict_from_flax(params):

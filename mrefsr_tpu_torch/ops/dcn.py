@@ -1,25 +1,31 @@
-"""Modulated deformable convolution (DCNv2, conv groups == 1) and the
-per-pixel grouped bilinear warp ``deform_sample``, each with its gradient.
+"""Deformable convolution, modulated (DCNv2) and not (DCNv1), with any
+number of conv groups, and the per-pixel grouped bilinear warp
+``deform_sample``, each with its gradient.
 
 Port of ``mrefsr_tpu/ops/dcn.py``. The sampling half of the conv
 (deformable im2col) runs in ``csrc/mdcn.cu`` on a CUDA tensor and in
 :func:`_im2col_ref` on a CPU tensor; the contraction over (tap, channel)
 is one matmul with the reshaped weight, as the JAX package leaves it to an
-XLA einsum. Rows are processed in chunks so that the column scratch stays
-under :data:`COL_CAP_BYTES`. On a CUDA tensor the gradient is a
-``torch.autograd.Function`` that keeps ``x, offset, mask, weight`` only and
-recomputes each chunk's columns (the JAX package's default, full remat):
-grad weight and grad columns are matmuls, and the kernel ``mdcn_col2im``
-turns the grad columns into grad offset, grad mask and, where ``x`` needs
-one, grad x. On a CPU tensor autograd runs through the plain version.
-``deform_sample`` is the K = 1 case without mask or weight
-(``csrc/deform_sample.cu``, forward and backward kernels).
+XLA einsum: ``torch.mm`` for conv groups 1, one ``torch.bmm`` over the
+groups otherwise (the columns are group-major, ``(groups, rows, K,
+C/groups)``, so no copy comes between). Rows are processed in chunks so
+that the column scratch stays under :data:`COL_CAP_BYTES`. On a CUDA tensor
+the gradient is a ``torch.autograd.Function`` that keeps ``x, offset, mask,
+weight`` only and recomputes each chunk's columns (the JAX package's
+default, full remat): grad weight and grad columns are matmuls, and the
+kernel ``mdcn_col2im`` turns the grad columns into grad offset, grad mask
+and, where ``x`` needs one, grad x. DCNv1 (:func:`deform_conv2d`) runs the
+kernels' no-mask variant: no mask is read, made or differentiated. On a
+CPU tensor autograd runs through the plain version. ``deform_sample`` is
+the K = 1 case without mask or weight (``csrc/deform_sample.cu``, forward
+and backward kernels).
 
 Layouts (the JAX package's, NHWC / HWIO):
     x:      (N, H, W, C)
     offset: (N, Ho, Wo, dg, K, 2)   last dim (dy, dx), K = kh*kw row-major
     mask:   (N, Ho, Wo, dg, K)      already sigmoid-ed by the caller
-    weight: (kh, kw, C, Cout)
+    weight: (kh, kw, C // groups, Cout); output channel o belongs to conv
+            group o // (Cout // groups)
     bias:   (Cout,) or None
     flow:   (N, H, W, dg, 2)        last dim (dy, dx)
 """
@@ -36,14 +42,27 @@ from ._build import Kernel
 # within an int.
 COL_CAP_BYTES = 512 << 20
 
-_GEOM = [ctypes.c_int] * 16 + [ctypes.c_void_p]  # row0 ... dg, stream
-mdcn_im2col_kernel = Kernel('mdcn', 'mdcn_im2col_launch',
-                            [ctypes.c_void_p] * 4 + _GEOM)
-# the backward, without and with the scatter-add into grad x
-mdcn_col2im_kernel = Kernel('mdcn', 'mdcn_col2im_launch',
-                            [ctypes.c_void_p] * 6 + _GEOM)
+_GEOM = [ctypes.c_int] * 17 + [ctypes.c_void_p]  # row0 ... dg, groups, stream
+_P = ctypes.c_void_p
+# One C entry point per TPU kernel it replaces, so that their launches count
+# apart: K2 (conv groups 1), K3 (conv groups > 1), K5 (DCNv1, no mask).
+# Without ``_scatter`` the backward writes no grad x.
+mdcn_im2col_kernel = Kernel('mdcn', 'mdcn_im2col_launch', [_P] * 4 + _GEOM)
+mdcn_col2im_kernel = Kernel('mdcn', 'mdcn_col2im_launch', [_P] * 6 + _GEOM)
 mdcn_col2im_scatter_kernel = Kernel('mdcn', 'mdcn_col2im_scatter_launch',
-                                    [ctypes.c_void_p] * 7 + _GEOM)
+                                    [_P] * 7 + _GEOM)
+mdcn_im2col_groups_kernel = Kernel('mdcn', 'mdcn_im2col_groups_launch',
+                                   [_P] * 4 + _GEOM)
+mdcn_col2im_groups_kernel = Kernel('mdcn', 'mdcn_col2im_groups_launch',
+                                   [_P] * 6 + _GEOM)
+mdcn_col2im_groups_scatter_kernel = Kernel(
+    'mdcn', 'mdcn_col2im_groups_scatter_launch', [_P] * 7 + _GEOM)
+deform_im2col_kernel = Kernel('mdcn', 'deform_im2col_launch',
+                              [_P] * 3 + _GEOM)
+deform_col2im_kernel = Kernel('mdcn', 'deform_col2im_launch',
+                              [_P] * 4 + _GEOM)
+deform_col2im_scatter_kernel = Kernel('mdcn', 'deform_col2im_scatter_launch',
+                                      [_P] * 5 + _GEOM)
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_void_p]  # n, h, w, c, dg, stream
 deform_sample_fwd_kernel = Kernel('deform_sample', 'deform_sample_fwd_launch',
                                   [ctypes.c_void_p] * 3 + _SHAPE)
@@ -58,9 +77,10 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-def _im2col_ref(x, offset, mask, row0, rows, geom):
-    """Plain version of the kernel: the columns ``(rows, K, C)`` of output
-    rows ``[row0, row0 + rows)`` of the flattened ``(N, Ho, Wo)``."""
+def _im2col_ref(x, offset, mask, row0, rows, geom, groups=1):
+    """Plain version of the kernel: the columns ``(groups, rows, K,
+    C/groups)`` of output rows ``[row0, row0 + rows)`` of the flattened
+    ``(N, Ho, Wo)``; ``mask`` None is a mask of ones."""
     (kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo) = geom
     n, h, w, c = x.shape
     dg = offset.shape[3]
@@ -74,7 +94,6 @@ def _im2col_ref(x, offset, mask, row0, rows, geom):
     ky = torch.div(taps, kw, rounding_mode='floor') * dh  # (K,)
     kx = taps % kw * dw
     off = offset.reshape(-1, dg, k, 2)[row0:row0 + rows]  # (rows, dg, K, 2)
-    m = mask.reshape(-1, dg, k)[row0:row0 + rows]
     # f32 coordinates, added in the JAX order: (base + tap) + offset
     fy = (oy[:, None] + ky[None, :]).to(torch.float32)[:, None] + off[..., 0]
     fx = (ox[:, None] + kx[None, :]).to(torch.float32)[:, None] + off[..., 1]
@@ -104,23 +123,30 @@ def _im2col_ref(x, offset, mask, row0, rows, geom):
            + corner(0, 1) * (wy0 * wx1 * vy0 * vx1)[..., None]
            + corner(1, 0) * (wy1 * wx0 * vy1 * vx0)[..., None]
            + corner(1, 1) * (wy1 * wx1 * vy1 * vx1)[..., None])
-    out = out * m[..., None]                       # (rows, dg, K, cg)
-    return out.permute(0, 2, 1, 3).reshape(rows, k, c)
+    if mask is not None:
+        m = mask.reshape(-1, dg, k)[row0:row0 + rows]
+        out = out * m[..., None]                   # (rows, dg, K, cg)
+    out = out.permute(0, 2, 1, 3).reshape(rows, k, groups, c // groups)
+    return out.permute(2, 0, 1, 3)
 
 
-def _check_cuda_inputs(name, x, *others, backward=False):
-    """What the kernels take: float32 tensors on one device, C and the
-    channels of a deform group multiples of 4; for a backward kernel the
-    group's runs of 4 channels a power of two <= 32 (they are summed by
-    warp shuffles)."""
+def _check_cuda_inputs(name, x, *others, backward=False, groups=1):
+    """What the kernels take: float32 tensors on one device, C, the
+    channels of a deform group and those of a conv group multiples of 4
+    (float4 loads of x and float4 column stores); for a backward kernel the
+    deform group's runs of 4 channels a power of two <= 32 (they are summed
+    by warp shuffles). ``None`` entries of ``others`` (no mask) are
+    skipped."""
+    others = [t for t in others if t is not None]
     dg = others[0].shape[3]
     c = x.shape[-1]
     if any(t.dtype != torch.float32 for t in (x, *others)):
         raise TypeError(f'{name} kernel takes float32 tensors, got '
                         f'{[t.dtype for t in (x, *others)]}')
-    if c % 4 or (c // dg) % 4:
-        raise ValueError(f'{name} kernel needs C and C/deform_groups to be '
-                         f'multiples of 4, got C={c}, deform_groups={dg}')
+    if c % 4 or (c // dg) % 4 or (c // groups) % 4:
+        raise ValueError(f'{name} kernel needs C, C/deform_groups and '
+                         f'C/groups to be multiples of 4, got C={c}, '
+                         f'deform_groups={dg}, groups={groups}')
     if any(t.device != x.device for t in others):
         raise ValueError(f'{name}: tensors lie on '
                          f'{[str(t.device) for t in (x, *others)]}')
@@ -130,41 +156,65 @@ def _check_cuda_inputs(name, x, *others, backward=False):
                          f'to be a power of two <= 32, got {cg4}')
 
 
-def _geom_args(geom, dg):
+def _geom_args(geom, dg, groups):
     (kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo) = geom
-    return (ho, wo, kh, kw, sh, sw, ph, pw, dh, dw, dg,
+    return (ho, wo, kh, kw, sh, sw, ph, pw, dh, dw, dg, groups,
             torch.cuda.current_stream().cuda_stream)
 
 
-def _im2col_cuda(x, offset, mask, row0, rows, geom):
+def _im2col_cuda(x, offset, mask, row0, rows, geom, groups=1):
     """The CUDA kernel, same contract as :func:`_im2col_ref`."""
     n, h, w, c = x.shape
-    _check_cuda_inputs('mdcn', x, offset, mask)
+    _check_cuda_inputs('mdcn', x, offset, mask, groups=groups)
     (kh, kw) = geom[0]
-    col = torch.empty((rows, kh * kw, c), dtype=x.dtype, device=x.device)
+    col = torch.empty((groups, rows, kh * kw, c // groups), dtype=x.dtype,
+                      device=x.device)
+    tail = (row0, rows, h, w, c, *_geom_args(geom, offset.shape[3], groups))
     with torch.cuda.device(x.device):
-        mdcn_im2col_kernel(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-                           col.data_ptr(), row0, rows, h, w, c,
-                           *_geom_args(geom, offset.shape[3]))
+        if mask is None:
+            deform_im2col_kernel(x.data_ptr(), offset.data_ptr(),
+                                 col.data_ptr(), *tail)
+        else:
+            kernel = (mdcn_im2col_kernel if groups == 1
+                      else mdcn_im2col_groups_kernel)
+            kernel(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+                   col.data_ptr(), *tail)
     return col
 
 
 def _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask, grad_x,
-                 row0, rows, geom):
+                 row0, rows, geom, groups=1):
     """The backward kernel for the rows ``[row0, row0 + rows)``:
-    ``grad_col`` is ``(rows, K, C)``; these rows of ``grad_offset`` and
-    ``grad_mask`` are written, and ``grad_x`` (whole, zeroed by the caller)
-    is added into unless it is None."""
+    ``grad_col`` is ``(groups, rows, K, C/groups)``; these rows of
+    ``grad_offset`` and (with a mask) ``grad_mask`` are written, and
+    ``grad_x`` (whole, zeroed by the caller) is added into unless it is
+    None."""
     n, h, w, c = x.shape
-    _check_cuda_inputs('mdcn', x, offset, mask, grad_col, backward=True)
-    tail = (row0, rows, h, w, c, *_geom_args(geom, offset.shape[3]))
-    head = (grad_col.data_ptr(), x.data_ptr(), offset.data_ptr(),
-            mask.data_ptr(), grad_offset.data_ptr(), grad_mask.data_ptr())
+    _check_cuda_inputs('mdcn', x, offset, mask, grad_col, backward=True,
+                       groups=groups)
+    if not grad_col.is_contiguous() or grad_col.numel() != \
+            rows * geom[0][0] * geom[0][1] * c:
+        raise ValueError(f'grad_col must be a contiguous (groups, rows, K, '
+                         f'C/groups) tensor, got {tuple(grad_col.shape)} '
+                         f'strides {grad_col.stride()}')
+    tail = (row0, rows, h, w, c, *_geom_args(geom, offset.shape[3], groups))
+    scatter = () if grad_x is None else (grad_x.data_ptr(),)
     with torch.cuda.device(x.device):
-        if grad_x is None:
-            mdcn_col2im_kernel(*head, *tail)
+        if mask is None:
+            kernel = (deform_col2im_kernel if grad_x is None
+                      else deform_col2im_scatter_kernel)
+            kernel(grad_col.data_ptr(), x.data_ptr(), offset.data_ptr(),
+                   grad_offset.data_ptr(), *scatter, *tail)
+            return
+        if groups == 1:
+            kernel = (mdcn_col2im_kernel if grad_x is None
+                      else mdcn_col2im_scatter_kernel)
         else:
-            mdcn_col2im_scatter_kernel(*head, grad_x.data_ptr(), *tail)
+            kernel = (mdcn_col2im_groups_kernel if grad_x is None
+                      else mdcn_col2im_groups_scatter_kernel)
+        kernel(grad_col.data_ptr(), x.data_ptr(), offset.data_ptr(),
+               mask.data_ptr(), grad_offset.data_ptr(), grad_mask.data_ptr(),
+               *scatter, *tail)
 
 
 def _geometry(x, offset, mask, weight, stride, padding, dilation, groups,
@@ -180,19 +230,18 @@ def _geometry(x, offset, mask, weight, stride, padding, dilation, groups,
     ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
     wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
     dg = deform_groups
-    if groups != 1:
-        raise NotImplementedError(
-            'modulated_deform_conv2d with conv groups > 1 is not ported yet '
-            '(ROADMAP B4, mrefsr_tpu/ops/dcn.py::_mdcn_tap_scan)')
     if offset.shape != (n, ho, wo, dg, k, 2):
         raise ValueError(f'offset shape {tuple(offset.shape)} != '
                          f'{(n, ho, wo, dg, k, 2)}')
-    if mask.shape != (n, ho, wo, dg, k):
+    if mask is not None and mask.shape != (n, ho, wo, dg, k):
         raise ValueError(f'mask shape {tuple(mask.shape)} != '
                          f'{(n, ho, wo, dg, k)}')
-    if c % dg or cin_g != c:
-        raise ValueError(f'C={c} must divide by deform_groups={dg} and '
-                         f'equal the weight input channels {cin_g}')
+    if c % dg:
+        raise ValueError(f'C={c} must divide by deform_groups={dg}')
+    if c % groups or cout % groups or cin_g != c // groups:
+        raise ValueError(f'C={c} and Cout={cout} must divide by groups='
+                         f'{groups}, and the weight take C/groups input '
+                         f'channels, not {cin_g}')
     return (kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo)
 
 
@@ -202,33 +251,53 @@ def _row_chunks(total, k, c, element_size):
             for row0 in range(0, total, chunk)]
 
 
-def _mdcn_forward(x, offset, mask, weight, bias, geom, im2col):
-    x, offset, mask = x.contiguous(), offset.contiguous(), mask.contiguous()
+def _grouped_weight(weight, groups):
+    """HWIO ``(kh, kw, C/G, Cout)`` -> ``(G, K * C/G, Cout/G)``: group q's
+    output channels are ``[q * Cout/G, (q + 1) * Cout/G)`` (the JAX
+    package's ``reshape(cin_g, groups, cout // groups)``)."""
+    kh, kw, cin_g, cout = weight.shape
+    return weight.reshape(kh * kw, cin_g, groups, cout // groups).permute(
+        2, 0, 1, 3).reshape(groups, kh * kw * cin_g, cout // groups)
+
+
+def _mdcn_forward(x, offset, mask, weight, bias, geom, im2col, groups=1):
+    x, offset = x.contiguous(), offset.contiguous()
+    mask = None if mask is None else mask.contiguous()
     (kh, kw), (ho, wo) = geom[0], geom[4]
     n, c = x.shape[0], x.shape[3]
     k, cout = kh * kw, weight.shape[3]
-    w2d = weight.reshape(k * c, cout)
+    if groups == 1:
+        w2d = weight.reshape(k * c, cout)
+    else:
+        w_g = _grouped_weight(weight, groups)
     pieces = []
     for row0, rows in _row_chunks(n * ho * wo, k, c, x.element_size()):
-        col = im2col(x, offset, mask, row0, rows, geom).reshape(rows, k * c)
-        pieces.append(torch.mm(col, w2d) if bias is None
-                      else torch.addmm(bias, col, w2d))
+        col = im2col(x, offset, mask, row0, rows, geom, groups)
+        if groups == 1:
+            col = col.reshape(rows, k * c)
+            pieces.append(torch.mm(col, w2d) if bias is None
+                          else torch.addmm(bias, col, w2d))
+        else:
+            out = torch.bmm(col.reshape(groups, rows, -1), w_g)
+            out = out.permute(1, 0, 2).reshape(rows, cout)
+            pieces.append(out if bias is None else out + bias)
         del col
     out = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
     return out.reshape(n, ho, wo, cout)
 
 
 class _ModulatedDeformConv2d(torch.autograd.Function):
-    """The CUDA path with its hand-written backward."""
+    """The CUDA path with its hand-written backward; ``mask`` None is
+    DCNv1."""
 
     @staticmethod
-    def forward(ctx, x, offset, mask, weight, bias, geom):
-        x, offset, mask = x.contiguous(), offset.contiguous(), \
-            mask.contiguous()
-        ctx.geom = geom
+    def forward(ctx, x, offset, mask, weight, bias, geom, groups):
+        x, offset = x.contiguous(), offset.contiguous()
+        mask = None if mask is None else mask.contiguous()
+        ctx.geom, ctx.groups = geom, groups
         ctx.save_for_backward(x, offset, mask, weight)
         return _mdcn_forward(x, offset, mask, weight, bias, geom,
-                             _im2col_cuda)
+                             _im2col_cuda, groups)
 
     @staticmethod
     @once_differentiable
@@ -236,35 +305,60 @@ class _ModulatedDeformConv2d(torch.autograd.Function):
         x, offset, mask, weight = ctx.saved_tensors
         need_x, need_offset, need_mask, need_weight, need_bias = \
             ctx.needs_input_grad[:5]
-        geom = ctx.geom
+        geom, groups = ctx.geom, ctx.groups
         kh, kw = geom[0]
         c, cout = x.shape[3], weight.shape[3]
         k = kh * kw
         # grad_out comes as a permuted view of a channels-last tensor
         go = grad_out.reshape(-1, cout).contiguous()
-        w2d = weight.reshape(k * c, cout)
-        grad_w2d = torch.zeros_like(w2d) if need_weight else None
+        if groups == 1:
+            w2d = weight.reshape(k * c, cout)
+            grad_w = torch.zeros_like(w2d) if need_weight else None
+        else:
+            w_g = _grouped_weight(weight, groups)
+            grad_w = torch.zeros_like(w_g) if need_weight else None
         need_col2im = need_x or need_offset or need_mask
         grad_x = torch.zeros_like(x) if need_x else None
         if need_col2im:
             grad_offset = torch.empty_like(offset)
-            grad_mask = torch.empty_like(mask)
+            grad_mask = None if mask is None else torch.empty_like(mask)
         # each chunk's columns are recomputed, and freed before the next
         for row0, rows in _row_chunks(go.shape[0], k, c, x.element_size()):
             go_chunk = go[row0:row0 + rows]
+            if groups != 1:     # (G, rows, Cout/G), a view
+                go_chunk = go_chunk.reshape(rows, groups, -1).transpose(0, 1)
             if need_weight:
-                col = _im2col_cuda(x, offset, mask, row0, rows, geom)
-                grad_w2d.addmm_(col.reshape(rows, k * c).t(), go_chunk)
+                col = _im2col_cuda(x, offset, mask, row0, rows, geom, groups)
+                if groups == 1:
+                    grad_w.addmm_(col.reshape(rows, k * c).t(), go_chunk)
+                else:
+                    grad_w.baddbmm_(col.reshape(groups, rows, -1)
+                                    .transpose(1, 2), go_chunk)
                 del col
             if need_col2im:
-                grad_col = torch.mm(go_chunk, w2d.t())
+                grad_col = (torch.mm(go_chunk, w2d.t()) if groups == 1
+                            else torch.bmm(go_chunk, w_g.transpose(1, 2)))
                 _col2im_cuda(grad_col, x, offset, mask, grad_offset,
-                             grad_mask, grad_x, row0, rows, geom)
+                             grad_mask, grad_x, row0, rows, geom, groups)
                 del grad_col
+        if need_weight and groups != 1:
+            grad_w = grad_w.reshape(groups, k, c // groups, -1).permute(
+                1, 2, 0, 3)
         return (grad_x, grad_offset if need_offset else None,
                 grad_mask if need_mask else None,
-                grad_w2d.reshape(weight.shape) if need_weight else None,
-                go.sum(0) if need_bias else None, None)
+                grad_w.reshape(weight.shape) if need_weight else None,
+                go.sum(0) if need_bias else None, None, None)
+
+
+def _dispatch(name, x, offset, mask, weight, bias, geom, groups):
+    if x.is_cuda:
+        return _ModulatedDeformConv2d.apply(x, offset, mask, weight, bias,
+                                            geom, groups)
+    if x.device.type != 'cpu':
+        raise RuntimeError(f'{name} runs on cuda or cpu tensors, got '
+                           f'{x.device}')
+    return _mdcn_forward(x, offset, mask, weight, bias, geom, _im2col_ref,
+                         groups)
 
 
 def modulated_deform_conv2d(x, offset, mask, weight, bias=None, stride=1,
@@ -275,17 +369,13 @@ def modulated_deform_conv2d(x, offset, mask, weight, bias=None, stride=1,
     ``p_out * stride - pad + tap * dilation + offset``, bilinear, and a
     corner outside the image contributes zero. ``floor`` carries no
     gradient, so at an integer position the gradient in the offset is the
-    one-sided difference towards the next pixel. Layouts in the module
-    docstring. ``groups > 1`` raises ``NotImplementedError``."""
+    one-sided difference towards the next pixel. With ``groups > 1`` input
+    channel group q feeds output channel group q only. Layouts in the
+    module docstring."""
     geom = _geometry(x, offset, mask, weight, stride, padding, dilation,
                      groups, deform_groups)
-    if x.is_cuda:
-        return _ModulatedDeformConv2d.apply(x, offset, mask, weight, bias,
-                                            geom)
-    if x.device.type != 'cpu':
-        raise RuntimeError(f'modulated_deform_conv2d runs on cuda or cpu '
-                           f'tensors, got {x.device}')
-    return _mdcn_forward(x, offset, mask, weight, bias, geom, _im2col_ref)
+    return _dispatch('modulated_deform_conv2d', x, offset, mask, weight,
+                     bias, geom, groups)
 
 
 def modulated_deform_conv2d_ref(x, offset, mask, weight, bias=None,
@@ -296,7 +386,30 @@ def modulated_deform_conv2d_ref(x, offset, mask, weight, bias=None,
     against."""
     geom = _geometry(x, offset, mask, weight, stride, padding, dilation,
                      groups, deform_groups)
-    return _mdcn_forward(x, offset, mask, weight, bias, geom, _im2col_ref)
+    return _mdcn_forward(x, offset, mask, weight, bias, geom, _im2col_ref,
+                         groups)
+
+
+def deform_conv2d(x, offset, weight, stride=1, padding=0, dilation=1,
+                  groups=1, deform_groups=1):
+    """DCNv1, the reference ops surface's ``deform_conv``: the sampling of
+    :func:`modulated_deform_conv2d` with no mask (mask 1) and no bias, and
+    a default padding of 0. Differentiable in ``x``, ``offset`` and
+    ``weight``. On a CUDA tensor the kernels' no-mask variant runs."""
+    geom = _geometry(x, offset, None, weight, stride, padding, dilation,
+                     groups, deform_groups)
+    return _dispatch('deform_conv2d', x, offset, None, weight, None, geom,
+                     groups)
+
+
+def deform_conv2d_ref(x, offset, weight, stride=1, padding=0, dilation=1,
+                      groups=1, deform_groups=1):
+    """Plain version of :func:`deform_conv2d` on any device:
+    :func:`modulated_deform_conv2d_ref` with a mask of ones."""
+    mask = torch.ones(offset.shape[:5], dtype=x.dtype, device=x.device)
+    return modulated_deform_conv2d_ref(x, offset, mask, weight, None, stride,
+                                       padding, dilation, groups,
+                                       deform_groups)
 
 
 def _check_flow(x, flow):

@@ -1,9 +1,10 @@
 """Small shared helpers of the port."""
 import torch
 
-from .img_util import imwrite, tensor2img
+from .img_util import img2tensor, imwrite, read_img_seq, tensor2img
 
-__all__ = ['imwrite', 'resolve_device', 'tensor2img']
+__all__ = ['img2tensor', 'imwrite', 'read_img_seq', 'resolve_device',
+           'tensor2img']
 
 
 def resolve_device(device=None):

@@ -1,8 +1,10 @@
 """Tensors to images on the host, and image files (the port's copy of what
-``mrefsr_tpu/utils/img_util.py`` does for sample grids). ``cv2`` is
-imported inside :func:`imwrite` only: nothing else here needs it."""
+``mrefsr_tpu/utils/img_util.py`` and ``mrefsr_tpu/data/data_util.py`` do
+for sample grids and video frames). ``cv2`` is imported inside
+:func:`imwrite` and :func:`read_img_seq` only: nothing else here needs it."""
 import math
 import os
+import os.path as osp
 
 import numpy as np
 import torch
@@ -66,3 +68,51 @@ def imwrite(img, file_path, params=None, auto_mkdir=True):
                     exist_ok=True)
     if not cv2.imwrite(file_path, img, params):
         raise IOError('Failed in writing images.')
+
+
+def img2tensor(imgs, bgr2rgb=True, float32=True):
+    """Numpy HWC image(s) -> contiguous HWC RGB numpy array(s), float32
+    unless ``float32`` is false (the JAX package's contract: the arrays
+    batch NHWC)."""
+
+    def _one(img):
+        if img.ndim == 2:
+            img = img[:, :, None]
+        if img.shape[2] == 3 and bgr2rgb:
+            img = img[:, :, ::-1]
+        if float32:
+            img = img.astype(np.float32)
+        return np.ascontiguousarray(img)
+
+    return [_one(img) for img in imgs] if isinstance(imgs, list) \
+        else _one(imgs)
+
+
+def read_img_seq(path, require_mod_crop=False, scale=1,
+                 return_imgname=False):
+    """Read the frames of a folder (sorted by name) or of a list of paths
+    into one ``(T, H, W, 3)`` float32 RGB array in [0, 1] (reference
+    data_util.py:11-40); with ``require_mod_crop`` each frame is cropped to
+    a multiple of ``scale``; with ``return_imgname`` also the file names
+    without extension."""
+    import cv2
+    if isinstance(path, list):
+        img_paths = path
+    else:
+        img_paths = sorted(osp.join(path, name) for name in os.listdir(path)
+                           if not name.startswith('.')
+                           and osp.isfile(osp.join(path, name)))
+    imgs = []
+    for p in img_paths:
+        img = cv2.imread(p)
+        if img is None:
+            raise IOError(f'cannot read an image from {p}')
+        img = img.astype(np.float32) / 255.
+        if require_mod_crop:
+            h, w = img.shape[:2]
+            img = img[:h - h % scale, :w - w % scale]
+        imgs.append(img)
+    imgs = np.stack(img2tensor(imgs), axis=0)
+    if return_imgname:
+        return imgs, [osp.splitext(osp.basename(p))[0] for p in img_paths]
+    return imgs

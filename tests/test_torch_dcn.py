@@ -1,6 +1,12 @@
-"""The port's modulated deformable conv (``mrefsr_tpu_torch.ops.dcn``)
-against the JAX package's, forward and gradients, on the CPU, where the
-port runs the plain version of its CUDA kernels."""
+"""The port's deformable convs (``mrefsr_tpu_torch.ops.dcn``: DCNv2 with
+conv groups 1 and > 1, DCNv1) against the JAX package's, forward and
+gradients, on the CPU, where the port runs the plain version of its CUDA
+kernels; and the ``autograd.Function`` of the CUDA path with PyTorch
+stand-ins for the kernels' C entry points.
+
+Tolerances: outputs atol 1e-5 (values about 1, sums of at most 9 * 16
+products in another order); each gradient within 1e-5 of its own largest
+entry."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -92,12 +98,16 @@ def test_mdcn_chunked_rows_match_one_chunk(monkeypatch):
 
 
 def test_mdcn_groups_raise():
+    """Conv groups must divide C and Cout, and the weight take C / groups
+    input channels."""
     x, offset, mask, weight, bias = _case(4, 1, 4, 4, 8, 8, 2)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        dcn.modulated_deform_conv2d(
-            torch.from_numpy(x), torch.from_numpy(offset),
-            torch.from_numpy(mask), torch.from_numpy(weight[:, :, :4]),
-            groups=2, deform_groups=2)
+    args = [torch.from_numpy(a) for a in (x, offset, mask)]
+    for w, groups, dg in ((weight[:, :, :4], 3, 2),     # 3 does not divide 8
+                          (weight, 2, 2),               # weight takes 8, not 4
+                          (weight[:, :, :2, :6], 4, 2)):  # 4 does not divide 6
+        with pytest.raises(ValueError, match='divide'):
+            dcn.modulated_deform_conv2d(*args, torch.from_numpy(w),
+                                        groups=groups, deform_groups=dg)
 
 
 def test_offset_mask_from_conv_out_matches_jax():
@@ -193,3 +203,233 @@ def test_mdcn_gradients_on_the_border_match_jax():
         got, want = _grads_both(x, offset, mask, weight, bias, cot,
                                 deform_groups=dg)
         _assert_grads_close(got, want)
+
+
+# ------------------------------------ conv groups > 1 (K3) and DCNv1 (K5)
+def _grouped(seed, groups, dg, padding=1, n=2, h=7, w=9, c=16, cout=12,
+             spread=1.5):
+    """Inputs with a ``(3, 3, C / groups, Cout)`` weight."""
+    x, offset, mask, weight, bias = _case(seed, n, h, w, c, cout, dg,
+                                          padding=padding, spread=spread)
+    weight = (np.random.RandomState(seed + 100).randn(3, 3, c // groups, cout)
+              * 0.1).astype(np.float32)
+    return x, offset, mask, weight, bias
+
+
+@pytest.mark.parametrize('groups,dg', [(2, 2), (2, 1), (4, 8), (4, 4)])
+def test_mdcn_groups_match_jax(groups, dg):
+    """Conv groups 2 and 4 with deform groups inside one conv group, across
+    two (dg 1) and finer than them: forward and ``jax.grad`` of every
+    input."""
+    x, offset, mask, weight, bias = _grouped(11, groups, dg)
+    kw = dict(groups=groups, deform_groups=dg)
+    got, want = _both(x, offset, mask, weight, bias, **kw)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    cot = np.random.RandomState(12).randn(*want.shape).astype(np.float32)
+    got, want = _grads_both(x, offset, mask, weight, bias, cot, **kw)
+    assert all(np.abs(w).max() > 0 for w in want)
+    _assert_grads_close(got, want)
+
+
+def test_mdcn_groups_chunked_rows_match_one_chunk(monkeypatch):
+    """Row chunks of the group-major columns do not change the result."""
+    x, offset, mask, weight, bias = _grouped(13, 2, 2, n=2, h=6, w=5, c=8,
+                                             cout=4)
+    args = [torch.from_numpy(a) for a in (x, offset, mask, weight, bias)]
+    whole = dcn.modulated_deform_conv2d(*args, groups=2, deform_groups=2)
+    monkeypatch.setattr(dcn, 'COL_CAP_BYTES', 7 * 9 * 8 * 4)
+    chunked = dcn.modulated_deform_conv2d(*args, groups=2, deform_groups=2)
+    torch.testing.assert_close(chunked, whole, rtol=0, atol=1e-6)
+
+
+def _v1_both(x, offset, weight, cot, **kw):
+    """DCNv1's output and gradients in (x, offset, weight), JAX and port."""
+    def loss(*args):
+        return (jax_dcn.deform_conv2d(*args, **kw) * jnp.asarray(cot)).sum()
+    jargs = [jnp.asarray(a) for a in (x, offset, weight)]
+    want = [np.asarray(jax_dcn.deform_conv2d(*jargs, **kw)),
+            *(np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(
+                *jargs))]
+    args = [torch.from_numpy(a).requires_grad_() for a in (x, offset, weight)]
+    out = dcn.deform_conv2d(*args, **kw)
+    (out * torch.from_numpy(cot)).sum().backward()
+    return [out.detach().numpy(), *(a.grad.numpy() for a in args)], want
+
+
+@pytest.mark.parametrize('groups,dg', [(1, 2), (2, 2), (4, 1)])
+def test_deform_conv2d_matches_jax(groups, dg):
+    """DCNv1 at its default padding 0 (a 3x3 conv shrinks 7x9 to 5x7):
+    forward and ``jax.grad`` of x, offset and weight."""
+    x, offset, _, weight, _ = _grouped(14, groups, dg, padding=0)
+    assert offset.shape[1:3] == (5, 7)
+    cot = np.random.RandomState(15).randn(2, 5, 7, 12).astype(np.float32)
+    got, want = _v1_both(x, offset, weight, cot, groups=groups,
+                         deform_groups=dg)
+    assert got[0].shape == (2, 5, 7, 12)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    for name, g, w in zip(('x', 'offset', 'weight'), got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
+def test_deform_conv2d_is_the_modulated_conv_with_a_ones_mask():
+    """The plain version of DCNv1 is the modulated conv with mask 1 and no
+    bias, bit for bit, at any padding."""
+    x, offset, mask, weight, _ = _grouped(16, 2, 2, padding=1)
+    t = [torch.from_numpy(a) for a in (x, offset, weight)]
+    ones = torch.ones(mask.shape)
+    want = dcn.modulated_deform_conv2d(t[0], t[1], ones, t[2], groups=2,
+                                       deform_groups=2)
+    for fn in (dcn.deform_conv2d, dcn.deform_conv2d_ref):
+        got = fn(*t, padding=1, groups=2, deform_groups=2)
+        assert torch.equal(got, want)
+
+
+# the C entry points of mdcn.cu, by the Kernel objects that launch them
+_ENTRY = {'mdcn_im2col_kernel': ('im2col', True),
+          'mdcn_im2col_groups_kernel': ('im2col', True),
+          'deform_im2col_kernel': ('im2col', False),
+          'mdcn_col2im_kernel': ('col2im', True),
+          'mdcn_col2im_scatter_kernel': ('col2im', True),
+          'mdcn_col2im_groups_kernel': ('col2im', True),
+          'mdcn_col2im_groups_scatter_kernel': ('col2im', True),
+          'deform_col2im_kernel': ('col2im', False),
+          'deform_col2im_scatter_kernel': ('col2im', False)}
+
+
+def _stand_in_kernels(monkeypatch):
+    """PyTorch stand-ins for the C entry points of ``csrc/mdcn.cu``, with
+    their contracts: pointers in, the geometry as ints, columns
+    group-major; the backward writes its rows of grad offset (and grad
+    mask) and adds into grad x, by autograd through the plain im2col.
+    Returns the names of the entry points launched."""
+    launched = []
+    tensors = {}
+    real_data_ptr = torch.Tensor.data_ptr
+
+    def data_ptr(t):
+        ptr = real_data_ptr(t)
+        tensors[ptr] = t
+        return ptr
+
+    def entry(name, kind, masked):
+        scatter = 'scatter' in name
+
+        def launch(*args):
+            launched.append(name)
+            n_ptrs = (4 if masked else 3) if kind == 'im2col' else \
+                (6 if masked else 4) + scatter
+            ptrs = [tensors[p] for p in args[:n_ptrs]]
+            (row0, rows, h, w, c, ho, wo, kh, kw, sh, sw, ph, pw, dh, dw, dg,
+             groups, _stream) = args[n_ptrs:]
+            geom = ((kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo))
+            if kind == 'im2col':
+                x, offset, mask = ptrs[0], ptrs[1], \
+                    ptrs[2] if masked else None
+                ptrs[-1].copy_(dcn._im2col_ref(x, offset, mask, row0, rows,
+                                               geom, groups))
+                return
+            grad_col, x, offset = ptrs[:3]
+            mask = ptrs[3] if masked else None
+            outs = ptrs[3 + masked:]
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_() for t in
+                       (x, offset) + ((mask,) if masked else ())]
+                col = dcn._im2col_ref(*ins[:2], ins[2] if masked else None,
+                                      row0, rows, geom, groups)
+                grads = torch.autograd.grad(col, ins,
+                                            grad_col.reshape(col.shape))
+            for out, grad in zip(outs[:1 + masked], grads[1:]):
+                flat, g = out.view(-1, *out.shape[3:]), \
+                    grad.view(-1, *out.shape[3:])
+                flat[row0:row0 + rows] = g[row0:row0 + rows]
+            if scatter:
+                outs[-1].add_(grads[0])
+        return launch
+
+    class _NoDevice:
+        def __init__(self, *_):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *_):
+            return False
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.Tensor, 'data_ptr', data_ptr)
+    monkeypatch.setattr(torch.cuda, 'device', _NoDevice)
+    monkeypatch.setattr(torch.cuda, 'current_stream', lambda: _Stream)
+    for name, (kind, masked) in _ENTRY.items():
+        monkeypatch.setattr(dcn, name, entry(name, kind, masked))
+    return launched
+
+
+@pytest.mark.parametrize('groups,dg,masked,grad_x', [
+    (1, 2, True, False), (1, 4, True, True), (2, 2, True, True),
+    (4, 1, True, False), (1, 2, False, True), (2, 2, False, False)])
+def test_function_around_the_kernels_matches_jax(monkeypatch, groups, dg,
+                                                 masked, grad_x):
+    """The Function the CUDA path uses, with stand-ins for the kernels:
+    the group-major columns and the batched matmuls around them, each
+    chunk's recomputed columns, and which entry point each variant
+    launches (K2 with groups 1, K3 with groups > 1, K5 without a mask;
+    the scatter only where x needs a gradient), against JAX."""
+    launched = _stand_in_kernels(monkeypatch)
+    monkeypatch.setattr(dcn, 'COL_CAP_BYTES', 40 * 9 * 16 * 4)  # 40 rows
+    pad = 1 if masked else 0
+    x, offset, mask, weight, bias = _grouped(17, groups, dg, padding=pad)
+    cot = np.random.RandomState(18).randn(
+        *offset.shape[:3], 12).astype(np.float32)
+    kw = dict(padding=pad, groups=groups, deform_groups=dg)
+    inputs = (x, offset, mask, weight, bias) if masked else (x, offset,
+                                                             weight)
+    jfn = jax_dcn.modulated_deform_conv2d if masked else \
+        jax_dcn.deform_conv2d
+    want = jax.grad(lambda *a: (jfn(*a, **kw) * jnp.asarray(cot)).sum(),
+                    argnums=tuple(range(len(inputs))))(
+        *(jnp.asarray(a) for a in inputs))
+    want_out = np.asarray(jfn(*(jnp.asarray(a) for a in inputs), **kw))
+
+    args = [torch.from_numpy(a).requires_grad_(i > 0 or grad_x)
+            for i, a in enumerate(inputs)]
+    geom = dcn._geometry(args[0], args[1], args[2] if masked else None,
+                         args[-2 if masked else -1], 1, pad, 1, groups, dg)
+    if masked:
+        out = dcn._ModulatedDeformConv2d.apply(*args, geom, groups)
+    else:
+        out = dcn._ModulatedDeformConv2d.apply(args[0], args[1], None,
+                                               args[2], None, geom, groups)
+    np.testing.assert_allclose(out.detach().numpy(), want_out, rtol=0,
+                               atol=1e-5)
+    (out * torch.from_numpy(cot)).sum().backward()
+    for i, (a, w) in enumerate(zip(args, want)):
+        if i == 0 and not grad_x:
+            assert a.grad is None
+            continue
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.grad.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=i)
+    prefix = ('mdcn' if masked else 'deform')
+    groups_tag = '_groups' if masked and groups > 1 else ''
+    im2col = f'{prefix}_im2col{groups_tag}_kernel'
+    col2im = (f'{prefix}_col2im{groups_tag}'
+              f'{"_scatter" if grad_x else ""}_kernel')
+    # each chunk forward, then each recomputed for grad weight and col2im
+    chunks = len(dcn._row_chunks(out.shape[0] * out.shape[1] * out.shape[2],
+                                 9, 16, 4))
+    assert chunks > 1
+    assert launched == [im2col] * chunks + [im2col, col2im] * chunks
+
+
+def test_cuda_checks_name_the_column_store_width():
+    """The column stores are float4s: C / groups must be a multiple of 4,
+    as C and C / deform_groups are."""
+    x = torch.zeros((1, 4, 4, 24))
+    offset = torch.zeros((1, 4, 4, 2, 9, 2))
+    dcn._check_cuda_inputs('mdcn', x, offset, None, groups=3)   # C/G = 8
+    with pytest.raises(ValueError, match='C/groups'):
+        dcn._check_cuda_inputs('mdcn', x, offset, None, groups=4)

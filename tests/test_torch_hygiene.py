@@ -69,6 +69,8 @@ def test_scan_sees_forbidden_imports(tmp_path):
 def test_scan_covers_the_inference_modules():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert 'mrefsr_tpu_torch/inference/inference_stylegan2.py' in names
+    assert 'mrefsr_tpu_torch/inference/inference_basicvsr.py' in names
+    assert 'mrefsr_tpu_torch/inference/inference_basicvsrpp.py' in names
     assert 'mrefsr_tpu_torch/inference/__init__.py' in names
     assert 'chip_smoke.py' in names
 
@@ -160,6 +162,9 @@ def _refuse(*_):
 
 KERNELS = (correlation.feature_match_kernel, dcn.mdcn_im2col_kernel,
            dcn.mdcn_col2im_kernel, dcn.mdcn_col2im_scatter_kernel,
+           dcn.mdcn_im2col_groups_kernel, dcn.mdcn_col2im_groups_kernel,
+           dcn.mdcn_col2im_groups_scatter_kernel, dcn.deform_im2col_kernel,
+           dcn.deform_col2im_kernel, dcn.deform_col2im_scatter_kernel,
            dcn.deform_sample_fwd_kernel, dcn.deform_sample_bwd_kernel,
            dcn.deform_sample_bwd_scatter_kernel,
            *ops_upfirdn2d.upfirdn2d_kernels,
@@ -244,6 +249,10 @@ def test_ops_refuse_other_devices():
             torch.empty((1, 4, 4, 1, 9), device='meta'),
             torch.empty((3, 3, 8, 8), device='meta'))
     with pytest.raises(RuntimeError, match='cuda or cpu'):
+        dcn.deform_conv2d(
+            x, torch.empty((1, 2, 2, 1, 9, 2), device='meta'),
+            torch.empty((3, 3, 8, 8), device='meta'))
+    with pytest.raises(RuntimeError, match='cuda or cpu'):
         dcn.deform_sample(x, torch.empty((1, 4, 4, 2, 2), device='meta'))
     with pytest.raises(RuntimeError, match='cuda or cpu'):
         ops_upfirdn2d.upfirdn2d(x, torch.ones((2, 2)))
@@ -263,6 +272,38 @@ def test_backward_kernels_refuse_group_widths_they_cannot_sum():
         dcn._check_cuda_inputs('deform_sample', x[..., :6], flow)
     with pytest.raises(TypeError, match='float32'):
         dcn._check_cuda_inputs('deform_sample', x.double(), flow)
+
+
+def test_scan_covers_the_video_modules():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for stem in ('spynet', 'basicvsr', 'basicvsrpp', 'edvr'):
+        assert f'mrefsr_tpu_torch/archs/{stem}_arch.py' in names
+    assert {'mrefsr_tpu_torch/ops/warp.py',
+            'mrefsr_tpu_torch/ops/resize.py'} <= names
+
+
+def test_video_nets_on_cpu_tensors_never_reach_a_kernel(monkeypatch):
+    """EDVR (DCNv2Pack through the op), a grouped DCNv2Pack and DCNv1, on
+    the CPU, forward and backward: no kernel launched, no library built."""
+    from mrefsr_tpu_torch.archs.arch_util import DCNv2Pack
+    from mrefsr_tpu_torch.archs.edvr_arch import EDVR
+    monkeypatch.setattr(dcn, '_im2col_cuda', _refuse)
+    monkeypatch.setattr(dcn, '_col2im_cuda', _refuse)
+    monkeypatch.setattr(dcn._ModulatedDeformConv2d, 'apply', _refuse)
+    before = [kernel.launches for kernel in KERNELS]
+    net = EDVR(num_feat=8, deformable_groups=2, num_extract_block=1,
+               num_reconstruct_block=1)
+    out = net(torch.rand((1, 5, 3, 16, 16)))
+    pack = DCNv2Pack(8, 8, groups=2, deformable_groups=2)
+    out = out.mean() + pack(torch.rand((1, 8, 6, 6)),
+                            torch.rand((1, 8, 6, 6))).mean()
+    out = out + dcn.deform_conv2d(torch.rand((1, 6, 6, 8)),
+                                  torch.rand((1, 4, 4, 2, 9, 2)),
+                                  torch.rand((3, 3, 4, 4)), groups=2,
+                                  deform_groups=2).mean()
+    out.backward()
+    assert [kernel.launches for kernel in KERNELS] == before
+    assert _build._libs == {}
 
 
 def test_every_cuda_source_has_its_kernel_objects():
