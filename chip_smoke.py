@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Drive the port's main paths on one NVIDIA GPU: the 5-ref CUFED5 eval
 forward, the stage-3 training step with both alignments, StyleGAN2
-sampling and training, and video SR inference (BasicVSR++, EDVR,
-BasicVSR).
+sampling and training, video SR inference (BasicVSR++, EDVR, BasicVSR),
+and stage-3 training, validation and the sharded patch match over two
+ranks.
 
     python3 chip_smoke.py        # from the root of a checkout
     python3 chip_smoke.py --repeat-grads 20   # only the whole-net gradient
                                               # comparisons, 21 times a path
+    python3 chip_smoke.py --ddp  # only the two-rank phase (17)
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``). Phases, one JSON line each (one per shape where a
@@ -84,16 +86,35 @@ phase runs several):
 16. basicvsr_serve: BasicVSR (64 features, 30 blocks) through
     ``inference`` on one 15-frame chunk: time only (no kernel of this
     repository on its path);
-17. the ``kernels`` line.
+17. ddp: two ranks started with ``torch.multiprocessing`` (spawn) under
+    the torchrun env contract, each joining through the port's
+    ``init_dist('pytorch')``: NCCL with a card a rank where there are two
+    cards or more, else gloo with both ranks on the one card (printed).
+    Each rank runs sharded_match (K6 at K1's eval shape, the ref's rows
+    split unevenly with the 2-row halo, against single-rank K1 on the
+    whole ref and against its plain version, a tie planted across the
+    boundary, times), ddp_train (``_train_opt('dcn')`` with ``dist:
+    true``, B 6 a rank: from fresh weights the DDP gradient of one sample
+    a rank against the mean of the per-sample gradients; a warm-up step
+    whose logged loss must be the mean of the ranks' own, three timed
+    steps, parameters bit-equal across ranks, a profile of rank 0's next
+    step), dist_val (four seeded 500x500 requests, one padded, through
+    ``validation``: the ranks' sums against rank 0's unsharded ones) and
+    ddp_resume (a save from rank 0 only, a fresh model resumed on every
+    rank takes a step, the ``.pth`` loads strictly into a model of one
+    process); the parent prints one line for each;
+18. the ``kernels`` line.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero without the last line. Times come from CUDA events
-(phases 3 to 9), the host clock around ``torch.cuda.synchronize()``
-(phases 10 to 16) and the profiler's device times. Bounds use the H100
-SXM's published 67 TFLOP/s f32 (CUDA cores) and 3.35 TB/s.
+(phases 3 to 9 and K6's), the host clock around
+``torch.cuda.synchronize()`` (phases 10 to 17) and the profiler's device
+times. Bounds use the H100 SXM's published 67 TFLOP/s f32 (CUDA cores)
+and 3.35 TB/s.
 """
 import contextlib
+import copy
 import json
 import math
 import os
@@ -105,6 +126,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -185,18 +207,8 @@ def phase_feature_match(correlation, pairs=T, h=CANVAS // 4, ties=True):
     idx_k, val_k = correlation.feature_match_index(fin, fref, **kw)
     idx_p, val_p = correlation.feature_match_index_ref(fin, fref, **kw)
 
-    pin = correlation.sample_patches(fin)
-    pref = correlation.sample_patches(fref)
-    pref = pref / (pref.norm(dim=2, keepdim=True) + 1e-5)
-
-    def score(idx):
-        rows = pref.gather(1, idx.reshape(T, -1, 1).long().expand(
-            -1, -1, pref.shape[2]))
-        return (pin * rows).sum(2)
-
-    differ = idx_k.reshape(T, -1) != idx_p.reshape(T, -1)
-    gap = (score(idx_p) - score(idx_k)).abs()[differ]
-    worst_gap = float(gap.max()) if gap.numel() else 0.0
+    pin, pref = _normed_patches(correlation, fin, fref)
+    differ, worst_gap = _index_gap(pin, pref, idx_k, idx_p)
     val_err = float((val_k - val_p).abs().max())
     check(worst_gap <= K1_IDX_GAP, f'feature_match index differs where the '
           f'plain scores differ by {worst_gap}')
@@ -223,6 +235,31 @@ def phase_feature_match(correlation, pairs=T, h=CANVAS // 4, ties=True):
           'n_ref': n_ref, 'd': d, 'index_disagreements': int(differ.sum()),
           'worst_disagreement_gap': worst_gap, 'exact_ties': ties, **rec})
     return rec
+
+
+def _normed_patches(correlation, fin, fref):
+    """The input patches and the ref patches over their norms, as K1
+    scores them: ``(pairs, n, d)`` each."""
+    pin = correlation.sample_patches(fin)
+    pref = correlation.sample_patches(fref)
+    pin = pin.reshape((-1,) + pin.shape[-2:])
+    pref = pref.reshape((-1,) + pref.shape[-2:])
+    return pin, pref / (pref.norm(dim=2, keepdim=True) + 1e-5)
+
+
+def _index_gap(pin, pref, idx_a, idx_b):
+    """Where two matches of the same patches pick other ref patches: the
+    mask, and the largest difference of the two picks' plain scores."""
+    pairs = pin.shape[0]
+
+    def score(idx):
+        rows = pref.gather(1, idx.reshape(pairs, -1, 1).long().expand(
+            -1, -1, pref.shape[2]))
+        return (pin * rows).sum(2)
+
+    differ = idx_a.reshape(pairs, -1) != idx_b.reshape(pairs, -1)
+    gap = (score(idx_b) - score(idx_a)).abs()[differ]
+    return differ, float(gap.max()) if gap.numel() else 0.0
 
 
 def _feature_match_ties(correlation):
@@ -1201,6 +1238,31 @@ def _train_batch(rng, b):
     }
 
 
+def kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act):
+    """Every kernel entry point of the port by name, with its count."""
+    return {'feature_match': correlation.feature_match_kernel,
+            'feature_match_sharded': correlation.feature_match_sharded_kernel,
+            'mdcn_im2col': dcn.mdcn_im2col_kernel,
+            'mdcn_col2im': dcn.mdcn_col2im_kernel,
+            'mdcn_col2im_scatter': dcn.mdcn_col2im_scatter_kernel,
+            'mdcn_im2col_groups': dcn.mdcn_im2col_groups_kernel,
+            'mdcn_col2im_groups': dcn.mdcn_col2im_groups_kernel,
+            'mdcn_col2im_groups_scatter':
+                dcn.mdcn_col2im_groups_scatter_kernel,
+            'deform_im2col': dcn.deform_im2col_kernel,
+            'deform_col2im': dcn.deform_col2im_kernel,
+            'deform_col2im_scatter': dcn.deform_col2im_scatter_kernel,
+            'deform_sample_fwd': dcn.deform_sample_fwd_kernel,
+            'deform_sample_bwd': dcn.deform_sample_bwd_kernel,
+            'deform_sample_bwd_scatter': dcn.deform_sample_bwd_scatter_kernel,
+            'upfirdn2d_fwd': ops_upfirdn2d.upfirdn2d_fwd_kernel,
+            'upfirdn2d_bwd': ops_upfirdn2d.upfirdn2d_bwd_kernel,
+            'upfirdn2d_bwd2': ops_upfirdn2d.upfirdn2d_bwd2_kernel,
+            'fused_leaky_relu_fwd': fused_act.fused_leaky_relu_fwd_kernel,
+            'fused_leaky_relu_bwd': fused_act.fused_leaky_relu_bwd_kernel,
+            'fused_leaky_relu_bwd2': fused_act.fused_leaky_relu_bwd2_kernel}
+
+
 def reset_counts(kernels):
     for kernel in kernels.values():
         kernel.launches = 0
@@ -1982,6 +2044,516 @@ def phase_stylegan2_train(build_model, arch, ops_upfirdn2d, fused_act,
     return total
 
 
+# -------------------------------------------------------------- multi-rank
+DDP_WORLD = 2
+DDP_WAIT_S = 900               # the parent's wait for its ranks
+# image rows of the 125-row eval ref a rank matches against: 62 and 61 of
+# its 123 patch rows, with the 2-row halo (an uneven split)
+SHARD_ROWS = ((0, 64), (62, 125))
+# the planted tie: the ref patch at TIE_SRC (rank 1's band) copied to
+# TIE_DST (rank 0's), and the input patch at TIE_IN equal to both
+TIE_SRC, TIE_DST, TIE_IN = (100, 50), (10, 20), (40, 60)
+# max |DDP - mean of per-sample gradients| / max |mean| of each parameter,
+# from fresh weights, behind the same forwards (cuDNN held deterministic
+# for the comparison): at most the order of two f32 sums differs. The
+# first H100 run (gloo, one card) read 0 for every tensor: bit-equal
+DDP_GRAD_REL_TOL = 1e-6
+DIST_VAL_REL_TOL = 1e-9        # sharded metric sums against unsharded
+DDP_LOSS_REL_TOL = 1e-6        # logged l_pix against the ranks' own mean
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def _same_on_all_ranks(tensor):
+    """Whether every rank holds ``tensor`` bit for bit: an element-wise
+    MAX and MIN all-reduce of its bits."""
+    bits = tensor.detach().reshape(-1).contiguous()
+    if bits.dtype == torch.float32:
+        bits = bits.view(torch.int32)
+    high, low = bits.clone(), bits.clone()
+    dist.all_reduce(high, op=dist.ReduceOp.MAX)
+    dist.all_reduce(low, op=dist.ReduceOp.MIN)
+    return bool(torch.equal(high, low))
+
+
+def _gathered(value, rank, world, device):
+    """Every rank's float ``value``, by rank, through a SUM all-reduce (no
+    ``all_gather``: gloo has none for CUDA tensors)."""
+    slots = torch.zeros(world, dtype=torch.float64, device=device)
+    slots[rank] = value
+    dist.all_reduce(slots)
+    return slots.tolist()
+
+
+class _MainPath:
+    """The launch counts of the parts of the main path, summed: every
+    count is set to 0 just before a part and read just after it. Launches
+    between parts (the comparisons) are not counted."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.total = {name: 0 for name in kernels}
+
+    @contextlib.contextmanager
+    def part(self):
+        """Count one part; yields the dict that then holds its counts."""
+        reset_counts(self.kernels)
+        counts = {}
+        yield counts
+        for name, kernel in self.kernels.items():
+            counts[name] = kernel.launches
+            self.total[name] += kernel.launches
+
+
+def _ddp_sharded_match(correlation, main, rank, world):
+    """K6 at K1's eval shape, the ref's rows split over the ranks: against
+    single-rank K1 on the whole ref and against its plain version; ties
+    planted across the band boundary; times."""
+    gen = torch.Generator().manual_seed(SEED + 20)
+    h = CANVAS // 4
+    feats = torch.randn((2, T, h, h, 256), generator=gen).cuda()
+    feats = feats / (feats.norm(dim=-1, keepdim=True) + 1e-12)
+    fin, fref = feats[0], feats[1]
+    start, stop = SHARD_ROWS[rank]
+    band = (fref[:, start:stop], start)
+    kw = dict(is_norm=True, norm_input=True)
+    with main.part():
+        idx, val = correlation.feature_match_index_sharded(fin, band, **kw)
+    idx_1, val_1 = correlation.feature_match_index(fin, fref, **kw)
+    idx_p, val_p = correlation.feature_match_index_sharded_ref(fin, band,
+                                                               **kw)
+    pin, pref = _normed_patches(correlation, fin, fref)
+    rec = {'rank': rank, 'band_rows': [start, stop]}
+    for label, other_idx, other_val in (('k1', idx_1, val_1),
+                                        ('plain', idx_p, val_p)):
+        differ, gap = _index_gap(pin, pref, idx, other_idx)
+        err = float((val - other_val).abs().max())
+        check(gap <= K1_IDX_GAP, f'rank {rank}: K6 index differs from '
+              f'{label} where the plain scores differ by {gap}')
+        check(err <= K1_VAL_TOL, f'rank {rank}: K6 val differs from '
+              f'{label} by {err}')
+        rec[f'vs_{label}'] = {'index_disagreements': int(differ.sum()),
+                              'worst_disagreement_gap': gap,
+                              'max_abs_err': err}
+    check(_same_on_all_ranks(idx) and _same_on_all_ranks(val),
+          'the ranks hold other answers')
+
+    # a ref patch of rank 1's band copied into rank 0's, and an input
+    # patch equal to both: the tie must go to rank 0's lower index
+    fin_t, fref_t = fin.clone(), fref.clone()
+    (sy, sx), (dy, dx), (iy, ix) = TIE_SRC, TIE_DST, TIE_IN
+    fref_t[:, dy:dy + 3, dx:dx + 3] = fref_t[:, sy:sy + 3, sx:sx + 3]
+    fin_t[:, iy:iy + 3, ix:ix + 3] = fref_t[:, sy:sy + 3, sx:sx + 3]
+    with main.part():
+        idx_t, _ = correlation.feature_match_index_sharded(
+            fin_t, (fref_t[:, start:stop], start), is_norm=True)
+    idx_t1, _ = correlation.feature_match_index(fin_t, fref_t, is_norm=True)
+    pw = h - 2
+    want = dy * pw + dx
+    got = idx_t[:, iy, ix].tolist()
+    check(got == [want] * T and idx_t1[:, iy, ix].tolist() == [want] * T,
+          f'rank {rank}: a tie across the band boundary went to {got} and '
+          f'{idx_t1[:, iy, ix].tolist()}, not to the lowest index {want}')
+    rec['tie'] = {'lowest_index': want, 'got': got}
+
+    # times: K6 as the path runs it (the ranks at once), K1 on the band
+    # with each rank alone on the card, the fuse, the plain version, and
+    # the library yardstick: the band's scores by chunked torch.matmul
+    # and the same two all-reduces
+    pin_b, pref_b = _normed_patches(correlation, fin, band[0])
+    match_band = correlation._match_patches_sharded_cuda
+    ms = cuda_ms(lambda: correlation.feature_match_index_sharded(
+        fin, band, **kw))
+    kernel_ms = None
+    for turn in range(world):
+        dist.barrier()
+        if turn == rank:
+            kernel_ms = cuda_ms(lambda: match_band(pin_b, pref_b))
+    dist.barrier()
+    local_idx, local_val = match_band(pin_b, pref_b)
+    fuse = (band[0].shape[-2], start, 3, 1, None)
+    collective_ms = cuda_ms(lambda: correlation._fuse_across_ranks(
+        local_idx, local_val, *fuse))
+    plain_ms = cuda_ms(lambda: correlation.feature_match_index_sharded_ref(
+        fin, band, **kw), reps=2)
+
+    def library():
+        for base in range(0, pref_b.shape[1], 2048):
+            torch.matmul(pin_b, pref_b[:, base:base + 2048].transpose(1, 2))
+        correlation._fuse_across_ranks(local_idx, local_val, *fuse)
+
+    library_ms = cuda_ms(library)
+    pairs, n_in, d = pin_b.shape
+    n_ref = pref_b.shape[1]
+    bound_ms, bound_by = bound(2.0 * pairs * n_in * n_ref * d,
+                               4.0 * (fin.numel() + band[0].numel())
+                               + 8.0 * pairs * n_in)
+    rec.update(n_in=n_in, n_ref_band=n_ref, d=d, ms=ms,
+               kernel_only_ms=kernel_ms, collective_ms=collective_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by,
+               max_abs_err=rec['vs_k1']['max_abs_err'])
+    return rec
+
+
+def _mean_bare_grads(model, batches):
+    """Each parameter's gradient of the pixel loss, summed over
+    ``batches`` one at a time through the bare net, over their count."""
+    bare = model.get_bare_model(model.net_g)
+    total = {}
+    for sample in batches:
+        model.feed_data(sample)
+        bare.zero_grad(set_to_none=True)
+        model.cri_pix(model._forward(model.match_img_in, model.img_ref_list,
+                                     model.img_in_lq, bare),
+                      model.gt).backward()
+        for name, p in bare.named_parameters():
+            total[name] = total.get(name, 0) + p.grad / len(batches)
+    bare.zero_grad(set_to_none=True)
+    return total
+
+
+def _flat_params(model):
+    return torch.cat([p.detach().reshape(-1) for p in
+                      model.get_bare_model(model.net_g).parameters()])
+
+
+def _ddp_train(build_model, main, rank, world):
+    """The full-width stage-3 step with ``dist: true``: B 6 a rank, each
+    rank its own seeded batch. From fresh weights the DDP gradient of one
+    sample a rank against the mean of the per-sample gradients; then a
+    warm-up step (its logged loss against the ranks' own) and three timed
+    steps."""
+    opt = _train_opt('dcn')
+    opt.update(name='ddp', scale=4, crop_border=4, dist=True,
+               datasets={'train': {'batch_size_per_gpu': TRAIN_B}})
+    model = build_model(opt)
+    check(model.device.type == 'cuda', f'model built on {model.device}')
+    bare = model.get_bare_model(model.net_g)
+
+    # DDP's gradient, one sample a rank, against every rank's sample
+    # through the bare net, averaged; cuDNN deterministic meanwhile
+    smalls = [_train_batch(np.random.RandomState(SEED + 30 + r), 1)
+              for r in range(world)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model.feed_data(smalls[rank])
+        model.net_g.zero_grad(set_to_none=True)
+        model.cri_pix(model._forward(model.match_img_in, model.img_ref_list,
+                                     model.img_in_lq), model.gt).backward()
+        ddp_grads = {n: p.grad.clone() for n, p in bare.named_parameters()}
+        mean_grads = _mean_bare_grads(model, smalls)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    grad_errors = _rel_grad_errors(ddp_grads, mean_grads)
+    _check_grad_errors(f'rank {rank}: DDP gradient against the per-sample '
+                       'mean', grad_errors, tol=DDP_GRAD_REL_TOL,
+                       median_tol=DDP_GRAD_REL_TOL)
+    del ddp_grads, mean_grads
+
+    batch = _train_batch(np.random.RandomState(SEED + 40 + rank), TRAIN_B)
+    model.feed_data(batch)
+    with torch.no_grad():
+        own = float(model.cri_pix(model._forward(
+            model.match_img_in, model.img_ref_list, model.img_in_lq, bare),
+            model.gt))
+    owns = _gathered(own, rank, world, model.device)
+    model.optimize_parameters(1)                            # warm-up
+    logged = model.get_current_log()['l_pix']
+    mean_own = sum(owns) / world
+    check(abs(logged - mean_own) <= DDP_LOSS_REL_TOL * abs(mean_own),
+          f'rank {rank}: logged l_pix {logged}, the ranks\' own {owns}')
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    with main.part() as launches:
+        for step in range(2, 5):
+            t0 = time.perf_counter()
+            model.feed_data(batch)
+            model.optimize_parameters(step)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(model.get_current_log()['l_pix'])
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(v) for v in [logged] + losses),
+          f'non-finite loss: {[logged] + losses}')
+    check(_same_on_all_ranks(_flat_params(model)),
+          'net_g differs between the ranks after the steps')
+    mean_ms = sum(step_ms) / len(step_ms)
+
+    def one_step():
+        model.feed_data(batch)
+        model.optimize_parameters(5)
+
+    # rank 0 profiles one more step, which the other ranks take with it
+    # (the gradient all-reduce is collective); rank 0's own device time:
+    # on one card the other rank's kernels are not in it
+    profile = profile_record('ddp_train', one_step, top=16) if rank == 0 \
+        else one_step()
+    rec = {'rank': rank, 'device': str(model.device), 'batch': TRAIN_B,
+           'gt': TRAIN_GT, 'refs': T, 'step_ms': step_ms,
+           'mean_step_ms': mean_ms,
+           'global_img_per_s': world * TRAIN_B / mean_ms * 1e3,
+           'peak_mem_bytes': peak, 'warmup_loss': logged,
+           'ranks_own_losses': owns, 'losses': losses,
+           'launches_3_steps': launches, 'grads_fresh_weights': grad_errors,
+           'grad_tolerance': DDP_GRAD_REL_TOL}
+    if rank == 0:
+        rec['profile'] = profile
+    return model, batch, rec
+
+
+class _SeededCUFED5:
+    """Four CUFED5-style requests at the 500x500 canvas from a seed; the
+    last carries ``padding`` and the 332x500 size of its gt, as a CUFED5
+    image padded to the canvas does."""
+    opt = {'name': 'cufed5_seeded'}
+    original_size = (332, 500)
+
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, i):
+        item = {k: v[0] for k, v in
+                _request(np.random.RandomState(SEED + 50 + i)).items()}
+        item['lq_path'] = f'seeded_{i:03d}_multi.png'
+        if i == len(self) - 1:
+            height, width = self.original_size
+            item['img_in'] = item['img_in'][:height, :width].copy()
+            item['padding'] = True
+            item['original_size'] = self.original_size
+        return item
+
+
+class _ValLoader:
+    """A validation loader: batch 1, no sampler."""
+    sampler = None
+    batch_size = 1
+
+    def __init__(self, dataset, collate):
+        self.dataset = dataset
+        self.collate_fn = collate
+
+    def __iter__(self):
+        return (self.collate_fn([self.dataset[i]])
+                for i in range(len(self.dataset)))
+
+
+def _ddp_dist_val(model, main, rank, world):
+    """``validation`` with ``dist: true``: each rank's sums, rank 0's
+    unsharded sums, and every rank's ``metric_results``."""
+    from mrefsr_tpu_torch.data import default_collate
+    loader = _ValLoader(_SeededCUFED5(), default_collate)
+    shard = []
+    validate = model._validate_images
+
+    def recorded(*args, **kwargs):
+        shard.append(validate(*args, **kwargs))
+        return shard[-1]
+
+    dist.barrier()              # rank 0 may still be writing its profile
+    t0 = time.perf_counter()
+    with main.part(), mock.patch.object(model, '_validate_images', recorded):
+        model.validation(loader, 0, None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = torch.tensor(shard[0], dtype=torch.float64, device=model.device)
+    dist.all_reduce(total)
+    total = total.cpu().numpy()
+    rec = {'rank': rank, 'seconds': seconds, 'shard_sums': shard[0].tolist(),
+           'metric_results': model.metric_results}
+    if rank == 0:
+        full = model._validate_images(loader, 0, False)
+        rel = float(np.abs(total - full).max() / np.abs(full).max())
+        check(rel <= DIST_VAL_REL_TOL, f'sharded sums {total.tolist()} '
+              f'against unsharded {full.tolist()}')
+        check(full[3] == len(loader.dataset) and np.isfinite(full).all(),
+              f'unsharded sums {full.tolist()}')
+        rec.update(full_sums=full.tolist(), rel_err=rel)
+    dist.barrier()
+    return rec
+
+
+def _ddp_resume(build_model, model, batch, main, rank, root):
+    """``save(0, 5)`` from rank 0 only; a fresh model on every rank
+    resumes from the files and takes a step; the ``.pth`` loads strictly
+    into a model of one process."""
+    paths = {'models': os.path.join(root, 'models'),
+             'training_states': os.path.join(root, 'training_states')}
+    model.opt['path'] = dict(paths)
+    written = []
+    save = torch.save
+
+    def recording(obj, path, *args, **kwargs):
+        written.append(os.path.basename(str(path)))
+        return save(obj, path, *args, **kwargs)
+
+    with mock.patch.object(torch, 'save', recording):
+        model.save(0, 5)
+    dist.barrier()
+    check(written == (['net_g_5.pth', '5.state'] if rank == 0 else []),
+          f'rank {rank} wrote {written}')
+    pth = os.path.join(paths['models'], 'net_g_5.pth')
+    saved = torch.load(pth, map_location='cpu', weights_only=True)['params']
+    check(not [k for k in saved if k.startswith('module.')],
+          'the .pth carries DDP\'s module. prefix')
+    opt = copy.deepcopy(model.opt)
+    opt['path']['pretrain_network_g'] = pth
+    del model
+    torch.cuda.empty_cache()
+    resumed = build_model(opt)
+    state = resumed.load_training_state(
+        os.path.join(paths['training_states'], '5.state'))
+    resumed.resume_training(state)
+    bare = resumed.get_bare_model(resumed.net_g).state_dict()
+    check(all(torch.equal(bare[k].cpu(), v) for k, v in saved.items()),
+          f'rank {rank}: the resumed net_g is not the saved one')
+    resumed.feed_data(batch)
+    with main.part():
+        resumed.optimize_parameters(state['iter'] + 1)
+    loss = resumed.get_current_log()['l_pix']
+    check(np.isfinite(loss) and resumed.get_current_learning_rate()
+          == [1e-4, 1e-4, 1e-6, 1e-5], f'resumed step: loss {loss}')
+    check(_same_on_all_ranks(_flat_params(resumed)),
+          'net_g differs between the ranks after the resumed step')
+    rec = {'rank': rank, 'written': written, 'resumed_iter': state['iter'],
+           'resumed_loss': loss}
+    if rank == 0:
+        single = _cufed5_opt()
+        single['path'] = {'pretrain_network_g': pth}
+        one = build_model(single)            # strict_load defaults to True
+        got = one.net_g.state_dict()
+        check(sorted(got) == sorted(saved) and all(
+            torch.equal(got[k].cpu(), v) for k, v in saved.items()),
+            'the .pth does not load into a model of one process')
+        rec['single_process_strict_load'] = True
+    dist.barrier()
+    return rec
+
+
+def _ddp_rank(rank, backend, root):
+    """One rank of the ``ddp`` phase, a process of its own: joins the
+    group under the torchrun env contract the parent set, runs the four
+    parts, and writes its report to ``root/rank<r>.json``."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank))
+    import importlib
+
+    from mrefsr_tpu_torch.models import build_model
+    from mrefsr_tpu_torch.ops import correlation, dcn, fused_act
+    from mrefsr_tpu_torch.utils.dist_util import get_dist_info, init_dist
+    ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
+    init_dist('pytorch', backend=backend)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rank, world = get_dist_info()
+        main = _MainPath(kernel_objects(correlation, dcn, ops_upfirdn2d,
+                                        fused_act))
+        report = {'rank': rank,
+                  'device': f'cuda:{torch.cuda.current_device()}',
+                  'device_name': torch.cuda.get_device_name()}
+        t0 = time.perf_counter()
+        report['sharded_match'] = _ddp_sharded_match(correlation, main, rank,
+                                                     world)
+        torch.cuda.empty_cache()
+        model, batch, report['ddp_train'] = _ddp_train(build_model, main,
+                                                       rank, world)
+        report['dist_val'] = _ddp_dist_val(model, main, rank, world)
+        report['ddp_resume'] = _ddp_resume(build_model, model, batch, main,
+                                           rank, root)
+        report['seconds'] = time.perf_counter() - t0
+        report['launches'] = main.total
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f'rank{rank}.json'), 'w') as f:
+        json.dump(report, f)
+
+
+def phase_ddp():
+    """Two ranks, each a process started with ``torch.multiprocessing``
+    (spawn) under the torchrun env contract: NCCL with a card a rank where
+    there are two cards or more, else gloo with both ranks on the one
+    card (NCCL refuses two ranks on one device; gloo reduces CUDA tensors
+    through the host). Returns the launches of the main path summed over
+    the ranks, and K6's record."""
+    cards = torch.cuda.device_count()
+    backend = 'nccl' if cards >= DDP_WORLD else 'gloo'
+    emit({'phase': 'ddp', 'backend': backend, 'world': DDP_WORLD,
+          'cards': cards,
+          'rank_devices': [f'cuda:{r % cards}' for r in range(DDP_WORLD)]})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        os.environ.update(MASTER_ADDR='localhost',
+                          MASTER_PORT=str(_free_port()),
+                          WORLD_SIZE=str(DDP_WORLD))
+        ctx = torch.multiprocessing.spawn(_ddp_rank, args=(backend, root),
+                                          nprocs=DDP_WORLD, join=False)
+        try:        # a failed rank raises here, and the others are ended
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() - t0 < DDP_WAIT_S,
+                      f'the ddp ranks outlived {DDP_WAIT_S} s')
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(30)
+        reports = []
+        for rank in range(DDP_WORLD):
+            with open(os.path.join(root, f'rank{rank}.json')) as f:
+                reports.append(json.load(f))
+    seconds = time.perf_counter() - t0
+
+    shard = [r['sharded_match'] for r in reports]
+    emit({'phase': 'sharded_match', 'pairs': T, 'canvas': CANVAS,
+          'backend': backend, 'ranks': shard})
+    train = [r['ddp_train'] for r in reports]
+    profile = train[0].pop('profile')
+    emit({'phase': 'ddp_train', 'backend': backend, 'world': DDP_WORLD,
+          'network_g': _train_opt('dcn')['network_g'],
+          'global_batch': DDP_WORLD * TRAIN_B,
+          'mean_step_ms': max(r['mean_step_ms'] for r in train),
+          'global_img_per_s': min(r['global_img_per_s'] for r in train),
+          'ranks': train})
+    emit(dict(profile, rank=0, backend=backend))
+    val = [r['dist_val'] for r in reports]
+    check(all(r['metric_results'] == val[0]['metric_results'] for r in val),
+          f'the ranks end validation with other metric_results: {val}')
+    emit({'phase': 'dist_val', 'backend': backend, 'requests': 4,
+          'ranks': val})
+    emit({'phase': 'ddp_resume', 'backend': backend,
+          'ranks': [r['ddp_resume'] for r in reports]})
+    launches = {name: sum(r['launches'][name] for r in reports)
+                for name in reports[0]['launches']}
+    check(launches['feature_match_sharded'] > 0 and all(
+        r['ddp_train']['launches_3_steps'][k] > 0 for r in reports
+        for k in ('feature_match', 'mdcn_im2col', 'mdcn_col2im')),
+          f'kernels not launched on the ddp path: {launches}')
+    scatter = [k for k in launches if k.endswith('_scatter') and launches[k]]
+    check(not scatter, f'grad-x scatter launched on the ddp path: {scatter}')
+    emit({'phase': 'ddp_summary', 'backend': backend, 'seconds': seconds,
+          'launches': launches})
+    k6 = {'name': 'feature_match_sharded',
+          'max_abs_err': max(r['max_abs_err'] for r in shard),
+          **{key: max(r[key] for r in shard)
+             for key in ('ms', 'kernel_only_ms', 'collective_ms', 'plain_ms',
+                         'bound_ms', 'library_ms')},
+          'bound_by': shard[0]['bound_by'], 'backend': backend,
+          'ms_note': 'per rank, the ranks at once; kernel_only_ms is K1 on '
+                     'the band with the rank alone on the card',
+          'library_call': 'chunked torch.matmul of the band\'s scores and '
+                          'the same MAX and MIN all-reduces'}
+    return launches, k6
+
+
 # how the profile sorts device kernels: the hand-written ones by name,
 # cuDNN's and cuBLAS's (convolutions, their layout changes and FFTs, and
 # matmuls) by these marks, the rest (element-wise, reductions, copies,
@@ -1997,6 +2569,11 @@ LIBRARY_MARKS = ('xmma', 'cudnn', 'cutlass', 'gemm', 'gemv', 'DSE::',
 def phase_profile(path, run, top=12):
     """``run()`` once more under torch.profiler: device time by kernel,
     and the share of its wall time the device was busy."""
+    emit(profile_record(path, run, top))
+
+
+def profile_record(path, run, top=12):
+    """:func:`phase_profile`'s line, returned rather than printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2011,22 +2588,25 @@ def phase_profile(path, run, top=12):
         us = getattr(event, 'self_device_time_total', None)
         return (event.self_cuda_time_total if us is None else us) / 1e3
 
+    # device kernels only: a record_function range (DDP's forward) also
+    # shows on the device as a user annotation spanning its kernels
     kernels = sorted(((device_ms(e), e.count, e.key)
                       for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, 'is_user_annotation', False)),
                      reverse=True)
     busy = sum(ms for ms, _, _ in kernels)
     own = {name: sum(ms for ms, _, key in kernels if name in key)
            for name in OWN_KERNELS}
     library = sum(ms for ms, _, key in kernels
                   if any(mark in key for mark in LIBRARY_MARKS))
-    emit({'phase': 'profile', 'path': path, 'wall_ms': wall_ms,
-          'device_busy_ms': busy,
-          'device_idle_share': 1 - busy / wall_ms if busy else None,
-          'hand_written_ms': own, 'cudnn_cublas_ms': library,
-          'other_ms': busy - library - sum(own.values()),
-          'top_kernels': [{'ms': ms, 'calls': n, 'name': name[:90]}
-                          for ms, n, name in kernels[:top]]})
+    return {'phase': 'profile', 'path': path, 'wall_ms': wall_ms,
+            'device_busy_ms': busy,
+            'device_idle_share': 1 - busy / wall_ms if busy else None,
+            'hand_written_ms': own, 'cudnn_cublas_ms': library,
+            'other_ms': busy - library - sum(own.values()),
+            'top_kernels': [{'ms': ms, 'calls': n, 'name': name[:90]}
+                            for ms, n, name in kernels[:top]]}
 
 
 def main():
@@ -2062,28 +2642,7 @@ def main():
     torch.cuda.empty_cache()
     k7 = phase_upfirdn2d(ops_upfirdn2d)
     k8 = phase_fused_act(fused_act)
-    kernels = {'feature_match': correlation.feature_match_kernel,
-               'mdcn_im2col': dcn.mdcn_im2col_kernel,
-               'mdcn_col2im': dcn.mdcn_col2im_kernel,
-               'mdcn_col2im_scatter': dcn.mdcn_col2im_scatter_kernel,
-               'mdcn_im2col_groups': dcn.mdcn_im2col_groups_kernel,
-               'mdcn_col2im_groups': dcn.mdcn_col2im_groups_kernel,
-               'mdcn_col2im_groups_scatter':
-                   dcn.mdcn_col2im_groups_scatter_kernel,
-               'deform_im2col': dcn.deform_im2col_kernel,
-               'deform_col2im': dcn.deform_col2im_kernel,
-               'deform_col2im_scatter': dcn.deform_col2im_scatter_kernel,
-               'deform_sample_fwd': dcn.deform_sample_fwd_kernel,
-               'deform_sample_bwd': dcn.deform_sample_bwd_kernel,
-               'deform_sample_bwd_scatter':
-                   dcn.deform_sample_bwd_scatter_kernel,
-               'upfirdn2d_fwd': ops_upfirdn2d.upfirdn2d_fwd_kernel,
-               'upfirdn2d_bwd': ops_upfirdn2d.upfirdn2d_bwd_kernel,
-               'upfirdn2d_bwd2': ops_upfirdn2d.upfirdn2d_bwd2_kernel,
-               'fused_leaky_relu_fwd': fused_act.fused_leaky_relu_fwd_kernel,
-               'fused_leaky_relu_bwd': fused_act.fused_leaky_relu_bwd_kernel,
-               'fused_leaky_relu_bwd2':
-                   fused_act.fused_leaky_relu_bwd2_kernel}
+    kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
     by_path = {}
     by_path['slice'], model, batch = phase_slice(
         build_model, arch.DynAgg, correlation, dcn, kernels)
@@ -2118,10 +2677,12 @@ def main():
     by_path['basicvsr_serve'] = phase_basicvsr_serve(inference_basicvsr,
                                                      kernels)
     torch.cuda.empty_cache()
+    by_path['ddp'], k6 = phase_ddp()
 
     csrc = 'mrefsr_tpu_torch/ops/csrc/'
     described = (
         (k1, 'feature_match.cu', 'mrefsr_tpu/ops/correlation.py:42'),
+        (k6, 'feature_match.cu', 'mrefsr_tpu/ops/correlation.py:140'),
         (k2, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
         (k2b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
         (k3f, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:214'),
@@ -2213,9 +2774,28 @@ def main_repeat_grads(rounds):
                ('grads_d_r1', 'grads_g_path', 'grads_g_path_plain_twice'))
 
 
+def main_ddp():
+    """``--ddp``: the device, the build and the ``ddp`` phase alone, then
+    K6's entry of the ``kernels`` line; no ``ok`` line."""
+    from mrefsr_tpu_torch.ops import _build
+    _, smi = phase_device()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_build(_build.build)
+    launches, k6 = phase_ddp()
+    k6.update(route='cuda',
+              source='mrefsr_tpu_torch/ops/csrc/feature_match.cu',
+              replaces='mrefsr_tpu/ops/correlation.py:140',
+              launches=launches['feature_match_sharded'])
+    emit({'kernels': [k6], 'card': smi})
+    print(smi, flush=True)
+
+
 if __name__ == '__main__':
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ['--repeat-grads']:
         main_repeat_grads(int(sys.argv[2]))
+    elif sys.argv[1:2] == ['--ddp']:
+        main_ddp()
     else:
         main()

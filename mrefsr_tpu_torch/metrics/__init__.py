@@ -1,0 +1,4 @@
+"""Image quality metrics of the port (numpy, on BGR uint8 images)."""
+from .psnr_ssim import calculate_psnr, calculate_ssim
+
+__all__ = ['calculate_psnr', 'calculate_ssim']

@@ -9,13 +9,21 @@ learning-rate log, and checkpoints in the reference's formats.
 * ``<iter>.state`` holds ``{'epoch', 'iter', 'optimizers', 'schedulers'}``
   (reference base_model.py:308-341), one entry per optimizer, written
   with ``torch.save``.
+
+In a run of several ranks (``opt['dist']``, see ``utils/dist_util.py``)
+only rank 0 writes either file, from the bare net (no ``module.``
+prefix), and every rank resumes from them onto its own device.
 """
 import os
+from collections import OrderedDict
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from mrefsr_tpu_torch.convert import load_torch_state_dict, rename_keys
+from mrefsr_tpu_torch.parallel import all_reduce_mean
 from mrefsr_tpu_torch.utils import resolve_device
+from mrefsr_tpu_torch.utils.dist_util import master_only
 
 from .lr_scheduler import ScheduleLR, build_schedule
 
@@ -55,6 +63,33 @@ class BaseModel:
         """The first optimizer's rate per parameter group."""
         return self.schedulers[0].get_last_lr() if self.schedulers else [0.0]
 
+    @staticmethod
+    def get_bare_model(net):
+        """``net`` without its ``DistributedDataParallel`` wrapper."""
+        if isinstance(net, DistributedDataParallel):
+            return net.module
+        return net
+
+    def reduce_loss_dict(self, loss_dict):
+        """The losses averaged over the ranks, as 0-d tensors (reference
+        base_model.py:358-383): with equal batches on every rank that is
+        the global batch's mean, which the JAX step logs. One all-reduce
+        in a run of several ranks; the dict itself otherwise."""
+        return OrderedDict(zip(loss_dict,
+                               all_reduce_mean(list(loss_dict.values()))))
+
+    def validation(self, dataloader, current_iter, tb_logger,
+                   save_img=False):
+        """Validate on ``dataloader``: sharded over the ranks when
+        ``opt['dist']``, on this process otherwise (reference
+        base_model.py:36-48)."""
+        if self.opt.get('dist'):
+            self.dist_validation(dataloader, current_iter, tb_logger,
+                                 save_img)
+        else:
+            self.nondist_validation(dataloader, current_iter, tb_logger,
+                                    save_img)
+
     def get_current_log(self):
         """The last step's losses as python floats. Converting waits for
         the device, so the step itself keeps them as tensors."""
@@ -70,13 +105,15 @@ class BaseModel:
             ema.mul_(decay).add_(param, alpha=1 - decay)
 
     # ---------------------------------------------------------- checkpoints
+    @master_only
     def save_network(self, net, net_label, current_iter, param_key='params'):
         """Write ``net``'s state dict as a reference-format ``.pth``
         (reference base_model.py:198-243) into ``path.models``; iteration
         -1 is named ``latest``. ``net`` and ``param_key`` may be lists of
         equal length: one file then holds one state dict per key (a
         generator and its EMA under ``params`` and ``params_ema``).
-        Returns the file's path."""
+        Returns the file's path; rank 0 writes, the other ranks return
+        None."""
         nets = net if isinstance(net, list) else [net]
         keys = param_key if isinstance(param_key, list) else [param_key]
         if len(nets) != len(keys):
@@ -86,7 +123,8 @@ class BaseModel:
                             f'{net_label}_{name}.pth')
         os.makedirs(os.path.dirname(path), exist_ok=True)
         torch.save({key: {k: v.detach().cpu().contiguous()
-                          for k, v in one.state_dict().items()}
+                          for k, v in
+                          self.get_bare_model(one).state_dict().items()}
                     for one, key in zip(nets, keys)}, path)
         return path
 
@@ -98,12 +136,14 @@ class BaseModel:
         state = load_torch_state_dict(load_path, param_key=param_key)
         if rename is not None:
             state = rename_keys(state, rename)
-        net.load_state_dict(state, strict=strict)
+        self.get_bare_model(net).load_state_dict(state, strict=strict)
 
+    @master_only
     def save_training_state(self, epoch, current_iter):
         """Write the trainer's state into ``path.training_states`` as
         ``<iter>.state``. Returns the file's path (None for iteration
-        -1, which the reference does not save either)."""
+        -1, which the reference does not save either, and on every rank
+        but 0)."""
         if current_iter == -1:
             return None
         state = {'epoch': epoch, 'iter': current_iter,
@@ -116,11 +156,12 @@ class BaseModel:
         return path
 
     def load_training_state(self, path):
+        """A ``.state`` file, its tensors on this rank's device."""
         return torch.load(path, map_location=self.device, weights_only=True)
 
     def resume_training(self, resume_state):
         """Restore optimizers and schedulers from a loaded ``.state``
-        (reference base_model.py:343-356)."""
+        (reference base_model.py:343-356); every rank calls it."""
         optimizers = resume_state['optimizers']
         schedulers = resume_state['schedulers']
         if len(optimizers) != len(self.optimizers) \

@@ -7,17 +7,28 @@ features) and the MRAPA restoration net (``network_g``). A request goes
 ``feed_data`` -> ``test`` -> ``get_current_visuals`` and a training step
 ``feed_data`` -> ``optimize_parameters`` -> ``get_current_log``, with the
 JAX model's sample dict: NHWC ``img_in_lq``, ``img_in_up``, ``img_in`` and
-``img_ref_list`` of shape (B, T, H, W, 3).
+``img_ref_list`` of shape (B, T, H, W, 3). Validation (``validation``)
+un-pads each output and sums PSNR, PSNR_Y and SSIM_Y, sharded over the
+ranks when ``opt['dist']``.
 """
+import logging
 import os
+import os.path as osp
 from collections import OrderedDict
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from mrefsr_tpu_torch.archs import build_network
 from mrefsr_tpu_torch.archs.vgg_arch import vgg_rename
 from mrefsr_tpu_torch.convert import drop_buffer_keys, state_dict_from_flax
+from mrefsr_tpu_torch.data.loader import default_collate
 from mrefsr_tpu_torch.losses import legacy_losses
+from mrefsr_tpu_torch.metrics import calculate_psnr, calculate_ssim
+from mrefsr_tpu_torch.parallel import data_parallel
+from mrefsr_tpu_torch.utils import imwrite, tensor2img
+from mrefsr_tpu_torch.utils.dist_util import get_dist_info
 from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY
 
 from .base_model import BaseModel
@@ -51,9 +62,11 @@ class MultiRefRestorationModel(BaseModel):
 
     With ``is_train`` the extractor and the map stay frozen and run under
     ``torch.no_grad()``; ``net_g`` trains in f32 with one Adam of four
-    parameter groups. The GAN phase (``network_d``, ``gan_type``,
-    ``perceptual_opt``, ``style_opt``) and ``train.mixed_precision`` are
-    not ported and raise.
+    parameter groups. With ``opt['dist']`` (every rank a process of
+    ``init_dist``) ``net_g`` trains in ``DistributedDataParallel``, each
+    rank on its own batch, and validation is sharded over the ranks. The
+    GAN phase (``network_d``, ``gan_type``, ``perceptual_opt``,
+    ``style_opt``) and ``train.mixed_precision`` are not ported and raise.
     """
 
     def __init__(self, opt, device=None):
@@ -84,9 +97,12 @@ class MultiRefRestorationModel(BaseModel):
         self.output = None
         if self.is_train:
             self.init_training_settings()
+            if opt.get('dist'):
+                self.net_g = data_parallel(self.net_g, self.device)
 
     def _nets(self):
-        return self.net_extractor, self.net_map, self.net_g
+        return (self.net_extractor, self.net_map,
+                self.get_bare_model(self.net_g))
 
     def _to_channels_last(self):
         for net in self._nets():
@@ -114,7 +130,7 @@ class MultiRefRestorationModel(BaseModel):
                               rename=map_key)
         file = path.get('pretrain_network_g')
         if file and os.path.isfile(file):
-            self.load_network(self.net_g, file, strict)
+            self.load_network(self.get_bare_model(self.net_g), file, strict)
 
     def load_from_flax(self, vars_ex, vars_map, vars_g):
         """Take the JAX package's flax variables of the three nets."""
@@ -188,20 +204,32 @@ class MultiRefRestorationModel(BaseModel):
             self.match_img_in, self.img_ref_list, self.img_in_lq), self.gt)
         l_pix.backward()
         self.optimizer_g.step()
-        self.log_dict = OrderedDict(l_pix=l_pix.detach())
+        self.log_dict = self.reduce_loss_dict(
+            OrderedDict(l_pix=l_pix.detach()))
+
+    def optimize_parameters_wave(self, batches, first_iter):
+        """Steps ``first_iter``, ``first_iter + 1``, ... on ``batches`` in
+        turn (the JAX package fuses them into one dispatch, :457-527; one
+        at a time gives the same trajectory, docs/TPUDesign.md:58-66).
+        The log holds the last step's losses."""
+        for j, batch in enumerate(batches):
+            self.feed_data(batch)
+            self.optimize_parameters(first_iter + j)
 
     def save(self, epoch, current_iter):
         self.save_network(self.net_g, 'net_g', current_iter)
         self.save_training_state(epoch, current_iter)
 
     # -------------------------------------------------------------- forward
-    def _forward(self, match_img_in, refs, lq):
+    def _forward(self, match_img_in, refs, lq, net_g=None):
         """NHWC in, NHWC out; the nets run NCHW in channels-last memory,
         which is what an NHWC tensor permuted to NCHW already is. The
-        frozen extractor and map run without a graph."""
+        frozen extractor and map run without a graph. ``net_g`` is the
+        training wrapper by default."""
         with torch.no_grad():
             pre_offset, img_ref_feat = self._ref_inputs(match_img_in, refs)
-        out = self.net_g(lq.permute(0, 3, 1, 2), pre_offset, img_ref_feat)
+        net_g = self.net_g if net_g is None else net_g
+        out = net_g(lq.permute(0, 3, 1, 2), pre_offset, img_ref_feat)
         return out.permute(0, 2, 3, 1)
 
     def _ref_inputs(self, match_img_in, refs):
@@ -222,9 +250,12 @@ class MultiRefRestorationModel(BaseModel):
         return pre_offset, img_ref_feat
 
     def test(self):
+        """The eval forward, through the bare ``net_g``: it runs no
+        collective, so ranks may answer different numbers of requests."""
         with torch.inference_mode():
             self.output = self._forward(self.match_img_in, self.img_ref_list,
-                                        self.img_in_lq)
+                                        self.img_in_lq,
+                                        self.get_bare_model(self.net_g))
 
     def get_current_visuals(self):
         """``{'img_in_lq', 'rlt', 'gt'}`` as NHWC float32 numpy arrays."""
@@ -234,3 +265,104 @@ class MultiRefRestorationModel(BaseModel):
         if self.gt is not None:
             out['gt'] = self.gt.cpu().numpy()
         return out
+
+    # ----------------------------------------------------------- validation
+    def dist_validation(self, dataloader, current_iter, tb_logger,
+                        save_img):
+        """Image-sharded validation (JAX package :802-836): rank ``r``
+        evaluates images ``r::world`` and the metric sums are added over
+        the ranks, so every rank ends with the whole set's averages in
+        ``metric_results``; rank 0 logs them. The reference validated on
+        rank 0 alone. Collective: every rank calls it. ``save_img`` writes
+        each rank's own images."""
+        rank, world = get_dist_info()
+        sums = self._validate_images(dataloader, current_iter, save_img,
+                                     rank=rank, world=world)
+        if world > 1:
+            # on this rank's device: NCCL reduces no CPU tensor
+            total = torch.tensor(sums, dtype=torch.float64,
+                                 device=self.device)
+            dist.all_reduce(total)
+            sums = total.cpu().numpy()
+        self._finalize_validation(sums, dataloader.dataset.opt['name'],
+                                  current_iter, tb_logger, log=rank == 0)
+
+    def nondist_validation(self, dataloader, current_iter, tb_logger,
+                           save_img):
+        """CUFED5-style validation on this process: un-pad, PSNR (RGB),
+        PSNR_Y and SSIM_Y at ``crop_border`` (JAX package :838-844)."""
+        sums = self._validate_images(dataloader, current_iter, save_img)
+        self._finalize_validation(sums, dataloader.dataset.opt['name'],
+                                  current_iter, tb_logger)
+
+    def _validate_images(self, dataloader, current_iter, save_img,
+                         rank=0, world=1):
+        """Evaluate images ``rank::world`` of the loader's dataset and
+        return the sums ``[psnr, psnr_y, ssim_y, count]`` as float64 (JAX
+        package :846-924). A sharded run indexes the dataset itself, so
+        no rank decodes another's images; it takes a loader of batch 1
+        without a sampler, which is what validation loaders are."""
+        sums = np.zeros(4, np.float64)
+        dataset_name = dataloader.dataset.opt['name']
+        if world > 1:
+            if getattr(dataloader, 'sampler', None) is not None \
+                    or getattr(dataloader, 'batch_size', 1) not in (None, 1):
+                raise ValueError('sharded validation indexes the dataset '
+                                 'itself: it takes a loader of batch 1 '
+                                 'without a sampler')
+            dataset = dataloader.dataset
+            collate = getattr(dataloader, 'collate_fn', None) \
+                or default_collate
+            batches = (collate([dataset[i]])
+                       for i in range(rank, len(dataset), world))
+        else:
+            batches = dataloader
+        crop_border = self.opt['crop_border']
+        for val_data in batches:
+            lq_path = val_data['lq_path']
+            lq_path = lq_path[0] if isinstance(lq_path, list) else lq_path
+            img_name = osp.splitext(osp.basename(lq_path))[0]
+            self.feed_data(val_data)
+            self.test()
+            visuals = self.get_current_visuals()
+            sr_img = tensor2img(visuals['rlt'])
+            gt_img = tensor2img(visuals['gt'])
+            if 'padding' in val_data:
+                height, width = np.asarray(val_data['original_size'])[0]
+                sr_img = sr_img[:int(height), :int(width)]
+            if save_img:
+                imwrite(sr_img, self._val_image_path(img_name, dataset_name,
+                                                     current_iter))
+            sums += (calculate_psnr(sr_img, gt_img, crop_border=crop_border),
+                     calculate_psnr(sr_img, gt_img, crop_border=crop_border,
+                                    test_y_channel=True),
+                     calculate_ssim(sr_img, gt_img, crop_border=crop_border,
+                                    test_y_channel=True),
+                     1)
+        return sums
+
+    def _val_image_path(self, img_name, dataset_name, current_iter):
+        visualization = self.opt['path']['visualization']
+        if self.is_train:
+            return osp.join(visualization, img_name,
+                            f'{img_name}_{current_iter}.png')
+        suffix = f"_{self.opt['suffix']}" if self.opt.get('suffix') else ''
+        return osp.join(visualization, dataset_name,
+                        f"{img_name}_{self.opt['name']}{suffix}.png")
+
+    def _finalize_validation(self, sums, dataset_name, current_iter,
+                             tb_logger, log=True):
+        """``metric_results`` from the sums (JAX package :926-942)."""
+        if sums[3] <= 0:
+            return
+        avg_psnr, avg_psnr_y, avg_ssim_y = (sums[:3] / sums[3]).tolist()
+        self.metric_results = {'psnr': avg_psnr, 'psnr_y': avg_psnr_y,
+                               'ssim_y': avg_ssim_y}
+        if not log:
+            return
+        logging.getLogger(__name__).info(
+            f'# Validation {dataset_name} # PSNR: {avg_psnr:.4e} '
+            f'# PSNR_Y: {avg_psnr_y:.4e} # SSIM_Y: {avg_ssim_y:.4e}.')
+        if tb_logger:
+            for key, value in self.metric_results.items():
+                tb_logger.add_scalar(key, value, current_iter)

@@ -5,7 +5,9 @@ version beside it for CPU tensors; and the resampling the video nets use
 (``resize.py``, ``warp.py``), which is ATen's ``F.interpolate`` and
 ``F.grid_sample`` at the JAX package's layouts."""
 from .correlation import (feature_match_index, feature_match_index_ref,
-                          index_to_flow, sample_patches, tensor_shift)
+                          feature_match_index_sharded,
+                          feature_match_index_sharded_ref, index_to_flow,
+                          sample_patches, tensor_shift)
 from .dcn import (deform_conv2d, deform_conv2d_ref, deform_sample,
                   deform_sample_ref, modulated_deform_conv2d,
                   modulated_deform_conv2d_ref, offset_mask_from_conv_out)
@@ -15,7 +17,9 @@ from .upfirdn2d import upfirdn2d, upfirdn2d_ref
 from .warp import flow_warp, resize_flow
 
 __all__ = [
-    'feature_match_index', 'feature_match_index_ref', 'index_to_flow',
+    'feature_match_index', 'feature_match_index_ref',
+    'feature_match_index_sharded', 'feature_match_index_sharded_ref',
+    'index_to_flow',
     'sample_patches', 'tensor_shift', 'deform_conv2d', 'deform_conv2d_ref',
     'deform_sample', 'deform_sample_ref',
     'modulated_deform_conv2d', 'modulated_deform_conv2d_ref',

@@ -7,19 +7,28 @@ and each ref patch is divided by its norm in PyTorch; the scores and the
 running max/argmax over ref patches run in ``csrc/feature_match.cu`` on a
 CUDA tensor, and in :func:`_match_patches_ref` (a chunked matmul with a
 running max, as the JAX scan does) on a CPU tensor.
+
+:func:`feature_match_index_sharded` matches against one rank's band of
+reference rows with the same kernel, launched through its own entry point,
+and fuses the ranks' answers with two ``torch.distributed`` all-reduces.
 """
 import ctypes
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ._build import Kernel
 
-feature_match_kernel = Kernel(
-    'feature_match', 'feature_match_launch',
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p])
+_MATCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+feature_match_kernel = Kernel('feature_match', 'feature_match_launch',
+                              _MATCH_ARGTYPES)
+# the same kernel, counted apart: the sharded match's per-rank launches
+feature_match_sharded_kernel = Kernel(
+    'feature_match', 'feature_match_sharded_launch', _MATCH_ARGTYPES)
+INT32_MAX = torch.iinfo(torch.int32).max
 
 
 def sample_patches(feat, patch_size=3, stride=1):
@@ -56,9 +65,10 @@ def _match_patches_ref(pin, pref, chunk):
     return best_idx, best_val
 
 
-def _match_patches_cuda(pin, pref, chunk=None):
+def _match_patches_cuda(pin, pref, chunk=None, kernel=feature_match_kernel):
     """The CUDA kernel, same contract as :func:`_match_patches_ref`; the
-    kernel tiles the ref patches by itself, so ``chunk`` is unused."""
+    kernel tiles the ref patches by itself, so ``chunk`` is unused.
+    ``kernel`` is the entry point that launches (and counts) it."""
     if pin.dtype != torch.float32 or pref.dtype != torch.float32:
         raise TypeError('feature_match kernel takes float32 patches, got '
                         f'{pin.dtype} and {pref.dtype}')
@@ -76,10 +86,14 @@ def _match_patches_cuda(pin, pref, chunk=None):
     idx = torch.empty((pairs, n_in), dtype=torch.int32, device=pin.device)
     val = torch.empty((pairs, n_in), dtype=torch.float32, device=pin.device)
     with torch.cuda.device(pin.device):
-        feature_match_kernel(pin.data_ptr(), pref.data_ptr(), pairs, n_in,
-                             n_ref, d, idx.data_ptr(), val.data_ptr(),
-                             torch.cuda.current_stream().cuda_stream)
+        kernel(pin.data_ptr(), pref.data_ptr(), pairs, n_in, n_ref, d,
+               idx.data_ptr(), val.data_ptr(),
+               torch.cuda.current_stream().cuda_stream)
     return idx, val
+
+
+def _match_patches_sharded_cuda(pin, pref, chunk=None):
+    return _match_patches_cuda(pin, pref, kernel=feature_match_sharded_kernel)
 
 
 def _feature_match(feat_input, feat_ref, patch_size, input_stride,
@@ -104,6 +118,15 @@ def _feature_match(feat_input, feat_ref, patch_size, input_stride,
     return idx.reshape(batch + (ph, pw)), val.reshape(batch + (ph, pw))
 
 
+def _matcher(feat, name, cuda_match):
+    if feat.is_cuda:
+        return cuda_match
+    if feat.device.type == 'cpu':
+        return _match_patches_ref
+    raise RuntimeError(f'{name} runs on cuda or cpu tensors, got '
+                       f'{feat.device}')
+
+
 def feature_match_index(feat_input, feat_ref, patch_size=3, input_stride=1,
                         ref_stride=1, is_norm=True, norm_input=False,
                         chunk=2048):
@@ -122,13 +145,7 @@ def feature_match_index(feat_input, feat_ref, patch_size=3, input_stride=1,
         ``max_idx (..., ph, pw)`` int32, row-major into the ref patch grid,
         the lowest index among equal maxima; ``max_val (..., ph, pw)``.
     """
-    if feat_input.is_cuda:
-        match = _match_patches_cuda
-    elif feat_input.device.type == 'cpu':
-        match = _match_patches_ref
-    else:
-        raise RuntimeError(f'feature_match_index runs on cuda or cpu '
-                           f'tensors, got {feat_input.device}')
+    match = _matcher(feat_input, 'feature_match_index', _match_patches_cuda)
     return _feature_match(feat_input, feat_ref, patch_size, input_stride,
                           ref_stride, is_norm, norm_input, chunk, match)
 
@@ -141,6 +158,79 @@ def feature_match_index_ref(feat_input, feat_ref, patch_size=3,
     return _feature_match(feat_input, feat_ref, patch_size, input_stride,
                           ref_stride, is_norm, norm_input, chunk,
                           _match_patches_ref)
+
+
+def _fuse_across_ranks(local_idx, local_val, shard_width, row_offset,
+                       patch_size, ref_stride, group):
+    """The rank's best match in its band -> the best over every rank's band
+    (JAX package correlation.py:167-180): the band's patch index becomes an
+    index into the whole ref's patch grid, the ranks agree on the largest
+    value (MAX), then on the lowest index among the ranks that hold it
+    (MIN), which is single-device K1's tie rule."""
+    pw = (shard_width - patch_size) // ref_stride + 1
+    rows = torch.div(local_idx, pw, rounding_mode='floor')
+    global_idx = (rows + row_offset // ref_stride) * pw + local_idx % pw
+    global_val = local_val.clone()
+    dist.all_reduce(global_val, op=dist.ReduceOp.MAX, group=group)
+    cand = torch.where(local_val >= global_val, global_idx,
+                       torch.full_like(global_idx, INT32_MAX))
+    dist.all_reduce(cand, op=dist.ReduceOp.MIN, group=group)
+    return cand, global_val
+
+
+def _feature_match_sharded(feat_input, feat_ref_shard, group, patch_size,
+                           input_stride, ref_stride, is_norm, norm_input,
+                           chunk, match):
+    shard, row_offset = feat_ref_shard
+    row_offset = int(row_offset)
+    if row_offset < 0 or row_offset % ref_stride:
+        raise ValueError(f'row_offset {row_offset} must be a multiple of '
+                         f'ref_stride {ref_stride}: the band\'s patch grid '
+                         'must lie on the whole ref\'s')
+    local_idx, local_val = _feature_match(
+        feat_input, shard, patch_size, input_stride, ref_stride, is_norm,
+        norm_input, chunk, match)
+    return _fuse_across_ranks(local_idx, local_val, shard.shape[-2],
+                              row_offset, patch_size, ref_stride, group)
+
+
+def feature_match_index_sharded(feat_input, feat_ref_shard, group=None,
+                                patch_size=3, input_stride=1, ref_stride=1,
+                                is_norm=True, norm_input=False, chunk=2048):
+    """Top-1 matching against a reference split by rows over the ranks of
+    ``group`` (the default process group if None): each rank matches the
+    whole input against its band with K1's kernel, then two all-reduces
+    give every rank the answer of :func:`feature_match_index` on the whole
+    reference, ties to the lowest global patch index.
+
+    Args:
+        feat_input: ``(..., H, W, C)``, the same on every rank.
+        feat_ref_shard: ``(shard (..., Hs, W, C), row_offset)``, the band's
+            first row in the whole ref. Bands overlap by ``patch_size - 1``
+            rows, so every patch lies whole in one band, and ``row_offset``
+            is a multiple of ``ref_stride``. Bands may differ in height:
+            only the outputs, which are input-shaped, must agree.
+
+    Returns ``(max_idx, max_val)`` as :func:`feature_match_index` does,
+    the same on every rank. Collective: every rank of ``group`` calls it.
+    """
+    match = _matcher(feat_input, 'feature_match_index_sharded',
+                     _match_patches_sharded_cuda)
+    return _feature_match_sharded(feat_input, feat_ref_shard, group,
+                                  patch_size, input_stride, ref_stride,
+                                  is_norm, norm_input, chunk, match)
+
+
+def feature_match_index_sharded_ref(feat_input, feat_ref_shard, group=None,
+                                    patch_size=3, input_stride=1,
+                                    ref_stride=1, is_norm=True,
+                                    norm_input=False, chunk=2048):
+    """:func:`feature_match_index_sharded` through the plain PyTorch version
+    of the per-rank match on any device, with the same collectives."""
+    return _feature_match_sharded(feat_input, feat_ref_shard, group,
+                                  patch_size, input_stride, ref_stride,
+                                  is_norm, norm_input, chunk,
+                                  _match_patches_ref)
 
 
 def index_to_flow(max_idx):

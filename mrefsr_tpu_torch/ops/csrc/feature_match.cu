@@ -143,6 +143,16 @@ feature_match_kernel(const float* __restrict__ pin,
   }
 }
 
+// The launch both entry points share.
+int launch(const void* pin, const void* pref, int pairs, int n_in, int n_ref,
+           int d, void* idx, void* val, void* stream) {
+  dim3 grid((n_in + BM - 1) / BM, 1, pairs);
+  feature_match_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)pin, (const float*)pref, n_in, n_ref, d, (int*)idx,
+      (float*)val);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -152,11 +162,18 @@ extern "C" {
 int feature_match_launch(const void* pin, const void* pref, int pairs,
                          int n_in, int n_ref, int d, void* idx, void* val,
                          void* stream) {
-  dim3 grid((n_in + BM - 1) / BM, 1, pairs);
-  feature_match_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)pin, (const float*)pref, n_in, n_ref, d, (int*)idx,
-      (float*)val);
-  return (int)cudaGetLastError();
+  return launch(pin, pref, pairs, n_in, n_ref, d, idx, val, stream);
+}
+
+// The same kernel on one rank's band of reference rows, for
+// mrefsr_tpu/ops/correlation.py::feature_match_index_sharded
+// (correlation.py:140-180): a second name only, so that the sharded match
+// counts its launches apart from the single-device one. The index remap
+// and the MAX / MIN all-reduce across ranks stay in PyTorch.
+int feature_match_sharded_launch(const void* pin, const void* pref, int pairs,
+                                 int n_in, int n_ref, int d, void* idx,
+                                 void* val, void* stream) {
+  return launch(pin, pref, pairs, n_in, n_ref, d, idx, val, stream);
 }
 
 const char* cuda_error_string(int err) {

@@ -8,13 +8,17 @@ __all__ = ['img2tensor', 'imwrite', 'read_img_seq', 'resolve_device',
 
 
 def resolve_device(device=None):
-    """The device an entry point runs on: ``cuda`` unless the caller names
-    another. With no CUDA device and no explicit choice this raises: the
-    port never carries on on the CPU unasked."""
+    """The device an entry point runs on: the current CUDA device (the
+    rank's, under ``init_dist``) unless the caller names another. With no
+    CUDA device and no explicit choice this raises: the port never carries
+    on on the CPU unasked."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 'no CUDA device is available; pass device="cpu" to run '
                 'the plain PyTorch path on the CPU')
-        return torch.device('cuda')
-    return torch.device(device)
+        device = 'cuda'
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    return device

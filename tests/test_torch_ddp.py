@@ -1,0 +1,262 @@
+"""The port's multi-process training and validation against the JAX
+package's data mesh, on the CPU: ``MultiRefRestorationModel`` with
+``dist: true`` on 2 ranks over gloo (processes of
+``tests/torch_dist_worker.py``, batch 1 each) against the JAX model on a
+2-device mesh (``num_gpu: 2``, global batch 2), from the same flax
+weights, for both alignments: the loss trajectory and parameters after 3
+steps, the DDP gradient, sharded validation with PSNR / SSIM, the wave of
+steps, and rank-0 checkpoints with resume."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+import torch_dist_worker as worker
+from mrefsr_tpu.convert import flax_to_torch
+from mrefsr_tpu.models import build_model as jax_build_model
+from mrefsr_tpu_torch.convert import state_dict_from_flax
+
+ALIGNMENTS = ('dcn', 'flow')
+STEPS, LR = 3, 1e-4
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _two_torch_threads():
+    """The test workers of one run share the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _state_dict(variables):
+    return state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, variables['params']))
+
+
+def _torch_named(tree):
+    return {k: np.asarray(v) for k, v in flax_to_torch(
+        jax.tree_util.tree_map(np.asarray, tree)).items()}
+
+
+@pytest.fixture(scope='module')
+def runs(tmp_path_factory):
+    """The JAX model per alignment (its validation at the init weights and
+    3 steps), then both alignments on the port's 2 ranks from the same
+    weights and batches: ``{'jax': {alignment: ...}, 'ranks': [...]}``."""
+    tmp = tmp_path_factory.mktemp('ddp')
+    rng = np.random.RandomState(0)
+    batches = [worker.batch(rng, 2) for _ in range(STEPS + 1)]
+    jax_runs, weights = {}, {}
+    for alignment in ALIGNMENTS:
+        opt = worker.train_opt(alignment, str(tmp / 'jax'), dist=False)
+        model = jax_build_model(opt)
+        model.feed_data(batches[0])                          # lazy init
+        weights[alignment] = {
+            key: _state_dict(v) for key, v in (
+                ('extractor', model.vars_extractor), ('map', model.vars_map),
+                ('g', model.vars_g))}
+        model.nondist_validation(worker.TinyValLoader(), 0, None, False)
+        run = jax_runs[alignment] = {'metric_results':
+                                     dict(model.metric_results)}
+        run['losses'] = []
+        for step in range(1, STEPS + 1):
+            model.feed_data(batches[step - 1])
+            model.optimize_parameters(step)
+            run['losses'].append(float(model.get_current_log()['l_pix']))
+        run['params'] = _torch_named(model.vars_g['params'])
+    spec = {'root': str(tmp / 'port'), 'alignments': list(ALIGNMENTS),
+            'weights': weights,
+            'batches': [{k: torch.from_numpy(v) for k, v in b.items()}
+                        for b in batches]}
+    return {'jax': jax_runs,
+            'ranks': worker.spawn('ddp', spec, tmp, world=2)}
+
+
+@pytest.mark.parametrize('alignment', ALIGNMENTS)
+def test_loss_trajectory_matches_the_jax_mesh(runs, alignment):
+    """Every rank logs the mean over the ranks, which is the JAX step's
+    loss on the global batch: rtol 1e-5, as the single-process trajectory
+    (test_torch_train.py)."""
+    ranks = [r[alignment] for r in runs['ranks']]
+    assert ranks[0]['losses'] == ranks[1]['losses']
+    np.testing.assert_allclose(ranks[0]['losses'],
+                               runs['jax'][alignment]['losses'], rtol=1e-5)
+
+
+@pytest.mark.parametrize('alignment', ALIGNMENTS)
+def test_steps_match_one_process_on_the_global_batch(runs, alignment):
+    """The port without DDP on the global batch: the same loss (rtol
+    1e-6) and every parameter within a hundredth of a step (lr 1e-4) after
+    3 steps: the ranks change the order of the sums, nothing else."""
+    out = runs['ranks'][0][alignment]
+    assert out['single_loss'] == pytest.approx(out['losses'][-1], rel=1e-6)
+    for name, val in out['single_params'].items():
+        assert float((out['params'][name] - val).abs().max()) <= 0.01 * LR, \
+            name
+
+
+@pytest.mark.parametrize('alignment', ALIGNMENTS)
+def test_parameters_after_three_steps_match_the_jax_mesh(runs, alignment):
+    """Every entry within 2 lr per step of the JAX value and 98 % of each
+    tensor within a tenth of one step (test_torch_train.py holds 99 % at
+    T 5; at this T 2 the port without DDP, above, shows 98.4 % for one
+    flow tensor, the same share: where a gradient is near Adam's eps the
+    two frameworks' sums move the step)."""
+    got = runs['ranks'][0][alignment]['params']
+    want = runs['jax'][alignment]['params']
+    assert sorted(got) == sorted(want)
+    for name in want:
+        diff = np.abs(got[name].numpy() - want[name])
+        assert diff.max() <= 2 * LR * STEPS, name
+        assert (diff <= 0.1 * LR).mean() >= 0.98, name
+
+
+@pytest.mark.parametrize('alignment', ALIGNMENTS)
+def test_ranks_hold_the_same_parameters(runs, alignment):
+    ranks = [r[alignment] for r in runs['ranks']]
+    for key in ('params', 'unbroken_params', 'resumed_params'):
+        for name, val in ranks[0][key].items():
+            torch.testing.assert_close(ranks[1][key][name], val, rtol=0,
+                                       atol=0)
+
+
+@pytest.mark.parametrize('alignment', ALIGNMENTS)
+def test_ddp_gradient_is_the_mean_of_the_ranks_gradients(runs, alignment):
+    """The gradient DDP leaves on each rank (the same on both) against the
+    rank recomputing every rank's sample through the bare net and
+    averaging: the same forwards, so no gate flips; summed in another
+    order, so within 1e-6 of each tensor's max."""
+    ranks = [r[alignment] for r in runs['ranks']]
+    for rank in ranks:
+        want, got = rank['mean_grads'], rank['ddp_grads']
+        assert sorted(want) == sorted(got)
+        for name, ref in want.items():
+            torch.testing.assert_close(got[name], ranks[0]['ddp_grads'][name],
+                                       rtol=0, atol=0)
+            scale = float(ref.abs().max())
+            err = float((got[name] - ref).abs().max())
+            assert err <= 1e-6 * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize('alignment', ALIGNMENTS)
+def test_every_parameter_gets_a_gradient(runs, alignment):
+    """DDP runs without ``find_unused_parameters``: every parameter of
+    ``net_g`` must take part in the loss, with either alignment."""
+    assert runs['ranks'][0][alignment]['unused_params'] == []
+
+
+@pytest.mark.parametrize('alignment', ALIGNMENTS)
+def test_wave_gives_the_steps_one_at_a_time(runs, alignment):
+    out = runs['ranks'][0][alignment]
+    assert out['wave_loss'] == out['losses'][-1]
+    for name, val in out['params'].items():
+        torch.testing.assert_close(out['wave_params'][name], val, rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.parametrize('alignment', ALIGNMENTS)
+def test_shard_sums_add_up_to_the_whole_set(runs, alignment):
+    """Ranks 0 and 1 take items 0, 2 and 1 (the padded one); their sums
+    add up to rank 0's sums over the whole set."""
+    ranks = [r[alignment] for r in runs['ranks']]
+    assert [float(r['shard_sums'][3]) for r in ranks] == [2, 1]
+    total = ranks[0]['shard_sums'] + ranks[1]['shard_sums']
+    torch.testing.assert_close(total, ranks[0]['full_sums'], rtol=1e-12,
+                               atol=0)
+
+
+@pytest.mark.parametrize('alignment', ALIGNMENTS)
+def test_metric_results_match_the_jax_validation(runs, alignment):
+    """Every rank ends with the whole set's averages, which are the JAX
+    model's ``nondist_validation`` on the same weights and images within
+    1e-6 (relative)."""
+    ranks = [r[alignment] for r in runs['ranks']]
+    want = runs['jax'][alignment]['metric_results']
+    assert ranks[0]['metric_results'] == ranks[1]['metric_results']
+    assert sorted(ranks[0]['metric_results']) == ['psnr', 'psnr_y', 'ssim_y']
+    for key, val in want.items():
+        assert ranks[0]['metric_results'][key] == pytest.approx(val,
+                                                                rel=1e-6)
+    full = ranks[0]['full_sums'].numpy()
+    np.testing.assert_allclose(full[:3] / full[3],
+                               [want['psnr'], want['psnr_y'],
+                                want['ssim_y']], rtol=1e-6)
+
+
+@pytest.mark.parametrize('alignment', ALIGNMENTS)
+def test_only_rank_zero_writes_checkpoints(runs, alignment):
+    ranks = [r[alignment] for r in runs['ranks']]
+    assert ranks[0]['written'] == ['net_g_3.pth', '3.state']
+    assert ranks[1]['written'] == []
+    keys = ranks[0]['pth_keys']
+    assert keys == sorted(ranks[0]['params'])
+    assert not [k for k in keys if k.startswith('module.')]
+
+
+@pytest.mark.parametrize('alignment', ALIGNMENTS)
+def test_resumed_step_equals_the_unbroken_run(runs, alignment):
+    """Step 4 from the files of step 3, on both ranks: the loss and every
+    parameter of the run that went on, bit for bit."""
+    for rank in runs['ranks']:
+        out = rank[alignment]
+        assert out['resumed_loss'] == out['unbroken_loss']
+        for name, val in out['unbroken_params'].items():
+            torch.testing.assert_close(out['resumed_params'][name], val,
+                                       rtol=0, atol=0)
+
+
+
+# ------------------------------------------------- one process, no group
+def test_one_process_is_rank_zero_of_one():
+    from mrefsr_tpu_torch.utils import dist_util
+    dist_util.init_dist(None)
+    dist_util.init_dist('none')
+    assert not torch.distributed.is_initialized()
+    assert dist_util.get_dist_info() == (0, 1)
+    assert (dist_util.get_rank(), dist_util.get_world_size()) == (0, 1)
+    assert dist_util.master_only(lambda x: x + 1)(1) == 2
+
+
+def test_init_dist_refuses_launchers_it_cannot_read():
+    from mrefsr_tpu_torch.utils import dist_util
+    with pytest.raises(ValueError, match='slurm'):
+        dist_util.init_dist('slurm')
+
+
+def _cpu_model(tmp_path):
+    from mrefsr_tpu_torch.models import build_model
+    return build_model(worker.train_opt('dcn', str(tmp_path), dist=False),
+                       device='cpu')
+
+
+def test_losses_stay_as_they_are_outside_a_group(tmp_path):
+    model = _cpu_model(tmp_path)
+    losses = {'l_pix': torch.tensor(0.25), 'l_other': torch.tensor(2.0)}
+    reduced = model.reduce_loss_dict(losses)
+    assert list(reduced) == ['l_pix', 'l_other']
+    assert [float(v) for v in reduced.values()] == [0.25, 2.0]
+
+
+def test_sharded_validation_takes_no_sampler_and_batch_one(tmp_path):
+    """A rank indexes the dataset itself: a loader that samples or
+    batches on its own would shard twice, so it raises."""
+    model = _cpu_model(tmp_path)
+    for attr, value in (('sampler', object()), ('batch_size', 2)):
+        loader = worker.TinyValLoader()
+        setattr(loader, attr, value)
+        with pytest.raises(ValueError, match='batch 1 without a sampler'):
+            model._validate_images(loader, 0, False, rank=0, world=2)
+
+
+def test_validation_without_dist_runs_on_this_process(tmp_path):
+    """``validation`` of a model without ``dist`` is
+    ``nondist_validation``: every item, the averages of the sums."""
+    model = _cpu_model(tmp_path)
+    loader = worker.TinyValLoader()
+    model.validation(loader, 0, None)
+    sums = model._validate_images(loader, 0, False)
+    assert sums[3] == 3
+    np.testing.assert_allclose(
+        [model.metric_results[k] for k in ('psnr', 'psnr_y', 'ssim_y')],
+        sums[:3] / 3, rtol=1e-15)

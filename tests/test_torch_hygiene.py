@@ -24,6 +24,8 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'mrefsr_tpu'}
 PORT_FILES = sorted((REPO / 'mrefsr_tpu_torch').rglob('*.py')) \
     + [REPO / 'chip_smoke.py']
+# helpers that run as rank processes of their own, apart from pytest
+RANK_WORKERS = [REPO / 'tests' / 'torch_dist_worker.py']
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -56,6 +58,23 @@ def _imported_roots(path):
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
     assert not _imported_roots(path) & FORBIDDEN
+
+
+@pytest.mark.parametrize('path', RANK_WORKERS,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_rank_workers_import_no_jax(path):
+    """The tests' rank processes import nothing of JAX, as the port."""
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_scan_covers_the_distributed_modules():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ('utils/dist_util.py', 'utils/color_util.py',
+                   'parallel/__init__.py', 'parallel/ddp.py',
+                   'data/__init__.py', 'data/data_sampler.py',
+                   'data/loader.py', 'metrics/__init__.py',
+                   'metrics/metric_util.py', 'metrics/psnr_ssim.py'):
+        assert f'mrefsr_tpu_torch/{module}' in names
 
 
 def test_scan_sees_forbidden_imports(tmp_path):
@@ -160,7 +179,8 @@ def _refuse(*_):
     raise AssertionError('a CUDA kernel was reached from CPU tensors')
 
 
-KERNELS = (correlation.feature_match_kernel, dcn.mdcn_im2col_kernel,
+KERNELS = (correlation.feature_match_kernel,
+           correlation.feature_match_sharded_kernel, dcn.mdcn_im2col_kernel,
            dcn.mdcn_col2im_kernel, dcn.mdcn_col2im_scatter_kernel,
            dcn.mdcn_im2col_groups_kernel, dcn.mdcn_col2im_groups_kernel,
            dcn.mdcn_col2im_groups_scatter_kernel, dcn.deform_im2col_kernel,
