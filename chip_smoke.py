@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drive the port's main paths on one NVIDIA GPU: the 5-ref CUFED5 eval
-forward, the stage-3 training step with both alignments, StyleGAN2
-sampling and training, video SR inference (BasicVSR++, EDVR, BasicVSR),
-and stage-3 training, validation and the sharded patch match over two
-ranks.
+forward, the stage-3 training step with both alignments, in f32 and in the
+shipped bf16 mixed precision, StyleGAN2 sampling and training, video SR
+inference (BasicVSR++, EDVR, BasicVSR), and stage-3 training, validation
+and the sharded patch match over two ranks.
 
     python3 chip_smoke.py        # from the root of a checkout
     python3 chip_smoke.py --repeat-grads 20   # only the whole-net gradient
                                               # comparisons, 21 times a path
     python3 chip_smoke.py --ddp  # only the two-rank phase (17)
+    python3 chip_smoke.py --bf16 # only the bf16 phases (11a-11e)
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``). Phases, one JSON line each (one per shape where a
@@ -57,6 +58,23 @@ phase runs several):
     against the plain versions behind the same forward (see
     ``TRAIN_GRAD_REL_TOL``), and the two outputs; then a profile of one
     step;
+11a. feature_match_bf16: K1's bf16 kernel (tensor cores) against its
+    plain version at the eval and the training shapes in bf16, with the
+    planted ties, the f32 kernel timed beside it on the same values;
+11b. mdcn_bf16 and mdcn_backward_bf16: K2 at bf16 (x, mask, weight, bias
+    bf16, the offset f32) at the eval and training shapes, forward and
+    every gradient, against the plain version (``K2_BF16_TOL``);
+11c. deform_sample_bf16: K4 the same at the training shapes;
+11d. slice_bf16: phase 10 with ``val.mixed_precision: bfloat16``: the
+    output f32, the request through the kernels against the plain
+    versions (``SLICE_BF16_TOL``) and against the same weights' f32
+    request (max 0.1, mean 0.02), launches of the bf16 entry points only;
+    a profile;
+11e. train_dcn_bf16 and train_flow_bf16: phase 11 with
+    ``train.mixed_precision: bfloat16``: no launch of an f32 entry point
+    or a grad-x scatter; f32 master parameters, gradients and Adam
+    state; the gradients behind the same forward within
+    ``TRAIN_GRAD_BF16_TOL``; a profile of each;
 12. stylegan2_serve: the FFHQ config-f generator at full width (1024,
     512 style features, 8 MLP layers, channel multiplier 2) with seeded
     weights, through the inference module: the mean latent of 4096 codes,
@@ -102,16 +120,18 @@ phase runs several):
     ``validation``: the ranks' sums against rank 0's unsharded ones) and
     ddp_resume (a save from rank 0 only, a fresh model resumed on every
     rank takes a step, the ``.pth`` loads strictly into a model of one
-    process); the parent prints one line for each;
+    process); the parent prints one line for each. sharded_match runs
+    again at bf16 (K6 through the bf16 kernel's sharded entry point); the
+    training and validation of this phase are f32;
 18. the ``kernels`` line.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero without the last line. Times come from CUDA events
-(phases 3 to 9 and K6's), the host clock around
+(phases 3 to 9, 11a-11c and K6's), the host clock around
 ``torch.cuda.synchronize()`` (phases 10 to 17) and the profiler's device
-times. Bounds use the H100 SXM's published 67 TFLOP/s f32 (CUDA cores)
-and 3.35 TB/s.
+times. Bounds use the H100 SXM's published 67 TFLOP/s f32 (CUDA cores),
+989 TFLOP/s dense bf16 (tensor cores) and 3.35 TB/s.
 """
 import contextlib
 import copy
@@ -129,7 +149,10 @@ import torch
 import torch.distributed as dist
 
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12               # dense, tensor cores
 PEAK_BYTES = 3.35e12
+BF16 = torch.bfloat16
+EPS_BF16 = 2.0 ** -7                   # bf16's machine epsilon
 CANVAS, T, SEED = 500, 5, 0
 EVAL_SHAPES = tuple((c, CANVAS // d) for c, d in ((256, 4), (128, 2),
                                                   (64, 1)))
@@ -162,10 +185,19 @@ def cuda_ms(fn, reps=3, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
+    """The least time (ms) for ``flops`` operations at ``peak`` and
+    ``nbytes`` at the memory rate, and which of the two it is; ``flops``
+    may be a list of ``(operations, peak)`` pairs of several types."""
+    pairs = flops if isinstance(flops, list) else [(flops, peak)]
+    t_ops = sum(f / p for f, p in pairs)
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes')
+
+
+def peak_of(dtype):
+    return PEAK_BF16_FLOPS if dtype == BF16 else PEAK_F32_FLOPS
 
 
 def phase_device():
@@ -195,56 +227,77 @@ def phase_build(build):
           'built': sorted(info), 'ptxas': ptxas})
 
 
-def phase_feature_match(correlation, pairs=T, h=CANVAS // 4, ties=True):
+def phase_feature_match(correlation, pairs=T, h=CANVAS // 4, ties=True,
+                        dtype=torch.float32):
     """K1 against its plain version on ``pairs`` pairs of (h, h, 256)
-    maps: the eval shape by default."""
+    maps: the eval shape by default; f32, or bf16 through the tensor-core
+    kernel, with the f32 kernel timed beside it on the same values."""
     T = pairs  # noqa: N806 (the pair count, whatever the module's T)
+    bf16 = dtype == BF16
+    name = 'feature_match_bf16' if bf16 else 'feature_match'
     gen = torch.Generator().manual_seed(SEED)
     feats = torch.randn((2, T, h, h, 256), generator=gen).cuda()
-    feats = feats / (feats.norm(dim=-1, keepdim=True) + 1e-12)
+    feats = (feats / (feats.norm(dim=-1, keepdim=True) + 1e-12)).to(dtype)
     fin, fref = feats[0], feats[1]
     kw = dict(is_norm=True, norm_input=True)
     idx_k, val_k = correlation.feature_match_index(fin, fref, **kw)
     idx_p, val_p = correlation.feature_match_index_ref(fin, fref, **kw)
+    check(val_k.dtype == torch.float32, f'{name} val is {val_k.dtype}')
 
     pin, pref = _normed_patches(correlation, fin, fref)
     differ, worst_gap = _index_gap(pin, pref, idx_k, idx_p)
     val_err = float((val_k - val_p).abs().max())
-    check(worst_gap <= K1_IDX_GAP, f'feature_match index differs where the '
+    check(worst_gap <= K1_IDX_GAP, f'{name} index differs where the '
           f'plain scores differ by {worst_gap}')
-    check(val_err <= K1_VAL_TOL, f'feature_match val error {val_err}')
+    check(val_err <= K1_VAL_TOL, f'{name} val error {val_err}')
 
-    ties = _feature_match_ties(correlation) if ties else None
+    ties = _feature_match_ties(correlation, dtype) if ties else None
 
+    # the patches as the kernel takes them, in the features' dtype
+    pin, pref = _normed_patches(correlation, fin, fref, widen=False)
     n_in, d = pin.shape[1:]
     n_ref = pref.shape[1]
     ms = cuda_ms(lambda: correlation.feature_match_index(fin, fref, **kw))
     kernel_ms = cuda_ms(lambda: correlation._match_patches_cuda(pin, pref))
+    extra = {}
+    if bf16:
+        pin32, pref32 = pin.float(), pref.float()
+        extra['f32_kernel_same_values_ms'] = cuda_ms(
+            lambda: correlation._match_patches_cuda(pin32, pref32))
+        del pin32, pref32
     plain_ms = cuda_ms(
         lambda: correlation.feature_match_index_ref(fin, fref, **kw), reps=2)
     library_ms = cuda_ms(lambda: torch.matmul(pin, pref.transpose(1, 2)))
     bound_ms, bound_by = bound(2.0 * T * n_in * n_ref * d,
-                               4.0 * 2 * fin.numel() + 8.0 * T * n_in)
-    rec = {'name': 'feature_match', 'max_abs_err': val_err, 'ms': ms,
-           'kernel_only_ms': kernel_ms, 'plain_ms': plain_ms,
+                               fin.element_size() * 2 * fin.numel()
+                               + 8.0 * T * n_in, peak_of(dtype))
+    rec = {'name': name, 'max_abs_err': val_err, 'ms': ms,
+           'kernel_only_ms': kernel_ms, **extra, 'plain_ms': plain_ms,
            'bound_ms': bound_ms, 'bound_by': bound_by,
            'library_ms': library_ms,
            'library_call': f'torch.matmul of the ({T}, {n_in}, {d}) x '
-                           f'({T}, {d}, {n_ref}) score product alone'}
-    emit({'phase': 'feature_match', 'pairs': T, 'n_in': n_in,
-          'n_ref': n_ref, 'd': d, 'index_disagreements': int(differ.sum()),
-          'worst_disagreement_gap': worst_gap, 'exact_ties': ties, **rec})
+                           f'({T}, {d}, {n_ref}) score product alone'
+                           + (' (bf16 scores)' if bf16 else '')}
+    emit({'phase': name, 'pairs': T, 'n_in': n_in, 'n_ref': n_ref, 'd': d,
+          'index_disagreements': int(differ.sum()),
+          'worst_disagreement_gap': worst_gap, 'exact_ties': ties,
+          'val_tolerance': K1_VAL_TOL, 'index_gap_tolerance': K1_IDX_GAP,
+          **rec})
     return rec
 
 
-def _normed_patches(correlation, fin, fref):
+def _normed_patches(correlation, fin, fref, widen=True):
     """The input patches and the ref patches over their norms, as K1
-    scores them: ``(pairs, n, d)`` each."""
+    scores them: ``(pairs, n, d)`` each, in the features' dtype (the
+    norms rounded as the port rounds them), widened to f32 unless
+    ``widen`` is false."""
     pin = correlation.sample_patches(fin)
     pref = correlation.sample_patches(fref)
     pin = pin.reshape((-1,) + pin.shape[-2:])
     pref = pref.reshape((-1,) + pref.shape[-2:])
-    return pin, pref / (pref.norm(dim=2, keepdim=True) + 1e-5)
+    pref = pref / correlation.add_scalar(
+        correlation.l2_norm(pref, 2, keepdim=True), 1e-5)
+    return (pin.float(), pref.float()) if widen else (pin, pref)
 
 
 def _index_gap(pin, pref, idx_a, idx_b):
@@ -262,17 +315,18 @@ def _index_gap(pin, pref, idx_a, idx_b):
     return differ, float(gap.max()) if gap.numel() else 0.0
 
 
-def _feature_match_ties(correlation):
+def _feature_match_ties(correlation, dtype=torch.float32):
     """Exact ties on the card: features in {-1, 0, 1}, C = 1 (d = 9, not a
-    multiple of the kernel's d slice), 40x40 maps, so equal ref patches
-    are common, across threads, tiles and blocks, and every score is an
-    exact integer. The kernel must return the lowest index of each max."""
+    multiple of the kernel's d slice, nor of the bf16 kernel's 16-byte
+    loads), 40x40 maps, so equal ref patches are common, across threads,
+    tiles and blocks, and every score is an exact integer. The kernel must
+    return the lowest index of each max."""
     gen = torch.Generator().manual_seed(SEED + 3)
     feats = torch.randint(-1, 2, (2, 2, 40, 40, 1), generator=gen)
-    fin, fref = feats.float().cuda()
+    fin, fref = feats.to(dtype).cuda()
     idx, val = correlation.feature_match_index(fin, fref, is_norm=False)
-    pin = correlation.sample_patches(fin)
-    pref = correlation.sample_patches(fref)
+    pin = correlation.sample_patches(fin).float()
+    pref = correlation.sample_patches(fref).float()
     scores = torch.matmul(pin, pref.transpose(1, 2))
     best = scores.max(dim=2).values
     cols = torch.arange(scores.shape[2], device=scores.device)
@@ -287,32 +341,53 @@ def _feature_match_ties(correlation):
     return {'patches': int(best.numel()), 'tied': tied}
 
 
-def _mdcn_inputs(gen, c, h, dg=8, n=T):
+def _mdcn_inputs(gen, c, h, dg=8, n=T, dtype=torch.float32):
+    """x, offset, mask, weight, bias on the card; all but the offset (f32,
+    as the bf16 path's promotion makes it) in ``dtype``."""
     k = 9
     x = torch.randn((n, h, h, c), generator=gen)
     offset = torch.randn((n, h, h, dg, k, 2), generator=gen) * 4
     mask = torch.rand((n, h, h, dg, k), generator=gen)
     weight = torch.randn((3, 3, c, c), generator=gen) * 0.02
     bias = torch.randn((c,), generator=gen) * 0.1
-    return [t.cuda() for t in (x, offset, mask, weight, bias)]
+    return [t.cuda() if t is offset else t.to(dtype).cuda()
+            for t in (x, offset, mask, weight, bias)]
 
 
-def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES):
+# K2 and K4 at bf16, kernel against plain version: both sample in f32 and
+# round each result to bf16 once, so a value whose two f32 sums straddle a
+# rounding boundary differs by one bf16 ulp, at most EPS_BF16 of the
+# largest magnitude; a result derived from such values (the conv output,
+# grad weight, grad x) by two. Every gradient included. Measured (H100,
+# the first run of these phases): 0.95 EPS_BF16 at most (grad x of K2 at
+# C 128), grad offset and grad flow within 1.6e-7.
+K2_BF16_TOL = 2 * EPS_BF16
+
+
+def _k2_tol(dtype):
+    return K2_BF16_TOL if dtype == BF16 else K2_REL_TOL
+
+
+def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32):
     """K2's forward (mdcn_im2col + matmul) against its plain version on
-    ``n`` maps per shape: the eval shapes by default."""
+    ``n`` maps per shape: the eval shapes by default; f32 or bf16."""
     gen = torch.Generator().manual_seed(SEED + 1)
     total = {'ms': 0.0, 'kernel_only_ms': 0.0, 'plain_ms': 0.0,
              'bound_ms': 0.0, 'library_ms': 0.0, 'flops': 0.0, 'bytes': 0.0}
-    worst = 0.0
+    worst, ops_s = 0.0, 0.0
+    size = torch.finfo(dtype).bits // 8
+    tol = _k2_tol(dtype)
     for c, h in shapes:
-        x, offset, mask, weight, bias = _mdcn_inputs(gen, c, h, n=n)
+        x, offset, mask, weight, bias = _mdcn_inputs(gen, c, h, n=n,
+                                                     dtype=dtype)
         args = (x, offset, mask, weight, bias)
         kw = dict(deform_groups=8)
         out_k = dcn.modulated_deform_conv2d(*args, **kw)
         out_p = dcn.modulated_deform_conv2d_ref(*args, **kw)
+        check(out_k.dtype == dtype, f'mdcn output is {out_k.dtype}')
         err = float((out_k - out_p).abs().max())
         scale = float(out_p.abs().max())
-        check(err <= K2_REL_TOL * scale, f'mdcn C={c}: error {err} against '
+        check(err <= tol * scale, f'mdcn C={c} {dtype}: error {err} against '
               f'max |out| {scale}')
         worst = max(worst, err)
         del out_k, out_p
@@ -321,15 +396,18 @@ def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES):
         geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, h))
 
         def im2col_only():
-            for row0, nrows in dcn._row_chunks(rows, 9, c, 4):
+            for row0, nrows in dcn._row_chunks(rows, 9, c, size):
                 dcn._im2col_cuda(x, offset, mask, row0, nrows, geom)
 
         x_nchw = x.permute(0, 3, 1, 2)
         w_oihw = weight.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        flops = 2.0 * rows * 9 * c * c + 9.0 * rows * 9 * c
-        nbytes = 4.0 * (x.numel() + offset.numel() + mask.numel()
-                        + weight.numel() + bias.numel() + rows * c)
+        # the contraction at the dtype's rate, the sampling on CUDA cores
+        flops = [(2.0 * rows * 9 * c * c, peak_of(dtype)),
+                 (9.0 * rows * 9 * c, PEAK_F32_FLOPS)]
+        nbytes = size * (x.numel() + mask.numel() + weight.numel()
+                         + bias.numel() + rows * c) + 4.0 * offset.numel()
+        ops_s += sum(f / p for f, p in flops)
         shape = {
             'ms': cuda_ms(lambda: dcn.modulated_deform_conv2d(*args, **kw)),
             'kernel_only_ms': cuda_ms(im2col_only),
@@ -338,20 +416,25 @@ def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES):
                 reps=1),
             'library_ms': cuda_ms(lambda: torch.nn.functional.conv2d(
                 x_nchw, w_oihw, bias, padding=1)),
-            'bound_ms': bound(flops, nbytes)[0], 'flops': flops,
-            'bytes': nbytes}
-        emit({'phase': 'mdcn', 'n': n, 'c': c, 'h': h, 'w': h,
-              'deform_groups': 8, 'max_abs_err': err, 'max_abs_out': scale,
+            'bound_ms': bound(flops, nbytes)[0],
+            'flops': sum(f for f, _ in flops), 'bytes': nbytes}
+        bf16 = dtype == BF16
+        emit({'phase': 'mdcn_bf16' if bf16 else 'mdcn', 'n': n, 'c': c,
+              'h': h, 'w': h, 'deform_groups': 8, 'dtype': str(dtype),
+              'max_abs_err': err, 'max_abs_out': scale, 'tolerance': tol,
               'bound_by': bound(flops, nbytes)[1], **shape})
         for key in total:
             total[key] += shape[key]
         del x, offset, mask, weight, bias, args, x_nchw, w_oihw
         torch.cuda.empty_cache()
     flops, nbytes = total.pop('flops'), total.pop('bytes')
-    return {'name': 'mdcn_im2col', 'max_abs_err': worst, **total,
-            'bound_by': bound(flops, nbytes)[1],
-            'library_call': 'F.conv2d (cuDNN) of the same shapes: the same '
-                            'conv with zero offsets and unit mask'}
+    return {'name': 'mdcn_im2col_bf16' if dtype == BF16 else 'mdcn_im2col',
+            'max_abs_err': worst, **total,
+            'bound_by': ('operations' if ops_s >= nbytes / PEAK_BYTES
+                         else 'bytes'),
+            'library_call': f'F.conv2d (cuDNN) of the same shapes in '
+                            f'{dtype}: the same conv with zero offsets and '
+                            'unit mask'}
 
 
 TRAIN_B, TRAIN_GT = 6, 160              # options/train/stage3_5ref_*.yml
@@ -367,15 +450,19 @@ def _rel_err(got, want):
 
 
 def _sum_records(name, shapes, extra):
-    """One ``kernels`` entry out of a kernel's per-shape records."""
+    """One ``kernels`` entry out of a kernel's per-shape records; a
+    record's ``ops_s``, where it has one, is its operations' least time
+    (operations of several types), else its ``flops`` count at f32."""
     keys = ('ms', 'kernel_only_ms', 'plain_ms', 'bound_ms', 'library_ms')
     total = {k: sum(rec[k] for rec in shapes) for k in keys}
-    flops = sum(rec['flops'] for rec in shapes)
+    ops_s = sum(rec.get('ops_s', rec['flops'] / PEAK_F32_FLOPS)
+                for rec in shapes)
     nbytes = sum(rec['bytes'] for rec in shapes)
     return {'name': name,
             'max_abs_err': max(rec['max_abs_err'] for rec in shapes),
             'max_rel_err': max(rec['max_rel_err'] for rec in shapes),
-            **total, 'bound_by': bound(flops, nbytes)[1], **extra}
+            **total, 'bound_by': ('operations' if ops_s >= nbytes / PEAK_BYTES
+                                  else 'bytes'), **extra}
 
 
 def _mdcn_grads(fn, args, cot, wrt):
@@ -385,14 +472,14 @@ def _mdcn_grads(fn, args, cot, wrt):
     return torch.autograd.grad(out, [inputs[i] for i in wrt], cot)
 
 
-def _mdcn_backward_integer_case(dcn, gen):
+def _mdcn_backward_integer_case(dcn, gen, dtype=torch.float32):
     """Integer offsets on a 40x40 map, as a fresh net has them: every
     sample sits on a pixel, many of them exactly on row or column -1 or
     H - 1, where one corner row lies outside."""
     c, h = 256, TRAIN_GT // 4
-    x, offset, mask, weight, bias = _mdcn_inputs(gen, c, h)
+    x, offset, mask, weight, bias = _mdcn_inputs(gen, c, h, dtype=dtype)
     offset = torch.randint(-3, 4, offset.shape, generator=gen).float().cuda()
-    cot = torch.randn((T, h, h, c), generator=gen).cuda()
+    cot = torch.randn((T, h, h, c), generator=gen).to(dtype).cuda()
     base = torch.arange(h, device='cuda').view(1, h, 1, 1, 1) - 1 \
         + (torch.arange(9, device='cuda') // 3).view(1, 1, 1, 1, 9)
     fy = base + offset[..., 0]
@@ -402,38 +489,45 @@ def _mdcn_backward_integer_case(dcn, gen):
     got = _mdcn_grads(dcn.modulated_deform_conv2d, args, cot, range(5))
     want = _mdcn_grads(dcn.modulated_deform_conv2d_ref, args, cot, range(5))
     errs = {}
+    tol = GRAD_REL_TOL if dtype == torch.float32 else K2_BF16_TOL
     for name, g, w in zip(('x', 'offset', 'mask', 'weight', 'bias'), got,
                           want):
-        errs[name] = _rel_err(g, w)
-        check(errs[name] <= GRAD_REL_TOL, f'mdcn backward, integer offsets: '
+        errs[name] = _rel_err(g.float(), w.float())
+        check(errs[name] <= tol, f'mdcn backward, integer offsets, {dtype}: '
               f'grad {name} differs by {errs[name]} of its max')
     check(float(got[1].abs().max()) > 0, 'grad offset is zero at integer '
           'offsets')
     return {'samples_on_edge_rows': on_edge, 'rel_err': errs}
 
 
-def phase_mdcn_backward(dcn):
+def phase_mdcn_backward(dcn, dtype=torch.float32):
     """K2's backward (mdcn_col2im + two matmuls) against autograd through
-    the plain version, at the three training shapes."""
+    the plain version, at the three training shapes; f32 or bf16 (the
+    offset f32 either way)."""
     gen = torch.Generator().manual_seed(SEED + 4)
     n = TRAIN_B * T
     names = ('x', 'offset', 'mask', 'weight', 'bias')
+    bf16 = dtype == BF16
+    tol = K2_BF16_TOL if bf16 else GRAD_REL_TOL
+    size = torch.finfo(dtype).bits // 8
     shapes = []
     for c, h in TRAIN_SHAPES:
         args = [t.repeat(TRAIN_B, *[1] * (t.dim() - 1)) if i < 3 else t
-                for i, t in enumerate(_mdcn_inputs(gen, c, h))]
+                for i, t in enumerate(_mdcn_inputs(gen, c, h, dtype=dtype))]
         args[1] = args[1] * 0.5 + torch.randn(args[1].shape, generator=gen,
                                               device='cpu').cuda()
         x, offset, mask, weight, bias = args
-        cot = torch.randn((n, h, h, c), generator=gen).cuda()
+        cot = torch.randn((n, h, h, c), generator=gen).to(dtype).cuda()
         got = _mdcn_grads(dcn.modulated_deform_conv2d, args, cot, range(5))
         want = _mdcn_grads(dcn.modulated_deform_conv2d_ref, args, cot,
                            range(5))
         errs, abs_err = {}, 0.0
         for name, g, w in zip(names, got, want):
-            errs[name] = _rel_err(g, w)
-            abs_err = max(abs_err, float((g - w).abs().max()))
-            check(errs[name] <= GRAD_REL_TOL, f'mdcn backward C={c}: grad '
+            check(g.dtype == w.dtype, f'grad {name} is {g.dtype}, the plain '
+                  f'version\'s {w.dtype}')
+            errs[name] = _rel_err(g.float(), w.float())
+            abs_err = max(abs_err, float((g.float() - w.float()).abs().max()))
+            check(errs[name] <= tol, f'mdcn backward C={c} {dtype}: grad '
                   f'{name} differs by {errs[name]} of its max')
         del got, want
 
@@ -446,10 +540,10 @@ def phase_mdcn_backward(dcn):
             out_k, inputs[1:], cot, retain_graph=True)
         rows = n * h * h
         geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, h))
-        chunks = dcn._row_chunks(rows, 9, c, 4)
-        grad_col = torch.randn((chunks[0][1], 9, c), device='cuda')
+        chunks = dcn._row_chunks(rows, 9, c, size)
+        grad_col = torch.randn((chunks[0][1], 9, c), device='cuda').to(dtype)
         g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
-        g_x = torch.zeros_like(x)
+        g_x = torch.zeros_like(x, dtype=torch.float32)
 
         def col2im_only(grad_x=None):
             for row0, nrows in chunks:
@@ -474,32 +568,37 @@ def phase_mdcn_backward(dcn):
         library_ms = cuda_ms(lambda: torch.autograd.grad(
             out_l, (x_nchw, w_oihw, b_lib), cot_l, retain_graph=True))
         del out_l
-        # two matmuls (grad weight, grad columns) and the bilinear
-        # derivative per column element; bytes without grad x
-        flops = 4.0 * rows * 9 * c * c + 20.0 * rows * 9 * c
-        nbytes = 4.0 * (cot.numel() + x.numel() + 2 * offset.numel()
-                        + 2 * mask.numel() + 2 * weight.numel()
-                        + bias.numel())
+        # two matmuls (grad weight, grad columns) at the dtype's rate and
+        # the bilinear derivative per column element on CUDA cores; bytes
+        # without grad x (the offset and its gradient f32)
+        flops = [(4.0 * rows * 9 * c * c, peak_of(dtype)),
+                 (20.0 * rows * 9 * c, PEAK_F32_FLOPS)]
+        nbytes = size * (cot.numel() + x.numel() + 2 * mask.numel()
+                         + 2 * weight.numel() + bias.numel()) \
+            + 4.0 * 2 * offset.numel()
         rec = {'ms': ms, 'kernel_only_ms': kernel_ms,
                'kernel_only_with_grad_x_ms': scatter_ms,
                'plain_ms': plain_ms, 'library_ms': library_ms,
-               'bound_ms': bound(flops, nbytes)[0], 'flops': flops,
+               'bound_ms': bound(flops, nbytes)[0],
+               'flops': sum(f for f, _ in flops),
+               'ops_s': sum(f / p for f, p in flops),
                'bytes': nbytes, 'max_abs_err': abs_err,
                'max_rel_err': max(errs.values())}
-        emit({'phase': 'mdcn_backward', 'n': n, 'c': c, 'h': h, 'w': h,
-              'deform_groups': 8, 'chunks': len(chunks), 'rel_err': errs,
-              'tolerance': GRAD_REL_TOL,
-              'bound_by': bound(flops, nbytes)[1], **rec})
+        emit({'phase': 'mdcn_backward_bf16' if bf16 else 'mdcn_backward',
+              'n': n, 'c': c, 'h': h, 'w': h, 'deform_groups': 8,
+              'dtype': str(dtype), 'chunks': len(chunks), 'rel_err': errs,
+              'tolerance': tol, 'bound_by': bound(flops, nbytes)[1], **rec})
         shapes.append(rec)
         del args, inputs, x, offset, mask, weight, bias, cot, cot_l
         del x_nchw, w_oihw, b_lib
         torch.cuda.empty_cache()
-    emit({'phase': 'mdcn_backward', 'case': 'integer offsets',
-          'tolerance': GRAD_REL_TOL,
-          **_mdcn_backward_integer_case(dcn, gen)})
-    return _sum_records('mdcn_col2im', shapes, {
-        'library_call': 'autograd of F.conv2d (cuDNN) at the same shapes: '
-                        'grad input, grad weight and grad bias'})
+    emit({'phase': 'mdcn_backward_bf16' if bf16 else 'mdcn_backward',
+          'case': 'integer offsets', 'tolerance': tol,
+          **_mdcn_backward_integer_case(dcn, gen, dtype)})
+    return _sum_records('mdcn_col2im_bf16' if bf16 else 'mdcn_col2im',
+                        shapes, {
+        'library_call': f'autograd of F.conv2d (cuDNN) at the same shapes '
+                        f'in {dtype}: grad input, grad weight and grad bias'})
 
 
 def _grid_for(flow):
@@ -532,17 +631,22 @@ def _gather_at_integer_flow(x, flow):
     return (out * inside[..., None]).reshape(n, h, w, c)
 
 
-def phase_deform_sample(dcn):
+def phase_deform_sample(dcn, dtype=torch.float32):
     """K4 (deform_sample forward and backward kernels) against its plain
     version at the three training shapes, and its gather (the Pallas
-    experiment's row gather) bit for bit with integer flows."""
+    experiment's row gather) bit for bit with integer flows; x in f32 or
+    bf16, the flow f32."""
     gen = torch.Generator().manual_seed(SEED + 5)
     n, dg = TRAIN_B * T, 8
+    bf16 = dtype == BF16
+    fwd_tol = K2_BF16_TOL if bf16 else 1e-5
+    grad_tol = K2_BF16_TOL if bf16 else GRAD_REL_TOL
+    size = torch.finfo(dtype).bits // 8
     fwd, bwd = [], []
     for c, h in TRAIN_SHAPES:
-        x = torch.randn((n, h, h, c), generator=gen).cuda()
+        x = torch.randn((n, h, h, c), generator=gen).to(dtype).cuda()
         flow = (torch.randn((n, h, h, dg, 2), generator=gen) * 3).cuda()
-        cot = torch.randn((n, h, h, c), generator=gen).cuda()
+        cot = torch.randn((n, h, h, c), generator=gen).to(dtype).cuda()
 
         def grads(fn, wrt=(0, 1)):
             inputs = [x.detach().requires_grad_(0 in wrt),
@@ -553,15 +657,19 @@ def phase_deform_sample(dcn):
 
         out_k, _, (gx_k, gf_k) = grads(dcn.deform_sample)
         out_p, _, (gx_p, gf_p) = grads(dcn.deform_sample_ref)
-        err_out = float((out_k - out_p).detach().abs().max())
-        rel_out = err_out / float(out_p.detach().abs().max())
-        check(rel_out <= 1e-5, f'deform_sample C={c}: forward error '
-              f'{err_out}, {rel_out} of max |out|')
-        errs = {'x': _rel_err(gx_k, gx_p), 'flow': _rel_err(gf_k, gf_p)}
+        check(out_k.dtype == gx_k.dtype == dtype and gf_k.dtype ==
+              torch.float32, f'deform_sample {dtype}: out {out_k.dtype}, '
+              f'grads {gx_k.dtype} {gf_k.dtype}')
+        err_out = float((out_k - out_p).detach().float().abs().max())
+        rel_out = err_out / float(out_p.detach().float().abs().max())
+        check(rel_out <= fwd_tol, f'deform_sample C={c} {dtype}: forward '
+              f'error {err_out}, {rel_out} of max |out|')
+        errs = {'x': _rel_err(gx_k.float(), gx_p.float()),
+                'flow': _rel_err(gf_k, gf_p)}
         for name, e in errs.items():
-            check(e <= GRAD_REL_TOL, f'deform_sample C={c}: grad {name} '
+            check(e <= grad_tol, f'deform_sample C={c} {dtype}: grad {name} '
                   f'differs by {e} of its max')
-        err_grad = max(float((gx_k - gx_p).abs().max()),
+        err_grad = max(float((gx_k - gx_p).float().abs().max()),
                        float((gf_k - gf_p).abs().max()))
         del out_k, out_p, gx_k, gx_p, gf_k, gf_p
 
@@ -576,7 +684,8 @@ def phase_deform_sample(dcn):
         out_k, inp_k, _ = grads(dcn.deform_sample, wrt=(1,))
         out_kx, inp_kx, _ = grads(dcn.deform_sample)
         out_p, inp_p, _ = grads(dcn.deform_sample_ref, wrt=(1,))
-        grid = _grid_for(flow).requires_grad_()
+        # grid_sample takes its grid in x's dtype
+        grid = _grid_for(flow).to(dtype).requires_grad_()
         x_lib = x.reshape(n, h, h, dg, c // dg).permute(0, 3, 4, 1, 2) \
             .reshape(n * dg, c // dg, h, h).contiguous()
         cot_lib = cot.reshape(n, h, h, dg, c // dg).permute(0, 3, 4, 1, 2) \
@@ -590,7 +699,7 @@ def phase_deform_sample(dcn):
         out_l = library()
         lib_err = float((out_l.detach() - out_p.detach().reshape(
             n, h, h, dg, c // dg).permute(0, 3, 4, 1, 2).reshape(
-                out_l.shape)).abs().max())
+                out_l.shape)).float().abs().max())
         numel = float(x.numel())
         # some 30 operations per 4 output values, forward and backward
         rec_f = {
@@ -598,7 +707,7 @@ def phase_deform_sample(dcn):
             'plain_ms': cuda_ms(lambda: dcn.deform_sample_ref(x, flow)),
             'library_ms': cuda_ms(library),
             'flops': 8.0 * numel,
-            'bytes': 4.0 * (2 * numel + flow.numel()),
+            'bytes': size * 2 * numel + 4.0 * flow.numel(),
             'max_abs_err': err_out, 'max_rel_err': rel_out}
         rec_b = {
             'ms': cuda_ms(lambda: torch.autograd.grad(
@@ -610,15 +719,17 @@ def phase_deform_sample(dcn):
             'library_ms': cuda_ms(lambda: torch.autograd.grad(
                 out_l, grid, cot_lib, retain_graph=True)),
             'flops': 12.0 * numel,
-            'bytes': 4.0 * (2 * numel + 2 * flow.numel()),
+            'bytes': size * 2 * numel + 4.0 * 2 * flow.numel(),
             'max_abs_err': err_grad, 'max_rel_err': max(errs.values())}
         for rec in (rec_f, rec_b):
             rec['kernel_only_ms'] = rec['ms']
             rec['bound_ms'], rec['bound_by'] = bound(rec['flops'],
                                                      rec['bytes'])
-        emit({'phase': 'deform_sample', 'n': n, 'c': c, 'h': h, 'w': h,
+        emit({'phase': 'deform_sample_bf16' if bf16 else 'deform_sample',
+              'n': n, 'c': c, 'h': h, 'w': h, 'dtype': str(dtype),
               'deform_groups': dg, 'integer_flow_bit_exact': exact,
-              'grad_rel_err': errs, 'tolerance': GRAD_REL_TOL,
+              'grad_rel_err': errs, 'tolerance': grad_tol,
+              'forward_tolerance': fwd_tol,
               'library_vs_plain_max_abs_diff': lib_err,
               'forward': rec_f, 'backward': rec_b})
         fwd.append(rec_f)
@@ -626,10 +737,12 @@ def phase_deform_sample(dcn):
         del x, flow, cot, iflow, out_k, out_kx, out_p, out_l, inp_k, inp_kx
         del inp_p, grid, x_lib, cot_lib
         torch.cuda.empty_cache()
-    call = ('F.grid_sample on the (N * dg, cg, H, W) view, bilinear, zeros, '
-            'align_corners=True')
-    return (_sum_records('deform_sample_fwd', fwd, {'library_call': call}),
-            _sum_records('deform_sample_bwd', bwd, {
+    call = (f'F.grid_sample on the (N * dg, cg, H, W) view in {dtype}, '
+            'bilinear, zeros, align_corners=True')
+    tag = '_bf16' if bf16 else ''
+    return (_sum_records(f'deform_sample_fwd{tag}', fwd,
+                         {'library_call': call}),
+            _sum_records(f'deform_sample_bwd{tag}', bwd, {
                 'library_call': call + ': its autograd in the grid'}))
 
 
@@ -1260,7 +1373,17 @@ def kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act):
             'upfirdn2d_bwd2': ops_upfirdn2d.upfirdn2d_bwd2_kernel,
             'fused_leaky_relu_fwd': fused_act.fused_leaky_relu_fwd_kernel,
             'fused_leaky_relu_bwd': fused_act.fused_leaky_relu_bwd_kernel,
-            'fused_leaky_relu_bwd2': fused_act.fused_leaky_relu_bwd2_kernel}
+            'fused_leaky_relu_bwd2': fused_act.fused_leaky_relu_bwd2_kernel,
+            'feature_match_bf16': correlation.feature_match_bf16_kernel,
+            'feature_match_sharded_bf16':
+                correlation.feature_match_sharded_bf16_kernel,
+            'mdcn_im2col_bf16': dcn.mdcn_im2col_bf16_kernel,
+            'mdcn_col2im_bf16': dcn.mdcn_col2im_bf16_kernel,
+            'mdcn_col2im_scatter_bf16': dcn.mdcn_col2im_scatter_bf16_kernel,
+            'deform_sample_fwd_bf16': dcn.deform_sample_fwd_bf16_kernel,
+            'deform_sample_bwd_bf16': dcn.deform_sample_bwd_bf16_kernel,
+            'deform_sample_bwd_scatter_bf16':
+                dcn.deform_sample_bwd_scatter_bf16_kernel}
 
 
 def reset_counts(kernels):
@@ -1270,7 +1393,9 @@ def reset_counts(kernels):
 
 def read_counts(kernels, expect, forbid=()):
     """The launch counts since :func:`reset_counts`; every kernel of
-    ``expect`` must have been launched and none of ``forbid``."""
+    ``expect`` must have been launched and none of ``forbid`` (a grad-x
+    scatter where the features are frozen, an f32 entry point on a bf16
+    path)."""
     launches = {name: k.launches for name, k in kernels.items()}
     for name in expect:
         check(launches[name] > 0,
@@ -1278,8 +1403,25 @@ def read_counts(kernels, expect, forbid=()):
     for name in forbid:
         check(launches[name] == 0,
               f'kernel {name} was launched {launches[name]} times on a '
-              f'path that needs no grad x')
+              f'path that must not launch it')
     return launches
+
+
+# the entry points a path launches and those it must not, by dtype
+F32_ENTRIES = ('feature_match', 'mdcn_im2col', 'mdcn_col2im',
+               'deform_sample_fwd', 'deform_sample_bwd')
+SCATTERS = ('mdcn_col2im_scatter', 'deform_sample_bwd_scatter',
+            'mdcn_col2im_scatter_bf16', 'deform_sample_bwd_scatter_bf16')
+
+
+def _entries(names, dtype):
+    return tuple(f'{n}_bf16' if dtype == BF16 else n for n in names)
+
+
+def _forbidden(dtype):
+    """A bf16 path launches no f32 entry point; no path a grad-x scatter
+    (the sampled features are frozen)."""
+    return SCATTERS + (F32_ENTRIES if dtype == BF16 else ())
 
 
 def _request(rng):
@@ -1292,9 +1434,31 @@ def _request(rng):
     }
 
 
-def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels):
-    model = build_model(_cufed5_opt())
+# a bf16 request through the kernels against the same request through the
+# plain versions (the kernel's match fed to both): a K2 column element that
+# straddles a rounding boundary differs by one bf16 ulp, and the net's
+# every later bf16 rounding can pass such a difference on (measured, H100:
+# 0.0039, half an ulp of the output's range; the same for a training
+# step's output); and against the f32 request: the JAX package's gate of
+# bf16 against f32 eval (tests/test_models/test_multi_ref_model.py:446-447;
+# measured 0.0056 max, 0.0011 mean).
+SLICE_BF16_TOL = 4 * EPS_BF16
+BF16_VS_F32_MAX, BF16_VS_F32_MEAN = 0.1, 0.02
+
+
+def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels,
+                dtype=torch.float32):
+    """Two full-width requests through ``build_model`` / ``test``, in f32
+    or (``val.mixed_precision: bfloat16``) bf16; launch counts, latency,
+    peak memory, and one request through the kernels against the plain
+    versions (and, at bf16, against the f32 request)."""
+    bf16 = dtype == BF16
+    opt = _cufed5_opt()
+    if bf16:
+        opt['val'] = {'mixed_precision': 'bfloat16'}
+    model = build_model(opt)
     check(model.device.type == 'cuda', f'model built on {model.device}')
+    check(model.eval_dtype == dtype, f'eval dtype {model.eval_dtype}')
     gen = torch.Generator().manual_seed(SEED + 2)
     with torch.no_grad():  # fractional sampling: non-zero offset convs
         for m in model.net_g.modules():
@@ -1318,8 +1482,11 @@ def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels):
         torch.cuda.synchronize()
         request_ms.append((time.perf_counter() - t0) * 1e3)
         check(rlt.shape == (1, CANVAS, CANVAS, 3), f'output {rlt.shape}')
+        check(rlt.dtype == np.float32, f'output {rlt.dtype}')
         check(bool(np.isfinite(rlt).all()), 'non-finite output')
-    launches = read_counts(kernels, ('feature_match', 'mdcn_im2col'))
+    launches = read_counts(kernels,
+                           _entries(('feature_match', 'mdcn_im2col'), dtype),
+                           _forbidden(dtype))
     peak = torch.cuda.max_memory_allocated()
 
     # one request through the kernels and through the plain versions; the
@@ -1337,10 +1504,12 @@ def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels):
         idx_k = record['match'][0]
         differ = idx_k != idx_p
         rows_k = pref.gather(1, idx_k.long()[..., None].expand(
-            -1, -1, pref.shape[2]))
+            -1, -1, pref.shape[2])).float()
         rows_p = pref.gather(1, idx_p.long()[..., None].expand(
-            -1, -1, pref.shape[2]))
-        gap = ((pin * rows_p).sum(2) - (pin * rows_k).sum(2)).abs()[differ]
+            -1, -1, pref.shape[2])).float()
+        pin_f = pin.float()
+        gap = ((pin_f * rows_p).sum(2)
+               - (pin_f * rows_k).sum(2)).abs()[differ]
         record['disagree'] = int(differ.sum())
         record['gap'] = float(gap.max()) if gap.numel() else 0.0
         return record['match']
@@ -1354,16 +1523,30 @@ def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels):
             mock.patch.object(dcn, '_im2col_cuda', dcn._im2col_ref):
         model.test()
     diff = float((model.output - out_k).abs().max())
+    tol = SLICE_BF16_TOL if bf16 else SLICE_TOL
     check(record['gap'] <= K1_IDX_GAP, f'slice match differs where the plain '
           f'scores differ by {record["gap"]}')
-    check(diff <= SLICE_TOL,
-          f'slice output: kernels vs plain differ by {diff}')
-    emit({'phase': 'slice', 'canvas': CANVAS, 'refs': T, 'batch': 1,
-          'ngf': 64, 'n_blocks': 16, 'groups': 8, 'request_ms': request_ms,
-          'peak_mem_bytes': peak, 'launches': launches,
-          'plain_vs_kernel_max_abs_diff': diff, 'tolerance': SLICE_TOL,
-          'match_disagreements': record['disagree'],
-          'worst_disagreement_gap': record['gap']})
+    check(diff <= tol, f'slice output {dtype}: kernels vs plain differ by '
+          f'{diff}')
+    rec = {'phase': 'slice_bf16' if bf16 else 'slice', 'canvas': CANVAS,
+           'refs': T, 'batch': 1, 'ngf': 64, 'n_blocks': 16, 'groups': 8,
+           'dtype': str(dtype), 'request_ms': request_ms,
+           'peak_mem_bytes': peak, 'launches': launches,
+           'plain_vs_kernel_max_abs_diff': diff, 'tolerance': tol,
+           'match_disagreements': record['disagree'],
+           'worst_disagreement_gap': record['gap']}
+    if bf16:    # the same weights and request in f32
+        model.eval_dtype = torch.float32
+        model.test()
+        model.eval_dtype = dtype
+        vs = (out_k - model.output).abs()
+        rec['vs_f32'] = {'max_abs_diff': float(vs.max()),
+                         'mean_abs_diff': float(vs.mean()),
+                         'tolerance': [BF16_VS_F32_MAX, BF16_VS_F32_MEAN]}
+        check(rec['vs_f32']['max_abs_diff'] < BF16_VS_F32_MAX
+              and rec['vs_f32']['mean_abs_diff'] < BF16_VS_F32_MEAN,
+              f'bf16 request against f32: {rec["vs_f32"]}')
+    emit(rec)
     return launches, model, requests[1]
 
 
@@ -1390,6 +1573,15 @@ def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels):
 # own forward are reported beside, and held too where the two forwards
 # agree bit for bit (fresh weights sample on whole pixels).
 TRAIN_GRAD_REL_TOL = 1e-3
+# The same comparison of a bf16 step (``train.mixed_precision: bfloat16``):
+# behind the same forward the backward kernels differ from autograd through
+# the plain versions only where a value is rounded to bf16 once in the
+# kernel and at another point (or in another order) by autograd: grad mask
+# and the column gradients, and through them every gradient before the
+# DCN, by a bf16 ulp or so of a tensor's entries. Measured (H100, the first
+# run of these phases): worst tensor 0.0066 (0.84 EPS_BF16) after 6 steps,
+# median 0; from fresh weights 0.0011.
+TRAIN_GRAD_BF16_TOL = 4 * EPS_BF16
 
 
 def _rel_grad_errors(got, want):
@@ -1413,7 +1605,8 @@ def _rel_grad_errors(got, want):
 
 
 def _check_grad_errors(label, errors, tol=TRAIN_GRAD_REL_TOL,
-                       median_tol=TRAIN_GRAD_REL_TOL):
+                       median_tol=None):
+    median_tol = tol if median_tol is None else median_tol
     check(errors['worst'] <= tol and errors['median'] <= median_tol
           and errors['one_element_median'] <= median_tol,
           f'{label}: kernels and plain versions give other gradients: '
@@ -1428,9 +1621,11 @@ def _compare_grads(model, arch, dcn, batch):
     versions. Every parameter's gradient of the first two against the
     third, and the first output against the third."""
     model.feed_data(batch)
+    dtype = model.train_dtype
     with torch.no_grad():
         pre_offset, img_ref_feat = model._ref_inputs(model.match_img_in,
-                                                     model.img_ref_list)
+                                                     model.img_ref_list,
+                                                     dtype)
 
     def backward(plain_ops=False, plain_forward=False):
         model.net_g.zero_grad(set_to_none=True)
@@ -1446,8 +1641,8 @@ def _compare_grads(model, arch, dcn, batch):
                     dcn, '_im2col_cuda', dcn._im2col_ref))
                 stack.enter_context(mock.patch.object(
                     dcn, '_deform_sample_fwd_cuda', dcn.deform_sample_ref))
-            rlt = model.net_g(model.img_in_lq.permute(0, 3, 1, 2),
-                              pre_offset, img_ref_feat).permute(0, 2, 3, 1)
+            rlt = model._net_g_forward(model.img_in_lq, pre_offset,
+                                       img_ref_feat)
             loss = model.cri_pix(rlt, model.gt)
         loss.backward()          # outside: the backward kernels all launch
         return rlt.detach(), {name: p.grad.clone() for name, p
@@ -1464,31 +1659,41 @@ def _compare_grads(model, arch, dcn, batch):
             'out_max_abs_diff': float((out_k - out_p).abs().max())}
 
 
-def _check_grads(label, cmp):
+def _check_grads(label, cmp, dtype=torch.float32):
+    tol = TRAIN_GRAD_BF16_TOL if dtype == BF16 else TRAIN_GRAD_REL_TOL
     _check_grad_errors(f'{label}, behind the same forward',
-                       cmp['same_forward'])
-    check(cmp['out_max_abs_diff'] <= SLICE_TOL,
+                       cmp['same_forward'], tol)
+    check(cmp['same_forward_bit_equal'], f'{label}: the plain forward values '
+          'did not give the plain forward')
+    out_tol = SLICE_BF16_TOL if dtype == BF16 else SLICE_TOL
+    check(cmp['out_max_abs_diff'] <= out_tol,
           f'{label}: kernels and plain versions give other outputs: {cmp}')
     if cmp['own_forward_bit_equal']:
-        _check_grad_errors(label, cmp['own_forward'])
+        _check_grad_errors(label, cmp['own_forward'], tol)
 
 
-def phase_train(alignment, build_model, arch, dcn, kernels):
+def phase_train(alignment, build_model, arch, dcn, kernels,
+                dtype=torch.float32):
     """Five timed training steps of the full-width model at B = 6,
     gt 160, T = 5 on one repeated batch, through ``feed_data`` ->
-    ``optimize_parameters`` -> ``get_current_log``; before and after
-    them, at B = 1, one backward through the kernels against one through
-    the plain versions."""
-    expect = ('feature_match',) + (
+    ``optimize_parameters`` -> ``get_current_log``, in f32 or
+    (``train.mixed_precision: bfloat16``) bf16; before and after them,
+    at B = 1, one backward through the kernels against one through the
+    plain versions."""
+    bf16 = dtype == BF16
+    expect = _entries(('feature_match',) + (
         ('mdcn_im2col', 'mdcn_col2im') if alignment == 'dcn'
-        else ('deform_sample_fwd', 'deform_sample_bwd'))
+        else ('deform_sample_fwd', 'deform_sample_bwd')), dtype)
     opt = _train_opt(alignment)
+    if bf16:
+        opt['train']['mixed_precision'] = 'bfloat16'
     model = build_model(opt)
     check(model.device.type == 'cuda', f'model built on {model.device}')
+    check(model.train_dtype == dtype, f'train dtype {model.train_dtype}')
     rng = np.random.RandomState(SEED + 6)
     batch, small = _train_batch(rng, TRAIN_B), _train_batch(rng, 1)
     fresh = _compare_grads(model, arch, dcn, small)
-    _check_grads(f'{alignment}, fresh weights', fresh)
+    _check_grads(f'{alignment} {dtype}, fresh weights', fresh, dtype)
     model.feed_data(batch)
     model.optimize_parameters(1)                           # warm-up
     warmup_loss = model.get_current_log()['l_pix']
@@ -1504,8 +1709,7 @@ def phase_train(alignment, build_model, arch, dcn, kernels):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(model.get_current_log()['l_pix'])
-    launches = read_counts(
-        kernels, expect, ('mdcn_col2im_scatter', 'deform_sample_bwd_scatter'))
+    launches = read_counts(kernels, expect, _forbidden(dtype))
     peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(v) for v in [warmup_loss] + losses),
           f'non-finite loss: {[warmup_loss] + losses}')
@@ -1513,23 +1717,31 @@ def phase_train(alignment, build_model, arch, dcn, kernels):
     lrs = model.get_current_learning_rate()
     check(lrs == [1e-4, 1e-4, 1e-6, 1e-5], f'learning rates {lrs}')
 
+    for p in model.net_g.parameters():
+        state = model.optimizer_g.state[p]
+        check(p.dtype == p.grad.dtype == state['exp_avg'].dtype
+              == state['exp_avg_sq'].dtype == torch.float32,
+              'master parameters, gradients and Adam state must be f32')
     trained = _compare_grads(model, arch, dcn, small)
-    _check_grads(f'{alignment}, after 6 steps', trained)
+    _check_grads(f'{alignment} {dtype}, after 6 steps', trained, dtype)
     mean_ms = sum(step_ms) / len(step_ms)
-    emit({'phase': f'train_{alignment}', 'batch': TRAIN_B, 'gt': TRAIN_GT,
-          'refs': T, 'network_g': opt['network_g'], 'dtype': 'float32',
+    tag = f'train_{alignment}' + ('_bf16' if bf16 else '')
+    emit({'phase': tag, 'batch': TRAIN_B, 'gt': TRAIN_GT,
+          'refs': T, 'network_g': opt['network_g'], 'dtype': str(dtype),
           'step_ms': step_ms, 'mean_step_ms': mean_ms,
           'img_per_s': TRAIN_B / mean_ms * 1e3, 'peak_mem_bytes': peak,
           'warmup_loss': warmup_loss, 'losses': losses,
           'learning_rates': lrs, 'launches_5_steps': launches,
           'grads_fresh_weights': fresh, 'grads_after_6_steps': trained,
-          'grad_tolerance': TRAIN_GRAD_REL_TOL, 'out_tolerance': SLICE_TOL})
+          'grad_tolerance': TRAIN_GRAD_BF16_TOL if bf16
+          else TRAIN_GRAD_REL_TOL,
+          'out_tolerance': SLICE_BF16_TOL if bf16 else SLICE_TOL})
 
     def one_step():
         model.feed_data(batch)
         model.optimize_parameters(7)
 
-    phase_profile(f'train_{alignment}', one_step)
+    phase_profile(tag, one_step)
     return launches, mean_ms
 
 
@@ -2110,14 +2322,15 @@ class _MainPath:
             self.total[name] += kernel.launches
 
 
-def _ddp_sharded_match(correlation, main, rank, world):
+def _ddp_sharded_match(correlation, main, rank, world, dtype=torch.float32):
     """K6 at K1's eval shape, the ref's rows split over the ranks: against
     single-rank K1 on the whole ref and against its plain version; ties
-    planted across the band boundary; times."""
+    planted across the band boundary; times. f32, or bf16 through the
+    bf16 kernel's sharded entry point."""
     gen = torch.Generator().manual_seed(SEED + 20)
     h = CANVAS // 4
     feats = torch.randn((2, T, h, h, 256), generator=gen).cuda()
-    feats = feats / (feats.norm(dim=-1, keepdim=True) + 1e-12)
+    feats = (feats / (feats.norm(dim=-1, keepdim=True) + 1e-12)).to(dtype)
     fin, fref = feats[0], feats[1]
     start, stop = SHARD_ROWS[rank]
     band = (fref[:, start:stop], start)
@@ -2128,7 +2341,7 @@ def _ddp_sharded_match(correlation, main, rank, world):
     idx_p, val_p = correlation.feature_match_index_sharded_ref(fin, band,
                                                                **kw)
     pin, pref = _normed_patches(correlation, fin, fref)
-    rec = {'rank': rank, 'band_rows': [start, stop]}
+    rec = {'rank': rank, 'band_rows': [start, stop], 'dtype': str(dtype)}
     for label, other_idx, other_val in (('k1', idx_1, val_1),
                                         ('plain', idx_p, val_p)):
         differ, gap = _index_gap(pin, pref, idx, other_idx)
@@ -2165,7 +2378,7 @@ def _ddp_sharded_match(correlation, main, rank, world):
     # with each rank alone on the card, the fuse, the plain version, and
     # the library yardstick: the band's scores by chunked torch.matmul
     # and the same two all-reduces
-    pin_b, pref_b = _normed_patches(correlation, fin, band[0])
+    pin_b, pref_b = _normed_patches(correlation, fin, band[0], widen=False)
     match_band = correlation._match_patches_sharded_cuda
     ms = cuda_ms(lambda: correlation.feature_match_index_sharded(
         fin, band, **kw))
@@ -2191,8 +2404,9 @@ def _ddp_sharded_match(correlation, main, rank, world):
     pairs, n_in, d = pin_b.shape
     n_ref = pref_b.shape[1]
     bound_ms, bound_by = bound(2.0 * pairs * n_in * n_ref * d,
-                               4.0 * (fin.numel() + band[0].numel())
-                               + 8.0 * pairs * n_in)
+                               fin.element_size() * (fin.numel()
+                                                     + band[0].numel())
+                               + 8.0 * pairs * n_in, peak_of(dtype))
     rec.update(n_in=n_in, n_ref_band=n_ref, d=d, ms=ms,
                kernel_only_ms=kernel_ms, collective_ms=collective_ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
@@ -2462,6 +2676,8 @@ def _ddp_rank(rank, backend, root):
         t0 = time.perf_counter()
         report['sharded_match'] = _ddp_sharded_match(correlation, main, rank,
                                                      world)
+        report['sharded_match_bf16'] = _ddp_sharded_match(
+            correlation, main, rank, world, BF16)
         torch.cuda.empty_cache()
         model, batch, report['ddp_train'] = _ddp_train(build_model, main,
                                                        rank, world)
@@ -2515,6 +2731,9 @@ def phase_ddp():
     shard = [r['sharded_match'] for r in reports]
     emit({'phase': 'sharded_match', 'pairs': T, 'canvas': CANVAS,
           'backend': backend, 'ranks': shard})
+    shard_bf16 = [r['sharded_match_bf16'] for r in reports]
+    emit({'phase': 'sharded_match_bf16', 'pairs': T, 'canvas': CANVAS,
+          'backend': backend, 'ranks': shard_bf16})
     train = [r['ddp_train'] for r in reports]
     profile = train[0].pop('profile')
     emit({'phase': 'ddp_train', 'backend': backend, 'world': DDP_WORLD,
@@ -2533,24 +2752,28 @@ def phase_ddp():
           'ranks': [r['ddp_resume'] for r in reports]})
     launches = {name: sum(r['launches'][name] for r in reports)
                 for name in reports[0]['launches']}
-    check(launches['feature_match_sharded'] > 0 and all(
+    check(launches['feature_match_sharded'] > 0
+          and launches['feature_match_sharded_bf16'] > 0 and all(
         r['ddp_train']['launches_3_steps'][k] > 0 for r in reports
         for k in ('feature_match', 'mdcn_im2col', 'mdcn_col2im')),
           f'kernels not launched on the ddp path: {launches}')
-    scatter = [k for k in launches if k.endswith('_scatter') and launches[k]]
+    scatter = [k for k in launches if '_scatter' in k and launches[k]]
     check(not scatter, f'grad-x scatter launched on the ddp path: {scatter}')
     emit({'phase': 'ddp_summary', 'backend': backend, 'seconds': seconds,
           'launches': launches})
-    k6 = {'name': 'feature_match_sharded',
-          'max_abs_err': max(r['max_abs_err'] for r in shard),
-          **{key: max(r[key] for r in shard)
-             for key in ('ms', 'kernel_only_ms', 'collective_ms', 'plain_ms',
-                         'bound_ms', 'library_ms')},
-          'bound_by': shard[0]['bound_by'], 'backend': backend,
-          'ms_note': 'per rank, the ranks at once; kernel_only_ms is K1 on '
-                     'the band with the rank alone on the card',
-          'library_call': 'chunked torch.matmul of the band\'s scores and '
-                          'the same MAX and MIN all-reduces'}
+    k6 = [{'name': name,
+           'max_abs_err': max(r['max_abs_err'] for r in recs),
+           **{key: max(r[key] for r in recs)
+              for key in ('ms', 'kernel_only_ms', 'collective_ms',
+                          'plain_ms', 'bound_ms', 'library_ms')},
+           'bound_by': recs[0]['bound_by'], 'backend': backend,
+           'ms_note': 'per rank, the ranks at once; kernel_only_ms is K1 '
+                      'on the band with the rank alone on the card',
+           'library_call': f'chunked torch.matmul of the band\'s {dtype} '
+                           'scores and the same MAX and MIN all-reduces'}
+          for name, recs, dtype in (
+              ('feature_match_sharded', shard, 'f32'),
+              ('feature_match_sharded_bf16', shard_bf16, 'bf16'))]
     return launches, k6
 
 
@@ -2558,7 +2781,8 @@ def phase_ddp():
 # cuDNN's and cuBLAS's (convolutions, their layout changes and FFTs, and
 # matmuls) by these marks, the rest (element-wise, reductions, copies,
 # Adam) as other
-OWN_KERNELS = ('feature_match_kernel', 'mdcn_im2col_kernel',
+OWN_KERNELS = ('feature_match_kernel', 'feature_match_bf16_kernel',
+               'mdcn_im2col_kernel',
                'mdcn_col2im_kernel', 'deform_sample_fwd_kernel',
                'deform_sample_bwd_kernel', 'upfirdn2d_kernel',
                'fused_leaky_relu_fwd_kernel', 'fused_leaky_relu_bwd_kernel')
@@ -2609,6 +2833,43 @@ def profile_record(path, run, top=12):
                             for ms, n, name in kernels[:top]]}
 
 
+def bf16_phases(correlation, dcn, arch, build_model, kernels):
+    """The shipped precision of the main path: K1, K2 (forward and
+    backward) and K4 at bf16 against their plain versions, the bf16
+    CUFED5 request and the bf16 stage-3 step of both alignments. Returns
+    the kernels' records and the paths' launch counts."""
+    k1 = phase_feature_match(correlation, dtype=BF16)
+    k1['train_shape'] = phase_feature_match(
+        correlation, pairs=TRAIN_B * T, h=TRAIN_GT // 4, ties=False,
+        dtype=BF16)
+    torch.cuda.empty_cache()
+    k2 = phase_mdcn(dcn, dtype=BF16)
+    k2['train_shape'] = phase_mdcn(dcn, n=TRAIN_B * T, shapes=TRAIN_SHAPES,
+                                   dtype=BF16)
+    k2b = phase_mdcn_backward(dcn, BF16)
+    k4f, k4b = phase_deform_sample(dcn, BF16)
+    torch.cuda.empty_cache()
+    by_path = {}
+    by_path['slice_bf16'], model, batch = phase_slice(
+        build_model, arch.DynAgg, correlation, dcn, kernels, BF16)
+
+    def one_request():
+        model.feed_data(batch)
+        model.test()
+
+    phase_profile('slice_bf16', one_request)
+    del model
+    torch.cuda.empty_cache()
+    step_ms = {}
+    for alignment in ('dcn', 'flow'):
+        by_path[f'train_{alignment}_bf16'], step_ms[alignment] = phase_train(
+            alignment, build_model, arch, dcn, kernels, BF16)
+        torch.cuda.empty_cache()
+    emit({'phase': 'train_ratio_bf16',
+          'flow_steps_per_dcn_step': step_ms['dcn'] / step_ms['flow']})
+    return (k1, k2, k2b, k4f, k4b), by_path
+
+
 def main():
     import importlib
     from mrefsr_tpu_torch.archs import arch_util, edvr_arch
@@ -2623,9 +2884,11 @@ def main():
     ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
 
     device, smi = phase_device()
-    # f32 throughout, the yardsticks included: no TF32 in cuDNN or cuBLAS
+    # no TF32 in cuDNN or cuBLAS, the yardsticks included, and bf16
+    # products summed in f32, as the models set it
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     phase_build(_build.build)
     k1 = phase_feature_match(correlation)
     k1['train_shape'] = phase_feature_match(
@@ -2661,6 +2924,9 @@ def main():
         torch.cuda.empty_cache()
     emit({'phase': 'train_ratio',
           'flow_steps_per_dcn_step': step_ms['dcn'] / step_ms['flow']})
+    (k1b, k2bf, k2bb, k4bf, k4bb), bf16_paths = bf16_phases(
+        correlation, dcn, arch, build_model, kernels)
+    by_path.update(bf16_paths)
     sg2 = (stylegan2_arch, ops_upfirdn2d, fused_act, kernels)
     by_path['stylegan2_serve'] = phase_stylegan2_serve(inference_stylegan2,
                                                        *sg2)
@@ -2677,12 +2943,12 @@ def main():
     by_path['basicvsr_serve'] = phase_basicvsr_serve(inference_basicvsr,
                                                      kernels)
     torch.cuda.empty_cache()
-    by_path['ddp'], k6 = phase_ddp()
+    by_path['ddp'], (k6, k6b) = phase_ddp()
 
-    csrc = 'mrefsr_tpu_torch/ops/csrc/'
     described = (
         (k1, 'feature_match.cu', 'mrefsr_tpu/ops/correlation.py:42'),
         (k6, 'feature_match.cu', 'mrefsr_tpu/ops/correlation.py:140'),
+        *_bf16_sources((k1b, k6b, k2bf, k2bb, k4bf, k4bb)),
         (k2, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
         (k2b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
         (k3f, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:214'),
@@ -2695,14 +2961,57 @@ def main():
           for rec in k7),
         *((rec, 'fused_act.cu', 'mrefsr_tpu/ops/fused_act.py:12')
           for rec in k8))
+    emit({'kernels': _described(described, by_path), 'card': smi})
+    print(smi, flush=True)
+    emit({'ok': True, 'device': device})
+
+
+def _described(described, by_path):
+    """The ``kernels`` line's records: each ``(record, source, replaces)``
+    with its route, source, the TPU kernel it replaces and its launches on
+    the main paths of ``by_path``."""
     for rec, source, replaces in described:
         paths = {path: counts[rec['name']]
                  for path, counts in by_path.items()}
-        rec.update(route='cuda', source=csrc + source, replaces=replaces,
-                   launches=sum(paths.values()), launches_by_path=paths)
-    emit({'kernels': [rec for rec, _, _ in described], 'card': smi})
+        rec.update(route='cuda', source='mrefsr_tpu_torch/ops/csrc/' + source,
+                   replaces=replaces, launches=sum(paths.values()),
+                   launches_by_path=paths)
+    return [rec for rec, _, _ in described]
+
+
+def _bf16_sources(records):
+    """The bf16 records with their sources and the TPU kernels they
+    replace: K1, K6, K2 forward and backward, K4 forward and backward."""
+    return zip(records, ('feature_match_bf16.cu', 'feature_match_bf16.cu',
+                         'mdcn.cu', 'mdcn.cu', 'deform_sample.cu',
+                         'deform_sample.cu'),
+               ('mrefsr_tpu/ops/correlation.py:42',
+                'mrefsr_tpu/ops/correlation.py:140',
+                'mrefsr_tpu/ops/dcn.py:111', 'mrefsr_tpu/ops/dcn.py:111',
+                'mrefsr_tpu/ops/dcn.py:296', 'mrefsr_tpu/ops/dcn.py:296'))
+
+
+def main_bf16():
+    """``--bf16``: the device, the build and the bf16 phases alone, then
+    their entries of the ``kernels`` line (K6 at bf16 runs in the ``ddp``
+    phase, which this leaves out); no ``ok`` line."""
+    from mrefsr_tpu_torch.archs import ref_mrapa_restoration_arch as arch
+    from mrefsr_tpu_torch.models import build_model
+    from mrefsr_tpu_torch.ops import _build, correlation, dcn, fused_act
+    import importlib
+    ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
+    _, smi = phase_device()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    phase_build(_build.build)
+    kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
+    (k1, k2, k2b, k4f, k4b), by_path = bf16_phases(correlation, dcn, arch,
+                                                   build_model, kernels)
+    described = [(rec, source, replaces) for rec, source, replaces
+                 in _bf16_sources((k1, None, k2, k2b, k4f, k4b)) if rec]
+    emit({'kernels': _described(described, by_path), 'card': smi})
     print(smi, flush=True)
-    emit({'ok': True, 'device': device})
 
 
 def main_repeat_grads(rounds):
@@ -2782,12 +3091,13 @@ def main_ddp():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build(_build.build)
-    launches, k6 = phase_ddp()
-    k6.update(route='cuda',
-              source='mrefsr_tpu_torch/ops/csrc/feature_match.cu',
-              replaces='mrefsr_tpu/ops/correlation.py:140',
-              launches=launches['feature_match_sharded'])
-    emit({'kernels': [k6], 'card': smi})
+    launches, k6s = phase_ddp()
+    for k6, source in zip(k6s, ('feature_match.cu', 'feature_match_bf16.cu')):
+        k6.update(route='cuda',
+                  source=f'mrefsr_tpu_torch/ops/csrc/{source}',
+                  replaces='mrefsr_tpu/ops/correlation.py:140',
+                  launches=launches[k6['name']])
+    emit({'kernels': k6s, 'card': smi})
     print(smi, flush=True)
 
 
@@ -2797,5 +3107,7 @@ if __name__ == '__main__':
         main_repeat_grads(int(sys.argv[2]))
     elif sys.argv[1:2] == ['--ddp']:
         main_ddp()
+    elif sys.argv[1:2] == ['--bf16']:
+        main_bf16()
     else:
         main()

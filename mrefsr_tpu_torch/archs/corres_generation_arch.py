@@ -9,6 +9,7 @@ from torch import nn
 
 from mrefsr_tpu_torch.ops import (feature_match_index, index_to_flow,
                                   tensor_shift)
+from mrefsr_tpu_torch.ops.correlation import add_scalar, l2_norm
 from mrefsr_tpu_torch.utils.registry import ARCH_REGISTRY
 
 from .vgg_arch import VGGFeatureExtractor
@@ -32,12 +33,13 @@ def _upsample_flow(flow, factor):
 
 def compute_pre_offsets(feat_in, feat_ref, patch_size=3, stride=1):
     """``(N, H, W, C)`` feature pairs -> ``{relu1_1, relu2_1, relu3_1:
-    (N, H_l, W_l, 9, 2)}`` pre-offset maps."""
-    # per-position channel-vector L2 normalisation (reference :57-59)
-    feat_in = feat_in / (torch.linalg.vector_norm(feat_in, dim=-1,
-                                                  keepdim=True) + 1e-12)
-    feat_ref = feat_ref / (torch.linalg.vector_norm(feat_ref, dim=-1,
-                                                    keepdim=True) + 1e-12)
+    (N, H_l, W_l, 9, 2)}`` pre-offset maps, f32 whatever the features'
+    dtype (``index_to_flow`` makes f32 flows, as in the JAX package)."""
+    # per-position channel-vector L2 normalisation (reference :57-59), in
+    # the features' dtype and rounded where the JAX package rounds it
+    feat_in = feat_in / add_scalar(l2_norm(feat_in, -1, keepdim=True), 1e-12)
+    feat_ref = feat_ref / add_scalar(l2_norm(feat_ref, -1, keepdim=True),
+                                     1e-12)
     max_idx, _ = feature_match_index(feat_in, feat_ref,
                                      patch_size=patch_size,
                                      input_stride=stride, ref_stride=stride,

@@ -10,6 +10,19 @@ JAX model's sample dict: NHWC ``img_in_lq``, ``img_in_up``, ``img_in`` and
 ``img_ref_list`` of shape (B, T, H, W, 3). Validation (``validation``)
 un-pads each output and sums PSNR, PSNR_Y and SSIM_Y, sharded over the
 ranks when ``opt['dist']``.
+
+``train.mixed_precision`` and ``val.mixed_precision`` (``bfloat16``) carry
+the JAX package's bf16 policy over, cast for cast (its
+multi_ref_restoration_model.py:342-403, 756-766), without
+``torch.autocast``, whose per-op lists differ: the frozen extractor's and
+map's parameters, ``img_in_up``, the refs and ``lq`` are cast to bf16, and
+so are net_g's parameters, by a differentiable cast inside the loss in
+training (the gradients reach the f32 master parameters) and once per
+weights at eval. The output goes back to f32 before the loss, the un-pad
+and the metrics. Gradients, Adam's state, the master parameters and the
+checkpoints stay f32. What the JAX package's dtype promotion makes f32
+stays f32 here too: the flows and pre-offsets, and the offsets and flows of
+DynAgg / FlowAgg (a bf16 residual plus an f32 pre-offset).
 """
 import logging
 import os
@@ -19,6 +32,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.func import functional_call
 
 from mrefsr_tpu_torch.archs import build_network
 from mrefsr_tpu_torch.archs.vgg_arch import vgg_rename
@@ -35,6 +49,25 @@ from .base_model import BaseModel
 
 # the Adam groups of net_g, in the order of the learning-rate log
 PARAM_GROUPS = ('g', 'offset', 'relu3_offset', 'relu2_offset')
+# the values of train.mixed_precision / val.mixed_precision (unset: f32)
+COMPUTE_DTYPES = {None: torch.float32, 'bfloat16': torch.bfloat16}
+
+
+def compute_dtype(opt, section):
+    """The compute dtype ``opt[section]['mixed_precision']`` names."""
+    value = (opt.get(section) or {}).get('mixed_precision') or None
+    if value not in COMPUTE_DTYPES:
+        raise ValueError(f'{section}.mixed_precision is bfloat16 or unset, '
+                         f'got {value!r}')
+    return COMPUTE_DTYPES[value]
+
+
+def cast_tensors(net, dtype):
+    """``net``'s floating parameters and buffers in ``dtype``, by name: a
+    differentiable cast where autograd records, so the gradients of the
+    copies reach the originals (the JAX package's ``cast_tree``)."""
+    return {name: t.to(dtype) if t.is_floating_point() else t
+            for name, t in (*net.named_parameters(), *net.named_buffers())}
 
 
 def param_group_of(name):
@@ -61,27 +94,36 @@ class MultiRefRestorationModel(BaseModel):
     ``torch.Generator``. Runs on ``device`` (``cuda`` unless named).
 
     With ``is_train`` the extractor and the map stay frozen and run under
-    ``torch.no_grad()``; ``net_g`` trains in f32 with one Adam of four
-    parameter groups. With ``opt['dist']`` (every rank a process of
-    ``init_dist``) ``net_g`` trains in ``DistributedDataParallel``, each
-    rank on its own batch, and validation is sharded over the ranks. The
-    GAN phase (``network_d``, ``gan_type``, ``perceptual_opt``,
-    ``style_opt``) and ``train.mixed_precision`` are not ported and raise.
+    ``torch.no_grad()``; ``net_g`` trains with f32 master parameters and
+    one Adam of four parameter groups, its forward in f32 or, with
+    ``train.mixed_precision: bfloat16``, in bf16 (``val.mixed_precision``
+    likewise for ``test``; see the module docstring). With ``opt['dist']``
+    (every rank a process of ``init_dist``) ``net_g`` trains in
+    ``DistributedDataParallel``, each rank on its own batch, and
+    validation is sharded over the ranks. The GAN phase (``network_d``,
+    ``gan_type``, ``perceptual_opt``, ``style_opt``) is not ported and
+    raises.
     """
 
     def __init__(self, opt, device=None):
         super().__init__(opt, device)
-        if (opt.get('val') or {}).get('mixed_precision'):
-            raise NotImplementedError(
-                'val.mixed_precision (bf16 serving) is not ported yet')
+        self.eval_dtype = compute_dtype(opt, 'val')
+        self.train_dtype = compute_dtype(opt, 'train') if self.is_train \
+            else torch.float32
         if self.is_train:
             self._refuse_unported_training()
-        # The model is f32, as the JAX package's default is. cuDNN
-        # runs f32 convolutions in TF32 (about three decimal digits)
-        # unless told otherwise, so both TF32 switches are set off here;
-        # they are process-wide.
+        # f32 by default, as the JAX package's. cuDNN runs f32
+        # convolutions in TF32 (about three decimal digits) unless told
+        # otherwise, so both TF32 switches are set off here, and cuBLAS
+        # may reduce bf16 products partly in bf16, where the JAX package
+        # sums in f32 (dcn.py:144, correlation.py:86); the switches are
+        # process-wide.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        # bf16 copies of frozen or eval weights, by net: (source key, copies)
+        self._cast_cache = {}
 
         with torch.device('meta'):
             self.net_extractor = build_network(opt['network_extractor'])
@@ -151,11 +193,6 @@ class MultiRefRestorationModel(BaseModel):
     # ------------------------------------------------------------- training
     def _refuse_unported_training(self):
         train_opt = self.opt['train']
-        if train_opt.get('mixed_precision'):
-            raise NotImplementedError(
-                f"train.mixed_precision: {train_opt['mixed_precision']} is "
-                'not ported yet (ROADMAP A4, bf16 training): the step is '
-                'f32; leave the key out')
         for key in ('perceptual_opt', 'style_opt', 'gan_type'):
             if train_opt.get(key):
                 raise NotImplementedError(
@@ -221,26 +258,57 @@ class MultiRefRestorationModel(BaseModel):
         self.save_training_state(epoch, current_iter)
 
     # -------------------------------------------------------------- forward
-    def _forward(self, match_img_in, refs, lq, net_g=None):
-        """NHWC in, NHWC out; the nets run NCHW in channels-last memory,
-        which is what an NHWC tensor permuted to NCHW already is. The
-        frozen extractor and map run without a graph. ``net_g`` is the
-        training wrapper by default."""
+    def _forward(self, match_img_in, refs, lq, net_g=None, dtype=None):
+        """NHWC in, NHWC f32 out; the nets run NCHW in channels-last
+        memory, which is what an NHWC tensor permuted to NCHW already is.
+        The frozen extractor and map run without a graph. ``net_g`` is the
+        training wrapper by default, ``dtype`` the training compute
+        dtype."""
+        dtype = self.train_dtype if dtype is None else dtype
         with torch.no_grad():
-            pre_offset, img_ref_feat = self._ref_inputs(match_img_in, refs)
-        net_g = self.net_g if net_g is None else net_g
-        out = net_g(lq.permute(0, 3, 1, 2), pre_offset, img_ref_feat)
-        return out.permute(0, 2, 3, 1)
+            pre_offset, img_ref_feat = self._ref_inputs(match_img_in, refs,
+                                                        dtype)
+        return self._net_g_forward(lq, pre_offset, img_ref_feat, net_g,
+                                   dtype)
 
-    def _ref_inputs(self, match_img_in, refs):
+    def _net_g_forward(self, lq, pre_offset, img_ref_feat, net_g=None,
+                       dtype=None, cached=False):
+        """``net_g`` on NHWC ``lq`` (cast to ``dtype``) -> NHWC f32. At
+        bf16 the parameters are cast copies: made anew, differentiable,
+        unless ``cached`` (eval), then once per weights."""
+        net_g = self.net_g if net_g is None else net_g
+        dtype = self.train_dtype if dtype is None else dtype
+        out = self._run(net_g, dtype, cached, lq.to(dtype).permute(0, 3, 1, 2),
+                        pre_offset, img_ref_feat)
+        return out.permute(0, 2, 3, 1).float()
+
+    def _run(self, net, dtype, cached, *args):
+        """``net(*args)`` with its parameters and buffers in ``dtype``."""
+        if dtype == torch.float32:
+            return net(*args)
+        if not cached:
+            return functional_call(net, cast_tensors(net, dtype), args)
+        sources = [*net.parameters(), *net.buffers()]
+        key = (dtype, tuple((t.data_ptr(), t._version) for t in sources))
+        hit = self._cast_cache.get(id(net))
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = self._cast_cache[id(net)] = (key,
+                                                   cast_tensors(net, dtype))
+        return functional_call(net, hit[1], args)
+
+    def _ref_inputs(self, match_img_in, refs, dtype=torch.float32):
         """``(pre_offset, img_ref_feat)`` of ``net_g``, (B, T, ...)
-        leaves."""
+        leaves, from the frozen nets in ``dtype`` (the pre-offsets are f32
+        whatever it is)."""
         b, t = refs.shape[:2]
-        refs = refs.permute(0, 1, 4, 2, 3)                # (B, T, 3, H, W)
-        feats = self.net_extractor(match_img_in.permute(0, 3, 1, 2), refs)
+        refs = refs.to(dtype).permute(0, 1, 4, 2, 3)      # (B, T, 3, H, W)
+        feats = self._run(self.net_extractor, dtype, True,
+                          match_img_in.to(dtype).permute(0, 3, 1, 2), refs)
         d1 = feats['dense_features1']
         d1 = d1.unsqueeze(1).expand(-1, t, -1, -1, -1).flatten(0, 1)
-        pre_offset, img_ref_feat = self.net_map(
+        pre_offset, img_ref_feat = self._run(
+            self.net_map, dtype, True,
             {'dense_features1': d1,
              'dense_features2': feats['dense_features2'].flatten(0, 1)},
             refs.flatten(0, 1))
@@ -250,12 +318,16 @@ class MultiRefRestorationModel(BaseModel):
         return pre_offset, img_ref_feat
 
     def test(self):
-        """The eval forward, through the bare ``net_g``: it runs no
-        collective, so ranks may answer different numbers of requests."""
+        """The eval forward in ``val.mixed_precision``'s dtype, through the
+        bare ``net_g``: it runs no collective, so ranks may answer
+        different numbers of requests. ``self.output`` is f32."""
+        dtype = self.eval_dtype
         with torch.inference_mode():
-            self.output = self._forward(self.match_img_in, self.img_ref_list,
-                                        self.img_in_lq,
-                                        self.get_bare_model(self.net_g))
+            pre_offset, img_ref_feat = self._ref_inputs(
+                self.match_img_in, self.img_ref_list, dtype)
+            self.output = self._net_g_forward(
+                self.img_in_lq, pre_offset, img_ref_feat,
+                self.get_bare_model(self.net_g), dtype, cached=True)
 
     def get_current_visuals(self):
         """``{'img_in_lq', 'rlt', 'gt'}`` as NHWC float32 numpy arrays."""

@@ -1,7 +1,8 @@
 """Ops of the port: PyTorch around hand-written CUDA kernels
-(``csrc/feature_match.cu``, ``csrc/mdcn.cu``, ``csrc/deform_sample.cu``,
-``csrc/upfirdn2d.cu``, ``csrc/fused_act.cu``), each with its plain PyTorch
-version beside it for CPU tensors; and the resampling the video nets use
+(``csrc/feature_match.cu``, ``csrc/feature_match_bf16.cu``,
+``csrc/mdcn.cu``, ``csrc/deform_sample.cu``, ``csrc/upfirdn2d.cu``,
+``csrc/fused_act.cu``), each with its plain PyTorch version beside it for
+CPU tensors; and the resampling the video nets use
 (``resize.py``, ``warp.py``), which is ATen's ``F.interpolate`` and
 ``F.grid_sample`` at the JAX package's layouts."""
 from .correlation import (feature_match_index, feature_match_index_ref,

@@ -11,6 +11,14 @@ running max, as the JAX scan does) on a CPU tensor.
 :func:`feature_match_index_sharded` matches against one rank's band of
 reference rows with the same kernel, launched through its own entry point,
 and fuses the ranks' answers with two ``torch.distributed`` all-reduces.
+
+Features may be float32 or bfloat16, as in the JAX package: at bf16 the
+patches stay bf16, the ref-patch norm is bf16 arithmetic rounded where XLA
+rounds it (:func:`l2_norm`), and the scores are f32 sums of the exact f32
+products of bf16 values (``preferred_element_type=jnp.float32``), on the
+tensor cores in ``csrc/feature_match_bf16.cu`` and through an f32 matmul of
+the widened patches in the plain version. Each dtype and each of the two
+matches launches through its own entry point.
 """
 import ctypes
 
@@ -28,7 +36,36 @@ feature_match_kernel = Kernel('feature_match', 'feature_match_launch',
 # the same kernel, counted apart: the sharded match's per-rank launches
 feature_match_sharded_kernel = Kernel(
     'feature_match', 'feature_match_sharded_launch', _MATCH_ARGTYPES)
+# K1 and K6 on bf16 patches: the tensor-core kernel
+feature_match_bf16_kernel = Kernel(
+    'feature_match_bf16', 'feature_match_bf16_launch', _MATCH_ARGTYPES)
+feature_match_sharded_bf16_kernel = Kernel(
+    'feature_match_bf16', 'feature_match_sharded_bf16_launch',
+    _MATCH_ARGTYPES)
+# (single-device kernel, sharded kernel) by the patches' dtype
+_KERNELS = {torch.float32: (feature_match_kernel,
+                            feature_match_sharded_kernel),
+            torch.bfloat16: (feature_match_bf16_kernel,
+                             feature_match_sharded_bf16_kernel)}
 INT32_MAX = torch.iinfo(torch.int32).max
+
+
+def l2_norm(x, dim, keepdim=False):
+    """The L2 norm over ``dim`` as ``jnp.linalg.norm`` gives it in x's
+    dtype. For bf16, XLA on the CPU squares and sums in f32, rounds the sum
+    to bf16, takes the root in f32 and rounds it to bf16 (read from the
+    compiled HLO of a bf16 norm; it gives the JAX norm bit for bit)."""
+    if x.dtype == torch.float32:
+        return torch.linalg.vector_norm(x, dim=dim, keepdim=keepdim)
+    sq = x.float().square().sum(dim, keepdim=keepdim).to(x.dtype)
+    return sq.float().sqrt().to(x.dtype)
+
+
+def add_scalar(x, eps):
+    """``x + eps`` with the constant rounded to x's dtype first, as JAX
+    takes a Python float into a bf16 expression (the sum is then taken in
+    f32 and rounded, by XLA and by PyTorch alike)."""
+    return x + float(torch.tensor(eps, dtype=x.dtype))
 
 
 def sample_patches(feat, patch_size=3, stride=1):
@@ -51,7 +88,11 @@ def _match_patches_ref(pin, pref, chunk):
     (P, n_ref, d)`` -> ``(idx (P, n_in) int32, val (P, n_in) f32)``.
     Ref patches are scored in tiles of ``chunk``; inside a tile the first
     max wins, across tiles a strict ``>``: the lowest index among equal
-    maxima."""
+    maxima. bf16 patches are widened to f32 first: the products of two
+    bf16 values are exact in f32, and PyTorch's bf16 matmul would round
+    the scores to bf16."""
+    if pin.dtype != torch.float32:
+        pin, pref = pin.float(), pref.float()
     best_val = torch.full(pin.shape[:2], -torch.inf, dtype=torch.float32,
                           device=pin.device)
     best_idx = torch.zeros(pin.shape[:2], dtype=torch.int32,
@@ -65,13 +106,17 @@ def _match_patches_ref(pin, pref, chunk):
     return best_idx, best_val
 
 
-def _match_patches_cuda(pin, pref, chunk=None, kernel=feature_match_kernel):
+def _match_patches_cuda(pin, pref, chunk=None, sharded=False):
     """The CUDA kernel, same contract as :func:`_match_patches_ref`; the
-    kernel tiles the ref patches by itself, so ``chunk`` is unused.
-    ``kernel`` is the entry point that launches (and counts) it."""
-    if pin.dtype != torch.float32 or pref.dtype != torch.float32:
-        raise TypeError('feature_match kernel takes float32 patches, got '
-                        f'{pin.dtype} and {pref.dtype}')
+    kernel tiles the ref patches by itself, so ``chunk`` is unused. f32
+    patches go to ``feature_match.cu``, bf16 ones to
+    ``feature_match_bf16.cu``; ``sharded`` takes the entry point that counts
+    the sharded match's launches."""
+    if pin.dtype not in _KERNELS or pref.dtype != pin.dtype:
+        raise TypeError('feature_match kernel takes float32 or bfloat16 '
+                        f'patches of one dtype, got {pin.dtype} and '
+                        f'{pref.dtype}')
+    kernel = _KERNELS[pin.dtype][sharded]
     pairs, n_in, d = pin.shape
     n_ref = pref.shape[1]
     if pref.shape != (pairs, n_ref, d) or pref.device != pin.device:
@@ -93,7 +138,7 @@ def _match_patches_cuda(pin, pref, chunk=None, kernel=feature_match_kernel):
 
 
 def _match_patches_sharded_cuda(pin, pref, chunk=None):
-    return _match_patches_cuda(pin, pref, kernel=feature_match_sharded_kernel)
+    return _match_patches_cuda(pin, pref, sharded=True)
 
 
 def _feature_match(feat_input, feat_ref, patch_size, input_stride,
@@ -108,11 +153,14 @@ def _feature_match(feat_input, feat_ref, patch_size, input_stride,
     pin = pin.reshape((-1,) + pin.shape[-2:])
     pref = pref.reshape((-1,) + pref.shape[-2:])
     if is_norm:
-        pref = pref / (torch.linalg.vector_norm(pref, dim=2, keepdim=True)
-                       + 1e-5)
+        pref = pref / add_scalar(l2_norm(pref, 2, keepdim=True), 1e-5)
     idx, val = match(pin, pref, chunk)
     if norm_input:
-        val = val / (torch.linalg.vector_norm(pin, dim=2) + 1e-5)
+        # the constant in pin's dtype, the sum in f32 and not rounded: XLA
+        # drops the bf16 round trip where JAX promotes it for the f32 val
+        norm = l2_norm(pin, 2)
+        val = val / (norm.float() + float(torch.tensor(1e-5,
+                                                        dtype=norm.dtype)))
     ph = (h - patch_size) // input_stride + 1
     pw = (w - patch_size) // input_stride + 1
     return idx.reshape(batch + (ph, pw)), val.reshape(batch + (ph, pw))
@@ -133,8 +181,8 @@ def feature_match_index(feat_input, feat_ref, patch_size=3, input_stride=1,
     """Top-1 patch matching between input and reference features.
 
     Args:
-        feat_input, feat_ref: ``(..., H, W, C)`` float32; equal leading
-            dims are matched pair by pair.
+        feat_input, feat_ref: ``(..., H, W, C)``, both float32 or both
+            bfloat16; equal leading dims are matched pair by pair.
         is_norm: divide each ref patch by its L2 norm + 1e-5.
         norm_input: divide the best score by the input patch norm + 1e-5
             (changes ``val`` only).

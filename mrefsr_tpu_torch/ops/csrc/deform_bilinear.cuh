@@ -17,13 +17,68 @@
 // also where fy is an integer (wy1 = 0): the one-sided difference
 // x[y0 + 1] - x[y0], not a symmetric one and not zero.
 //
-// All values are float4 runs of 4 contiguous NHWC channels of one deform
-// group; a thread handles one run, and the `cg4` threads that share one
-// sampling position (one deform group) are neighbouring lanes of a warp.
+// A thread handles one run of 16 bytes of contiguous NHWC channels of one
+// deform group, loaded as one vector: 4 f32 or 8 bf16 channels (Run<T>).
+// Whatever T, the corners are widened to f32 and every weight, product and
+// sum is f32; a result in T is rounded once, where it is stored. The `cg / N`
+// threads that share one sampling position (one deform group) are
+// neighbouring lanes of a warp.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace deform {
+
+// A run of N channels of element type T: 16 bytes, one vector load.
+template <typename T>
+struct Run;
+
+template <>
+struct Run<float> {
+  static constexpr int N = 4;
+  using Raw = float4;
+  __device__ static void unpack(const float4& r, float (&v)[4]) {
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  }
+  __device__ static float4 pack(const float (&v)[4]) {
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ static float widen(float v) { return v; }
+  __device__ static float narrow(float v) { return v; }
+};
+
+template <>
+struct Run<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using Raw = uint4;
+  __device__ static void unpack(const uint4& r, float (&v)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  // round to nearest even, as torch's .to(torch.bfloat16)
+  __device__ static uint4 pack(const float (&v)[8]) {
+    uint4 r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    return r;
+  }
+  __device__ static float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  __device__ static __nv_bfloat16 narrow(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
 
 struct Corners {
   int y0, x0;
@@ -54,56 +109,70 @@ __device__ __forceinline__ Corners corners_at(float fy, float fx, int h,
   return c;
 }
 
+// The 4 corners of a run, widened to f32.
+template <typename T>
 struct Values {
-  float4 v00, v01, v10, v11;
+  float v00[Run<T>::N], v01[Run<T>::N], v10[Run<T>::N], v11[Run<T>::N];
 };
 
-// `xn` points at this thread's float4 of pixel (0, 0) of its item; a pixel
-// is `c4` float4s wide.
-__device__ __forceinline__ Values load_corners(const float4* __restrict__ xn,
-                                               const Corners& c, int w,
-                                               int c4) {
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  Values v;
-  v.v00 = c.in00 ? xn[((size_t)c.y0 * w + c.x0) * c4] : zero;
-  v.v01 = c.in01 ? xn[((size_t)c.y0 * w + c.x0 + 1) * c4] : zero;
-  v.v10 = c.in10 ? xn[((size_t)(c.y0 + 1) * w + c.x0) * c4] : zero;
-  v.v11 = c.in11 ? xn[((size_t)(c.y0 + 1) * w + c.x0 + 1) * c4] : zero;
+// `xn` points at this thread's run of pixel (0, 0) of its item; a pixel is
+// `cv` runs wide.
+template <typename T>
+__device__ __forceinline__ Values<T> load_corners(
+    const typename Run<T>::Raw* __restrict__ xn, const Corners& c, int w,
+    int cv) {
+  using Raw = typename Run<T>::Raw;
+  const Raw zero{};
+  Values<T> v;
+  Run<T>::unpack(c.in00 ? xn[((size_t)c.y0 * w + c.x0) * cv] : zero, v.v00);
+  Run<T>::unpack(c.in01 ? xn[((size_t)c.y0 * w + c.x0 + 1) * cv] : zero,
+                 v.v01);
+  Run<T>::unpack(c.in10 ? xn[((size_t)(c.y0 + 1) * w + c.x0) * cv] : zero,
+                 v.v10);
+  Run<T>::unpack(c.in11 ? xn[((size_t)(c.y0 + 1) * w + c.x0 + 1) * cv] : zero,
+                 v.v11);
   return v;
 }
 
-// (v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11) * m, in this order.
-__device__ __forceinline__ float4 bilinear(const Values& v, const Corners& c,
-                                           float m) {
+// (v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11) * m, in this order, in f32.
+template <typename T>
+__device__ __forceinline__ void bilinear(const Values<T>& v, const Corners& c,
+                                         float m,
+                                         float (&out)[Run<T>::N]) {
   const float w00 = c.in00 ? c.wy0 * c.wx0 : 0.f;
   const float w01 = c.in01 ? c.wy0 * c.wx1 : 0.f;
   const float w10 = c.in10 ? c.wy1 * c.wx0 : 0.f;
   const float w11 = c.in11 ? c.wy1 * c.wx1 : 0.f;
-  float4 out;
-  out.x = (v.v00.x * w00 + v.v01.x * w01 + v.v10.x * w10 + v.v11.x * w11) * m;
-  out.y = (v.v00.y * w00 + v.v01.y * w01 + v.v10.y * w10 + v.v11.y * w11) * m;
-  out.z = (v.v00.z * w00 + v.v01.z * w01 + v.v10.z * w10 + v.v11.z * w11) * m;
-  out.w = (v.v00.w * w00 + v.v01.w * w01 + v.v10.w * w10 + v.v11.w * w11) * m;
-  return out;
+#pragma unroll
+  for (int j = 0; j < Run<T>::N; ++j)
+    out[j] = (v.v00[j] * w00 + v.v01[j] * w01 + v.v10[j] * w10 +
+              v.v11[j] * w11) *
+             m;
 }
 
-__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+template <int N>
+__device__ __forceinline__ float dot(const float (&a)[N],
+                                     const float (&b)[N]) {
+  float s = a[0] * b[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) s += a[j] * b[j];
+  return s;
 }
 
-// This thread's share (its 4 channels) of the gradients of
+// This thread's share (its run of channels) of the gradients of
 // sum_c g_c * bilinear_c with respect to fy, fx, and of the sum itself.
 struct CoordGrad {
   float dfy, dfx, value;
 };
 
-__device__ __forceinline__ CoordGrad coord_grad(const float4& g,
-                                                const Values& v,
+template <typename T>
+__device__ __forceinline__ CoordGrad coord_grad(const float (&g)[Run<T>::N],
+                                                const Values<T>& v,
                                                 const Corners& c) {
-  const float g00 = dot4(g, v.v00);
-  const float g01 = dot4(g, v.v01);
-  const float g10 = dot4(g, v.v10);
-  const float g11 = dot4(g, v.v11);
+  const float g00 = dot(g, v.v00);
+  const float g01 = dot(g, v.v01);
+  const float g10 = dot(g, v.v10);
+  const float g11 = dot(g, v.v11);
   CoordGrad r;
   r.dfy = (g10 * c.wx0 + g11 * c.wx1) - (g00 * c.wx0 + g01 * c.wx1);
   r.dfx = (g01 * c.wy0 + g11 * c.wy1) - (g00 * c.wy0 + g10 * c.wy1);
@@ -122,33 +191,35 @@ __device__ __forceinline__ float segment_sum(float v, int width) {
   return v;
 }
 
-__device__ __forceinline__ void atomic_add4(float* p, const float4& g,
-                                            float s) {
-  atomicAdd(p, g.x * s);
-  atomicAdd(p + 1, g.y * s);
-  atomicAdd(p + 2, g.z * s);
-  atomicAdd(p + 3, g.w * s);
+template <int N>
+__device__ __forceinline__ void atomic_add_run(float* p, const float (&g)[N],
+                                               float s) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) atomicAdd(p + j, g[j] * s);
 }
 
-// grad_x += g * m * (corner weight), over the corners inside the image.
-// `gxn` points at this thread's 4 channels of pixel (0, 0) of its item; a
-// pixel is `c` floats wide. Atomic adds: the order of the additions, and so
-// the last bits of the sum, change from run to run.
+// grad_x += g * m * (corner weight), over the corners inside the image, into
+// an f32 buffer whatever the type of x (no bf16 atomics). `gxn` points at
+// this thread's channels of pixel (0, 0) of its item; a pixel is `ch` floats
+// wide. Atomic adds: the order of the additions, and so the last bits of the
+// sum, change from run to run.
+template <int N>
 __device__ __forceinline__ void scatter_corners(float* __restrict__ gxn,
                                                 const Corners& c,
-                                                const float4& g, float m,
+                                                const float (&g)[N], float m,
                                                 int w, int ch) {
   if (c.in00)
-    atomic_add4(gxn + ((size_t)c.y0 * w + c.x0) * ch, g, m * c.wy0 * c.wx0);
+    atomic_add_run(gxn + ((size_t)c.y0 * w + c.x0) * ch, g,
+                   m * c.wy0 * c.wx0);
   if (c.in01)
-    atomic_add4(gxn + ((size_t)c.y0 * w + c.x0 + 1) * ch, g,
-                m * c.wy0 * c.wx1);
+    atomic_add_run(gxn + ((size_t)c.y0 * w + c.x0 + 1) * ch, g,
+                   m * c.wy0 * c.wx1);
   if (c.in10)
-    atomic_add4(gxn + ((size_t)(c.y0 + 1) * w + c.x0) * ch, g,
-                m * c.wy1 * c.wx0);
+    atomic_add_run(gxn + ((size_t)(c.y0 + 1) * w + c.x0) * ch, g,
+                   m * c.wy1 * c.wx0);
   if (c.in11)
-    atomic_add4(gxn + ((size_t)(c.y0 + 1) * w + c.x0 + 1) * ch, g,
-                m * c.wy1 * c.wx1);
+    atomic_add_run(gxn + ((size_t)(c.y0 + 1) * w + c.x0 + 1) * ch, g,
+                   m * c.wy1 * c.wx1);
 }
 
 }  // namespace deform

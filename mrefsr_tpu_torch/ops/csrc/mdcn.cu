@@ -29,10 +29,27 @@
 // with the sums over the cg channels of the group, and, where asked,
 // grad_x += grad_col * mask * (corner weight) scattered over the 4 corners.
 //
-// Layouts (all contiguous): x (N, H, W, C) f32; offset (N, Ho, Wo, dg, K, 2)
+// Layouts (all contiguous): x (N, H, W, C); offset (N, Ho, Wo, dg, K, 2)
 // as (dy, dx); mask (N, Ho, Wo, dg, K); col and grad_col (groups, rows, K,
 // cin_g) for the rows [row0, row0 + rows) of the flattened (N, Ho, Wo);
 // grad_offset, grad_mask and grad_x whole, as offset, mask and x.
+//
+// Element types. x, mask, col, grad_col and grad_mask are all f32 or all
+// bf16 (the template parameter T); offset and grad_offset are f32 always,
+// and grad_x is an f32 buffer (the wrapper casts a bf16 grad x once). At
+// bf16 this is the K2 path of the JAX package's mixed precision: DynAgg adds
+// the conv's bf16 offset residual to the f32 pre-offsets, so the offset is
+// f32 (jax.make_jaxpr of a bf16 DynAgg: add -> f32[N,H,W,dg,9,2]), and the
+// coordinates are f32 as at dcn.py:83-93. The corners and the mask are read
+// in bf16 and widened, weights, products and sums are f32, and a column
+// element is rounded to bf16 once, where it is stored (torch's round to
+// nearest even). The JAX function instead takes the corner weights, their
+// products and the sum of the 4 corners in bf16 (dcn.py:171-178, 197-198),
+// so the two differ by a few bf16 ulps; tests/test_torch_bf16.py states the
+// tolerance. The backward reads bf16 grad_col, sums a deform group's
+// channels in f32 with the same warp shuffles, and writes grad_offset in f32
+// and grad_mask in bf16 (rounded once); the contraction's bf16 x bf16
+// products with f32 sums are cuBLAS's, in the wrapper.
 //
 // Bound on the H100: memory. Per element of col the kernels read 4 corners
 // (mostly from L2: neighbouring taps and rows share them) and read or write
@@ -43,29 +60,34 @@
 // ~1.7 GB of essential bytes per scale. Fusing the gather into the matmul's
 // operand load (wgmma) removes it; that is later work.
 //
-// Design: the forward runs one thread per (conv group, row, tap, run of 4
+// Design: the forward runs one thread per (conv group, row, tap, run of N
 // channels), in the order of col, so a warp writes contiguous bytes of col
-// and reads each corner as one 16-byte load of 4 contiguous NHWC channels.
-// The backward runs one thread per (row, tap, run of 4 channels of C), so the
-// cg / 4 threads of one (row, tap, deform group) are neighbouring lanes
+// and reads each corner as one 16-byte load of N contiguous NHWC channels.
+// The backward runs one thread per (row, tap, run of N channels of C), so the
+// cg / N threads of one (row, tap, deform group) are neighbouring lanes
 // whatever the conv groups: they add their shares with warp shuffles and one
 // lane writes, so grad_offset and grad_mask have one writer each and are the
 // same from run to run; grad_x uses atomic adds and is not. A thread reads its
-// grad_col run at the group-major address: runs of cin_g / 4 float4s, 16-byte
+// grad_col run at the group-major address: runs of cin_g / N vectors, 16-byte
 // loads still. Coordinates are f32 (a bf16 position above 256 is off by up
-// to 1 pixel). Requires C % 4 == 0, cg % 4 == 0 and cin_g % 4 == 0, and for
-// the backward cg / 4 a power of two <= 32, which the wrapper checks. The
-// no-mask variant (kMask false) is a separate instance: it reads no mask and
-// writes no grad_mask.
+// to 1 pixel). A thread's run is 16 bytes: N = 4 f32 or 8 bf16 channels.
+// Requires C, cg and cin_g multiples of N, and for the backward cg / N a
+// power of two <= 32, which the wrapper checks (at bf16 cg is 8 at relu1_1,
+// C 64 and dg 8, and 32 at relu3_1). The no-mask variant (kMask false) is a
+// separate instance: it reads no mask and writes no grad_mask.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "deform_bilinear.cuh"
 
 namespace {
 
+using deform::Run;
+
+// Widths in runs of N channels: cv = C / N, cgv = cg / N, cinv = cin_g / N.
 struct Geometry {
-  int row0, rows, h, w, c4, ho, wo, kw, k_taps, sh, sw, ph, pw, dh, dw, dg,
-      cg4, cin4;
+  int row0, rows, h, w, cv, ho, wo, kw, k_taps, sh, sw, ph, pw, dh, dw, dg,
+      cgv, cinv;
 };
 
 // The sampling position of (row r, tap k, deform group g), and its offset
@@ -91,128 +113,140 @@ __device__ __forceinline__ Sample sample_of(const Geometry& g, int r, int k,
   return s;
 }
 
-template <bool kMask>
+template <typename T, bool kMask>
 __global__ void __launch_bounds__(256)
-mdcn_im2col_kernel(const float4* __restrict__ x,
+mdcn_im2col_kernel(const typename Run<T>::Raw* __restrict__ x,
                    const float* __restrict__ offset,
-                   const float* __restrict__ mask, float4* __restrict__ col,
-                   int total, Geometry g) {
+                   const T* __restrict__ mask,
+                   typename Run<T>::Raw* __restrict__ col, int total,
+                   Geometry g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  // i = ((q * rows + rr) * K + k) * cin4 + cl
-  const int cl = i % g.cin4;
-  const int t = i / g.cin4;
+  // i = ((q * rows + rr) * K + k) * cinv + cl
+  const int cl = i % g.cinv;
+  const int t = i / g.cinv;
   const int k = t % g.k_taps;
   const int t1 = t / g.k_taps;
   const int r = g.row0 + t1 % g.rows;
-  const int cv = (t1 / g.rows) * g.cin4 + cl;  // run of 4 channels of C
+  const int cv = (t1 / g.rows) * g.cinv + cl;  // run of N channels of C
 
-  const Sample s = sample_of(g, r, k, cv / g.cg4, offset);
-  const float m = kMask ? mask[s.om] : 1.f;
+  const Sample s = sample_of(g, r, k, cv / g.cgv, offset);
+  const float m = kMask ? Run<T>::widen(mask[s.om]) : 1.f;
   const deform::Corners cn = deform::corners_at(s.fy, s.fx, g.h, g.w);
-  const deform::Values v = deform::load_corners(
-      x + (size_t)s.n * g.h * g.w * g.c4 + cv, cn, g.w, g.c4);
-  col[i] = deform::bilinear(v, cn, m);
+  const deform::Values<T> v = deform::load_corners<T>(
+      x + (size_t)s.n * g.h * g.w * g.cv + cv, cn, g.w, g.cv);
+  float out[Run<T>::N];
+  deform::bilinear(v, cn, m, out);
+  col[i] = Run<T>::pack(out);
 }
 
-template <bool kMask, bool kScatter>
+template <typename T, bool kMask, bool kScatter>
 __global__ void __launch_bounds__(256)
-mdcn_col2im_kernel(const float4* __restrict__ grad_col,
-                   const float4* __restrict__ x,
+mdcn_col2im_kernel(const typename Run<T>::Raw* __restrict__ grad_col,
+                   const typename Run<T>::Raw* __restrict__ x,
                    const float* __restrict__ offset,
-                   const float* __restrict__ mask,
-                   float* __restrict__ grad_offset,
-                   float* __restrict__ grad_mask, float* __restrict__ grad_x,
-                   int total, Geometry g) {
+                   const T* __restrict__ mask,
+                   float* __restrict__ grad_offset, T* __restrict__ grad_mask,
+                   float* __restrict__ grad_x, int total, Geometry g) {
+  constexpr int N = Run<T>::N;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   // a lane past the end takes the last element with a zero gradient: the
   // warp's shuffles need every lane
   const bool live = i < total;
   const int j = live ? i : total - 1;
-  // j = (rr * K + k) * c4 + cv
-  const int cv = j % g.c4;
-  const int t = j / g.c4;
+  // j = (rr * K + k) * cv + c_run
+  const int c_run = j % g.cv;
+  const int t = j / g.cv;
   const int k = t % g.k_taps;
   const int rr = t / g.k_taps;
   const int r = g.row0 + rr;
 
-  const Sample s = sample_of(g, r, k, cv / g.cg4, offset);
-  const float m = kMask ? mask[s.om] : 1.f;
-  const int q = cv / g.cin4;
-  const size_t at = (((size_t)q * g.rows + rr) * g.k_taps + k) * g.cin4 +
-                    cv % g.cin4;
-  const float4 gc = live ? grad_col[at] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const Sample s = sample_of(g, r, k, c_run / g.cgv, offset);
+  const float m = kMask ? Run<T>::widen(mask[s.om]) : 1.f;
+  const int q = c_run / g.cinv;
+  const size_t at = (((size_t)q * g.rows + rr) * g.k_taps + k) * g.cinv +
+                    c_run % g.cinv;
+  float gc[N];
+  Run<T>::unpack(live ? grad_col[at] : typename Run<T>::Raw{}, gc);
 
   const deform::Corners cn = deform::corners_at(s.fy, s.fx, g.h, g.w);
-  const deform::Values v = deform::load_corners(
-      x + (size_t)s.n * g.h * g.w * g.c4 + cv, cn, g.w, g.c4);
+  const deform::Values<T> v = deform::load_corners<T>(
+      x + (size_t)s.n * g.h * g.w * g.cv + c_run, cn, g.w, g.cv);
   const deform::CoordGrad cg = deform::coord_grad(gc, v, cn);
-  const float dfy = deform::segment_sum(cg.dfy, g.cg4);
-  const float dfx = deform::segment_sum(cg.dfx, g.cg4);
-  const float value = kMask ? deform::segment_sum(cg.value, g.cg4) : 0.f;
-  if (live && cv % g.cg4 == 0) {
+  const float dfy = deform::segment_sum(cg.dfy, g.cgv);
+  const float dfx = deform::segment_sum(cg.dfx, g.cgv);
+  const float value = kMask ? deform::segment_sum(cg.value, g.cgv) : 0.f;
+  if (live && c_run % g.cgv == 0) {
     grad_offset[2 * s.om] = m * dfy;
     grad_offset[2 * s.om + 1] = m * dfx;
-    if (kMask) grad_mask[s.om] = value;
+    if (kMask) grad_mask[s.om] = Run<T>::narrow(value);
   }
   if (kScatter && live)
     deform::scatter_corners(
-        grad_x + (size_t)s.n * g.h * g.w * g.c4 * 4 + cv * 4, cn, gc, m, g.w,
-        g.c4 * 4);
+        grad_x + (size_t)s.n * g.h * g.w * g.cv * N + c_run * N, cn, gc, m,
+        g.w, g.cv * N);
 }
 
+template <typename T>
 Geometry geometry(int row0, int rows, int h, int w, int c, int ho, int wo,
                   int kh, int kw, int sh, int sw, int ph, int pw, int dh,
                   int dw, int dg, int groups) {
-  return Geometry{row0, rows,   h,  w,  c / 4, ho, wo, kw, kh * kw,
-                  sh,   sw,     ph, pw, dh,    dw, dg, (c / dg) / 4,
-                  (c / groups) / 4};
+  constexpr int N = Run<T>::N;
+  return Geometry{row0, rows,   h,  w,  c / N, ho, wo, kw, kh * kw,
+                  sh,   sw,     ph, pw, dh,    dw, dg, (c / dg) / N,
+                  (c / groups) / N};
 }
 
-template <bool kMask>
+template <typename T, bool kMask>
 int im2col(const void* x, const void* offset, const void* mask, void* col,
            int row0, int rows, int h, int w, int c, int ho, int wo, int kh,
            int kw, int sh, int sw, int ph, int pw, int dh, int dw, int dg,
            int groups, void* stream) {
-  const Geometry g = geometry(row0, rows, h, w, c, ho, wo, kh, kw, sh, sw, ph,
-                              pw, dh, dw, dg, groups);
-  const int total = rows * kh * kw * g.c4;
+  using Raw = typename Run<T>::Raw;
+  const Geometry g = geometry<T>(row0, rows, h, w, c, ho, wo, kh, kw, sh, sw,
+                                 ph, pw, dh, dw, dg, groups);
+  const int total = rows * kh * kw * g.cv;
   const int threads = 256;
   const int blocks = (total + threads - 1) / threads;
-  mdcn_im2col_kernel<kMask><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float4*)x, (const float*)offset, (const float*)mask,
-      (float4*)col, total, g);
+  mdcn_im2col_kernel<T, kMask><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const Raw*)x, (const float*)offset, (const T*)mask, (Raw*)col, total,
+      g);
   return (int)cudaGetLastError();
 }
 
-template <bool kMask>
+template <typename T, bool kMask>
 int col2im(const void* grad_col, const void* x, const void* offset,
            const void* mask, void* grad_offset, void* grad_mask, void* grad_x,
            int row0, int rows, int h, int w, int c, int ho, int wo, int kh,
            int kw, int sh, int sw, int ph, int pw, int dh, int dw, int dg,
            int groups, void* stream) {
-  const Geometry g = geometry(row0, rows, h, w, c, ho, wo, kh, kw, sh, sw, ph,
-                              pw, dh, dw, dg, groups);
-  const int total = rows * kh * kw * g.c4;
+  using Raw = typename Run<T>::Raw;
+  const Geometry g = geometry<T>(row0, rows, h, w, c, ho, wo, kh, kw, sh, sw,
+                                 ph, pw, dh, dw, dg, groups);
+  const int total = rows * kh * kw * g.cv;
   const int threads = 256;
   const int blocks = (total + threads - 1) / threads;
-  auto kernel = grad_x ? mdcn_col2im_kernel<kMask, true>
-                       : mdcn_col2im_kernel<kMask, false>;
+  auto kernel = grad_x ? mdcn_col2im_kernel<T, kMask, true>
+                       : mdcn_col2im_kernel<T, kMask, false>;
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float4*)grad_col, (const float4*)x, (const float*)offset,
-      (const float*)mask, (float*)grad_offset, (float*)grad_mask,
-      (float*)grad_x, total, g);
+      (const Raw*)grad_col, (const Raw*)x, (const float*)offset,
+      (const T*)mask, (float*)grad_offset, (T*)grad_mask, (float*)grad_x,
+      total, g);
   return (int)cudaGetLastError();
 }
 
+using bf16 = __nv_bfloat16;
+
 }  // namespace
 
-// Pointers are device pointers of contiguous f32 tensors (x 16-byte
-// aligned); the stream is a cudaStream_t. `rows * kh * kw * c / 4` must fit
-// an int. Each returns cudaGetLastError() after its launch. The entry points
-// of one variant differ only in name, so that the wrapper counts the
-// launches of the three TPU kernels they replace apart: mdcn_* with groups 1
-// is K2 (_mdcn_slab_scan), mdcn_*_groups K3 (_mdcn_tap_scan, groups > 1),
+// Pointers are device pointers of contiguous tensors (x 16-byte aligned): x,
+// mask, col and grad_col f32 or, for the *_bf16 entry points, bf16; offset,
+// grad_offset and grad_x f32 always; grad_mask as mask. The stream is a
+// cudaStream_t. `rows * kh * kw * c / N` must fit an int. Each returns
+// cudaGetLastError() after its launch. The entry points of one variant
+// differ only in name, so that the wrapper counts the launches of the TPU
+// kernels they replace apart: mdcn_* with groups 1 is K2 (_mdcn_slab_scan),
+// mdcn_*_bf16 K2 at bf16, mdcn_*_groups K3 (_mdcn_tap_scan, groups > 1),
 // deform_* K5 (deform_conv2d, no mask, any groups). The col2im entry points
 // write these rows' entries of the whole grad_offset (and grad_mask); the
 // *_scatter ones also add into grad_x (zero it before the first chunk).
@@ -228,61 +262,81 @@ extern "C" {
 
 int mdcn_im2col_launch(const void* x, const void* offset, const void* mask,
                        void* col, IM2COL_ARGS) {
-  return im2col<true>(x, offset, mask, col, IM2COL_PASS);
+  return im2col<float, true>(x, offset, mask, col, IM2COL_PASS);
 }
 
 int mdcn_im2col_groups_launch(const void* x, const void* offset,
                               const void* mask, void* col, IM2COL_ARGS) {
-  return im2col<true>(x, offset, mask, col, IM2COL_PASS);
+  return im2col<float, true>(x, offset, mask, col, IM2COL_PASS);
 }
 
 int deform_im2col_launch(const void* x, const void* offset, void* col,
                          IM2COL_ARGS) {
-  return im2col<false>(x, offset, nullptr, col, IM2COL_PASS);
+  return im2col<float, false>(x, offset, nullptr, col, IM2COL_PASS);
 }
 
 int mdcn_col2im_launch(const void* grad_col, const void* x,
                        const void* offset, const void* mask,
                        void* grad_offset, void* grad_mask, IM2COL_ARGS) {
-  return col2im<true>(grad_col, x, offset, mask, grad_offset, grad_mask,
-                      nullptr, IM2COL_PASS);
+  return col2im<float, true>(grad_col, x, offset, mask, grad_offset,
+                             grad_mask, nullptr, IM2COL_PASS);
 }
 
 int mdcn_col2im_scatter_launch(const void* grad_col, const void* x,
                                const void* offset, const void* mask,
                                void* grad_offset, void* grad_mask,
                                void* grad_x, IM2COL_ARGS) {
-  return col2im<true>(grad_col, x, offset, mask, grad_offset, grad_mask,
-                      grad_x, IM2COL_PASS);
+  return col2im<float, true>(grad_col, x, offset, mask, grad_offset,
+                             grad_mask, grad_x, IM2COL_PASS);
 }
 
 int mdcn_col2im_groups_launch(const void* grad_col, const void* x,
                               const void* offset, const void* mask,
                               void* grad_offset, void* grad_mask,
                               IM2COL_ARGS) {
-  return col2im<true>(grad_col, x, offset, mask, grad_offset, grad_mask,
-                      nullptr, IM2COL_PASS);
+  return col2im<float, true>(grad_col, x, offset, mask, grad_offset,
+                             grad_mask, nullptr, IM2COL_PASS);
 }
 
 int mdcn_col2im_groups_scatter_launch(const void* grad_col, const void* x,
                                       const void* offset, const void* mask,
                                       void* grad_offset, void* grad_mask,
                                       void* grad_x, IM2COL_ARGS) {
-  return col2im<true>(grad_col, x, offset, mask, grad_offset, grad_mask,
-                      grad_x, IM2COL_PASS);
+  return col2im<float, true>(grad_col, x, offset, mask, grad_offset,
+                             grad_mask, grad_x, IM2COL_PASS);
 }
 
 int deform_col2im_launch(const void* grad_col, const void* x,
                          const void* offset, void* grad_offset, IM2COL_ARGS) {
-  return col2im<false>(grad_col, x, offset, nullptr, grad_offset, nullptr,
-                       nullptr, IM2COL_PASS);
+  return col2im<float, false>(grad_col, x, offset, nullptr, grad_offset,
+                              nullptr, nullptr, IM2COL_PASS);
 }
 
 int deform_col2im_scatter_launch(const void* grad_col, const void* x,
                                  const void* offset, void* grad_offset,
                                  void* grad_x, IM2COL_ARGS) {
-  return col2im<false>(grad_col, x, offset, nullptr, grad_offset, nullptr,
-                       grad_x, IM2COL_PASS);
+  return col2im<float, false>(grad_col, x, offset, nullptr, grad_offset,
+                              nullptr, grad_x, IM2COL_PASS);
+}
+
+int mdcn_im2col_bf16_launch(const void* x, const void* offset,
+                            const void* mask, void* col, IM2COL_ARGS) {
+  return im2col<bf16, true>(x, offset, mask, col, IM2COL_PASS);
+}
+
+int mdcn_col2im_bf16_launch(const void* grad_col, const void* x,
+                            const void* offset, const void* mask,
+                            void* grad_offset, void* grad_mask, IM2COL_ARGS) {
+  return col2im<bf16, true>(grad_col, x, offset, mask, grad_offset,
+                            grad_mask, nullptr, IM2COL_PASS);
+}
+
+int mdcn_col2im_scatter_bf16_launch(const void* grad_col, const void* x,
+                                    const void* offset, const void* mask,
+                                    void* grad_offset, void* grad_mask,
+                                    void* grad_x, IM2COL_ARGS) {
+  return col2im<bf16, true>(grad_col, x, offset, mask, grad_offset,
+                            grad_mask, grad_x, IM2COL_PASS);
 }
 
 const char* cuda_error_string(int err) {

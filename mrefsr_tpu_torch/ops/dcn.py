@@ -20,6 +20,19 @@ CPU tensor autograd runs through the plain version. ``deform_sample`` is
 the K = 1 case without mask or weight (``csrc/deform_sample.cu``, forward
 and backward kernels).
 
+Types. Everything is float32, as the JAX package's default; or, as its
+bf16 mixed precision has it, x, mask, weight and bias bfloat16 with the
+offset (or flow) float32, which is what a bf16 offset residual plus the f32
+pre-offsets gives (a bf16 offset is widened exactly). Coordinates are f32
+whatever the types. At bf16 the sampled corners are widened to f32, combined
+in f32 and rounded to bf16 once per column element (the kernels and the
+plain versions alike); the contraction is a bf16 x bf16 matmul with f32
+sums rounded to bf16, and the bias is added after that rounding, as at the
+JAX package's dcn.py:104-107. The gradients come back in their inputs'
+types; a bf16 grad weight and grad x are summed in f32 and rounded once.
+Only K2 (conv groups 1, with a mask) and K4 have bf16 kernels: the kernels
+of conv groups > 1 (K3) and of DCNv1 (K5) take float32 only.
+
 Layouts (the JAX package's, NHWC / HWIO):
     x:      (N, H, W, C)
     offset: (N, Ho, Wo, dg, K, 2)   last dim (dy, dx), K = kh*kw row-major
@@ -63,6 +76,13 @@ deform_col2im_kernel = Kernel('mdcn', 'deform_col2im_launch',
                               [_P] * 4 + _GEOM)
 deform_col2im_scatter_kernel = Kernel('mdcn', 'deform_col2im_scatter_launch',
                                       [_P] * 5 + _GEOM)
+# K2 at bf16: x, mask and the columns bfloat16, the offset float32
+mdcn_im2col_bf16_kernel = Kernel('mdcn', 'mdcn_im2col_bf16_launch',
+                                 [_P] * 4 + _GEOM)
+mdcn_col2im_bf16_kernel = Kernel('mdcn', 'mdcn_col2im_bf16_launch',
+                                 [_P] * 6 + _GEOM)
+mdcn_col2im_scatter_bf16_kernel = Kernel(
+    'mdcn', 'mdcn_col2im_scatter_bf16_launch', [_P] * 7 + _GEOM)
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_void_p]  # n, h, w, c, dg, stream
 deform_sample_fwd_kernel = Kernel('deform_sample', 'deform_sample_fwd_launch',
                                   [ctypes.c_void_p] * 3 + _SHAPE)
@@ -71,6 +91,18 @@ deform_sample_bwd_kernel = Kernel('deform_sample', 'deform_sample_bwd_launch',
 deform_sample_bwd_scatter_kernel = Kernel(
     'deform_sample', 'deform_sample_bwd_scatter_launch',
     [ctypes.c_void_p] * 5 + _SHAPE)
+# K4 at bf16: x, out and grad out bfloat16, the flow float32
+deform_sample_fwd_bf16_kernel = Kernel(
+    'deform_sample', 'deform_sample_fwd_bf16_launch',
+    [ctypes.c_void_p] * 3 + _SHAPE)
+deform_sample_bwd_bf16_kernel = Kernel(
+    'deform_sample', 'deform_sample_bwd_bf16_launch',
+    [ctypes.c_void_p] * 4 + _SHAPE)
+deform_sample_bwd_scatter_bf16_kernel = Kernel(
+    'deform_sample', 'deform_sample_bwd_scatter_bf16_launch',
+    [ctypes.c_void_p] * 5 + _SHAPE)
+# channels in one 16-byte run of a kernel thread, by x's dtype
+_RUN = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def _pair(v):
@@ -80,7 +112,9 @@ def _pair(v):
 def _im2col_ref(x, offset, mask, row0, rows, geom, groups=1):
     """Plain version of the kernel: the columns ``(groups, rows, K,
     C/groups)`` of output rows ``[row0, row0 + rows)`` of the flattened
-    ``(N, Ho, Wo)``; ``mask`` None is a mask of ones."""
+    ``(N, Ho, Wo)``; ``mask`` None is a mask of ones. A bf16 ``x`` is
+    sampled in f32 and the columns rounded to bf16 once, as the kernel
+    does."""
     (kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo) = geom
     n, h, w, c = x.shape
     dg = offset.shape[3]
@@ -104,10 +138,11 @@ def _im2col_ref(x, offset, mask, row0, rows, geom, groups=1):
     wy0 = 1.0 - wy1
     wx0 = 1.0 - wx1
     # validity on the unclipped corners, rows of the 1-padded map clipped
-    vy0 = ((y0 >= 0) & (y0 <= h - 1)).to(x.dtype)
-    vy1 = ((y0 >= -1) & (y0 <= h - 2)).to(x.dtype)
-    vx0 = ((x0 >= 0) & (x0 <= w - 1)).to(x.dtype)
-    vx1 = ((x0 >= -1) & (x0 <= w - 2)).to(x.dtype)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    vy0 = ((y0 >= 0) & (y0 <= h - 1)).to(wide)
+    vy1 = ((y0 >= -1) & (y0 <= h - 2)).to(wide)
+    vx0 = ((x0 >= 0) & (x0 <= w - 1)).to(wide)
+    vx1 = ((x0 >= -1) & (x0 <= w - 2)).to(wide)
     yc = torch.clamp(y0, -1, h - 1).to(torch.int64) + 1  # (rows, dg, K)
     xc = torch.clamp(x0, -1, w - 1).to(torch.int64) + 1
     xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
@@ -117,43 +152,58 @@ def _im2col_ref(x, offset, mask, row0, rows, geom, groups=1):
 
     def corner(dy, dx):
         rows_idx = ((base + yc + dy) * (w + 2) + xc + dx) * dg + g
-        return xp[rows_idx.reshape(-1)].reshape(rows, dg, k, cg)
+        return xp[rows_idx.reshape(-1)].reshape(rows, dg, k, cg).to(wide)
 
     out = (corner(0, 0) * (wy0 * wx0 * vy0 * vx0)[..., None]
            + corner(0, 1) * (wy0 * wx1 * vy0 * vx1)[..., None]
            + corner(1, 0) * (wy1 * wx0 * vy1 * vx0)[..., None]
            + corner(1, 1) * (wy1 * wx1 * vy1 * vx1)[..., None])
     if mask is not None:
-        m = mask.reshape(-1, dg, k)[row0:row0 + rows]
+        m = mask.reshape(-1, dg, k)[row0:row0 + rows].to(wide)
         out = out * m[..., None]                   # (rows, dg, K, cg)
-    out = out.permute(0, 2, 1, 3).reshape(rows, k, groups, c // groups)
+    out = out.to(x.dtype).permute(0, 2, 1, 3).reshape(rows, k, groups,
+                                                       c // groups)
     return out.permute(2, 0, 1, 3)
 
 
-def _check_cuda_inputs(name, x, *others, backward=False, groups=1):
-    """What the kernels take: float32 tensors on one device, C, the
-    channels of a deform group and those of a conv group multiples of 4
-    (float4 loads of x and float4 column stores); for a backward kernel the
-    deform group's runs of 4 channels a power of two <= 32 (they are summed
-    by warp shuffles). ``None`` entries of ``others`` (no mask) are
-    skipped."""
+def _check_cuda_inputs(name, x, coords, *others, backward=False, groups=1):
+    """What the kernels take: ``x`` and ``others`` (mask, grad columns or
+    grad out) all float32 or all bfloat16, ``coords`` (the offset or the
+    flow) float32 whatever x's type, all on one device; C, the channels of
+    a deform group and those of a conv group multiples of the 16-byte run
+    a kernel thread loads and stores (4 float32 or 8 bfloat16 channels);
+    for a backward kernel the deform group's runs a power of two <= 32
+    (they are summed by warp shuffles). ``None`` entries of ``others`` (no
+    mask) are skipped."""
     others = [t for t in others if t is not None]
-    dg = others[0].shape[3]
+    dg = coords.shape[3]
     c = x.shape[-1]
-    if any(t.dtype != torch.float32 for t in (x, *others)):
-        raise TypeError(f'{name} kernel takes float32 tensors, got '
-                        f'{[t.dtype for t in (x, *others)]}')
-    if c % 4 or (c // dg) % 4 or (c // groups) % 4:
+    if x.dtype not in _RUN or coords.dtype != torch.float32 \
+            or any(t.dtype != x.dtype for t in others):
+        raise TypeError(f'{name} kernel takes float32 or bfloat16 tensors '
+                        'of one type, with float32 coordinates, got '
+                        f'{[t.dtype for t in (x, coords, *others)]}')
+    run = _RUN[x.dtype]
+    if c % run or (c // dg) % run or (c // groups) % run:
         raise ValueError(f'{name} kernel needs C, C/deform_groups and '
-                         f'C/groups to be multiples of 4, got C={c}, '
-                         f'deform_groups={dg}, groups={groups}')
-    if any(t.device != x.device for t in others):
+                         f'C/groups to be multiples of {run} ({run} '
+                         f'{x.dtype} channels are one 16-byte load), got '
+                         f'C={c}, deform_groups={dg}, groups={groups}')
+    if any(t.device != x.device for t in (coords, *others)):
         raise ValueError(f'{name}: tensors lie on '
-                         f'{[str(t.device) for t in (x, *others)]}')
-    cg4 = c // dg // 4
-    if backward and (cg4 > 32 or cg4 & (cg4 - 1)):
-        raise ValueError(f'{name} backward kernel needs C/deform_groups/4 '
-                         f'to be a power of two <= 32, got {cg4}')
+                         f'{[str(t.device) for t in (x, coords, *others)]}')
+    runs = c // dg // run
+    if backward and (runs > 32 or runs & (runs - 1)):
+        raise ValueError(f'{name} backward kernel needs C/deform_groups/'
+                         f'{run} to be a power of two <= 32, got {runs}')
+
+
+def _refuse_bf16_variant(x, mask, groups):
+    """K3 (conv groups > 1) and K5 (DCNv1) have float32 kernels only."""
+    if x.dtype == torch.bfloat16 and (groups != 1 or mask is None):
+        raise TypeError('the DCN kernels of conv groups > 1 and of DCNv1 '
+                        'take float32 only: their bf16 path is ROADMAP A7 '
+                        f'(groups={groups}, mask={mask is not None})')
 
 
 def _geom_args(geom, dg, groups):
@@ -165,6 +215,7 @@ def _geom_args(geom, dg, groups):
 def _im2col_cuda(x, offset, mask, row0, rows, geom, groups=1):
     """The CUDA kernel, same contract as :func:`_im2col_ref`."""
     n, h, w, c = x.shape
+    _refuse_bf16_variant(x, mask, groups)
     _check_cuda_inputs('mdcn', x, offset, mask, groups=groups)
     (kh, kw) = geom[0]
     col = torch.empty((groups, rows, kh * kw, c // groups), dtype=x.dtype,
@@ -175,8 +226,11 @@ def _im2col_cuda(x, offset, mask, row0, rows, geom, groups=1):
             deform_im2col_kernel(x.data_ptr(), offset.data_ptr(),
                                  col.data_ptr(), *tail)
         else:
-            kernel = (mdcn_im2col_kernel if groups == 1
-                      else mdcn_im2col_groups_kernel)
+            if x.dtype == torch.bfloat16:
+                kernel = mdcn_im2col_bf16_kernel
+            else:
+                kernel = (mdcn_im2col_kernel if groups == 1
+                          else mdcn_im2col_groups_kernel)
             kernel(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
                    col.data_ptr(), *tail)
     return col
@@ -187,11 +241,17 @@ def _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask, grad_x,
     """The backward kernel for the rows ``[row0, row0 + rows)``:
     ``grad_col`` is ``(groups, rows, K, C/groups)``; these rows of
     ``grad_offset`` and (with a mask) ``grad_mask`` are written, and
-    ``grad_x`` (whole, zeroed by the caller) is added into unless it is
-    None."""
+    ``grad_x`` (whole, float32 whatever x's type, zeroed by the caller) is
+    added into unless it is None."""
     n, h, w, c = x.shape
+    _refuse_bf16_variant(x, mask, groups)
     _check_cuda_inputs('mdcn', x, offset, mask, grad_col, backward=True,
                        groups=groups)
+    if grad_offset.dtype != torch.float32 or (
+            grad_mask is not None and grad_mask.dtype != x.dtype) or (
+            grad_x is not None and grad_x.dtype != torch.float32):
+        raise TypeError('col2im writes grad offset and grad x in float32 '
+                        'and grad mask in x\'s type')
     if not grad_col.is_contiguous() or grad_col.numel() != \
             rows * geom[0][0] * geom[0][1] * c:
         raise ValueError(f'grad_col must be a contiguous (groups, rows, K, '
@@ -206,7 +266,10 @@ def _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask, grad_x,
             kernel(grad_col.data_ptr(), x.data_ptr(), offset.data_ptr(),
                    grad_offset.data_ptr(), *scatter, *tail)
             return
-        if groups == 1:
+        if x.dtype == torch.bfloat16:
+            kernel = (mdcn_col2im_bf16_kernel if grad_x is None
+                      else mdcn_col2im_scatter_bf16_kernel)
+        elif groups == 1:
             kernel = (mdcn_col2im_kernel if grad_x is None
                       else mdcn_col2im_scatter_kernel)
         else:
@@ -275,8 +338,12 @@ def _mdcn_forward(x, offset, mask, weight, bias, geom, im2col, groups=1):
         col = im2col(x, offset, mask, row0, rows, geom, groups)
         if groups == 1:
             col = col.reshape(rows, k * c)
-            pieces.append(torch.mm(col, w2d) if bias is None
-                          else torch.addmm(bias, col, w2d))
+            if bias is None:
+                pieces.append(torch.mm(col, w2d))
+            elif x.dtype == torch.float32:
+                pieces.append(torch.addmm(bias, col, w2d))
+            else:   # the bias after the rounding to x's type (JAX :104)
+                pieces.append(torch.mm(col, w2d) + bias)
         else:
             out = torch.bmm(col.reshape(groups, rows, -1), w_g)
             out = out.permute(1, 0, 2).reshape(rows, cout)
@@ -311,14 +378,18 @@ class _ModulatedDeformConv2d(torch.autograd.Function):
         k = kh * kw
         # grad_out comes as a permuted view of a channels-last tensor
         go = grad_out.reshape(-1, cout).contiguous()
+        # f32 sums across the chunks (a bf16 grad weight and grad x are
+        # rounded once, at the end)
+        wide = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
         if groups == 1:
             w2d = weight.reshape(k * c, cout)
-            grad_w = torch.zeros_like(w2d) if need_weight else None
+            grad_w = torch.zeros_like(w2d, dtype=wide) if need_weight \
+                else None
         else:
             w_g = _grouped_weight(weight, groups)
             grad_w = torch.zeros_like(w_g) if need_weight else None
         need_col2im = need_x or need_offset or need_mask
-        grad_x = torch.zeros_like(x) if need_x else None
+        grad_x = torch.zeros_like(x, dtype=wide) if need_x else None
         if need_col2im:
             grad_offset = torch.empty_like(offset)
             grad_mask = None if mask is None else torch.empty_like(mask)
@@ -329,7 +400,10 @@ class _ModulatedDeformConv2d(torch.autograd.Function):
                 go_chunk = go_chunk.reshape(rows, groups, -1).transpose(0, 1)
             if need_weight:
                 col = _im2col_cuda(x, offset, mask, row0, rows, geom, groups)
-                if groups == 1:
+                if groups == 1 and grad_w.dtype != col.dtype:
+                    grad_w += torch.mm(col.reshape(rows, k * c).t(),
+                                       go_chunk)
+                elif groups == 1:
                     grad_w.addmm_(col.reshape(rows, k * c).t(), go_chunk)
                 else:
                     grad_w.baddbmm_(col.reshape(groups, rows, -1)
@@ -344,13 +418,17 @@ class _ModulatedDeformConv2d(torch.autograd.Function):
         if need_weight and groups != 1:
             grad_w = grad_w.reshape(groups, k, c // groups, -1).permute(
                 1, 2, 0, 3)
-        return (grad_x, grad_offset if need_offset else None,
+        return (None if grad_x is None else grad_x.to(x.dtype),
+                grad_offset if need_offset else None,
                 grad_mask if need_mask else None,
-                grad_w.reshape(weight.shape) if need_weight else None,
+                grad_w.reshape(weight.shape).to(weight.dtype)
+                if need_weight else None,
                 go.sum(0) if need_bias else None, None, None)
 
 
 def _dispatch(name, x, offset, mask, weight, bias, geom, groups):
+    if x.dtype == torch.bfloat16 and offset.dtype == torch.bfloat16:
+        offset = offset.float()     # exact: the coordinates are f32
     if x.is_cuda:
         return _ModulatedDeformConv2d.apply(x, offset, mask, weight, bias,
                                             geom, groups)
@@ -438,13 +516,15 @@ def _deform_sample_fwd_cuda(x, flow):
     """The forward kernel on contiguous ``x`` and ``flow``, same contract
     as :func:`deform_sample_ref`."""
     _check_cuda_inputs('deform_sample', x, flow)
-    if x.numel() // 4 >= 2 ** 31:
-        raise ValueError(f'deform_sample kernel indexes runs of 4 '
-                         f'channels with an int; x has {x.numel()} '
-                         f'elements')
+    if x.numel() // _RUN[x.dtype] >= 2 ** 31:
+        raise ValueError(f'deform_sample kernel indexes runs of '
+                         f'{_RUN[x.dtype]} channels with an int; x has '
+                         f'{x.numel()} elements')
     out = torch.empty_like(x)
+    kernel = (deform_sample_fwd_bf16_kernel if x.dtype == torch.bfloat16
+              else deform_sample_fwd_kernel)
     with torch.cuda.device(x.device):
-        deform_sample_fwd_kernel(
+        kernel(
             x.data_ptr(), flow.data_ptr(), out.data_ptr(), *x.shape,
             flow.shape[3], torch.cuda.current_stream().cuda_stream)
     return out
@@ -467,18 +547,24 @@ class _DeformSample(torch.autograd.Function):
         go = grad_out.contiguous()
         _check_cuda_inputs('deform_sample', x, flow, go, backward=True)
         grad_flow = torch.empty_like(flow)
-        grad_x = torch.zeros_like(x) if need_x else None
+        # grad x is summed in f32 and, for a bf16 x, rounded once
+        grad_x = torch.zeros_like(x, dtype=torch.float32) if need_x else None
         head = (go.data_ptr(), x.data_ptr(), flow.data_ptr(),
                 grad_flow.data_ptr())
+        bf16 = x.dtype == torch.bfloat16
         with torch.cuda.device(x.device):
             tail = (*x.shape, flow.shape[3],
                     torch.cuda.current_stream().cuda_stream)
             if need_x:
-                deform_sample_bwd_scatter_kernel(*head, grad_x.data_ptr(),
-                                                 *tail)
+                kernel = (deform_sample_bwd_scatter_bf16_kernel if bf16
+                          else deform_sample_bwd_scatter_kernel)
+                kernel(*head, grad_x.data_ptr(), *tail)
             else:
-                deform_sample_bwd_kernel(*head, *tail)
-        return grad_x, grad_flow if ctx.needs_input_grad[1] else None
+                kernel = (deform_sample_bwd_bf16_kernel if bf16
+                          else deform_sample_bwd_kernel)
+                kernel(*head, *tail)
+        return (None if grad_x is None else grad_x.to(x.dtype),
+                grad_flow if ctx.needs_input_grad[1] else None)
 
 
 def deform_sample(x, flow):
@@ -487,8 +573,12 @@ def deform_sample(x, flow):
     sampled bilinearly at ``(y, x) + flow[n, y, x, g]``, mmcv zero-outside
     corners, f32 coordinates. ``x`` is ``(N, H, W, C)``, ``flow``
     ``(N, H, W, dg, 2)`` as (dy, dx); returns ``(N, H, W, C)``.
-    Differentiable in ``x`` and ``flow``."""
+    Differentiable in ``x`` and ``flow``. A bf16 ``x`` is sampled at f32
+    coordinates (a bf16 flow is widened exactly), in f32, and rounded
+    once."""
     _check_flow(x, flow)
+    if x.dtype == torch.bfloat16 and flow.dtype == torch.bfloat16:
+        flow = flow.float()
     if x.is_cuda:
         return _DeformSample.apply(x, flow)
     if x.device.type != 'cpu':

@@ -26,6 +26,11 @@ def data_parallel(net, device):
     next step rather than costing a graph walk each step). The gradients
     live in the all-reduce buckets (``gradient_as_bucket_view``), in the
     parameters' own strides, channels-last included, so DDP copies none.
+    Under bf16 mixed precision the model calls the wrapper through
+    ``torch.func.functional_call`` with bf16 copies of these parameters,
+    made inside the forward by a differentiable cast: DDP's hooks stay on
+    the f32 parameters, and each gradient reaches them once, through the
+    cast.
     """
     device_ids = [device.index] if device.type == 'cuda' else None
     return DistributedDataParallel(net, device_ids=device_ids,

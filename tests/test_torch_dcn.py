@@ -294,7 +294,10 @@ _ENTRY = {'mdcn_im2col_kernel': ('im2col', True),
           'mdcn_col2im_groups_kernel': ('col2im', True),
           'mdcn_col2im_groups_scatter_kernel': ('col2im', True),
           'deform_col2im_kernel': ('col2im', False),
-          'deform_col2im_scatter_kernel': ('col2im', False)}
+          'deform_col2im_scatter_kernel': ('col2im', False),
+          'mdcn_im2col_bf16_kernel': ('im2col', True),
+          'mdcn_col2im_bf16_kernel': ('col2im', True),
+          'mdcn_col2im_scatter_bf16_kernel': ('col2im', True)}
 
 
 def _stand_in_kernels(monkeypatch):

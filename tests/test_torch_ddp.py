@@ -208,6 +208,42 @@ def test_resumed_step_equals_the_unbroken_run(runs, alignment):
 
 
 # ------------------------------------------------- one process, no group
+@pytest.fixture(scope='module')
+def bf16_ranks(tmp_path_factory):
+    """The bf16 training step of the dcn alignment on 2 ranks."""
+    tmp = tmp_path_factory.mktemp('ddp_bf16')
+    rng = np.random.RandomState(5)
+    batches = [{k: torch.from_numpy(v) for k, v in worker.batch(rng, 2)
+                .items()} for _ in range(3)]
+    return worker.spawn('ddp_bf16', {'root': str(tmp / 'port'),
+                                     'batches': batches}, tmp, world=2)
+
+
+def test_ddp_bf16_gradient_is_the_mean_of_the_ranks_gradients(bf16_ranks):
+    """Under ``train.mixed_precision: bfloat16`` the bf16 copies of the
+    parameters are made inside the forward, so DDP's hooks stay on the f32
+    masters and see each gradient once: the DDP gradient (f32, the same on
+    both ranks) is the mean of the per-sample bf16 gradients within 1e-6
+    of each tensor's max (the same forwards; f32 sums in another order);
+    after two steps the ranks hold bit-equal f32 parameters and log the
+    same losses."""
+    for rank in bf16_ranks:
+        want, got = rank['mean_grads'], rank['ddp_grads']
+        assert sorted(want) == sorted(got)
+        for name, ref in want.items():
+            assert got[name].dtype == torch.float32
+            torch.testing.assert_close(
+                got[name], bf16_ranks[0]['ddp_grads'][name], rtol=0, atol=0)
+            err = float((got[name] - ref).abs().max())
+            assert err <= 1e-6 * float(ref.abs().max()), name
+        assert rank['param_dtypes'] == ['torch.float32']
+        assert rank['losses'] == bf16_ranks[0]['losses']
+        assert all(np.isfinite(rank['losses']))
+        for name, val in rank['params'].items():
+            torch.testing.assert_close(val, bf16_ranks[0]['params'][name],
+                                       rtol=0, atol=0)
+
+
 def test_one_process_is_rank_zero_of_one():
     from mrefsr_tpu_torch.utils import dist_util
     dist_util.init_dist(None)

@@ -150,18 +150,22 @@ def _tiny_train_opt():
 def test_model_refuses_what_is_not_ported():
     """Options of parts that are not ported raise and name the roadmap
     item; none is silently ignored. The options without any of them
-    build."""
+    build, and so do they with the bf16 mixed precision of training and
+    of eval, which is ported."""
     assert build_model(_tiny_train_opt(), device='cpu').is_train
+    opt = _tiny_train_opt()
+    opt['train']['mixed_precision'] = 'bfloat16'
+    opt['val'] = {'mixed_precision': 'bfloat16'}
+    model = build_model(opt, device='cpu')
+    assert model.train_dtype == model.eval_dtype == torch.bfloat16
     for where, key, value, item in [
-            ('train', 'mixed_precision', 'bfloat16', 'ROADMAP A4'),
             ('train', 'perceptual_opt', {'layer_weights': {'relu5_1': 1.0}},
              'ROADMAP A9'),
             ('train', 'style_opt', {'layer_weights': {'relu1_1': 1.0}},
              'ROADMAP A9'),
             ('train', 'gan_type', 'wgan', 'ROADMAP A9'),
             (None, 'network_d', {'type': 'ImageDiscriminator'},
-             'ROADMAP A9'),
-            ('val', 'mixed_precision', 'bfloat16', 'not ported')]:
+             'ROADMAP A9')]:
         opt = _tiny_train_opt()
         (opt if where is None else opt.setdefault(where, {}))[key] = value
         with pytest.raises(NotImplementedError, match=item):
@@ -180,7 +184,14 @@ def _refuse(*_):
 
 
 KERNELS = (correlation.feature_match_kernel,
-           correlation.feature_match_sharded_kernel, dcn.mdcn_im2col_kernel,
+           correlation.feature_match_sharded_kernel,
+           correlation.feature_match_bf16_kernel,
+           correlation.feature_match_sharded_bf16_kernel,
+           dcn.mdcn_im2col_bf16_kernel, dcn.mdcn_col2im_bf16_kernel,
+           dcn.mdcn_col2im_scatter_bf16_kernel,
+           dcn.deform_sample_fwd_bf16_kernel,
+           dcn.deform_sample_bwd_bf16_kernel,
+           dcn.deform_sample_bwd_scatter_bf16_kernel, dcn.mdcn_im2col_kernel,
            dcn.mdcn_col2im_kernel, dcn.mdcn_col2im_scatter_kernel,
            dcn.mdcn_im2col_groups_kernel, dcn.mdcn_col2im_groups_kernel,
            dcn.mdcn_col2im_groups_scatter_kernel, dcn.deform_im2col_kernel,
@@ -195,16 +206,20 @@ KERNELS = (correlation.feature_match_kernel,
 
 def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
     """A request and a training step on the CPU, with either alignment,
-    launch no kernel and build no library."""
+    in f32 and in bf16, launch no kernel and build no library."""
     monkeypatch.setattr(correlation, '_match_patches_cuda', _refuse)
     monkeypatch.setattr(dcn, '_im2col_cuda', _refuse)
     monkeypatch.setattr(dcn, '_col2im_cuda', _refuse)
     monkeypatch.setattr(dcn._DeformSample, 'apply', _refuse)
     before = [kernel.launches for kernel in KERNELS]
     rng = np.random.RandomState(0)
-    for alignment in ('dcn', 'flow'):
+    for alignment, mp in (('dcn', None), ('flow', None),
+                          ('dcn', 'bfloat16'), ('flow', 'bfloat16')):
         opt = _tiny_train_opt()
         opt['network_g']['alignment'] = alignment
+        if mp:
+            opt['train']['mixed_precision'] = mp
+            opt['val'] = {'mixed_precision': mp}
         model = build_model(opt, device='cpu')
         model.feed_data({
             'img_in': rng.rand(1, 16, 16, 3),

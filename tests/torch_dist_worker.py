@@ -305,7 +305,48 @@ def run_ddp(spec, rank, world):
     return report
 
 
-TASKS = {'sharded_match': run_sharded_match, 'ddp': run_ddp}
+def run_ddp_bf16(spec, rank, world):
+    """``train.mixed_precision: bfloat16`` under DDP, ``dcn`` alignment,
+    from the seeded weights (the same on every rank): the DDP gradient of
+    one step's batch and, on every rank alike, the mean of each rank's
+    sample through the bare net; then two steps."""
+    from mrefsr_tpu_torch.models import build_model
+    opt = train_opt('dcn', os.path.join(spec['root'], 'bf16'))
+    opt['train']['mixed_precision'] = 'bfloat16'
+    model = build_model(opt, device='cpu')
+    bare = model.get_bare_model(model.net_g)
+    batches = [_rank_batch(b, rank) for b in spec['batches']]
+    model.feed_data(batches[0])
+    model.net_g.zero_grad(set_to_none=True)
+    model.cri_pix(model._forward(model.match_img_in, model.img_ref_list,
+                                 model.img_in_lq), model.gt).backward()
+    report = {'ddp_grads': {n: p.grad.clone()
+                            for n, p in bare.named_parameters()}}
+    total = {}
+    for r in range(world):
+        model.feed_data(_rank_batch(spec['batches'][0], r))
+        bare.zero_grad(set_to_none=True)
+        model.cri_pix(model._forward(model.match_img_in, model.img_ref_list,
+                                     model.img_in_lq, bare),
+                      model.gt).backward()
+        for n, p in bare.named_parameters():
+            total[n] = total.get(n, 0) + p.grad / world
+    report['mean_grads'] = total
+    bare.zero_grad(set_to_none=True)
+    losses = []
+    for step in (1, 2):
+        model.feed_data(batches[step])
+        model.optimize_parameters(step)
+        losses.append(model.get_current_log()['l_pix'])
+    report['losses'] = losses
+    report['params'] = _params(model)
+    report['param_dtypes'] = sorted({str(p.dtype)
+                                     for p in bare.parameters()})
+    return report
+
+
+TASKS = {'sharded_match': run_sharded_match, 'ddp': run_ddp,
+         'ddp_bf16': run_ddp_bf16}
 
 
 def main():
