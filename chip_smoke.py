@@ -62,8 +62,15 @@ phase runs several):
     plain version at the eval and the training shapes in bf16, with the
     planted ties, the f32 kernel timed beside it on the same values;
 11b. mdcn_bf16 and mdcn_backward_bf16: K2 at bf16 (x, mask, weight, bias
-    bf16, the offset f32) at the eval and training shapes, forward and
-    every gradient, against the plain version (``K2_BF16_TOL``);
+    bf16, the offset f32) through the fused kernels of ``mdcn_bf16.cu``
+    at the eval and training shapes, forward and every gradient, against
+    the plain version (``K2_BF16_TOL``), the integer-offset case too, the
+    backward with x's gradient (dgrad's scatter variant) and as the
+    training step runs it (dgrad, wgrad, the sum); two such backward calls
+    bit-equal in grad offset, grad mask, grad weight and grad bias; each
+    fused entry point launched and timed alone, what it wrote held against
+    the plain version (forward; dgrad; its scatter variant; wgrad; the
+    sum of the grad-weight and grad-bias partials);
 11c. deform_sample_bf16: K4 the same at the training shapes;
 11d. slice_bf16: phase 10 with ``val.mixed_precision: bfloat16``: the
     output f32, the request through the kernels against the plain
@@ -369,8 +376,9 @@ def _k2_tol(dtype):
 
 
 def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32):
-    """K2's forward (mdcn_im2col + matmul) against its plain version on
-    ``n`` maps per shape: the eval shapes by default; f32 or bf16."""
+    """K2's forward against its plain version on ``n`` maps per shape: the
+    eval shapes by default; f32 (mdcn_im2col + matmul) or bf16 (the fused
+    kernel, whose time alone is ``kernel_only_ms``)."""
     gen = torch.Generator().manual_seed(SEED + 1)
     total = {'ms': 0.0, 'kernel_only_ms': 0.0, 'plain_ms': 0.0,
              'bound_ms': 0.0, 'library_ms': 0.0, 'flops': 0.0, 'bytes': 0.0}
@@ -399,6 +407,19 @@ def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32):
             for row0, nrows in dcn._row_chunks(rows, 9, c, size):
                 dcn._im2col_cuda(x, offset, mask, row0, nrows, geom)
 
+        if dtype == BF16:       # the fused kernel alone
+            wt = weight.reshape(9 * c, c).t().contiguous()
+            out_buf = torch.empty((rows, c), dtype=dtype, device='cuda')
+            fused = dcn._fused_args(x, offset, weight, geom)
+
+            def kernel_only():
+                dcn.mdcn_fused_fwd_bf16_kernel(
+                    x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+                    wt.data_ptr(), bias.data_ptr(), out_buf.data_ptr(),
+                    *fused)
+        else:
+            kernel_only = im2col_only
+
         x_nchw = x.permute(0, 3, 1, 2)
         w_oihw = weight.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
@@ -410,7 +431,7 @@ def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32):
         ops_s += sum(f / p for f, p in flops)
         shape = {
             'ms': cuda_ms(lambda: dcn.modulated_deform_conv2d(*args, **kw)),
-            'kernel_only_ms': cuda_ms(im2col_only),
+            'kernel_only_ms': cuda_ms(kernel_only),
             'plain_ms': cuda_ms(
                 lambda: dcn.modulated_deform_conv2d_ref(*args, **kw),
                 reps=1),
@@ -426,15 +447,16 @@ def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32):
         for key in total:
             total[key] += shape[key]
         del x, offset, mask, weight, bias, args, x_nchw, w_oihw
+        del kernel_only
         torch.cuda.empty_cache()
     flops, nbytes = total.pop('flops'), total.pop('bytes')
-    return {'name': 'mdcn_im2col_bf16' if dtype == BF16 else 'mdcn_im2col',
+    return {'name': 'mdcn_fused_fwd_bf16' if dtype == BF16 else 'mdcn_im2col',
             'max_abs_err': worst, **total,
             'bound_by': ('operations' if ops_s >= nbytes / PEAK_BYTES
                          else 'bytes'),
             'library_call': f'F.conv2d (cuDNN) of the same shapes in '
                             f'{dtype}: the same conv with zero offsets and '
-                            'unit mask'}
+                            'unit mask, a lower bound (no gather)'}
 
 
 TRAIN_B, TRAIN_GT = 6, 160              # options/train/stage3_5ref_*.yml
@@ -443,6 +465,9 @@ TRAIN_SHAPES = tuple((c, TRAIN_GT // d) for c, d in ((256, 4), (128, 2),
 # max |kernel - plain| / max |plain| of each gradient: f32 sums over a
 # group's channels (and, for grad x, atomic adds) in another order
 GRAD_REL_TOL = 1e-4
+# the inputs whose gradients a training step takes from K2: offset, mask,
+# weight, bias (x is a frozen feature)
+STEP_WRT = (1, 2, 3, 4)
 
 
 def _rel_err(got, want):
@@ -488,29 +513,155 @@ def _mdcn_backward_integer_case(dcn, gen, dtype=torch.float32):
     args = (x, offset, mask, weight, bias)
     got = _mdcn_grads(dcn.modulated_deform_conv2d, args, cot, range(5))
     want = _mdcn_grads(dcn.modulated_deform_conv2d_ref, args, cot, range(5))
-    errs = {}
+    # and as the training step runs it: no grad x, so no scatter
+    step = _mdcn_grads(dcn.modulated_deform_conv2d, args, cot, STEP_WRT)
+    names = ('x', 'offset', 'mask', 'weight', 'bias')
+    errs, step_errs = {}, {}
     tol = GRAD_REL_TOL if dtype == torch.float32 else K2_BF16_TOL
-    for name, g, w in zip(('x', 'offset', 'mask', 'weight', 'bias'), got,
-                          want):
+    for name, g, w in zip(names, got, want):
         errs[name] = _rel_err(g.float(), w.float())
-        check(errs[name] <= tol, f'mdcn backward, integer offsets, {dtype}: '
-              f'grad {name} differs by {errs[name]} of its max')
+    for i, g in zip(STEP_WRT, step):
+        step_errs[names[i]] = _rel_err(g.float(), want[i].float())
+    for label, found in (('', errs), (' as the step runs it', step_errs)):
+        for name, err in found.items():
+            check(err <= tol, f'mdcn backward, integer offsets{label}, '
+                  f'{dtype}: grad {name} differs by {err} of its max')
     check(float(got[1].abs().max()) > 0, 'grad offset is zero at integer '
           'offsets')
-    return {'samples_on_edge_rows': on_edge, 'rel_err': errs}
+    return {'samples_on_edge_rows': on_edge, 'rel_err': errs,
+            'step_rel_err': step_errs}
+
+
+def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
+    """The fused bf16 backward's entry points alone at one shape: dgrad and
+    wgrad with the ordered sum of its partials (the ones the training step
+    launches), and dgrad's grad-x scatter variant, each with its bound,
+    plain version and library call. Each entry point's record carries the
+    errors of what its own launch wrote against ``want``, the plain
+    version's gradients by name: dgrad grad offset and grad mask, the
+    scatter variant also grad x, wgrad and the sum grad weight and grad
+    bias."""
+    n, h, _, c = x.shape
+    rows = n * h * h
+    geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, h))
+    fused = dcn._fused_args(x, offset, weight, geom)
+    splits, split_patches = dcn._wgrad_slices(n, h, h, 9, c, c)
+    g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
+    g_x = torch.zeros_like(x, dtype=torch.float32)
+    partial = torch.empty((splits, 9 * c + 1, c), device='cuda')
+    total = torch.empty((9 * c + 1, c), device='cuda')
+    head = (cot.data_ptr(), x.data_ptr(), offset.data_ptr(), mask.data_ptr())
+    dgrad = (*head, weight.data_ptr(), g_off.data_ptr(), g_mask.data_ptr())
+    launch = {
+        'dgrad': lambda: dcn.mdcn_fused_dgrad_bf16_kernel(*dgrad, *fused),
+        'dgrad_scatter': lambda: dcn.mdcn_fused_dgrad_scatter_bf16_kernel(
+            *dgrad, g_x.data_ptr(), *fused),
+        'wgrad': lambda: dcn.mdcn_fused_wgrad_bf16_kernel(
+            *head, partial.data_ptr(), splits, split_patches, *fused),
+        'wgrad_sum': lambda: dcn.mdcn_fused_wgrad_sum_bf16_kernel(
+            partial.data_ptr(), total.data_ptr(), splits, total.numel(),
+            fused[-1])}
+
+    def written(part):
+        """What one launch of ``part`` writes, by name, as the Function
+        hands it on: wgrad's partials through the sum; the sum's from
+        wgrad's last launch."""
+        for buf in ((total,) if part == 'wgrad_sum'
+                    else (g_off, g_mask, partial, total)):
+            buf.fill_(float('nan'))     # what no launch writes shows
+        g_x.zero_()
+        launch[part]()
+        if part == 'wgrad':
+            launch['wgrad_sum']()
+        if part.startswith('wgrad'):
+            return {'weight': total[:-1].reshape(weight.shape).to(BF16),
+                    'bias': total[-1].to(BF16)}
+        got = {'offset': g_off.clone(), 'mask': g_mask.clone()}
+        if part == 'dgrad_scatter':
+            got['x'] = g_x.to(BF16)
+        return got
+
+    outs = {part: written(part) for part in launch}
+
+    def plain(wrt):
+        inputs = [a.detach().requires_grad_(i in wrt) for i, a in
+                  enumerate((x, offset, mask, weight))]
+        out = dcn.modulated_deform_conv2d_ref(*inputs, deform_groups=8)
+        return cuda_ms(lambda: torch.autograd.grad(
+            out, [inputs[i] for i in wrt], cot, retain_graph=True), reps=1)
+
+    x_nchw = x.permute(0, 3, 1, 2).requires_grad_()
+    w_oihw = weight.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    out_l = torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1)
+    cot_l = cot.permute(0, 3, 1, 2)
+
+    def library(wrt):
+        return cuda_ms(lambda: torch.autograd.grad(out_l, wrt, cot_l,
+                                                   retain_graph=True))
+
+    ordered = lambda: sum(partial[i] for i in range(1, splits))  # noqa: E731
+    mm = (2.0 * rows * 9 * c * c, PEAK_BF16_FLOPS)
+    col2im = (20.0 * rows * 9 * c, PEAK_F32_FLOPS)
+    sample = (9.0 * rows * 9 * c, PEAK_F32_FLOPS)
+    # every input read once, every output written once: grad offset (f32)
+    # and mask, grad x (f32), the f32 partials of grad weight and bias
+    ins = 2 * (cot.numel() + x.numel() + mask.numel()) \
+        + 4.0 * offset.numel()
+    outs_bytes = 2 * mask.numel() + 4.0 * offset.numel()
+    spec = {
+        'dgrad': ([mm, col2im], ins + 2 * weight.numel() + outs_bytes,
+                  lambda: plain((1, 2)), lambda: library(x_nchw)),
+        'dgrad_scatter': ([mm, col2im], ins + 2 * weight.numel()
+                          + outs_bytes + 4.0 * x.numel(),
+                          lambda: plain((0, 1, 2)), lambda: library(x_nchw)),
+        'wgrad': ([mm, sample], ins + 4.0 * partial.numel(),
+                  lambda: plain((3,)), lambda: library(w_oihw)),
+        'wgrad_sum': ([(float(partial.numel()), PEAK_F32_FLOPS)],
+                      4.0 * (partial.numel() + total.numel()),
+                      lambda: cuda_ms(lambda: partial[0] + ordered()),
+                      lambda: cuda_ms(lambda: partial.sum(0)))}
+    recs = {}
+    for part, fn in launch.items():
+        flops, nbytes, plain_ms, library_ms = spec[part]
+        if part == 'dgrad_scatter':
+            g_x.zero_()
+        ms = cuda_ms(fn)
+        got = outs[part]
+        errs = {name: _rel_err(g.float(), want[name].float())
+                for name, g in got.items()}
+        for name, err in errs.items():
+            check(err <= K2_BF16_TOL, f'{part} alone, C={c}: grad {name} '
+                  f'differs by {err} of its max')
+        recs[part] = {
+            'ms': ms, 'kernel_only_ms': ms, 'plain_ms': plain_ms(),
+            'library_ms': library_ms(), 'bound_ms': bound(flops, nbytes)[0],
+            'flops': sum(f for f, _ in flops),
+            'ops_s': sum(f / p for f, p in flops), 'bytes': nbytes,
+            'max_abs_err': max(float((g.float() - want[name].float())
+                                     .abs().max())
+                               for name, g in got.items()),
+            'max_rel_err': max(errs.values()), 'rel_err': errs}
+    return recs
 
 
 def phase_mdcn_backward(dcn, dtype=torch.float32):
-    """K2's backward (mdcn_col2im + two matmuls) against autograd through
-    the plain version, at the three training shapes; f32 or bf16 (the
-    offset f32 either way)."""
+    """K2's backward against autograd through the plain version, at the
+    three training shapes, every gradient (x's too: at bf16 through
+    dgrad's scatter variant): f32 (mdcn_col2im + two matmuls) or bf16 (the
+    fused kernels, then again as the training step runs them, x frozen:
+    dgrad, wgrad and the sum, every gradient checked and two calls
+    bit-equal in grad offset, grad mask, grad weight and grad bias), the
+    offset f32 either way. Returns the records of the ``kernels`` line: at
+    f32 one, at bf16 one for each fused backward entry point, alone, with
+    the errors of what it wrote."""
     gen = torch.Generator().manual_seed(SEED + 4)
     n = TRAIN_B * T
     names = ('x', 'offset', 'mask', 'weight', 'bias')
     bf16 = dtype == BF16
     tol = K2_BF16_TOL if bf16 else GRAD_REL_TOL
     size = torch.finfo(dtype).bits // 8
-    shapes = []
+    shapes, parts = [], []
     for c, h in TRAIN_SHAPES:
         args = [t.repeat(TRAIN_B, *[1] * (t.dim() - 1)) if i < 3 else t
                 for i, t in enumerate(_mdcn_inputs(gen, c, h, dtype=dtype))]
@@ -529,31 +680,69 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
             abs_err = max(abs_err, float((g.float() - w.float()).abs().max()))
             check(errs[name] <= tol, f'mdcn backward C={c} {dtype}: grad '
                   f'{name} differs by {errs[name]} of its max')
+        extra = {}
+        if bf16:
+            # as the training step runs it (x a frozen feature: dgrad
+            # without its scatter, wgrad, the sum); fixed-order sums, so a
+            # second call gives the same bits
+            step = _mdcn_grads(dcn.modulated_deform_conv2d, args, cot,
+                               STEP_WRT)
+            again = _mdcn_grads(dcn.modulated_deform_conv2d, args, cot,
+                                STEP_WRT)
+            extra['step_rel_err'] = {
+                names[i]: _rel_err(g.float(), want[i].float())
+                for i, g in zip(STEP_WRT, step)}
+            for name, err in extra['step_rel_err'].items():
+                check(err <= tol, f'mdcn backward C={c} as the step runs '
+                      f'it: grad {name} differs by {err} of its max')
+            abs_err = max(abs_err, *(float((g.float() - want[i].float())
+                                           .abs().max())
+                                     for i, g in zip(STEP_WRT, step)))
+            extra['bit_equal_rerun'] = {
+                names[i]: bool(torch.equal(g, g2))
+                for i, g, g2 in zip(STEP_WRT, step, again)}
+            check(all(extra['bit_equal_rerun'].values()), f'mdcn backward '
+                  f'C={c}: two calls differ: {extra["bit_equal_rerun"]}')
+            del step, again
+            parts.append(_fused_backward_parts(
+                dcn, x, offset, mask, weight, cot, dict(zip(names, want))))
         del got, want
 
-        # as the training step runs it: x is a frozen feature, no grad x
-        wrt = (1, 2, 3, 4)
-        inputs = [a.detach().requires_grad_(i in wrt)
+        # the step's backward through the Function, timed
+        inputs = [a.detach().requires_grad_(i in STEP_WRT)
                   for i, a in enumerate(args)]
         out_k = dcn.modulated_deform_conv2d(*inputs, deform_groups=8)
         grad_k = lambda: torch.autograd.grad(  # noqa: E731
             out_k, inputs[1:], cot, retain_graph=True)
         rows = n * h * h
-        geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, h))
-        chunks = dcn._row_chunks(rows, 9, c, size)
-        grad_col = torch.randn((chunks[0][1], 9, c), device='cuda').to(dtype)
-        g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
-        g_x = torch.zeros_like(x, dtype=torch.float32)
-
-        def col2im_only(grad_x=None):
-            for row0, nrows in chunks:
-                dcn._col2im_cuda(grad_col[:nrows], x, offset, mask, g_off,
-                                 g_mask, grad_x, row0, nrows, geom)
-
         ms = cuda_ms(grad_k)
-        kernel_ms = cuda_ms(col2im_only)
-        scatter_ms = cuda_ms(lambda: col2im_only(g_x))
-        del out_k, grad_col, g_off, g_mask, g_x
+        if bf16:    # the kernels the step launches here, alone
+            kernel_ms = sum(rec['ms'] for part, rec in parts[-1].items()
+                            if part != 'dgrad_scatter')
+            scatter_ms = parts[-1]['dgrad_scatter']['ms']
+            extra.update(chunks=0, **{f'{part}_ms': rec['ms']
+                                      for part, rec in parts[-1].items()})
+        else:
+            geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, h))
+            chunks = dcn._row_chunks(rows, 9, c, size)
+            grad_col = torch.randn((chunks[0][1], 9, c), device='cuda')
+            g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
+            g_x = torch.zeros_like(x, dtype=torch.float32)
+
+            def col2im_only(grad_x=None):
+                for row0, nrows in chunks:
+                    dcn._col2im_cuda(grad_col[:nrows], x, offset, mask,
+                                     g_off, g_mask, grad_x, row0, nrows,
+                                     geom)
+
+            kernel_ms = cuda_ms(col2im_only)
+            scatter_ms = cuda_ms(lambda: col2im_only(g_x))
+            extra['chunks'] = len(chunks)
+            # grad bias, go.sum(0) in the Function, part of ms
+            extra['bias_grad_ms'] = cuda_ms(
+                lambda: cot.reshape(-1, c).sum(0))
+            del grad_col, g_off, g_mask, g_x
+        del out_k
         out_p = dcn.modulated_deform_conv2d_ref(*inputs, deform_groups=8)
         plain_ms = cuda_ms(lambda: torch.autograd.grad(
             out_p, inputs[1:], cot, retain_graph=True), reps=1)
@@ -568,7 +757,7 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
         library_ms = cuda_ms(lambda: torch.autograd.grad(
             out_l, (x_nchw, w_oihw, b_lib), cot_l, retain_graph=True))
         del out_l
-        # two matmuls (grad weight, grad columns) at the dtype's rate and
+        # two products (grad weight, grad columns) at the dtype's rate and
         # the bilinear derivative per column element on CUDA cores; bytes
         # without grad x (the offset and its gradient f32)
         flops = [(4.0 * rows * 9 * c * c, peak_of(dtype)),
@@ -583,11 +772,12 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
                'flops': sum(f for f, _ in flops),
                'ops_s': sum(f / p for f, p in flops),
                'bytes': nbytes, 'max_abs_err': abs_err,
-               'max_rel_err': max(errs.values())}
+               'max_rel_err': max(*errs.values(),
+                                  *extra.get('step_rel_err', {}).values())}
         emit({'phase': 'mdcn_backward_bf16' if bf16 else 'mdcn_backward',
               'n': n, 'c': c, 'h': h, 'w': h, 'deform_groups': 8,
-              'dtype': str(dtype), 'chunks': len(chunks), 'rel_err': errs,
-              'tolerance': tol, 'bound_by': bound(flops, nbytes)[1], **rec})
+              'dtype': str(dtype), 'rel_err': errs, 'tolerance': tol,
+              'bound_by': bound(flops, nbytes)[1], **extra, **rec})
         shapes.append(rec)
         del args, inputs, x, offset, mask, weight, bias, cot, cot_l
         del x_nchw, w_oihw, b_lib
@@ -595,10 +785,28 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
     emit({'phase': 'mdcn_backward_bf16' if bf16 else 'mdcn_backward',
           'case': 'integer offsets', 'tolerance': tol,
           **_mdcn_backward_integer_case(dcn, gen, dtype)})
-    return _sum_records('mdcn_col2im_bf16' if bf16 else 'mdcn_col2im',
-                        shapes, {
-        'library_call': f'autograd of F.conv2d (cuDNN) at the same shapes '
-                        f'in {dtype}: grad input, grad weight and grad bias'})
+    library = (f'autograd of F.conv2d (cuDNN) at the same shapes in {dtype}:'
+               ' grad input, grad weight and grad bias, a lower bound (no '
+               'gather)')
+    if not bf16:
+        return [_sum_records('mdcn_col2im', shapes,
+                             {'library_call': library})]
+    whole = _sum_records('mdcn_backward_bf16', shapes, {})
+    emit({'phase': 'mdcn_backward_bf16', 'case': 'the training shapes summed',
+          **{k: whole[k] for k in ('ms', 'kernel_only_ms', 'plain_ms',
+                                   'library_ms', 'bound_ms', 'bound_by')},
+          'ms_is': 'the whole backward through the Function; '
+                   'kernel_only_ms: its fused kernels alone'})
+    calls = {'dgrad': 'autograd of F.conv2d (cuDNN): grad input',
+             'dgrad_scatter': 'autograd of F.conv2d (cuDNN): grad input',
+             'wgrad': 'autograd of F.conv2d (cuDNN): grad weight; its '
+                      'partials hold grad bias too',
+             'wgrad_sum': 'torch.sum of the partials over the slices'}
+    return [_sum_records(f'mdcn_fused_{part}_bf16',
+                         [shape[part] for shape in parts],
+                         {'library_call': call + '; at the training shapes '
+                          'where the step launches it'})
+            for part, call in calls.items()]
 
 
 def _grid_for(flow):
@@ -1377,9 +1585,13 @@ def kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act):
             'feature_match_bf16': correlation.feature_match_bf16_kernel,
             'feature_match_sharded_bf16':
                 correlation.feature_match_sharded_bf16_kernel,
-            'mdcn_im2col_bf16': dcn.mdcn_im2col_bf16_kernel,
-            'mdcn_col2im_bf16': dcn.mdcn_col2im_bf16_kernel,
-            'mdcn_col2im_scatter_bf16': dcn.mdcn_col2im_scatter_bf16_kernel,
+            'mdcn_fused_fwd_bf16': dcn.mdcn_fused_fwd_bf16_kernel,
+            'mdcn_fused_dgrad_bf16': dcn.mdcn_fused_dgrad_bf16_kernel,
+            'mdcn_fused_dgrad_scatter_bf16':
+                dcn.mdcn_fused_dgrad_scatter_bf16_kernel,
+            'mdcn_fused_wgrad_bf16': dcn.mdcn_fused_wgrad_bf16_kernel,
+            'mdcn_fused_wgrad_sum_bf16':
+                dcn.mdcn_fused_wgrad_sum_bf16_kernel,
             'deform_sample_fwd_bf16': dcn.deform_sample_fwd_bf16_kernel,
             'deform_sample_bwd_bf16': dcn.deform_sample_bwd_bf16_kernel,
             'deform_sample_bwd_scatter_bf16':
@@ -1407,15 +1619,25 @@ def read_counts(kernels, expect, forbid=()):
     return launches
 
 
-# the entry points a path launches and those it must not, by dtype
-F32_ENTRIES = ('feature_match', 'mdcn_im2col', 'mdcn_col2im',
-               'deform_sample_fwd', 'deform_sample_bwd')
+# the entry points a path launches and those it must not, by dtype: K1,
+# K2's forward, K2's backward, K4's forward and backward
+ENTRIES = {
+    torch.float32: {'match': ('feature_match',), 'k2': ('mdcn_im2col',),
+                    'k2_bwd': ('mdcn_col2im',),
+                    'k4': ('deform_sample_fwd',),
+                    'k4_bwd': ('deform_sample_bwd',)},
+    BF16: {'match': ('feature_match_bf16',), 'k2': ('mdcn_fused_fwd_bf16',),
+           'k2_bwd': ('mdcn_fused_dgrad_bf16', 'mdcn_fused_wgrad_bf16',
+                      'mdcn_fused_wgrad_sum_bf16'),
+           'k4': ('deform_sample_fwd_bf16',),
+           'k4_bwd': ('deform_sample_bwd_bf16',)}}
+F32_ENTRIES = sum(ENTRIES[torch.float32].values(), ())
 SCATTERS = ('mdcn_col2im_scatter', 'deform_sample_bwd_scatter',
-            'mdcn_col2im_scatter_bf16', 'deform_sample_bwd_scatter_bf16')
+            'mdcn_fused_dgrad_scatter_bf16', 'deform_sample_bwd_scatter_bf16')
 
 
-def _entries(names, dtype):
-    return tuple(f'{n}_bf16' if dtype == BF16 else n for n in names)
+def _entries(parts, dtype):
+    return sum((ENTRIES[dtype][part] for part in parts), ())
 
 
 def _forbidden(dtype):
@@ -1484,8 +1706,7 @@ def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels,
         check(rlt.shape == (1, CANVAS, CANVAS, 3), f'output {rlt.shape}')
         check(rlt.dtype == np.float32, f'output {rlt.dtype}')
         check(bool(np.isfinite(rlt).all()), 'non-finite output')
-    launches = read_counts(kernels,
-                           _entries(('feature_match', 'mdcn_im2col'), dtype),
+    launches = read_counts(kernels, _entries(('match', 'k2'), dtype),
                            _forbidden(dtype))
     peak = torch.cuda.max_memory_allocated()
 
@@ -1520,7 +1741,9 @@ def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels,
         model.test()
     out_k = model.output.clone()
     with mock.patch.object(correlation, '_match_patches_cuda', match_plain), \
-            mock.patch.object(dcn, '_im2col_cuda', dcn._im2col_ref):
+            mock.patch.object(dcn, '_im2col_cuda', dcn._im2col_ref), \
+            mock.patch.object(dcn, '_mdcn_fused_forward_cuda',
+                              dcn._mdcn_fused_forward_ref):
         model.test()
     diff = float((model.output - out_k).abs().max())
     tol = SLICE_BF16_TOL if bf16 else SLICE_TOL
@@ -1640,6 +1863,9 @@ def _compare_grads(model, arch, dcn, batch):
                 stack.enter_context(mock.patch.object(
                     dcn, '_im2col_cuda', dcn._im2col_ref))
                 stack.enter_context(mock.patch.object(
+                    dcn, '_mdcn_fused_forward_cuda',
+                    dcn._mdcn_fused_forward_ref))
+                stack.enter_context(mock.patch.object(
                     dcn, '_deform_sample_fwd_cuda', dcn.deform_sample_ref))
             rlt = model._net_g_forward(model.img_in_lq, pre_offset,
                                        img_ref_feat)
@@ -1681,9 +1907,8 @@ def phase_train(alignment, build_model, arch, dcn, kernels,
     at B = 1, one backward through the kernels against one through the
     plain versions."""
     bf16 = dtype == BF16
-    expect = _entries(('feature_match',) + (
-        ('mdcn_im2col', 'mdcn_col2im') if alignment == 'dcn'
-        else ('deform_sample_fwd', 'deform_sample_bwd')), dtype)
+    expect = _entries(('match',) + (('k2', 'k2_bwd') if alignment == 'dcn'
+                                    else ('k4', 'k4_bwd')), dtype)
     opt = _train_opt(alignment)
     if bf16:
         opt['train']['mixed_precision'] = 'bfloat16'
@@ -2782,7 +3007,9 @@ def phase_ddp():
 # matmuls) by these marks, the rest (element-wise, reductions, copies,
 # Adam) as other
 OWN_KERNELS = ('feature_match_kernel', 'feature_match_bf16_kernel',
-               'mdcn_im2col_kernel',
+               'mdcn_im2col_kernel', 'mdcn_fused_fwd_kernel',
+               'mdcn_fused_dgrad_kernel', 'mdcn_fused_wgrad_kernel',
+               'mdcn_fused_wgrad_sum_kernel',
                'mdcn_col2im_kernel', 'deform_sample_fwd_kernel',
                'deform_sample_bwd_kernel', 'upfirdn2d_kernel',
                'fused_leaky_relu_fwd_kernel', 'fused_leaky_relu_bwd_kernel')
@@ -2823,7 +3050,8 @@ def profile_record(path, run, top=12):
     own = {name: sum(ms for ms, _, key in kernels if name in key)
            for name in OWN_KERNELS}
     library = sum(ms for ms, _, key in kernels
-                  if any(mark in key for mark in LIBRARY_MARKS))
+                  if any(mark in key for mark in LIBRARY_MARKS)
+                  and not any(name in key for name in OWN_KERNELS))
     return {'phase': 'profile', 'path': path, 'wall_ms': wall_ms,
             'device_busy_ms': busy,
             'device_idle_share': 1 - busy / wall_ms if busy else None,
@@ -2833,11 +3061,18 @@ def profile_record(path, run, top=12):
                             for ms, n, name in kernels[:top]]}
 
 
+# the TPU kernels the bf16 records replace: K1, K2, K4
+K1_TPU = 'mrefsr_tpu/ops/correlation.py:42'
+K2_TPU = 'mrefsr_tpu/ops/dcn.py:111'
+K4_TPU = 'mrefsr_tpu/ops/dcn.py:296'
+
+
 def bf16_phases(correlation, dcn, arch, build_model, kernels):
     """The shipped precision of the main path: K1, K2 (forward and
     backward) and K4 at bf16 against their plain versions, the bf16
     CUFED5 request and the bf16 stage-3 step of both alignments. Returns
-    the kernels' records and the paths' launch counts."""
+    the kernels' ``(record, source, replaces)`` and the paths' launch
+    counts."""
     k1 = phase_feature_match(correlation, dtype=BF16)
     k1['train_shape'] = phase_feature_match(
         correlation, pairs=TRAIN_B * T, h=TRAIN_GT // 4, ties=False,
@@ -2849,6 +3084,10 @@ def bf16_phases(correlation, dcn, arch, build_model, kernels):
     k2b = phase_mdcn_backward(dcn, BF16)
     k4f, k4b = phase_deform_sample(dcn, BF16)
     torch.cuda.empty_cache()
+    described = [(k1, 'feature_match_bf16.cu', K1_TPU),
+                 *((rec, 'mdcn_bf16.cu', K2_TPU) for rec in [k2, *k2b]),
+                 (k4f, 'deform_sample.cu', K4_TPU),
+                 (k4b, 'deform_sample.cu', K4_TPU)]
     by_path = {}
     by_path['slice_bf16'], model, batch = phase_slice(
         build_model, arch.DynAgg, correlation, dcn, kernels, BF16)
@@ -2867,7 +3106,7 @@ def bf16_phases(correlation, dcn, arch, build_model, kernels):
         torch.cuda.empty_cache()
     emit({'phase': 'train_ratio_bf16',
           'flow_steps_per_dcn_step': step_ms['dcn'] / step_ms['flow']})
-    return (k1, k2, k2b, k4f, k4b), by_path
+    return described, by_path
 
 
 def main():
@@ -2896,7 +3135,7 @@ def main():
     torch.cuda.empty_cache()
     k2 = phase_mdcn(dcn)
     k2['train_shape'] = phase_mdcn(dcn, n=TRAIN_B * T, shapes=TRAIN_SHAPES)
-    k2b = phase_mdcn_backward(dcn)
+    k2b, = phase_mdcn_backward(dcn)
     k4f, k4b = phase_deform_sample(dcn)
     torch.cuda.empty_cache()
     k3f, k3b = phase_mdcn_groups(dcn)
@@ -2924,8 +3163,8 @@ def main():
         torch.cuda.empty_cache()
     emit({'phase': 'train_ratio',
           'flow_steps_per_dcn_step': step_ms['dcn'] / step_ms['flow']})
-    (k1b, k2bf, k2bb, k4bf, k4bb), bf16_paths = bf16_phases(
-        correlation, dcn, arch, build_model, kernels)
+    bf16_described, bf16_paths = bf16_phases(correlation, dcn, arch,
+                                             build_model, kernels)
     by_path.update(bf16_paths)
     sg2 = (stylegan2_arch, ops_upfirdn2d, fused_act, kernels)
     by_path['stylegan2_serve'] = phase_stylegan2_serve(inference_stylegan2,
@@ -2948,7 +3187,8 @@ def main():
     described = (
         (k1, 'feature_match.cu', 'mrefsr_tpu/ops/correlation.py:42'),
         (k6, 'feature_match.cu', 'mrefsr_tpu/ops/correlation.py:140'),
-        *_bf16_sources((k1b, k6b, k2bf, k2bb, k4bf, k4bb)),
+        *bf16_described,
+        (k6b, 'feature_match_bf16.cu', 'mrefsr_tpu/ops/correlation.py:140'),
         (k2, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
         (k2b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
         (k3f, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:214'),
@@ -2979,18 +3219,6 @@ def _described(described, by_path):
     return [rec for rec, _, _ in described]
 
 
-def _bf16_sources(records):
-    """The bf16 records with their sources and the TPU kernels they
-    replace: K1, K6, K2 forward and backward, K4 forward and backward."""
-    return zip(records, ('feature_match_bf16.cu', 'feature_match_bf16.cu',
-                         'mdcn.cu', 'mdcn.cu', 'deform_sample.cu',
-                         'deform_sample.cu'),
-               ('mrefsr_tpu/ops/correlation.py:42',
-                'mrefsr_tpu/ops/correlation.py:140',
-                'mrefsr_tpu/ops/dcn.py:111', 'mrefsr_tpu/ops/dcn.py:111',
-                'mrefsr_tpu/ops/dcn.py:296', 'mrefsr_tpu/ops/dcn.py:296'))
-
-
 def main_bf16():
     """``--bf16``: the device, the build and the bf16 phases alone, then
     their entries of the ``kernels`` line (K6 at bf16 runs in the ``ddp``
@@ -3006,10 +3234,8 @@ def main_bf16():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     phase_build(_build.build)
     kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
-    (k1, k2, k2b, k4f, k4b), by_path = bf16_phases(correlation, dcn, arch,
-                                                   build_model, kernels)
-    described = [(rec, source, replaces) for rec, source, replaces
-                 in _bf16_sources((k1, None, k2, k2b, k4f, k4b)) if rec]
+    described, by_path = bf16_phases(correlation, dcn, arch, build_model,
+                                     kernels)
     emit({'kernels': _described(described, by_path), 'card': smi})
     print(smi, flush=True)
 

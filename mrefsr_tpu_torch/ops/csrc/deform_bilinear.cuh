@@ -1,5 +1,5 @@
 // Bilinear corner arithmetic shared by the deformable kernels (mdcn.cu,
-// deform_sample.cu): the CUDA form of
+// mdcn_bf16.cu, deform_sample.cu): the CUDA form of
 // mrefsr_tpu/ops/dcn.py::_corner_rows_and_weights (dcn.py:163-185) and of the
 // derivative JAX's autodiff takes through it.
 //
@@ -115,23 +115,45 @@ struct Values {
   float v00[Run<T>::N], v01[Run<T>::N], v10[Run<T>::N], v11[Run<T>::N];
 };
 
-// `xn` points at this thread's run of pixel (0, 0) of its item; a pixel is
-// `cv` runs wide.
+// The 4 corners of a run as loaded, not yet widened: a kernel can issue the
+// loads early and widen them once they are needed (mdcn_bf16.cu issues a
+// k-step's loads before the products of the step before).
 template <typename T>
-__device__ __forceinline__ Values<T> load_corners(
+struct RawCorners {
+  typename Run<T>::Raw r00, r01, r10, r11;
+};
+
+// `xn` points at this thread's run of pixel (0, 0) of its item; a pixel is
+// `cv` runs wide. A corner outside the image is not read and comes as zero.
+template <typename T>
+__device__ __forceinline__ RawCorners<T> load_raw_corners(
     const typename Run<T>::Raw* __restrict__ xn, const Corners& c, int w,
     int cv) {
   using Raw = typename Run<T>::Raw;
   const Raw zero{};
+  RawCorners<T> r;
+  r.r00 = c.in00 ? xn[((size_t)c.y0 * w + c.x0) * cv] : zero;
+  r.r01 = c.in01 ? xn[((size_t)c.y0 * w + c.x0 + 1) * cv] : zero;
+  r.r10 = c.in10 ? xn[((size_t)(c.y0 + 1) * w + c.x0) * cv] : zero;
+  r.r11 = c.in11 ? xn[((size_t)(c.y0 + 1) * w + c.x0 + 1) * cv] : zero;
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ Values<T> widen_corners(const RawCorners<T>& r) {
   Values<T> v;
-  Run<T>::unpack(c.in00 ? xn[((size_t)c.y0 * w + c.x0) * cv] : zero, v.v00);
-  Run<T>::unpack(c.in01 ? xn[((size_t)c.y0 * w + c.x0 + 1) * cv] : zero,
-                 v.v01);
-  Run<T>::unpack(c.in10 ? xn[((size_t)(c.y0 + 1) * w + c.x0) * cv] : zero,
-                 v.v10);
-  Run<T>::unpack(c.in11 ? xn[((size_t)(c.y0 + 1) * w + c.x0 + 1) * cv] : zero,
-                 v.v11);
+  Run<T>::unpack(r.r00, v.v00);
+  Run<T>::unpack(r.r01, v.v01);
+  Run<T>::unpack(r.r10, v.v10);
+  Run<T>::unpack(r.r11, v.v11);
   return v;
+}
+
+template <typename T>
+__device__ __forceinline__ Values<T> load_corners(
+    const typename Run<T>::Raw* __restrict__ xn, const Corners& c, int w,
+    int cv) {
+  return widen_corners<T>(load_raw_corners<T>(xn, c, w, cv));
 }
 
 // (v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11) * m, in this order, in f32.

@@ -45,7 +45,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait_one;
+using tc::mma_bf16;
+using tc::word;
 
 constexpr int BM = 128;
 constexpr int BN = 128;
@@ -61,21 +69,6 @@ struct Stage {
   __nv_bfloat16 a[BM * LDS];
   __nv_bfloat16 b[BN * LDS];
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 // Rows [row0, row0 + 128) x columns [k0, k0 + 32) of the (n, d) matrix
 // `src` into the staged tile `dst`, zeros outside the matrix. A thread moves
@@ -102,19 +95,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                       : __float2bfloat16(0.f);
     }
   }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t word(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // (v, ix) takes (ov, oi) if that is larger, or equal with a lower index.

@@ -34,22 +34,15 @@
 // cin_g) for the rows [row0, row0 + rows) of the flattened (N, Ho, Wo);
 // grad_offset, grad_mask and grad_x whole, as offset, mask and x.
 //
-// Element types. x, mask, col, grad_col and grad_mask are all f32 or all
-// bf16 (the template parameter T); offset and grad_offset are f32 always,
-// and grad_x is an f32 buffer (the wrapper casts a bf16 grad x once). At
-// bf16 this is the K2 path of the JAX package's mixed precision: DynAgg adds
-// the conv's bf16 offset residual to the f32 pre-offsets, so the offset is
-// f32 (jax.make_jaxpr of a bf16 DynAgg: add -> f32[N,H,W,dg,9,2]), and the
-// coordinates are f32 as at dcn.py:83-93. The corners and the mask are read
-// in bf16 and widened, weights, products and sums are f32, and a column
-// element is rounded to bf16 once, where it is stored (torch's round to
-// nearest even). The JAX function instead takes the corner weights, their
-// products and the sum of the 4 corners in bf16 (dcn.py:171-178, 197-198),
-// so the two differ by a few bf16 ulps; tests/test_torch_bf16.py states the
-// tolerance. The backward reads bf16 grad_col, sums a deform group's
-// channels in f32 with the same warp shuffles, and writes grad_offset in f32
-// and grad_mask in bf16 (rounded once); the contraction's bf16 x bf16
-// products with f32 sums are cuBLAS's, in the wrapper.
+// Element types. x, mask, col, grad_col and grad_mask are all of the
+// template parameter T; offset and grad_offset are f32 always, and grad_x is
+// an f32 buffer. The entry points below instantiate T = f32 only: the bf16
+// K2 (the JAX package's mixed precision) runs the fused kernels of
+// mdcn_bf16.cu, which keep the columns out of device memory, and K3 / K5
+// have no bf16 path yet (ROADMAP A7, which instantiates these templates at
+// bf16: the corners and the mask read in bf16 and widened, every weight,
+// product and sum f32, a column element rounded to bf16 once where it is
+// stored). The contraction's products are cuBLAS's, in the wrapper.
 //
 // Bound on the H100: memory. Per element of col the kernels read 4 corners
 // (mostly from L2: neighbouring taps and rows share them) and read or write
@@ -58,7 +51,8 @@
 // (N = 5, C = 64) the column is 5 * 250000 * 576 * 4 B = 2.9 GB, written
 // once and read once by the matmul: ~5.8 GB of column traffic against
 // ~1.7 GB of essential bytes per scale. Fusing the gather into the matmul's
-// operand load (wgmma) removes it; that is later work.
+// operand load removes it: mdcn_bf16.cu does so for the bf16 K2; the f32
+// kernels here are later work.
 //
 // Design: the forward runs one thread per (conv group, row, tap, run of N
 // channels), in the order of col, so a warp writes contiguous bytes of col
@@ -72,7 +66,7 @@
 // loads still. Coordinates are f32 (a bf16 position above 256 is off by up
 // to 1 pixel). A thread's run is 16 bytes: N = 4 f32 or 8 bf16 channels.
 // Requires C, cg and cin_g multiples of N, and for the backward cg / N a
-// power of two <= 32, which the wrapper checks (at bf16 cg is 8 at relu1_1,
+// power of two <= 32, which the wrapper checks (cg is 8 at relu1_1,
 // C 64 and dg 8, and 32 at relu3_1). The no-mask variant (kMask false) is a
 // separate instance: it reads no mask and writes no grad_mask.
 #include <cuda_bf16.h>
@@ -235,18 +229,14 @@ int col2im(const void* grad_col, const void* x, const void* offset,
   return (int)cudaGetLastError();
 }
 
-using bf16 = __nv_bfloat16;
-
 }  // namespace
 
-// Pointers are device pointers of contiguous tensors (x 16-byte aligned): x,
-// mask, col and grad_col f32 or, for the *_bf16 entry points, bf16; offset,
-// grad_offset and grad_x f32 always; grad_mask as mask. The stream is a
-// cudaStream_t. `rows * kh * kw * c / N` must fit an int. Each returns
+// Pointers are device pointers of contiguous f32 tensors (x 16-byte
+// aligned); the stream is a cudaStream_t. `rows * kh * kw * c / N` must fit an int. Each returns
 // cudaGetLastError() after its launch. The entry points of one variant
 // differ only in name, so that the wrapper counts the launches of the TPU
 // kernels they replace apart: mdcn_* with groups 1 is K2 (_mdcn_slab_scan),
-// mdcn_*_bf16 K2 at bf16, mdcn_*_groups K3 (_mdcn_tap_scan, groups > 1),
+// mdcn_*_groups K3 (_mdcn_tap_scan, groups > 1),
 // deform_* K5 (deform_conv2d, no mask, any groups). The col2im entry points
 // write these rows' entries of the whole grad_offset (and grad_mask); the
 // *_scatter ones also add into grad_x (zero it before the first chunk).
@@ -317,26 +307,6 @@ int deform_col2im_scatter_launch(const void* grad_col, const void* x,
                                  void* grad_x, IM2COL_ARGS) {
   return col2im<float, false>(grad_col, x, offset, nullptr, grad_offset,
                               nullptr, grad_x, IM2COL_PASS);
-}
-
-int mdcn_im2col_bf16_launch(const void* x, const void* offset,
-                            const void* mask, void* col, IM2COL_ARGS) {
-  return im2col<bf16, true>(x, offset, mask, col, IM2COL_PASS);
-}
-
-int mdcn_col2im_bf16_launch(const void* grad_col, const void* x,
-                            const void* offset, const void* mask,
-                            void* grad_offset, void* grad_mask, IM2COL_ARGS) {
-  return col2im<bf16, true>(grad_col, x, offset, mask, grad_offset,
-                            grad_mask, nullptr, IM2COL_PASS);
-}
-
-int mdcn_col2im_scatter_bf16_launch(const void* grad_col, const void* x,
-                                    const void* offset, const void* mask,
-                                    void* grad_offset, void* grad_mask,
-                                    void* grad_x, IM2COL_ARGS) {
-  return col2im<bf16, true>(grad_col, x, offset, mask, grad_offset,
-                            grad_mask, grad_x, IM2COL_PASS);
 }
 
 const char* cuda_error_string(int err) {

@@ -2,36 +2,52 @@
 number of conv groups, and the per-pixel grouped bilinear warp
 ``deform_sample``, each with its gradient.
 
-Port of ``mrefsr_tpu/ops/dcn.py``. The sampling half of the conv
-(deformable im2col) runs in ``csrc/mdcn.cu`` on a CUDA tensor and in
-:func:`_im2col_ref` on a CPU tensor; the contraction over (tap, channel)
-is one matmul with the reshaped weight, as the JAX package leaves it to an
-XLA einsum: ``torch.mm`` for conv groups 1, one ``torch.bmm`` over the
-groups otherwise (the columns are group-major, ``(groups, rows, K,
-C/groups)``, so no copy comes between). Rows are processed in chunks so
-that the column scratch stays under :data:`COL_CAP_BYTES`. On a CUDA tensor
-the gradient is a ``torch.autograd.Function`` that keeps ``x, offset, mask,
-weight`` only and recomputes each chunk's columns (the JAX package's
-default, full remat): grad weight and grad columns are matmuls, and the
-kernel ``mdcn_col2im`` turns the grad columns into grad offset, grad mask
-and, where ``x`` needs one, grad x. DCNv1 (:func:`deform_conv2d`) runs the
-kernels' no-mask variant: no mask is read, made or differentiated. On a
-CPU tensor autograd runs through the plain version. ``deform_sample`` is
-the K = 1 case without mask or weight (``csrc/deform_sample.cu``, forward
-and backward kernels).
+Port of ``mrefsr_tpu/ops/dcn.py``. On a CPU tensor everything runs the
+plain version (:func:`_im2col_ref` and a matmul), with autograd through it.
+On a CUDA tensor the op is a ``torch.autograd.Function`` that keeps ``x,
+offset, mask, weight`` only and recomputes in the backward what it needs
+(the JAX package's default, full remat); who computes the contraction over
+(tap, channel) depends on the type:
 
-Types. Everything is float32, as the JAX package's default; or, as its
-bf16 mixed precision has it, x, mask, weight and bias bfloat16 with the
-offset (or flow) float32, which is what a bf16 offset residual plus the f32
-pre-offsets gives (a bf16 offset is widened exactly). Coordinates are f32
-whatever the types. At bf16 the sampled corners are widened to f32, combined
-in f32 and rounded to bf16 once per column element (the kernels and the
-plain versions alike); the contraction is a bf16 x bf16 matmul with f32
-sums rounded to bf16, and the bias is added after that rounding, as at the
-JAX package's dcn.py:104-107. The gradients come back in their inputs'
-types; a bf16 grad weight and grad x are summed in f32 and rounded once.
-Only K2 (conv groups 1, with a mask) and K4 have bf16 kernels: the kernels
-of conv groups > 1 (K3) and of DCNv1 (K5) take float32 only.
+- float32 (K2 with conv groups 1, K3 with more, K5 without a mask): the
+  kernel of ``csrc/mdcn.cu`` writes the deformable im2col columns, and
+  the contraction is one matmul with the reshaped weight, as the JAX
+  package leaves it to an XLA einsum: ``torch.mm`` for conv groups 1, one
+  ``torch.bmm`` over the groups otherwise (the columns are group-major,
+  ``(groups, rows, K, C/groups)``, so no copy comes between). Rows are
+  processed in chunks so that the column scratch stays under
+  :data:`COL_CAP_BYTES`. The backward recomputes each chunk's columns:
+  grad weight and grad columns are matmuls, and the kernel
+  ``mdcn_col2im`` turns the grad columns into grad offset, grad mask and,
+  where ``x`` needs one, grad x. DCNv1 (:func:`deform_conv2d`) runs the
+  kernels' no-mask variant: no mask is read, made or differentiated.
+- bfloat16 (K2 only: conv groups 1, with a mask): the kernels of
+  ``csrc/mdcn_bf16.cu`` gather the columns into shared memory and contract
+  them there on the tensor cores, in one launch per call, as the JAX
+  package's ``_mdcn_slab_scan`` contracts each tap's slab in its own body:
+  no column matrix, no chunks. The forward is ``mdcn_fused_fwd``; the
+  backward ``mdcn_fused_dgrad`` (grad offset, grad mask and, in its
+  ``_scatter`` variant, grad x) and ``mdcn_fused_wgrad`` (per-slice
+  partials of grad weight and grad bias), then ``mdcn_fused_wgrad_sum``
+  adds the partials in a fixed order. K3 and K5 take float32 only.
+
+``deform_sample`` is the K = 1 case without mask or weight
+(``csrc/deform_sample.cu``, forward and backward kernels, either type).
+
+Types and rounding. Everything is float32, as the JAX package's default;
+or, as its bf16 mixed precision has it, x, mask, weight and bias bfloat16
+with the offset (or flow) float32, which is what a bf16 offset residual
+plus the f32 pre-offsets gives (a bf16 offset is widened exactly).
+Coordinates are f32 whatever the types. At bf16 the sampled corners are
+widened to f32, combined in f32 and rounded to bf16 once per column
+element (the kernels and the plain versions alike); the contraction sums
+bf16 x bf16 products in f32 (the fused kernel's ``mma.sync``, the plain
+version's ``torch.mm``) and rounds once to bf16, and the bias is added
+after that rounding, as at the JAX package's dcn.py:104-107. In the
+backward the grad columns (grad out x W^T) are summed in f32 and rounded
+to bf16 before the bilinear derivative, where JAX's vjp and ``torch.mm``
+round them; grad offset is f32, grad mask bf16 rounded once; grad weight,
+grad bias and grad x are summed in f32 and rounded once.
 
 Layouts (the JAX package's, NHWC / HWIO):
     x:      (N, H, W, C)
@@ -76,13 +92,33 @@ deform_col2im_kernel = Kernel('mdcn', 'deform_col2im_launch',
                               [_P] * 4 + _GEOM)
 deform_col2im_scatter_kernel = Kernel('mdcn', 'deform_col2im_scatter_launch',
                                       [_P] * 5 + _GEOM)
-# K2 at bf16: x, mask and the columns bfloat16, the offset float32
-mdcn_im2col_bf16_kernel = Kernel('mdcn', 'mdcn_im2col_bf16_launch',
-                                 [_P] * 4 + _GEOM)
-mdcn_col2im_bf16_kernel = Kernel('mdcn', 'mdcn_col2im_bf16_launch',
-                                 [_P] * 6 + _GEOM)
-mdcn_col2im_scatter_bf16_kernel = Kernel(
-    'mdcn', 'mdcn_col2im_scatter_bf16_launch', [_P] * 7 + _GEOM)
+# K2 at bf16, fused (csrc/mdcn_bf16.cu): x, mask, weight, bias, grad out
+# bfloat16, the offset float32. rows, h, w, c, cout, ho, wo, kh, kw, sh, sw,
+# ph, pw, dh, dw, dg, stream.
+_FUSED = [ctypes.c_int] * 16 + [ctypes.c_void_p]
+mdcn_fused_fwd_bf16_kernel = Kernel('mdcn_bf16', 'mdcn_fused_fwd_bf16_launch',
+                                    [_P] * 6 + _FUSED)
+mdcn_fused_dgrad_bf16_kernel = Kernel(
+    'mdcn_bf16', 'mdcn_fused_dgrad_bf16_launch', [_P] * 7 + _FUSED)
+mdcn_fused_dgrad_scatter_bf16_kernel = Kernel(
+    'mdcn_bf16', 'mdcn_fused_dgrad_scatter_bf16_launch', [_P] * 8 + _FUSED)
+mdcn_fused_wgrad_bf16_kernel = Kernel(
+    'mdcn_bf16', 'mdcn_fused_wgrad_bf16_launch',
+    [_P] * 5 + [ctypes.c_int] * 2 + _FUSED)
+mdcn_fused_wgrad_sum_bf16_kernel = Kernel(
+    'mdcn_bf16', 'mdcn_fused_wgrad_sum_bf16_launch',
+    [_P] * 2 + [ctypes.c_int] * 2 + [_P])
+# the fused kernels' widest output tile, and the deform groups x taps whose
+# offsets a dgrad block stages in shared memory
+FUSED_MAX_COUT = 256
+FUSED_MAX_STAGED = 144
+# a fused block's output rows: an 8 x 8 patch of pixels
+PATCH = 8
+# wgrad's blocks of (tap, 64 channels) x slice of patches: about three
+# waves of blocks on the H100's 132 SMs (two blocks an SM below Cout 256,
+# one of 512 threads at 256), the slices cut from the shapes alone so that
+# the sum's order is the same on any card
+WGRAD_WAVES = 3
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_void_p]  # n, h, w, c, dg, stream
 deform_sample_fwd_kernel = Kernel('deform_sample', 'deform_sample_fwd_launch',
                                   [ctypes.c_void_p] * 3 + _SHAPE)
@@ -199,11 +235,69 @@ def _check_cuda_inputs(name, x, coords, *others, backward=False, groups=1):
 
 
 def _refuse_bf16_variant(x, mask, groups):
-    """K3 (conv groups > 1) and K5 (DCNv1) have float32 kernels only."""
-    if x.dtype == torch.bfloat16 and (groups != 1 or mask is None):
+    """The im2col / col2im kernels take float32 only: K3 (conv groups > 1)
+    and K5 (DCNv1) have no bf16 kernel, and K2 at bf16 runs the fused
+    kernels."""
+    if x.dtype != torch.bfloat16:
+        return
+    if groups != 1 or mask is None:
         raise TypeError('the DCN kernels of conv groups > 1 and of DCNv1 '
                         'take float32 only: their bf16 path is ROADMAP A7 '
                         f'(groups={groups}, mask={mask is not None})')
+    raise TypeError('the bf16 DCN with conv groups 1 and a mask runs the '
+                    'fused kernels of mdcn_bf16.cu, not im2col / col2im')
+
+
+def _fused(x, mask, groups):
+    """Whether the CUDA path runs the fused bf16 kernels (K2 at bf16)."""
+    return x.dtype == torch.bfloat16 and groups == 1 and mask is not None
+
+
+def _check_fused_inputs(x, offset, mask, weight, bias=None, go=None,
+                        backward=False):
+    """The fused kernels' rules beyond :func:`_check_cuda_inputs`'s: x,
+    mask, weight, bias and grad out bfloat16 (the offset float32); Cout a
+    multiple of 8 (16-byte runs of the output, grad out and weight rows)
+    and at most :data:`FUSED_MAX_COUT` (the widest output tile);
+    deform_groups * kh * kw at most :data:`FUSED_MAX_STAGED` (the offsets a
+    block stages); for the backward C/deform_groups/8 a power of two <= 8
+    (a group's runs are summed by shuffles within a 64-channel chunk)."""
+    _check_cuda_inputs('mdcn', x, offset, mask)
+    cout = weight.shape[3]
+    dg = offset.shape[3]
+    if any(t is not None and t.dtype != torch.bfloat16
+           for t in (weight, bias, go)):
+        raise TypeError('the fused bf16 DCN kernels take a bfloat16 '
+                        'weight, bias and grad out, got '
+                        f'{[getattr(t, "dtype", None) for t in (weight, bias, go)]}')
+    if any(t is not None and t.device != x.device
+           for t in (weight, bias, go)):
+        raise ValueError('mdcn: weight, bias and grad out must lie on '
+                         f'{x.device}')
+    if cout % 8:
+        raise ValueError(f'the fused bf16 DCN kernels need Cout to be a '
+                         f'multiple of 8 (16-byte runs), got Cout={cout}')
+    if cout > FUSED_MAX_COUT:
+        raise ValueError(f'the fused bf16 DCN kernels take Cout at most '
+                         f'{FUSED_MAX_COUT} (the widest output tile), got '
+                         f'Cout={cout}')
+    kh, kw = weight.shape[:2]
+    if dg * kh * kw > FUSED_MAX_STAGED:
+        raise ValueError(f'the fused bf16 DCN kernels take deform_groups * '
+                         f'kh * kw at most {FUSED_MAX_STAGED} (the offsets '
+                         f'a block stages), got {dg} * {kh} * {kw}')
+    runs = x.shape[3] // dg // 8
+    if backward and (runs > 8 or runs & (runs - 1)):
+        raise ValueError(f'the fused bf16 DCN backward needs C/deform_groups'
+                         f'/8 to be a power of two <= 8, got {runs}')
+
+
+def _aligned16(t):
+    """``t`` contiguous at a 16-byte aligned address (the fused kernels
+    load 16-byte runs of x, the weight and grad out, and offset pairs),
+    copied where a view starts elsewhere."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _geom_args(geom, dg, groups):
@@ -213,7 +307,8 @@ def _geom_args(geom, dg, groups):
 
 
 def _im2col_cuda(x, offset, mask, row0, rows, geom, groups=1):
-    """The CUDA kernel, same contract as :func:`_im2col_ref`."""
+    """The CUDA kernel, same contract as :func:`_im2col_ref`; float32
+    only."""
     n, h, w, c = x.shape
     _refuse_bf16_variant(x, mask, groups)
     _check_cuda_inputs('mdcn', x, offset, mask, groups=groups)
@@ -226,11 +321,8 @@ def _im2col_cuda(x, offset, mask, row0, rows, geom, groups=1):
             deform_im2col_kernel(x.data_ptr(), offset.data_ptr(),
                                  col.data_ptr(), *tail)
         else:
-            if x.dtype == torch.bfloat16:
-                kernel = mdcn_im2col_bf16_kernel
-            else:
-                kernel = (mdcn_im2col_kernel if groups == 1
-                          else mdcn_im2col_groups_kernel)
+            kernel = (mdcn_im2col_kernel if groups == 1
+                      else mdcn_im2col_groups_kernel)
             kernel(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
                    col.data_ptr(), *tail)
     return col
@@ -242,7 +334,7 @@ def _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask, grad_x,
     ``grad_col`` is ``(groups, rows, K, C/groups)``; these rows of
     ``grad_offset`` and (with a mask) ``grad_mask`` are written, and
     ``grad_x`` (whole, float32 whatever x's type, zeroed by the caller) is
-    added into unless it is None."""
+    added into unless it is None. Float32 only."""
     n, h, w, c = x.shape
     _refuse_bf16_variant(x, mask, groups)
     _check_cuda_inputs('mdcn', x, offset, mask, grad_col, backward=True,
@@ -250,8 +342,8 @@ def _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask, grad_x,
     if grad_offset.dtype != torch.float32 or (
             grad_mask is not None and grad_mask.dtype != x.dtype) or (
             grad_x is not None and grad_x.dtype != torch.float32):
-        raise TypeError('col2im writes grad offset and grad x in float32 '
-                        'and grad mask in x\'s type')
+        raise TypeError('col2im writes grad offset, grad mask and grad x '
+                        'in float32')
     if not grad_col.is_contiguous() or grad_col.numel() != \
             rows * geom[0][0] * geom[0][1] * c:
         raise ValueError(f'grad_col must be a contiguous (groups, rows, K, '
@@ -266,10 +358,7 @@ def _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask, grad_x,
             kernel(grad_col.data_ptr(), x.data_ptr(), offset.data_ptr(),
                    grad_offset.data_ptr(), *scatter, *tail)
             return
-        if x.dtype == torch.bfloat16:
-            kernel = (mdcn_col2im_bf16_kernel if grad_x is None
-                      else mdcn_col2im_scatter_bf16_kernel)
-        elif groups == 1:
+        if groups == 1:
             kernel = (mdcn_col2im_kernel if grad_x is None
                       else mdcn_col2im_scatter_kernel)
         else:
@@ -353,6 +442,148 @@ def _mdcn_forward(x, offset, mask, weight, bias, geom, im2col, groups=1):
     return out.reshape(n, ho, wo, cout)
 
 
+def _fused_args(x, offset, weight, geom):
+    """The geometry and stream arguments of the fused kernels."""
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo) = geom
+    n, h, w, c = x.shape
+    return (n * ho * wo, h, w, c, weight.shape[3], ho, wo, kh, kw, sh, sw,
+            ph, pw, dh, dw, offset.shape[3],
+            torch.cuda.current_stream().cuda_stream)
+
+
+def _mdcn_fused_forward_cuda(x, offset, mask, weight, bias, geom):
+    """K2's forward at bf16 (conv groups 1, a mask), one launch of
+    ``mdcn_fused_fwd``: same contract as :func:`_mdcn_fused_forward_ref`."""
+    _check_fused_inputs(x, offset, mask, weight, bias)
+    x, offset, mask = _aligned16(x), _aligned16(offset), mask.contiguous()
+    (kh, kw), (ho, wo) = geom[0], geom[4]
+    n, c = x.shape[0], x.shape[3]
+    cout = weight.shape[3]
+    # the products' B operand wants the (tap, channel) depth contiguous
+    wt = weight.reshape(kh * kw * c, cout).t().contiguous()
+    out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        mdcn_fused_fwd_bf16_kernel(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+            None if bias is None else bias.contiguous().data_ptr(),
+            out.data_ptr(),
+            *_fused_args(x, offset, weight, geom))
+    return out
+
+
+def _mdcn_fused_forward_ref(x, offset, mask, weight, bias, geom):
+    """Plain version of ``mdcn_fused_fwd``: the columns rounded to bf16
+    once, their bf16 product with the weight summed in f32 and rounded
+    (``torch.mm``), the bias added after that rounding."""
+    return _mdcn_forward(x, offset, mask, weight, bias, geom, _im2col_ref)
+
+
+def _wgrad_slices(n, ho, wo, k, c, cout):
+    """``(splits, split_patches)``: wgrad's slices of 8 x 8 output patches
+    (numbered item-major, then row-major) for ``k * ceil(C / 64)`` tiles,
+    about :data:`WGRAD_WAVES` waves of blocks."""
+    patches = n * -(-ho // PATCH) * -(-wo // PATCH)
+    tiles = k * -(-c // 64)
+    per_sm = 1 if cout > 128 else 2
+    splits = max(1, min(WGRAD_WAVES * 132 * per_sm // tiles, patches))
+    split_patches = -(-patches // splits)
+    return -(-patches // split_patches), split_patches
+
+
+def _mdcn_fused_backward_cuda(go, x, offset, mask, weight, geom, need_x,
+                              need_sample, need_params):
+    """K2's backward at bf16: ``mdcn_fused_dgrad`` (its ``_scatter``
+    variant where x needs a gradient) when x, the offset or the mask needs
+    one, then ``mdcn_fused_wgrad`` and the ordered sum of its partials when
+    the weight or the bias does. ``go`` is the ``(rows, Cout)`` grad out.
+    Returns grad x (float32), grad offset (float32), grad mask (bf16),
+    grad weight (float32, ``(K * C, Cout)``) and grad bias (float32), None
+    where not asked."""
+    _check_fused_inputs(x, offset, mask, weight, go=go, backward=True)
+    go, weight = _aligned16(go), _aligned16(weight)
+    x, offset, mask = _aligned16(x), _aligned16(offset), mask.contiguous()
+    (kh, kw), (ho, wo) = geom[0], geom[4]
+    c, cout = x.shape[3], weight.shape[3]
+    args = _fused_args(x, offset, weight, geom)
+    grad_x = grad_offset = grad_mask = grad_w = grad_b = None
+    with torch.cuda.device(x.device):
+        if need_sample or need_x:
+            grad_offset = torch.empty_like(offset)
+            grad_mask = torch.empty_like(mask)
+            head = (go.data_ptr(), x.data_ptr(), offset.data_ptr(),
+                    mask.data_ptr(), weight.data_ptr(),
+                    grad_offset.data_ptr(), grad_mask.data_ptr())
+            if need_x:
+                grad_x = torch.zeros_like(x, dtype=torch.float32)
+                mdcn_fused_dgrad_scatter_bf16_kernel(*head, grad_x.data_ptr(),
+                                                     *args)
+            else:
+                mdcn_fused_dgrad_bf16_kernel(*head, *args)
+        if need_params:
+            splits, split_patches = _wgrad_slices(x.shape[0], ho, wo,
+                                                  kh * kw, c, cout)
+            # grad weight's K * C rows, then grad bias
+            partial = torch.empty((splits, kh * kw * c + 1, cout),
+                                  dtype=torch.float32, device=x.device)
+            mdcn_fused_wgrad_bf16_kernel(
+                go.data_ptr(), x.data_ptr(), offset.data_ptr(),
+                mask.data_ptr(), partial.data_ptr(), splits, split_patches,
+                *args)
+            total = torch.empty(partial.shape[1:], dtype=torch.float32,
+                                device=x.device)
+            mdcn_fused_wgrad_sum_bf16_kernel(
+                partial.data_ptr(), total.data_ptr(), splits, total.numel(),
+                args[-1])
+            grad_w, grad_b = total[:-1], total[-1]
+    return grad_x, grad_offset, grad_mask, grad_w, grad_b
+
+
+def _chunked_backward(go, x, offset, mask, weight, geom, groups, need_x,
+                      need_sample, need_weight):
+    """K2 (f32), K3 and K5's backward: each chunk of rows recomputes its
+    columns (``mdcn_im2col``) for grad weight, a matmul, and turns the grad
+    columns, another, into grad offset, grad mask and, where asked, grad x
+    (``mdcn_col2im``). Sums across the chunks are f32. Returns grad x,
+    grad offset, grad mask and grad weight, None where not asked."""
+    (kh, kw) = geom[0]
+    k, c, cout = kh * kw, x.shape[3], weight.shape[3]
+    if groups == 1:
+        w2d = weight.reshape(k * c, cout)
+        grad_w = torch.zeros_like(w2d) if need_weight else None
+    else:
+        w_g = _grouped_weight(weight, groups)
+        grad_w = torch.zeros_like(w_g) if need_weight else None
+    need_col2im = need_x or need_sample
+    grad_x = torch.zeros_like(x) if need_x else None
+    grad_offset = grad_mask = None
+    if need_col2im:
+        grad_offset = torch.empty_like(offset)
+        grad_mask = None if mask is None else torch.empty_like(mask)
+    # each chunk's columns are recomputed, and freed before the next
+    for row0, rows in _row_chunks(go.shape[0], k, c, x.element_size()):
+        go_chunk = go[row0:row0 + rows]
+        if groups != 1:     # (G, rows, Cout/G), a view
+            go_chunk = go_chunk.reshape(rows, groups, -1).transpose(0, 1)
+        if need_weight:
+            col = _im2col_cuda(x, offset, mask, row0, rows, geom, groups)
+            if groups == 1:
+                grad_w.addmm_(col.reshape(rows, k * c).t(), go_chunk)
+            else:
+                grad_w.baddbmm_(col.reshape(groups, rows, -1)
+                                .transpose(1, 2), go_chunk)
+            del col
+        if need_col2im:
+            grad_col = (torch.mm(go_chunk, w2d.t()) if groups == 1
+                        else torch.bmm(go_chunk, w_g.transpose(1, 2)))
+            _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask,
+                         grad_x, row0, rows, geom, groups)
+            del grad_col
+    if need_weight and groups != 1:
+        grad_w = grad_w.reshape(groups, k, c // groups, -1).permute(
+            1, 2, 0, 3)
+    return grad_x, grad_offset, grad_mask, grad_w
+
+
 class _ModulatedDeformConv2d(torch.autograd.Function):
     """The CUDA path with its hand-written backward; ``mask`` None is
     DCNv1."""
@@ -361,8 +592,14 @@ class _ModulatedDeformConv2d(torch.autograd.Function):
     def forward(ctx, x, offset, mask, weight, bias, geom, groups):
         x, offset = x.contiguous(), offset.contiguous()
         mask = None if mask is None else mask.contiguous()
+        fused = _fused(x, mask, groups)
+        if fused:
+            x, offset = _aligned16(x), _aligned16(offset)
         ctx.geom, ctx.groups = geom, groups
         ctx.save_for_backward(x, offset, mask, weight)
+        if fused:
+            return _mdcn_fused_forward_cuda(x, offset, mask, weight, bias,
+                                            geom)
         return _mdcn_forward(x, offset, mask, weight, bias, geom,
                              _im2col_cuda, groups)
 
@@ -373,57 +610,24 @@ class _ModulatedDeformConv2d(torch.autograd.Function):
         need_x, need_offset, need_mask, need_weight, need_bias = \
             ctx.needs_input_grad[:5]
         geom, groups = ctx.geom, ctx.groups
-        kh, kw = geom[0]
-        c, cout = x.shape[3], weight.shape[3]
-        k = kh * kw
         # grad_out comes as a permuted view of a channels-last tensor
-        go = grad_out.reshape(-1, cout).contiguous()
-        # f32 sums across the chunks (a bf16 grad weight and grad x are
-        # rounded once, at the end)
-        wide = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
-        if groups == 1:
-            w2d = weight.reshape(k * c, cout)
-            grad_w = torch.zeros_like(w2d, dtype=wide) if need_weight \
-                else None
+        go = grad_out.reshape(-1, weight.shape[3]).contiguous()
+        if _fused(x, mask, groups):
+            grad_x, grad_offset, grad_mask, grad_w, grad_b = \
+                _mdcn_fused_backward_cuda(go, x, offset, mask, weight, geom,
+                                          need_x, need_offset or need_mask,
+                                          need_weight or need_bias)
         else:
-            w_g = _grouped_weight(weight, groups)
-            grad_w = torch.zeros_like(w_g) if need_weight else None
-        need_col2im = need_x or need_offset or need_mask
-        grad_x = torch.zeros_like(x, dtype=wide) if need_x else None
-        if need_col2im:
-            grad_offset = torch.empty_like(offset)
-            grad_mask = None if mask is None else torch.empty_like(mask)
-        # each chunk's columns are recomputed, and freed before the next
-        for row0, rows in _row_chunks(go.shape[0], k, c, x.element_size()):
-            go_chunk = go[row0:row0 + rows]
-            if groups != 1:     # (G, rows, Cout/G), a view
-                go_chunk = go_chunk.reshape(rows, groups, -1).transpose(0, 1)
-            if need_weight:
-                col = _im2col_cuda(x, offset, mask, row0, rows, geom, groups)
-                if groups == 1 and grad_w.dtype != col.dtype:
-                    grad_w += torch.mm(col.reshape(rows, k * c).t(),
-                                       go_chunk)
-                elif groups == 1:
-                    grad_w.addmm_(col.reshape(rows, k * c).t(), go_chunk)
-                else:
-                    grad_w.baddbmm_(col.reshape(groups, rows, -1)
-                                    .transpose(1, 2), go_chunk)
-                del col
-            if need_col2im:
-                grad_col = (torch.mm(go_chunk, w2d.t()) if groups == 1
-                            else torch.bmm(go_chunk, w_g.transpose(1, 2)))
-                _col2im_cuda(grad_col, x, offset, mask, grad_offset,
-                             grad_mask, grad_x, row0, rows, geom, groups)
-                del grad_col
-        if need_weight and groups != 1:
-            grad_w = grad_w.reshape(groups, k, c // groups, -1).permute(
-                1, 2, 0, 3)
+            grad_x, grad_offset, grad_mask, grad_w = _chunked_backward(
+                go, x, offset, mask, weight, geom, groups, need_x,
+                need_offset or need_mask, need_weight)
+            grad_b = go.sum(0) if need_bias else None
         return (None if grad_x is None else grad_x.to(x.dtype),
                 grad_offset if need_offset else None,
                 grad_mask if need_mask else None,
                 grad_w.reshape(weight.shape).to(weight.dtype)
                 if need_weight else None,
-                go.sum(0) if need_bias else None, None, None)
+                grad_b.to(go.dtype) if need_bias else None, None, None)
 
 
 def _dispatch(name, x, offset, mask, weight, bias, geom, groups):

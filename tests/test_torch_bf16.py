@@ -289,24 +289,37 @@ def test_deform_sample_bf16_copies_x_at_integer_flows():
 def test_mdcn_bf16_function_launches_the_bf16_entry_points(monkeypatch,
                                                             grad_x):
     """The Function of the CUDA path at bf16, with PyTorch stand-ins for
-    the C entry points (test_torch_dcn.py): it launches the bf16 im2col
-    and col2im (the scatter only where x needs a gradient) and none of
-    the f32 ones, sums grad weight and grad x over the chunks in f32, and
-    agrees with the JAX package as the plain version does."""
+    the C entry points (test_torch_dcn.py): one launch of the fused
+    forward per call however small the column cap (no chunks, no column
+    matrix); then one of dgrad (its scatter variant only where x needs a
+    gradient) and one of wgrad; then one of the ordered sum of the
+    grad-weight and grad-bias partials; none of mdcn.cu's f32 entry
+    points; and agreement with the JAX package as the plain version."""
+    _check_function_launches(monkeypatch, grad_x, cout=16)
+
+
+def test_mdcn_bf16_function_splits_a_wide_layer(monkeypatch):
+    """A layer wider than 64 output channels, which the kernels pad to a
+    tile 128 wide, launches the same entry points and agrees with JAX."""
+    _check_function_launches(monkeypatch, False, cout=72)
+
+
+def _check_function_launches(monkeypatch, grad_x, cout):
     launched = test_torch_dcn._stand_in_kernels(monkeypatch)
     monkeypatch.setattr(dcn, 'COL_CAP_BYTES', 40 * 9 * 16 * 2)  # 40 rows
-    *inputs, cot = _dcn_case(4)
+    *inputs, cot = _dcn_case(4, cout=cout)      # the kernels': 8 | Cout
     args = [_to_torch(a).requires_grad_(i > 0 or grad_x)
             for i, a in enumerate(inputs)]
     geom = dcn._geometry(*args[:4], 1, 1, 1, 1, 2)
+    assert len(dcn._row_chunks(2 * 7 * 9, 9, 16, 2)) > 1
     out = dcn._ModulatedDeformConv2d.apply(*args, geom, 1)
+    assert launched == ['mdcn_fused_fwd_bf16_kernel']
     (out.float() * _to_torch(cot).float()).sum().backward()
-    chunks = len(dcn._row_chunks(2 * 7 * 9, 9, 16, 2))
-    assert chunks > 1
-    col2im = 'mdcn_col2im_scatter_bf16_kernel' if grad_x \
-        else 'mdcn_col2im_bf16_kernel'
-    assert launched == ['mdcn_im2col_bf16_kernel'] * chunks + [
-        'mdcn_im2col_bf16_kernel', col2im] * chunks
+    dgrad = 'mdcn_fused_dgrad_scatter_bf16_kernel' if grad_x \
+        else 'mdcn_fused_dgrad_bf16_kernel'
+    assert launched == ['mdcn_fused_fwd_bf16_kernel', dgrad,
+                        'mdcn_fused_wgrad_bf16_kernel',
+                        'mdcn_fused_wgrad_sum_bf16_kernel']
     out_jax, vjp = jax.vjp(
         lambda *a: jax_dcn.modulated_deform_conv2d(*a, deform_groups=2),
         *(jnp.asarray(a) for a in inputs))
@@ -388,22 +401,83 @@ def test_k3_and_k5_refuse_bf16_by_name():
 
 def test_bf16_kernels_state_their_vector_width():
     """At bf16 a kernel thread loads 8 channels: C, C / deform_groups and
-    C / groups multiples of 8, and a deform group's runs of 8 a power of
-    two <= 32 for the backward; the offset stays f32."""
+    C / groups multiples of 8, and (K4's backward) a deform group's runs of
+    8 a power of two <= 32; the offset stays f32. The fused K2 kernels
+    also take a bf16 weight, bias and grad out on x's device, Cout a
+    multiple of 8 and at most 256 (the widest output tile), deform_groups
+    * kh * kw at most 144 (the offsets a block stages), and for the
+    backward a deform group's runs of 8 a power of two <= 8 (summed by
+    shuffles within a chunk of 64 channels)."""
     x = torch.zeros((1, 4, 4, 64), dtype=BF)
     offset = torch.zeros((1, 4, 4, 8, 9, 2))
     mask = torch.zeros((1, 4, 4, 8, 9), dtype=BF)
+    weight = torch.zeros((3, 3, 64, 64), dtype=BF)
     dcn._check_cuda_inputs('mdcn', x, offset, mask, backward=True)  # cg 8
+    dcn._check_fused_inputs(x, offset, mask, weight, weight[0, 0, 0],
+                            weight[0, 0], backward=True)
     with pytest.raises(ValueError, match='multiples of 8'):
-        dcn._check_cuda_inputs('mdcn', x[..., :48], offset[..., :4, :, :],
-                               mask[..., :4, :])                  # cg 12
-    with pytest.raises(ValueError, match='power of two'):
-        dcn._check_cuda_inputs('mdcn', x[..., :48], offset[..., :2, :, :],
-                               mask[..., :2, :], backward=True)   # 3 runs
+        dcn._check_fused_inputs(x[..., :48], offset[..., :4, :, :],
+                                mask[..., :4, :], weight[:, :, :48])  # cg 12
+    with pytest.raises(ValueError, match='power of two <= 32'):
+        dcn._check_cuda_inputs('deform_sample', x[..., :48],
+                               offset[..., :2, 0, :], backward=True)  # 3
     with pytest.raises(TypeError, match='float32 coordinates'):
-        dcn._check_cuda_inputs('mdcn', x, offset.to(BF), mask)
+        dcn._check_fused_inputs(x, offset.to(BF), mask, weight)
     with pytest.raises(TypeError, match='one type'):
-        dcn._check_cuda_inputs('mdcn', x, offset, mask.float())
+        dcn._check_fused_inputs(x, offset, mask.float(), weight)
+    with pytest.raises(TypeError, match='bfloat16 weight'):
+        dcn._check_fused_inputs(x, offset, mask, weight.float())
+    with pytest.raises(ValueError, match='must lie on'):
+        dcn._check_fused_inputs(x, offset, mask, weight.to('meta'))
+    with pytest.raises(ValueError, match='Cout to be a multiple of 8'):
+        dcn._check_fused_inputs(x, offset, mask, weight[..., :12])
+    with pytest.raises(ValueError, match='Cout at most 256'):
+        dcn._check_fused_inputs(x, offset, mask,
+                                torch.zeros((3, 3, 64, 264), dtype=BF))
+    with pytest.raises(ValueError, match=r'deform_groups \* kh \* kw'):
+        dcn._check_fused_inputs(x, torch.zeros((1, 4, 4, 8, 25, 2)),
+                                torch.zeros((1, 4, 4, 8, 25), dtype=BF),
+                                torch.zeros((5, 5, 64, 64), dtype=BF))
+    wide = torch.zeros((1, 4, 4, 256), dtype=BF)          # cg 128: 16 runs
+    dcn._check_fused_inputs(wide, offset[..., :2, :, :], mask[..., :2, :],
+                            torch.zeros((3, 3, 256, 64), dtype=BF))
+    with pytest.raises(ValueError, match='power of two <= 8'):
+        dcn._check_fused_inputs(wide, offset[..., :2, :, :],
+                                mask[..., :2, :],
+                                torch.zeros((3, 3, 256, 64), dtype=BF),
+                                backward=True)
+    with pytest.raises(ValueError, match='power of two <= 8'):
+        dcn._check_fused_inputs(x[..., :48], offset[..., :2, :, :],
+                                mask[..., :2, :], weight[:, :, :48],
+                                backward=True)            # cg 24: 3 runs
+
+
+# grad offset and grad mask of the fused dgrad's arithmetic against JAX's
+# bf16 vjp, by mean |err| / mean |JAX| over the tensor, with grad_col
+# rounded to bf16 (as the kernel does) and not: the rounded one is closer
+# for both tensors at both spreads (seed 4, C 16, Cout 16, 2 groups;
+# measured: offset 0.00495 against 0.00515 at spread 0.7, 0.00483
+# against 0.00499 at 4.0; mask 0.00526 against 0.00554, 0.00527 against
+# 0.00553). Held by max entry the two are within noise of each other.
+@pytest.mark.parametrize('spread', [0.7, 4.0])
+def test_fused_dgrad_rounds_grad_col_where_jax_does(spread):
+    *inputs, cot = _dcn_case(4, spread=spread, cout=16)
+    _, vjp = jax.vjp(
+        lambda *a: jax_dcn.modulated_deform_conv2d(*a, deform_groups=2),
+        *(jnp.asarray(a) for a in inputs))
+    want = [np.asarray(g.astype(jnp.float32))
+            for g in vjp(jnp.asarray(cot))[1:3]]
+    x, offset, mask, weight, _ = (_to_torch(a) for a in inputs)
+    geom = dcn._geometry(x, offset, mask, weight, 1, 1, 1, 1, 2)
+    go = _to_torch(cot).reshape(-1, 16)
+    errs = {}
+    for rounded in (True, False):
+        _, g_off, g_mask = test_torch_dcn.fused_dgrad_math(
+            go, x, offset, mask, weight, geom, round_col=rounded)
+        assert g_off.dtype == torch.float32 and g_mask.dtype == BF
+        errs[rounded] = [float(np.abs(_np(g) - w).mean() / np.abs(w).mean())
+                         for g, w in zip((g_off, g_mask), want)]
+    assert all(r < u for r, u in zip(errs[True], errs[False])), errs
 
 
 # ---------------------------------------------------------------- models

@@ -285,7 +285,8 @@ def test_deform_conv2d_is_the_modulated_conv_with_a_ones_mask():
         assert torch.equal(got, want)
 
 
-# the C entry points of mdcn.cu, by the Kernel objects that launch them
+# the C entry points of mdcn.cu and mdcn_bf16.cu, by the Kernel objects
+# that launch them
 _ENTRY = {'mdcn_im2col_kernel': ('im2col', True),
           'mdcn_im2col_groups_kernel': ('im2col', True),
           'deform_im2col_kernel': ('im2col', False),
@@ -295,17 +296,74 @@ _ENTRY = {'mdcn_im2col_kernel': ('im2col', True),
           'mdcn_col2im_groups_scatter_kernel': ('col2im', True),
           'deform_col2im_kernel': ('col2im', False),
           'deform_col2im_scatter_kernel': ('col2im', False),
-          'mdcn_im2col_bf16_kernel': ('im2col', True),
-          'mdcn_col2im_bf16_kernel': ('col2im', True),
-          'mdcn_col2im_scatter_bf16_kernel': ('col2im', True)}
+          'mdcn_fused_fwd_bf16_kernel': ('fused_fwd', True),
+          'mdcn_fused_dgrad_bf16_kernel': ('fused_dgrad', True),
+          'mdcn_fused_dgrad_scatter_bf16_kernel': ('fused_dgrad', True),
+          'mdcn_fused_wgrad_bf16_kernel': ('fused_wgrad', True),
+          'mdcn_fused_wgrad_sum_bf16_kernel': ('fused_wgrad_sum', True)}
+
+
+def _sample_grads(grad_col, x, offset, mask, row0, rows, geom, groups=1):
+    """The col2im arithmetic, by autograd through the plain im2col: the
+    gradients of x, the offset and (with a mask) the mask of the columns
+    of rows ``[row0, row0 + rows)`` under the cotangent ``grad_col``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in
+               (x, offset) + (() if mask is None else (mask,))]
+        col = dcn._im2col_ref(*ins[:2], None if mask is None else ins[2],
+                              row0, rows, geom, groups)
+        return torch.autograd.grad(col, ins, grad_col.reshape(col.shape))
+
+
+def fused_dgrad_math(go, x, offset, mask, weight, geom, round_col=True):
+    """The contract of ``mdcn_fused_dgrad``: the grad columns ``go . W^T``
+    summed in f32 and rounded to bf16, then the col2im arithmetic in f32.
+    Returns grad x, grad offset, grad mask. With ``round_col`` False the
+    grad columns stay f32 (the columns of a widened x and mask, whose
+    cotangent is not rounded), and grad x and grad mask are rounded
+    once at the end."""
+    rows, cout = go.shape
+    grad_col = go.float() @ weight.reshape(-1, cout).float().t()
+    if round_col:
+        return _sample_grads(grad_col.to(x.dtype), x, offset, mask, 0, rows,
+                             geom)
+    gx, goff, gmask = _sample_grads(grad_col, x.float(), offset,
+                                    mask.float(), 0, rows, geom)
+    return gx.to(x.dtype), goff, gmask.to(mask.dtype)
+
+
+def fused_patch_of_rows(n, ho, wo):
+    """The 8 x 8 output patch of each row of the flattened (N, Ho, Wo), as
+    ``mdcn_bf16.cu`` numbers them: item-major, then row-major over the
+    map."""
+    tiles_x, tiles_y = -(-wo // 8), -(-ho // 8)
+    oy = torch.arange(ho)[:, None] // 8
+    ox = torch.arange(wo)[None, :] // 8
+    per_item = (oy * tiles_x + ox).reshape(-1)
+    return (torch.arange(n)[:, None] * tiles_x * tiles_y
+            + per_item[None, :]).reshape(-1)
+
+
+def _fused_geom(args):
+    """The fused entry points' trailing ints: rows, h, w, c, cout, ho, wo,
+    kh, kw, sh, sw, ph, pw, dh, dw, dg, then the stream."""
+    (rows, h, w, c, cout, ho, wo, kh, kw, sh, sw, ph, pw, dh, dw,
+     _dg, _stream) = args
+    return rows, cout, ((kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo))
 
 
 def _stand_in_kernels(monkeypatch):
-    """PyTorch stand-ins for the C entry points of ``csrc/mdcn.cu``, with
-    their contracts: pointers in, the geometry as ints, columns
-    group-major; the backward writes its rows of grad offset (and grad
-    mask) and adds into grad x, by autograd through the plain im2col.
-    Returns the names of the entry points launched."""
+    """PyTorch stand-ins for the C entry points of ``csrc/mdcn.cu`` and
+    ``csrc/mdcn_bf16.cu``, with their contracts: pointers in, the geometry
+    as ints. mdcn.cu: columns group-major; the backward writes its rows of
+    grad offset (and grad mask) and adds into grad x, by autograd through
+    the plain im2col. mdcn_bf16.cu: the forward rounds the columns once,
+    sums their product with the weight in f32, rounds, adds the bias and
+    rounds; dgrad writes grad offset and grad mask by
+    :func:`fused_dgrad_math` (and adds grad x in its scatter variant);
+    wgrad writes the f32 partials of grad weight and, in the row after,
+    grad bias of each slice of 8 x 8 output patches; the sum adds the
+    slices in order. Returns the names of the entry points launched."""
     launched = []
     tensors = {}
     real_data_ptr = torch.Tensor.data_ptr
@@ -315,11 +373,55 @@ def _stand_in_kernels(monkeypatch):
         tensors[ptr] = t
         return ptr
 
+    def fused_fwd(x, offset, mask, wt, bias, out, *rest):
+        rows, cout, geom = _fused_geom(rest)
+        col = dcn._im2col_ref(x, offset, mask, 0, rows, geom)
+        y = (col.reshape(rows, -1).float() @ wt.float().t()).to(x.dtype)
+        out.view(rows, cout).copy_(y if bias is None else y + bias)
+
+    def fused_dgrad(go, x, offset, mask, weight, grad_offset, grad_mask,
+                    *rest):
+        grad_x = rest[0] if len(rest) == 18 else None
+        _, _, geom = _fused_geom(rest[-17:])
+        gx, goff, gmask = fused_dgrad_math(go, x, offset, mask, weight, geom)
+        grad_offset.copy_(goff)
+        grad_mask.copy_(gmask)
+        if grad_x is not None:
+            grad_x.add_(gx)
+
+    def fused_wgrad(go, x, offset, mask, partial, splits, split_patches,
+                    *rest):
+        rows, _, geom = _fused_geom(rest)
+        col = dcn._im2col_ref(x, offset, mask, 0, rows, geom)
+        col = col.reshape(rows, -1).float()
+        patch = fused_patch_of_rows(x.shape[0], *geom[4])
+        for s in range(splits):
+            sel = (patch >= s * split_patches) \
+                & (patch < (s + 1) * split_patches)
+            partial[s, :-1] = col[sel].t() @ go[sel].float()
+            partial[s, -1] = go[sel].float().sum(0)
+
+    def fused_wgrad_sum(partial, grad_w, splits, n, _stream):
+        total = partial[0].clone()
+        for s in range(1, splits):
+            total += partial[s]
+        grad_w.view(-1).copy_(total.view(-1)[:n])
+
+    # each fused entry point with its number of pointer arguments
+    fused = {'fused_fwd': (fused_fwd, 6), 'fused_dgrad': (fused_dgrad, 7),
+             'fused_wgrad': (fused_wgrad, 5),
+             'fused_wgrad_sum': (fused_wgrad_sum, 2)}
+
     def entry(name, kind, masked):
         scatter = 'scatter' in name
 
         def launch(*args):
             launched.append(name)
+            if kind in fused:
+                fn, n_ptrs = fused[kind]
+                n_ptrs += scatter
+                fn(*[tensors.get(p) for p in args[:n_ptrs]], *args[n_ptrs:])
+                return
             n_ptrs = (4 if masked else 3) if kind == 'im2col' else \
                 (6 if masked else 4) + scatter
             ptrs = [tensors[p] for p in args[:n_ptrs]]
@@ -335,13 +437,8 @@ def _stand_in_kernels(monkeypatch):
             grad_col, x, offset = ptrs[:3]
             mask = ptrs[3] if masked else None
             outs = ptrs[3 + masked:]
-            with torch.enable_grad():
-                ins = [t.detach().requires_grad_() for t in
-                       (x, offset) + ((mask,) if masked else ())]
-                col = dcn._im2col_ref(*ins[:2], ins[2] if masked else None,
-                                      row0, rows, geom, groups)
-                grads = torch.autograd.grad(col, ins,
-                                            grad_col.reshape(col.shape))
+            grads = _sample_grads(grad_col, x, offset, mask, row0, rows,
+                                  geom, groups)
             for out, grad in zip(outs[:1 + masked], grads[1:]):
                 flat, g = out.view(-1, *out.shape[3:]), \
                     grad.view(-1, *out.shape[3:])
@@ -436,3 +533,20 @@ def test_cuda_checks_name_the_column_store_width():
     dcn._check_cuda_inputs('mdcn', x, offset, None, groups=3)   # C/G = 8
     with pytest.raises(ValueError, match='C/groups'):
         dcn._check_cuda_inputs('mdcn', x, offset, None, groups=4)
+
+
+@pytest.mark.parametrize('n, ho, wo, c, cout', [
+    (30, 40, 40, 256, 256), (30, 80, 80, 128, 128), (30, 160, 160, 64, 64),
+    (5, 125, 125, 256, 256), (2, 7, 9, 16, 72)])
+def test_wgrad_slices_hold_every_patch_once(n, ho, wo, c, cout):
+    """The bf16 wgrad's slices of 8 x 8 output patches, cut from the shapes
+    alone (so the ordered sum of their partials is the same on any card):
+    every patch in one slice, no slice empty, and no more than
+    ``WGRAD_WAVES`` waves of blocks on the H100's 132 SMs unless one slice
+    is all there is."""
+    splits, per = dcn._wgrad_slices(n, ho, wo, 9, c, cout)
+    patches = n * -(-ho // 8) * -(-wo // 8)
+    assert (splits - 1) * per < patches <= splits * per
+    blocks = splits * 9 * -(-c // 64)
+    per_sm = 1 if cout > 128 else 2
+    assert splits == 1 or blocks <= dcn.WGRAD_WAVES * 132 * per_sm

@@ -3,8 +3,10 @@ its entry points never fall back to the CPU unasked, a CPU tensor never
 reaches a CUDA kernel, and a kernel that fails to build or launch
 raises."""
 import ast
+import ctypes
 import importlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -187,8 +189,10 @@ KERNELS = (correlation.feature_match_kernel,
            correlation.feature_match_sharded_kernel,
            correlation.feature_match_bf16_kernel,
            correlation.feature_match_sharded_bf16_kernel,
-           dcn.mdcn_im2col_bf16_kernel, dcn.mdcn_col2im_bf16_kernel,
-           dcn.mdcn_col2im_scatter_bf16_kernel,
+           dcn.mdcn_fused_fwd_bf16_kernel, dcn.mdcn_fused_dgrad_bf16_kernel,
+           dcn.mdcn_fused_dgrad_scatter_bf16_kernel,
+           dcn.mdcn_fused_wgrad_bf16_kernel,
+           dcn.mdcn_fused_wgrad_sum_bf16_kernel,
            dcn.deform_sample_fwd_bf16_kernel,
            dcn.deform_sample_bwd_bf16_kernel,
            dcn.deform_sample_bwd_scatter_bf16_kernel, dcn.mdcn_im2col_kernel,
@@ -210,6 +214,8 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
     monkeypatch.setattr(correlation, '_match_patches_cuda', _refuse)
     monkeypatch.setattr(dcn, '_im2col_cuda', _refuse)
     monkeypatch.setattr(dcn, '_col2im_cuda', _refuse)
+    monkeypatch.setattr(dcn, '_mdcn_fused_forward_cuda', _refuse)
+    monkeypatch.setattr(dcn, '_mdcn_fused_backward_cuda', _refuse)
     monkeypatch.setattr(dcn._DeformSample, 'apply', _refuse)
     before = [kernel.launches for kernel in KERNELS]
     rng = np.random.RandomState(0)
@@ -347,6 +353,69 @@ def test_every_cuda_source_has_its_kernel_objects():
     bound = {k.library for k in KERNELS}
     assert bound == {p.stem for p in _build.CSRC.glob('*.cu')}
     assert list(_build.CSRC.glob('*.cuh'))
+
+
+def _c_entry_points():
+    """``{symbol: [parameter declarations]}`` of the ``extern "C"``
+    functions of ``ops/csrc/*.cu``, their macros expanded."""
+    found = {}
+    for path in sorted(_build.CSRC.glob('*.cu')):
+        text = re.sub(r'//[^\n]*', '', path.read_text())
+        text = text.replace('\\\n', ' ')
+        macros = {}
+        for m in re.finditer(r'^[ \t]*#define[ \t]+(\w+)(\(([^)]*)\))?(.*)$',
+                             text, re.M):
+            params = None if m.group(2) is None else [
+                p.strip() for p in m.group(3).split(',')]
+            macros[m.group(1)] = (params, m.group(4).strip())
+        text = re.sub(r'^[ \t]*#.*$', '', text, flags=re.M)
+        for _ in range(3):      # macros that use macros
+            for name, (params, body) in macros.items():
+                if params is None:
+                    text = re.sub(rf'\b{name}\b', body, text)
+                    continue
+
+                def expand(m, params=params, body=body):
+                    args = [a.strip() for a in m.group(1).split(',')]
+                    for param, arg in zip(params, args):
+                        body = re.sub(rf'\b{param}\b', arg, body)
+                    return body
+                text = re.sub(rf'\b{name}\(([^()]*)\)', expand, text)
+        block = text[text.index('extern "C" {'):]
+        for m in re.finditer(r'\bint\s+(\w+)\s*\(([^)]*)\)\s*\{', block):
+            found[m.group(1)] = [p.strip() for p in m.group(2).split(',')
+                                 if p.strip()]
+    return found
+
+
+def _ctype_of(declaration):
+    if '*' in declaration:
+        return ctypes.c_void_p
+    kind = declaration.rsplit(None, 1)[0]
+    return {'int': ctypes.c_int, 'long long': ctypes.c_longlong,
+            'float': ctypes.c_float}[kind]
+
+
+@pytest.mark.parametrize('kernel', KERNELS, ids=lambda k: k.symbol)
+def test_kernel_argtypes_match_the_c_signature(kernel):
+    """A Kernel's argtypes have the C entry point's arity, with
+    ``c_void_p`` exactly where the C parameter is a pointer: a wrong
+    argtype passes a pointer as a 32-bit int, which shows only on the
+    card."""
+    params = _c_entry_points()[kernel.symbol]
+    assert kernel.argtypes == [_ctype_of(p) for p in params], params
+
+
+def test_every_c_entry_point_has_a_kernel():
+    """The scan reads the macro-made signatures (mdcn.cu's IM2COL_ARGS,
+    mdcn_bf16.cu's FUSED_ARGS, upfirdn2d.cu's UPFIRDN2D_ENTRY), and every
+    launch entry point is bound by a Kernel."""
+    found = _c_entry_points()
+    assert len(found['mdcn_im2col_launch']) == 4 + 18
+    assert len(found['mdcn_fused_wgrad_bf16_launch']) == 7 + 17
+    assert len(found['upfirdn2d_bwd2_launch']) == 15
+    launches = {name for name in found if name.endswith('_launch')}
+    assert launches == {k.symbol for k in KERNELS}
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
