@@ -19,9 +19,13 @@ phase runs several):
    ``nvidia-smi``;
 2. build: the CUDA sources built with ``nvcc`` from this checkout, with
    ``-Xptxas -v``'s registers, shared memory and spills;
-3. feature_match (kernel K1) against its plain PyTorch version at the
-   eval shape, 5 pairs of (125, 125, 256) f32, and at the training
-   shape, 30 pairs of (40, 40, 256);
+3. feature_match_prologue (K1's unfold and norms, one kernel) against its
+   plain PyTorch version: f32 within ``PROLOGUE_F32_TOL``; then
+   feature_match (kernel K1, 3xTF32) against the plain match behind the
+   same prologue outputs, and the function end to end against its plain
+   version, at the eval shape, 5 pairs of (125, 125, 256) f32, and at the
+   training shape, 30 pairs of (40, 40, 256); planted exact ties; the
+   library yardstick also at n padded to a multiple of 8;
 4. mdcn (kernel K2, forward) against its plain version at the three eval
    shapes;
 5. mdcn_backward (K2's backward: kernel ``mdcn_col2im`` and two matmuls)
@@ -58,9 +62,10 @@ phase runs several):
     against the plain versions behind the same forward (see
     ``TRAIN_GRAD_REL_TOL``), and the two outputs; then a profile of one
     step;
-11a. feature_match_bf16: K1's bf16 kernel (tensor cores) against its
-    plain version at the eval and the training shapes in bf16, with the
-    planted ties, the f32 kernel timed beside it on the same values;
+11a. feature_match_prologue_bf16 and feature_match_bf16: phase 3 in bf16
+    (the prologue bit for bit but for norms near a bf16 rounding midpoint,
+    counted; the match kernel on wgmma and TMA), the f32 kernel timed
+    beside it on the same values;
 11b. mdcn_bf16 and mdcn_backward_bf16: K2 at bf16 (x, mask, weight, bias
     bf16, the offset f32) through the fused kernels of ``mdcn_bf16.cu``
     at the eval and training shapes, forward and every gradient, against
@@ -117,12 +122,16 @@ phase runs several):
     cards or more, else gloo with both ranks on the one card (printed).
     Each rank runs sharded_match (K6 at K1's eval shape, the ref's rows
     split unevenly with the 2-row halo, against single-rank K1 on the
-    whole ref and against its plain version, a tie planted across the
-    boundary, times), ddp_train (``_train_opt('dcn')`` with ``dist:
-    true``, B 6 a rank: from fresh weights the DDP gradient of one sample
-    a rank against the mean of the per-sample gradients; a warm-up step
-    whose logged loss must be the mean of the ranks' own, three timed
-    steps, parameters bit-equal across ranks, a profile of rank 0's next
+    whole ref, against its plain version (at bf16 leaving out the rows a
+    norm rounded apart by the prologue touches) and against the plain
+    match behind the same prologue; the band's prologue against its plain
+    version at ref strides 1 and 2; a tie planted across the boundary;
+    times), ddp_train (``_train_opt('dcn')``
+    with ``dist: true``, B 6 a rank: from fresh weights the DDP gradient of
+    one sample a rank against the mean of the per-sample gradients; a
+    warm-up step whose logged loss must be the mean of the ranks' own,
+    three timed steps, parameters bit-equal across ranks, a profile of
+    rank 0's next
     step), dist_val (four seeded 500x500 requests, one padded, through
     ``validation``: the ranks' sums against rank 0's unsharded ones) and
     ddp_resume (a save from rank 0 only, a fresh model resumed on every
@@ -134,17 +143,23 @@ phase runs several):
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, and the
-script exits non-zero without the last line. Times come from CUDA events
-(phases 3 to 9, 11a-11c and K6's), the host clock around
+script exits non-zero without the last line. Times come from CUDA events,
+the median of a pair of events around each run (phases 3 to 9, 11a-11c
+and K6's; K1's and its prologue's over ``K1_REPS`` rounds after 3
+warm-ups, the function, the kernel alone and the library yardsticks in
+turn within each round), the host clock around
 ``torch.cuda.synchronize()`` (phases 10 to 17) and the profiler's device
 times. Bounds use the H100 SXM's published 67 TFLOP/s f32 (CUDA cores),
-989 TFLOP/s dense bf16 (tensor cores) and 3.35 TB/s.
+495 TFLOP/s TF32 and 989 TFLOP/s dense bf16 (tensor cores) and 3.35 TB/s;
+K1 and K6 at f32 take three TF32 products a score (3xTF32), and their
+records give the f32 CUDA-core bound beside.
 """
 import contextlib
 import copy
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -177,19 +192,30 @@ def check(cond, msg):
         raise RuntimeError(f'check failed: {msg}')
 
 
-def cuda_ms(fn, reps=3, warmup=1):
-    """Mean ms of ``fn`` over ``reps`` runs, from CUDA events."""
+def cuda_ms_each(fns, reps=3, warmup=1):
+    """The median ms of each of ``fns`` over ``reps`` rounds, each run timed
+    by its own pair of CUDA events. A round runs every fn once, in turn, so
+    that the card's clocks and heat fall alike on all of them."""
     for _ in range(warmup):
-        fn()
+        for fn in fns:
+            fn()
+    events = [[(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+              for _ in fns]
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    for rnd in range(reps):
+        for fn, runs in zip(fns, events):
+            runs[rnd][0].record()
+            fn()
+            runs[rnd][1].record()
+    torch.cuda.synchronize()
+    return [statistics.median(start.elapsed_time(end) for start, end in runs)
+            for runs in events]
+
+
+def cuda_ms(fn, reps=3, warmup=1):
+    """The median ms of ``fn`` over ``reps`` runs, from CUDA events."""
+    return cuda_ms_each([fn], reps, warmup)[0]
 
 
 def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
@@ -234,11 +260,135 @@ def phase_build(build):
           'built': sorted(info), 'ptxas': ptxas})
 
 
+# K1's prologue against its plain version on the same features: at f32 the
+# patches and norms within PROLOGUE_F32_TOL (the f32 sum of squares in
+# another order); at bf16 bit for bit, except where the plain f32 sum of
+# squares lies within PROLOGUE_MID_ULPS f32 ulps of a bf16 rounding
+# midpoint, which the kernel's sum, in another order, may round the other
+# way: such a norm must be one bf16 ulp off, and such a ref patch the
+# quotients of the neighbouring divisor. 16 ulps bounds the disagreement
+# of two f32 sums of up to 2304 non-negative terms taken in tree-like
+# orders (a few ulps apart in practice); the count and the worst distance
+# are printed.
+PROLOGUE_F32_TOL = 1e-6
+PROLOGUE_MID_ULPS = 16
+# K1's and its prologue's times: the median of K1_REPS rounds (a 3-run mean
+# could not tell K1's kernel alone from the function around it)
+K1_REPS = 20
+K1_PROLOGUE_TPU = 'mrefsr_tpu/ops/correlation.py:20'
+PEAK_TF32_FLOPS = 495e12               # dense, tensor cores
+
+
+def _midpoint_ulps(sums):
+    """The distance, in f32 ulps, of each f32 ``sums`` to the nearest bf16
+    rounding midpoint (an f32 whose low 16 bits are 0x8000)."""
+    low = sums.float().contiguous().view(torch.int32) & 0xFFFF
+    return (low - 0x8000).abs()
+
+
+def _bf16_neighbours(x):
+    """The bf16 values one ulp below and above each positive ``x``."""
+    bits = x.contiguous().view(torch.int16)
+    return (bits - 1).view(BF16), (bits + 1).view(BF16)
+
+
+def phase_prologue(correlation, fin, fref, shape, ref_stride=1, timed=True):
+    """The prologue kernel against its plain version on ``fin``, ``fref``
+    (the ``shape`` named) at ``ref_stride``. Timed, it prints the phase
+    line and returns the kernels line's record; untimed, it returns the
+    phase line's record. Either way also, at bf16, the input rows and ref
+    patches whose norms the two round apart (at f32, none)."""
+    bf16 = fin.dtype == BF16
+    name = 'feature_match_prologue_bf16' if bf16 else \
+        'feature_match_prologue'
+    args = (fin, fref, 3, 1, ref_stride, True)
+    pin_k, pref_k, norm_k = correlation._prologue_cuda(*args)
+    pin_p, pref_p, norm_p = correlation._prologue_ref(*args)
+    check(torch.equal(pin_k, pin_p), f'{name}: input patches differ')
+    check(bool((pin_k.stride(1) % 8 == 0) and pin_k.stride(2) == 1),
+          f'{name}: rows of {pin_k.stride()} are not 16-byte rows')
+    rec = {'phase': name, 'shape': shape, 'ref_stride': ref_stride,
+           'pairs': pin_k.shape[0],
+           'n_in': pin_k.shape[1],
+           'n_ref': pref_k.shape[1], 'd': pin_k.shape[2],
+           'ld': pin_k.stride(1)}
+    pad = torch.as_strided(pin_k, pin_k.shape[:2] + (pin_k.stride(1),),
+                           pin_k.stride()[:2] + (1,))[..., pin_k.shape[2]:]
+    check(not bool(pad.any()), f'{name}: padding not zero')
+    in_flip = torch.zeros(norm_k.shape, dtype=torch.bool, device=fin.device)
+    ref_flip = torch.zeros(pref_k.shape[:2], dtype=torch.bool,
+                           device=fin.device)
+    if not bf16:
+        err_ref = float((pref_k - pref_p).abs().max())
+        err_norm = float(((norm_k - norm_p).abs() / norm_p).max())
+        check(err_ref <= PROLOGUE_F32_TOL and err_norm <= PROLOGUE_F32_TOL,
+              f'{name}: ref patches off by {err_ref}, norms by {err_norm}')
+        rec.update(max_abs_err=err_ref, norm_rel_err=err_norm,
+                   tolerance=PROLOGUE_F32_TOL)
+    else:
+        # input norms: only near a midpoint, and one ulp off
+        in_flip = norm_k != norm_p
+        sq_in = pin_p.float().square().sum(-1)
+        lo, hi = _bf16_neighbours(norm_p)
+        check(bool(((norm_k == lo) | (norm_k == hi))[in_flip].all()),
+              f'{name}: an input norm is more than one bf16 ulp off')
+        # ref patches: the quotients of a neighbouring divisor, near a
+        # midpoint
+        raw = correlation.sample_patches(fref, 3, ref_stride).reshape(
+            pref_p.shape)
+        sq_ref = raw.float().square().sum(-1)
+        ref_flip = (pref_k != pref_p).any(-1)
+        rows = raw[ref_flip].float()
+        denom = correlation.add_scalar(correlation.l2_norm(
+            raw, 2, keepdim=True), 1e-5)[ref_flip]
+        explained = torch.zeros(rows.shape[0], dtype=torch.bool,
+                                device=fin.device)
+        for nb in _bf16_neighbours(denom):
+            explained |= ((rows / nb.float()).to(BF16)
+                          == pref_k[ref_flip]).all(-1)
+        check(bool(explained.all()), f'{name}: a ref patch differs by more '
+              'than a neighbouring norm explains')
+        dist_ulps = torch.cat([_midpoint_ulps(sq_in)[in_flip],
+                               _midpoint_ulps(sq_ref)[ref_flip]])
+        worst = int(dist_ulps.max()) if dist_ulps.numel() else 0
+        check(worst <= PROLOGUE_MID_ULPS, f'{name}: a norm differs whose '
+              f'f32 sum lies {worst} ulps from a bf16 midpoint')
+        rec.update(max_abs_err=float((pref_k.float() - pref_p.float())
+                                     .abs().max()),
+                   in_norms_rounded_apart=int(in_flip.sum()),
+                   ref_norms_rounded_apart=int(ref_flip.sum()),
+                   rounded_apart_worst_midpoint_ulps=worst,
+                   midpoint_ulps_tolerance=PROLOGUE_MID_ULPS)
+    del pin_p, pref_p, norm_p
+    if not timed:
+        return rec, in_flip, ref_flip
+    ms, plain_ms = cuda_ms_each([lambda: correlation._prologue_cuda(*args),
+                                 lambda: correlation._prologue_ref(*args)],
+                                K1_REPS, warmup=3)
+    out_bytes = fin.element_size() * (pin_k.shape[0] * pin_k.stride(1)
+                                      * (pin_k.shape[1] + pref_k.shape[1])
+                                      + norm_k.numel())
+    bound_ms, bound_by = bound(
+        2.0 * (pin_k.numel() + pref_k.numel()),
+        fin.element_size() * (fin.numel() + fref.numel()) + out_bytes)
+    rec.update(name=name, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               library_call=None)
+    emit(rec)
+    return ({k: rec[k] for k in ('name', 'max_abs_err', 'ms', 'plain_ms',
+                                 'bound_ms', 'bound_by', 'library_ms')},
+            in_flip, ref_flip)
+
+
 def phase_feature_match(correlation, pairs=T, h=CANVAS // 4, ties=True,
                         dtype=torch.float32):
     """K1 against its plain version on ``pairs`` pairs of (h, h, 256)
-    maps: the eval shape by default; f32, or bf16 through the tensor-core
-    kernel, with the f32 kernel timed beside it on the same values."""
+    maps: the eval shape by default; f32 (3xTF32) or bf16 (wgmma). First
+    the prologue against its plain version; then the match kernel against
+    the plain match behind the same prologue outputs; then the function
+    end to end against its plain version (at bf16 leaving out the rows a
+    norm rounded apart by the prologue touches). Returns the K1 record and
+    the prologue's."""
     T = pairs  # noqa: N806 (the pair count, whatever the module's T)
     bf16 = dtype == BF16
     name = 'feature_match_bf16' if bf16 else 'feature_match'
@@ -246,70 +396,117 @@ def phase_feature_match(correlation, pairs=T, h=CANVAS // 4, ties=True,
     feats = torch.randn((2, T, h, h, 256), generator=gen).cuda()
     feats = (feats / (feats.norm(dim=-1, keepdim=True) + 1e-12)).to(dtype)
     fin, fref = feats[0], feats[1]
+    del feats
     kw = dict(is_norm=True, norm_input=True)
+    shape = 'eval' if h == CANVAS // 4 else 'train'
+    prologue, in_flip, ref_flip = phase_prologue(correlation, fin, fref,
+                                                 shape)
+
+    # the match behind the same prologue outputs
+    pin, pref, norm = correlation._prologue_cuda(fin, fref, 3, 1, 1, True)
+    denom = norm.float() + float(torch.tensor(1e-5, dtype=dtype))
+    idx_m, val_m = correlation._match_patches_cuda(pin, pref)
+    idx_r, val_r = correlation._match_patches_ref(pin, pref, 2048)
+    match_err = float(((val_m - val_r) / denom).abs().max())
+    m_differ, m_gap = _index_gap(pin.float(), pref.float(), idx_m, idx_r)
+    check(m_gap <= K1_IDX_GAP, f'{name} kernel index differs from the plain '
+          f'match where the scores differ by {m_gap}')
+    check(match_err <= K1_VAL_TOL, f'{name} kernel val error {match_err} '
+          'behind the same prologue')
+    del idx_m, val_m, idx_r, val_r
+
+    # the function end to end
     idx_k, val_k = correlation.feature_match_index(fin, fref, **kw)
     idx_p, val_p = correlation.feature_match_index_ref(fin, fref, **kw)
     check(val_k.dtype == torch.float32, f'{name} val is {val_k.dtype}')
-
-    pin, pref = _normed_patches(correlation, fin, fref)
-    differ, worst_gap = _index_gap(pin, pref, idx_k, idx_p)
-    val_err = float((val_k - val_p).abs().max())
+    flat_k, flat_p = idx_k.reshape(T, -1).long(), idx_p.reshape(T, -1).long()
+    keep = ~(in_flip | ref_flip.gather(1, flat_k)
+             | ref_flip.gather(1, flat_p))
+    pin_p, pref_p = _normed_patches(correlation, fin, fref)
+    differ, worst_gap = _index_gap(pin_p, pref_p, idx_k, idx_p, keep)
+    del pin_p, pref_p
+    val_err = float((val_k - val_p).reshape(T, -1).abs()[keep].max())
     check(worst_gap <= K1_IDX_GAP, f'{name} index differs where the '
           f'plain scores differ by {worst_gap}')
     check(val_err <= K1_VAL_TOL, f'{name} val error {val_err}')
 
     ties = _feature_match_ties(correlation, dtype) if ties else None
 
-    # the patches as the kernel takes them, in the features' dtype
-    pin, pref = _normed_patches(correlation, fin, fref, widen=False)
     n_in, d = pin.shape[1:]
     n_ref = pref.shape[1]
-    ms = cuda_ms(lambda: correlation.feature_match_index(fin, fref, **kw))
-    kernel_ms = cuda_ms(lambda: correlation._match_patches_cuda(pin, pref))
-    extra = {}
-    if bf16:
-        pin32, pref32 = pin.float(), pref.float()
-        extra['f32_kernel_same_values_ms'] = cuda_ms(
-            lambda: correlation._match_patches_cuda(pin32, pref32))
-        del pin32, pref32
+    # the library's product also with n padded to a multiple of 8 (15129
+    # is odd); the function, the kernel alone and the library in turn
+    n8_in, n8_ref = -(-n_in // 8) * 8, -(-n_ref // 8) * 8
+    pin8 = pin.new_zeros((T, n8_in, d))
+    pref8 = pref.new_zeros((T, n8_ref, d))
+    pin8[:, :n_in], pref8[:, :n_ref] = pin, pref
+    timed = {'ms': lambda: correlation.feature_match_index(fin, fref, **kw),
+             'kernel_only_ms': lambda: correlation._match_patches_cuda(
+                 pin, pref),
+             'library_ms': lambda: torch.matmul(pin, pref.transpose(1, 2)),
+             'library_padded_ms': lambda: torch.matmul(
+                 pin8, pref8.transpose(1, 2))}
+    if bf16:    # the f32 kernel on the same values
+        timed['f32_kernel_same_values_ms'] = (
+            lambda a=pin.float(), b=pref.float():
+            correlation._match_patches_cuda(a, b))
+    times = dict(zip(timed, cuda_ms_each(list(timed.values()), K1_REPS,
+                                         warmup=3)))
+    del timed, pin8, pref8
+    ms, kernel_ms = times.pop('ms'), times.pop('kernel_only_ms')
+    library_ms = times.pop('library_ms')
+    library_padded_ms = times.pop('library_padded_ms')
+    extra = times
     plain_ms = cuda_ms(
         lambda: correlation.feature_match_index_ref(fin, fref, **kw), reps=2)
-    library_ms = cuda_ms(lambda: torch.matmul(pin, pref.transpose(1, 2)))
-    bound_ms, bound_by = bound(2.0 * T * n_in * n_ref * d,
-                               fin.element_size() * 2 * fin.numel()
-                               + 8.0 * T * n_in, peak_of(dtype))
-    rec = {'name': name, 'max_abs_err': val_err, 'ms': ms,
-           'kernel_only_ms': kernel_ms, **extra, 'plain_ms': plain_ms,
-           'bound_ms': bound_ms, 'bound_by': bound_by,
+    flops = 2.0 * T * n_in * n_ref * d
+    nbytes = fin.element_size() * 2 * fin.numel() + 8.0 * T * n_in
+    if bf16:
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    else:   # the three TF32 products the kernel runs; and f32 SIMT
+        bound_ms, bound_by = bound([(3 * flops, PEAK_TF32_FLOPS)], nbytes)
+        extra['bound_f32_cuda_cores_ms'] = bound(flops, nbytes)[0]
+    rec = {'name': name, 'max_abs_err': val_err,
+           'match_max_abs_err': match_err, 'ms': ms,
+           'kernel_only_ms': kernel_ms, 'prologue_ms': prologue['ms'],
+           **extra, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+           'bound_by': bound_by,
+           'bound_note': 'dense bf16 tensor cores' if bf16 else
+                         '3 x the FLOPs at the TF32 tensor-core rate',
            'library_ms': library_ms,
+           'library_padded_ms': library_padded_ms,
            'library_call': f'torch.matmul of the ({T}, {n_in}, {d}) x '
                            f'({T}, {d}, {n_ref}) score product alone'
-                           + (' (bf16 scores)' if bf16 else '')}
-    emit({'phase': name, 'pairs': T, 'n_in': n_in, 'n_ref': n_ref, 'd': d,
-          'index_disagreements': int(differ.sum()),
-          'worst_disagreement_gap': worst_gap, 'exact_ties': ties,
+                           + (' (bf16 scores)' if bf16 else '')
+                           + f'; padded: n {n8_in} x {n8_ref}'}
+    emit({'phase': name, 'shape': shape, 'pairs': T, 'n_in': n_in,
+          'n_ref': n_ref, 'd': d, 'index_disagreements': int(differ.sum()),
+          'worst_disagreement_gap': worst_gap,
+          'rows_left_out_rounded_apart': int((~keep).sum()),
+          'match_index_disagreements': int(m_differ.sum()),
+          'match_worst_disagreement_gap': m_gap, 'exact_ties': ties,
           'val_tolerance': K1_VAL_TOL, 'index_gap_tolerance': K1_IDX_GAP,
           **rec})
-    return rec
+    return rec, prologue
 
 
-def _normed_patches(correlation, fin, fref, widen=True):
-    """The input patches and the ref patches over their norms, as K1
-    scores them: ``(pairs, n, d)`` each, in the features' dtype (the
-    norms rounded as the port rounds them), widened to f32 unless
-    ``widen`` is false."""
+def _normed_patches(correlation, fin, fref):
+    """The input patches and the ref patches over their norms, as K1's
+    plain version scores them: ``(pairs, n, d)`` each, the norms rounded
+    as the port rounds them at bf16, widened to f32."""
     pin = correlation.sample_patches(fin)
     pref = correlation.sample_patches(fref)
     pin = pin.reshape((-1,) + pin.shape[-2:])
     pref = pref.reshape((-1,) + pref.shape[-2:])
     pref = pref / correlation.add_scalar(
         correlation.l2_norm(pref, 2, keepdim=True), 1e-5)
-    return (pin.float(), pref.float()) if widen else (pin, pref)
+    return pin.float(), pref.float()
 
 
-def _index_gap(pin, pref, idx_a, idx_b):
+def _index_gap(pin, pref, idx_a, idx_b, keep=None):
     """Where two matches of the same patches pick other ref patches: the
-    mask, and the largest difference of the two picks' plain scores."""
+    mask, and the largest difference of the two picks' plain scores (over
+    the input rows ``keep`` holds, if given)."""
     pairs = pin.shape[0]
 
     def score(idx):
@@ -318,6 +515,8 @@ def _index_gap(pin, pref, idx_a, idx_b):
         return (pin * rows).sum(2)
 
     differ = idx_a.reshape(pairs, -1) != idx_b.reshape(pairs, -1)
+    if keep is not None:
+        differ &= keep
     gap = (score(idx_b) - score(idx_a)).abs()[differ]
     return differ, float(gap.max()) if gap.numel() else 0.0
 
@@ -1561,7 +1760,11 @@ def _train_batch(rng, b):
 
 def kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act):
     """Every kernel entry point of the port by name, with its count."""
-    return {'feature_match': correlation.feature_match_kernel,
+    return {'feature_match_prologue':
+                correlation.feature_match_prologue_kernel,
+            'feature_match_prologue_bf16':
+                correlation.feature_match_prologue_bf16_kernel,
+            'feature_match': correlation.feature_match_kernel,
             'feature_match_sharded': correlation.feature_match_sharded_kernel,
             'mdcn_im2col': dcn.mdcn_im2col_kernel,
             'mdcn_col2im': dcn.mdcn_col2im_kernel,
@@ -1622,11 +1825,13 @@ def read_counts(kernels, expect, forbid=()):
 # the entry points a path launches and those it must not, by dtype: K1,
 # K2's forward, K2's backward, K4's forward and backward
 ENTRIES = {
-    torch.float32: {'match': ('feature_match',), 'k2': ('mdcn_im2col',),
+    torch.float32: {'match': ('feature_match_prologue', 'feature_match'),
+                    'k2': ('mdcn_im2col',),
                     'k2_bwd': ('mdcn_col2im',),
                     'k4': ('deform_sample_fwd',),
                     'k4_bwd': ('deform_sample_bwd',)},
-    BF16: {'match': ('feature_match_bf16',), 'k2': ('mdcn_fused_fwd_bf16',),
+    BF16: {'match': ('feature_match_prologue_bf16', 'feature_match_bf16'),
+           'k2': ('mdcn_fused_fwd_bf16',),
            'k2_bwd': ('mdcn_fused_dgrad_bf16', 'mdcn_fused_wgrad_bf16',
                       'mdcn_fused_wgrad_sum_bf16'),
            'k4': ('deform_sample_fwd_bf16',),
@@ -2548,10 +2753,16 @@ class _MainPath:
 
 
 def _ddp_sharded_match(correlation, main, rank, world, dtype=torch.float32):
-    """K6 at K1's eval shape, the ref's rows split over the ranks: against
-    single-rank K1 on the whole ref and against its plain version; ties
-    planted across the band boundary; times. f32, or bf16 through the
-    bf16 kernel's sharded entry point."""
+    """K6 at K1's eval shape, the ref's rows split over the ranks: the
+    band's prologue against its plain version at ref strides 1 and 2 (the
+    band is the one shape where the two maps differ in size); K6 against
+    single-rank K1 on the whole ref, against its plain version (at bf16
+    leaving out the rows that a norm the prologue rounds apart, on any
+    rank, touches, as K1's phase does) and against the plain match behind
+    the same prologue (the plain per-rank match on the prologue kernel's
+    patches, with the same collectives); ties planted across the band
+    boundary; times. f32, or bf16 through the bf16 kernel's sharded entry
+    point."""
     gen = torch.Generator().manual_seed(SEED + 20)
     h = CANVAS // 4
     feats = torch.randn((2, T, h, h, 256), generator=gen).cuda()
@@ -2560,17 +2771,43 @@ def _ddp_sharded_match(correlation, main, rank, world, dtype=torch.float32):
     start, stop = SHARD_ROWS[rank]
     band = (fref[:, start:stop], start)
     kw = dict(is_norm=True, norm_input=True)
+    # the band's prologue; where its norms round apart from the plain ones
+    # at stride 1, as a mask over the whole ref's patches, on every rank
+    band_prologue = []
+    for ref_stride in (2, 1):
+        line, in_flip, ref_flip = phase_prologue(
+            correlation, fin, band[0], 'band', ref_stride, timed=False)
+        band_prologue.append(line)
+    pw = h - 2
+    flips = torch.zeros((T, pw * pw), dtype=torch.int32, device=fin.device)
+    flips[:, start * pw:start * pw + ref_flip.shape[1]] = ref_flip.int()
+    dist.all_reduce(flips, op=dist.ReduceOp.MAX)
     with main.part():
         idx, val = correlation.feature_match_index_sharded(fin, band, **kw)
     idx_1, val_1 = correlation.feature_match_index(fin, fref, **kw)
     idx_p, val_p = correlation.feature_match_index_sharded_ref(fin, band,
                                                                **kw)
-    pin, pref = _normed_patches(correlation, fin, fref)
-    rec = {'rank': rank, 'band_rows': [start, stop], 'dtype': str(dtype)}
-    for label, other_idx, other_val in (('k1', idx_1, val_1),
-                                        ('plain', idx_p, val_p)):
-        differ, gap = _index_gap(pin, pref, idx, other_idx)
-        err = float((val - other_val).abs().max())
+    flat, flat_p = idx.reshape(T, -1).long(), idx_p.reshape(T, -1).long()
+    keep = ~(in_flip | flips.gather(1, flat).bool()
+             | flips.gather(1, flat_p).bool())
+    idx_m, val_m = correlation._feature_match_sharded(
+        fin, band, None, 3, 1, 1, True, True, 2048,
+        correlation._prologue_cuda, correlation._match_patches_ref)
+    # the scores of either pick: from the patches the kernels match on, and
+    # from the plain ones for the plain version
+    kernel_patches = [p.float() for p in correlation._prologue_cuda(
+        fin, fref, 3, 1, 1, True)[:2]]
+    plain_patches = _normed_patches(correlation, fin, fref)
+    rec = {'rank': rank, 'band_rows': [start, stop], 'dtype': str(dtype),
+           'band_prologue': band_prologue,
+           'plain_rows_left_out_rounded_apart': int((~keep).sum())}
+    for label, other_idx, other_val, patches, rows in (
+            ('k1', idx_1, val_1, kernel_patches, None),
+            ('plain', idx_p, val_p, plain_patches, keep),
+            ('plain_match', idx_m, val_m, kernel_patches, None)):
+        differ, gap = _index_gap(*patches, idx, other_idx, rows)
+        err = (val - other_val).reshape(T, -1).abs()
+        err = float((err if rows is None else err[rows]).max())
         check(gap <= K1_IDX_GAP, f'rank {rank}: K6 index differs from '
               f'{label} where the plain scores differ by {gap}')
         check(err <= K1_VAL_TOL, f'rank {rank}: K6 val differs from '
@@ -2578,6 +2815,7 @@ def _ddp_sharded_match(correlation, main, rank, world, dtype=torch.float32):
         rec[f'vs_{label}'] = {'index_disagreements': int(differ.sum()),
                               'worst_disagreement_gap': gap,
                               'max_abs_err': err}
+    del kernel_patches, plain_patches
     check(_same_on_all_ranks(idx) and _same_on_all_ranks(val),
           'the ranks hold other answers')
 
@@ -2591,7 +2829,6 @@ def _ddp_sharded_match(correlation, main, rank, world, dtype=torch.float32):
         idx_t, _ = correlation.feature_match_index_sharded(
             fin_t, (fref_t[:, start:stop], start), is_norm=True)
     idx_t1, _ = correlation.feature_match_index(fin_t, fref_t, is_norm=True)
-    pw = h - 2
     want = dy * pw + dx
     got = idx_t[:, iy, ix].tolist()
     check(got == [want] * T and idx_t1[:, iy, ix].tolist() == [want] * T,
@@ -2603,7 +2840,8 @@ def _ddp_sharded_match(correlation, main, rank, world, dtype=torch.float32):
     # with each rank alone on the card, the fuse, the plain version, and
     # the library yardstick: the band's scores by chunked torch.matmul
     # and the same two all-reduces
-    pin_b, pref_b = _normed_patches(correlation, fin, band[0], widen=False)
+    pin_b, pref_b, _ = correlation._prologue_cuda(fin, band[0], 3, 1, 1,
+                                                  True)
     match_band = correlation._match_patches_sharded_cuda
     ms = cuda_ms(lambda: correlation.feature_match_index_sharded(
         fin, band, **kw))
@@ -2628,15 +2866,20 @@ def _ddp_sharded_match(correlation, main, rank, world, dtype=torch.float32):
     library_ms = cuda_ms(library)
     pairs, n_in, d = pin_b.shape
     n_ref = pref_b.shape[1]
-    bound_ms, bound_by = bound(2.0 * pairs * n_in * n_ref * d,
-                               fin.element_size() * (fin.numel()
-                                                     + band[0].numel())
-                               + 8.0 * pairs * n_in, peak_of(dtype))
+    flops = 2.0 * pairs * n_in * n_ref * d
+    nbytes = (fin.element_size() * (fin.numel() + band[0].numel())
+              + 8.0 * pairs * n_in)
+    if dtype == BF16:
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    else:   # the three TF32 products the kernel runs; and f32 SIMT
+        bound_ms, bound_by = bound([(3 * flops, PEAK_TF32_FLOPS)], nbytes)
+        rec['bound_f32_cuda_cores_ms'] = bound(flops, nbytes)[0]
     rec.update(n_in=n_in, n_ref_band=n_ref, d=d, ms=ms,
                kernel_only_ms=kernel_ms, collective_ms=collective_ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                bound_by=bound_by,
-               max_abs_err=rec['vs_k1']['max_abs_err'])
+               max_abs_err=max(rec['vs_plain']['max_abs_err'],
+                               rec['vs_plain_match']['max_abs_err']))
     return rec
 
 
@@ -2977,10 +3220,12 @@ def phase_ddp():
           'ranks': [r['ddp_resume'] for r in reports]})
     launches = {name: sum(r['launches'][name] for r in reports)
                 for name in reports[0]['launches']}
-    check(launches['feature_match_sharded'] > 0
-          and launches['feature_match_sharded_bf16'] > 0 and all(
+    check(all(launches[k] > 0 for k in (
+        'feature_match_sharded', 'feature_match_sharded_bf16',
+        'feature_match_prologue', 'feature_match_prologue_bf16')) and all(
         r['ddp_train']['launches_3_steps'][k] > 0 for r in reports
-        for k in ('feature_match', 'mdcn_im2col', 'mdcn_col2im')),
+        for k in ('feature_match_prologue', 'feature_match', 'mdcn_im2col',
+                  'mdcn_col2im')),
           f'kernels not launched on the ddp path: {launches}')
     scatter = [k for k in launches if '_scatter' in k and launches[k]]
     check(not scatter, f'grad-x scatter launched on the ddp path: {scatter}')
@@ -2990,12 +3235,15 @@ def phase_ddp():
            'max_abs_err': max(r['max_abs_err'] for r in recs),
            **{key: max(r[key] for r in recs)
               for key in ('ms', 'kernel_only_ms', 'collective_ms',
-                          'plain_ms', 'bound_ms', 'library_ms')},
+                          'plain_ms', 'bound_ms', 'library_ms',
+                          'bound_f32_cuda_cores_ms') if key in recs[0]},
            'bound_by': recs[0]['bound_by'], 'backend': backend,
            'ms_note': 'per rank, the ranks at once; kernel_only_ms is K1 '
                       'on the band with the rank alone on the card',
            'library_call': f'chunked torch.matmul of the band\'s {dtype} '
-                           'scores and the same MAX and MIN all-reduces'}
+                           'scores and the same MAX and MIN all-reduces',
+           'plain_call': 'feature_match_index_sharded_ref: the plain '
+                         'prologue and match, the same all-reduces'}
           for name, recs, dtype in (
               ('feature_match_sharded', shard, 'f32'),
               ('feature_match_sharded_bf16', shard_bf16, 'bf16'))]
@@ -3006,7 +3254,8 @@ def phase_ddp():
 # cuDNN's and cuBLAS's (convolutions, their layout changes and FFTs, and
 # matmuls) by these marks, the rest (element-wise, reductions, copies,
 # Adam) as other
-OWN_KERNELS = ('feature_match_kernel', 'feature_match_bf16_kernel',
+OWN_KERNELS = ('prologue_kernel', 'split_tf32_kernel',
+               '::Tf32x3>', '::Bf16>',     # fm::match_kernel<...>
                'mdcn_im2col_kernel', 'mdcn_fused_fwd_kernel',
                'mdcn_fused_dgrad_kernel', 'mdcn_fused_wgrad_kernel',
                'mdcn_fused_wgrad_sum_kernel',
@@ -3062,7 +3311,8 @@ def profile_record(path, run, top=12):
 
 
 # the TPU kernels the bf16 records replace: K1, K2, K4
-K1_TPU = 'mrefsr_tpu/ops/correlation.py:42'
+K1_TPU = 'mrefsr_tpu/ops/correlation.py:45'
+K6_TPU = 'mrefsr_tpu/ops/correlation.py:140'
 K2_TPU = 'mrefsr_tpu/ops/dcn.py:111'
 K4_TPU = 'mrefsr_tpu/ops/dcn.py:296'
 
@@ -3073,8 +3323,8 @@ def bf16_phases(correlation, dcn, arch, build_model, kernels):
     CUFED5 request and the bf16 stage-3 step of both alignments. Returns
     the kernels' ``(record, source, replaces)`` and the paths' launch
     counts."""
-    k1 = phase_feature_match(correlation, dtype=BF16)
-    k1['train_shape'] = phase_feature_match(
+    k1, k1p = phase_feature_match(correlation, dtype=BF16)
+    k1['train_shape'], k1p['train_shape'] = phase_feature_match(
         correlation, pairs=TRAIN_B * T, h=TRAIN_GT // 4, ties=False,
         dtype=BF16)
     torch.cuda.empty_cache()
@@ -3084,7 +3334,8 @@ def bf16_phases(correlation, dcn, arch, build_model, kernels):
     k2b = phase_mdcn_backward(dcn, BF16)
     k4f, k4b = phase_deform_sample(dcn, BF16)
     torch.cuda.empty_cache()
-    described = [(k1, 'feature_match_bf16.cu', K1_TPU),
+    described = [(k1p, 'feature_match_prologue.cu', K1_PROLOGUE_TPU),
+                 (k1, 'feature_match_bf16.cu', K1_TPU),
                  *((rec, 'mdcn_bf16.cu', K2_TPU) for rec in [k2, *k2b]),
                  (k4f, 'deform_sample.cu', K4_TPU),
                  (k4b, 'deform_sample.cu', K4_TPU)]
@@ -3129,8 +3380,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     phase_build(_build.build)
-    k1 = phase_feature_match(correlation)
-    k1['train_shape'] = phase_feature_match(
+    k1, k1p = phase_feature_match(correlation)
+    k1['train_shape'], k1p['train_shape'] = phase_feature_match(
         correlation, pairs=TRAIN_B * T, h=TRAIN_GT // 4, ties=False)
     torch.cuda.empty_cache()
     k2 = phase_mdcn(dcn)
@@ -3185,10 +3436,11 @@ def main():
     by_path['ddp'], (k6, k6b) = phase_ddp()
 
     described = (
-        (k1, 'feature_match.cu', 'mrefsr_tpu/ops/correlation.py:42'),
-        (k6, 'feature_match.cu', 'mrefsr_tpu/ops/correlation.py:140'),
+        (k1p, 'feature_match_prologue.cu', K1_PROLOGUE_TPU),
+        (k1, 'feature_match.cu', K1_TPU),
+        (k6, 'feature_match.cu', K6_TPU),
         *bf16_described,
-        (k6b, 'feature_match_bf16.cu', 'mrefsr_tpu/ops/correlation.py:140'),
+        (k6b, 'feature_match_bf16.cu', K6_TPU),
         (k2, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
         (k2b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
         (k3f, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:214'),
@@ -3321,7 +3573,7 @@ def main_ddp():
     for k6, source in zip(k6s, ('feature_match.cu', 'feature_match_bf16.cu')):
         k6.update(route='cuda',
                   source=f'mrefsr_tpu_torch/ops/csrc/{source}',
-                  replaces='mrefsr_tpu/ops/correlation.py:140',
+                  replaces=K6_TPU,
                   launches=launches[k6['name']])
     emit({'kernels': k6s, 'card': smi})
     print(smi, flush=True)

@@ -1,281 +1,107 @@
-// Top-1 patch matching on bf16 patches, on the tensor cores: for every input
-// patch, the best-scoring reference patch and its score.
+// Top-1 patch matching on bf16 patches, on Hopper's warpgroup tensor cores
+// (wgmma) fed by the Tensor Memory Accelerator (TMA): for every input patch,
+// the best-scoring reference patch and its score.
 //
 // Replaces mrefsr_tpu/ops/correlation.py::feature_match_index
-// (correlation.py:42-104) at bf16, where its score tile is
+// (correlation.py:45-104) at bf16, where its score tile is
 // jnp.dot(pin, pref_c.T, preferred_element_type=jnp.float32) (:86): bf16
 // operands, f32 sums, an f32 running max and argmax across reference tiles.
-// The unfold, the ref-patch normalisation (in bf16, rounded where XLA rounds
-// it) and the optional division by the input norm stay in PyTorch
-// (ops/correlation.py). This kernel takes
-//     pin  (P, n_in,  d)   bf16 input patches,
-//     pref (P, n_ref, d)   bf16 reference patches, each over its norm,
-// and writes, per pair p and input patch i,
-//     idx[p, i] = argmax_j <pin[p, i], pref[p, j]>   (lowest j on ties)
-//     val[p, i] = max_j    <pin[p, i], pref[p, j]>   (f32)
-// The products of two bf16 values are exact in f32, so the scores differ
-// from the plain version's (an f32 matmul of the same values) only in the
-// order of the f32 sums. The score matrix is never written.
+// The unfold and the norms (bf16, rounded where XLA rounds them) run before
+// it in feature_match_prologue.cu; the division by the input norm stays in
+// PyTorch (ops/correlation.py). The products of two bf16 values are exact
+// in f32, so the scores differ from the plain version's (an f32 matmul of
+// the same values) only in the order of the f32 sums.
 //
 // Bound on the H100: operations. One 500x500 CUFED5 request runs 5 pairs of
-// 15129 patches a side with d = 9 * 256 = 2304: 5.3 TFLOP, 5.4 ms at the
+// 15129 patches a side with d = 9 * 256 = 2304: 5.3 TFLOP, 5.33 ms at the
 // 989 TFLOP/s of dense bf16; a stage-3 training step (30 pairs of 1444,
-// 40x40 maps) 0.29 TFLOP, 0.29 ms.
+// 40x40 maps) 0.29 TFLOP, 0.29 ms. The 128 x 256 tiles move 85 FLOP an L2
+// byte, against 64 for 128 x 128 tiles with 32-deep slices, which on
+// mma.sync reached 196 TFLOP/s while pulling about 3 TB/s from L2.
 //
-// Design: warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulate). A block of
-// 256 threads (8 warps, 2 along the input rows x 4 along the ref rows) owns
-// BM = 128 input patches and walks all reference patches in BN = 128 tiles,
-// in ascending order, through BK = 32 slices of d; each warp holds a 64 x 32
-// accumulator tile (4 x 4 mma tiles, 64 f32 a thread). The tiles come through
-// shared memory with cp.async, two stages deep, each row padded to 40 bf16
-// (80 bytes), so the fragment loads (32-bit words at row gid, column 2 tig)
-// hit 32 different banks. A ragged edge is zero-filled: rows past n_in or
-// n_ref and the tail of d past its last multiple of 32; when d is not a
-// multiple of 8 (or a matrix is not 16-byte aligned) the tiles are loaded
-// element by element. After the last slice of a reference tile each thread
-// folds its accumulators into a running best per row, columns ascending and
-// a strict '>' (columns past n_ref are skipped, i.e. -inf), so the lowest
-// index wins within the thread; at the end the 4 lanes of a row merge by
-// shuffles and the 4 warps along the ref rows through shared memory, by value,
-// then by lower index. That is the JAX tie rule: first max inside a tile,
-// strict '>' across tiles, i.e. the lowest index among equal maxima.
-// blockIdx.z is the pair. No wgmma or TMA yet.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "mma_bf16.cuh"
+// Design: the tile walk of feature_match_wgmma.cuh with one wgmma.m64n256k16
+// (bf16 in, f32 sums) a 16-deep k step, 64-deep slices, a ring of 4 stages
+// of 48 KB.
+#include "feature_match_wgmma.cuh"
 
 namespace {
 
-using tc::cp_async16;
-using tc::cp_async_commit;
-using tc::cp_async_wait_one;
-using tc::mma_bf16;
-using tc::word;
+// d (64 x 256, f32) = a (64 x 16) b (256 x 16)^T + (accumulate ? d : 0),
+// a and b bf16, K-major, in shared memory. Thread (warp w, lane 4 gid +
+// tig) holds d[4 j + e] at row 16 w + gid and d[4 j + 2 + e] at row
+// 16 w + gid + 8, column 8 j + 2 tig + e.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t a,
+                                          uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int LDS = BK + 8;  // a staged row, in bf16: 80 bytes
-constexpr int THREADS = 256;
-constexpr int WM = 64;       // warp tile: 2 warps along the input rows
-constexpr int WN = 32;       //            4 warps along the ref rows
-constexpr int MT = WM / 16;  // m16 tiles of a warp
-constexpr int NT = WN / 8;   // n8 tiles of a warp
-
-struct Stage {
-  __nv_bfloat16 a[BM * LDS];
-  __nv_bfloat16 b[BN * LDS];
+struct Bf16 {
+  static constexpr int BK = 64;
+  static constexpr int PARTS = 1;
+  static constexpr int STAGES = 4;
+  static __device__ __forceinline__ void step(float (&acc)[128], uint32_t a,
+                                              uint32_t b, int accumulate) {
+    wgmma_bf16(acc, fm::desc_sw128(a), fm::desc_sw128(b), accumulate);
+  }
 };
 
-// Rows [row0, row0 + 128) x columns [k0, k0 + 32) of the (n, d) matrix
-// `src` into the staged tile `dst`, zeros outside the matrix. A thread moves
-// two runs of 8 bf16.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int n, int k0, int d, bool vec,
-                                          int tid) {
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int run = tid + q * THREADS;
-    const int r = run >> 2;
-    const int kc = (run & 3) * 8;
-    const int row = row0 + r;
-    const int k = k0 + kc;
-    __nv_bfloat16* s = dst + r * LDS + kc;
-    if (vec) {  // d % 8 == 0: a run lies wholly inside d or wholly past it
-      const bool in = row < n && k < d;
-      cp_async16(s, in ? src + (size_t)row * d + k : src, in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        s[e] = (row < n && k + e < d) ? src[(size_t)row * d + k + e]
-                                      : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// (v, ix) takes (ov, oi) if that is larger, or equal with a lower index.
-__device__ __forceinline__ void merge(float& v, int& ix, float ov, int oi) {
-  if (ov > v || (ov == v && oi < ix)) {
-    v = ov;
-    ix = oi;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-feature_match_bf16_kernel(const __nv_bfloat16* __restrict__ pin,
-                          const __nv_bfloat16* __restrict__ pref, int n_in,
-                          int n_ref, int d, int vec,
-                          int* __restrict__ idx_out,
-                          float* __restrict__ val_out) {
-  __shared__ __align__(16) Stage stages[2];
-  __shared__ float part_val[BN / WN][BM];
-  __shared__ int part_idx[BN / WN][BM];
-
-  const int pair = blockIdx.z;
-  pin += (size_t)pair * n_in * d;
-  pref += (size_t)pair * n_ref * d;
-  idx_out += (size_t)pair * n_in;
-  val_out += (size_t)pair * n_in;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp / (BN / WN);  // 0..1
-  const int wn = warp % (BN / WN);  // 0..3
-  const int gid = lane >> 2;        // row within an mma tile (and + 8)
-  const int tig = lane & 3;         // column pair within an mma tile
-  const int row0 = blockIdx.x * BM;
-  const int nk = (d + BK - 1) / BK;
-  const int steps = nk * ((n_ref + BN - 1) / BN);
-
-  // this thread's rows: wm * WM + mi * 16 + h * 8 + gid
-  float best_val[MT][2];
-  int best_idx[MT][2];
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      best_val[mi][h] = -INFINITY;
-      best_idx[mi][h] = 0;
-    }
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  }
-
-  load_tile(stages[0].a, pin, row0, n_in, 0, d, vec, tid);
-  load_tile(stages[0].b, pref, 0, n_ref, 0, d, vec, tid);
-  cp_async_commit();
-
-  // step s = (reference tile s / nk, slice s % nk); step s + 1 is in flight
-  // while step s is multiplied
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) {
-      Stage& next = stages[(s + 1) & 1];
-      const int k1 = ((s + 1) % nk) * BK;
-      load_tile(next.a, pin, row0, n_in, k1, d, vec, tid);
-      load_tile(next.b, pref, ((s + 1) / nk) * BN, n_ref, k1, d, vec, tid);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-
-    const Stage& cur = stages[s & 1];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[MT][4], b[NT][2];
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        const __nv_bfloat16* p =
-            cur.a + (wm * WM + mi * 16 + gid) * LDS + kk + tig * 2;
-        a[mi][0] = word(p);
-        a[mi][1] = word(p + 8 * LDS);
-        a[mi][2] = word(p + 8);
-        a[mi][3] = word(p + 8 * LDS + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const __nv_bfloat16* q =
-            cur.b + (wn * WN + ni * 8 + gid) * LDS + kk + tig * 2;
-        b[ni][0] = word(q);
-        b[ni][1] = word(q + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();  // the next prefetch overwrites this stage
-
-    if (s % nk == nk - 1) {  // a reference tile is complete: fold it in
-      const int col0 = (s / nk) * BN + wn * WN + tig * 2;
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int ni = 0; ni < NT; ++ni) {
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int col = col0 + ni * 8 + j;
-              const float v = acc[mi][ni][h * 2 + j];
-              if (col < n_ref && v > best_val[mi][h]) {
-                best_val[mi][h] = v;
-                best_idx[mi][h] = col;
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-      }
-    }
-  }
-
-  // the 4 lanes of a row (same gid), then the 4 warps along the ref rows
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = best_val[mi][h];
-      int ix = best_idx[mi][h];
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1)
-        merge(v, ix, __shfl_xor_sync(0xffffffffu, v, off),
-              __shfl_xor_sync(0xffffffffu, ix, off));
-      if (tig == 0) {
-        const int r = wm * WM + mi * 16 + h * 8 + gid;
-        part_val[wn][r] = v;
-        part_idx[wn][r] = ix;
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < BM) {
-    float v = part_val[0][tid];
-    int ix = part_idx[0][tid];
-#pragma unroll
-    for (int w = 1; w < BN / WN; ++w) merge(v, ix, part_val[w][tid],
-                                            part_idx[w][tid]);
-    const int row = row0 + tid;
-    if (row < n_in) {
-      idx_out[row] = ix;
-      val_out[row] = v;
-    }
-  }
-}
-
-// The launch both entry points share.
 int launch(const void* pin, const void* pref, int pairs, int n_in, int n_ref,
-           int d, void* idx, void* val, void* stream) {
-  const int vec = d % 8 == 0 && (uintptr_t)pin % 16 == 0 &&
-                  (uintptr_t)pref % 16 == 0;
-  dim3 grid((n_in + BM - 1) / BM, 1, pairs);
-  feature_match_bf16_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)pin, (const __nv_bfloat16*)pref, n_in, n_ref, d,
-      vec, (int*)idx, (float*)val);
-  return (int)cudaGetLastError();
+           int d, int ld, void* idx, void* val, void* stream) {
+  return fm::launch_match<Bf16>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, pin,
+                                pref, pairs, n_in, n_ref, d, ld, idx, val,
+                                (cudaStream_t)stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// pin and pref are device pointers of contiguous bf16 tensors, idx of int32,
-// val of f32; the stream is a cudaStream_t. Returns cudaGetLastError() after
-// the launch.
+// pin and pref are device pointers of bf16 patch matrices whose rows are ld
+// elements apart (ld a multiple of 8, pairs n * ld apart, 16-byte aligned),
+// idx of int32, val of f32; the stream is a cudaStream_t. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue if a tensor
+// map cannot be encoded).
 int feature_match_bf16_launch(const void* pin, const void* pref, int pairs,
-                              int n_in, int n_ref, int d, void* idx,
+                              int n_in, int n_ref, int d, int ld, void* idx,
                               void* val, void* stream) {
-  return launch(pin, pref, pairs, n_in, n_ref, d, idx, val, stream);
+  return launch(pin, pref, pairs, n_in, n_ref, d, ld, idx, val, stream);
 }
 
 // The same kernel on one rank's band of reference rows, for
@@ -284,8 +110,9 @@ int feature_match_bf16_launch(const void* pin, const void* pref, int pairs,
 // match counts its launches apart from the single-device one.
 int feature_match_sharded_bf16_launch(const void* pin, const void* pref,
                                       int pairs, int n_in, int n_ref, int d,
-                                      void* idx, void* val, void* stream) {
-  return launch(pin, pref, pairs, n_in, n_ref, d, idx, val, stream);
+                                      int ld, void* idx, void* val,
+                                      void* stream) {
+  return launch(pin, pref, pairs, n_in, n_ref, d, ld, idx, val, stream);
 }
 
 const char* cuda_error_string(int err) {

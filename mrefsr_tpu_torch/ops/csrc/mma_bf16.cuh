@@ -1,17 +1,15 @@
-// Warp-level bf16 tensor-core helpers shared by the kernels that run their
-// products on mma.sync (feature_match_bf16.cu, mdcn_bf16.cu): cp.async
-// copies into shared memory, the m16n8k16 bf16 -> f32 product, and the
-// fragment loads.
+// Warp-level bf16 tensor-core helpers for the kernels that run their
+// products on mma.sync (mdcn_bf16.cu): cp.async copies into shared memory,
+// the m16n8k16 bf16 -> f32 product, and the fragment loads.
 //
 // Fragments of mma.sync.m16n8k16.row.col (lane = 4 * gid + tig):
 //   A (16 x 16, row-major): a0 = A[gid][2 tig, +1], a1 = A[gid + 8][2 tig, +1],
 //                           a2 = A[gid][2 tig + 8, +1], a3 = A[gid + 8][2 tig + 8, +1]
 //   B (16 x 8, k-major):    b0 = B[2 tig, +1][gid], b1 = B[2 tig + 8, +1][gid]
 //   C (16 x 8, f32):        c0, c1 = C[gid][2 tig, +1], c2, c3 = C[gid + 8][2 tig, +1]
-// An operand staged with its k dimension contiguous is read with `word`
-// (one 32-bit word, two bf16, at a time) or `ldmatrix_x4` / `ldmatrix_x2`
-// (whole fragments); one staged with k across rows is read transposed with
-// `ldmatrix_x4_trans` / `ldmatrix_x2_trans`.
+// An operand staged with its k dimension contiguous is read with
+// `ldmatrix_x4` / `ldmatrix_x2` (whole fragments); one staged with k across
+// rows is read transposed with `ldmatrix_x4_trans` / `ldmatrix_x2_trans`.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -31,11 +29,6 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
@@ -48,11 +41,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two neighbouring bf16 of shared memory as one 32-bit word
-__device__ __forceinline__ uint32_t word(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // Four 8 x 8 bf16 matrices of shared memory: lanes 8 i .. 8 i + 7 give the

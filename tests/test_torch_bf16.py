@@ -28,6 +28,7 @@ import test_torch_dcn
 import torch_dist_worker as worker
 from mrefsr_tpu.convert import flax_to_torch
 from mrefsr_tpu.models import build_model as jax_build_model
+from mrefsr_tpu.ops import correlation as jax_corr
 from mrefsr_tpu.ops import dcn as jax_dcn
 from mrefsr_tpu.ops import feature_match_index as jax_match
 from mrefsr_tpu_torch.models import build_model
@@ -151,6 +152,49 @@ def test_bf16_norms_round_as_xla_does():
             correlation.l2_norm(t, 1, keepdim=True), eps)
         np.testing.assert_array_equal(_np(got),
                                       np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize('input_stride', [1, 2])
+@pytest.mark.parametrize('ref_stride', [1, 2])
+def test_bf16_prologue_rounds_as_jax_does(input_stride, ref_stride):
+    """The K1 prologue's plain version at bf16 (the CUDA prologue is held
+    to it on the card): the input patches, the ref patches over their norm
+    + 1e-5 and the input norms bit for bit the JAX package's bf16
+    ``sample_patches`` / ``norm + 1e-5`` / divide (correlation.py:20,
+    :70-71, :101), jitted as ``feature_match_index`` is, at patch size 3
+    and the strides of the sharded tests."""
+    rng = np.random.RandomState(5)
+    fin, fref = _unfold_inputs(rng)
+    pin, pref, norm = correlation._prologue_ref(
+        torch.from_numpy(fin).to(BF), torch.from_numpy(fref).to(BF), 3,
+        input_stride, ref_stride, True)
+    assert pin.dtype == pref.dtype == norm.dtype == BF
+
+    @jax.jit
+    def jax_prologue(a, b):
+        pin_j = jax_corr.sample_patches(a, 3, input_stride)
+        pref_j = jax_corr.sample_patches(b, 3, ref_stride)
+        pref_j = pref_j / (jnp.linalg.norm(pref_j, axis=1, keepdims=True)
+                           + 1e-5)
+        return pin_j, pref_j, jnp.linalg.norm(pin_j, axis=1)
+
+    for p in range(2):
+        got = jax_prologue(jnp.asarray(fin[p], jnp.bfloat16),
+                           jnp.asarray(fref[p], jnp.bfloat16))
+        for ours, want in zip((pin[p], pref[p], norm[p]), got):
+            assert want.dtype == jnp.bfloat16
+            np.testing.assert_array_equal(
+                _np(ours), np.asarray(want.astype(jnp.float32)))
+
+
+def _unfold_inputs(rng):
+    """Two pairs of unequal bf16 maps of 32 channels (d 288), on a scale
+    where the sums of squares spread over many bf16 roundings."""
+    fin = rng.randn(2, 11, 10, 32).astype(np.float32)
+    fref = rng.randn(2, 12, 9, 32).astype(np.float32) * 3
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+                              .astype(jnp.float32))
+    return bf(fin), bf(fref)
 
 
 @pytest.fixture(scope='module')

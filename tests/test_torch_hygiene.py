@@ -25,7 +25,7 @@ ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'mrefsr_tpu'}
 PORT_FILES = sorted((REPO / 'mrefsr_tpu_torch').rglob('*.py')) \
-    + [REPO / 'chip_smoke.py']
+    + [REPO / 'chip_smoke.py', REPO / 'k1_compare.py']
 # helpers that run as rank processes of their own, apart from pytest
 RANK_WORKERS = [REPO / 'tests' / 'torch_dist_worker.py']
 
@@ -185,7 +185,9 @@ def _refuse(*_):
     raise AssertionError('a CUDA kernel was reached from CPU tensors')
 
 
-KERNELS = (correlation.feature_match_kernel,
+KERNELS = (correlation.feature_match_prologue_kernel,
+           correlation.feature_match_prologue_bf16_kernel,
+           correlation.feature_match_kernel,
            correlation.feature_match_sharded_kernel,
            correlation.feature_match_bf16_kernel,
            correlation.feature_match_sharded_bf16_kernel,
@@ -211,6 +213,7 @@ KERNELS = (correlation.feature_match_kernel,
 def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
     """A request and a training step on the CPU, with either alignment,
     in f32 and in bf16, launch no kernel and build no library."""
+    monkeypatch.setattr(correlation, '_prologue_cuda', _refuse)
     monkeypatch.setattr(correlation, '_match_patches_cuda', _refuse)
     monkeypatch.setattr(dcn, '_im2col_cuda', _refuse)
     monkeypatch.setattr(dcn, '_col2im_cuda', _refuse)

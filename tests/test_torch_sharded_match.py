@@ -201,3 +201,26 @@ def test_sharded_match_refuses_other_devices():
     feat = torch.empty((8, 8, 2), device='meta')
     with pytest.raises(RuntimeError, match='cuda or cpu'):
         correlation.feature_match_index_sharded(feat, (feat, 0))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('ref_stride', STRIDES)
+def test_band_prologue_is_the_whole_refs_rows(dtype, ref_stride):
+    """K6 runs K1's prologue on each rank's band: the band's normalised
+    ref patches are, bit for bit, the whole ref's patch rows from the
+    band's first patch row on (a patch lies whole in one band, and its norm
+    is its own), for every band of 2 and 4 ranks."""
+    dt = getattr(torch, dtype)
+    feat_in, feat_ref, rows = _inputs(ref_stride)
+    fin = torch.from_numpy(feat_in).to(dt)
+    fref = torch.from_numpy(feat_ref).to(dt)
+    _, whole, _ = correlation._prologue_ref(fin, fref, 3, 1, ref_stride,
+                                            True)
+    pw = (feat_ref.shape[1] - 3) // ref_stride + 1
+    for n in WORLDS:
+        for start, stop in _even_bands(rows, n):
+            _, band, _ = correlation._prologue_ref(
+                fin, fref[start:stop], 3, 1, ref_stride, True)
+            first = start // ref_stride * pw
+            torch.testing.assert_close(
+                band, whole[:, first:first + band.shape[1]], rtol=0, atol=0)
