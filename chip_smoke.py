@@ -26,18 +26,28 @@ phase runs several):
    version, at the eval shape, 5 pairs of (125, 125, 256) f32, and at the
    training shape, 30 pairs of (40, 40, 256); planted exact ties; the
    library yardstick also at n padded to a multiple of 8;
-4. mdcn (kernel K2, forward) against its plain version at the three eval
-   shapes;
-5. mdcn_backward (K2's backward: kernel ``mdcn_col2im`` and two matmuls)
-   against autograd through the plain version at the three training
-   shapes (N = 30), and with integer offsets and samples on the border;
+4. mdcn (kernel K2, forward: ``mdcn_fused_fwd`` of ``mdcn_fused.cu``,
+   the columns gathered into shared memory and contracted there as
+   3xTF32) against its plain version at the three eval shapes, the
+   training shapes and the video nets' (BasicVSR++'s 128 -> 64 channels
+   at 180x320, 16 deform groups; EDVR-M's L1); the kernel alone timed
+   beside the function;
+5. mdcn_backward (K2's backward: the fused ``mdcn_fused_dgrad``,
+   ``mdcn_fused_wgrad`` and the ordered sum of its partials) against
+   autograd through the plain version at the three training shapes
+   (N = 30), every gradient, x's through dgrad's scatter variant; again
+   as the training step runs it (x frozen), two such calls bit-equal in
+   grad offset, mask, weight and bias; each entry point launched alone
+   with its own outputs checked; with integer offsets and samples on the
+   border;
 6. deform_sample (kernel K4, forward and backward) against its plain
    version at the three training shapes, and bit for bit against ``x``
    indexed at the shifted positions for integer flows;
 7. mdcn_groups (K3, DCNv2 with conv groups 2 and 8) and dcn_v1 (K5, DCNv1
    at padding 0, groups 1 and 8) against their plain versions, forward and
    every gradient, at EDVR-M's L1 shape (5, 180, 320, 64), deform groups
-   8; with groups 1 the K3 entry point's columns bit-equal to K2's;
+   8; with groups 1 the K3 entry point's columns times the weight against
+   K2's fused forward (``K2_REL_TOL``);
 8. upfirdn2d (kernel K7) against its plain version, forward, backward and
    double backward, at every shape of a 1024x1024 16-sample generator
    forward and of a 256x256 B = 8 generator and discriminator forward
@@ -151,8 +161,8 @@ turn within each round), the host clock around
 ``torch.cuda.synchronize()`` (phases 10 to 17) and the profiler's device
 times. Bounds use the H100 SXM's published 67 TFLOP/s f32 (CUDA cores),
 495 TFLOP/s TF32 and 989 TFLOP/s dense bf16 (tensor cores) and 3.35 TB/s;
-K1 and K6 at f32 take three TF32 products a score (3xTF32), and their
-records give the f32 CUDA-core bound beside.
+K1, K6 and K2 at f32 take three TF32 products a multiply-add (3xTF32), and
+their records give the f32 CUDA-core bound beside.
 """
 import contextlib
 import copy
@@ -227,10 +237,6 @@ def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes')
-
-
-def peak_of(dtype):
-    return PEAK_BF16_FLOPS if dtype == BF16 else PEAK_F32_FLOPS
 
 
 def phase_device():
@@ -547,15 +553,19 @@ def _feature_match_ties(correlation, dtype=torch.float32):
     return {'patches': int(best.numel()), 'tied': tied}
 
 
-def _mdcn_inputs(gen, c, h, dg=8, n=T, dtype=torch.float32):
-    """x, offset, mask, weight, bias on the card; all but the offset (f32,
-    as the bf16 path's promotion makes it) in ``dtype``."""
+def _mdcn_inputs(gen, c, h, dg=8, n=T, dtype=torch.float32, w=None,
+                 cout=None):
+    """x, offset, mask, weight, bias on the card for an ``h`` x ``w`` map
+    (square by default) and ``cout`` outputs (C by default); all but the
+    offset (f32, as the bf16 path's promotion makes it) in ``dtype``."""
     k = 9
-    x = torch.randn((n, h, h, c), generator=gen)
-    offset = torch.randn((n, h, h, dg, k, 2), generator=gen) * 4
-    mask = torch.rand((n, h, h, dg, k), generator=gen)
-    weight = torch.randn((3, 3, c, c), generator=gen) * 0.02
-    bias = torch.randn((c,), generator=gen) * 0.1
+    w = h if w is None else w
+    cout = c if cout is None else cout
+    x = torch.randn((n, h, w, c), generator=gen)
+    offset = torch.randn((n, h, w, dg, k, 2), generator=gen) * 4
+    mask = torch.rand((n, h, w, dg, k), generator=gen)
+    weight = torch.randn((3, 3, c, cout), generator=gen) * 0.02
+    bias = torch.randn((cout,), generator=gen) * 0.1
     return [t.cuda() if t is offset else t.to(dtype).cuda()
             for t in (x, offset, mask, weight, bias)]
 
@@ -574,59 +584,82 @@ def _k2_tol(dtype):
     return K2_BF16_TOL if dtype == BF16 else K2_REL_TOL
 
 
-def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32):
-    """K2's forward against its plain version on ``n`` maps per shape: the
-    eval shapes by default; f32 (mdcn_im2col + matmul) or bf16 (the fused
-    kernel, whose time alone is ``kernel_only_ms``)."""
+# K2's products: 3xTF32 at f32 (three TF32 products a multiply-add, at the
+# tensor cores' TF32 rate) and one bf16 product at bf16; the bound of an f32
+# record is the 3xTF32 one, the CUDA-core bound beside it
+def _k2_products(macs, dtype):
+    """The ``(operations, peak)`` of ``macs`` multiply-adds of K2's
+    contraction at ``dtype``."""
+    if dtype == BF16:
+        return (2.0 * macs, PEAK_BF16_FLOPS)
+    return (3 * 2.0 * macs, PEAK_TF32_FLOPS)
+
+
+def _k2_cores_bound(macs, other, nbytes):
+    """The f32 CUDA-core bound of the same work, ms."""
+    return bound([(2.0 * macs, PEAK_F32_FLOPS), *other], nbytes)[0]
+
+
+# the video nets' K2 shapes, f32: (case, N, C, Cout, H, W, deform groups):
+# BasicVSR++'s SecondOrderDeformableAlignment on the REDS config (one
+# 180x320 frame a call, 2 x 64 channels in, 16 groups) and EDVR-M's L1
+# DCNv2Pack (5 frames folded into the batch)
+VIDEO_K2_SHAPES = (('basicvsrpp', 1, 128, 64, 180, 320, 16),
+                   ('edvr_l1', T, 64, 64, 180, 320, 8))
+
+
+def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32,
+               video=False):
+    """K2's forward, the fused kernel ``mdcn_fused_fwd`` (f32, 3xTF32) or
+    ``mdcn_fused_fwd_bf16``, against its plain version on ``n`` maps per
+    shape: the eval shapes by default, or with ``video`` the video nets'
+    (``VIDEO_K2_SHAPES``); ``kernel_only_ms`` is the kernel's launch
+    alone."""
     gen = torch.Generator().manual_seed(SEED + 1)
     total = {'ms': 0.0, 'kernel_only_ms': 0.0, 'plain_ms': 0.0,
-             'bound_ms': 0.0, 'library_ms': 0.0, 'flops': 0.0, 'bytes': 0.0}
+             'bound_ms': 0.0, 'bound_f32_cuda_cores_ms': 0.0,
+             'library_ms': 0.0, 'flops': 0.0, 'bytes': 0.0}
     worst, ops_s = 0.0, 0.0
     size = torch.finfo(dtype).bits // 8
     tol = _k2_tol(dtype)
-    for c, h in shapes:
-        x, offset, mask, weight, bias = _mdcn_inputs(gen, c, h, n=n,
-                                                     dtype=dtype)
+    cases = (VIDEO_K2_SHAPES if video else
+             tuple((None, n, c, c, h, h, 8) for c, h in shapes))
+    for case, n_maps, c, cout, h, w, dg in cases:
+        x, offset, mask, weight, bias = _mdcn_inputs(
+            gen, c, h, dg=dg, n=n_maps, dtype=dtype, w=w, cout=cout)
         args = (x, offset, mask, weight, bias)
-        kw = dict(deform_groups=8)
+        kw = dict(deform_groups=dg)
         out_k = dcn.modulated_deform_conv2d(*args, **kw)
         out_p = dcn.modulated_deform_conv2d_ref(*args, **kw)
         check(out_k.dtype == dtype, f'mdcn output is {out_k.dtype}')
         err = float((out_k - out_p).abs().max())
         scale = float(out_p.abs().max())
-        check(err <= tol * scale, f'mdcn C={c} {dtype}: error {err} against '
-              f'max |out| {scale}')
+        check(err <= tol * scale, f'mdcn {case or ""} C={c} {dtype}: error '
+              f'{err} against max |out| {scale}')
         worst = max(worst, err)
         del out_k, out_p
 
-        rows = n * h * h
-        geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, h))
+        rows = n_maps * h * w
+        geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, w))
+        wt = weight.reshape(9 * c, cout).t().contiguous()
+        out_buf = torch.empty((rows, cout), dtype=dtype, device='cuda')
+        fused = dcn._fused_args(x, offset, weight, geom)
 
-        def im2col_only():
-            for row0, nrows in dcn._row_chunks(rows, 9, c, size):
-                dcn._im2col_cuda(x, offset, mask, row0, nrows, geom)
-
-        if dtype == BF16:       # the fused kernel alone
-            wt = weight.reshape(9 * c, c).t().contiguous()
-            out_buf = torch.empty((rows, c), dtype=dtype, device='cuda')
-            fused = dcn._fused_args(x, offset, weight, geom)
-
-            def kernel_only():
-                dcn.mdcn_fused_fwd_bf16_kernel(
-                    x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-                    wt.data_ptr(), bias.data_ptr(), out_buf.data_ptr(),
-                    *fused)
-        else:
-            kernel_only = im2col_only
+        def kernel_only():
+            dcn._fused_kernels(dtype)[0](
+                x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+                wt.data_ptr(), bias.data_ptr(), out_buf.data_ptr(), *fused)
 
         x_nchw = x.permute(0, 3, 1, 2)
         w_oihw = weight.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         # the contraction at the dtype's rate, the sampling on CUDA cores
-        flops = [(2.0 * rows * 9 * c * c, peak_of(dtype)),
-                 (9.0 * rows * 9 * c, PEAK_F32_FLOPS)]
+        macs = rows * 9.0 * c * cout
+        sampling = [(9.0 * rows * 9 * c, PEAK_F32_FLOPS)]
+        flops = [_k2_products(macs, dtype), *sampling]
         nbytes = size * (x.numel() + mask.numel() + weight.numel()
-                         + bias.numel() + rows * c) + 4.0 * offset.numel()
+                         + bias.numel() + rows * cout) \
+            + 4.0 * offset.numel()
         ops_s += sum(f / p for f, p in flops)
         shape = {
             'ms': cuda_ms(lambda: dcn.modulated_deform_conv2d(*args, **kw)),
@@ -637,19 +670,24 @@ def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32):
             'library_ms': cuda_ms(lambda: torch.nn.functional.conv2d(
                 x_nchw, w_oihw, bias, padding=1)),
             'bound_ms': bound(flops, nbytes)[0],
+            'bound_f32_cuda_cores_ms': _k2_cores_bound(macs, sampling,
+                                                       nbytes),
             'flops': sum(f for f, _ in flops), 'bytes': nbytes}
         bf16 = dtype == BF16
-        emit({'phase': 'mdcn_bf16' if bf16 else 'mdcn', 'n': n, 'c': c,
-              'h': h, 'w': h, 'deform_groups': 8, 'dtype': str(dtype),
-              'max_abs_err': err, 'max_abs_out': scale, 'tolerance': tol,
-              'bound_by': bound(flops, nbytes)[1], **shape})
+        emit({'phase': 'mdcn_bf16' if bf16 else 'mdcn',
+              **({'case': case} if case else {}), 'n': n_maps, 'c': c,
+              'cout': cout, 'h': h, 'w': w, 'deform_groups': dg,
+              'dtype': str(dtype), 'max_abs_err': err, 'max_abs_out': scale,
+              'tolerance': tol, 'bound_by': bound(flops, nbytes)[1],
+              **shape})
         for key in total:
             total[key] += shape[key]
-        del x, offset, mask, weight, bias, args, x_nchw, w_oihw
-        del kernel_only
+        del x, offset, mask, weight, bias, args, x_nchw, w_oihw, wt
+        del out_buf, kernel_only
         torch.cuda.empty_cache()
     flops, nbytes = total.pop('flops'), total.pop('bytes')
-    return {'name': 'mdcn_fused_fwd_bf16' if dtype == BF16 else 'mdcn_im2col',
+    return {'name': 'mdcn_fused_fwd_bf16' if dtype == BF16
+            else 'mdcn_fused_fwd',
             'max_abs_err': worst, **total,
             'bound_by': ('operations' if ops_s >= nbytes / PEAK_BYTES
                          else 'bytes'),
@@ -677,8 +715,10 @@ def _sum_records(name, shapes, extra):
     """One ``kernels`` entry out of a kernel's per-shape records; a
     record's ``ops_s``, where it has one, is its operations' least time
     (operations of several types), else its ``flops`` count at f32."""
-    keys = ('ms', 'kernel_only_ms', 'plain_ms', 'bound_ms', 'library_ms')
-    total = {k: sum(rec[k] for rec in shapes) for k in keys}
+    keys = ('ms', 'kernel_only_ms', 'plain_ms', 'bound_ms', 'library_ms',
+            'bound_f32_cuda_cores_ms')
+    total = {k: sum(rec[k] for rec in shapes) for k in keys
+             if k in shapes[0]}
     ops_s = sum(rec.get('ops_s', rec['flops'] / PEAK_F32_FLOPS)
                 for rec in shapes)
     nbytes = sum(rec['bytes'] for rec in shapes)
@@ -732,19 +772,22 @@ def _mdcn_backward_integer_case(dcn, gen, dtype=torch.float32):
 
 
 def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
-    """The fused bf16 backward's entry points alone at one shape: dgrad and
-    wgrad with the ordered sum of its partials (the ones the training step
-    launches), and dgrad's grad-x scatter variant, each with its bound,
-    plain version and library call. Each entry point's record carries the
-    errors of what its own launch wrote against ``want``, the plain
-    version's gradients by name: dgrad grad offset and grad mask, the
+    """The fused backward's entry points alone at one shape, at x's type:
+    dgrad and wgrad with the ordered sum of its partials (the ones the
+    training step launches), and dgrad's grad-x scatter variant, each with
+    its bound, plain version and library call. Each entry point's record
+    carries the errors of what its own launch wrote against ``want``, the
+    plain version's gradients by name: dgrad grad offset and grad mask, the
     scatter variant also grad x, wgrad and the sum grad weight and grad
     bias."""
     n, h, _, c = x.shape
+    dtype = x.dtype
+    size = x.element_size()
     rows = n * h * h
     geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, h))
     fused = dcn._fused_args(x, offset, weight, geom)
-    splits, split_patches = dcn._wgrad_slices(n, h, h, 9, c, c)
+    splits, split_patches = dcn._wgrad_slices(n, h, h, 9, c, c, dtype)
+    _, k_dgrad, k_scatter, k_wgrad, k_sum = dcn._fused_kernels(dtype)
     g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
     g_x = torch.zeros_like(x, dtype=torch.float32)
     partial = torch.empty((splits, 9 * c + 1, c), device='cuda')
@@ -752,14 +795,12 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
     head = (cot.data_ptr(), x.data_ptr(), offset.data_ptr(), mask.data_ptr())
     dgrad = (*head, weight.data_ptr(), g_off.data_ptr(), g_mask.data_ptr())
     launch = {
-        'dgrad': lambda: dcn.mdcn_fused_dgrad_bf16_kernel(*dgrad, *fused),
-        'dgrad_scatter': lambda: dcn.mdcn_fused_dgrad_scatter_bf16_kernel(
-            *dgrad, g_x.data_ptr(), *fused),
-        'wgrad': lambda: dcn.mdcn_fused_wgrad_bf16_kernel(
-            *head, partial.data_ptr(), splits, split_patches, *fused),
-        'wgrad_sum': lambda: dcn.mdcn_fused_wgrad_sum_bf16_kernel(
-            partial.data_ptr(), total.data_ptr(), splits, total.numel(),
-            fused[-1])}
+        'dgrad': lambda: k_dgrad(*dgrad, *fused),
+        'dgrad_scatter': lambda: k_scatter(*dgrad, g_x.data_ptr(), *fused),
+        'wgrad': lambda: k_wgrad(*head, partial.data_ptr(), splits,
+                                 split_patches, *fused),
+        'wgrad_sum': lambda: k_sum(partial.data_ptr(), total.data_ptr(),
+                                   splits, total.numel(), fused[-1])}
 
     def written(part):
         """What one launch of ``part`` writes, by name, as the Function
@@ -773,11 +814,12 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
         if part == 'wgrad':
             launch['wgrad_sum']()
         if part.startswith('wgrad'):
-            return {'weight': total[:-1].reshape(weight.shape).to(BF16),
-                    'bias': total[-1].to(BF16)}
+            return {'weight': total[:-1].reshape(weight.shape).to(
+                        dtype, copy=True),
+                    'bias': total[-1].to(dtype, copy=True)}
         got = {'offset': g_off.clone(), 'mask': g_mask.clone()}
         if part == 'dgrad_scatter':
-            got['x'] = g_x.to(BF16)
+            got['x'] = g_x.to(dtype, copy=True)
         return got
 
     outs = {part: written(part) for part in launch}
@@ -800,18 +842,19 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
                                                    retain_graph=True))
 
     ordered = lambda: sum(partial[i] for i in range(1, splits))  # noqa: E731
-    mm = (2.0 * rows * 9 * c * c, PEAK_BF16_FLOPS)
+    macs = rows * 9.0 * c * c
+    mm = _k2_products(macs, dtype)
     col2im = (20.0 * rows * 9 * c, PEAK_F32_FLOPS)
     sample = (9.0 * rows * 9 * c, PEAK_F32_FLOPS)
     # every input read once, every output written once: grad offset (f32)
     # and mask, grad x (f32), the f32 partials of grad weight and bias
-    ins = 2 * (cot.numel() + x.numel() + mask.numel()) \
+    ins = size * (cot.numel() + x.numel() + mask.numel()) \
         + 4.0 * offset.numel()
-    outs_bytes = 2 * mask.numel() + 4.0 * offset.numel()
+    outs_bytes = size * mask.numel() + 4.0 * offset.numel()
     spec = {
-        'dgrad': ([mm, col2im], ins + 2 * weight.numel() + outs_bytes,
+        'dgrad': ([mm, col2im], ins + size * weight.numel() + outs_bytes,
                   lambda: plain((1, 2)), lambda: library(x_nchw)),
-        'dgrad_scatter': ([mm, col2im], ins + 2 * weight.numel()
+        'dgrad_scatter': ([mm, col2im], ins + size * weight.numel()
                           + outs_bytes + 4.0 * x.numel(),
                           lambda: plain((0, 1, 2)), lambda: library(x_nchw)),
         'wgrad': ([mm, sample], ins + 4.0 * partial.numel(),
@@ -829,12 +872,17 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
         got = outs[part]
         errs = {name: _rel_err(g.float(), want[name].float())
                 for name, g in got.items()}
+        tol = K2_BF16_TOL if dtype == BF16 else GRAD_REL_TOL
         for name, err in errs.items():
-            check(err <= K2_BF16_TOL, f'{part} alone, C={c}: grad {name} '
+            check(err <= tol, f'{part} alone, C={c} {dtype}: grad {name} '
                   f'differs by {err} of its max')
+        products = part in ('dgrad', 'dgrad_scatter', 'wgrad')
         recs[part] = {
             'ms': ms, 'kernel_only_ms': ms, 'plain_ms': plain_ms(),
             'library_ms': library_ms(), 'bound_ms': bound(flops, nbytes)[0],
+            'bound_f32_cuda_cores_ms': (
+                _k2_cores_bound(macs, flops[1:], nbytes) if products
+                else bound(flops, nbytes)[0]),
             'flops': sum(f for f, _ in flops),
             'ops_s': sum(f / p for f, p in flops), 'bytes': nbytes,
             'max_abs_err': max(float((g.float() - want[name].float())
@@ -846,14 +894,13 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
 
 def phase_mdcn_backward(dcn, dtype=torch.float32):
     """K2's backward against autograd through the plain version, at the
-    three training shapes, every gradient (x's too: at bf16 through
-    dgrad's scatter variant): f32 (mdcn_col2im + two matmuls) or bf16 (the
-    fused kernels, then again as the training step runs them, x frozen:
-    dgrad, wgrad and the sum, every gradient checked and two calls
-    bit-equal in grad offset, grad mask, grad weight and grad bias), the
-    offset f32 either way. Returns the records of the ``kernels`` line: at
-    f32 one, at bf16 one for each fused backward entry point, alone, with
-    the errors of what it wrote."""
+    three training shapes, every gradient (x's too, through dgrad's scatter
+    variant): the fused kernels, f32 (3xTF32) or bf16, then again as the
+    training step runs them, x frozen: dgrad, wgrad and the sum, every
+    gradient checked and two calls bit-equal in grad offset, grad mask,
+    grad weight and grad bias; the offset f32 either way. Returns the
+    records of the ``kernels`` line, one for each fused backward entry
+    point, alone, with the errors of what it wrote."""
     gen = torch.Generator().manual_seed(SEED + 4)
     n = TRAIN_B * T
     names = ('x', 'offset', 'mask', 'weight', 'bias')
@@ -879,32 +926,28 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
             abs_err = max(abs_err, float((g.float() - w.float()).abs().max()))
             check(errs[name] <= tol, f'mdcn backward C={c} {dtype}: grad '
                   f'{name} differs by {errs[name]} of its max')
-        extra = {}
-        if bf16:
-            # as the training step runs it (x a frozen feature: dgrad
-            # without its scatter, wgrad, the sum); fixed-order sums, so a
-            # second call gives the same bits
-            step = _mdcn_grads(dcn.modulated_deform_conv2d, args, cot,
-                               STEP_WRT)
-            again = _mdcn_grads(dcn.modulated_deform_conv2d, args, cot,
-                                STEP_WRT)
-            extra['step_rel_err'] = {
-                names[i]: _rel_err(g.float(), want[i].float())
-                for i, g in zip(STEP_WRT, step)}
-            for name, err in extra['step_rel_err'].items():
-                check(err <= tol, f'mdcn backward C={c} as the step runs '
-                      f'it: grad {name} differs by {err} of its max')
-            abs_err = max(abs_err, *(float((g.float() - want[i].float())
-                                           .abs().max())
-                                     for i, g in zip(STEP_WRT, step)))
-            extra['bit_equal_rerun'] = {
-                names[i]: bool(torch.equal(g, g2))
-                for i, g, g2 in zip(STEP_WRT, step, again)}
-            check(all(extra['bit_equal_rerun'].values()), f'mdcn backward '
-                  f'C={c}: two calls differ: {extra["bit_equal_rerun"]}')
-            del step, again
-            parts.append(_fused_backward_parts(
-                dcn, x, offset, mask, weight, cot, dict(zip(names, want))))
+        # as the training step runs it (x a frozen feature: dgrad without
+        # its scatter, wgrad, the sum); fixed-order sums, so a second call
+        # gives the same bits
+        step = _mdcn_grads(dcn.modulated_deform_conv2d, args, cot, STEP_WRT)
+        again = _mdcn_grads(dcn.modulated_deform_conv2d, args, cot, STEP_WRT)
+        extra = {'step_rel_err': {names[i]: _rel_err(g.float(),
+                                                     want[i].float())
+                                  for i, g in zip(STEP_WRT, step)}}
+        for name, err in extra['step_rel_err'].items():
+            check(err <= tol, f'mdcn backward C={c} {dtype} as the step runs '
+                  f'it: grad {name} differs by {err} of its max')
+        abs_err = max(abs_err, *(float((g.float() - want[i].float())
+                                       .abs().max())
+                                 for i, g in zip(STEP_WRT, step)))
+        extra['bit_equal_rerun'] = {
+            names[i]: bool(torch.equal(g, g2))
+            for i, g, g2 in zip(STEP_WRT, step, again)}
+        check(all(extra['bit_equal_rerun'].values()), f'mdcn backward '
+              f'C={c} {dtype}: two calls differ: {extra["bit_equal_rerun"]}')
+        del step, again
+        parts.append(_fused_backward_parts(
+            dcn, x, offset, mask, weight, cot, dict(zip(names, want))))
         del got, want
 
         # the step's backward through the Function, timed
@@ -915,32 +958,12 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
             out_k, inputs[1:], cot, retain_graph=True)
         rows = n * h * h
         ms = cuda_ms(grad_k)
-        if bf16:    # the kernels the step launches here, alone
-            kernel_ms = sum(rec['ms'] for part, rec in parts[-1].items()
-                            if part != 'dgrad_scatter')
-            scatter_ms = parts[-1]['dgrad_scatter']['ms']
-            extra.update(chunks=0, **{f'{part}_ms': rec['ms']
-                                      for part, rec in parts[-1].items()})
-        else:
-            geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, h))
-            chunks = dcn._row_chunks(rows, 9, c, size)
-            grad_col = torch.randn((chunks[0][1], 9, c), device='cuda')
-            g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
-            g_x = torch.zeros_like(x, dtype=torch.float32)
-
-            def col2im_only(grad_x=None):
-                for row0, nrows in chunks:
-                    dcn._col2im_cuda(grad_col[:nrows], x, offset, mask,
-                                     g_off, g_mask, grad_x, row0, nrows,
-                                     geom)
-
-            kernel_ms = cuda_ms(col2im_only)
-            scatter_ms = cuda_ms(lambda: col2im_only(g_x))
-            extra['chunks'] = len(chunks)
-            # grad bias, go.sum(0) in the Function, part of ms
-            extra['bias_grad_ms'] = cuda_ms(
-                lambda: cot.reshape(-1, c).sum(0))
-            del grad_col, g_off, g_mask, g_x
+        # the kernels the step launches here, alone
+        kernel_ms = sum(rec['ms'] for part, rec in parts[-1].items()
+                        if part != 'dgrad_scatter')
+        scatter_ms = parts[-1]['dgrad_scatter']['ms']
+        extra.update(chunks=0, **{f'{part}_ms': rec['ms']
+                                  for part, rec in parts[-1].items()})
         del out_k
         out_p = dcn.modulated_deform_conv2d_ref(*inputs, deform_groups=8)
         plain_ms = cuda_ms(lambda: torch.autograd.grad(
@@ -959,8 +982,9 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
         # two products (grad weight, grad columns) at the dtype's rate and
         # the bilinear derivative per column element on CUDA cores; bytes
         # without grad x (the offset and its gradient f32)
-        flops = [(4.0 * rows * 9 * c * c, peak_of(dtype)),
-                 (20.0 * rows * 9 * c, PEAK_F32_FLOPS)]
+        macs = 2.0 * rows * 9 * c * c
+        other = [(20.0 * rows * 9 * c, PEAK_F32_FLOPS)]
+        flops = [_k2_products(macs, dtype), *other]
         nbytes = size * (cot.numel() + x.numel() + 2 * mask.numel()
                          + 2 * weight.numel() + bias.numel()) \
             + 4.0 * 2 * offset.numel()
@@ -968,6 +992,8 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
                'kernel_only_with_grad_x_ms': scatter_ms,
                'plain_ms': plain_ms, 'library_ms': library_ms,
                'bound_ms': bound(flops, nbytes)[0],
+               'bound_f32_cuda_cores_ms': _k2_cores_bound(macs, other,
+                                                          nbytes),
                'flops': sum(f for f, _ in flops),
                'ops_s': sum(f / p for f, p in flops),
                'bytes': nbytes, 'max_abs_err': abs_err,
@@ -984,16 +1010,12 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
     emit({'phase': 'mdcn_backward_bf16' if bf16 else 'mdcn_backward',
           'case': 'integer offsets', 'tolerance': tol,
           **_mdcn_backward_integer_case(dcn, gen, dtype)})
-    library = (f'autograd of F.conv2d (cuDNN) at the same shapes in {dtype}:'
-               ' grad input, grad weight and grad bias, a lower bound (no '
-               'gather)')
-    if not bf16:
-        return [_sum_records('mdcn_col2im', shapes,
-                             {'library_call': library})]
-    whole = _sum_records('mdcn_backward_bf16', shapes, {})
-    emit({'phase': 'mdcn_backward_bf16', 'case': 'the training shapes summed',
+    tag = '_bf16' if bf16 else ''
+    whole = _sum_records(f'mdcn_backward{tag}', shapes, {})
+    emit({'phase': f'mdcn_backward{tag}', 'case': 'the training shapes summed',
           **{k: whole[k] for k in ('ms', 'kernel_only_ms', 'plain_ms',
-                                   'library_ms', 'bound_ms', 'bound_by')},
+                                   'library_ms', 'bound_ms',
+                                   'bound_f32_cuda_cores_ms', 'bound_by')},
           'ms_is': 'the whole backward through the Function; '
                    'kernel_only_ms: its fused kernels alone'})
     calls = {'dgrad': 'autograd of F.conv2d (cuDNN): grad input',
@@ -1001,7 +1023,7 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
              'wgrad': 'autograd of F.conv2d (cuDNN): grad weight; its '
                       'partials hold grad bias too',
              'wgrad_sum': 'torch.sum of the partials over the slices'}
-    return [_sum_records(f'mdcn_fused_{part}_bf16',
+    return [_sum_records(f'mdcn_fused_{part}{tag}',
                          [shape[part] for shape in parts],
                          {'library_call': call + '; at the training shapes '
                           'where the step launches it'})
@@ -1278,27 +1300,34 @@ def _dcn_variant(dcn, gen, groups, masked, padding):
 
 def phase_mdcn_groups(dcn):
     """K3: DCNv2 with conv groups 2 and 8 at EDVR-M's L1 shape against its
-    plain version, forward and every gradient; and with groups 1 the
-    group-major columns of the K3 entry point bit-equal to K2's."""
+    plain version, forward and every gradient; and with groups 1 the K3
+    entry point's columns times the weight against K2's fused forward."""
     gen = torch.Generator().manual_seed(SEED + 16)
     recs = [_dcn_variant(dcn, gen, g, True, 1) for g in (2, 8)]
     n, h, w, c = EDVR_L1
     x = torch.randn((n, h, w, c), generator=gen).cuda()
     offset = (torch.randn((n, h, w, 8, 9, 2), generator=gen) * 4).cuda()
     mask = torch.rand((n, h, w, 8, 9), generator=gen).cuda()
+    weight = (torch.randn((3, 3, c, c), generator=gen) * 0.02).cuda()
     geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, w))
     rows = dcn._row_chunks(n * h * w, 9, c, 4)[0][1]
-    col_k2 = dcn._im2col_cuda(x, offset, mask, 0, rows, geom, 1)
-    col_k3 = torch.empty_like(col_k2)
+    col_k3 = torch.empty((1, rows, 9, c), device='cuda')
     with torch.cuda.device(x.device):
         dcn.mdcn_im2col_groups_kernel(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
             col_k3.data_ptr(), 0, rows, h, w, c,
             *dcn._geom_args(geom, 8, 1))
-    same = bool(torch.equal(col_k2, col_k3))
-    check(same, 'groups 1: the K3 entry point does not give K2\'s columns')
-    emit({'phase': 'mdcn_groups', 'case': 'groups 1 through both entry '
-          'points', 'rows': rows, 'bit_equal': same})
+    out_k3 = torch.mm(col_k3.reshape(rows, 9 * c), weight.reshape(9 * c, c))
+    out_k2 = dcn.modulated_deform_conv2d(
+        x, offset, mask, weight, deform_groups=8).reshape(-1, c)[:rows]
+    err = _rel_err(out_k2, out_k3)
+    check(err <= K2_REL_TOL, f'groups 1: the K3 entry point\'s columns '
+          f'times the weight differ from K2\'s fused forward by {err} of '
+          'the max')
+    emit({'phase': 'mdcn_groups', 'case': 'groups 1: K3\'s columns x W '
+          'against K2', 'rows': rows, 'max_rel_err': err,
+          'tolerance': K2_REL_TOL})
+    del col_k3, out_k3, out_k2
     call = ('F.conv2d (cuDNN) with groups={2, 8}: the same conv with zero '
             'offsets and unit mask')
     return (_sum_records('mdcn_im2col_groups', [r[0] for r in recs], {
@@ -1766,9 +1795,11 @@ def kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act):
                 correlation.feature_match_prologue_bf16_kernel,
             'feature_match': correlation.feature_match_kernel,
             'feature_match_sharded': correlation.feature_match_sharded_kernel,
-            'mdcn_im2col': dcn.mdcn_im2col_kernel,
-            'mdcn_col2im': dcn.mdcn_col2im_kernel,
-            'mdcn_col2im_scatter': dcn.mdcn_col2im_scatter_kernel,
+            'mdcn_fused_fwd': dcn.mdcn_fused_fwd_kernel,
+            'mdcn_fused_dgrad': dcn.mdcn_fused_dgrad_kernel,
+            'mdcn_fused_dgrad_scatter': dcn.mdcn_fused_dgrad_scatter_kernel,
+            'mdcn_fused_wgrad': dcn.mdcn_fused_wgrad_kernel,
+            'mdcn_fused_wgrad_sum': dcn.mdcn_fused_wgrad_sum_kernel,
             'mdcn_im2col_groups': dcn.mdcn_im2col_groups_kernel,
             'mdcn_col2im_groups': dcn.mdcn_col2im_groups_kernel,
             'mdcn_col2im_groups_scatter':
@@ -1826,8 +1857,9 @@ def read_counts(kernels, expect, forbid=()):
 # K2's forward, K2's backward, K4's forward and backward
 ENTRIES = {
     torch.float32: {'match': ('feature_match_prologue', 'feature_match'),
-                    'k2': ('mdcn_im2col',),
-                    'k2_bwd': ('mdcn_col2im',),
+                    'k2': ('mdcn_fused_fwd',),
+                    'k2_bwd': ('mdcn_fused_dgrad', 'mdcn_fused_wgrad',
+                               'mdcn_fused_wgrad_sum'),
                     'k4': ('deform_sample_fwd',),
                     'k4_bwd': ('deform_sample_bwd',)},
     BF16: {'match': ('feature_match_prologue_bf16', 'feature_match_bf16'),
@@ -1837,7 +1869,7 @@ ENTRIES = {
            'k4': ('deform_sample_fwd_bf16',),
            'k4_bwd': ('deform_sample_bwd_bf16',)}}
 F32_ENTRIES = sum(ENTRIES[torch.float32].values(), ())
-SCATTERS = ('mdcn_col2im_scatter', 'deform_sample_bwd_scatter',
+SCATTERS = ('mdcn_fused_dgrad_scatter', 'deform_sample_bwd_scatter',
             'mdcn_fused_dgrad_scatter_bf16', 'deform_sample_bwd_scatter_bf16')
 
 
@@ -1946,7 +1978,6 @@ def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels,
         model.test()
     out_k = model.output.clone()
     with mock.patch.object(correlation, '_match_patches_cuda', match_plain), \
-            mock.patch.object(dcn, '_im2col_cuda', dcn._im2col_ref), \
             mock.patch.object(dcn, '_mdcn_fused_forward_cuda',
                               dcn._mdcn_fused_forward_ref):
         model.test()
@@ -2065,8 +2096,6 @@ def _compare_grads(model, arch, dcn, batch):
                 stack.enter_context(mock.patch.object(
                     arch, 'deform_sample', dcn.deform_sample_ref))
             if plain_forward:
-                stack.enter_context(mock.patch.object(
-                    dcn, '_im2col_cuda', dcn._im2col_ref))
                 stack.enter_context(mock.patch.object(
                     dcn, '_mdcn_fused_forward_cuda',
                     dcn._mdcn_fused_forward_ref))
@@ -2205,11 +2234,12 @@ def _only(kernels, launches, expect):
 
 
 def _kernel_vs_plain(run, dcn):
-    """``run()``'s output through the kernels and with the plain im2col in
-    their place; returns both and the largest difference."""
+    """``run()``'s output through the kernels and with the plain K2 forward
+    in their place; returns both and the largest difference."""
     with torch.inference_mode():
         out_k = run()
-        with mock.patch.object(dcn, '_im2col_cuda', dcn._im2col_ref):
+        with mock.patch.object(dcn, '_mdcn_fused_forward_cuda',
+                               dcn._mdcn_fused_forward_ref):
             out_p = run()
     return out_k, out_p, float((out_k - out_p).abs().max())
 
@@ -2241,12 +2271,13 @@ def phase_basicvsrpp_serve(infer, infer_pp, dcn, kernels):
         frames = infer.inference(imgs, model)
         torch.cuda.synchronize()
         chunk_ms.append((time.perf_counter() - t0) * 1e3)
-        launches = read_counts(kernels, ('mdcn_im2col',))
-        _only(kernels, launches, ('mdcn_im2col',))
+        launches = read_counts(kernels, ('mdcn_fused_fwd',))
+        _only(kernels, launches, ('mdcn_fused_fwd',))
     peak = torch.cuda.max_memory_allocated()
-    # 4 branches x 14 aligned frames, one column chunk each
-    check(launches['mdcn_im2col'] == 4 * (VSR_T - 1),
-          f'a chunk launched K2 {launches["mdcn_im2col"]} times, expected 56')
+    # 4 branches x 14 aligned frames, one launch each
+    check(launches['mdcn_fused_fwd'] == 4 * (VSR_T - 1),
+          f'a chunk launched K2 {launches["mdcn_fused_fwd"]} times, expected '
+          '56')
     check(len(frames) == VSR_T and all(
         f.shape == (4 * VSR_H, 4 * VSR_W, 3) and f.dtype == np.uint8
         for f in frames) and float(np.std(frames[7])) > 0, 'output frames')
@@ -2304,8 +2335,8 @@ def phase_edvr(edvr_arch, arch_util, dcn, kernels):
         out = window()
         torch.cuda.synchronize()
         window_ms.append((time.perf_counter() - t0) * 1e3)
-        launches = read_counts(kernels, ('mdcn_im2col',))
-        _only(kernels, launches, ('mdcn_im2col',))
+        launches = read_counts(kernels, ('mdcn_fused_fwd',))
+        _only(kernels, launches, ('mdcn_fused_fwd',))
     peak = torch.cuda.max_memory_allocated()
     check(out.shape == (1, 3, 4 * VSR_H, 4 * VSR_W)
           and bool(torch.isfinite(out).all()), f'output {tuple(out.shape)}')
@@ -3224,8 +3255,9 @@ def phase_ddp():
         'feature_match_sharded', 'feature_match_sharded_bf16',
         'feature_match_prologue', 'feature_match_prologue_bf16')) and all(
         r['ddp_train']['launches_3_steps'][k] > 0 for r in reports
-        for k in ('feature_match_prologue', 'feature_match', 'mdcn_im2col',
-                  'mdcn_col2im')),
+        for k in ('feature_match_prologue', 'feature_match', 'mdcn_fused_fwd',
+                  'mdcn_fused_dgrad', 'mdcn_fused_wgrad',
+                  'mdcn_fused_wgrad_sum')),
           f'kernels not launched on the ddp path: {launches}')
     scatter = [k for k in launches if '_scatter' in k and launches[k]]
     check(not scatter, f'grad-x scatter launched on the ddp path: {scatter}')
@@ -3256,9 +3288,9 @@ def phase_ddp():
 # Adam) as other
 OWN_KERNELS = ('prologue_kernel', 'split_tf32_kernel',
                '::Tf32x3>', '::Bf16>',     # fm::match_kernel<...>
-               'mdcn_im2col_kernel', 'mdcn_fused_fwd_kernel',
-               'mdcn_fused_dgrad_kernel', 'mdcn_fused_wgrad_kernel',
-               'mdcn_fused_wgrad_sum_kernel',
+               'mdcn_im2col_kernel', 'mdcn_fused::fwd_kernel',
+               'mdcn_fused::dgrad_kernel', 'mdcn_fused::wgrad_kernel',
+               'mdcn_fused::wgrad_sum_kernel',
                'mdcn_col2im_kernel', 'deform_sample_fwd_kernel',
                'deform_sample_bwd_kernel', 'upfirdn2d_kernel',
                'fused_leaky_relu_fwd_kernel', 'fused_leaky_relu_bwd_kernel')
@@ -3386,7 +3418,8 @@ def main():
     torch.cuda.empty_cache()
     k2 = phase_mdcn(dcn)
     k2['train_shape'] = phase_mdcn(dcn, n=TRAIN_B * T, shapes=TRAIN_SHAPES)
-    k2b, = phase_mdcn_backward(dcn)
+    k2['video_shapes'] = phase_mdcn(dcn, video=True)
+    k2b = phase_mdcn_backward(dcn)
     k4f, k4b = phase_deform_sample(dcn)
     torch.cuda.empty_cache()
     k3f, k3b = phase_mdcn_groups(dcn)
@@ -3441,8 +3474,7 @@ def main():
         (k6, 'feature_match.cu', K6_TPU),
         *bf16_described,
         (k6b, 'feature_match_bf16.cu', K6_TPU),
-        (k2, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
-        (k2b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:111'),
+        *((rec, 'mdcn_fused.cu', K2_TPU) for rec in [k2, *k2b]),
         (k3f, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:214'),
         (k3b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:214'),
         (k5f, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:345'),

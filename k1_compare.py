@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time K1 and the paths it sits on in one checkout, with that checkout's own
-``chip_smoke.py`` phases, so that two commits can be compared in one call on
-one card (run it once per checkout, in turns: A, B, B, A).
+"""Time K1, or K2, and the paths it sits on in one checkout, with that
+checkout's own ``chip_smoke.py`` phases, so that two commits can be compared
+in one call on one card (run it once per checkout, in turns: A, B, B, A).
 
     python3 k1_compare.py --checkout DIR
+    python3 k1_compare.py --checkout DIR --k2
 
 ``DIR`` is the root of a checkout (this one by default). From its
 ``chip_smoke.py`` the script runs: the device and build phases; K1's phase
@@ -17,8 +18,18 @@ warm-ups, by this script's timer put in place of the checkout's
 ``cuda_ms``, so that both checkouts are timed alike. Where the checkout
 has K1's prologue, a last line (``k1_clocks``) runs K1 bf16 at the eval
 shape back to back, the function and then the match kernel alone, while
-``nvidia-smi`` samples the SM clock and the power draw. Needs one CUDA
-device and ``nvcc``.
+``nvidia-smi`` samples the SM clock and the power draw.
+
+With ``--k2`` it runs instead: the device and build phases; K2 through the
+checkout's ``modulated_deform_conv2d`` (``k2_function`` lines), forward at
+the CUFED5 eval, the stage-3 training and the video nets' shapes in f32
+and at the eval and training shapes in bf16, and the backward as the
+training step takes it (x frozen) at the training shapes, each with the
+peak memory of the call; the f32 and bf16 requests with a profile each;
+the f32 ``dcn`` and ``flow`` steps and the bf16 ``dcn`` step; a BasicVSR++
+chunk and an EDVR-M window; and the two-rank ``ddp`` phase. The K2 inputs
+are made here, from a seed, so that every checkout gets the same. Needs
+one CUDA device and ``nvcc``.
 """
 import argparse
 import importlib
@@ -102,10 +113,122 @@ def clock_probe(smoke, correlation, runs=200):
                         fin, fref, norm_input=True), runs)})
 
 
+# K2's shapes, (N, C, Cout, H, W, deform groups): CUFED5 eval (relu3_1,
+# relu2_1, relu1_1 of 5 refs at 500x500), stage-3 training (B 6 x 5 refs,
+# gt 160), and the video nets' (a BasicVSR++ alignment on one 180x320
+# frame, 2 x 64 channels in, 16 groups; EDVR-M's L1 on 5 frames)
+K2_SHAPES = {
+    'eval': [(5, 256, 256, 125, 125, 8), (5, 128, 128, 250, 250, 8),
+             (5, 64, 64, 500, 500, 8)],
+    'train': [(30, 256, 256, 40, 40, 8), (30, 128, 128, 80, 80, 8),
+              (30, 64, 64, 160, 160, 8)],
+    'video': [(1, 128, 64, 180, 320, 16), (5, 64, 64, 180, 320, 8)]}
+
+
+def _k2_inputs(gen, n, c, cout, h, w, dg, dtype):
+    """x, offset (f32), mask, weight, bias on the card, seeded."""
+    x = torch.randn((n, h, w, c), generator=gen)
+    offset = torch.randn((n, h, w, dg, 9, 2), generator=gen) * 4
+    mask = torch.rand((n, h, w, dg, 9), generator=gen)
+    weight = torch.randn((3, 3, c, cout), generator=gen) * 0.02
+    bias = torch.randn((cout,), generator=gen) * 0.1
+    return [t.cuda() if t is offset else t.to(dtype).cuda()
+            for t in (x, offset, mask, weight, bias)]
+
+
+def _peak_of(fn):
+    """The peak device memory one call of ``fn`` takes above what was
+    allocated before it, in bytes."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
+def k2_functions(smoke, dcn):
+    """K2 through ``modulated_deform_conv2d``: the forward at every shape of
+    ``K2_SHAPES`` (video in f32 only), the backward as the training step
+    takes it (offset, mask, weight and bias; x frozen) at the training
+    shapes; one line a shape and a line of sums a group."""
+    gen = torch.Generator().manual_seed(smoke.SEED + 40)
+    for dtype in (torch.float32, smoke.BF16):
+        for group, shapes in K2_SHAPES.items():
+            if group == 'video' and dtype == smoke.BF16:
+                continue
+            total = {'fwd_ms': 0.0, 'bwd_ms': 0.0}
+            for n, c, cout, h, w, dg in shapes:
+                args = _k2_inputs(gen, n, c, cout, h, w, dg, dtype)
+
+                def fwd():
+                    return dcn.modulated_deform_conv2d(*args, deform_groups=dg)
+
+                rec = {'phase': 'k2_function', 'dtype': str(dtype),
+                       'group': group, 'n': n, 'c': c, 'cout': cout, 'h': h,
+                       'w': w, 'deform_groups': dg, 'fwd_ms': median_ms(fwd),
+                       'fwd_peak_bytes': _peak_of(fwd)}
+                if group == 'train':
+                    inputs = [a.detach().requires_grad_(i > 0)
+                              for i, a in enumerate(args)]
+                    out = dcn.modulated_deform_conv2d(*inputs,
+                                                      deform_groups=dg)
+                    cot = torch.randn(out.shape, generator=gen).to(
+                        dtype).cuda()
+
+                    def bwd():
+                        return torch.autograd.grad(out, inputs[1:], cot,
+                                                   retain_graph=True)
+
+                    rec['bwd_ms'] = median_ms(bwd)
+                    rec['bwd_peak_bytes'] = _peak_of(bwd)
+                    del out, inputs, cot
+                smoke.emit(rec)
+                for key in total:
+                    total[key] += rec.get(key, 0.0)
+                del args
+                torch.cuda.empty_cache()
+            smoke.emit({'phase': 'k2_function', 'dtype': str(dtype),
+                        'group': group, 'case': 'shapes summed', **total})
+
+
+def main_k2(smoke, build_model, arch, correlation, dcn, kernels):
+    """``--k2``: see the module docstring."""
+    from mrefsr_tpu_torch.archs import arch_util, edvr_arch
+    from mrefsr_tpu_torch.inference import (inference_basicvsr,
+                                            inference_basicvsrpp)
+    k2_functions(smoke, dcn)
+    torch.cuda.empty_cache()
+    for dtype in (torch.float32, smoke.BF16):
+        _, model, batch = smoke.phase_slice(build_model, arch.DynAgg,
+                                            correlation, dcn, kernels, dtype)
+
+        def one_request():
+            model.feed_data(batch)
+            model.test()
+
+        smoke.phase_profile('slice_bf16' if dtype == smoke.BF16 else 'slice',
+                            one_request)
+        del model
+        torch.cuda.empty_cache()
+    for alignment, dtype in (('dcn', torch.float32), ('flow', torch.float32),
+                             ('dcn', smoke.BF16)):
+        smoke.phase_train(alignment, build_model, arch, dcn, kernels, dtype)
+        torch.cuda.empty_cache()
+    smoke.phase_basicvsrpp_serve(inference_basicvsr, inference_basicvsrpp,
+                                 dcn, kernels)
+    torch.cuda.empty_cache()
+    smoke.phase_edvr(edvr_arch, arch_util, dcn, kernels)
+    torch.cuda.empty_cache()
+    smoke.phase_ddp()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--checkout', default=os.path.dirname(
         os.path.abspath(__file__)))
+    parser.add_argument('--k2', action='store_true',
+                        help='time K2 and its paths instead of K1\'s')
     args = parser.parse_args()
     root = os.path.abspath(args.checkout)
     sys.path.insert(0, root)
@@ -127,6 +250,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smoke.phase_build(_build.build)
+    if args.k2:
+        main_k2(smoke, build_model, arch, correlation, dcn,
+                smoke.kernel_objects(correlation, dcn, ops_upfirdn2d,
+                                     fused_act))
+        return
     for dtype in (torch.float32, smoke.BF16):
         smoke.phase_feature_match(correlation, dtype=dtype)
         smoke.phase_feature_match(correlation, pairs=smoke.TRAIN_B * smoke.T,

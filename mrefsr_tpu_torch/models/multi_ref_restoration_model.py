@@ -40,6 +40,7 @@ from mrefsr_tpu_torch.convert import drop_buffer_keys, state_dict_from_flax
 from mrefsr_tpu_torch.data.loader import default_collate
 from mrefsr_tpu_torch.losses import legacy_losses
 from mrefsr_tpu_torch.metrics import calculate_psnr, calculate_ssim
+from mrefsr_tpu_torch.ops.cpu_bf16 import f32_products
 from mrefsr_tpu_torch.parallel import data_parallel
 from mrefsr_tpu_torch.utils import imwrite, tensor2img
 from mrefsr_tpu_torch.utils.dist_util import get_dist_info
@@ -283,19 +284,22 @@ class MultiRefRestorationModel(BaseModel):
         return out.permute(0, 2, 3, 1).float()
 
     def _run(self, net, dtype, cached, *args):
-        """``net(*args)`` with its parameters and buffers in ``dtype``."""
+        """``net(*args)`` with its parameters and buffers in ``dtype``; at
+        bf16 on the CPU its convolutions and products in f32, rounded once
+        (:func:`~mrefsr_tpu_torch.ops.cpu_bf16.f32_products`)."""
         if dtype == torch.float32:
             return net(*args)
-        if not cached:
-            return functional_call(net, cast_tensors(net, dtype), args)
-        sources = [*net.parameters(), *net.buffers()]
-        key = (dtype, tuple((t.data_ptr(), t._version) for t in sources))
-        hit = self._cast_cache.get(id(net))
-        if hit is None or hit[0] != key:
-            with torch.no_grad():
-                hit = self._cast_cache[id(net)] = (key,
-                                                   cast_tensors(net, dtype))
-        return functional_call(net, hit[1], args)
+        with f32_products(self.device):
+            if not cached:
+                return functional_call(net, cast_tensors(net, dtype), args)
+            sources = [*net.parameters(), *net.buffers()]
+            key = (dtype, tuple((t.data_ptr(), t._version) for t in sources))
+            hit = self._cast_cache.get(id(net))
+            if hit is None or hit[0] != key:
+                with torch.no_grad():
+                    hit = self._cast_cache[id(net)] = (
+                        key, cast_tensors(net, dtype))
+            return functional_call(net, hit[1], args)
 
     def _ref_inputs(self, match_img_in, refs, dtype=torch.float32):
         """``(pre_offset, img_ref_feat)`` of ``net_g``, (B, T, ...)

@@ -1,11 +1,11 @@
-// Deformable conv (DCNv2 modulated, or DCNv1 without a mask; any number of
-// conv groups): the deformable im2col of the forward and the col2im of the
-// backward.
+// Deformable conv, DCNv2 (modulated) with conv groups > 1 and DCNv1
+// (without a mask, any number of conv groups): the deformable im2col of the
+// forward and the col2im of the backward.
 //
-// Replaces the gather half of mrefsr_tpu/ops/dcn.py::modulated_deform_conv2d:
-// _mdcn_slab_scan (dcn.py:111-160, conv groups 1) and _mdcn_tap_scan
-// (dcn.py:214-246, conv groups > 1), with _corner_rows_and_weights,
-// _slab_bilinear, _combine_corners and _deform_gather_tap_packed
+// Replaces the gather half of mrefsr_tpu/ops/dcn.py::modulated_deform_conv2d
+// with conv groups > 1, _mdcn_tap_scan (dcn.py:214-246), with
+// _corner_rows_and_weights, _slab_bilinear, _combine_corners and
+// _deform_gather_tap_packed
 // (dcn.py:163-211, 273-293); deform_conv2d (dcn.py:345-366, DCNv1: mask 1,
 // no bias); the row gather of scripts/benchmarks/bench_gather_pallas.py
 // (pallas_take); and, for the backward, the derivative JAX's autodiff takes
@@ -36,23 +36,23 @@
 //
 // Element types. x, mask, col, grad_col and grad_mask are all of the
 // template parameter T; offset and grad_offset are f32 always, and grad_x is
-// an f32 buffer. The entry points below instantiate T = f32 only: the bf16
-// K2 (the JAX package's mixed precision) runs the fused kernels of
-// mdcn_bf16.cu, which keep the columns out of device memory, and K3 / K5
+// an f32 buffer. The entry points below instantiate T = f32 only: K3 and K5
 // have no bf16 path yet (ROADMAP A7, which instantiates these templates at
 // bf16: the corners and the mask read in bf16 and widened, every weight,
 // product and sum f32, a column element rounded to bf16 once where it is
-// stored). The contraction's products are cuBLAS's, in the wrapper.
+// stored). The contraction's products are cuBLAS's, in the wrapper. K2
+// (conv groups 1, with a mask: _mdcn_slab_scan, dcn.py:111-160) runs the
+// fused kernels of mdcn_fused.cuh at both types, which gather the columns
+// into shared memory and contract them there.
 //
 // Bound on the H100: memory. Per element of col the kernels read 4 corners
 // (mostly from L2: neighbouring taps and rows share them) and read or write
 // one value; the offset and mask are read once per (row, g, k) and shared by
-// the group's channels. At the 500x500 relu1_1 scale of one CUFED5 request
-// (N = 5, C = 64) the column is 5 * 250000 * 576 * 4 B = 2.9 GB, written
-// once and read once by the matmul: ~5.8 GB of column traffic against
-// ~1.7 GB of essential bytes per scale. Fusing the gather into the matmul's
-// operand load removes it: mdcn_bf16.cu does so for the bf16 K2; the f32
-// kernels here are later work.
+// the group's channels. At EDVR-M's L1 scale (N = 5, 180x320, C = 64) the
+// column is 5 * 57600 * 576 * 4 B = 0.66 GB, written once and read once by
+// the matmul: ~1.3 GB of column traffic against ~0.4 GB of essential bytes.
+// Fusing the gather into the matmul's operand load removes it, as the
+// fused K2 does (ROADMAP B2).
 //
 // Design: the forward runs one thread per (conv group, row, tap, run of N
 // channels), in the order of col, so a warp writes contiguous bytes of col
@@ -233,11 +233,10 @@ int col2im(const void* grad_col, const void* x, const void* offset,
 
 // Pointers are device pointers of contiguous f32 tensors (x 16-byte
 // aligned); the stream is a cudaStream_t. `rows * kh * kw * c / N` must fit an int. Each returns
-// cudaGetLastError() after its launch. The entry points of one variant
-// differ only in name, so that the wrapper counts the launches of the TPU
-// kernels they replace apart: mdcn_* with groups 1 is K2 (_mdcn_slab_scan),
-// mdcn_*_groups K3 (_mdcn_tap_scan, groups > 1),
-// deform_* K5 (deform_conv2d, no mask, any groups). The col2im entry points
+// cudaGetLastError() after its launch. The entry points name the TPU kernel
+// they replace, so that the wrapper counts their launches apart:
+// mdcn_*_groups K3 (_mdcn_tap_scan, groups > 1), deform_* K5
+// (deform_conv2d, no mask, any groups). The col2im entry points
 // write these rows' entries of the whole grad_offset (and grad_mask); the
 // *_scatter ones also add into grad_x (zero it before the first chunk).
 #define IM2COL_ARGS                                                          \
@@ -250,11 +249,6 @@ int col2im(const void* grad_col, const void* x, const void* offset,
 
 extern "C" {
 
-int mdcn_im2col_launch(const void* x, const void* offset, const void* mask,
-                       void* col, IM2COL_ARGS) {
-  return im2col<float, true>(x, offset, mask, col, IM2COL_PASS);
-}
-
 int mdcn_im2col_groups_launch(const void* x, const void* offset,
                               const void* mask, void* col, IM2COL_ARGS) {
   return im2col<float, true>(x, offset, mask, col, IM2COL_PASS);
@@ -263,21 +257,6 @@ int mdcn_im2col_groups_launch(const void* x, const void* offset,
 int deform_im2col_launch(const void* x, const void* offset, void* col,
                          IM2COL_ARGS) {
   return im2col<float, false>(x, offset, nullptr, col, IM2COL_PASS);
-}
-
-int mdcn_col2im_launch(const void* grad_col, const void* x,
-                       const void* offset, const void* mask,
-                       void* grad_offset, void* grad_mask, IM2COL_ARGS) {
-  return col2im<float, true>(grad_col, x, offset, mask, grad_offset,
-                             grad_mask, nullptr, IM2COL_PASS);
-}
-
-int mdcn_col2im_scatter_launch(const void* grad_col, const void* x,
-                               const void* offset, const void* mask,
-                               void* grad_offset, void* grad_mask,
-                               void* grad_x, IM2COL_ARGS) {
-  return col2im<float, true>(grad_col, x, offset, mask, grad_offset,
-                             grad_mask, grad_x, IM2COL_PASS);
 }
 
 int mdcn_col2im_groups_launch(const void* grad_col, const void* x,

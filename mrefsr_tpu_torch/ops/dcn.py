@@ -7,29 +7,32 @@ plain version (:func:`_im2col_ref` and a matmul), with autograd through it.
 On a CUDA tensor the op is a ``torch.autograd.Function`` that keeps ``x,
 offset, mask, weight`` only and recomputes in the backward what it needs
 (the JAX package's default, full remat); who computes the contraction over
-(tap, channel) depends on the type:
+(tap, channel) depends on the variant:
 
-- float32 (K2 with conv groups 1, K3 with more, K5 without a mask): the
-  kernel of ``csrc/mdcn.cu`` writes the deformable im2col columns, and
-  the contraction is one matmul with the reshaped weight, as the JAX
-  package leaves it to an XLA einsum: ``torch.mm`` for conv groups 1, one
-  ``torch.bmm`` over the groups otherwise (the columns are group-major,
-  ``(groups, rows, K, C/groups)``, so no copy comes between). Rows are
-  processed in chunks so that the column scratch stays under
-  :data:`COL_CAP_BYTES`. The backward recomputes each chunk's columns:
-  grad weight and grad columns are matmuls, and the kernel
-  ``mdcn_col2im`` turns the grad columns into grad offset, grad mask and,
-  where ``x`` needs one, grad x. DCNv1 (:func:`deform_conv2d`) runs the
-  kernels' no-mask variant: no mask is read, made or differentiated.
-- bfloat16 (K2 only: conv groups 1, with a mask): the kernels of
-  ``csrc/mdcn_bf16.cu`` gather the columns into shared memory and contract
-  them there on the tensor cores, in one launch per call, as the JAX
-  package's ``_mdcn_slab_scan`` contracts each tap's slab in its own body:
-  no column matrix, no chunks. The forward is ``mdcn_fused_fwd``; the
+- K2 (conv groups 1, with a mask), float32 or bfloat16: fused kernels
+  gather the columns into shared memory and contract them there on the
+  tensor cores, in one launch per call, as the JAX package's
+  ``_mdcn_slab_scan`` contracts each tap's slab in its own body: no
+  column matrix, no chunks, no matmul. ``csrc/mdcn_fused.cu`` (float32,
+  3xTF32) and ``csrc/mdcn_bf16.cu`` (bfloat16) instantiate one walk,
+  ``csrc/mdcn_fused.cuh``. The forward is ``mdcn_fused_fwd``; the
   backward ``mdcn_fused_dgrad`` (grad offset, grad mask and, in its
   ``_scatter`` variant, grad x) and ``mdcn_fused_wgrad`` (per-slice
   partials of grad weight and grad bias), then ``mdcn_fused_wgrad_sum``
-  adds the partials in a fixed order. K3 and K5 take float32 only.
+  adds the partials in a fixed order; the bf16 entry points carry a
+  ``_bf16`` suffix.
+- K3 (conv groups > 1) and K5 (DCNv1, :func:`deform_conv2d`, no mask),
+  float32 only: the kernel of ``csrc/mdcn.cu`` writes the deformable
+  im2col columns, and the contraction is one matmul with the reshaped
+  weight, as the JAX package leaves it to an XLA einsum: one ``torch.bmm``
+  over the groups (the columns are group-major, ``(groups, rows, K,
+  C/groups)``, so no copy comes between), ``torch.mm`` for DCNv1 with
+  conv groups 1. Rows are processed in chunks so that the column scratch
+  stays under :data:`COL_CAP_BYTES`. The backward recomputes each chunk's
+  columns: grad weight and grad columns are matmuls, and the kernel's
+  col2im turns the grad columns into grad offset, grad mask and, where
+  ``x`` needs one, grad x. DCNv1 runs the kernels' no-mask variant: no
+  mask is read, made or differentiated.
 
 ``deform_sample`` is the K = 1 case without mask or weight
 (``csrc/deform_sample.cu``, forward and backward kernels, either type).
@@ -47,7 +50,10 @@ after that rounding, as at the JAX package's dcn.py:104-107. In the
 backward the grad columns (grad out x W^T) are summed in f32 and rounded
 to bf16 before the bilinear derivative, where JAX's vjp and ``torch.mm``
 round them; grad offset is f32, grad mask bf16 rounded once; grad weight,
-grad bias and grad x are summed in f32 and rounded once.
+grad bias and grad x are summed in f32 and rounded once. In float32 the
+fused kernels take each product as 3xTF32 (lo*hi + hi*lo + hi*hi of TF32
+splits, about 2^-21 of |a||b|) and sum in f32, where the plain version's
+``torch.addmm`` sums exact f32 products; the bias is added to the f32 sum.
 
 Layouts (the JAX package's, NHWC / HWIO):
     x:      (N, H, W, C)
@@ -64,6 +70,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ._build import Kernel
+from .cpu_bf16 import f32_products
 
 # Column scratch per chunk. One CUFED5 request's relu1_1 level needs
 # 5 * 250000 rows * 576 * 4 B = 2.9 GB of columns; 512 MiB keeps the
@@ -74,12 +81,8 @@ COL_CAP_BYTES = 512 << 20
 _GEOM = [ctypes.c_int] * 17 + [ctypes.c_void_p]  # row0 ... dg, groups, stream
 _P = ctypes.c_void_p
 # One C entry point per TPU kernel it replaces, so that their launches count
-# apart: K2 (conv groups 1), K3 (conv groups > 1), K5 (DCNv1, no mask).
-# Without ``_scatter`` the backward writes no grad x.
-mdcn_im2col_kernel = Kernel('mdcn', 'mdcn_im2col_launch', [_P] * 4 + _GEOM)
-mdcn_col2im_kernel = Kernel('mdcn', 'mdcn_col2im_launch', [_P] * 6 + _GEOM)
-mdcn_col2im_scatter_kernel = Kernel('mdcn', 'mdcn_col2im_scatter_launch',
-                                    [_P] * 7 + _GEOM)
+# apart: K3 (conv groups > 1), K5 (DCNv1, no mask). Without ``_scatter`` the
+# backward writes no grad x.
 mdcn_im2col_groups_kernel = Kernel('mdcn', 'mdcn_im2col_groups_launch',
                                    [_P] * 4 + _GEOM)
 mdcn_col2im_groups_kernel = Kernel('mdcn', 'mdcn_col2im_groups_launch',
@@ -92,10 +95,22 @@ deform_col2im_kernel = Kernel('mdcn', 'deform_col2im_launch',
                               [_P] * 4 + _GEOM)
 deform_col2im_scatter_kernel = Kernel('mdcn', 'deform_col2im_scatter_launch',
                                       [_P] * 5 + _GEOM)
-# K2 at bf16, fused (csrc/mdcn_bf16.cu): x, mask, weight, bias, grad out
-# bfloat16, the offset float32. rows, h, w, c, cout, ho, wo, kh, kw, sh, sw,
-# ph, pw, dh, dw, dg, stream.
+# K2, fused: csrc/mdcn_fused.cu (float32) and csrc/mdcn_bf16.cu (x, mask,
+# weight, bias, grad out bfloat16, the offset float32). rows, h, w, c, cout,
+# ho, wo, kh, kw, sh, sw, ph, pw, dh, dw, dg, stream.
 _FUSED = [ctypes.c_int] * 16 + [ctypes.c_void_p]
+mdcn_fused_fwd_kernel = Kernel('mdcn_fused', 'mdcn_fused_fwd_launch',
+                               [_P] * 6 + _FUSED)
+mdcn_fused_dgrad_kernel = Kernel('mdcn_fused', 'mdcn_fused_dgrad_launch',
+                                 [_P] * 7 + _FUSED)
+mdcn_fused_dgrad_scatter_kernel = Kernel(
+    'mdcn_fused', 'mdcn_fused_dgrad_scatter_launch', [_P] * 8 + _FUSED)
+mdcn_fused_wgrad_kernel = Kernel(
+    'mdcn_fused', 'mdcn_fused_wgrad_launch',
+    [_P] * 5 + [ctypes.c_int] * 2 + _FUSED)
+mdcn_fused_wgrad_sum_kernel = Kernel(
+    'mdcn_fused', 'mdcn_fused_wgrad_sum_launch',
+    [_P] * 2 + [ctypes.c_int] * 2 + [_P])
 mdcn_fused_fwd_bf16_kernel = Kernel('mdcn_bf16', 'mdcn_fused_fwd_bf16_launch',
                                     [_P] * 6 + _FUSED)
 mdcn_fused_dgrad_bf16_kernel = Kernel(
@@ -114,7 +129,7 @@ FUSED_MAX_COUT = 256
 FUSED_MAX_STAGED = 144
 # a fused block's output rows: an 8 x 8 patch of pixels
 PATCH = 8
-# wgrad's blocks of (tap, 64 channels) x slice of patches: about three
+# wgrad's blocks of (tap, 8 runs of channels) x slice of patches: about three
 # waves of blocks on the H100's 132 SMs (two blocks an SM below Cout 256,
 # one of 512 threads at 256), the slices cut from the shapes alone so that
 # the sum's order is the same on any card
@@ -234,62 +249,80 @@ def _check_cuda_inputs(name, x, coords, *others, backward=False, groups=1):
                          f'{run} to be a power of two <= 32, got {runs}')
 
 
-def _refuse_bf16_variant(x, mask, groups):
-    """The im2col / col2im kernels take float32 only: K3 (conv groups > 1)
-    and K5 (DCNv1) have no bf16 kernel, and K2 at bf16 runs the fused
-    kernels."""
-    if x.dtype != torch.bfloat16:
-        return
-    if groups != 1 or mask is None:
+def _refuse_fused_variant(x, mask, groups):
+    """The im2col / col2im kernels are K3's (conv groups > 1) and K5's
+    (DCNv1), float32 only: K2 runs the fused kernels at either type, and
+    K3 and K5 have no bf16 kernel."""
+    if _fused(x, mask, groups):
+        raise TypeError('the DCN with conv groups 1 and a mask (K2) runs the '
+                        'fused kernels of mdcn_fused.cuh, not im2col / '
+                        'col2im')
+    if x.dtype == torch.bfloat16:
         raise TypeError('the DCN kernels of conv groups > 1 and of DCNv1 '
                         'take float32 only: their bf16 path is ROADMAP A7 '
                         f'(groups={groups}, mask={mask is not None})')
-    raise TypeError('the bf16 DCN with conv groups 1 and a mask runs the '
-                    'fused kernels of mdcn_bf16.cu, not im2col / col2im')
 
 
 def _fused(x, mask, groups):
-    """Whether the CUDA path runs the fused bf16 kernels (K2 at bf16)."""
-    return x.dtype == torch.bfloat16 and groups == 1 and mask is not None
+    """Whether the CUDA path runs the fused kernels: K2 (conv groups 1, a
+    mask), float32 or bfloat16."""
+    return x.dtype in _RUN and groups == 1 and mask is not None
 
 
 def _check_fused_inputs(x, offset, mask, weight, bias=None, go=None,
                         backward=False):
     """The fused kernels' rules beyond :func:`_check_cuda_inputs`'s: x,
-    mask, weight, bias and grad out bfloat16 (the offset float32); Cout a
-    multiple of 8 (16-byte runs of the output, grad out and weight rows)
-    and at most :data:`FUSED_MAX_COUT` (the widest output tile);
-    deform_groups * kh * kw at most :data:`FUSED_MAX_STAGED` (the offsets a
-    block stages); for the backward C/deform_groups/8 a power of two <= 8
-    (a group's runs are summed by shuffles within a 64-channel chunk)."""
+    mask, weight, bias and grad out all float32 or all bfloat16 (the offset
+    float32); Cout a multiple of 8 (the products' 8-wide tiles, 16-byte
+    runs of the output, grad out and weight rows) and at most
+    :data:`FUSED_MAX_COUT` (the widest output tile); deform_groups * kh * kw
+    at most :data:`FUSED_MAX_STAGED` (the offsets a block stages); for the
+    backward a deform group's runs of 16 bytes (C/deform_groups/4 at
+    float32, /8 at bfloat16) a power of two <= 8 (they are summed by
+    shuffles within a chunk of 8 runs)."""
     _check_cuda_inputs('mdcn', x, offset, mask)
     cout = weight.shape[3]
     dg = offset.shape[3]
-    if any(t is not None and t.dtype != torch.bfloat16
-           for t in (weight, bias, go)):
-        raise TypeError('the fused bf16 DCN kernels take a bfloat16 '
-                        'weight, bias and grad out, got '
+    if any(t is not None and t.dtype != x.dtype for t in (weight, bias, go)):
+        name = str(x.dtype).split('.')[-1]
+        raise TypeError(f'the fused DCN kernels take a {name} weight, bias '
+                        'and grad out (x\'s type), got '
                         f'{[getattr(t, "dtype", None) for t in (weight, bias, go)]}')
     if any(t is not None and t.device != x.device
            for t in (weight, bias, go)):
         raise ValueError('mdcn: weight, bias and grad out must lie on '
                          f'{x.device}')
     if cout % 8:
-        raise ValueError(f'the fused bf16 DCN kernels need Cout to be a '
-                         f'multiple of 8 (16-byte runs), got Cout={cout}')
+        raise ValueError(f'the fused DCN kernels need Cout to be a '
+                         f'multiple of 8 (8-wide product tiles), got '
+                         f'Cout={cout}')
     if cout > FUSED_MAX_COUT:
-        raise ValueError(f'the fused bf16 DCN kernels take Cout at most '
+        raise ValueError(f'the fused DCN kernels take Cout at most '
                          f'{FUSED_MAX_COUT} (the widest output tile), got '
                          f'Cout={cout}')
     kh, kw = weight.shape[:2]
     if dg * kh * kw > FUSED_MAX_STAGED:
-        raise ValueError(f'the fused bf16 DCN kernels take deform_groups * '
+        raise ValueError(f'the fused DCN kernels take deform_groups * '
                          f'kh * kw at most {FUSED_MAX_STAGED} (the offsets '
                          f'a block stages), got {dg} * {kh} * {kw}')
-    runs = x.shape[3] // dg // 8
+    run = _RUN[x.dtype]
+    runs = x.shape[3] // dg // run
     if backward and (runs > 8 or runs & (runs - 1)):
-        raise ValueError(f'the fused bf16 DCN backward needs C/deform_groups'
-                         f'/8 to be a power of two <= 8, got {runs}')
+        raise ValueError(f'the fused DCN backward needs C/deform_groups/'
+                         f'{run} to be a power of two <= 8 at {x.dtype}, '
+                         f'got {runs}')
+
+
+def _fused_kernels(dtype):
+    """The fused kernels at ``dtype``: the forward, dgrad, its grad-x
+    scatter variant, wgrad and the sum of wgrad's partials."""
+    if dtype == torch.bfloat16:
+        return (mdcn_fused_fwd_bf16_kernel, mdcn_fused_dgrad_bf16_kernel,
+                mdcn_fused_dgrad_scatter_bf16_kernel,
+                mdcn_fused_wgrad_bf16_kernel, mdcn_fused_wgrad_sum_bf16_kernel)
+    return (mdcn_fused_fwd_kernel, mdcn_fused_dgrad_kernel,
+            mdcn_fused_dgrad_scatter_kernel, mdcn_fused_wgrad_kernel,
+            mdcn_fused_wgrad_sum_kernel)
 
 
 def _aligned16(t):
@@ -307,10 +340,10 @@ def _geom_args(geom, dg, groups):
 
 
 def _im2col_cuda(x, offset, mask, row0, rows, geom, groups=1):
-    """The CUDA kernel, same contract as :func:`_im2col_ref`; float32
-    only."""
+    """The CUDA kernel of K3 and K5, same contract as :func:`_im2col_ref`;
+    float32 only."""
     n, h, w, c = x.shape
-    _refuse_bf16_variant(x, mask, groups)
+    _refuse_fused_variant(x, mask, groups)
     _check_cuda_inputs('mdcn', x, offset, mask, groups=groups)
     (kh, kw) = geom[0]
     col = torch.empty((groups, rows, kh * kw, c // groups), dtype=x.dtype,
@@ -321,22 +354,20 @@ def _im2col_cuda(x, offset, mask, row0, rows, geom, groups=1):
             deform_im2col_kernel(x.data_ptr(), offset.data_ptr(),
                                  col.data_ptr(), *tail)
         else:
-            kernel = (mdcn_im2col_kernel if groups == 1
-                      else mdcn_im2col_groups_kernel)
-            kernel(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-                   col.data_ptr(), *tail)
+            mdcn_im2col_groups_kernel(x.data_ptr(), offset.data_ptr(),
+                                      mask.data_ptr(), col.data_ptr(), *tail)
     return col
 
 
 def _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask, grad_x,
                  row0, rows, geom, groups=1):
-    """The backward kernel for the rows ``[row0, row0 + rows)``:
+    """K3's and K5's backward kernel for the rows ``[row0, row0 + rows)``:
     ``grad_col`` is ``(groups, rows, K, C/groups)``; these rows of
     ``grad_offset`` and (with a mask) ``grad_mask`` are written, and
-    ``grad_x`` (whole, float32 whatever x's type, zeroed by the caller) is
-    added into unless it is None. Float32 only."""
+    ``grad_x`` (whole, zeroed by the caller) is added into unless it is
+    None. Float32 only."""
     n, h, w, c = x.shape
-    _refuse_bf16_variant(x, mask, groups)
+    _refuse_fused_variant(x, mask, groups)
     _check_cuda_inputs('mdcn', x, offset, mask, grad_col, backward=True,
                        groups=groups)
     if grad_offset.dtype != torch.float32 or (
@@ -358,12 +389,8 @@ def _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask, grad_x,
             kernel(grad_col.data_ptr(), x.data_ptr(), offset.data_ptr(),
                    grad_offset.data_ptr(), *scatter, *tail)
             return
-        if groups == 1:
-            kernel = (mdcn_col2im_kernel if grad_x is None
-                      else mdcn_col2im_scatter_kernel)
-        else:
-            kernel = (mdcn_col2im_groups_kernel if grad_x is None
-                      else mdcn_col2im_groups_scatter_kernel)
+        kernel = (mdcn_col2im_groups_kernel if grad_x is None
+                  else mdcn_col2im_groups_scatter_kernel)
         kernel(grad_col.data_ptr(), x.data_ptr(), offset.data_ptr(),
                mask.data_ptr(), grad_offset.data_ptr(), grad_mask.data_ptr(),
                *scatter, *tail)
@@ -452,8 +479,9 @@ def _fused_args(x, offset, weight, geom):
 
 
 def _mdcn_fused_forward_cuda(x, offset, mask, weight, bias, geom):
-    """K2's forward at bf16 (conv groups 1, a mask), one launch of
-    ``mdcn_fused_fwd``: same contract as :func:`_mdcn_fused_forward_ref`."""
+    """K2's forward (conv groups 1, a mask), float32 or bfloat16, one
+    launch of ``mdcn_fused_fwd``: same contract as
+    :func:`_mdcn_fused_forward_ref`."""
     _check_fused_inputs(x, offset, mask, weight, bias)
     x, offset, mask = _aligned16(x), _aligned16(offset), mask.contiguous()
     (kh, kw), (ho, wo) = geom[0], geom[4]
@@ -463,7 +491,7 @@ def _mdcn_fused_forward_cuda(x, offset, mask, weight, bias, geom):
     wt = weight.reshape(kh * kw * c, cout).t().contiguous()
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        mdcn_fused_fwd_bf16_kernel(
+        _fused_kernels(x.dtype)[0](
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
             None if bias is None else bias.contiguous().data_ptr(),
             out.data_ptr(),
@@ -472,18 +500,20 @@ def _mdcn_fused_forward_cuda(x, offset, mask, weight, bias, geom):
 
 
 def _mdcn_fused_forward_ref(x, offset, mask, weight, bias, geom):
-    """Plain version of ``mdcn_fused_fwd``: the columns rounded to bf16
-    once, their bf16 product with the weight summed in f32 and rounded
-    (``torch.mm``), the bias added after that rounding."""
+    """Plain version of ``mdcn_fused_fwd``: at bf16 the columns rounded to
+    bf16 once, their bf16 product with the weight summed in f32 and rounded
+    (``torch.mm``), the bias added after that rounding; at f32 the exact
+    columns' product with the weight plus the bias (``torch.addmm``)."""
     return _mdcn_forward(x, offset, mask, weight, bias, geom, _im2col_ref)
 
 
-def _wgrad_slices(n, ho, wo, k, c, cout):
+def _wgrad_slices(n, ho, wo, k, c, cout, dtype):
     """``(splits, split_patches)``: wgrad's slices of 8 x 8 output patches
-    (numbered item-major, then row-major) for ``k * ceil(C / 64)`` tiles,
-    about :data:`WGRAD_WAVES` waves of blocks."""
+    (numbered item-major, then row-major) for ``k * ceil(C / BK)`` tiles
+    (BK 8 runs of 16 bytes: 64 bf16 or 32 f32 channels), about
+    :data:`WGRAD_WAVES` waves of blocks."""
     patches = n * -(-ho // PATCH) * -(-wo // PATCH)
-    tiles = k * -(-c // 64)
+    tiles = k * -(-c // (8 * _RUN[dtype]))
     per_sm = 1 if cout > 128 else 2
     splits = max(1, min(WGRAD_WAVES * 132 * per_sm // tiles, patches))
     split_patches = -(-patches // splits)
@@ -492,19 +522,20 @@ def _wgrad_slices(n, ho, wo, k, c, cout):
 
 def _mdcn_fused_backward_cuda(go, x, offset, mask, weight, geom, need_x,
                               need_sample, need_params):
-    """K2's backward at bf16: ``mdcn_fused_dgrad`` (its ``_scatter``
-    variant where x needs a gradient) when x, the offset or the mask needs
-    one, then ``mdcn_fused_wgrad`` and the ordered sum of its partials when
-    the weight or the bias does. ``go`` is the ``(rows, Cout)`` grad out.
-    Returns grad x (float32), grad offset (float32), grad mask (bf16),
-    grad weight (float32, ``(K * C, Cout)``) and grad bias (float32), None
-    where not asked."""
+    """K2's backward, float32 or bfloat16: ``mdcn_fused_dgrad`` (its
+    ``_scatter`` variant where x needs a gradient) when x, the offset or
+    the mask needs one, then ``mdcn_fused_wgrad`` and the ordered sum of
+    its partials when the weight or the bias does. ``go`` is the
+    ``(rows, Cout)`` grad out. Returns grad x (float32), grad offset
+    (float32), grad mask (x's type), grad weight (float32,
+    ``(K * C, Cout)``) and grad bias (float32), None where not asked."""
     _check_fused_inputs(x, offset, mask, weight, go=go, backward=True)
     go, weight = _aligned16(go), _aligned16(weight)
     x, offset, mask = _aligned16(x), _aligned16(offset), mask.contiguous()
     (kh, kw), (ho, wo) = geom[0], geom[4]
     c, cout = x.shape[3], weight.shape[3]
     args = _fused_args(x, offset, weight, geom)
+    _, dgrad, dgrad_scatter, wgrad, wgrad_sum = _fused_kernels(x.dtype)
     grad_x = grad_offset = grad_mask = grad_w = grad_b = None
     with torch.cuda.device(x.device):
         if need_sample or need_x:
@@ -515,23 +546,21 @@ def _mdcn_fused_backward_cuda(go, x, offset, mask, weight, geom, need_x,
                     grad_offset.data_ptr(), grad_mask.data_ptr())
             if need_x:
                 grad_x = torch.zeros_like(x, dtype=torch.float32)
-                mdcn_fused_dgrad_scatter_bf16_kernel(*head, grad_x.data_ptr(),
-                                                     *args)
+                dgrad_scatter(*head, grad_x.data_ptr(), *args)
             else:
-                mdcn_fused_dgrad_bf16_kernel(*head, *args)
+                dgrad(*head, *args)
         if need_params:
             splits, split_patches = _wgrad_slices(x.shape[0], ho, wo,
-                                                  kh * kw, c, cout)
+                                                  kh * kw, c, cout, x.dtype)
             # grad weight's K * C rows, then grad bias
             partial = torch.empty((splits, kh * kw * c + 1, cout),
                                   dtype=torch.float32, device=x.device)
-            mdcn_fused_wgrad_bf16_kernel(
-                go.data_ptr(), x.data_ptr(), offset.data_ptr(),
-                mask.data_ptr(), partial.data_ptr(), splits, split_patches,
-                *args)
+            wgrad(go.data_ptr(), x.data_ptr(), offset.data_ptr(),
+                  mask.data_ptr(), partial.data_ptr(), splits, split_patches,
+                  *args)
             total = torch.empty(partial.shape[1:], dtype=torch.float32,
                                 device=x.device)
-            mdcn_fused_wgrad_sum_bf16_kernel(
+            wgrad_sum(
                 partial.data_ptr(), total.data_ptr(), splits, total.numel(),
                 args[-1])
             grad_w, grad_b = total[:-1], total[-1]
@@ -540,11 +569,12 @@ def _mdcn_fused_backward_cuda(go, x, offset, mask, weight, geom, need_x,
 
 def _chunked_backward(go, x, offset, mask, weight, geom, groups, need_x,
                       need_sample, need_weight):
-    """K2 (f32), K3 and K5's backward: each chunk of rows recomputes its
-    columns (``mdcn_im2col``) for grad weight, a matmul, and turns the grad
-    columns, another, into grad offset, grad mask and, where asked, grad x
-    (``mdcn_col2im``). Sums across the chunks are f32. Returns grad x,
-    grad offset, grad mask and grad weight, None where not asked."""
+    """K3's and K5's backward: each chunk of rows recomputes its columns
+    (``mdcn_im2col_groups`` / ``deform_im2col``) for grad weight, a
+    matmul, and turns the grad columns, another, into grad offset, grad
+    mask and, where asked, grad x (the col2im kernels). Sums across the
+    chunks are f32. Returns grad x, grad offset, grad mask and grad
+    weight, None where not asked."""
     (kh, kw) = geom[0]
     k, c, cout = kh * kw, x.shape[3], weight.shape[3]
     if groups == 1:
@@ -639,8 +669,9 @@ def _dispatch(name, x, offset, mask, weight, bias, geom, groups):
     if x.device.type != 'cpu':
         raise RuntimeError(f'{name} runs on cuda or cpu tensors, got '
                            f'{x.device}')
-    return _mdcn_forward(x, offset, mask, weight, bias, geom, _im2col_ref,
-                         groups)
+    with f32_products(x.device):
+        return _mdcn_forward(x, offset, mask, weight, bias, geom,
+                             _im2col_ref, groups)
 
 
 def modulated_deform_conv2d(x, offset, mask, weight, bias=None, stride=1,

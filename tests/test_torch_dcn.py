@@ -285,17 +285,19 @@ def test_deform_conv2d_is_the_modulated_conv_with_a_ones_mask():
         assert torch.equal(got, want)
 
 
-# the C entry points of mdcn.cu and mdcn_bf16.cu, by the Kernel objects
-# that launch them
-_ENTRY = {'mdcn_im2col_kernel': ('im2col', True),
-          'mdcn_im2col_groups_kernel': ('im2col', True),
+# the C entry points of mdcn.cu, mdcn_fused.cu and mdcn_bf16.cu, by the
+# Kernel objects that launch them
+_ENTRY = {'mdcn_im2col_groups_kernel': ('im2col', True),
           'deform_im2col_kernel': ('im2col', False),
-          'mdcn_col2im_kernel': ('col2im', True),
-          'mdcn_col2im_scatter_kernel': ('col2im', True),
           'mdcn_col2im_groups_kernel': ('col2im', True),
           'mdcn_col2im_groups_scatter_kernel': ('col2im', True),
           'deform_col2im_kernel': ('col2im', False),
           'deform_col2im_scatter_kernel': ('col2im', False),
+          'mdcn_fused_fwd_kernel': ('fused_fwd', True),
+          'mdcn_fused_dgrad_kernel': ('fused_dgrad', True),
+          'mdcn_fused_dgrad_scatter_kernel': ('fused_dgrad', True),
+          'mdcn_fused_wgrad_kernel': ('fused_wgrad', True),
+          'mdcn_fused_wgrad_sum_kernel': ('fused_wgrad_sum', True),
           'mdcn_fused_fwd_bf16_kernel': ('fused_fwd', True),
           'mdcn_fused_dgrad_bf16_kernel': ('fused_dgrad', True),
           'mdcn_fused_dgrad_scatter_bf16_kernel': ('fused_dgrad', True),
@@ -317,7 +319,8 @@ def _sample_grads(grad_col, x, offset, mask, row0, rows, geom, groups=1):
 
 def fused_dgrad_math(go, x, offset, mask, weight, geom, round_col=True):
     """The contract of ``mdcn_fused_dgrad``: the grad columns ``go . W^T``
-    summed in f32 and rounded to bf16, then the col2im arithmetic in f32.
+    summed in f32 and rounded to x's type (bf16; f32 as they are), then the
+    col2im arithmetic in f32.
     Returns grad x, grad offset, grad mask. With ``round_col`` False the
     grad columns stay f32 (the columns of a widened x and mask, whose
     cotangent is not rounded), and grad x and grad mask are rounded
@@ -334,7 +337,7 @@ def fused_dgrad_math(go, x, offset, mask, weight, geom, round_col=True):
 
 def fused_patch_of_rows(n, ho, wo):
     """The 8 x 8 output patch of each row of the flattened (N, Ho, Wo), as
-    ``mdcn_bf16.cu`` numbers them: item-major, then row-major over the
+    ``mdcn_fused.cuh`` numbers them: item-major, then row-major over the
     map."""
     tiles_x, tiles_y = -(-wo // 8), -(-ho // 8)
     oy = torch.arange(ho)[:, None] // 8
@@ -353,13 +356,15 @@ def _fused_geom(args):
 
 
 def _stand_in_kernels(monkeypatch):
-    """PyTorch stand-ins for the C entry points of ``csrc/mdcn.cu`` and
-    ``csrc/mdcn_bf16.cu``, with their contracts: pointers in, the geometry
-    as ints. mdcn.cu: columns group-major; the backward writes its rows of
-    grad offset (and grad mask) and adds into grad x, by autograd through
-    the plain im2col. mdcn_bf16.cu: the forward rounds the columns once,
-    sums their product with the weight in f32, rounds, adds the bias and
-    rounds; dgrad writes grad offset and grad mask by
+    """PyTorch stand-ins for the C entry points of ``csrc/mdcn.cu`` and of
+    the fused kernels (``csrc/mdcn_fused.cu``, ``csrc/mdcn_bf16.cu``), with
+    their contracts: pointers in, the geometry as ints. mdcn.cu: columns
+    group-major; the backward writes its rows of grad offset (and grad
+    mask) and adds into grad x, by autograd through the plain im2col. The
+    fused kernels: the forward rounds the columns once to x's type, sums
+    their product with the weight in f32, rounds to x's type and adds the
+    bias there (at f32: the f32 sum plus the bias); dgrad writes grad
+    offset and grad mask by
     :func:`fused_dgrad_math` (and adds grad x in its scatter variant);
     wgrad writes the f32 partials of grad weight and, in the row after,
     grad bias of each slice of 8 x 8 output patches; the sum adds the
@@ -474,16 +479,22 @@ def _stand_in_kernels(monkeypatch):
 def test_function_around_the_kernels_matches_jax(monkeypatch, groups, dg,
                                                  masked, grad_x):
     """The Function the CUDA path uses, with stand-ins for the kernels:
-    the group-major columns and the batched matmuls around them, each
-    chunk's recomputed columns, and which entry point each variant
-    launches (K2 with groups 1, K3 with groups > 1, K5 without a mask;
-    the scatter only where x needs a gradient), against JAX."""
+    which entry point each variant launches, against JAX. K2 (groups 1,
+    with a mask; Cout 16, since the fused kernels need 8 | Cout): one fused
+    forward however small the column cap, then dgrad (its scatter only
+    where x needs a gradient), wgrad and the sum of its partials. K3
+    (groups > 1) and K5 (no mask): the group-major columns and the batched
+    matmuls around them, each chunk's recomputed columns, the scatter only
+    where x needs a gradient."""
     launched = _stand_in_kernels(monkeypatch)
     monkeypatch.setattr(dcn, 'COL_CAP_BYTES', 40 * 9 * 16 * 4)  # 40 rows
     pad = 1 if masked else 0
-    x, offset, mask, weight, bias = _grouped(17, groups, dg, padding=pad)
+    fused = groups == 1 and masked
+    cout = 16 if fused else 12
+    x, offset, mask, weight, bias = _grouped(17, groups, dg, padding=pad,
+                                             cout=cout)
     cot = np.random.RandomState(18).randn(
-        *offset.shape[:3], 12).astype(np.float32)
+        *offset.shape[:3], cout).astype(np.float32)
     kw = dict(padding=pad, groups=groups, deform_groups=dg)
     inputs = (x, offset, mask, weight, bias) if masked else (x, offset,
                                                              weight)
@@ -513,16 +524,107 @@ def test_function_around_the_kernels_matches_jax(monkeypatch, groups, dg,
         w = np.asarray(w)
         np.testing.assert_allclose(a.grad.numpy(), w, rtol=0,
                                    atol=1e-5 * np.abs(w).max(), err_msg=i)
+    scatter = '_scatter' if grad_x else ''
+    if fused:
+        assert launched == ['mdcn_fused_fwd_kernel',
+                            f'mdcn_fused_dgrad{scatter}_kernel',
+                            'mdcn_fused_wgrad_kernel',
+                            'mdcn_fused_wgrad_sum_kernel']
+        return
     prefix = ('mdcn' if masked else 'deform')
     groups_tag = '_groups' if masked and groups > 1 else ''
     im2col = f'{prefix}_im2col{groups_tag}_kernel'
-    col2im = (f'{prefix}_col2im{groups_tag}'
-              f'{"_scatter" if grad_x else ""}_kernel')
+    col2im = f'{prefix}_col2im{groups_tag}{scatter}_kernel'
     # each chunk forward, then each recomputed for grad weight and col2im
     chunks = len(dcn._row_chunks(out.shape[0] * out.shape[1] * out.shape[2],
                                  9, 16, 4))
     assert chunks > 1
     assert launched == [im2col] * chunks + [im2col, col2im] * chunks
+
+
+@pytest.mark.parametrize('grad_x', [False, True])
+def test_mdcn_f32_function_launches_the_fused_entry_points(monkeypatch,
+                                                           grad_x):
+    """The Function of the CUDA path at f32 (K2), with PyTorch stand-ins
+    for the C entry points: one launch of the fused forward per call
+    however small the column cap (no chunks, no column matrix, no matmul);
+    then one of dgrad (its scatter variant only where x needs a gradient)
+    and one of wgrad; then one of the ordered sum of the grad-weight and
+    grad-bias partials; none of mdcn.cu's entry points or the bf16 ones;
+    and agreement with ``jax.grad`` at f32's 1e-5 of each gradient's
+    largest entry (the stand-ins sum exact f32 products, in another order
+    than XLA's)."""
+    _check_f32_function_launches(monkeypatch, grad_x, cout=16)
+
+
+def test_mdcn_f32_function_splits_a_wide_layer(monkeypatch):
+    """A layer wider than 64 output channels, which the kernels pad to a
+    tile 128 wide, launches the same entry points and agrees with JAX."""
+    _check_f32_function_launches(monkeypatch, False, cout=72)
+
+
+def _check_f32_function_launches(monkeypatch, grad_x, cout):
+    launched = _stand_in_kernels(monkeypatch)
+    monkeypatch.setattr(dcn, 'COL_CAP_BYTES', 40 * 9 * 16 * 4)  # 40 rows
+    assert len(dcn._row_chunks(2 * 7 * 9, 9, 16, 4)) > 1
+    inputs = _case(19, 2, 7, 9, 16, cout, 2)
+    cot = np.random.RandomState(20).randn(2, 7, 9, cout).astype(np.float32)
+    args = [torch.from_numpy(a).requires_grad_(i > 0 or grad_x)
+            for i, a in enumerate(inputs)]
+    geom = dcn._geometry(*args[:4], 1, 1, 1, 1, 2)
+    out = dcn._ModulatedDeformConv2d.apply(*args, geom, 1)
+    assert launched == ['mdcn_fused_fwd_kernel']
+    (out * torch.from_numpy(cot)).sum().backward()
+    dgrad = 'mdcn_fused_dgrad_scatter_kernel' if grad_x \
+        else 'mdcn_fused_dgrad_kernel'
+    assert launched == ['mdcn_fused_fwd_kernel', dgrad,
+                        'mdcn_fused_wgrad_kernel',
+                        'mdcn_fused_wgrad_sum_kernel']
+    kw = dict(deform_groups=2)
+    want_out = jax_dcn.modulated_deform_conv2d(
+        *(jnp.asarray(a) for a in inputs), **kw)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               rtol=0, atol=1e-5)
+    want = jax.grad(
+        lambda *a: (jax_dcn.modulated_deform_conv2d(*a, **kw)
+                    * jnp.asarray(cot)).sum(),
+        argnums=tuple(range(5)))(*(jnp.asarray(a) for a in inputs))
+    for i, (a, w) in enumerate(zip(args, want)):
+        if i == 0 and not grad_x:
+            assert a.grad is None
+            continue
+        assert a.grad.dtype == torch.float32
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.grad.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=i)
+
+
+def test_f32_fused_kernels_state_their_vector_width():
+    """At f32 a fused K2 thread loads runs of 4 channels: C and C /
+    deform_groups multiples of 4, and for the backward a deform group's
+    runs of 4 a power of two <= 8 (C / deform_groups 4 to 32: MRAPA's 8,
+    16 and 32, BasicVSR++'s 8); the weight, bias and grad out f32 like x,
+    the offset f32."""
+    x = torch.zeros((1, 4, 4, 64))
+    offset = torch.zeros((1, 4, 4, 8, 9, 2))
+    mask = torch.zeros((1, 4, 4, 8, 9))
+    weight = torch.zeros((3, 3, 64, 64))
+    for dg in (16, 8, 4, 2):                        # cg 4, 8, 16, 32
+        dcn._check_fused_inputs(x, offset[..., :dg, :, :], mask[..., :dg, :],
+                                weight, weight[0, 0, 0], weight[0, 0],
+                                backward=True)
+    with pytest.raises(ValueError, match='power of two <= 8'):
+        dcn._check_fused_inputs(x, offset[..., :1, :, :], mask[..., :1, :],
+                                weight, backward=True)          # 16 runs
+    with pytest.raises(ValueError, match='power of two <= 8'):
+        dcn._check_fused_inputs(x[..., :48], offset[..., :4, :, :],
+                                mask[..., :4, :], weight[:, :, :48],
+                                backward=True)                  # 3 runs
+    with pytest.raises(ValueError, match='multiples of 4'):
+        dcn._check_fused_inputs(x[..., :24], offset[..., :4, :, :],
+                                mask[..., :4, :], weight[:, :, :24])  # cg 6
+    with pytest.raises(TypeError, match='float32 weight'):
+        dcn._check_fused_inputs(x, offset, mask, weight.to(torch.bfloat16))
 
 
 def test_cuda_checks_name_the_column_store_width():
@@ -535,18 +637,20 @@ def test_cuda_checks_name_the_column_store_width():
         dcn._check_cuda_inputs('mdcn', x, offset, None, groups=4)
 
 
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('n, ho, wo, c, cout', [
     (30, 40, 40, 256, 256), (30, 80, 80, 128, 128), (30, 160, 160, 64, 64),
     (5, 125, 125, 256, 256), (2, 7, 9, 16, 72)])
-def test_wgrad_slices_hold_every_patch_once(n, ho, wo, c, cout):
-    """The bf16 wgrad's slices of 8 x 8 output patches, cut from the shapes
-    alone (so the ordered sum of their partials is the same on any card):
-    every patch in one slice, no slice empty, and no more than
-    ``WGRAD_WAVES`` waves of blocks on the H100's 132 SMs unless one slice
-    is all there is."""
-    splits, per = dcn._wgrad_slices(n, ho, wo, 9, c, cout)
+def test_wgrad_slices_hold_every_patch_once(n, ho, wo, c, cout, dtype):
+    """The fused wgrad's slices of 8 x 8 output patches, cut from the
+    shapes alone (so the ordered sum of their partials is the same on any
+    card): every patch in one slice, no slice empty, and no more than
+    ``WGRAD_WAVES`` waves of blocks of (tap, 8 runs of 16 bytes: 64 bf16 or
+    32 f32 channels) on the H100's 132 SMs unless one slice is all there
+    is."""
+    splits, per = dcn._wgrad_slices(n, ho, wo, 9, c, cout, dtype)
     patches = n * -(-ho // 8) * -(-wo // 8)
     assert (splits - 1) * per < patches <= splits * per
-    blocks = splits * 9 * -(-c // 64)
+    blocks = splits * 9 * -(-c // (8 * (16 // dtype.itemsize)))
     per_sm = 1 if cout > 128 else 2
     assert splits == 1 or blocks <= dcn.WGRAD_WAVES * 132 * per_sm

@@ -191,14 +191,16 @@ KERNELS = (correlation.feature_match_prologue_kernel,
            correlation.feature_match_sharded_kernel,
            correlation.feature_match_bf16_kernel,
            correlation.feature_match_sharded_bf16_kernel,
+           dcn.mdcn_fused_fwd_kernel, dcn.mdcn_fused_dgrad_kernel,
+           dcn.mdcn_fused_dgrad_scatter_kernel, dcn.mdcn_fused_wgrad_kernel,
+           dcn.mdcn_fused_wgrad_sum_kernel,
            dcn.mdcn_fused_fwd_bf16_kernel, dcn.mdcn_fused_dgrad_bf16_kernel,
            dcn.mdcn_fused_dgrad_scatter_bf16_kernel,
            dcn.mdcn_fused_wgrad_bf16_kernel,
            dcn.mdcn_fused_wgrad_sum_bf16_kernel,
            dcn.deform_sample_fwd_bf16_kernel,
            dcn.deform_sample_bwd_bf16_kernel,
-           dcn.deform_sample_bwd_scatter_bf16_kernel, dcn.mdcn_im2col_kernel,
-           dcn.mdcn_col2im_kernel, dcn.mdcn_col2im_scatter_kernel,
+           dcn.deform_sample_bwd_scatter_bf16_kernel,
            dcn.mdcn_im2col_groups_kernel, dcn.mdcn_col2im_groups_kernel,
            dcn.mdcn_col2im_groups_scatter_kernel, dcn.deform_im2col_kernel,
            dcn.deform_col2im_kernel, dcn.deform_col2im_scatter_kernel,
@@ -358,19 +360,30 @@ def test_every_cuda_source_has_its_kernel_objects():
     assert list(_build.CSRC.glob('*.cuh'))
 
 
+def _defines(text):
+    """``{name: (parameters or None, body)}`` of the ``#define``s of
+    ``text``, comments and line continuations taken out first."""
+    text = re.sub(r'//[^\n]*', '', text).replace('\\\n', ' ')
+    macros = {}
+    for m in re.finditer(r'^[ \t]*#define[ \t]+(\w+)(\(([^)]*)\))?(.*)$',
+                         text, re.M):
+        params = None if m.group(2) is None else [
+            p.strip() for p in m.group(3).split(',')]
+        macros[m.group(1)] = (params, m.group(4).strip())
+    return macros
+
+
 def _c_entry_points():
     """``{symbol: [parameter declarations]}`` of the ``extern "C"``
-    functions of ``ops/csrc/*.cu``, their macros expanded."""
+    functions of ``ops/csrc/*.cu``, their macros (theirs and the headers')
+    expanded."""
     found = {}
+    headers = _defines(''.join(p.read_text()
+                               for p in sorted(_build.CSRC.glob('*.cuh'))))
     for path in sorted(_build.CSRC.glob('*.cu')):
         text = re.sub(r'//[^\n]*', '', path.read_text())
         text = text.replace('\\\n', ' ')
-        macros = {}
-        for m in re.finditer(r'^[ \t]*#define[ \t]+(\w+)(\(([^)]*)\))?(.*)$',
-                             text, re.M):
-            params = None if m.group(2) is None else [
-                p.strip() for p in m.group(3).split(',')]
-            macros[m.group(1)] = (params, m.group(4).strip())
+        macros = {**headers, **_defines(text)}
         text = re.sub(r'^[ \t]*#.*$', '', text, flags=re.M)
         for _ in range(3):      # macros that use macros
             for name, (params, body) in macros.items():
@@ -411,10 +424,12 @@ def test_kernel_argtypes_match_the_c_signature(kernel):
 
 def test_every_c_entry_point_has_a_kernel():
     """The scan reads the macro-made signatures (mdcn.cu's IM2COL_ARGS,
-    mdcn_bf16.cu's FUSED_ARGS, upfirdn2d.cu's UPFIRDN2D_ENTRY), and every
-    launch entry point is bound by a Kernel."""
+    mdcn_fused.cuh's FUSED_ARGS in mdcn_fused.cu and mdcn_bf16.cu,
+    upfirdn2d.cu's UPFIRDN2D_ENTRY), and every launch entry point is bound
+    by a Kernel."""
     found = _c_entry_points()
-    assert len(found['mdcn_im2col_launch']) == 4 + 18
+    assert len(found['mdcn_im2col_groups_launch']) == 4 + 18
+    assert len(found['mdcn_fused_wgrad_launch']) == 7 + 17
     assert len(found['mdcn_fused_wgrad_bf16_launch']) == 7 + 17
     assert len(found['upfirdn2d_bwd2_launch']) == 15
     launches = {name for name in found if name.endswith('_launch')}
