@@ -48,15 +48,22 @@ phase runs several):
    every gradient, at EDVR-M's L1 shape (5, 180, 320, 64), deform groups
    8; with groups 1 the K3 entry point's columns times the weight against
    K2's fused forward (``K2_REL_TOL``);
-8. upfirdn2d (kernel K7) against its plain version, forward, backward and
-   double backward, at every shape of a 1024x1024 16-sample generator
-   forward and of a 256x256 B = 8 generator and discriminator forward
-   (the smoothing filter after a transposed conv and before a strided
-   conv, the x2 upsampling of the RGB skip), and at two odd cases (a
-   stride, a negative pad, a 3x5 filter, a non-square map);
+8. upfirdn2d (kernel K7: the tile kernel for StyleGAN2's 4x4 cases, the
+   gather kernel for any other) against its plain version, forward,
+   backward and double backward, at every shape of a 1024x1024 16-sample
+   generator forward and of a 256x256 B = 8 generator and discriminator
+   forward (the smoothing filter after a transposed conv and before a
+   strided conv, the x2 upsampling of the RGB skip), at two odd cases (a
+   stride; the gather: a negative pad, a 3x5 filter, a non-square map),
+   and at the tile kernel's edges (``K7_EDGE_CASES``: outputs one below,
+   at and one above a tile's columns and rows, odd pads at up 2, many
+   small planes a block);
 9. fused_act (kernel K8) the same, at the 4-D and 2-D shapes of those
    forwards, with and without bias, NCHW and channels-last, with exact
-   zeros planted (the derivative there must be 1);
+   zeros planted (the derivative there must be 1); the backward with the
+   bias taking a gradient (grad bias from the kernel's ordered partials)
+   run twice at every shape, bit-equal, and the double backward with
+   gg_bias held against the plain version;
 10. slice: ``MultiRefRestorationModel`` at full width (ngf 64, 16 blocks,
     8 deform groups) with seeded weights answers 2 requests of B = 1,
     T = 5 on a 500x500 canvas; the kernels' launch counts over them; then
@@ -157,7 +164,11 @@ script exits non-zero without the last line. Times come from CUDA events,
 the median of a pair of events around each run (phases 3 to 9, 11a-11c
 and K6's; K1's and its prologue's over ``K1_REPS`` rounds after 3
 warm-ups, the function, the kernel alone and the library yardsticks in
-turn within each round), the host clock around
+turn within each round), for K7 and K8 also the device time a call
+(``device_ms_each``: torch.profiler's device events over ``DEVICE_RUNS``
+calls, a profile a call; ``ms``, ``plain_ms`` and ``library_ms`` of
+their ``kernels`` entries, with the events' times beside as
+``*call_ms``), the host clock around
 ``torch.cuda.synchronize()`` (phases 10 to 17) and the profiler's device
 times. Bounds use the H100 SXM's published 67 TFLOP/s f32 (CUDA cores),
 495 TFLOP/s TF32 and 989 TFLOP/s dense bf16 (tensor cores) and 3.35 TB/s;
@@ -226,6 +237,65 @@ def cuda_ms_each(fns, reps=3, warmup=1):
 def cuda_ms(fn, reps=3, warmup=1):
     """The median ms of ``fn`` over ``reps`` runs, from CUDA events."""
     return cuda_ms_each([fn], reps, warmup)[0]
+
+
+# device times (device_ms_each): calls profiled a fn, the spin kernels
+# (about a millisecond in all) that open and close a profile, profiles
+# tried before giving up
+DEVICE_RUNS = 20
+SETTLE_NAME, SETTLE_CYCLES, SETTLE_KERNELS = 'spin_kernel', 100_000, 16
+DEVICE_TRIES = 3
+
+
+def device_ms_each(fns, runs=DEVICE_RUNS, warmup=1):
+    """The device time (ms) of the work one call of each of ``fns`` puts
+    on the card: the durations of the device events (kernels, memsets,
+    copies) that ``torch.profiler`` records over ``runs`` calls, summed
+    and divided by ``runs``, a profile a fn. It leaves out the host's time
+    between launches, which the events of :func:`cuda_ms_each` around one
+    small call mostly measure. On the H100 machine the profiler now and
+    then misses device events at a profile's edges (a marker kernel, two
+    kernels of twenty, every kernel of a short profile), and dates the
+    kernels this repository launches through ctypes before PyTorch's own
+    that ran ahead of them; so each profile holds one fn alone, opens and
+    closes with :data:`SETTLE_KERNELS` spin kernels each
+    (``torch.cuda._sleep``, left out of the sum), and is taken again, up
+    to :data:`DEVICE_TRIES` times, where its event count is not a multiple
+    of ``runs``."""
+
+    def settle():
+        for _ in range(SETTLE_KERNELS):
+            torch.cuda._sleep(SETTLE_CYCLES)
+        torch.cuda.synchronize()
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        for fn in fns:
+            fn()
+    out = []
+    for fn in fns:
+        for _ in range(DEVICE_TRIES):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                settle()
+                for _ in range(runs):
+                    fn()
+                torch.cuda.synchronize()
+                settle()
+            events = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and SETTLE_NAME not in e.name
+                      and not getattr(e, 'is_user_annotation', False)]
+            if events and len(events) % runs == 0:
+                break
+        check(events and len(events) % runs == 0,
+              f'{len(events)} device events profiled for {runs} calls, '
+              f'{DEVICE_TRIES} times: '
+              f'{sorted({e.name[:60] for e in events})}')
+        out.append(sum(e.time_range.elapsed_us() for e in events)
+                   / runs / 1e3)
+    return out
 
 
 def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
@@ -1442,23 +1512,54 @@ def _three_orders(fn, x, extra=()):
     return [out.detach(), *(g.detach() for g in grads), second]
 
 
-def _time_orders(fn, x, reps=3):
-    """ms of ``fn``'s forward, of its backward (the gradient in ``x``) and
-    of its double backward (the gradient of that gradient in the
-    cotangent), each alone."""
+def _order_calls(fn, x, orders, bias=None):
+    """One call of each of ``orders``: ``fwd``, ``fn`` on ``x`` without a
+    graph; ``bwd``, its gradient in ``x``; ``bwd_bias``, its gradients in
+    ``x`` and in ``bias``, a second input that takes one (``fn(x,
+    bias)``); ``bwd2``, the gradient of the gradient in ``x`` in the
+    cotangent. The graphs they run through are built here, once."""
+    extra = () if bias is None else (bias,)
     with torch.no_grad():
-        fwd = cuda_ms(lambda: fn(x), reps=reps)
-        cot = torch.randn_like(fn(x))
+        cot = torch.randn_like(fn(x, *extra))
+    calls = {}
+    if 'fwd' in orders:
+        def fwd():
+            with torch.no_grad():
+                return fn(x, *extra)
+        calls['fwd'] = fwd
     xg = x.detach().requires_grad_()
-    out = fn(xg)
-    bwd = cuda_ms(lambda: torch.autograd.grad(out, xg, cot,
-                                              retain_graph=True), reps=reps)
-    cotg = cot.requires_grad_()
-    grad, = torch.autograd.grad(out, xg, cotg, create_graph=True)
-    seed = torch.randn_like(grad)
-    bwd2 = cuda_ms(lambda: torch.autograd.grad(grad, cotg, seed,
-                                               retain_graph=True), reps=reps)
-    return {'fwd': fwd, 'bwd': bwd, 'bwd2': bwd2}
+    if 'bwd' in orders:
+        out = fn(xg, *extra)
+        calls['bwd'] = lambda: torch.autograd.grad(out, xg, cot,
+                                                   retain_graph=True)
+    if 'bwd_with_bias' in orders:
+        bg = bias.detach().requires_grad_()
+        out_b = fn(xg, bg)
+        calls['bwd_with_bias'] = lambda: torch.autograd.grad(
+            out_b, (xg, bg), cot, retain_graph=True)
+    if 'bwd2' in orders:
+        cotg = cot.clone().requires_grad_()
+        grad, = torch.autograd.grad(fn(xg, *extra), xg, cotg,
+                                    create_graph=True)
+        seed = torch.randn_like(grad)
+        calls['bwd2'] = lambda: torch.autograd.grad(grad, cotg, seed,
+                                                    retain_graph=True)
+    return calls
+
+
+def _time_orders(fn, x, orders=('fwd', 'bwd', 'bwd2'), reps=3, runs=None,
+                 bias=None):
+    """Each order of :func:`_order_calls` timed two ways: ``call``, the
+    median ms of ``reps`` calls, each between its own pair of CUDA events
+    (host time included: a small call's is mostly the host's), and
+    ``device``, the ms of device work a call, over ``runs`` calls
+    (:func:`device_ms_each`)."""
+    calls = _order_calls(fn, x, orders, bias)
+    call = {o: cuda_ms(c, reps=reps) for o, c in calls.items()}
+    device = device_ms_each(list(calls.values()),
+                            runs=DEVICE_RUNS if runs is None else runs,
+                            warmup=0)
+    return {'call': call, 'device': dict(zip(calls, device))}
 
 
 def _upfirdn2d_library(x, fir, up, down, pad):
@@ -1485,23 +1586,61 @@ def _upfirdn2d_library(x, fir, up, down, pad):
                 x0:x0 + (out_w - 1) * down + 1:down]
 
 
-def _sum_orders(name_prefix, rows, order, note):
+TIMING_NOTE = ('ms, plain_ms, library_ms: device time a call '
+               '(torch.profiler over DEVICE_RUNS calls, device_ms_each); '
+               '*call_ms: CUDA events around one call, host time included')
+
+
+def _sum_orders(name, rows, order, note):
     """One ``kernels`` entry for ``order`` out of per-case rows: each row
-    holds times per order for the kernel, the plain and the library
-    version, its multiplicity on the path, bytes and operations."""
-    total = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
-    nbytes = flops = 0.0
-    for row in rows:
-        times = row['times']
-        total['ms'] += times['kernel'][order] * row['count']
-        total['plain_ms'] += times['plain'][order] * row['count']
-        total['library_ms'] += times['library'][order] * row['count']
-        nbytes += row['bytes'][order] * row['count']
-        flops += row['flops'][order] * row['count']
+    holds device and call times per order for the kernel, the plain and
+    the library version, its multiplicity on the path, bytes and
+    operations."""
+    total = {}
+    for impl, key in (('kernel', ''), ('plain', 'plain_'),
+                      ('library', 'library_')):
+        for kind, suffix in (('device', 'ms'), ('call', 'call_ms')):
+            total[key + suffix] = sum(row['times'][impl][kind][order]
+                                      * row['count'] for row in rows)
+    nbytes = sum(row['bytes'][order] * row['count'] for row in rows)
+    flops = sum(row['flops'][order] * row['count'] for row in rows)
     bound_ms, bound_by = bound(flops, nbytes)
-    return {'name': f'{name_prefix}_{order}', **total, 'bound_ms': bound_ms,
-            'bound_by': bound_by, 'launches_summed':
-                sum(row['count'] for row in rows), 'library_call': note}
+    return {'name': name, **total, 'device_ms': total['ms'],
+            'bound_ms': bound_ms, 'bound_by': bound_by,
+            'launches_summed': sum(row['count'] for row in rows),
+            'library_call': note, 'timing': TIMING_NOTE}
+
+
+def _case_times(times):
+    """A case line's times: device ``ms`` and ``call_ms`` per order, for
+    the kernel, the plain and the library version."""
+    return {f'{key}{suffix}': times[impl][kind]
+            for impl, key in (('kernel', ''), ('plain', 'plain_'),
+                              ('library', 'library_'))
+            for kind, suffix in (('device', 'ms'), ('call', 'call_ms'))}
+
+
+def _k7_edge_case(h, w, up, down):
+    """An x shape and pads whose output is ``h`` x ``w``."""
+    if up == 2:
+        return ((h + 1) // 2, (w + 1) // 2), (2, 1 - h % 2, 2, 1 - w % 2)
+    return ((h - 1) * down + 2, (w - 1) * down + 2), (1, 1, 1, 1)
+
+
+# the tile kernel at its edges (label, x shape, up, down, pad): outputs one
+# below, at and one above a tile's columns (128 at (1, 1) and up 2, 63 at
+# down 2) and rows (32: two strips of 16), odd pads at up 2, many small
+# planes a block
+K7_EDGE_CASES = (
+    *((f'out_{up}{down}_{h}x{w}', (2, 4, *_k7_edge_case(h, w, up, down)[0]),
+       up, down, _k7_edge_case(h, w, up, down)[1])
+      for (h, w), (up, down) in (
+          ((63, 127), (1, 1)), ((64, 128), (1, 1)), ((65, 129), (1, 1)),
+          ((63, 62), (1, 2)), ((64, 63), (1, 2)), ((65, 64), (1, 2)),
+          ((63, 127), (2, 1)), ((64, 128), (2, 1)), ((65, 129), (2, 1)))),
+    ('up2_odd_pads', (2, 4, 9, 7), 2, 1, (1, 2, 3, 0)),
+    ('small_planes', (5, 60, 4, 5), 1, 1, (2, 2, 2, 2)),
+    ('small_planes_down2', (3, 40, 8, 8), 1, 2, (1, 1, 1, 1)))
 
 
 def phase_upfirdn2d(ops_upfirdn2d):
@@ -1547,19 +1686,18 @@ def phase_upfirdn2d(ops_upfirdn2d):
                   f'from the plain version by {lib_err}')
             del got, want
             if path == 'serve':      # no gradient runs when serving
-                with torch.no_grad():
-                    times = {key: {'fwd': cuda_ms(lambda f=f: f(x))}
-                             for key, f in (('kernel', kernel),
-                                            ('plain', plain),
-                                            ('library', library))}
+                times = {key: _time_orders(f, x, ('fwd',))
+                         for key, f in (('kernel', kernel), ('plain', plain),
+                                        ('library', library))}
             else:
                 # one run each of the plain and the library version: cuDNN
                 # takes seconds for some of their double backwards
                 times = {'kernel': _time_orders(kernel, x),
-                         'plain': _time_orders(plain, x, reps=1),
-                         'library': _time_orders(library, x, reps=1)}
-            out_numel = float(n * c) * ((h * up + sum(pad) - 4) // down
-                                        + 1) ** 2
+                         'plain': _time_orders(plain, x, reps=1, runs=1),
+                         'library': _time_orders(library, x, reps=1,
+                                                 runs=1)}
+            side = (h * up + sum(pad) - 4) // down + 1
+            out_numel = float(n * c) * side ** 2
             moved = 4.0 * (x.numel() + out_numel)
             # multiply-adds: the taps that fall on a sample, per output of
             # the forward (and of the double backward), per input of the
@@ -1573,9 +1711,11 @@ def phase_upfirdn2d(ops_upfirdn2d):
             rows[path].append(row)
             emit({'phase': 'upfirdn2d', 'path': path, 'n': n, 'c': c,
                   'h': h, 'w': h, 'up': up, 'down': down, 'pad': pad,
+                  'route': ops_upfirdn2d.route(fir, up, down),
+                  'tile_geometry': ops_upfirdn2d.tile_geometry(
+                      n * c, side, side, up, down),
                   'launches_per_pass': count, 'rel_err': errs,
-                  'tolerance': K7_REL_TOL, 'ms': times['kernel'],
-                  'plain_ms': times['plain'], 'library_ms': times['library'],
+                  'tolerance': K7_REL_TOL, **_case_times(times),
                   'bound_ms': moved / PEAK_BYTES * 1e3, 'bound_by': 'bytes'})
             del x
             torch.cuda.empty_cache()
@@ -1597,19 +1737,36 @@ def phase_upfirdn2d(ops_upfirdn2d):
     emit({'phase': 'upfirdn2d', 'case': 'odd', 'rel_err': odd,
           'tolerance': K7_REL_TOL})
 
+    # the tile kernel at its edges: outputs one below, at and one above a
+    # tile's columns and rows, odd pads at up 2, many small planes a block
+    edges = {}
+    for label, shape, up, down, pad in K7_EDGE_CASES:
+        fir = base * (4.0 if up == 2 else 1.0)
+        check(ops_upfirdn2d.route(fir, up, down) == 'tile',
+              f'upfirdn2d, case {label}: not a tile case')
+        x = torch.randn(shape, generator=gen).cuda()
+        got = _three_orders(lambda t: upfirdn2d(t, fir, up, down, pad), x)
+        want = _three_orders(lambda t: upfirdn2d_ref(t, fir, up, down, pad),
+                             x)
+        edges[label] = [_rel_err(g, w) for g, w in zip(got, want)]
+        check(max(edges[label]) <= K7_REL_TOL,
+              f'upfirdn2d, case {label}: {edges[label]} of max')
+    emit({'phase': 'upfirdn2d', 'case': 'tile_edges', 'rel_err': edges,
+          'tolerance': K7_REL_TOL})
+
     note = ('F.pad + one depthwise F.conv2d (up 1) or one depthwise '
             'F.conv_transpose2d cut to the window (up 2), and autograd '
             'through them')
     recs = []
     for order in ('fwd', 'bwd', 'bwd2'):
         path = 'serve' if order == 'fwd' else 'train'
-        rec = _sum_orders('upfirdn2d', rows[path], order, note)
+        rec = _sum_orders(f'upfirdn2d_{order}', rows[path], order, note)
         rec.update(max_abs_err=worst_abs, shapes=(
             'one 1024x1024 generator forward of 16 samples'
             if path == 'serve' else 'one 256x256 B 8 generator pass and '
             'one discriminator pass'))
         if order == 'fwd':
-            rec['train_shape'] = _sum_orders('upfirdn2d', rows['train'],
+            rec['train_shape'] = _sum_orders('upfirdn2d_fwd', rows['train'],
                                              order, note)
         recs.append(rec)
     return recs
@@ -1650,6 +1807,14 @@ def phase_fused_act(fused_act):
         errs['fwd_bit_equal'] = bool(torch.equal(got[0], want[0]))
         check(errs['fwd_bit_equal'], f'fused_leaky_relu forward, {label}: '
               f'not bit-equal to the plain version')
+        if bias is not None:
+            # the backward with grad bias (the ordered partials) again
+            errs['grads_bit_equal_on_rerun'] = all(
+                torch.equal(a, b) for a, b in zip(
+                    _three_orders(lambda t, *bb: fused(t, *bb), x, extra)[1:3],
+                    got[1:3]))
+            check(errs['grads_bit_equal_on_rerun'], f'fused_leaky_relu '
+                  f'backward, {label}: grad x or grad bias differ on a rerun')
         return errs
 
     for path, cases in paths.items():
@@ -1659,38 +1824,41 @@ def phase_fused_act(fused_act):
             errs = compare(str(shape), x, bias)
             rest = (1, -1) + (1,) * (len(shape) - 2)
 
-            def kernel(t):
-                return fused(t, bias)
+            def kernel(t, b):
+                return fused(t, b)
 
-            def plain(t):
-                return fused_ref(t, bias)
+            def plain(t, b):
+                return fused_ref(t, b)
 
-            def library(t):
-                return func.leaky_relu(t + bias.view(rest), 0.2) * 2 ** 0.5
+            def library(t, b):
+                return func.leaky_relu(t + b.view(rest), 0.2) * 2 ** 0.5
 
+            impls = (('kernel', kernel), ('plain', plain),
+                     ('library', library))
             if path == 'serve':
-                with torch.no_grad():
-                    times = {key: {'fwd': cuda_ms(lambda f=f: f(x))}
-                             for key, f in (('kernel', kernel),
-                                            ('plain', plain),
-                                            ('library', library))}
+                times = {key: _time_orders(f, x, ('fwd',), bias=bias)
+                         for key, f in impls}
             else:
-                times = {'kernel': _time_orders(kernel, x),
-                         'plain': _time_orders(plain, x),
-                         'library': _time_orders(library, x)}
+                # the backward as the path runs it, the bias taking a
+                # gradient, and without (`bwd`)
+                times = {key: _time_orders(
+                    f, x, ('fwd', 'bwd', 'bwd_with_bias', 'bwd2'),
+                    bias=bias) for key, f in impls}
             numel = float(x.numel())
             # forward: x in, out out; backward and double backward: the
             # incoming gradient and the saved output in, one gradient out
+            # (and grad bias, C floats, summed)
             row = {'count': count, 'times': times,
                    'bytes': {'fwd': 8.0 * numel, 'bwd': 12.0 * numel,
+                             'bwd_with_bias': 12.0 * numel + 4 * shape[1],
                              'bwd2': 12.0 * numel},
                    'flops': {'fwd': 3.0 * numel, 'bwd': 2.0 * numel,
+                             'bwd_with_bias': 3.0 * numel,
                              'bwd2': 2.0 * numel}}
             rows[path].append(row)
             emit({'phase': 'fused_act', 'path': path, 'shape': shape,
                   'launches_per_pass': count, 'rel_err': errs,
-                  'tolerance': K8_REL_TOL, 'ms': times['kernel'],
-                  'plain_ms': times['plain'], 'library_ms': times['library'],
+                  'tolerance': K8_REL_TOL, **_case_times(times),
                   'bound_ms': {o: v / PEAK_BYTES * 1e3
                                for o, v in row['bytes'].items()},
                   'bound_by': 'bytes'})
@@ -1726,16 +1894,23 @@ def phase_fused_act(fused_act):
 
     note = 'F.leaky_relu(x + bias, 0.2) * 2 ** 0.5 in eager, and its autograd'
     recs = []
-    for order in ('fwd', 'bwd', 'bwd2'):
+    # the backward's entry as the path runs it, with grad bias
+    for name, order in (('fwd', 'fwd'), ('bwd', 'bwd_with_bias'),
+                        ('bwd2', 'bwd2')):
         path = 'serve' if order == 'fwd' else 'train'
-        rec = _sum_orders('fused_leaky_relu', rows[path], order, note)
+        rec = _sum_orders(f'fused_leaky_relu_{name}', rows[path], order,
+                          note)
         rec.update(max_abs_err=worst_abs, shapes=(
             'one 1024x1024 generator forward of 16 samples'
             if path == 'serve' else 'one 256x256 B 8 generator pass and '
             'one discriminator pass'))
         if order == 'fwd':
-            rec['train_shape'] = _sum_orders('fused_leaky_relu',
+            rec['train_shape'] = _sum_orders('fused_leaky_relu_fwd',
                                              rows['train'], order, note)
+        if name == 'bwd':
+            rec['with_bias_grad'] = True
+            rec['no_bias_grad'] = _sum_orders('fused_leaky_relu_bwd',
+                                              rows['train'], 'bwd', note)
         recs.append(rec)
     return recs
 
@@ -3292,8 +3467,11 @@ OWN_KERNELS = ('prologue_kernel', 'split_tf32_kernel',
                'mdcn_fused::dgrad_kernel', 'mdcn_fused::wgrad_kernel',
                'mdcn_fused::wgrad_sum_kernel',
                'mdcn_col2im_kernel', 'deform_sample_fwd_kernel',
-               'deform_sample_bwd_kernel', 'upfirdn2d_kernel',
-               'fused_leaky_relu_fwd_kernel', 'fused_leaky_relu_bwd_kernel')
+               'deform_sample_bwd_kernel', 'upfirdn2d_tile_kernel',
+               'upfirdn2d_gather_kernel', 'fused_leaky_relu_fwd_kernel',
+               'fused_leaky_relu_bwd_kernel',
+               'fused_leaky_relu_bwd_rows_kernel',
+               'fused_leaky_relu_bias_sum_kernel')
 LIBRARY_MARKS = ('xmma', 'cudnn', 'cutlass', 'gemm', 'gemv', 'DSE::',
                  'fft', 'region_transform', 'cublas', 'wgrad', 'dgrad')
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time K1, or K2, and the paths it sits on in one checkout, with that
-checkout's own ``chip_smoke.py`` phases, so that two commits can be compared
-in one call on one card (run it once per checkout, in turns: A, B, B, A).
+"""Time K1, K2, or K7 and K8, and the paths they sit on in one checkout,
+with that checkout's own ``chip_smoke.py`` phases, so that two commits can
+be compared in one call on one card (run it once per checkout, in turns:
+A, B, B, A).
 
     python3 k1_compare.py --checkout DIR
     python3 k1_compare.py --checkout DIR --k2
+    python3 k1_compare.py --checkout DIR --k7
 
 ``DIR`` is the root of a checkout (this one by default). From its
 ``chip_smoke.py`` the script runs: the device and build phases; K1's phase
@@ -28,11 +30,25 @@ training step takes it (x frozen) at the training shapes, each with the
 peak memory of the call; the f32 and bf16 requests with a profile each;
 the f32 ``dcn`` and ``flow`` steps and the bf16 ``dcn`` step; a BasicVSR++
 chunk and an EDVR-M window; and the two-rank ``ddp`` phase. The K2 inputs
-are made here, from a seed, so that every checkout gets the same. Needs
-one CUDA device and ``nvcc``.
+are made here, from a seed, so that every checkout gets the same.
+
+With ``--k7`` it runs instead: the device and build phases; K7 through the
+checkout's ``upfirdn2d`` and K8 through its ``fused_leaky_relu``
+(``k7_function`` / ``k8_function`` lines) at every shape of the StyleGAN2
+serving grid (forward) and training pass (forward, backward, double
+backward; K8's backward also with the bias taking a gradient, as the path
+runs it), each order's ``device_ms`` (torch.profiler's device events over
+calls, a profile a call) and ``call_ms`` (CUDA events around one call, the
+median of ``REPS``), by the timers of the ``chip_smoke.py`` beside this
+script whatever the checkout, and their sums weighted by the launches of
+a pass; then the checkout's ``stylegan2_serve`` and ``stylegan2_train``
+phases (two grids, steps of each kind, a profile of each), and as
+controls the f32 CUFED5 request and ``dcn`` step. Needs one CUDA device and
+``nvcc``.
 """
 import argparse
 import importlib
+import importlib.util
 import os
 import statistics
 import subprocess
@@ -42,6 +58,8 @@ import time
 import torch
 
 REPS = 20
+# the directory of this script, whichever checkout it times
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def median_ms(fn, reps=3, warmup=1):
@@ -223,12 +241,112 @@ def main_k2(smoke, build_model, arch, correlation, dcn, kernels):
     smoke.phase_ddp()
 
 
+def _timers_here():
+    """The ``chip_smoke.py`` beside this script, for its timers and
+    StyleGAN2 case lists, whichever checkout is timed."""
+    path = os.path.join(HERE, 'chip_smoke.py')
+    spec = importlib.util.spec_from_file_location('chip_smoke_here', path)
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    return here
+
+
+def _timed_cases(smoke, here, name, paths, make):
+    """``name`` lines: each case of ``paths`` (``{path: ([(case, launches
+    a pass)], orders)}``) timed by ``here._time_orders`` on the function
+    ``make(case)`` returns, ``(fn, x, bias)``; then a line of sums a path,
+    weighted by the launches."""
+    for path, (cases, orders) in paths.items():
+        total = {'device_ms': {}, 'call_ms': {}}
+        for case, count in cases:
+            fn, x, bias = make(case)
+            times = here._time_orders(fn, x, orders, reps=REPS, bias=bias)
+            smoke.emit({'phase': name, 'path': path, 'case': case,
+                        'launches_per_pass': count,
+                        'device_ms': times['device'],
+                        'call_ms': times['call']})
+            for kind, key in (('device', 'device_ms'), ('call', 'call_ms')):
+                for order, ms in times[kind].items():
+                    total[key][order] = total[key].get(order, 0.0) \
+                        + ms * count
+            del fn, x, bias
+            torch.cuda.empty_cache()
+        smoke.emit({'phase': name, 'path': path, 'case': 'pass summed',
+                    **total})
+
+
+def k7_k8_functions(smoke, ops_upfirdn2d, fused_act):
+    """K7 and K8 through the checkout's functions at every StyleGAN2 shape,
+    each order's device and call time."""
+    from mrefsr_tpu_torch.archs.stylegan2_arch import make_resample_kernel
+    here = _timers_here()
+    gen = torch.Generator().manual_seed(smoke.SEED + 41)
+    base = make_resample_kernel(here.SG2_FIR)
+    size, b = here.SG2_SERVE['out_size'], here.SG2_SERVE_SAMPLES
+    tsize, tb = here.SG2_TRAIN_SIZE, here.SG2_TRAIN_B
+
+    def k7(case):
+        n, c, h, up, down, pad, gain = case
+        fir = base * gain
+        return (lambda t: ops_upfirdn2d.upfirdn2d(t, fir, up, down, pad),
+                torch.randn((n, c, h, h), generator=gen).cuda(), None)
+
+    _timed_cases(smoke, here, 'k7_function', {
+        'serve': (here._counted(here._k7_generator_cases(size, b)),
+                  ('fwd',)),
+        'train': (here._counted([*here._k7_generator_cases(tsize, tb),
+                                 *here._k7_discriminator_cases(tsize, tb)]),
+                  ('fwd', 'bwd', 'bwd2'))}, k7)
+
+    def k8(shape):
+        x = torch.randn(shape, generator=gen).cuda()
+        bias = (torch.randn((shape[1],), generator=gen) * 0.5).cuda()
+        return fused_act.fused_leaky_relu, x, bias
+
+    _timed_cases(smoke, here, 'k8_function', {
+        'serve': (here._counted(here._k8_generator_cases(size, b)),
+                  ('fwd',)),
+        'train': (here._counted([*here._k8_generator_cases(tsize, tb),
+                                 *here._k8_discriminator_cases(tsize, tb)]),
+                  ('fwd', 'bwd', 'bwd_with_bias', 'bwd2'))}, k8)
+
+
+def main_k7(smoke, build_model, arch, correlation, dcn, ops_upfirdn2d,
+            fused_act):
+    """``--k7``: see the module docstring."""
+    import tempfile
+    from mrefsr_tpu_torch.archs import stylegan2_arch
+    from mrefsr_tpu_torch.inference import inference_stylegan2
+    k7_k8_functions(smoke, ops_upfirdn2d, fused_act)
+    kernels = smoke.kernel_objects(correlation, dcn, ops_upfirdn2d,
+                                   fused_act)
+    sg2 = (stylegan2_arch, ops_upfirdn2d, fused_act, kernels)
+    smoke.phase_stylegan2_serve(inference_stylegan2, *sg2)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        smoke.phase_stylegan2_train(build_model, *sg2, root)
+    torch.cuda.empty_cache()
+    _, model, batch = smoke.phase_slice(build_model, arch.DynAgg,
+                                        correlation, dcn, kernels)
+
+    def one_request():
+        model.feed_data(batch)
+        model.test()
+
+    smoke.phase_profile('slice', one_request)
+    del model
+    torch.cuda.empty_cache()
+    smoke.phase_train('dcn', build_model, arch, dcn, kernels)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--checkout', default=os.path.dirname(
         os.path.abspath(__file__)))
     parser.add_argument('--k2', action='store_true',
                         help='time K2 and its paths instead of K1\'s')
+    parser.add_argument('--k7', action='store_true',
+                        help='time K7, K8 and the StyleGAN2 paths instead')
     args = parser.parse_args()
     root = os.path.abspath(args.checkout)
     sys.path.insert(0, root)
@@ -250,6 +368,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smoke.phase_build(_build.build)
+    if args.k7:
+        main_k7(smoke, build_model, arch, correlation, dcn, ops_upfirdn2d,
+                fused_act)
+        return
     if args.k2:
         main_k2(smoke, build_model, arch, correlation, dcn,
                 smoke.kernel_objects(correlation, dcn, ops_upfirdn2d,

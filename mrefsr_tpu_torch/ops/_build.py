@@ -140,3 +140,27 @@ class Kernel:
                 f'{self.symbol} failed to launch: CUDA error {err} '
                 f'({self._error_string(err).decode()})')
         self.launches += 1
+
+
+def _raw_stream(index):
+    """The ``cudaStream_t`` of PyTorch's current stream on CUDA device
+    ``index``, as an int, without making a ``torch.cuda.Stream``."""
+    import torch
+    get = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    if get is not None:
+        return get(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(kernel, device, *args):
+    """``kernel(*args, stream)`` on PyTorch's current stream of the CUDA
+    ``device``. The device is made current only where it is not already:
+    a ``torch.cuda.device`` context on every call costs the host more than
+    a small kernel takes on the card."""
+    import torch
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        return kernel(*args, _raw_stream(index))
+    with torch.cuda.device(index):
+        return kernel(*args, _raw_stream(index))

@@ -5,6 +5,8 @@ second-order gradient, 4-D and 2-D, with and without a bias, and at exact
 zeros, where the derivative must be JAX's 1 and not ``F.leaky_relu``'s
 slope. The CUDA kernels cannot run here; the ``autograd.Function``s around
 them are held against JAX with stand-ins written in PyTorch."""
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -146,9 +148,22 @@ def test_derivative_at_exact_zero_follows_jax():
 
 def _stand_in_kernels(monkeypatch):
     """PyTorch stand-ins for the two CUDA kernels, with their contracts:
-    flat memory, the channel from the element's index, the backward from
-    the saved output alone. Returns the list of launches."""
+    flat memory, the channel from the element's index; the backward kernel
+    ``res = (a + b[channel]) * scale * (out >= 0 ? 1 : slope)`` from the
+    saved output alone (``a``, ``b`` may be absent), and where asked its
+    sum over all but the channel axis, as the kernel takes it: each of
+    ``splits`` blocks sums a contiguous share of a channel's elements into
+    ``partial``, then the partials are summed in split order. Returns the
+    list of launches."""
     launched = []
+    tensors = {}
+
+    def _flat(t):
+        """The tensor's memory, in memory order."""
+        return torch.as_strided(t, (t.numel(),), (1,))
+
+    def _channel(total, inner, channels):
+        return (torch.arange(total) // inner) % channels
 
     class _Forward:
         def __call__(self, x_ptr, bias_ptr, out_ptr, total, inner, channels,
@@ -158,8 +173,7 @@ def _stand_in_kernels(monkeypatch):
                                                      out_ptr))
             flat = _flat(x)
             if bias is not None:
-                ch = (torch.arange(total) // inner) % channels
-                flat = flat + bias[ch]
+                flat = flat + bias[_channel(total, inner, channels)]
             _flat(out).copy_(torch.where(flat >= 0, flat, flat * slope)
                              * scale)
 
@@ -167,19 +181,38 @@ def _stand_in_kernels(monkeypatch):
         def __init__(self, name):
             self.name = name
 
-        def __call__(self, grad_ptr, out_ptr, gx_ptr, total, slope, scale,
+        def __call__(self, a_ptr, b_ptr, out_ptr, res_ptr, partial_ptr,
+                     sum_ptr, total, inner, channels, splits, slope, scale,
                      stream):
             launched.append(self.name)
-            grad, out, gx = (tensors[p] for p in (grad_ptr, out_ptr, gx_ptr))
-            assert grad.stride() == out.stride() == gx.stride()
-            g = _flat(grad) * scale
-            _flat(gx).copy_(torch.where(_flat(out) >= 0, g, g * slope))
-
-    tensors = {}
-
-    def _flat(t):
-        """The tensor's memory, in memory order."""
-        return torch.as_strided(t, (t.numel(),), (1,))
+            a, b, out, res, partial, grad_bias = (
+                tensors.get(p) for p in (a_ptr, b_ptr, out_ptr, res_ptr,
+                                         partial_ptr, sum_ptr))
+            assert res.stride() == out.stride()
+            assert splits == fused_act.splits(total, inner, channels)
+            ch = _channel(total, inner, channels)
+            g = torch.zeros(total) if a is None else _flat(a).clone()
+            if a is not None:
+                assert a.stride() == out.stride()
+            if b is not None:
+                assert b.shape == (channels,)
+                g = g + b[ch]
+            g = g * scale
+            r = torch.where(_flat(out) >= 0, g, g * slope)
+            _flat(res).copy_(r)
+            if grad_bias is None:
+                return
+            assert (partial is None) == (splits == 1)
+            for c in range(channels):
+                mine = r[ch == c]
+                share = -(-mine.numel() // splits)
+                parts = [mine[s * share:(s + 1) * share].sum()
+                         for s in range(splits)]
+                total_c = parts[0]
+                for s in range(1, splits):
+                    partial[s, c] = parts[s]
+                    total_c = total_c + parts[s]
+                grad_bias[c] = total_c
 
     real_data_ptr = torch.Tensor.data_ptr
 
@@ -188,22 +221,9 @@ def _stand_in_kernels(monkeypatch):
         tensors[ptr] = t
         return ptr
 
-    class _NoDevice:
-        def __init__(self, *_):
-            pass
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *_):
-            return False
-
-    class _Stream:
-        cuda_stream = 0
-
     monkeypatch.setattr(torch.Tensor, 'data_ptr', data_ptr)
-    monkeypatch.setattr(torch.cuda, 'device', _NoDevice)
-    monkeypatch.setattr(torch.cuda, 'current_stream', lambda: _Stream)
+    monkeypatch.setattr(fused_act, 'launch',
+                        lambda kernel, device, *args: kernel(*args, 0))
     monkeypatch.setattr(fused_act, '_check_cuda', lambda *a: None)
     monkeypatch.setattr(fused_act, 'fused_leaky_relu_fwd_kernel', _Forward())
     monkeypatch.setattr(fused_act, 'fused_leaky_relu_bwd_kernel',
@@ -213,34 +233,124 @@ def _stand_in_kernels(monkeypatch):
     return launched
 
 
-@pytest.mark.parametrize('case', ['4d', '2d', 'channels_last', 'no_bias',
-                                  'strided', 'planted_zeros'])
-def test_functions_around_the_kernels_match_jax(monkeypatch, case):
-    """The Functions the CUDA path uses, with stand-ins for the kernels:
-    the channel index for NCHW, channels-last and 2-D memory, a
-    non-contiguous input, the backward from the saved output, grad bias,
-    and the double backward, against JAX."""
-    launched = _stand_in_kernels(monkeypatch)
-    if case == 'planted_zeros':
-        x, bias, cot = _planted()
-    else:
-        x, bias, cot = _inputs(SHAPES['2d' if case == '2d' else '4d'],
-                               case != 'no_bias', seed=3)
-    want = _jax_orders(x, bias, cot)
+def _sums_from(module, monkeypatch):
+    """Record every ``torch.sum`` / ``Tensor.sum`` called from ``module``'s
+    own code; returns the list it fills."""
+    calls = []
+    real_sum, real_method = torch.sum, torch.Tensor.sum
 
-    def through_function(xt, *bias_t):
+    def recorded(real):
+        def fn(*args, **kwargs):
+            if sys._getframe(1).f_code.co_filename == module.__file__:
+                calls.append(args[0].shape)
+            return real(*args, **kwargs)
+        return fn
+
+    monkeypatch.setattr(torch, 'sum', recorded(real_sum))
+    monkeypatch.setattr(torch.Tensor, 'sum', recorded(real_method))
+    return calls
+
+
+def _case_inputs(case):
+    if case == 'planted_zeros':
+        return _planted()
+    return _inputs(SHAPES['2d' if case == '2d' else '4d'], case != 'no_bias',
+                   seed=3)
+
+
+def _through_function(case):
+    def fn(xt, *bias_t):
         if case == 'channels_last':
             xt = xt.contiguous(memory_format=torch.channels_last)
         elif case == 'strided':
             xt = xt.transpose(2, 3).contiguous().transpose(2, 3)
         return fused_act._FusedLeakyReLU.apply(
             xt, bias_t[0] if bias_t else None, 0.2, float(SCALE))
+    return fn
 
-    got = _torch_orders(through_function, x, bias, cot)
+
+@pytest.mark.parametrize('case', ['4d', '2d', 'channels_last', 'no_bias',
+                                  'strided', 'planted_zeros'])
+def test_functions_around_the_kernels_match_jax(monkeypatch, case):
+    """The Functions the CUDA path uses, with stand-ins for the kernels:
+    the channel index for NCHW, channels-last and 2-D memory, a
+    non-contiguous input, the backward from the saved output, grad bias
+    from the backward kernel (no ``torch.sum``), and the double backward
+    with gg_x and gg_bias in one launch, against JAX."""
+    launched = _stand_in_kernels(monkeypatch)
+    sums = _sums_from(fused_act, monkeypatch)
+    x, bias, cot = _case_inputs(case)
+    want = _jax_orders(x, bias, cot)
+    got = _torch_orders(_through_function(case), x, bias, cot)
     for g, w in zip(got, want):
         assert g.shape == w.shape
         _close(g, w)
     assert launched == ['fwd', 'bwd', 'bwd2']
+    assert sums == []
+
+
+@pytest.mark.parametrize('case', ['4d', 'channels_last', '2d'])
+def test_grad_bias_over_several_splits_matches_jax(monkeypatch, case):
+    """With a channel's elements shared by several blocks (the split rule
+    made small), grad bias is the partials' sum in split order, and the
+    orders still agree with JAX."""
+    monkeypatch.setattr(fused_act, 'SPLIT_ELEMENTS', 8)
+    monkeypatch.setattr(fused_act, 'SPLIT_ROWS', 8)
+    monkeypatch.setattr(fused_act, 'SPLIT_BLOCKS', 64)
+    x, bias, cot = _inputs((6, 3, 4, 8) if case != '2d' else (200, 5), True,
+                           seed=4)
+    numel = x.size
+    inner = 1 if case != '4d' else x.shape[1] * x.shape[2]
+    assert fused_act.splits(numel, inner, bias.shape[0]) > 1
+    launched = _stand_in_kernels(monkeypatch)
+    want = _jax_orders(x, bias, cot)
+    got = _torch_orders(_through_function(case), x, bias, cot)
+    for g, w in zip(got, want):
+        _close(g, w)
+    assert launched == ['fwd', 'bwd', 'bwd2']
+
+
+def test_backward_without_a_graph_launches_the_kernel_itself(monkeypatch):
+    """Where no graph of the backward is built (``create_graph=False``),
+    the backward launches the kernel without another Function; a third
+    order goes through the backward kernel again and counts with the
+    double backward's entry point."""
+    launched = _stand_in_kernels(monkeypatch)
+    x, bias, cot = _case_inputs('4d')
+    xt = _to_torch(x).requires_grad_()
+    bt = torch.from_numpy(bias).requires_grad_()
+    ct = _to_torch(cot)
+    with monkeypatch.context() as m:
+        m.setattr(fused_act._FusedLeakyReLUBackward, 'apply', None)
+        m.setattr(fused_act._FusedLeakyReLUDoubleBackward, 'apply', None)
+        out = fused_act._FusedLeakyReLU.apply(xt, bt, 0.2, float(SCALE))
+        gx, gb = torch.autograd.grad(out, (xt, bt), ct)
+    xr = xt.detach().requires_grad_()
+    br = bt.detach().requires_grad_()
+    wx, wb = torch.autograd.grad(fused_leaky_relu_ref(xr, br), (xr, br), ct)
+    _close(gx.numpy(), wx.numpy())
+    _close(gb.numpy(), wb.numpy())
+    assert launched == ['fwd', 'bwd']
+
+    # third order: d/d(cot) of sum(d/d(cot) of sum(grad_x ** 2) * w)
+    def third(fn, xin, bin_):
+        cotg = ct.clone().requires_grad_()
+        gx, gb = torch.autograd.grad(fn(xin, bin_), (xin, bin_), cotg,
+                                     create_graph=True)
+        second, = torch.autograd.grad((gx ** 2).sum() + (gb ** 2).sum(),
+                                      cotg, create_graph=True)
+        w = torch.linspace(-1, 1, second.numel()).reshape(second.shape)
+        return torch.autograd.grad((second * w).sum(), cotg)[0]
+
+    launched.clear()
+    got = third(lambda a, b: fused_act._FusedLeakyReLU.apply(
+        a, b, 0.2, float(SCALE)), xt, bt)
+    want = third(fused_leaky_relu_ref, xr, br)
+    _close(got.numpy(), want.numpy())
+    # the forward, the backward (order 1) and the double backward (2) with
+    # graphs; then the third order's pass: the double backward's backward
+    # (the backward kernel, order 3) and the backward's backward (2)
+    assert launched == ['fwd', 'bwd', 'bwd2', 'bwd2', 'bwd2']
 
 
 def test_bad_arguments_raise():

@@ -253,6 +253,9 @@ def test_cpu_tensors_never_reach_the_stylegan2_kernels(monkeypatch):
     monkeypatch.setattr(ops_upfirdn2d._UpFirDn2d, 'apply', _refuse)
     monkeypatch.setattr(fused_act._FusedLeakyReLU, 'apply', _refuse)
     monkeypatch.setattr(fused_act._FusedLeakyReLUBackward, 'apply', _refuse)
+    monkeypatch.setattr(fused_act._FusedLeakyReLUDoubleBackward, 'apply',
+                        _refuse)
+    monkeypatch.setattr(fused_act, '_bwd_cuda', _refuse)
     before = [kernel.launches for kernel in KERNELS]
     model = build_model(_tiny_stylegan2_opt(), device='cpu')
     rng = np.random.RandomState(0)
@@ -281,7 +284,10 @@ def test_stylegan2_kernel_wrappers_take_cuda_tensors_only():
     with pytest.raises(TypeError, match='float32 CUDA'):
         fused_act._FusedLeakyReLU.apply(x, None, 0.2, 1.0)
     with pytest.raises(TypeError, match='float32 CUDA'):
-        fused_act._FusedLeakyReLUBackward.apply(x, x, 0.2, 1.0, 1)
+        fused_act._FusedLeakyReLUBackward.apply(x, x, True, 16, 0.2, 1.0, 1)
+    with pytest.raises(TypeError, match='float32 CUDA'):
+        fused_act._FusedLeakyReLUDoubleBackward.apply(x, None, x, 16, 0.2,
+                                                      1.0, 2)
     assert _build._libs == {}
 
 
@@ -425,13 +431,14 @@ def test_kernel_argtypes_match_the_c_signature(kernel):
 def test_every_c_entry_point_has_a_kernel():
     """The scan reads the macro-made signatures (mdcn.cu's IM2COL_ARGS,
     mdcn_fused.cuh's FUSED_ARGS in mdcn_fused.cu and mdcn_bf16.cu,
-    upfirdn2d.cu's UPFIRDN2D_ENTRY), and every launch entry point is bound
-    by a Kernel."""
+    upfirdn2d.cu's UPFIRDN2D_ENTRY, fused_act.cu's FUSED_BWD_ENTRY), and
+    every launch entry point is bound by a Kernel."""
     found = _c_entry_points()
     assert len(found['mdcn_im2col_groups_launch']) == 4 + 18
     assert len(found['mdcn_fused_wgrad_launch']) == 7 + 17
     assert len(found['mdcn_fused_wgrad_bf16_launch']) == 7 + 17
-    assert len(found['upfirdn2d_bwd2_launch']) == 15
+    assert len(found['upfirdn2d_bwd2_launch']) == 16
+    assert len(found['fused_leaky_relu_bwd2_launch']) == 13
     launches = {name for name in found if name.endswith('_launch')}
     assert launches == {k.symbol for k in KERNELS}
 
