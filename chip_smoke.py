@@ -10,6 +10,7 @@ and the sharded patch match over two ranks.
                                               # comparisons, 21 times a path
     python3 chip_smoke.py --ddp  # only the two-rank phase (17)
     python3 chip_smoke.py --bf16 # only the bf16 phases (11a-11e)
+    python3 chip_smoke.py --dcn  # only K3, K5 and their module path (7)
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``). Phases, one JSON line each (one per shape where a
@@ -44,10 +45,16 @@ phase runs several):
    version at the three training shapes, and bit for bit against ``x``
    indexed at the shifted positions for integer flows;
 7. mdcn_groups (K3, DCNv2 with conv groups 2 and 8) and dcn_v1 (K5, DCNv1
-   at padding 0, groups 1 and 8) against their plain versions, forward and
-   every gradient, at EDVR-M's L1 shape (5, 180, 320, 64), deform groups
-   8; with groups 1 the K3 entry point's columns times the weight against
-   K2's fused forward (``K2_REL_TOL``);
+   at padding 0, groups 1 and 8) on the fused kernels, in f32 and then in
+   bf16 (``*_bf16``), against their plain versions, forward and every
+   gradient, at EDVR-M's L1 shape (5, 180, 320, 64), deform groups 8
+   (``DCN_VARIANT_TOL``, at bf16 ``K2_BF16_TOL``); the backward as a
+   training step asks it run twice, bit-equal, launching the variant's own
+   entry points of the type and no scatter; K3 at groups 2 against two K2
+   calls on the channel slices; then dcn_modules: ``DCNv2Pack`` and
+   ``DynAgg`` with groups 2 at bf16 (cast as the models cast a net) on
+   EDVR-M L1 features, forward and backward through the kernels against
+   the plain versions, K3's bf16 entry points only;
 8. upfirdn2d (kernel K7: the tile kernel for StyleGAN2's 4x4 cases, the
    gather kernel for any other) against its plain version, forward,
    backward and double backward, at every shape of a 1024x1024 16-sample
@@ -161,14 +168,15 @@ phase runs several):
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero without the last line. Times come from CUDA events,
-the median of a pair of events around each run (phases 3 to 9, 11a-11c
-and K6's; K1's and its prologue's over ``K1_REPS`` rounds after 3
-warm-ups, the function, the kernel alone and the library yardsticks in
-turn within each round), for K7 and K8 also the device time a call
-(``device_ms_each``: torch.profiler's device events over ``DEVICE_RUNS``
-calls, a profile a call; ``ms``, ``plain_ms`` and ``library_ms`` of
-their ``kernels`` entries, with the events' times beside as
-``*call_ms``), the host clock around
+the median of a pair of events around each run (phases 3, 11a and K6's;
+K1's and its prologue's over ``K1_REPS`` rounds after 3 warm-ups, the
+function, the kernel alone and the library yardsticks in turn within each
+round), for K2 to K5, K7 and K8 (phases 4 to 9, 11b, 11c) the device time
+a call (``device_ms_each``: torch.profiler's device events over
+``DEVICE_RUNS`` calls, ``PLAIN_DEVICE_RUNS`` for a plain version, a
+profile a call; ``ms``, ``plain_ms`` and ``library_ms`` of their
+``kernels`` entries, with the events' times beside as ``*call_ms``),
+the host clock around
 ``torch.cuda.synchronize()`` (phases 10 to 17) and the profiler's device
 times. Bounds use the H100 SXM's published 67 TFLOP/s f32 (CUDA cores),
 495 TFLOP/s TF32 and 989 TFLOP/s dense bf16 (tensor cores) and 3.35 TB/s;
@@ -244,7 +252,11 @@ def cuda_ms(fn, reps=3, warmup=1):
 # tried before giving up
 DEVICE_RUNS = 20
 SETTLE_NAME, SETTLE_CYCLES, SETTLE_KERNELS = 'spin_kernel', 100_000, 16
-DEVICE_TRIES = 3
+DEVICE_TRIES = 6
+# device work a library launches on some calls and not on others (cuDNN's
+# bf16 weight gradient, now and then, on the H100 machine): timed, but
+# left out of the event count that tells a dropped event
+VARYING_EVENTS = ('init_device_work',)
 
 
 def device_ms_each(fns, runs=DEVICE_RUNS, warmup=1):
@@ -260,11 +272,13 @@ def device_ms_each(fns, runs=DEVICE_RUNS, warmup=1):
     that ran ahead of them; so each profile holds one fn alone, opens and
     closes with :data:`SETTLE_KERNELS` spin kernels each
     (``torch.cuda._sleep``, left out of the sum), and is taken again, up
-    to :data:`DEVICE_TRIES` times, where its event count is not a multiple
-    of ``runs``."""
+    to :data:`DEVICE_TRIES` times and with twice the spin kernels each
+    time, where its event count is not a multiple of ``runs``
+    (``VARYING_EVENTS`` left out of that count): once every event of a
+    one-call profile went missing three times running."""
 
-    def settle():
-        for _ in range(SETTLE_KERNELS):
+    def settle(tries):
+        for _ in range(SETTLE_KERNELS << tries):
             torch.cuda._sleep(SETTLE_CYCLES)
         torch.cuda.synchronize()
 
@@ -275,26 +289,49 @@ def device_ms_each(fns, runs=DEVICE_RUNS, warmup=1):
             fn()
     out = []
     for fn in fns:
-        for _ in range(DEVICE_TRIES):
+        for tries in range(DEVICE_TRIES):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                settle()
+                settle(tries)
                 for _ in range(runs):
                     fn()
                 torch.cuda.synchronize()
-                settle()
+                settle(tries)
             events = [e for e in prof.events()
                       if e.device_type == DeviceType.CUDA
                       and SETTLE_NAME not in e.name
                       and not getattr(e, 'is_user_annotation', False)]
-            if events and len(events) % runs == 0:
+            steady = [e for e in events
+                      if not any(name in e.name for name in VARYING_EVENTS)]
+            if steady and len(steady) % runs == 0:
                 break
-        check(events and len(events) % runs == 0,
-              f'{len(events)} device events profiled for {runs} calls, '
+        check(steady and len(steady) % runs == 0,
+              f'{len(steady)} device events profiled for {runs} calls, '
               f'{DEVICE_TRIES} times: '
               f'{sorted({e.name[:60] for e in events})}')
         out.append(sum(e.time_range.elapsed_us() for e in events)
                    / runs / 1e3)
+    return out
+
+
+# the plain versions' calls profiled a fn (device_ms_each): each takes tens
+# to hundreds of ms
+PLAIN_DEVICE_RUNS = 3
+
+
+def timed(fns, reps=3):
+    """Each ``key: fn`` of ``fns`` (keys ending in ``ms``) timed two ways:
+    ``key``, the device time a call (:func:`device_ms_each` over
+    ``DEVICE_RUNS`` calls, ``PLAIN_DEVICE_RUNS`` for a ``plain`` key), and
+    ``key`` with ``ms`` made ``call_ms``, a pair of CUDA events around one
+    call, host time included (:func:`cuda_ms`, the median of ``reps``, of
+    one for the plain version)."""
+    out = {}
+    for key, fn in fns.items():
+        plain = key.startswith('plain')
+        out[key[:-2] + 'call_ms'] = cuda_ms(fn, reps=1 if plain else reps)
+        out[key] = device_ms_each(
+            [fn], runs=PLAIN_DEVICE_RUNS if plain else DEVICE_RUNS)[0]
     return out
 
 
@@ -686,9 +723,10 @@ def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32,
     (``VIDEO_K2_SHAPES``); ``kernel_only_ms`` is the kernel's launch
     alone."""
     gen = torch.Generator().manual_seed(SEED + 1)
-    total = {'ms': 0.0, 'kernel_only_ms': 0.0, 'plain_ms': 0.0,
-             'bound_ms': 0.0, 'bound_f32_cuda_cores_ms': 0.0,
-             'library_ms': 0.0, 'flops': 0.0, 'bytes': 0.0}
+    total = {key: 0.0 for key in (
+        'ms', 'call_ms', 'kernel_only_ms', 'kernel_only_call_ms', 'plain_ms',
+        'plain_call_ms', 'library_ms', 'library_call_ms', 'bound_ms',
+        'bound_f32_cuda_cores_ms', 'flops', 'bytes')}
     worst, ops_s = 0.0, 0.0
     size = torch.finfo(dtype).bits // 8
     tol = _k2_tol(dtype)
@@ -731,18 +769,16 @@ def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32,
                          + bias.numel() + rows * cout) \
             + 4.0 * offset.numel()
         ops_s += sum(f / p for f, p in flops)
-        shape = {
-            'ms': cuda_ms(lambda: dcn.modulated_deform_conv2d(*args, **kw)),
-            'kernel_only_ms': cuda_ms(kernel_only),
-            'plain_ms': cuda_ms(
-                lambda: dcn.modulated_deform_conv2d_ref(*args, **kw),
-                reps=1),
-            'library_ms': cuda_ms(lambda: torch.nn.functional.conv2d(
-                x_nchw, w_oihw, bias, padding=1)),
-            'bound_ms': bound(flops, nbytes)[0],
-            'bound_f32_cuda_cores_ms': _k2_cores_bound(macs, sampling,
-                                                       nbytes),
-            'flops': sum(f for f, _ in flops), 'bytes': nbytes}
+        shape = timed({
+            'ms': lambda: dcn.modulated_deform_conv2d(*args, **kw),
+            'kernel_only_ms': kernel_only,
+            'plain_ms': lambda: dcn.modulated_deform_conv2d_ref(*args, **kw),
+            'library_ms': lambda: torch.nn.functional.conv2d(
+                x_nchw, w_oihw, bias, padding=1)})
+        shape.update(bound_ms=bound(flops, nbytes)[0],
+                     bound_f32_cuda_cores_ms=_k2_cores_bound(macs, sampling,
+                                                             nbytes),
+                     flops=sum(f for f, _ in flops), bytes=nbytes)
         bf16 = dtype == BF16
         emit({'phase': 'mdcn_bf16' if bf16 else 'mdcn',
               **({'case': case} if case else {}), 'n': n_maps, 'c': c,
@@ -763,7 +799,8 @@ def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32,
                          else 'bytes'),
             'library_call': f'F.conv2d (cuDNN) of the same shapes in '
                             f'{dtype}: the same conv with zero offsets and '
-                            'unit mask, a lower bound (no gather)'}
+                            'unit mask, a lower bound (no gather)',
+            'timing': TIMING_NOTE}
 
 
 TRAIN_B, TRAIN_GT = 6, 160              # options/train/stage3_5ref_*.yml
@@ -785,7 +822,10 @@ def _sum_records(name, shapes, extra):
     """One ``kernels`` entry out of a kernel's per-shape records; a
     record's ``ops_s``, where it has one, is its operations' least time
     (operations of several types), else its ``flops`` count at f32."""
-    keys = ('ms', 'kernel_only_ms', 'plain_ms', 'bound_ms', 'library_ms',
+    keys = ('ms', 'call_ms', 'kernel_only_ms', 'kernel_only_call_ms',
+            'kernel_only_with_grad_x_ms', 'kernel_only_with_grad_x_call_ms',
+            'with_grad_x_ms', 'with_grad_x_call_ms', 'plain_ms',
+            'plain_call_ms', 'library_ms', 'library_call_ms', 'bound_ms',
             'bound_f32_cuda_cores_ms')
     total = {k: sum(rec[k] for rec in shapes) for k in keys
              if k in shapes[0]}
@@ -898,8 +938,8 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
         inputs = [a.detach().requires_grad_(i in wrt) for i, a in
                   enumerate((x, offset, mask, weight))]
         out = dcn.modulated_deform_conv2d_ref(*inputs, deform_groups=8)
-        return cuda_ms(lambda: torch.autograd.grad(
-            out, [inputs[i] for i in wrt], cot, retain_graph=True), reps=1)
+        return lambda: torch.autograd.grad(
+            out, [inputs[i] for i in wrt], cot, retain_graph=True)
 
     x_nchw = x.permute(0, 3, 1, 2).requires_grad_()
     w_oihw = weight.permute(3, 2, 0, 1).contiguous(
@@ -908,8 +948,8 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
     cot_l = cot.permute(0, 3, 1, 2)
 
     def library(wrt):
-        return cuda_ms(lambda: torch.autograd.grad(out_l, wrt, cot_l,
-                                                   retain_graph=True))
+        return lambda: torch.autograd.grad(out_l, wrt, cot_l,
+                                           retain_graph=True)
 
     ordered = lambda: sum(partial[i] for i in range(1, splits))  # noqa: E731
     macs = rows * 9.0 * c * c
@@ -931,14 +971,15 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
                   lambda: plain((3,)), lambda: library(w_oihw)),
         'wgrad_sum': ([(float(partial.numel()), PEAK_F32_FLOPS)],
                       4.0 * (partial.numel() + total.numel()),
-                      lambda: cuda_ms(lambda: partial[0] + ordered()),
-                      lambda: cuda_ms(lambda: partial.sum(0)))}
+                      lambda: lambda: partial[0] + ordered(),
+                      lambda: lambda: partial.sum(0))}
     recs = {}
     for part, fn in launch.items():
-        flops, nbytes, plain_ms, library_ms = spec[part]
+        flops, nbytes, plain_fn, library_fn = spec[part]
         if part == 'dgrad_scatter':
             g_x.zero_()
-        ms = cuda_ms(fn)
+        times = timed({'ms': fn, 'plain_ms': plain_fn(),
+                       'library_ms': library_fn()})
         got = outs[part]
         errs = {name: _rel_err(g.float(), want[name].float())
                 for name, g in got.items()}
@@ -948,8 +989,9 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
                   f'differs by {err} of its max')
         products = part in ('dgrad', 'dgrad_scatter', 'wgrad')
         recs[part] = {
-            'ms': ms, 'kernel_only_ms': ms, 'plain_ms': plain_ms(),
-            'library_ms': library_ms(), 'bound_ms': bound(flops, nbytes)[0],
+            **times, 'kernel_only_ms': times['ms'],
+            'kernel_only_call_ms': times['call_ms'],
+            'bound_ms': bound(flops, nbytes)[0],
             'bound_f32_cuda_cores_ms': (
                 _k2_cores_bound(macs, flops[1:], nbytes) if products
                 else bound(flops, nbytes)[0]),
@@ -1027,28 +1069,28 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
         grad_k = lambda: torch.autograd.grad(  # noqa: E731
             out_k, inputs[1:], cot, retain_graph=True)
         rows = n * h * h
-        ms = cuda_ms(grad_k)
-        # the kernels the step launches here, alone
-        kernel_ms = sum(rec['ms'] for part, rec in parts[-1].items()
-                        if part != 'dgrad_scatter')
-        scatter_ms = parts[-1]['dgrad_scatter']['ms']
-        extra.update(chunks=0, **{f'{part}_ms': rec['ms']
-                                  for part, rec in parts[-1].items()})
-        del out_k
         out_p = dcn.modulated_deform_conv2d_ref(*inputs, deform_groups=8)
-        plain_ms = cuda_ms(lambda: torch.autograd.grad(
-            out_p, inputs[1:], cot, retain_graph=True), reps=1)
-        del out_p
-        torch.cuda.empty_cache()
         x_nchw = x.permute(0, 3, 1, 2).requires_grad_()
         w_oihw = weight.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last).requires_grad_()
         b_lib = bias.detach().requires_grad_()
         out_l = torch.nn.functional.conv2d(x_nchw, w_oihw, b_lib, padding=1)
         cot_l = cot.permute(0, 3, 1, 2)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(
-            out_l, (x_nchw, w_oihw, b_lib), cot_l, retain_graph=True))
-        del out_l
+        times = timed({
+            'ms': grad_k,
+            'plain_ms': lambda: torch.autograd.grad(
+                out_p, inputs[1:], cot, retain_graph=True),
+            'library_ms': lambda: torch.autograd.grad(
+                out_l, (x_nchw, w_oihw, b_lib), cot_l, retain_graph=True)})
+        # the kernels the step launches here, alone
+        kernel = {key: sum(rec[key] for part, rec in parts[-1].items()
+                           if part != 'dgrad_scatter')
+                  for key in ('ms', 'call_ms')}
+        scatter = parts[-1]['dgrad_scatter']
+        extra.update(chunks=0, **{f'{part}_ms': rec['ms']
+                                  for part, rec in parts[-1].items()})
+        del out_k, out_p, out_l
+        torch.cuda.empty_cache()
         # two products (grad weight, grad columns) at the dtype's rate and
         # the bilinear derivative per column element on CUDA cores; bytes
         # without grad x (the offset and its gradient f32)
@@ -1058,9 +1100,10 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
         nbytes = size * (cot.numel() + x.numel() + 2 * mask.numel()
                          + 2 * weight.numel() + bias.numel()) \
             + 4.0 * 2 * offset.numel()
-        rec = {'ms': ms, 'kernel_only_ms': kernel_ms,
-               'kernel_only_with_grad_x_ms': scatter_ms,
-               'plain_ms': plain_ms, 'library_ms': library_ms,
+        rec = {**times, 'kernel_only_ms': kernel['ms'],
+               'kernel_only_call_ms': kernel['call_ms'],
+               'kernel_only_with_grad_x_ms': scatter['ms'],
+               'kernel_only_with_grad_x_call_ms': scatter['call_ms'],
                'bound_ms': bound(flops, nbytes)[0],
                'bound_f32_cuda_cores_ms': _k2_cores_bound(macs, other,
                                                           nbytes),
@@ -1083,11 +1126,14 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
     tag = '_bf16' if bf16 else ''
     whole = _sum_records(f'mdcn_backward{tag}', shapes, {})
     emit({'phase': f'mdcn_backward{tag}', 'case': 'the training shapes summed',
-          **{k: whole[k] for k in ('ms', 'kernel_only_ms', 'plain_ms',
-                                   'library_ms', 'bound_ms',
+          **{k: whole[k] for k in ('ms', 'call_ms', 'kernel_only_ms',
+                                   'kernel_only_call_ms', 'plain_ms',
+                                   'plain_call_ms', 'library_ms',
+                                   'library_call_ms', 'bound_ms',
                                    'bound_f32_cuda_cores_ms', 'bound_by')},
           'ms_is': 'the whole backward through the Function; '
-                   'kernel_only_ms: its fused kernels alone'})
+                   'kernel_only_ms: its fused kernels alone',
+          'timing': TIMING_NOTE})
     calls = {'dgrad': 'autograd of F.conv2d (cuDNN): grad input',
              'dgrad_scatter': 'autograd of F.conv2d (cuDNN): grad input',
              'wgrad': 'autograd of F.conv2d (cuDNN): grad weight; its '
@@ -1096,7 +1142,8 @@ def phase_mdcn_backward(dcn, dtype=torch.float32):
     return [_sum_records(f'mdcn_fused_{part}{tag}',
                          [shape[part] for shape in parts],
                          {'library_call': call + '; at the training shapes '
-                          'where the step launches it'})
+                          'where the step launches it',
+                          'timing': TIMING_NOTE})
             for part, call in calls.items()]
 
 
@@ -1201,27 +1248,30 @@ def phase_deform_sample(dcn, dtype=torch.float32):
                 out_l.shape)).float().abs().max())
         numel = float(x.numel())
         # some 30 operations per 4 output values, forward and backward
-        rec_f = {
-            'ms': cuda_ms(lambda: dcn.deform_sample(x, flow)),
-            'plain_ms': cuda_ms(lambda: dcn.deform_sample_ref(x, flow)),
-            'library_ms': cuda_ms(library),
+        rec_f = timed({
+            'ms': _no_grad(lambda: dcn.deform_sample(x, flow)),
+            'plain_ms': _no_grad(lambda: dcn.deform_sample_ref(x, flow)),
+            'library_ms': _no_grad(library)})
+        rec_f.update({
             'flops': 8.0 * numel,
             'bytes': size * 2 * numel + 4.0 * flow.numel(),
-            'max_abs_err': err_out, 'max_rel_err': rel_out}
-        rec_b = {
-            'ms': cuda_ms(lambda: torch.autograd.grad(
-                out_k, inp_k[1], cot, retain_graph=True)),
-            'with_grad_x_ms': cuda_ms(lambda: torch.autograd.grad(
-                out_kx, inp_kx, cot, retain_graph=True)),
-            'plain_ms': cuda_ms(lambda: torch.autograd.grad(
-                out_p, inp_p[1], cot, retain_graph=True)),
-            'library_ms': cuda_ms(lambda: torch.autograd.grad(
-                out_l, grid, cot_lib, retain_graph=True)),
+            'max_abs_err': err_out, 'max_rel_err': rel_out})
+        rec_b = timed({
+            'ms': lambda: torch.autograd.grad(
+                out_k, inp_k[1], cot, retain_graph=True),
+            'with_grad_x_ms': lambda: torch.autograd.grad(
+                out_kx, inp_kx, cot, retain_graph=True),
+            'plain_ms': lambda: torch.autograd.grad(
+                out_p, inp_p[1], cot, retain_graph=True),
+            'library_ms': lambda: torch.autograd.grad(
+                out_l, grid, cot_lib, retain_graph=True)})
+        rec_b.update({
             'flops': 12.0 * numel,
             'bytes': size * 2 * numel + 4.0 * 2 * flow.numel(),
-            'max_abs_err': err_grad, 'max_rel_err': max(errs.values())}
+            'max_abs_err': err_grad, 'max_rel_err': max(errs.values())})
         for rec in (rec_f, rec_b):
             rec['kernel_only_ms'] = rec['ms']
+            rec['kernel_only_call_ms'] = rec['call_ms']
             rec['bound_ms'], rec['bound_by'] = bound(rec['flops'],
                                                      rec['bytes'])
         emit({'phase': 'deform_sample_bf16' if bf16 else 'deform_sample',
@@ -1230,7 +1280,7 @@ def phase_deform_sample(dcn, dtype=torch.float32):
               'grad_rel_err': errs, 'tolerance': grad_tol,
               'forward_tolerance': fwd_tol,
               'library_vs_plain_max_abs_diff': lib_err,
-              'forward': rec_f, 'backward': rec_b})
+              'forward': rec_f, 'backward': rec_b, 'timing': TIMING_NOTE})
         fwd.append(rec_f)
         bwd.append(rec_b)
         del x, flow, cot, iflow, out_k, out_kx, out_p, out_l, inp_k, inp_kx
@@ -1240,15 +1290,18 @@ def phase_deform_sample(dcn, dtype=torch.float32):
             'bilinear, zeros, align_corners=True')
     tag = '_bf16' if bf16 else ''
     return (_sum_records(f'deform_sample_fwd{tag}', fwd,
-                         {'library_call': call}),
+                         {'library_call': call, 'timing': TIMING_NOTE}),
             _sum_records(f'deform_sample_bwd{tag}', bwd, {
-                'library_call': call + ': its autograd in the grid'}))
+                'library_call': call + ': its autograd in the grid',
+                'timing': TIMING_NOTE}))
 
 
 # ------------------------------------ K3 (conv groups > 1) and K5 (DCNv1)
 EDVR_L1 = (T, 180, 320, 64)   # EDVR-M's L1 features of a 5-frame REDS window
 DCN_VARIANT_TOL = 1e-4        # max |kernel - plain| / max |plain|, forward
 #                               and every gradient (K2_REL_TOL, GRAD_REL_TOL)
+K3_TPU = 'mrefsr_tpu/ops/dcn.py:214'
+K5_TPU = 'mrefsr_tpu/ops/dcn.py:345'
 
 
 def _grads_all(fn, args, cot):
@@ -1257,23 +1310,52 @@ def _grads_all(fn, args, cot):
     return [out.detach(), *torch.autograd.grad(out, inputs, cot)]
 
 
-def _dcn_variant(dcn, gen, groups, masked, padding):
+def _no_grad(fn):
+    def call():
+        with torch.no_grad():
+            return fn()
+    return call
+
+
+def _variant_entries(dcn, variant, dtype):
+    """The names of ``variant``'s fused entry points at ``dtype``: those a
+    call with x frozen launches, and the grad-x scatter."""
+    tag = '_bf16' if dtype == BF16 else ''
+    prefix = dcn.VARIANTS[variant]
+    return ([f'{prefix}_{part}{tag}'
+             for part in ('fwd', 'dgrad', 'wgrad', 'wgrad_sum')],
+            f'{prefix}_dgrad_scatter{tag}')
+
+
+def _dcn_variant(dcn, kernels, gen, groups, masked, padding, dtype):
     """One K3 (``masked``, ``groups > 1``) or K5 (not ``masked``) case at
-    EDVR-M's L1 shape, deform groups 8: forward and every gradient through
-    the kernels against the plain version, then the times of the forward,
-    of the backward as a training step would ask it (no grad x) and of
-    their kernels alone. Returns the forward and backward records."""
+    EDVR-M's L1 shape, deform groups 8, at ``dtype`` (the offset f32):
+    forward and every gradient through the fused kernels against the plain
+    version; the backward as a training step asks it (x frozen) run twice,
+    bit-equal, launching the variant's own entry points of the type and no
+    other (no scatter); then the device time a call (``ms``) and the
+    events around one (``call_ms``) of the forward, of that backward and of
+    the backward with grad x, beside the plain version and the library
+    yardstick (grouped ``F.conv2d`` and its autograd at the same type: no
+    gather, a lower bound). The bound is the grouped work's (MACs / G):
+    the kernels run the block-diagonal weight, G times the products.
+    Returns the forward and backward records."""
     n, h, w, c = EDVR_L1
     dg, cout = 8, 64
+    bf16 = dtype == BF16
+    tol = K2_BF16_TOL if bf16 else DCN_VARIANT_TOL
+    size = torch.finfo(dtype).bits // 8
     ho, wo = h + 2 * padding - 2, w + 2 * padding - 2
-    x = torch.randn((n, h, w, c), generator=gen).cuda()
+    x = torch.randn((n, h, w, c), generator=gen).to(dtype).cuda()
     offset = (torch.randn((n, ho, wo, dg, 9, 2), generator=gen) * 4).cuda()
-    mask = torch.rand((n, ho, wo, dg, 9), generator=gen).cuda()
+    mask = torch.rand((n, ho, wo, dg, 9), generator=gen).to(dtype).cuda()
     weight = (torch.randn((3, 3, c // groups, cout), generator=gen)
-              * 0.05).cuda()
-    bias = torch.randn((cout,), generator=gen).cuda()
-    cot = torch.randn((n, ho, wo, cout), generator=gen).cuda()
+              * 0.05).to(dtype).cuda()
+    bias = torch.randn((cout,), generator=gen).to(dtype).cuda()
+    cot = torch.randn((n, ho, wo, cout), generator=gen).to(dtype).cuda()
     kw = dict(padding=padding, groups=groups, deform_groups=dg)
+    variant = 'k3' if masked else 'k5'
+    entries, scatter = _variant_entries(dcn, variant, dtype)
     if masked:
         args, names = (x, offset, mask, weight, bias), ('out', 'x', 'offset',
                                                         'mask', 'weight',
@@ -1293,38 +1375,37 @@ def _dcn_variant(dcn, gen, groups, masked, padding):
         def plain(*a):
             return dcn.deform_conv2d_ref(*a, **kw)
     got, want = _grads_all(kernel, args, cot), _grads_all(plain, args, cot)
-    errs = {name: _rel_err(g, wt) for name, g, wt in zip(names, got, want)}
-    abs_err = max(float((g - wt).abs().max()) for g, wt in zip(got, want))
+    errs = {name: _rel_err(g.float(), wt.float())
+            for name, g, wt in zip(names, got, want)}
+    abs_err = max(float((g.float() - wt.float()).abs().max())
+                  for g, wt in zip(got, want))
     label = (f'{"mdcn" if masked else "deform_conv2d"} groups={groups} '
-             f'padding={padding}')
+             f'padding={padding} {dtype}')
+    check(got[0].dtype == dtype, f'{label}: output is {got[0].dtype}')
     for name, e in errs.items():
-        check(e <= DCN_VARIANT_TOL, f'{label}: {name} differs by {e} of its '
-              f'max')
-    del got, want
+        check(e <= tol, f'{label}: {name} differs by {e} of its max')
+    del got
 
-    rows = n * ho * wo
-    geom = ((3, 3), (1, 1), (padding, padding), (1, 1), (ho, wo))
-    chunks = dcn._row_chunks(rows, 9, c, 4)
-    m = mask if masked else None
-    grad_col = torch.randn((groups, chunks[0][1], 9, c // groups),
-                           device='cuda')
-    g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
-    g_x = torch.zeros_like(x)
-
-    def im2col_only():
-        for row0, nrows in chunks:
-            dcn._im2col_cuda(x, offset, m, row0, nrows, geom, groups)
-
-    def col2im_only(grad_x=None):
-        for row0, nrows in chunks:
-            part = grad_col.flatten()[:nrows * 9 * c].view(groups, nrows, 9,
-                                                           c // groups)
-            dcn._col2im_cuda(part, x, offset, m, g_off, g_mask, grad_x, row0,
-                             nrows, geom, groups)
-
-    # as a training step would ask it: x is a frozen feature, no grad x
+    # as a training step asks it: x frozen, so no scatter; twice, bit-equal
+    reset_counts(kernels)
     wrt = [a.detach().requires_grad_(i > 0) for i, a in enumerate(args)]
-    out_k, out_p = kernel(*wrt), plain(*wrt)
+    step = torch.autograd.grad(kernel(*wrt), wrt[1:], cot)
+    again = torch.autograd.grad(kernel(*wrt), wrt[1:], cot)
+    launches = read_counts(kernels, entries, (scatter,))
+    _only(kernels, launches, entries)
+    step_errs = {name: _rel_err(g.float(), wt.float())
+                 for name, g, wt in zip(names[2:], step, want[2:])}
+    for name, e in step_errs.items():
+        check(e <= tol, f'{label} as the step runs it: {name} differs by '
+              f'{e} of its max')
+    bit_equal = {name: bool(torch.equal(g, g2))
+                 for name, g, g2 in zip(names[2:], step, again)}
+    check(all(bit_equal.values()), f'{label}: two step backward calls '
+          f'differ: {bit_equal}')
+    del step, again, want
+
+    wrt_x = [a.detach().requires_grad_() for a in args]
+    out_k, out_kx, out_p = kernel(*wrt), kernel(*wrt_x), plain(*wrt)
     x_nchw = x.permute(0, 3, 1, 2).requires_grad_()
     w_oihw = weight.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last).requires_grad_()
@@ -1336,91 +1417,232 @@ def _dcn_variant(dcn, gen, groups, masked, padding):
                                           padding=padding, groups=groups)
 
     out_l = library()
-    with torch.no_grad():
-        fwd = {'ms': cuda_ms(lambda: kernel(*args)),
-               'kernel_only_ms': cuda_ms(im2col_only),
-               'plain_ms': cuda_ms(lambda: plain(*args), reps=1),
-               'library_ms': cuda_ms(library)}
-    bwd = {'ms': cuda_ms(lambda: torch.autograd.grad(
-               out_k, wrt[1:], cot, retain_graph=True)),
-           'kernel_only_ms': cuda_ms(col2im_only),
-           'kernel_only_with_grad_x_ms': cuda_ms(lambda: col2im_only(g_x)),
-           'plain_ms': cuda_ms(lambda: torch.autograd.grad(
-               out_p, wrt[1:], cot, retain_graph=True), reps=1),
-           'library_ms': cuda_ms(lambda: torch.autograd.grad(
-               out_l, lib_in, cot.permute(0, 3, 1, 2), retain_graph=True))}
-    macs = rows * 9.0 * c * cout / groups
+    cot_l = cot.permute(0, 3, 1, 2)
+    fwd = timed({'ms': _no_grad(lambda: kernel(*args)),
+                 'plain_ms': _no_grad(lambda: plain(*args)),
+                 'library_ms': _no_grad(library)})
+    bwd = timed({'ms': lambda: torch.autograd.grad(
+                     out_k, wrt[1:], cot, retain_graph=True),
+                 'with_grad_x_ms': lambda: torch.autograd.grad(
+                     out_kx, wrt_x, cot, retain_graph=True),
+                 'plain_ms': lambda: torch.autograd.grad(
+                     out_p, wrt[1:], cot, retain_graph=True),
+                 'library_ms': lambda: torch.autograd.grad(
+                     out_l, lib_in, cot_l, retain_graph=True)})
+    rows = n * ho * wo
+    macs = rows * 9.0 * c * cout / groups       # the grouped work
     n_mask = mask.numel() if masked else 0
     n_bias = bias.numel() if masked else 0
-    fwd.update(flops=2 * macs + 9.0 * rows * 9 * c,
-               bytes=4.0 * (x.numel() + offset.numel() + n_mask
-                            + weight.numel() + n_bias + rows * cout))
-    bwd.update(flops=4 * macs + 20.0 * rows * 9 * c,
-               bytes=4.0 * (cot.numel() + x.numel() + 2 * offset.numel()
-                            + 2 * n_mask + 2 * weight.numel() + n_bias))
-    for rec in (fwd, bwd):
-        rec['bound_ms'], rec['bound_by'] = bound(rec['flops'], rec['bytes'])
-        rec['max_abs_err'], rec['max_rel_err'] = abs_err, max(errs.values())
-    emit({'phase': 'mdcn_groups' if masked else 'dcn_v1', 'n': n, 'h': h,
-          'w': w, 'c': c, 'cout': cout, 'deform_groups': dg, 'groups': groups,
-          'padding': padding, 'chunks': len(chunks), 'rel_err': errs,
-          'tolerance': DCN_VARIANT_TOL, 'forward': fwd, 'backward': bwd})
+    for rec, products, other, nbytes in (
+            (fwd, macs, (9.0 * rows * 9 * c, PEAK_F32_FLOPS),
+             size * (x.numel() + n_mask + weight.numel() + n_bias
+                     + rows * cout) + 4.0 * offset.numel()),
+            (bwd, 2 * macs, (20.0 * rows * 9 * c, PEAK_F32_FLOPS),
+             size * (cot.numel() + x.numel() + 2 * n_mask
+                     + 2 * weight.numel() + n_bias)
+             + 4.0 * 2 * offset.numel())):
+        flops = [_k2_products(products, dtype), other]
+        rec.update(flops=sum(f for f, _ in flops),
+                   ops_s=sum(f / p for f, p in flops), bytes=nbytes,
+                   bound_f32_cuda_cores_ms=_k2_cores_bound(products, [other],
+                                                           nbytes),
+                   macs_run=products * groups, macs_grouped=products,
+                   max_abs_err=abs_err,
+                   max_rel_err=max(*errs.values(), *step_errs.values()))
+        rec['bound_ms'], rec['bound_by'] = bound(flops, nbytes)
+    emit({'phase': f'{"mdcn_groups" if masked else "dcn_v1"}'
+                   f'{"_bf16" if bf16 else ""}',
+          'n': n, 'h': h, 'w': w, 'c': c, 'cout': cout, 'deform_groups': dg,
+          'groups': groups, 'padding': padding, 'dtype': str(dtype),
+          'rel_err': errs, 'step_rel_err': step_errs,
+          'bit_equal_rerun': bit_equal,
+          'launches': {k: v for k, v in launches.items() if v},
+          'tolerance': tol, 'forward': fwd, 'backward': bwd,
+          'timing': TIMING_NOTE})
+    del out_k, out_kx, out_p, out_l
+    torch.cuda.empty_cache()
     return fwd, bwd
 
 
-def phase_mdcn_groups(dcn):
-    """K3: DCNv2 with conv groups 2 and 8 at EDVR-M's L1 shape against its
-    plain version, forward and every gradient; and with groups 1 the K3
-    entry point's columns times the weight against K2's fused forward."""
-    gen = torch.Generator().manual_seed(SEED + 16)
-    recs = [_dcn_variant(dcn, gen, g, True, 1) for g in (2, 8)]
+def _k3_against_k2_slices(dcn, gen, dtype):
+    """K3 at conv groups 2 against two K2 calls on the channel slices, on
+    the card: x's and the weight's channels of each group, the deform
+    groups (8) split with them, the bias's and grad out's output channels;
+    the output and every gradient, within K2's tolerances."""
     n, h, w, c = EDVR_L1
-    x = torch.randn((n, h, w, c), generator=gen).cuda()
-    offset = (torch.randn((n, h, w, 8, 9, 2), generator=gen) * 4).cuda()
-    mask = torch.rand((n, h, w, 8, 9), generator=gen).cuda()
-    weight = (torch.randn((3, 3, c, c), generator=gen) * 0.02).cuda()
-    geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, w))
-    rows = dcn._row_chunks(n * h * w, 9, c, 4)[0][1]
-    col_k3 = torch.empty((1, rows, 9, c), device='cuda')
-    with torch.cuda.device(x.device):
-        dcn.mdcn_im2col_groups_kernel(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-            col_k3.data_ptr(), 0, rows, h, w, c,
-            *dcn._geom_args(geom, 8, 1))
-    out_k3 = torch.mm(col_k3.reshape(rows, 9 * c), weight.reshape(9 * c, c))
-    out_k2 = dcn.modulated_deform_conv2d(
-        x, offset, mask, weight, deform_groups=8).reshape(-1, c)[:rows]
-    err = _rel_err(out_k2, out_k3)
-    check(err <= K2_REL_TOL, f'groups 1: the K3 entry point\'s columns '
-          f'times the weight differ from K2\'s fused forward by {err} of '
-          'the max')
-    emit({'phase': 'mdcn_groups', 'case': 'groups 1: K3\'s columns x W '
-          'against K2', 'rows': rows, 'max_rel_err': err,
-          'tolerance': K2_REL_TOL})
-    del col_k3, out_k3, out_k2
-    call = ('F.conv2d (cuDNN) with groups={2, 8}: the same conv with zero '
-            'offsets and unit mask')
-    return (_sum_records('mdcn_im2col_groups', [r[0] for r in recs], {
-                'library_call': call, 'shapes': 'groups 2 and 8 at '
-                '(5, 180, 320, 64), deform groups 8'}),
-            _sum_records('mdcn_col2im_groups', [r[1] for r in recs], {
-                'library_call': 'autograd of ' + call, 'shapes':
-                'groups 2 and 8 at (5, 180, 320, 64), deform groups 8'}))
+    groups, dg, cout = 2, 8, 64
+    x = torch.randn((n, h, w, c), generator=gen).to(dtype).cuda()
+    offset = (torch.randn((n, h, w, dg, 9, 2), generator=gen) * 4).cuda()
+    mask = torch.rand((n, h, w, dg, 9), generator=gen).to(dtype).cuda()
+    weight = (torch.randn((3, 3, c // groups, cout), generator=gen)
+              * 0.05).to(dtype).cuda()
+    bias = torch.randn((cout,), generator=gen).to(dtype).cuda()
+    cot = torch.randn((n, h, w, cout), generator=gen).to(dtype).cuda()
+    whole = _grads_all(
+        lambda *a: dcn.modulated_deform_conv2d(*a, groups=groups,
+                                               deform_groups=dg),
+        (x, offset, mask, weight, bias), cot)
+    parts = []
+    for q in range(groups):
+        ch = slice(q * c // groups, (q + 1) * c // groups)
+        dgs = slice(q * dg // groups, (q + 1) * dg // groups)
+        outs = slice(q * cout // groups, (q + 1) * cout // groups)
+        parts.append(_grads_all(
+            lambda *a: dcn.modulated_deform_conv2d(
+                *a, deform_groups=dg // groups),
+            (x[..., ch], offset[..., dgs, :, :], mask[..., dgs, :],
+             weight[..., outs], bias[outs]),
+            cot[..., outs].contiguous()))
+    tol = K2_BF16_TOL if dtype == BF16 else K2_REL_TOL
+    errs = {}
+    for i, (name, dim) in enumerate((('out', -1), ('x', -1), ('offset', 3),
+                                     ('mask', 3), ('weight', -1),
+                                     ('bias', -1))):
+        errs[name] = _rel_err(whole[i].float(), torch.cat(
+            [p[i] for p in parts], dim).float())
+        check(errs[name] <= tol, f'K3 at groups 2 against K2 on the channel '
+              f'slices, {dtype}: {name} differs by {errs[name]} of its max')
+    emit({'phase': 'mdcn_groups_bf16' if dtype == BF16 else 'mdcn_groups',
+          'case': 'K3 at groups 2 against two K2 calls on the channel '
+                  'slices', 'dtype': str(dtype), 'rel_err': errs,
+          'tolerance': tol})
 
 
-def phase_dcn_v1(dcn):
+def phase_mdcn_groups(dcn, kernels, dtype=torch.float32):
+    """K3: DCNv2 with conv groups 2 and 8 at EDVR-M's L1 shape on the fused
+    kernels against its plain version, forward and every gradient; and K3
+    at groups 2 against K2 on the channel slices. Returns the ``kernels``
+    line's forward and backward records."""
+    gen = torch.Generator().manual_seed(SEED + 16)
+    recs = [_dcn_variant(dcn, kernels, gen, g, True, 1, dtype)
+            for g in (2, 8)]
+    _k3_against_k2_slices(dcn, gen, dtype)
+    torch.cuda.empty_cache()
+    return _variant_records(dcn, 'k3', dtype, recs, 'with groups={2, 8}',
+                            'groups 2 and 8 at (5, 180, 320, 64), deform '
+                            'groups 8')
+
+
+def phase_dcn_v1(dcn, kernels, dtype=torch.float32):
     """K5: DCNv1 (no mask, no bias) at its default padding 0 with groups 1
-    and 8 at EDVR-M's L1 shape against its plain version, forward and every
-    gradient."""
+    and 8 at EDVR-M's L1 shape on the fused kernels against its plain
+    version, forward and every gradient."""
     gen = torch.Generator().manual_seed(SEED + 17)
-    recs = [_dcn_variant(dcn, gen, g, False, 0) for g in (1, 8)]
-    call = 'F.conv2d (cuDNN), no bias, padding 0, groups={1, 8}'
-    return (_sum_records('deform_im2col', [r[0] for r in recs], {
-                'library_call': call, 'shapes': 'groups 1 and 8 at '
-                '(5, 180, 320, 64), deform groups 8, padding 0'}),
-            _sum_records('deform_col2im', [r[1] for r in recs], {
-                'library_call': 'autograd of ' + call, 'shapes': 'groups 1 '
-                'and 8 at (5, 180, 320, 64), deform groups 8, padding 0'}))
+    recs = [_dcn_variant(dcn, kernels, gen, g, False, 0, dtype)
+            for g in (1, 8)]
+    return _variant_records(dcn, 'k5', dtype, recs,
+                            'no bias, padding 0, groups={1, 8}',
+                            'groups 1 and 8 at (5, 180, 320, 64), deform '
+                            'groups 8, padding 0')
+
+
+def _variant_records(dcn, variant, dtype, recs, conv, shapes):
+    """The ``kernels`` line's records of K3 or K5 at ``dtype``: the forward
+    (its ``fwd`` entry point) and the backward (dgrad, its scatter, wgrad
+    and the sum, whose launches it counts together)."""
+    tag = '_bf16' if dtype == BF16 else ''
+    prefix = dcn.VARIANTS[variant]
+    entries, scatter = _variant_entries(dcn, variant, dtype)
+    call = (f'F.conv2d (cuDNN) in {dtype} {conv}: the same conv with zero '
+            'offsets and unit mask, a lower bound (no gather)')
+    return (_sum_records(f'{prefix}_fwd{tag}', [r[0] for r in recs], {
+                'library_call': call, 'shapes': shapes,
+                'timing': TIMING_NOTE}),
+            _sum_records(f'{prefix}_bwd{tag}', [r[1] for r in recs], {
+                'entries': [*entries[1:], scatter],
+                'library_call': 'autograd of ' + call, 'shapes': shapes,
+                'ms_is': 'the backward as a training step asks it (x '
+                         'frozen); with_grad_x_ms with grad x (dgrad\'s '
+                         'scatter)', 'timing': TIMING_NOTE}))
+
+
+def phase_dcn_modules(arch_util, mrapa_arch, dcn, kernels):
+    """The module path of K3 at bf16: ``DCNv2Pack(64, 64, 3, padding=1,
+    groups=2, deformable_groups=8)`` and ``DynAgg(64, 64, groups=2)``,
+    seeded weights with live offset convs, cast to bf16 as the models cast
+    a net (``cast_tensors`` through ``torch.func.functional_call``), take
+    EDVR-M L1 features (bf16; DynAgg's pre-offsets f32), forward and
+    backward through the kernels and through the plain versions: the
+    output within ``SLICE_BF16_TOL`` and every parameter's and input's
+    gradient within ``TRAIN_GRAD_BF16_TOL`` of its max; only K3's bf16
+    entry points launched (x takes a gradient: dgrad's scatter variant,
+    not dgrad). Returns
+    the launch counts of the kernels' runs."""
+    from mrefsr_tpu_torch.models.multi_ref_restoration_model import \
+        cast_tensors
+    n, h, w, c = EDVR_L1
+    gen = torch.Generator().manual_seed(SEED + 18)
+    with torch.device('meta'):
+        nets = {'DCNv2Pack': arch_util.DCNv2Pack(c, c, 3, padding=1, groups=2,
+                                                 deformable_groups=8),
+                'DynAgg': mrapa_arch.DynAgg(c, c, 3, groups=2,
+                                            deform_groups=8)}
+    feats = [torch.randn((n, c, h, w), generator=gen).to(BF16).cuda()
+             for _ in range(2)]
+    pre_offset = (torch.randn((n, h, w, 9, 2), generator=gen) * 2).cuda()
+    entries, scatter = _variant_entries(dcn, 'k3', BF16)
+    total = {}
+    for name, net in nets.items():
+        net.to_empty(device='cuda')
+        with torch.no_grad():
+            for pname, p in net.named_parameters():
+                scale = (0.01 if 'offset' in pname else 0.05) \
+                    if p.dim() > 1 else 0.5
+                p.copy_(torch.randn(p.shape, generator=gen) * scale)
+        extra = () if name == 'DCNv2Pack' else (pre_offset,)
+        cot = torch.randn((n, c, h, w), generator=gen).to(BF16).cuda()
+
+        def step(plain=False):
+            with contextlib.ExitStack() as stack:
+                if plain:
+                    for module in (arch_util, mrapa_arch):
+                        stack.enter_context(mock.patch.object(
+                            module, 'modulated_deform_conv2d',
+                            dcn.modulated_deform_conv2d_ref))
+                net.zero_grad(set_to_none=True)
+                ins = [f.detach().requires_grad_() for f in feats]
+                out = torch.func.functional_call(
+                    net, cast_tensors(net, BF16), (*ins, *extra))
+            out.backward(cot)
+            return out.detach(), {
+                **{pname: p.grad.clone()
+                   for pname, p in net.named_parameters()},
+                'x': ins[0].grad, 'feat': ins[1].grad}
+
+        # x takes a gradient: dgrad's scatter variant, not dgrad
+        expect = [entries[0], scatter, *entries[2:]]
+        reset_counts(kernels)
+        out_k, grads_k = step()
+        launches = read_counts(kernels, expect)
+        _only(kernels, launches, expect)
+        out_p, grads_p = step(plain=True)
+        check(out_k.dtype == BF16 and out_k.shape == (n, c, h, w)
+              and bool(torch.isfinite(out_k).all()),
+              f'{name}: output {out_k.dtype} {tuple(out_k.shape)}')
+        out_err = _rel_err(out_k.float(), out_p.float())
+        check(out_err <= SLICE_BF16_TOL, f'{name} at bf16: kernels and plain '
+              f'versions differ by {out_err} of max |out|')
+        errs = {key: _rel_err(g.float(), grads_p[key].float())
+                for key, g in grads_k.items()}
+        for key, e in errs.items():
+            check(e <= TRAIN_GRAD_BF16_TOL, f'{name} at bf16: grad {key} '
+                  f'differs by {e} of its max')
+        ms = cuda_ms(step)
+        plain_ms = cuda_ms(lambda: step(plain=True), reps=1)
+        emit({'phase': 'dcn_modules', 'module': name, 'groups': 2,
+              'deform_groups': 8, 'n': n, 'c': c, 'h': h, 'w': w,
+              'dtype': 'torch.bfloat16', 'out_rel_err': out_err,
+              'grad_rel_err': errs, 'tolerance': SLICE_BF16_TOL,
+              'grad_tolerance': TRAIN_GRAD_BF16_TOL,
+              'launches': {k: v for k, v in launches.items() if v},
+              'step_ms': ms, 'plain_step_ms': plain_ms,
+              'step_is': 'forward and backward, events around one call'})
+        for key, count in launches.items():
+            total[key] = total.get(key, 0) + count
+        del out_k, out_p, grads_k, grads_p
+    del nets, feats
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------- StyleGAN2 ops
@@ -1970,18 +2192,9 @@ def kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act):
                 correlation.feature_match_prologue_bf16_kernel,
             'feature_match': correlation.feature_match_kernel,
             'feature_match_sharded': correlation.feature_match_sharded_kernel,
-            'mdcn_fused_fwd': dcn.mdcn_fused_fwd_kernel,
-            'mdcn_fused_dgrad': dcn.mdcn_fused_dgrad_kernel,
-            'mdcn_fused_dgrad_scatter': dcn.mdcn_fused_dgrad_scatter_kernel,
-            'mdcn_fused_wgrad': dcn.mdcn_fused_wgrad_kernel,
-            'mdcn_fused_wgrad_sum': dcn.mdcn_fused_wgrad_sum_kernel,
-            'mdcn_im2col_groups': dcn.mdcn_im2col_groups_kernel,
-            'mdcn_col2im_groups': dcn.mdcn_col2im_groups_kernel,
-            'mdcn_col2im_groups_scatter':
-                dcn.mdcn_col2im_groups_scatter_kernel,
-            'deform_im2col': dcn.deform_im2col_kernel,
-            'deform_col2im': dcn.deform_col2im_kernel,
-            'deform_col2im_scatter': dcn.deform_col2im_scatter_kernel,
+            # K2, K3 and K5 at f32 and bf16, e.g. 'mdcn_fused_fwd',
+            # 'mdcn_groups_fused_dgrad_bf16', 'deform_conv_fused_wgrad'
+            **dcn.FUSED_KERNELS,
             'deform_sample_fwd': dcn.deform_sample_fwd_kernel,
             'deform_sample_bwd': dcn.deform_sample_bwd_kernel,
             'deform_sample_bwd_scatter': dcn.deform_sample_bwd_scatter_kernel,
@@ -1994,13 +2207,6 @@ def kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act):
             'feature_match_bf16': correlation.feature_match_bf16_kernel,
             'feature_match_sharded_bf16':
                 correlation.feature_match_sharded_bf16_kernel,
-            'mdcn_fused_fwd_bf16': dcn.mdcn_fused_fwd_bf16_kernel,
-            'mdcn_fused_dgrad_bf16': dcn.mdcn_fused_dgrad_bf16_kernel,
-            'mdcn_fused_dgrad_scatter_bf16':
-                dcn.mdcn_fused_dgrad_scatter_bf16_kernel,
-            'mdcn_fused_wgrad_bf16': dcn.mdcn_fused_wgrad_bf16_kernel,
-            'mdcn_fused_wgrad_sum_bf16':
-                dcn.mdcn_fused_wgrad_sum_bf16_kernel,
             'deform_sample_fwd_bf16': dcn.deform_sample_fwd_bf16_kernel,
             'deform_sample_bwd_bf16': dcn.deform_sample_bwd_bf16_kernel,
             'deform_sample_bwd_scatter_bf16':
@@ -3463,10 +3669,9 @@ def phase_ddp():
 # Adam) as other
 OWN_KERNELS = ('prologue_kernel', 'split_tf32_kernel',
                '::Tf32x3>', '::Bf16>',     # fm::match_kernel<...>
-               'mdcn_im2col_kernel', 'mdcn_fused::fwd_kernel',
+               'mdcn_fused::fwd_kernel',
                'mdcn_fused::dgrad_kernel', 'mdcn_fused::wgrad_kernel',
-               'mdcn_fused::wgrad_sum_kernel',
-               'mdcn_col2im_kernel', 'deform_sample_fwd_kernel',
+               'mdcn_fused::wgrad_sum_kernel', 'deform_sample_fwd_kernel',
                'deform_sample_bwd_kernel', 'upfirdn2d_tile_kernel',
                'upfirdn2d_gather_kernel', 'fused_leaky_relu_fwd_kernel',
                'fused_leaky_relu_bwd_kernel',
@@ -3570,6 +3775,22 @@ def bf16_phases(correlation, dcn, arch, build_model, kernels):
     return described, by_path
 
 
+def dcn_phases(arch_util, mrapa_arch, dcn, kernels):
+    """K3 and K5 on the fused kernels at f32 and at bf16, then the bf16
+    module path of K3 (``dcn_modules``). Returns the kernels' ``(record,
+    source, replaces)`` and ``{'dcn_modules': launch counts}``."""
+    described = []
+    for dtype, source in ((torch.float32, 'mdcn_fused.cu'),
+                          (BF16, 'mdcn_bf16.cu')):
+        for phase, replaces in ((phase_mdcn_groups, K3_TPU),
+                                (phase_dcn_v1, K5_TPU)):
+            described += [(rec, source, replaces)
+                          for rec in phase(dcn, kernels, dtype)]
+            torch.cuda.empty_cache()
+    return described, {'dcn_modules': phase_dcn_modules(
+        arch_util, mrapa_arch, dcn, kernels)}
+
+
 def main():
     import importlib
     from mrefsr_tpu_torch.archs import arch_util, edvr_arch
@@ -3600,14 +3821,10 @@ def main():
     k2b = phase_mdcn_backward(dcn)
     k4f, k4b = phase_deform_sample(dcn)
     torch.cuda.empty_cache()
-    k3f, k3b = phase_mdcn_groups(dcn)
-    torch.cuda.empty_cache()
-    k5f, k5b = phase_dcn_v1(dcn)
-    torch.cuda.empty_cache()
+    kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
+    dcn_described, by_path = dcn_phases(arch_util, arch, dcn, kernels)
     k7 = phase_upfirdn2d(ops_upfirdn2d)
     k8 = phase_fused_act(fused_act)
-    kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
-    by_path = {}
     by_path['slice'], model, batch = phase_slice(
         build_model, arch.DynAgg, correlation, dcn, kernels)
 
@@ -3653,10 +3870,7 @@ def main():
         *bf16_described,
         (k6b, 'feature_match_bf16.cu', K6_TPU),
         *((rec, 'mdcn_fused.cu', K2_TPU) for rec in [k2, *k2b]),
-        (k3f, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:214'),
-        (k3b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:214'),
-        (k5f, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:345'),
-        (k5b, 'mdcn.cu', 'mrefsr_tpu/ops/dcn.py:345'),
+        *dcn_described,
         (k4f, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
         (k4b, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
         *((rec, 'upfirdn2d.cu', 'mrefsr_tpu/ops/upfirdn2d.py:13')
@@ -3673,7 +3887,10 @@ def _described(described, by_path):
     with its route, source, the TPU kernel it replaces and its launches on
     the main paths of ``by_path``."""
     for rec, source, replaces in described:
-        paths = {path: counts[rec['name']]
+        # a record of several entry points (K3's and K5's backward) counts
+        # the launches of each
+        names = rec.get('entries', [rec['name']])
+        paths = {path: sum(counts[name] for name in names)
                  for path, counts in by_path.items()}
         rec.update(route='cuda', source='mrefsr_tpu_torch/ops/csrc/' + source,
                    replaces=replaces, launches=sum(paths.values()),
@@ -3698,6 +3915,26 @@ def main_bf16():
     kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
     described, by_path = bf16_phases(correlation, dcn, arch, build_model,
                                      kernels)
+    emit({'kernels': _described(described, by_path), 'card': smi})
+    print(smi, flush=True)
+
+
+def main_dcn():
+    """``--dcn``: the device, the build, K3 and K5 at both types and the
+    bf16 module path (``dcn_modules``), then their entries of the
+    ``kernels`` line; no ``ok`` line."""
+    from mrefsr_tpu_torch.archs import arch_util
+    from mrefsr_tpu_torch.archs import ref_mrapa_restoration_arch as arch
+    from mrefsr_tpu_torch.ops import _build, correlation, dcn, fused_act
+    import importlib
+    ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
+    _, smi = phase_device()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    phase_build(_build.build)
+    kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
+    described, by_path = dcn_phases(arch_util, arch, dcn, kernels)
     emit({'kernels': _described(described, by_path), 'card': smi})
     print(smi, flush=True)
 
@@ -3797,5 +4034,7 @@ if __name__ == '__main__':
         main_ddp()
     elif sys.argv[1:2] == ['--bf16']:
         main_bf16()
+    elif sys.argv[1:2] == ['--dcn']:
+        main_dcn()
     else:
         main()

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time K1, K2, or K7 and K8, and the paths they sit on in one checkout,
+"""Time K1, K2, K3 and K5, or K7 and K8, and the paths they sit on in one
+checkout,
 with that checkout's own ``chip_smoke.py`` phases, so that two commits can
 be compared in one call on one card (run it once per checkout, in turns:
 A, B, B, A).
@@ -7,6 +8,7 @@ A, B, B, A).
     python3 k1_compare.py --checkout DIR
     python3 k1_compare.py --checkout DIR --k2
     python3 k1_compare.py --checkout DIR --k7
+    python3 k1_compare.py --checkout DIR --k3
 
 ``DIR`` is the root of a checkout (this one by default). From its
 ``chip_smoke.py`` the script runs: the device and build phases; K1's phase
@@ -43,8 +45,19 @@ median of ``REPS``), by the timers of the ``chip_smoke.py`` beside this
 script whatever the checkout, and their sums weighted by the launches of
 a pass; then the checkout's ``stylegan2_serve`` and ``stylegan2_train``
 phases (two grids, steps of each kind, a profile of each), and as
-controls the f32 CUFED5 request and ``dcn`` step. Needs one CUDA device and
-``nvcc``.
+controls the f32 CUFED5 request and ``dcn`` step.
+
+With ``--k3`` it runs instead: the device and build phases; K3 through the
+checkout's ``modulated_deform_conv2d`` (conv groups 2 and 8) and K5 through
+its ``deform_conv2d`` (groups 1 and 8, padding 0) at EDVR-M's L1 shape (5,
+180, 320, 64), deform groups 8, in f32 and bf16 (``k3_function`` lines):
+the forward, the backward as a training step asks it (x frozen) and the
+backward with grad x, each one's ``device_ms`` and ``call_ms`` by the
+timers of the ``chip_smoke.py`` beside this script, and a line of sums a
+kernel and type. A call the checkout refuses (a bf16 K3 or K5 before they
+ran on the fused walk) gives a line with ``refused`` and the error.
+
+Needs one CUDA device and ``nvcc``.
 """
 import argparse
 import importlib
@@ -311,6 +324,83 @@ def k7_k8_functions(smoke, ops_upfirdn2d, fused_act):
                   ('fwd', 'bwd', 'bwd_with_bias', 'bwd2'))}, k8)
 
 
+# K3's and K5's cases at EDVR-M's L1 shape: (kernel, conv groups, padding)
+K3_CASES = (('k3', 2, 1), ('k3', 8, 1), ('k5', 1, 0), ('k5', 8, 0))
+EDVR_L1, EDVR_DG = (5, 180, 320, 64), 8
+
+
+def k3_functions(smoke, dcn):
+    """K3 and K5 through the checkout's functions: see the module
+    docstring."""
+    here = _timers_here()
+    gen = torch.Generator().manual_seed(smoke.SEED + 42)
+    n, h, w, c = EDVR_L1
+    for dtype in (torch.float32, smoke.BF16):
+        totals = {}
+        for variant, groups, pad in K3_CASES:
+            ho, wo = h + 2 * pad - 2, w + 2 * pad - 2
+            x = torch.randn((n, h, w, c), generator=gen).to(dtype).cuda()
+            offset = (torch.randn((n, ho, wo, EDVR_DG, 9, 2), generator=gen)
+                      * 4).cuda()
+            mask = torch.rand((n, ho, wo, EDVR_DG, 9), generator=gen).to(
+                dtype).cuda()
+            weight = (torch.randn((3, 3, c // groups, c), generator=gen)
+                      * 0.05).to(dtype).cuda()
+            bias = torch.randn((c,), generator=gen).to(dtype).cuda()
+            cot = torch.randn((n, ho, wo, c), generator=gen).to(dtype).cuda()
+            kw = dict(padding=pad, groups=groups, deform_groups=EDVR_DG)
+            if variant == 'k3':
+                args = (x, offset, mask, weight, bias)
+
+                def fn(*a):
+                    return dcn.modulated_deform_conv2d(*a, **kw)
+            else:
+                args = (x, offset, weight)
+
+                def fn(*a):
+                    return dcn.deform_conv2d(*a, **kw)
+            rec = {'phase': 'k3_function', 'kernel': variant.upper(),
+                   'dtype': str(dtype), 'groups': groups, 'padding': pad,
+                   'n': n, 'h': h, 'w': w, 'c': c,
+                   'deform_groups': EDVR_DG}
+            try:
+                with torch.no_grad():
+                    fn(*args)
+            except TypeError as err:
+                smoke.emit({**rec, 'refused': str(err)})
+                continue
+            wrt = [a.detach().requires_grad_(i > 0)
+                   for i, a in enumerate(args)]
+            wrt_x = [a.detach().requires_grad_() for a in args]
+            out, out_x = fn(*wrt), fn(*wrt_x)
+
+            def fwd():
+                with torch.no_grad():
+                    return fn(*args)
+
+            calls = {'fwd': fwd,
+                     'bwd': lambda: torch.autograd.grad(
+                         out, wrt[1:], cot, retain_graph=True),
+                     'bwd_with_grad_x': lambda: torch.autograd.grad(
+                         out_x, wrt_x, cot, retain_graph=True)}
+            device = dict(zip(calls, here.device_ms_each(
+                list(calls.values()))))
+            call = {order: median_ms(f) for order, f in calls.items()}
+            smoke.emit({**rec, 'device_ms': device, 'call_ms': call})
+            total = totals.setdefault(variant, {'device_ms': {},
+                                                'call_ms': {}})
+            for key, times in (('device_ms', device), ('call_ms', call)):
+                for order, ms in times.items():
+                    total[key][order] = total[key].get(order, 0.0) + ms
+            del x, offset, mask, weight, bias, cot, args, wrt, wrt_x, out
+            del out_x, calls
+            torch.cuda.empty_cache()
+        for variant, total in totals.items():
+            smoke.emit({'phase': 'k3_function', 'kernel': variant.upper(),
+                        'dtype': str(dtype), 'case': 'both groups summed',
+                        **total})
+
+
 def main_k7(smoke, build_model, arch, correlation, dcn, ops_upfirdn2d,
             fused_act):
     """``--k7``: see the module docstring."""
@@ -347,6 +437,8 @@ def main():
                         help='time K2 and its paths instead of K1\'s')
     parser.add_argument('--k7', action='store_true',
                         help='time K7, K8 and the StyleGAN2 paths instead')
+    parser.add_argument('--k3', action='store_true',
+                        help='time K3 and K5 through the functions instead')
     args = parser.parse_args()
     root = os.path.abspath(args.checkout)
     sys.path.insert(0, root)
@@ -368,6 +460,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smoke.phase_build(_build.build)
+    if args.k3:
+        k3_functions(smoke, dcn)
+        return
     if args.k7:
         main_k7(smoke, build_model, arch, correlation, dcn, ops_upfirdn2d,
                 fused_act)

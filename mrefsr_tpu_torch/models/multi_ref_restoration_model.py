@@ -198,11 +198,11 @@ class MultiRefRestorationModel(BaseModel):
             if train_opt.get(key):
                 raise NotImplementedError(
                     f'train.{key} belongs to the GAN phase, which is not '
-                    'ported yet (ROADMAP A9)')
+                    'ported yet (ROADMAP A4)')
         if self.opt.get('network_d'):
             raise NotImplementedError(
                 'network_d belongs to the GAN phase, which is not ported '
-                'yet (ROADMAP A9)')
+                'yet (ROADMAP A4)')
 
     def init_training_settings(self):
         """Pixel loss, the four-group Adam and its schedule (JAX package
@@ -212,7 +212,7 @@ class MultiRefRestorationModel(BaseModel):
         train_opt = self.opt['train']
         if not train_opt['pixel_weight'] > 0:
             raise ValueError('train.pixel_weight must be > 0: the pixel '
-                             'loss is the only one ported (ROADMAP A9)')
+                             'loss is the only one ported (ROADMAP A4)')
         self.cri_pix = getattr(legacy_losses, train_opt['pixel_criterion'])(
             loss_weight=train_opt['pixel_weight'], reduction='mean')
         self.net_g.train().requires_grad_(True)

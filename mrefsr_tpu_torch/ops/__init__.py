@@ -1,6 +1,7 @@
 """Ops of the port: PyTorch around hand-written CUDA kernels
-(``csrc/feature_match.cu``, ``csrc/feature_match_bf16.cu``,
-``csrc/mdcn.cu``, ``csrc/deform_sample.cu``, ``csrc/upfirdn2d.cu``,
+(``csrc/feature_match_prologue.cu``, ``csrc/feature_match.cu``,
+``csrc/feature_match_bf16.cu``, ``csrc/mdcn_fused.cu``,
+``csrc/mdcn_bf16.cu``, ``csrc/deform_sample.cu``, ``csrc/upfirdn2d.cu``,
 ``csrc/fused_act.cu``), each with its plain PyTorch version beside it for
 CPU tensors; and the resampling the video nets use
 (``resize.py``, ``warp.py``), which is ATen's ``F.interpolate`` and

@@ -1,5 +1,5 @@
-// Bilinear corner arithmetic shared by the deformable kernels (mdcn.cu,
-// mdcn_bf16.cu, deform_sample.cu): the CUDA form of
+// Bilinear corner arithmetic shared by the deformable kernels
+// (mdcn_fused.cuh, deform_sample.cu): the CUDA form of
 // mrefsr_tpu/ops/dcn.py::_corner_rows_and_weights (dcn.py:163-185) and of the
 // derivative JAX's autodiff takes through it.
 //
@@ -116,7 +116,7 @@ struct Values {
 };
 
 // The 4 corners of a run as loaded, not yet widened: a kernel can issue the
-// loads early and widen them once they are needed (mdcn_bf16.cu issues a
+// loads early and widen them once they are needed (mdcn_fused.cuh issues a
 // k-step's loads before the products of the step before).
 template <typename T>
 struct RawCorners {

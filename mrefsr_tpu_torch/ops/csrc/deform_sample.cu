@@ -37,8 +37,8 @@
 //
 // Design: one thread per (pixel, run of N channels: 16 bytes, 4 f32 or 8
 // bf16), in the order of out, so a warp writes 512 contiguous bytes and
-// reads each corner as one 16-byte load of N contiguous NHWC channels
-// (mdcn.cu's design for one tap). In the backward the cg / N threads of one
+// reads each corner as one 16-byte load of N contiguous NHWC channels.
+// In the backward the cg / N threads of one
 // (pixel, group) are neighbouring lanes: they add their shares with warp
 // shuffles and one lane writes, so grad_flow has one writer and is the same
 // from run to run; grad_x uses atomic adds and is not. Coordinates are f32.

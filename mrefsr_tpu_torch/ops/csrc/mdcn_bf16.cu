@@ -1,16 +1,19 @@
-// K2 at bf16, fused: the modulated deformable conv (DCNv2, conv groups 1,
-// with a mask) whose deformable-im2col columns never reach device memory,
-// forward and backward, with the products on the tensor cores: the walk
-// of mdcn_fused.cuh at T = bf16, one mma.sync m16n8k16 (bf16 in, f32 sums)
-// a 16-deep k step, fragments by ldmatrix.
+// K2, K3 and K5 at bf16, fused: the modulated deformable conv (DCNv2) with
+// any number of conv groups and DCNv1 (no mask), whose deformable-im2col
+// columns never reach device memory, forward and backward, with the
+// products on the tensor cores: the walk of mdcn_fused.cuh at T = bf16, one
+// mma.sync m16n8k16 (bf16 in, f32 sums) a 16-deep k step, fragments by
+// ldmatrix.
 //
-// Replaces mrefsr_tpu/ops/dcn.py::_mdcn_slab_scan (dcn.py:111-160) at bf16,
-// and the derivative JAX's autodiff takes through it. Like that scan, which
+// Replaces mrefsr_tpu/ops/dcn.py::_mdcn_slab_scan (dcn.py:111-160, K2),
+// _mdcn_tap_scan (:214-246, K3, on the block-diagonal weight the wrapper
+// builds) and deform_conv2d (:345-366, K5, a null mask) at bf16, and the
+// derivative JAX's autodiff takes through them. Like that scan, which
 // contracts each tap's gathered slab at once (einsum with
 // preferred_element_type=f32, :142-144) so that "im2col never
 // materializes", these kernels gather a tile of columns into shared memory
-// and contract it there. A column element is rounded to bf16 once, as
-// mdcn.cu's im2col stores it; the forward rounds its f32 sum to bf16, adds
+// and contract it there. A column element is rounded to bf16 once, as the
+// plain version's im2col stores it; the forward rounds its f32 sum to bf16, adds
 // the bias and rounds again (out = bf16(bf16(sum) + bias)); dgrad rounds
 // grad_col to bf16 before the col2im arithmetic, where torch.mm of the
 // plain version (ops/dcn.py) rounds and where JAX's vjp rounds the sampled
@@ -41,7 +44,8 @@ using mdcn_fused::bf16;
 
 // The entry points of mdcn_fused.cuh's launches at bf16: x, mask, weight,
 // bias, grad out and grad mask bf16, the offset and every other gradient
-// f32.
+// f32. The mask may be null (DCNv1: a mask of ones), and dgrad's grad_mask
+// with it: then no mask is read and no grad mask written.
 extern "C" {
 
 int mdcn_fused_fwd_bf16_launch(const void* x, const void* offset,

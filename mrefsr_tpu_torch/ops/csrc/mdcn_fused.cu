@@ -1,18 +1,21 @@
-// K2 at f32, fused: the modulated deformable conv (DCNv2, conv groups 1,
-// with a mask) whose deformable-im2col columns never reach device memory,
-// forward and backward, with the contraction in the kernel on the TF32
-// tensor cores as 3xTF32: the walk of mdcn_fused.cuh at T = float.
+// K2, K3 and K5 at f32, fused: the modulated deformable conv (DCNv2) with
+// any number of conv groups and DCNv1 (no mask), whose deformable-im2col
+// columns never reach device memory, forward and backward, with the
+// contraction in the kernel on the TF32 tensor cores as 3xTF32: the walk
+// of mdcn_fused.cuh at T = float.
 //
-// Replaces mrefsr_tpu/ops/dcn.py::_mdcn_slab_scan (dcn.py:111-160) in f32,
-// the JAX package's default, and the derivative JAX's autodiff takes
-// through it. Like that scan, which contracts each tap's gathered slab at
+// Replaces mrefsr_tpu/ops/dcn.py::_mdcn_slab_scan (dcn.py:111-160, K2:
+// conv groups 1), _mdcn_tap_scan (:214-246, K3: conv groups > 1, here on
+// the block-diagonal weight the wrapper builds) and deform_conv2d
+// (:345-366, K5: a null mask) in f32, the JAX package's default, and the
+// derivative JAX's autodiff takes through them. Like that scan, which contracts each tap's gathered slab at
 // once (einsum with preferred_element_type=f32, :142-144) so that "im2col
 // never materializes", these kernels gather a tile of columns into shared
 // memory and contract it there: no column matrix in device memory, no
 // chunks of rows, no cuBLAS call. The forward writes out = sum + bias in
 // f32 (torch.addmm's order); dgrad computes grad_col = go . W^T in f32 and
-// runs mdcn.cu's col2im arithmetic on it (grad offset, grad mask, and in
-// the _scatter variant grad x by f32 atomics); wgrad writes f32 partials
+// runs the col2im arithmetic on it (grad offset, grad mask, and in the
+// _scatter variant grad x by f32 atomics); wgrad writes f32 partials
 // of grad weight and grad bias per slice of 8 x 8 output patches, added
 // in a fixed order by the sum kernel.
 //
@@ -57,7 +60,8 @@
 #include "mdcn_fused.cuh"
 
 // The entry points of mdcn_fused.cuh's launches at f32: every tensor
-// float32.
+// float32. The mask may be null (DCNv1: a mask of ones), and dgrad's
+// grad_mask with it: then no mask is read and no grad mask written.
 extern "C" {
 
 int mdcn_fused_fwd_launch(const void* x, const void* offset, const void* mask,

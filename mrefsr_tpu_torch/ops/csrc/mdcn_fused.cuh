@@ -1,21 +1,26 @@
-// K2 fused: the modulated deformable conv (DCNv2, conv groups 1, with a
-// mask) whose deformable-im2col columns never reach device memory, forward
+// The fused deformable convs: the modulated deformable conv (DCNv2) and
+// DCNv1 whose deformable-im2col columns never reach device memory, forward
 // and backward, with the products on the tensor cores: one tile walk for
 // two element types T. mdcn_bf16.cu instantiates it at bf16 (m16n8k16
 // products), mdcn_fused.cu at f32 (3xTF32 on m16n8k8); each says what it
-// replaces and what bounds it.
+// replaces and what bounds it. It runs three TPU kernels of the JAX
+// package: K2 (conv groups 1, a mask), K3 (conv groups > 1: the wrapper,
+// ops/dcn.py, hands the walk a block-diagonal weight, exact zeros off the
+// groups' blocks) and K5 (DCNv1: a null mask, read as a mask of ones).
 //
 // For output row r = (n, ho, wo), tap k = (ky, kx), input channel c of
 // deform group g = c / cg:
 //     col[r, k, c] = T(mask[r, g, k] * bilinear(x[n, :, :, c], fy, fx))
-//     fy = ho*sh - ph + ky*dh + offset[r, g, k, 0]   (f32, as mdcn.cu)
+//     fy = ho*sh - ph + ky*dh + offset[r, g, k, 0]   (f32)
 // with mmcv's zero-outside corners (deform_bilinear.cuh), sampled in f32
-// and rounded to T once (exact at f32); then
+// and rounded to T once (exact at f32), and no mask at all where the mask
+// pointer is null (kMask false: nothing read, staged or written for it);
+// then
 //   forward  out[r, o]  = sum_{k,c} col[r,k,c] W[k,c,o], + bias[o]
-//   dgrad    gcol[r,k,c] = sum_o go[r, o] W[k, c, o], and from it
-//            mdcn.cu's col2im arithmetic: grad offset (f32) and grad mask
-//            (T) summed over the group's channels, grad x (f32, atomic) in
-//            the _scatter variant;
+//   dgrad    gcol[r,k,c] = sum_o go[r, o] W[k, c, o], and from it the
+//            col2im arithmetic: grad offset (f32, times the mask) and grad
+//            mask (T, none without a mask) summed over the group's
+//            channels, grad x (f32, atomic) in the _scatter variant;
 //   wgrad    gW[k*C + c, o] = sum_r col[r, k, c] go[r, o]   (f32), and
 //            grad bias gb[o] = sum_r go[r, o]                  (f32)
 // with every sum over (k, c), o or r in f32 on the tensor cores. Where the
@@ -29,7 +34,8 @@
 // to run.
 //
 // Layouts (contiguous): x (N, H, W, C) T; offset (N, Ho, Wo, dg, K, 2) f32
-// as (dy, dx); mask (N, Ho, Wo, dg, K) T; the weight HWIO (K * C, Cout) T
+// as (dy, dx); mask (N, Ho, Wo, dg, K) T or null; the weight HWIO
+// (K * C, Cout) T
 // for dgrad and transposed, wt (Cout, K * C), for the forward (its B
 // operand wants k contiguous); go and out (rows, Cout) T; grad_offset,
 // grad_mask, grad_x as offset, mask and x (grad_x f32); partial (splits,
@@ -75,6 +81,13 @@
 //  - Index arithmetic: a block walks its patches, and a k-step's tap and
 //    deform group are worked out once a step, so that a sample costs no
 //    integer division.
+//  - No mask (K5): each kernel is a template on kMask, chosen once a
+//    launch by whether the mask pointer is null, so K2's code is the same
+//    with or without K5 beside it and no sample tests for a mask.
+//  - Conv groups (K3): the walk knows none. The block-diagonal weight costs
+//    G times the products of the grouped conv and no extra gather; at C 64
+//    a k step of 32 f32 channels spans several conv groups, so a step of
+//    zeros cannot simply be skipped.
 // Requires C and cg multiples of N, Cout a multiple of 8, Cout <= 256,
 // dg * K <= 144, for the backward cg / N a power of two <= 8, x, weight, go
 // and out 16-byte aligned and the offset 8-byte aligned; the wrapper
@@ -460,7 +473,7 @@ struct Coord {
   bool live;
 };
 
-template <typename T>
+template <typename T, bool kMask>
 __device__ __forceinline__ Coord coord_of(const Geom& g, const Pixel& o,
                                           const Step& st,
                                           const float* __restrict__ offset,
@@ -471,7 +484,10 @@ __device__ __forceinline__ Coord coord_of(const Geom& g, const Pixel& o,
     const float2 d = *reinterpret_cast<const float2*>(offset + 2 * om);
     t.dy = d.x;
     t.dx = d.y;
-    t.m = Prec<T>::widen(mask[om]);
+    if constexpr (kMask)
+      t.m = Prec<T>::widen(mask[om]);
+    else
+      t.m = 1.f;
   }
   return t;
 }
@@ -497,9 +513,10 @@ __device__ __forceinline__ void copy_span(void* dst, const void* src,
 }
 
 // A patch's offsets and masks as [64][dg][K][2] f32 and [64][dg][K] T in
-// shared memory: one contiguous span per pixel row of the patch, read
-// (`in` true) or, with their gradients in their place, written back.
-template <typename T>
+// shared memory (no masks without kMask): one contiguous span per pixel
+// row of the patch, read (`in` true) or, with their gradients in their
+// place, written back.
+template <typename T, bool kMask>
 __device__ __forceinline__ void move_offsets(float* off_s, T* msk_s,
                                              float* offset, T* mask,
                                              const Patch& pt, const Geom& g,
@@ -517,17 +534,18 @@ __device__ __forceinline__ void move_offsets(float* off_s, T* msk_s,
     const int mb = cols * per_px * (int)sizeof(T);
     if (in) {
       copy_span(o_s, offset + 2 * at, ob, true, tid, threads);
-      copy_span(m_s, mask + at, mb, true, tid, threads);
+      if constexpr (kMask) copy_span(m_s, mask + at, mb, true, tid, threads);
     } else {
       copy_span(offset + 2 * at, o_s, ob, false, tid, threads);
-      copy_span(mask + at, m_s, mb, false, tid, threads);
+      if constexpr (kMask) copy_span(mask + at, m_s, mb, false, tid, threads);
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kMask>
 size_t staged_offset_bytes(const Geom& g) {
-  return (size_t)BM * g.dg * g.taps * (2 * sizeof(float) + sizeof(T));
+  return (size_t)BM * g.dg * g.taps *
+         (2 * sizeof(float) + (kMask ? sizeof(T) : 0));
 }
 
 // One run of one sample, its corner loads in flight.
@@ -613,7 +631,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[MT][NT][4],
 
 // 128 registers a thread at most: two blocks of 256 threads an SM, or one
 // of 512
-template <typename T, int BN>
+template <typename T, int BN, bool kMask>
 __global__ void __launch_bounds__(Shape<BN>::kThreads, BN == 256 ? 1 : 2)
 fwd_kernel(const typename Prec<T>::Raw* __restrict__ x,
            const float* __restrict__ offset, const T* __restrict__ mask,
@@ -668,7 +686,7 @@ fwd_kernel(const typename Prec<T>::Raw* __restrict__ x,
     const Step st = step(s);
 #pragma unroll
     for (int q = 0; q < RUNS; ++q)
-      t[q] = coord_of<T>(g, px[q], st, offset, mask);
+      t[q] = coord_of<T, kMask>(g, px[q], st, offset, mask);
   };
   auto gather = [&](Sample<T>(&p)[RUNS], int s, const Coord(&t)[RUNS]) {
     const Step st = step(s);
@@ -784,7 +802,7 @@ struct DgradShape {
   static constexpr int kGoPlanes = Prec<T>::kPlanes == 2 && BN == 128 ? 2 : 1;
 };
 
-template <typename T, int BN, bool kScatter>
+template <typename T, int BN, bool kScatter, bool kMask>
 __global__ void __launch_bounds__(DgradShape<T, BN>::S::kThreads,
                                   BN == 256 ? 1 : 2)
 dgrad_kernel(const T* __restrict__ go, const typename Prec<T>::Raw* __restrict__ x,
@@ -848,8 +866,9 @@ dgrad_kernel(const T* __restrict__ go, const typename Prec<T>::Raw* __restrict__
                  in ? 16 : 0);
     }
   };
-  move_offsets<T>(off_s, msk_s, const_cast<float*>(offset),
-                  const_cast<T*>(mask), pt, g, true, tid, S::kThreads);
+  move_offsets<T, kMask>(off_s, msk_s, const_cast<float*>(offset),
+                         const_cast<T*>(mask), pt, g, true, tid,
+                         S::kThreads);
   load_w(0, 0);
   cp_async_commit();
 
@@ -881,7 +900,8 @@ dgrad_kernel(const T* __restrict__ go, const typename Prec<T>::Raw* __restrict__
       live[q] = px[q].live && st.in;
       const Coord t{live[q] ? off_s[2 * at[q]] : 0.f,
                     live[q] ? off_s[2 * at[q] + 1] : 0.f,
-                    live[q] ? P::widen(msk_s[at[q]]) : 0.f, live[q]};
+                    !live[q] ? 0.f : kMask ? P::widen(msk_s[at[q]]) : 1.f,
+                    live[q]};
       issue<T>(p[q], g, xn[q] + st.ci * RUNS_K, px[q], st, t);
     }
 
@@ -930,11 +950,16 @@ dgrad_kernel(const T* __restrict__ go, const typename Prec<T>::Raw* __restrict__
       const deform::CoordGrad cg = deform::coord_grad<T>(gc, v, p[q].cn);
       const float dfy = deform::segment_sum(cg.dfy, seg);
       const float dfx = deform::segment_sum(cg.dfx, seg);
-      const float value = deform::segment_sum(cg.value, seg);
-      if (live[q] && writer) {
-        off_s[2 * at[q]] = p[q].m * dfy;  // read once, at this step
-        off_s[2 * at[q] + 1] = p[q].m * dfx;
-        msk_s[at[q]] = deform::Run<T>::narrow(value);
+      if constexpr (kMask) {
+        const float value = deform::segment_sum(cg.value, seg);
+        if (live[q] && writer) {
+          off_s[2 * at[q]] = p[q].m * dfy;  // read once, at this step
+          off_s[2 * at[q] + 1] = p[q].m * dfx;
+          msk_s[at[q]] = deform::Run<T>::narrow(value);
+        }
+      } else if (live[q] && writer) {  // no mask: no grad mask, no scaling
+        off_s[2 * at[q]] = dfy;
+        off_s[2 * at[q] + 1] = dfx;
       }
       if (kScatter && live[q])
         deform::scatter_corners(
@@ -944,13 +969,13 @@ dgrad_kernel(const T* __restrict__ go, const typename Prec<T>::Raw* __restrict__
     }
   }
   __syncthreads();  // every gradient of the patch is staged
-  move_offsets<T>(off_s, msk_s, grad_offset, grad_mask, pt, g, false, tid,
-                  S::kThreads);
+  move_offsets<T, kMask>(off_s, msk_s, grad_offset, grad_mask, pt, g, false,
+                         tid, S::kThreads);
 }
 
 // -------------------------------------------------------------------- wgrad
 
-template <typename T, int BN>
+template <typename T, int BN, bool kMask>
 __global__ void __launch_bounds__(Shape<BN>::kThreads, BN == 256 ? 1 : 2)
 wgrad_kernel(const T* __restrict__ go, const typename Prec<T>::Raw* __restrict__ x,
              const float* __restrict__ offset, const T* __restrict__ mask,
@@ -987,7 +1012,8 @@ wgrad_kernel(const T* __restrict__ go, const typename Prec<T>::Raw* __restrict__
   auto coords = [&](Coord(&t)[RUNS], const Patch& pt) {
 #pragma unroll
     for (int q = 0; q < RUNS; ++q)
-      t[q] = coord_of<T>(g, pixel_of(g, pt, rr[q]), st, offset, mask);
+      t[q] = coord_of<T, kMask>(g, pixel_of(g, pt, rr[q]), st, offset,
+                                mask);
   };
   auto gather = [&](Sample<T>(&p)[RUNS], const Patch& pt,
                     const Coord(&t)[RUNS]) {
@@ -1148,7 +1174,8 @@ int fwd(const void* x, const void* offset, const void* mask, const void* wt,
         const void* bias, void* out, const Geom& g, cudaStream_t stream) {
   const size_t smem =
       (size_t)2 * (Prec<T>::kPlanes * BM + BN) * Tiles<T>::LDK * sizeof(T);
-  auto kernel = fwd_kernel<T, BN>;
+  // no mask (K5): the kernels that read none
+  auto kernel = mask ? fwd_kernel<T, BN, true> : fwd_kernel<T, BN, false>;
   if (int err = allow_smem(kernel, smem)) return err;
   kernel<<<g.patches, Shape<BN>::kThreads, smem, stream>>>(
       (const typename Prec<T>::Raw*)x, (const float*)offset, (const T*)mask,
@@ -1163,8 +1190,11 @@ int dgrad(const void* go, const void* x, const void* offset, const void* mask,
   const size_t smem =
       ((size_t)(DgradShape<T, BN>::kGoPlanes * BM + 2 * Tiles<T>::BK) *
            (BN + Tiles<T>::PAD) +
-       BM * Tiles<T>::LDK) * sizeof(T) + staged_offset_bytes<T>(g);
-  auto kernel = dgrad_kernel<T, BN, kScatter>;
+       BM * Tiles<T>::LDK) * sizeof(T) +
+      (mask ? staged_offset_bytes<T, true>(g)
+            : staged_offset_bytes<T, false>(g));
+  auto kernel = mask ? dgrad_kernel<T, BN, kScatter, true>
+                     : dgrad_kernel<T, BN, kScatter, false>;
   if (int err = allow_smem(kernel, smem)) return err;
   kernel<<<g.patches, DgradShape<T, BN>::S::kThreads, smem, stream>>>(
       (const T*)go, (const typename Prec<T>::Raw*)x, (const float*)offset,
@@ -1180,7 +1210,8 @@ int wgrad(const void* go, const void* x, const void* offset, const void* mask,
   const size_t smem = (size_t)2 * BM *
                       (Prec<T>::kPlanes * Tiles<T>::LDT + BN + 8) *
                       sizeof(T);
-  auto kernel = wgrad_kernel<T, BN>;
+  auto kernel =
+      mask ? wgrad_kernel<T, BN, true> : wgrad_kernel<T, BN, false>;
   if (int err = allow_smem(kernel, smem)) return err;
   const dim3 grid(g.taps * ((g.c + Tiles<T>::BK - 1) / Tiles<T>::BK), splits);
   kernel<<<grid, Shape<BN>::kThreads, smem, stream>>>(
@@ -1191,13 +1222,15 @@ int wgrad(const void* go, const void* x, const void* offset, const void* mask,
 
 // The entry points' bodies; each .cu names them. Pointers are device
 // pointers of contiguous tensors (x, wt, weight, go and out 16-byte
-// aligned; offset 8-byte aligned); bias may be null; the stream is a
+// aligned; offset 8-byte aligned); bias may be null, and so may mask (no
+// mask: a mask of ones, DCNv1), dgrad's grad_mask then too; the stream is a
 // cudaStream_t. The geometry: rows = N * Ho * Wo, the input map H x W x C,
 // Cout, the output map Ho x Wo, the kernel kh x kw, stride, padding,
 // dilation, deform groups. Each returns cudaErrorInvalidValue for a shape
 // the kernels do not take, else cudaGetLastError() after its launch. The
-// forward writes out (rows, Cout); dgrad writes grad_offset and grad_mask
-// whole (with grad_x it also adds into grad_x, zeroed by the caller);
+// forward writes out (rows, Cout); dgrad writes grad_offset and, with a
+// mask, grad_mask whole (with grad_x it also adds into grad_x, zeroed by the
+// caller);
 // wgrad writes the partials of `splits` slices of `split_patches` 8 x 8
 // output patches each (patches numbered item-major, then row-major over
 // the map; every patch in one slice), (K * C + 1) x Cout floats a slice,
@@ -1223,7 +1256,7 @@ int dgrad_launch(const void* go, const void* x, const void* offset,
                  const void* mask, const void* w, void* grad_offset,
                  void* grad_mask, void* grad_x, const Geom& g, void* stream) {
   if (!supported<T>(g, true) || !aligned16(go) || !aligned16(x) ||
-      !aligned16(w) || ((uintptr_t)offset & 7))
+      !aligned16(w) || ((uintptr_t)offset & 7) || (mask && !grad_mask))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
 #define MDCN_DGRAD(BN)                                                       \

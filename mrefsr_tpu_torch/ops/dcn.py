@@ -3,36 +3,33 @@ number of conv groups, and the per-pixel grouped bilinear warp
 ``deform_sample``, each with its gradient.
 
 Port of ``mrefsr_tpu/ops/dcn.py``. On a CPU tensor everything runs the
-plain version (:func:`_im2col_ref` and a matmul), with autograd through it.
-On a CUDA tensor the op is a ``torch.autograd.Function`` that keeps ``x,
-offset, mask, weight`` only and recomputes in the backward what it needs
-(the JAX package's default, full remat); who computes the contraction over
-(tap, channel) depends on the variant:
+plain version (:func:`_im2col_ref` and a matmul, in chunks of rows so that
+the column scratch stays under :data:`COL_CAP_BYTES`), with autograd
+through it. On a CUDA tensor the op is a ``torch.autograd.Function`` that
+keeps ``x, offset, mask, weight`` only and recomputes in the backward what
+it needs (the JAX package's default, full remat). Fused kernels gather the
+columns into shared memory and contract them there on the tensor cores, in
+one launch per call, as the JAX package's scans contract each tap's slab
+in their own bodies: no column matrix, no chunks, no matmul.
+``csrc/mdcn_fused.cu`` (float32, 3xTF32) and ``csrc/mdcn_bf16.cu``
+(bfloat16) instantiate one walk, ``csrc/mdcn_fused.cuh``. The forward is
+``mdcn_fused_fwd``; the backward ``mdcn_fused_dgrad`` (grad offset, grad
+mask and, in its ``_scatter`` variant, grad x) and ``mdcn_fused_wgrad``
+(per-slice partials of grad weight and grad bias), then
+``mdcn_fused_wgrad_sum`` adds the partials in a fixed order; the bf16
+entry points carry a ``_bf16`` suffix. The walk runs three TPU kernels of
+the JAX package, each with Kernels of its own (:data:`FUSED_KERNELS`) so
+that their launches count apart:
 
-- K2 (conv groups 1, with a mask), float32 or bfloat16: fused kernels
-  gather the columns into shared memory and contract them there on the
-  tensor cores, in one launch per call, as the JAX package's
-  ``_mdcn_slab_scan`` contracts each tap's slab in its own body: no
-  column matrix, no chunks, no matmul. ``csrc/mdcn_fused.cu`` (float32,
-  3xTF32) and ``csrc/mdcn_bf16.cu`` (bfloat16) instantiate one walk,
-  ``csrc/mdcn_fused.cuh``. The forward is ``mdcn_fused_fwd``; the
-  backward ``mdcn_fused_dgrad`` (grad offset, grad mask and, in its
-  ``_scatter`` variant, grad x) and ``mdcn_fused_wgrad`` (per-slice
-  partials of grad weight and grad bias), then ``mdcn_fused_wgrad_sum``
-  adds the partials in a fixed order; the bf16 entry points carry a
-  ``_bf16`` suffix.
-- K3 (conv groups > 1) and K5 (DCNv1, :func:`deform_conv2d`, no mask),
-  float32 only: the kernel of ``csrc/mdcn.cu`` writes the deformable
-  im2col columns, and the contraction is one matmul with the reshaped
-  weight, as the JAX package leaves it to an XLA einsum: one ``torch.bmm``
-  over the groups (the columns are group-major, ``(groups, rows, K,
-  C/groups)``, so no copy comes between), ``torch.mm`` for DCNv1 with
-  conv groups 1. Rows are processed in chunks so that the column scratch
-  stays under :data:`COL_CAP_BYTES`. The backward recomputes each chunk's
-  columns: grad weight and grad columns are matmuls, and the kernel's
-  col2im turns the grad columns into grad offset, grad mask and, where
-  ``x`` needs one, grad x. DCNv1 runs the kernels' no-mask variant: no
-  mask is read, made or differentiated.
+- K2 (``_mdcn_slab_scan``: conv groups 1, a mask) as it is;
+- K3 (``_mdcn_tap_scan``: conv groups > 1) on a block-diagonal weight
+  (:func:`_block_diagonal`, exact zeros off the groups' blocks), its grad
+  weight the diagonal blocks of wgrad's (:func:`_diagonal_blocks`);
+- K5 (:func:`deform_conv2d`, DCNv1: no mask, no bias) with a null mask:
+  no mask is read, staged or differentiated.
+
+All three take the walk's limits, checked by name in
+:func:`_check_fused_inputs`.
 
 ``deform_sample`` is the K = 1 case without mask or weight
 (``csrc/deform_sample.cu``, forward and backward kernels, either type).
@@ -45,15 +42,17 @@ Coordinates are f32 whatever the types. At bf16 the sampled corners are
 widened to f32, combined in f32 and rounded to bf16 once per column
 element (the kernels and the plain versions alike); the contraction sums
 bf16 x bf16 products in f32 (the fused kernel's ``mma.sync``, the plain
-version's ``torch.mm``) and rounds once to bf16, and the bias is added
-after that rounding, as at the JAX package's dcn.py:104-107. In the
-backward the grad columns (grad out x W^T) are summed in f32 and rounded
-to bf16 before the bilinear derivative, where JAX's vjp and ``torch.mm``
-round them; grad offset is f32, grad mask bf16 rounded once; grad weight,
-grad bias and grad x are summed in f32 and rounded once. In float32 the
-fused kernels take each product as 3xTF32 (lo*hi + hi*lo + hi*hi of TF32
-splits, about 2^-21 of |a||b|) and sum in f32, where the plain version's
-``torch.addmm`` sums exact f32 products; the bias is added to the f32 sum.
+version's ``torch.mm`` / ``torch.bmm``) and rounds once to bf16, and the
+bias is added after that rounding, as at the JAX package's dcn.py:104-107.
+In the backward the grad columns (grad out x W^T) are summed in f32 and
+rounded to bf16 before the bilinear derivative, where JAX's vjp and
+``torch.mm`` round them; grad offset is f32, grad mask bf16 rounded once;
+grad weight, grad bias and grad x are summed in f32 and rounded once. In
+float32 the fused kernels take each product as 3xTF32 (lo*hi + hi*lo +
+hi*hi of TF32 splits, about 2^-21 of |a||b|) and sum in f32, where the
+plain version's ``torch.addmm`` sums exact f32 products; the bias is added
+to the f32 sum. A block-diagonal weight's zeros add exact zeros to those
+sums, at either type.
 
 Layouts (the JAX package's, NHWC / HWIO):
     x:      (N, H, W, C)
@@ -72,57 +71,39 @@ from torch.autograd.function import once_differentiable
 from ._build import Kernel
 from .cpu_bf16 import f32_products
 
-# Column scratch per chunk. One CUFED5 request's relu1_1 level needs
-# 5 * 250000 rows * 576 * 4 B = 2.9 GB of columns; 512 MiB keeps the
-# scratch small beside the activations and each launch's float4 index
-# within an int.
+# The plain version's column scratch per chunk of rows. One CUFED5
+# request's relu1_1 level needs 5 * 250000 rows * 576 * 4 B = 2.9 GB of
+# columns; 512 MiB keeps the scratch small beside the activations.
 COL_CAP_BYTES = 512 << 20
 
-_GEOM = [ctypes.c_int] * 17 + [ctypes.c_void_p]  # row0 ... dg, groups, stream
 _P = ctypes.c_void_p
-# One C entry point per TPU kernel it replaces, so that their launches count
-# apart: K3 (conv groups > 1), K5 (DCNv1, no mask). Without ``_scatter`` the
-# backward writes no grad x.
-mdcn_im2col_groups_kernel = Kernel('mdcn', 'mdcn_im2col_groups_launch',
-                                   [_P] * 4 + _GEOM)
-mdcn_col2im_groups_kernel = Kernel('mdcn', 'mdcn_col2im_groups_launch',
-                                   [_P] * 6 + _GEOM)
-mdcn_col2im_groups_scatter_kernel = Kernel(
-    'mdcn', 'mdcn_col2im_groups_scatter_launch', [_P] * 7 + _GEOM)
-deform_im2col_kernel = Kernel('mdcn', 'deform_im2col_launch',
-                              [_P] * 3 + _GEOM)
-deform_col2im_kernel = Kernel('mdcn', 'deform_col2im_launch',
-                              [_P] * 4 + _GEOM)
-deform_col2im_scatter_kernel = Kernel('mdcn', 'deform_col2im_scatter_launch',
-                                      [_P] * 5 + _GEOM)
-# K2, fused: csrc/mdcn_fused.cu (float32) and csrc/mdcn_bf16.cu (x, mask,
-# weight, bias, grad out bfloat16, the offset float32). rows, h, w, c, cout,
-# ho, wo, kh, kw, sh, sw, ph, pw, dh, dw, dg, stream.
+# The fused walk's C entry points, each part's arguments: pointers, then
+# rows, h, w, c, cout, ho, wo, kh, kw, sh, sw, ph, pw, dh, dw, dg, stream.
 _FUSED = [ctypes.c_int] * 16 + [ctypes.c_void_p]
-mdcn_fused_fwd_kernel = Kernel('mdcn_fused', 'mdcn_fused_fwd_launch',
-                               [_P] * 6 + _FUSED)
-mdcn_fused_dgrad_kernel = Kernel('mdcn_fused', 'mdcn_fused_dgrad_launch',
-                                 [_P] * 7 + _FUSED)
-mdcn_fused_dgrad_scatter_kernel = Kernel(
-    'mdcn_fused', 'mdcn_fused_dgrad_scatter_launch', [_P] * 8 + _FUSED)
-mdcn_fused_wgrad_kernel = Kernel(
-    'mdcn_fused', 'mdcn_fused_wgrad_launch',
-    [_P] * 5 + [ctypes.c_int] * 2 + _FUSED)
-mdcn_fused_wgrad_sum_kernel = Kernel(
-    'mdcn_fused', 'mdcn_fused_wgrad_sum_launch',
-    [_P] * 2 + [ctypes.c_int] * 2 + [_P])
-mdcn_fused_fwd_bf16_kernel = Kernel('mdcn_bf16', 'mdcn_fused_fwd_bf16_launch',
-                                    [_P] * 6 + _FUSED)
-mdcn_fused_dgrad_bf16_kernel = Kernel(
-    'mdcn_bf16', 'mdcn_fused_dgrad_bf16_launch', [_P] * 7 + _FUSED)
-mdcn_fused_dgrad_scatter_bf16_kernel = Kernel(
-    'mdcn_bf16', 'mdcn_fused_dgrad_scatter_bf16_launch', [_P] * 8 + _FUSED)
-mdcn_fused_wgrad_bf16_kernel = Kernel(
-    'mdcn_bf16', 'mdcn_fused_wgrad_bf16_launch',
-    [_P] * 5 + [ctypes.c_int] * 2 + _FUSED)
-mdcn_fused_wgrad_sum_bf16_kernel = Kernel(
-    'mdcn_bf16', 'mdcn_fused_wgrad_sum_bf16_launch',
-    [_P] * 2 + [ctypes.c_int] * 2 + [_P])
+_FUSED_PARTS = {'fwd': [_P] * 6 + _FUSED,
+                'dgrad': [_P] * 7 + _FUSED,
+                'dgrad_scatter': [_P] * 8 + _FUSED,
+                'wgrad': [_P] * 5 + [ctypes.c_int] * 2 + _FUSED,
+                'wgrad_sum': [_P] * 2 + [ctypes.c_int] * 2 + [_P]}
+# their library and suffix by type: csrc/mdcn_fused.cu (float32) and
+# csrc/mdcn_bf16.cu (x, mask, weight, bias, grad out bfloat16, the offset
+# float32)
+_FUSED_TYPES = {torch.float32: ('mdcn_fused', ''),
+                torch.bfloat16: ('mdcn_bf16', '_bf16')}
+# the TPU kernels the walk runs, by the name their launches count under:
+# K2 (conv groups 1, a mask), K3 (conv groups > 1), K5 (DCNv1, no mask)
+VARIANTS = {'k2': 'mdcn_fused', 'k3': 'mdcn_groups_fused',
+            'k5': 'deform_conv_fused'}
+# a Kernel for each TPU kernel and C entry point, e.g. 'mdcn_fused_fwd',
+# 'mdcn_groups_fused_dgrad_bf16', 'deform_conv_fused_wgrad_sum': one C
+# entry point counts the launches of K2, K3 and K5 apart
+FUSED_KERNELS = {
+    f'{name}_{part}{suffix}': Kernel(library,
+                                     f'mdcn_fused_{part}{suffix}_launch',
+                                     argtypes)
+    for name in VARIANTS.values()
+    for library, suffix in _FUSED_TYPES.values()
+    for part, argtypes in _FUSED_PARTS.items()}
 # the fused kernels' widest output tile, and the deform groups x taps whose
 # offsets a dgrad block stages in shared memory
 FUSED_MAX_COUT = 256
@@ -161,11 +142,11 @@ def _pair(v):
 
 
 def _im2col_ref(x, offset, mask, row0, rows, geom, groups=1):
-    """Plain version of the kernel: the columns ``(groups, rows, K,
-    C/groups)`` of output rows ``[row0, row0 + rows)`` of the flattened
+    """The plain version's deformable im2col: the columns ``(groups, rows,
+    K, C/groups)`` of output rows ``[row0, row0 + rows)`` of the flattened
     ``(N, Ho, Wo)``; ``mask`` None is a mask of ones. A bf16 ``x`` is
-    sampled in f32 and the columns rounded to bf16 once, as the kernel
-    does."""
+    sampled in f32 and the columns rounded to bf16 once, as the fused
+    kernels round the column tiles they gather."""
     (kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo) = geom
     n, h, w, c = x.shape
     dg = offset.shape[3]
@@ -217,15 +198,14 @@ def _im2col_ref(x, offset, mask, row0, rows, geom, groups=1):
     return out.permute(2, 0, 1, 3)
 
 
-def _check_cuda_inputs(name, x, coords, *others, backward=False, groups=1):
-    """What the kernels take: ``x`` and ``others`` (mask, grad columns or
-    grad out) all float32 or all bfloat16, ``coords`` (the offset or the
-    flow) float32 whatever x's type, all on one device; C, the channels of
-    a deform group and those of a conv group multiples of the 16-byte run
-    a kernel thread loads and stores (4 float32 or 8 bfloat16 channels);
-    for a backward kernel the deform group's runs a power of two <= 32
-    (they are summed by warp shuffles). ``None`` entries of ``others`` (no
-    mask) are skipped."""
+def _check_cuda_inputs(name, x, coords, *others, backward=False):
+    """What the kernels take: ``x`` and ``others`` (mask or grad out) all
+    float32 or all bfloat16, ``coords`` (the offset or the flow) float32
+    whatever x's type, all on one device; C and the channels of a deform
+    group multiples of the 16-byte run a kernel thread loads and stores (4
+    float32 or 8 bfloat16 channels); for a backward kernel the deform
+    group's runs a power of two <= 32 (they are summed by warp shuffles).
+    ``None`` entries of ``others`` (no mask) are skipped."""
     others = [t for t in others if t is not None]
     dg = coords.shape[3]
     c = x.shape[-1]
@@ -235,11 +215,10 @@ def _check_cuda_inputs(name, x, coords, *others, backward=False, groups=1):
                         'of one type, with float32 coordinates, got '
                         f'{[t.dtype for t in (x, coords, *others)]}')
     run = _RUN[x.dtype]
-    if c % run or (c // dg) % run or (c // groups) % run:
-        raise ValueError(f'{name} kernel needs C, C/deform_groups and '
-                         f'C/groups to be multiples of {run} ({run} '
-                         f'{x.dtype} channels are one 16-byte load), got '
-                         f'C={c}, deform_groups={dg}, groups={groups}')
+    if c % run or (c // dg) % run:
+        raise ValueError(f'{name} kernel needs C and C/deform_groups to be '
+                         f'multiples of {run} ({run} {x.dtype} channels are '
+                         f'one 16-byte load), got C={c}, deform_groups={dg}')
     if any(t.device != x.device for t in (coords, *others)):
         raise ValueError(f'{name}: tensors lie on '
                          f'{[str(t.device) for t in (x, coords, *others)]}')
@@ -249,37 +228,17 @@ def _check_cuda_inputs(name, x, coords, *others, backward=False, groups=1):
                          f'{run} to be a power of two <= 32, got {runs}')
 
 
-def _refuse_fused_variant(x, mask, groups):
-    """The im2col / col2im kernels are K3's (conv groups > 1) and K5's
-    (DCNv1), float32 only: K2 runs the fused kernels at either type, and
-    K3 and K5 have no bf16 kernel."""
-    if _fused(x, mask, groups):
-        raise TypeError('the DCN with conv groups 1 and a mask (K2) runs the '
-                        'fused kernels of mdcn_fused.cuh, not im2col / '
-                        'col2im')
-    if x.dtype == torch.bfloat16:
-        raise TypeError('the DCN kernels of conv groups > 1 and of DCNv1 '
-                        'take float32 only: their bf16 path is ROADMAP A7 '
-                        f'(groups={groups}, mask={mask is not None})')
-
-
-def _fused(x, mask, groups):
-    """Whether the CUDA path runs the fused kernels: K2 (conv groups 1, a
-    mask), float32 or bfloat16."""
-    return x.dtype in _RUN and groups == 1 and mask is not None
-
-
 def _check_fused_inputs(x, offset, mask, weight, bias=None, go=None,
                         backward=False):
-    """The fused kernels' rules beyond :func:`_check_cuda_inputs`'s: x,
-    mask, weight, bias and grad out all float32 or all bfloat16 (the offset
-    float32); Cout a multiple of 8 (the products' 8-wide tiles, 16-byte
-    runs of the output, grad out and weight rows) and at most
-    :data:`FUSED_MAX_COUT` (the widest output tile); deform_groups * kh * kw
-    at most :data:`FUSED_MAX_STAGED` (the offsets a block stages); for the
-    backward a deform group's runs of 16 bytes (C/deform_groups/4 at
-    float32, /8 at bfloat16) a power of two <= 8 (they are summed by
-    shuffles within a chunk of 8 runs)."""
+    """The fused kernels' rules beyond :func:`_check_cuda_inputs`'s, for K2,
+    K3 and K5 alike: x, mask (or none), weight, bias and grad out all
+    float32 or all bfloat16 (the offset float32); Cout a multiple of 8 (the
+    products' 8-wide tiles, 16-byte runs of the output, grad out and weight
+    rows) and at most :data:`FUSED_MAX_COUT` (the widest output tile);
+    deform_groups * kh * kw at most :data:`FUSED_MAX_STAGED` (the offsets a
+    block stages); for the backward a deform group's runs of 16 bytes
+    (C/deform_groups/4 at float32, /8 at bfloat16) a power of two <= 8
+    (they are summed by shuffles within a chunk of 8 runs)."""
     _check_cuda_inputs('mdcn', x, offset, mask)
     cout = weight.shape[3]
     dg = offset.shape[3]
@@ -313,16 +272,47 @@ def _check_fused_inputs(x, offset, mask, weight, bias=None, go=None,
                          f'got {runs}')
 
 
-def _fused_kernels(dtype):
-    """The fused kernels at ``dtype``: the forward, dgrad, its grad-x
-    scatter variant, wgrad and the sum of wgrad's partials."""
-    if dtype == torch.bfloat16:
-        return (mdcn_fused_fwd_bf16_kernel, mdcn_fused_dgrad_bf16_kernel,
-                mdcn_fused_dgrad_scatter_bf16_kernel,
-                mdcn_fused_wgrad_bf16_kernel, mdcn_fused_wgrad_sum_bf16_kernel)
-    return (mdcn_fused_fwd_kernel, mdcn_fused_dgrad_kernel,
-            mdcn_fused_dgrad_scatter_kernel, mdcn_fused_wgrad_kernel,
-            mdcn_fused_wgrad_sum_kernel)
+def _variant(mask, groups):
+    """The TPU kernel a call ports: ``'k5'`` (DCNv1, no mask), ``'k3'``
+    (conv groups > 1) or ``'k2'`` (conv groups 1, a mask)."""
+    return 'k5' if mask is None else 'k3' if groups > 1 else 'k2'
+
+
+def _fused_kernels(dtype, variant='k2'):
+    """The fused kernels of ``variant`` (:data:`VARIANTS`) at ``dtype``: the
+    forward, dgrad, its grad-x scatter variant, wgrad and the sum of
+    wgrad's partials, looked up in :data:`FUSED_KERNELS` at each call."""
+    suffix = _FUSED_TYPES[dtype][1]
+    return tuple(FUSED_KERNELS[f'{VARIANTS[variant]}_{part}{suffix}']
+                 for part in _FUSED_PARTS)
+
+
+def _block_diagonal(weight, groups):
+    """HWIO ``(kh, kw, C/G, Cout)`` -> ``(kh, kw, C, Cout)``: input channel
+    group q feeds only output channels ``[q Cout/G, (q + 1) Cout/G)`` (the
+    JAX package's ``reshape(cin_g, groups, cout // groups)``, its
+    dcn.py:238); exact zeros elsewhere, which add nothing to the fused
+    kernels' f32 sums."""
+    if groups == 1:
+        return weight
+    kh, kw, cin_g, cout = weight.shape
+    full = weight.new_zeros((kh, kw, groups, cin_g, groups, cout // groups))
+    q = torch.arange(groups, device=weight.device)
+    full[:, :, q, :, q] = weight.reshape(kh, kw, cin_g, groups, -1).permute(
+        3, 0, 1, 2, 4)
+    return full.reshape(kh, kw, groups * cin_g, cout)
+
+
+def _diagonal_blocks(grad_w, shape, groups):
+    """The gradient of a weight of ``shape`` ``(kh, kw, C/G, Cout)`` out of
+    that of its block-diagonal expansion, ``(K * C, Cout)``: the blocks
+    :func:`_block_diagonal` fills."""
+    if groups == 1:
+        return grad_w.reshape(shape)
+    kh, kw, cin_g, cout = shape
+    full = grad_w.reshape(kh, kw, groups, cin_g, groups, cout // groups)
+    q = torch.arange(groups, device=grad_w.device)
+    return full[:, :, q, :, q].permute(1, 2, 3, 0, 4).reshape(shape)
 
 
 def _aligned16(t):
@@ -333,67 +323,9 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _geom_args(geom, dg, groups):
-    (kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo) = geom
-    return (ho, wo, kh, kw, sh, sw, ph, pw, dh, dw, dg, groups,
-            torch.cuda.current_stream().cuda_stream)
-
-
-def _im2col_cuda(x, offset, mask, row0, rows, geom, groups=1):
-    """The CUDA kernel of K3 and K5, same contract as :func:`_im2col_ref`;
-    float32 only."""
-    n, h, w, c = x.shape
-    _refuse_fused_variant(x, mask, groups)
-    _check_cuda_inputs('mdcn', x, offset, mask, groups=groups)
-    (kh, kw) = geom[0]
-    col = torch.empty((groups, rows, kh * kw, c // groups), dtype=x.dtype,
-                      device=x.device)
-    tail = (row0, rows, h, w, c, *_geom_args(geom, offset.shape[3], groups))
-    with torch.cuda.device(x.device):
-        if mask is None:
-            deform_im2col_kernel(x.data_ptr(), offset.data_ptr(),
-                                 col.data_ptr(), *tail)
-        else:
-            mdcn_im2col_groups_kernel(x.data_ptr(), offset.data_ptr(),
-                                      mask.data_ptr(), col.data_ptr(), *tail)
-    return col
-
-
-def _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask, grad_x,
-                 row0, rows, geom, groups=1):
-    """K3's and K5's backward kernel for the rows ``[row0, row0 + rows)``:
-    ``grad_col`` is ``(groups, rows, K, C/groups)``; these rows of
-    ``grad_offset`` and (with a mask) ``grad_mask`` are written, and
-    ``grad_x`` (whole, zeroed by the caller) is added into unless it is
-    None. Float32 only."""
-    n, h, w, c = x.shape
-    _refuse_fused_variant(x, mask, groups)
-    _check_cuda_inputs('mdcn', x, offset, mask, grad_col, backward=True,
-                       groups=groups)
-    if grad_offset.dtype != torch.float32 or (
-            grad_mask is not None and grad_mask.dtype != x.dtype) or (
-            grad_x is not None and grad_x.dtype != torch.float32):
-        raise TypeError('col2im writes grad offset, grad mask and grad x '
-                        'in float32')
-    if not grad_col.is_contiguous() or grad_col.numel() != \
-            rows * geom[0][0] * geom[0][1] * c:
-        raise ValueError(f'grad_col must be a contiguous (groups, rows, K, '
-                         f'C/groups) tensor, got {tuple(grad_col.shape)} '
-                         f'strides {grad_col.stride()}')
-    tail = (row0, rows, h, w, c, *_geom_args(geom, offset.shape[3], groups))
-    scatter = () if grad_x is None else (grad_x.data_ptr(),)
-    with torch.cuda.device(x.device):
-        if mask is None:
-            kernel = (deform_col2im_kernel if grad_x is None
-                      else deform_col2im_scatter_kernel)
-            kernel(grad_col.data_ptr(), x.data_ptr(), offset.data_ptr(),
-                   grad_offset.data_ptr(), *scatter, *tail)
-            return
-        kernel = (mdcn_col2im_groups_kernel if grad_x is None
-                  else mdcn_col2im_groups_scatter_kernel)
-        kernel(grad_col.data_ptr(), x.data_ptr(), offset.data_ptr(),
-               mask.data_ptr(), grad_offset.data_ptr(), grad_mask.data_ptr(),
-               *scatter, *tail)
+def _ptr(t):
+    """A tensor's device pointer, or NULL for None."""
+    return None if t is None else t.data_ptr()
 
 
 def _geometry(x, offset, mask, weight, stride, padding, dilation, groups,
@@ -440,6 +372,9 @@ def _grouped_weight(weight, groups):
 
 
 def _mdcn_forward(x, offset, mask, weight, bias, geom, im2col, groups=1):
+    """The plain version: ``im2col``'s columns of each chunk of rows times
+    the weight, ``torch.mm`` (``torch.addmm`` with an f32 bias) or, over
+    the conv groups, ``torch.bmm``."""
     x, offset = x.contiguous(), offset.contiguous()
     mask = None if mask is None else mask.contiguous()
     (kh, kw), (ho, wo) = geom[0], geom[4]
@@ -478,33 +413,36 @@ def _fused_args(x, offset, weight, geom):
             torch.cuda.current_stream().cuda_stream)
 
 
-def _mdcn_fused_forward_cuda(x, offset, mask, weight, bias, geom):
-    """K2's forward (conv groups 1, a mask), float32 or bfloat16, one
-    launch of ``mdcn_fused_fwd``: same contract as
-    :func:`_mdcn_fused_forward_ref`."""
+def _mdcn_fused_forward_cuda(x, offset, mask, weight, bias, geom, groups=1):
+    """The forward of K2, K3 (``groups > 1``, on the block-diagonal weight)
+    or K5 (``mask`` None), float32 or bfloat16, one launch of its
+    ``mdcn_fused_fwd``: same contract as :func:`_mdcn_fused_forward_ref`."""
     _check_fused_inputs(x, offset, mask, weight, bias)
-    x, offset, mask = _aligned16(x), _aligned16(offset), mask.contiguous()
+    kernels = _fused_kernels(x.dtype, _variant(mask, groups))
+    x, offset = _aligned16(x), _aligned16(offset)
+    mask = None if mask is None else mask.contiguous()
     (kh, kw), (ho, wo) = geom[0], geom[4]
     n, c = x.shape[0], x.shape[3]
     cout = weight.shape[3]
     # the products' B operand wants the (tap, channel) depth contiguous
-    wt = weight.reshape(kh * kw * c, cout).t().contiguous()
+    wt = _block_diagonal(weight, groups).reshape(kh * kw * c, cout).t() \
+        .contiguous()
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        _fused_kernels(x.dtype)[0](
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-            None if bias is None else bias.contiguous().data_ptr(),
-            out.data_ptr(),
-            *_fused_args(x, offset, weight, geom))
+        kernels[0](x.data_ptr(), offset.data_ptr(), _ptr(mask), wt.data_ptr(),
+                   _ptr(None if bias is None else bias.contiguous()),
+                   out.data_ptr(), *_fused_args(x, offset, weight, geom))
     return out
 
 
-def _mdcn_fused_forward_ref(x, offset, mask, weight, bias, geom):
+def _mdcn_fused_forward_ref(x, offset, mask, weight, bias, geom, groups=1):
     """Plain version of ``mdcn_fused_fwd``: at bf16 the columns rounded to
     bf16 once, their bf16 product with the weight summed in f32 and rounded
-    (``torch.mm``), the bias added after that rounding; at f32 the exact
-    columns' product with the weight plus the bias (``torch.addmm``)."""
-    return _mdcn_forward(x, offset, mask, weight, bias, geom, _im2col_ref)
+    (``torch.mm``, over the conv groups ``torch.bmm``), the bias added after
+    that rounding; at f32 the exact columns' product with the weight plus
+    the bias (``torch.addmm``)."""
+    return _mdcn_forward(x, offset, mask, weight, bias, geom, _im2col_ref,
+                         groups)
 
 
 def _wgrad_slices(n, ho, wo, k, c, cout, dtype):
@@ -521,29 +459,33 @@ def _wgrad_slices(n, ho, wo, k, c, cout, dtype):
 
 
 def _mdcn_fused_backward_cuda(go, x, offset, mask, weight, geom, need_x,
-                              need_sample, need_params):
-    """K2's backward, float32 or bfloat16: ``mdcn_fused_dgrad`` (its
-    ``_scatter`` variant where x needs a gradient) when x, the offset or
-    the mask needs one, then ``mdcn_fused_wgrad`` and the ordered sum of
-    its partials when the weight or the bias does. ``go`` is the
-    ``(rows, Cout)`` grad out. Returns grad x (float32), grad offset
-    (float32), grad mask (x's type), grad weight (float32,
-    ``(K * C, Cout)``) and grad bias (float32), None where not asked."""
+                              need_sample, need_params, groups=1):
+    """The backward of K2, K3 or K5, float32 or bfloat16: its
+    ``mdcn_fused_dgrad`` (the ``_scatter`` variant where x needs a
+    gradient) when x, the offset or the mask needs one, then its
+    ``mdcn_fused_wgrad`` and the ordered sum of its partials when the
+    weight or the bias does. ``go`` is the ``(rows, Cout)`` grad out.
+    Returns grad x (float32), grad offset (float32), grad mask (x's type;
+    None without a mask), grad weight (float32, ``weight``'s shape: with
+    ``groups > 1`` the diagonal blocks of the block-diagonal weight's) and
+    grad bias (float32), None where not asked."""
     _check_fused_inputs(x, offset, mask, weight, go=go, backward=True)
-    go, weight = _aligned16(go), _aligned16(weight)
-    x, offset, mask = _aligned16(x), _aligned16(offset), mask.contiguous()
+    _, dgrad, dgrad_scatter, wgrad, wgrad_sum = _fused_kernels(
+        x.dtype, _variant(mask, groups))
+    full = _aligned16(_block_diagonal(weight, groups))
+    go, x, offset = _aligned16(go), _aligned16(x), _aligned16(offset)
+    mask = None if mask is None else mask.contiguous()
     (kh, kw), (ho, wo) = geom[0], geom[4]
     c, cout = x.shape[3], weight.shape[3]
     args = _fused_args(x, offset, weight, geom)
-    _, dgrad, dgrad_scatter, wgrad, wgrad_sum = _fused_kernels(x.dtype)
     grad_x = grad_offset = grad_mask = grad_w = grad_b = None
     with torch.cuda.device(x.device):
         if need_sample or need_x:
             grad_offset = torch.empty_like(offset)
-            grad_mask = torch.empty_like(mask)
+            grad_mask = None if mask is None else torch.empty_like(mask)
             head = (go.data_ptr(), x.data_ptr(), offset.data_ptr(),
-                    mask.data_ptr(), weight.data_ptr(),
-                    grad_offset.data_ptr(), grad_mask.data_ptr())
+                    _ptr(mask), full.data_ptr(), grad_offset.data_ptr(),
+                    _ptr(grad_mask))
             if need_x:
                 grad_x = torch.zeros_like(x, dtype=torch.float32)
                 dgrad_scatter(*head, grad_x.data_ptr(), *args)
@@ -555,83 +497,30 @@ def _mdcn_fused_backward_cuda(go, x, offset, mask, weight, geom, need_x,
             # grad weight's K * C rows, then grad bias
             partial = torch.empty((splits, kh * kw * c + 1, cout),
                                   dtype=torch.float32, device=x.device)
-            wgrad(go.data_ptr(), x.data_ptr(), offset.data_ptr(),
-                  mask.data_ptr(), partial.data_ptr(), splits, split_patches,
-                  *args)
+            wgrad(go.data_ptr(), x.data_ptr(), offset.data_ptr(), _ptr(mask),
+                  partial.data_ptr(), splits, split_patches, *args)
             total = torch.empty(partial.shape[1:], dtype=torch.float32,
                                 device=x.device)
             wgrad_sum(
                 partial.data_ptr(), total.data_ptr(), splits, total.numel(),
                 args[-1])
-            grad_w, grad_b = total[:-1], total[-1]
+            grad_w = _diagonal_blocks(total[:-1], weight.shape, groups)
+            grad_b = total[-1]
     return grad_x, grad_offset, grad_mask, grad_w, grad_b
 
 
-def _chunked_backward(go, x, offset, mask, weight, geom, groups, need_x,
-                      need_sample, need_weight):
-    """K3's and K5's backward: each chunk of rows recomputes its columns
-    (``mdcn_im2col_groups`` / ``deform_im2col``) for grad weight, a
-    matmul, and turns the grad columns, another, into grad offset, grad
-    mask and, where asked, grad x (the col2im kernels). Sums across the
-    chunks are f32. Returns grad x, grad offset, grad mask and grad
-    weight, None where not asked."""
-    (kh, kw) = geom[0]
-    k, c, cout = kh * kw, x.shape[3], weight.shape[3]
-    if groups == 1:
-        w2d = weight.reshape(k * c, cout)
-        grad_w = torch.zeros_like(w2d) if need_weight else None
-    else:
-        w_g = _grouped_weight(weight, groups)
-        grad_w = torch.zeros_like(w_g) if need_weight else None
-    need_col2im = need_x or need_sample
-    grad_x = torch.zeros_like(x) if need_x else None
-    grad_offset = grad_mask = None
-    if need_col2im:
-        grad_offset = torch.empty_like(offset)
-        grad_mask = None if mask is None else torch.empty_like(mask)
-    # each chunk's columns are recomputed, and freed before the next
-    for row0, rows in _row_chunks(go.shape[0], k, c, x.element_size()):
-        go_chunk = go[row0:row0 + rows]
-        if groups != 1:     # (G, rows, Cout/G), a view
-            go_chunk = go_chunk.reshape(rows, groups, -1).transpose(0, 1)
-        if need_weight:
-            col = _im2col_cuda(x, offset, mask, row0, rows, geom, groups)
-            if groups == 1:
-                grad_w.addmm_(col.reshape(rows, k * c).t(), go_chunk)
-            else:
-                grad_w.baddbmm_(col.reshape(groups, rows, -1)
-                                .transpose(1, 2), go_chunk)
-            del col
-        if need_col2im:
-            grad_col = (torch.mm(go_chunk, w2d.t()) if groups == 1
-                        else torch.bmm(go_chunk, w_g.transpose(1, 2)))
-            _col2im_cuda(grad_col, x, offset, mask, grad_offset, grad_mask,
-                         grad_x, row0, rows, geom, groups)
-            del grad_col
-    if need_weight and groups != 1:
-        grad_w = grad_w.reshape(groups, k, c // groups, -1).permute(
-            1, 2, 0, 3)
-    return grad_x, grad_offset, grad_mask, grad_w
-
-
 class _ModulatedDeformConv2d(torch.autograd.Function):
-    """The CUDA path with its hand-written backward; ``mask`` None is
-    DCNv1."""
+    """The CUDA path (K2, K3, K5) with its hand-written backward; ``mask``
+    None is DCNv1."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, geom, groups):
-        x, offset = x.contiguous(), offset.contiguous()
+        x, offset = _aligned16(x), _aligned16(offset)
         mask = None if mask is None else mask.contiguous()
-        fused = _fused(x, mask, groups)
-        if fused:
-            x, offset = _aligned16(x), _aligned16(offset)
         ctx.geom, ctx.groups = geom, groups
         ctx.save_for_backward(x, offset, mask, weight)
-        if fused:
-            return _mdcn_fused_forward_cuda(x, offset, mask, weight, bias,
-                                            geom)
-        return _mdcn_forward(x, offset, mask, weight, bias, geom,
-                             _im2col_cuda, groups)
+        return _mdcn_fused_forward_cuda(x, offset, mask, weight, bias, geom,
+                                        groups)
 
     @staticmethod
     @once_differentiable
@@ -639,24 +528,16 @@ class _ModulatedDeformConv2d(torch.autograd.Function):
         x, offset, mask, weight = ctx.saved_tensors
         need_x, need_offset, need_mask, need_weight, need_bias = \
             ctx.needs_input_grad[:5]
-        geom, groups = ctx.geom, ctx.groups
         # grad_out comes as a permuted view of a channels-last tensor
         go = grad_out.reshape(-1, weight.shape[3]).contiguous()
-        if _fused(x, mask, groups):
-            grad_x, grad_offset, grad_mask, grad_w, grad_b = \
-                _mdcn_fused_backward_cuda(go, x, offset, mask, weight, geom,
-                                          need_x, need_offset or need_mask,
-                                          need_weight or need_bias)
-        else:
-            grad_x, grad_offset, grad_mask, grad_w = _chunked_backward(
-                go, x, offset, mask, weight, geom, groups, need_x,
-                need_offset or need_mask, need_weight)
-            grad_b = go.sum(0) if need_bias else None
+        grad_x, grad_offset, grad_mask, grad_w, grad_b = \
+            _mdcn_fused_backward_cuda(go, x, offset, mask, weight, ctx.geom,
+                                      need_x, need_offset or need_mask,
+                                      need_weight or need_bias, ctx.groups)
         return (None if grad_x is None else grad_x.to(x.dtype),
                 grad_offset if need_offset else None,
                 grad_mask if need_mask else None,
-                grad_w.reshape(weight.shape).to(weight.dtype)
-                if need_weight else None,
+                grad_w.to(weight.dtype) if need_weight else None,
                 grad_b.to(go.dtype) if need_bias else None, None, None)
 
 
@@ -708,7 +589,8 @@ def deform_conv2d(x, offset, weight, stride=1, padding=0, dilation=1,
     """DCNv1, the reference ops surface's ``deform_conv``: the sampling of
     :func:`modulated_deform_conv2d` with no mask (mask 1) and no bias, and
     a default padding of 0. Differentiable in ``x``, ``offset`` and
-    ``weight``. On a CUDA tensor the kernels' no-mask variant runs."""
+    ``weight``. On a CUDA tensor the fused kernels run with a null mask
+    (K5): no mask is read, made or differentiated."""
     geom = _geometry(x, offset, None, weight, stride, padding, dilation,
                      groups, deform_groups)
     return _dispatch('deform_conv2d', x, offset, None, weight, None, geom,

@@ -1,14 +1,14 @@
 """The port's bf16 path against the JAX package's bf16 path, on the CPU:
 K1 (``feature_match_index``) and K6 (its sharded form, 2 ranks over gloo),
-K2 (``modulated_deform_conv2d``) and K4 (``deform_sample``) with every
-gradient, the 5-ref eval with ``val.mixed_precision: bfloat16`` and the
+K2 (``modulated_deform_conv2d``), K3 (the same with conv groups), K5
+(``deform_conv2d``) and K4 (``deform_sample``) with every gradient, the 5-ref eval with ``val.mixed_precision: bfloat16`` and the
 stage-3 training step with ``train.mixed_precision: bfloat16`` for both
 alignments, from the same seeded numpy inputs and the same flax weights;
 and the shipped bf16 configs, accepted.
 
 On the CPU the port runs its kernels' plain versions, which round where
 the CUDA kernels round: K1 sums the exact f32 products of bf16 values in
-f32; K2 and K4 sample bf16 corners in f32 and round each result to bf16
+f32; K2 to K5 sample bf16 corners in f32 and round each result to bf16
 once. The JAX package takes the corner weights, their products and the sum
 of the corners in bf16 (its dcn.py:171-178) and rounds the output of
 every op, so the two differ by a few bf16 ulps; the tolerances below are
@@ -337,8 +337,9 @@ def test_mdcn_bf16_function_launches_the_bf16_entry_points(monkeypatch,
     forward per call however small the column cap (no chunks, no column
     matrix); then one of dgrad (its scatter variant only where x needs a
     gradient) and one of wgrad; then one of the ordered sum of the
-    grad-weight and grad-bias partials; none of mdcn.cu's f32 entry
-    points; and agreement with the JAX package as the plain version."""
+    grad-weight and grad-bias partials; none of the f32 entry points or
+    K3's and K5's; and agreement with the JAX package as the plain
+    version."""
     _check_function_launches(monkeypatch, grad_x, cout=16)
 
 
@@ -357,13 +358,10 @@ def _check_function_launches(monkeypatch, grad_x, cout):
     geom = dcn._geometry(*args[:4], 1, 1, 1, 1, 2)
     assert len(dcn._row_chunks(2 * 7 * 9, 9, 16, 2)) > 1
     out = dcn._ModulatedDeformConv2d.apply(*args, geom, 1)
-    assert launched == ['mdcn_fused_fwd_bf16_kernel']
+    assert launched == ['mdcn_fused_fwd_bf16']
     (out.float() * _to_torch(cot).float()).sum().backward()
-    dgrad = 'mdcn_fused_dgrad_scatter_bf16_kernel' if grad_x \
-        else 'mdcn_fused_dgrad_bf16_kernel'
-    assert launched == ['mdcn_fused_fwd_bf16_kernel', dgrad,
-                        'mdcn_fused_wgrad_bf16_kernel',
-                        'mdcn_fused_wgrad_sum_bf16_kernel']
+    assert launched == test_torch_dcn.fused_launches(1, True, grad_x,
+                                                     '_bf16')
     out_jax, vjp = jax.vjp(
         lambda *a: jax_dcn.modulated_deform_conv2d(*a, deform_groups=2),
         *(jnp.asarray(a) for a in inputs))
@@ -433,14 +431,124 @@ def test_aggregation_hands_the_kernels_the_promoted_dtypes(monkeypatch, agg):
         assert seen['sample'] == [BF, torch.float32]
 
 
-def test_k3_and_k5_refuse_bf16_by_name():
-    x = torch.zeros((1, 4, 4, 16), dtype=BF)
-    offset = torch.zeros((1, 4, 4, 2, 9, 2))
-    mask = torch.zeros((1, 4, 4, 2, 9), dtype=BF)
-    geom = ((3, 3), (1, 1), (1, 1), (1, 1), (4, 4))
-    for m, groups in ((mask, 2), (None, 1)):
-        with pytest.raises(TypeError, match='ROADMAP A7'):
-            dcn._im2col_cuda(x, offset, m, 0, 16, geom, groups)
+def _grouped_dcn_case(seed, groups, dg, padding=1, cout=16):
+    """:func:`_dcn_case` for K3 and K5: a ``(3, 3, C / groups, Cout)``
+    weight, and the offset, mask and cotangent of the output map that
+    ``padding`` gives (7x9 -> 5x7 at padding 0)."""
+    rng = np.random.RandomState(seed)
+    n, h, w, c = 2, 7, 9, 16
+    ho, wo = h + 2 * padding - 2, w + 2 * padding - 2
+    x = rng.randn(n, h, w, c)
+    offset = rng.randn(n, ho, wo, dg, 9, 2) * 1.5
+    mask = rng.rand(n, ho, wo, dg, 9)
+    weight = rng.randn(3, 3, c // groups, cout) * 0.1
+    bias = rng.randn(cout)
+    cot = rng.randn(n, ho, wo, cout)
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16))  # noqa: E731
+    return (bf(x), offset.astype(np.float32), bf(mask), bf(weight), bf(bias),
+            bf(cot))
+
+
+@pytest.mark.parametrize('groups,dg', [(2, 2), (2, 1), (4, 4)])
+def test_mdcn_groups_bf16_matches_jax(groups, dg):
+    """K3 at bf16 (conv groups 2 and 4, deform groups inside one conv
+    group, across two, and as fine): the output and every gradient within
+    DCN_TOL of ``jax.vjp`` of the JAX package's bf16 function, grad bias
+    within BIAS_GRAD_TOL and half a bf16 ulp of the exact f32 sum."""
+    *inputs, cot = _grouped_dcn_case(30, groups, dg)
+    kw = dict(groups=groups, deform_groups=dg)
+    _check_against_jax(
+        lambda *a: jax_dcn.modulated_deform_conv2d(*a, **kw),
+        lambda *a: dcn.modulated_deform_conv2d(*a, **kw), inputs, cot)
+
+
+@pytest.mark.parametrize('groups,dg', [(1, 2), (2, 2)])
+def test_deform_conv2d_bf16_matches_jax(groups, dg):
+    """K5 (DCNv1, no mask, no bias) at bf16 and its default padding 0:
+    the output and the gradients of x, the offset and the weight within
+    DCN_TOL of the JAX package's bf16 ``jax.vjp``."""
+    x, offset, _, weight, _, cot = _grouped_dcn_case(31, groups, dg,
+                                                     padding=0)
+    kw = dict(groups=groups, deform_groups=dg)
+    errs = _check_against_jax(
+        lambda *a: jax_dcn.deform_conv2d(*a, **kw),
+        lambda *a: dcn.deform_conv2d(*a, **kw), (x, offset, weight), cot)
+    assert set(errs) == {'out', 0, 1, 2}
+
+
+@pytest.mark.parametrize('groups,dg,masked,grad_x', [
+    (2, 2, True, True), (4, 2, True, False), (1, 2, False, True),
+    (2, 2, False, False)])
+def test_function_around_the_kernels_matches_jax_bf16(monkeypatch, groups,
+                                                      dg, masked, grad_x):
+    """The bf16 twin of test_torch_dcn's stand-in test for K3 (on the
+    block-diagonal weight) and K5 (a null mask pointer): one fused forward
+    of the variant's own bf16 entry points however small the column cap,
+    then dgrad (its scatter only for grad x), wgrad and the ordered sum;
+    the output and every gradient within DCN_TOL of the JAX package's
+    bf16 ``jax.vjp``, grad bias as in :func:`_check_bias_grad`. (A bf16
+    kernel thread loads 8 channels: a deform group holds 8 of the 16.)"""
+    launched = test_torch_dcn._stand_in_kernels(monkeypatch)
+    monkeypatch.setattr(dcn, 'COL_CAP_BYTES', 40 * 9 * 16 * 2)  # 40 rows
+    pad = 1 if masked else 0
+    x, offset, mask, weight, bias, cot = _grouped_dcn_case(
+        32, groups, dg, padding=pad)
+    inputs = (x, offset, mask, weight, bias) if masked else (x, offset,
+                                                             weight)
+    kw = dict(padding=pad, groups=groups, deform_groups=dg)
+    jfn = jax_dcn.modulated_deform_conv2d if masked else \
+        jax_dcn.deform_conv2d
+    out_jax, vjp = jax.vjp(lambda *a: jfn(*a, **kw),
+                           *(jnp.asarray(a) for a in inputs))
+    args = [_to_torch(a).requires_grad_(i > 0 or grad_x)
+            for i, a in enumerate(inputs)]
+    out = test_torch_dcn.apply_function(args, masked, groups, dg, pad)
+    assert out.dtype == BF
+    assert _rel(_np(out), out_jax.astype(jnp.float32)) <= DCN_TOL
+    (out.float() * _to_torch(cot).float()).sum().backward()
+    for i, (a, gj) in enumerate(zip(args, vjp(jnp.asarray(cot)))):
+        if i == 0 and not grad_x:
+            assert a.grad is None
+            continue
+        assert a.grad.dtype == a.dtype
+        err = _rel(_np(a.grad), np.asarray(gj.astype(jnp.float32)))
+        if i == 4:
+            _check_bias_grad(_np(a.grad), err, cot)
+        else:
+            assert err <= DCN_TOL, (i, err)
+    assert launched == test_torch_dcn.fused_launches(groups, masked, grad_x,
+                                                     '_bf16')
+
+
+@pytest.mark.parametrize('groups,dg,masked', [
+    (2, 2, True), (4, 4, True), (2, 2, False)])
+def test_k3_is_k2_on_the_channel_slices_bf16(monkeypatch, groups, dg,
+                                             masked):
+    """test_torch_dcn's K3-against-K2-slices check at bf16: the same bf16
+    products in another f32 order, each result rounded once, so at most a
+    rounding apart (DCN_TOL)."""
+    test_torch_dcn.k3_against_k2_slices(monkeypatch, groups, dg, masked, BF,
+                                        DCN_TOL)
+
+
+def test_k3_and_k5_launch_their_own_bf16_entry_points():
+    """K3 and K5 take bf16 on the fused walk: each type's Kernels call that
+    type's C entry points (``mdcn_bf16.cu``'s ``*_bf16_launch`` at bf16,
+    ``mdcn_fused.cu``'s at f32), and each TPU kernel has Kernel objects of
+    its own, so that K2's, K3's and K5's launches count apart."""
+    seen = set()
+    for variant in ('k2', 'k3', 'k5'):
+        assert dcn._variant(*{'k2': (True, 1), 'k3': (True, 2),
+                               'k5': (None, 1)}[variant]) == variant
+        for dtype, library, suffix in ((BF, 'mdcn_bf16', '_bf16_launch'),
+                                       (torch.float32, 'mdcn_fused',
+                                        '_launch')):
+            kernels = dcn._fused_kernels(dtype, variant)
+            assert [k.library for k in kernels] == [library] * 5
+            assert all(k.symbol.endswith(suffix) for k in kernels)
+            assert not seen & {id(k) for k in kernels}
+            seen |= {id(k) for k in kernels}
+    assert dcn._variant(None, 4) == 'k5'
 
 
 def test_bf16_kernels_state_their_vector_width():

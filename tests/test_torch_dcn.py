@@ -285,26 +285,6 @@ def test_deform_conv2d_is_the_modulated_conv_with_a_ones_mask():
         assert torch.equal(got, want)
 
 
-# the C entry points of mdcn.cu, mdcn_fused.cu and mdcn_bf16.cu, by the
-# Kernel objects that launch them
-_ENTRY = {'mdcn_im2col_groups_kernel': ('im2col', True),
-          'deform_im2col_kernel': ('im2col', False),
-          'mdcn_col2im_groups_kernel': ('col2im', True),
-          'mdcn_col2im_groups_scatter_kernel': ('col2im', True),
-          'deform_col2im_kernel': ('col2im', False),
-          'deform_col2im_scatter_kernel': ('col2im', False),
-          'mdcn_fused_fwd_kernel': ('fused_fwd', True),
-          'mdcn_fused_dgrad_kernel': ('fused_dgrad', True),
-          'mdcn_fused_dgrad_scatter_kernel': ('fused_dgrad', True),
-          'mdcn_fused_wgrad_kernel': ('fused_wgrad', True),
-          'mdcn_fused_wgrad_sum_kernel': ('fused_wgrad_sum', True),
-          'mdcn_fused_fwd_bf16_kernel': ('fused_fwd', True),
-          'mdcn_fused_dgrad_bf16_kernel': ('fused_dgrad', True),
-          'mdcn_fused_dgrad_scatter_bf16_kernel': ('fused_dgrad', True),
-          'mdcn_fused_wgrad_bf16_kernel': ('fused_wgrad', True),
-          'mdcn_fused_wgrad_sum_bf16_kernel': ('fused_wgrad_sum', True)}
-
-
 def _sample_grads(grad_col, x, offset, mask, row0, rows, geom, groups=1):
     """The col2im arithmetic, by autograd through the plain im2col: the
     gradients of x, the offset and (with a mask) the mask of the columns
@@ -321,15 +301,16 @@ def fused_dgrad_math(go, x, offset, mask, weight, geom, round_col=True):
     """The contract of ``mdcn_fused_dgrad``: the grad columns ``go . W^T``
     summed in f32 and rounded to x's type (bf16; f32 as they are), then the
     col2im arithmetic in f32.
-    Returns grad x, grad offset, grad mask. With ``round_col`` False the
-    grad columns stay f32 (the columns of a widened x and mask, whose
-    cotangent is not rounded), and grad x and grad mask are rounded
-    once at the end."""
+    Returns grad x, grad offset, grad mask (None without a mask). With
+    ``round_col`` False the grad columns stay f32 (the columns of a widened
+    x and mask, whose cotangent is not rounded), and grad x and grad mask
+    are rounded once at the end."""
     rows, cout = go.shape
     grad_col = go.float() @ weight.reshape(-1, cout).float().t()
     if round_col:
-        return _sample_grads(grad_col.to(x.dtype), x, offset, mask, 0, rows,
-                             geom)
+        grads = _sample_grads(grad_col.to(x.dtype), x, offset, mask, 0, rows,
+                              geom)
+        return (*grads, None) if mask is None else grads
     gx, goff, gmask = _sample_grads(grad_col, x.float(), offset,
                                     mask.float(), 0, rows, geom)
     return gx.to(x.dtype), goff, gmask.to(mask.dtype)
@@ -356,19 +337,21 @@ def _fused_geom(args):
 
 
 def _stand_in_kernels(monkeypatch):
-    """PyTorch stand-ins for the C entry points of ``csrc/mdcn.cu`` and of
-    the fused kernels (``csrc/mdcn_fused.cu``, ``csrc/mdcn_bf16.cu``), with
-    their contracts: pointers in, the geometry as ints. mdcn.cu: columns
-    group-major; the backward writes its rows of grad offset (and grad
-    mask) and adds into grad x, by autograd through the plain im2col. The
-    fused kernels: the forward rounds the columns once to x's type, sums
-    their product with the weight in f32, rounds to x's type and adds the
-    bias there (at f32: the f32 sum plus the bias); dgrad writes grad
-    offset and grad mask by
-    :func:`fused_dgrad_math` (and adds grad x in its scatter variant);
-    wgrad writes the f32 partials of grad weight and, in the row after,
-    grad bias of each slice of 8 x 8 output patches; the sum adds the
-    slices in order. Returns the names of the entry points launched."""
+    """PyTorch stand-ins for the C entry points of the fused kernels
+    (``csrc/mdcn_fused.cu``, ``csrc/mdcn_bf16.cu``) behind every Kernel of
+    ``dcn.FUSED_KERNELS`` (K2, K3 and K5), with their contracts: pointers
+    in, the geometry as ints; the mask pointer null for DCNv1 (a mask of
+    ones: dgrad's grad-mask pointer null with it, nothing written there);
+    the weight ``(K * C, Cout)``, for K3 the block-diagonal expansion of
+    the grouped one, all of C a row. The forward rounds the columns once
+    to x's type, sums their product with the weight in f32, rounds to x's
+    type and adds the bias there (at f32: the f32 sum plus the bias); dgrad
+    writes grad offset and grad mask by :func:`fused_dgrad_math` (and adds
+    grad x in its scatter variant); wgrad writes the f32 partials of the
+    whole ``(K * C, Cout)`` grad weight and, in the row after, grad bias of
+    each slice of 8 x 8 output patches; the sum adds the slices in order.
+    Returns the names (keys of ``dcn.FUSED_KERNELS``) of the entry points
+    launched."""
     launched = []
     tensors = {}
     real_data_ptr = torch.Tensor.data_ptr
@@ -380,6 +363,8 @@ def _stand_in_kernels(monkeypatch):
 
     def fused_fwd(x, offset, mask, wt, bias, out, *rest):
         rows, cout, geom = _fused_geom(rest)
+        kh, kw = geom[0]
+        assert wt.shape == (cout, kh * kw * x.shape[3])
         col = dcn._im2col_ref(x, offset, mask, 0, rows, geom)
         y = (col.reshape(rows, -1).float() @ wt.float().t()).to(x.dtype)
         out.view(rows, cout).copy_(y if bias is None else y + bias)
@@ -387,10 +372,13 @@ def _stand_in_kernels(monkeypatch):
     def fused_dgrad(go, x, offset, mask, weight, grad_offset, grad_mask,
                     *rest):
         grad_x = rest[0] if len(rest) == 18 else None
-        _, _, geom = _fused_geom(rest[-17:])
+        _, cout, geom = _fused_geom(rest[-17:])
+        assert (mask is None) == (grad_mask is None)
+        assert weight.shape == (*geom[0], x.shape[3], cout)
         gx, goff, gmask = fused_dgrad_math(go, x, offset, mask, weight, geom)
         grad_offset.copy_(goff)
-        grad_mask.copy_(gmask)
+        if mask is not None:
+            grad_mask.copy_(gmask)
         if grad_x is not None:
             grad_x.add_(gx)
 
@@ -412,44 +400,17 @@ def _stand_in_kernels(monkeypatch):
             total += partial[s]
         grad_w.view(-1).copy_(total.view(-1)[:n])
 
-    # each fused entry point with its number of pointer arguments
-    fused = {'fused_fwd': (fused_fwd, 6), 'fused_dgrad': (fused_dgrad, 7),
-             'fused_wgrad': (fused_wgrad, 5),
-             'fused_wgrad_sum': (fused_wgrad_sum, 2)}
+    # each part with its stand-in and number of pointer arguments
+    parts = {'fwd': (fused_fwd, 6), 'dgrad': (fused_dgrad, 7),
+             'dgrad_scatter': (fused_dgrad, 8),
+             'wgrad': (fused_wgrad, 5), 'wgrad_sum': (fused_wgrad_sum, 2)}
 
-    def entry(name, kind, masked):
-        scatter = 'scatter' in name
+    def entry(name, part):
+        fn, n_ptrs = parts[part]
 
         def launch(*args):
             launched.append(name)
-            if kind in fused:
-                fn, n_ptrs = fused[kind]
-                n_ptrs += scatter
-                fn(*[tensors.get(p) for p in args[:n_ptrs]], *args[n_ptrs:])
-                return
-            n_ptrs = (4 if masked else 3) if kind == 'im2col' else \
-                (6 if masked else 4) + scatter
-            ptrs = [tensors[p] for p in args[:n_ptrs]]
-            (row0, rows, h, w, c, ho, wo, kh, kw, sh, sw, ph, pw, dh, dw, dg,
-             groups, _stream) = args[n_ptrs:]
-            geom = ((kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo))
-            if kind == 'im2col':
-                x, offset, mask = ptrs[0], ptrs[1], \
-                    ptrs[2] if masked else None
-                ptrs[-1].copy_(dcn._im2col_ref(x, offset, mask, row0, rows,
-                                               geom, groups))
-                return
-            grad_col, x, offset = ptrs[:3]
-            mask = ptrs[3] if masked else None
-            outs = ptrs[3 + masked:]
-            grads = _sample_grads(grad_col, x, offset, mask, row0, rows,
-                                  geom, groups)
-            for out, grad in zip(outs[:1 + masked], grads[1:]):
-                flat, g = out.view(-1, *out.shape[3:]), \
-                    grad.view(-1, *out.shape[3:])
-                flat[row0:row0 + rows] = g[row0:row0 + rows]
-            if scatter:
-                outs[-1].add_(grads[0])
+            fn(*[tensors.get(p) for p in args[:n_ptrs]], *args[n_ptrs:])
         return launch
 
     class _NoDevice:
@@ -468,9 +429,33 @@ def _stand_in_kernels(monkeypatch):
     monkeypatch.setattr(torch.Tensor, 'data_ptr', data_ptr)
     monkeypatch.setattr(torch.cuda, 'device', _NoDevice)
     monkeypatch.setattr(torch.cuda, 'current_stream', lambda: _Stream)
-    for name, (kind, masked) in _ENTRY.items():
-        monkeypatch.setattr(dcn, name, entry(name, kind, masked))
+    for prefix in dcn.VARIANTS.values():
+        for suffix in ('', '_bf16'):
+            for part in parts:
+                name = f'{prefix}_{part}{suffix}'
+                monkeypatch.setitem(dcn.FUSED_KERNELS, name,
+                                    entry(name, part))
     return launched
+
+
+def fused_launches(groups, masked, grad_x, suffix=''):
+    """The entry points one forward and one backward of the CUDA path
+    launch: the fused ones of K2, K3 or K5, the scatter only for grad x."""
+    prefix = dcn.VARIANTS[dcn._variant(True if masked else None, groups)]
+    scatter = '_scatter' if grad_x else ''
+    return [f'{prefix}_fwd{suffix}', f'{prefix}_dgrad{scatter}{suffix}',
+            f'{prefix}_wgrad{suffix}', f'{prefix}_wgrad_sum{suffix}']
+
+
+def apply_function(args, masked, groups, dg, pad):
+    """The CUDA path's Function on ``args`` (x, offset, mask, weight, bias,
+    or x, offset, weight for DCNv1)."""
+    geom = dcn._geometry(args[0], args[1], args[2] if masked else None,
+                         args[-2 if masked else -1], 1, pad, 1, groups, dg)
+    if masked:
+        return dcn._ModulatedDeformConv2d.apply(*args, geom, groups)
+    return dcn._ModulatedDeformConv2d.apply(args[0], args[1], None, args[2],
+                                            None, geom, groups)
 
 
 @pytest.mark.parametrize('groups,dg,masked,grad_x', [
@@ -479,18 +464,16 @@ def _stand_in_kernels(monkeypatch):
 def test_function_around_the_kernels_matches_jax(monkeypatch, groups, dg,
                                                  masked, grad_x):
     """The Function the CUDA path uses, with stand-ins for the kernels:
-    which entry point each variant launches, against JAX. K2 (groups 1,
-    with a mask; Cout 16, since the fused kernels need 8 | Cout): one fused
-    forward however small the column cap, then dgrad (its scatter only
-    where x needs a gradient), wgrad and the sum of its partials. K3
-    (groups > 1) and K5 (no mask): the group-major columns and the batched
-    matmuls around them, each chunk's recomputed columns, the scatter only
-    where x needs a gradient."""
+    which entry points each variant launches, against JAX. K2 (groups 1,
+    with a mask), K3 (groups > 1, on the block-diagonal weight) and K5 (no
+    mask: a null mask pointer): one fused forward however small the column
+    cap, then dgrad (its scatter only where x needs a gradient), wgrad and
+    the sum of its partials, each through its own Kernels; Cout 16, since
+    the fused kernels need 8 | Cout."""
     launched = _stand_in_kernels(monkeypatch)
     monkeypatch.setattr(dcn, 'COL_CAP_BYTES', 40 * 9 * 16 * 4)  # 40 rows
     pad = 1 if masked else 0
-    fused = groups == 1 and masked
-    cout = 16 if fused else 12
+    cout = 16
     x, offset, mask, weight, bias = _grouped(17, groups, dg, padding=pad,
                                              cout=cout)
     cot = np.random.RandomState(18).randn(
@@ -507,13 +490,7 @@ def test_function_around_the_kernels_matches_jax(monkeypatch, groups, dg,
 
     args = [torch.from_numpy(a).requires_grad_(i > 0 or grad_x)
             for i, a in enumerate(inputs)]
-    geom = dcn._geometry(args[0], args[1], args[2] if masked else None,
-                         args[-2 if masked else -1], 1, pad, 1, groups, dg)
-    if masked:
-        out = dcn._ModulatedDeformConv2d.apply(*args, geom, groups)
-    else:
-        out = dcn._ModulatedDeformConv2d.apply(args[0], args[1], None,
-                                               args[2], None, geom, groups)
+    out = apply_function(args, masked, groups, dg, pad)
     np.testing.assert_allclose(out.detach().numpy(), want_out, rtol=0,
                                atol=1e-5)
     (out * torch.from_numpy(cot)).sum().backward()
@@ -522,24 +499,68 @@ def test_function_around_the_kernels_matches_jax(monkeypatch, groups, dg,
             assert a.grad is None
             continue
         w = np.asarray(w)
+        assert a.grad.shape == w.shape
         np.testing.assert_allclose(a.grad.numpy(), w, rtol=0,
                                    atol=1e-5 * np.abs(w).max(), err_msg=i)
-    scatter = '_scatter' if grad_x else ''
-    if fused:
-        assert launched == ['mdcn_fused_fwd_kernel',
-                            f'mdcn_fused_dgrad{scatter}_kernel',
-                            'mdcn_fused_wgrad_kernel',
-                            'mdcn_fused_wgrad_sum_kernel']
-        return
-    prefix = ('mdcn' if masked else 'deform')
-    groups_tag = '_groups' if masked and groups > 1 else ''
-    im2col = f'{prefix}_im2col{groups_tag}_kernel'
-    col2im = f'{prefix}_col2im{groups_tag}{scatter}_kernel'
-    # each chunk forward, then each recomputed for grad weight and col2im
-    chunks = len(dcn._row_chunks(out.shape[0] * out.shape[1] * out.shape[2],
-                                 9, 16, 4))
-    assert chunks > 1
-    assert launched == [im2col] * chunks + [im2col, col2im] * chunks
+    assert launched == fused_launches(groups, masked, grad_x)
+
+
+def k3_against_k2_slices(monkeypatch, groups, dg, masked, dtype, tol):
+    """K3 (or a grouped K5) at ``groups`` through the CUDA path's Function,
+    against ``groups`` calls of K2 (K5 with groups 1) on the channel
+    slices: x's and the weight's channels of each group, the deform groups
+    split with them, the bias's and grad out's output channels; output and
+    every gradient, each within ``tol`` of its largest entry. Both run the
+    stand-ins: the block-diagonal weight against the slices."""
+    launched = _stand_in_kernels(monkeypatch)
+    pad = 1 if masked else 0
+    c, cout = 32, 16 * groups
+    x, offset, mask, weight, bias = _grouped(21, groups, dg, padding=pad,
+                                             c=c, cout=cout)
+    cot = np.random.RandomState(22).randn(
+        *offset.shape[:3], cout).astype(np.float32)
+
+    def run(x, offset, mask, weight, bias, cot, g, d):
+        arrays = [x, offset, mask, weight, bias] if masked else [x, offset,
+                                                                 weight]
+        args = [torch.from_numpy(np.ascontiguousarray(a))
+                .to(torch.float32 if i == 1 else dtype).requires_grad_()
+                for i, a in enumerate(arrays)]
+        out = apply_function(args, masked, g, d, pad)
+        out.backward(torch.from_numpy(np.ascontiguousarray(cot)).to(dtype))
+        return [out.detach().float()] + [a.grad.float() for a in args]
+
+    whole = run(x, offset, mask, weight, bias, cot, groups, dg)
+    parts = []
+    for q in range(groups):
+        ch = slice(q * c // groups, (q + 1) * c // groups)
+        dgs = slice(q * dg // groups, (q + 1) * dg // groups)
+        outs = slice(q * cout // groups, (q + 1) * cout // groups)
+        parts.append(run(x[..., ch], offset[..., dgs, :, :],
+                         mask[..., dgs, :], weight[..., outs], bias[outs],
+                         cot[..., outs], 1, dg // groups))
+    # where each tensor's slices join: out, x, offset, (mask,) weight,
+    # (bias)
+    dims = [-1, -1, -3, -2, -1, -1] if masked else [-1, -1, -3, -1]
+    for i, (got, dim) in enumerate(zip(whole, dims)):
+        want = torch.cat([p[i] for p in parts], dim)
+        assert got.shape == want.shape, i
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= tol, (i, err)
+    suffix = '_bf16' if dtype == torch.bfloat16 else ''
+    assert launched == (fused_launches(groups, masked, True, suffix)
+                        + fused_launches(1, masked, True, suffix) * groups)
+
+
+@pytest.mark.parametrize('groups,dg,masked', [
+    (2, 2, True), (2, 4, True), (4, 4, True), (2, 2, False)])
+def test_k3_is_k2_on_the_channel_slices(monkeypatch, groups, dg, masked):
+    """K3 at G (or DCNv1 at G) on the block-diagonal weight equals G K2 (K5)
+    calls on the channel slices, at f32: the zeros off the blocks add
+    nothing, and grad weight is the diagonal blocks (f32 sums in another
+    order: 1e-5 of each tensor's largest entry)."""
+    k3_against_k2_slices(monkeypatch, groups, dg, masked, torch.float32,
+                         1e-5)
 
 
 @pytest.mark.parametrize('grad_x', [False, True])
@@ -573,13 +594,9 @@ def _check_f32_function_launches(monkeypatch, grad_x, cout):
             for i, a in enumerate(inputs)]
     geom = dcn._geometry(*args[:4], 1, 1, 1, 1, 2)
     out = dcn._ModulatedDeformConv2d.apply(*args, geom, 1)
-    assert launched == ['mdcn_fused_fwd_kernel']
+    assert launched == ['mdcn_fused_fwd']
     (out * torch.from_numpy(cot)).sum().backward()
-    dgrad = 'mdcn_fused_dgrad_scatter_kernel' if grad_x \
-        else 'mdcn_fused_dgrad_kernel'
-    assert launched == ['mdcn_fused_fwd_kernel', dgrad,
-                        'mdcn_fused_wgrad_kernel',
-                        'mdcn_fused_wgrad_sum_kernel']
+    assert launched == fused_launches(1, True, grad_x)
     kw = dict(deform_groups=2)
     want_out = jax_dcn.modulated_deform_conv2d(
         *(jnp.asarray(a) for a in inputs), **kw)
@@ -628,13 +645,21 @@ def test_f32_fused_kernels_state_their_vector_width():
 
 
 def test_cuda_checks_name_the_column_store_width():
-    """The column stores are float4s: C / groups must be a multiple of 4,
-    as C and C / deform_groups are."""
+    """The column stores are float4s: C and C / deform_groups must be
+    multiples of 4. Conv groups set no rule of their own: K3 runs on the
+    block-diagonal weight, whose rows are all of x's C, so C / groups may
+    be 6 (C 24, groups 4)."""
     x = torch.zeros((1, 4, 4, 24))
-    offset = torch.zeros((1, 4, 4, 2, 9, 2))
-    dcn._check_cuda_inputs('mdcn', x, offset, None, groups=3)   # C/G = 8
-    with pytest.raises(ValueError, match='C/groups'):
-        dcn._check_cuda_inputs('mdcn', x, offset, None, groups=4)
+    offset = torch.zeros((1, 4, 4, 6, 9, 2))
+    dcn._check_cuda_inputs('mdcn', x, offset[..., :2, :, :], None)  # cg 12
+    with pytest.raises(ValueError, match='C/deform_groups'):
+        dcn._check_cuda_inputs('mdcn', x, offset[..., :4, :, :], None)
+    weight = torch.zeros((3, 3, 6, 8))
+    geom = dcn._geometry(x, offset[..., :2, :, :], None, weight, 1, 1, 1, 4,
+                         2)
+    dcn._check_fused_inputs(x, offset[..., :2, :, :], None, weight)
+    assert dcn._block_diagonal(weight, 4).shape == (3, 3, 24, 8)
+    assert geom[4] == (4, 4)
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])

@@ -162,12 +162,12 @@ def test_model_refuses_what_is_not_ported():
     assert model.train_dtype == model.eval_dtype == torch.bfloat16
     for where, key, value, item in [
             ('train', 'perceptual_opt', {'layer_weights': {'relu5_1': 1.0}},
-             'ROADMAP A9'),
+             'ROADMAP A4'),
             ('train', 'style_opt', {'layer_weights': {'relu1_1': 1.0}},
-             'ROADMAP A9'),
-            ('train', 'gan_type', 'wgan', 'ROADMAP A9'),
+             'ROADMAP A4'),
+            ('train', 'gan_type', 'wgan', 'ROADMAP A4'),
             (None, 'network_d', {'type': 'ImageDiscriminator'},
-             'ROADMAP A9')]:
+             'ROADMAP A4')]:
         opt = _tiny_train_opt()
         (opt if where is None else opt.setdefault(where, {}))[key] = value
         with pytest.raises(NotImplementedError, match=item):
@@ -191,19 +191,10 @@ KERNELS = (correlation.feature_match_prologue_kernel,
            correlation.feature_match_sharded_kernel,
            correlation.feature_match_bf16_kernel,
            correlation.feature_match_sharded_bf16_kernel,
-           dcn.mdcn_fused_fwd_kernel, dcn.mdcn_fused_dgrad_kernel,
-           dcn.mdcn_fused_dgrad_scatter_kernel, dcn.mdcn_fused_wgrad_kernel,
-           dcn.mdcn_fused_wgrad_sum_kernel,
-           dcn.mdcn_fused_fwd_bf16_kernel, dcn.mdcn_fused_dgrad_bf16_kernel,
-           dcn.mdcn_fused_dgrad_scatter_bf16_kernel,
-           dcn.mdcn_fused_wgrad_bf16_kernel,
-           dcn.mdcn_fused_wgrad_sum_bf16_kernel,
+           *dcn.FUSED_KERNELS.values(),
            dcn.deform_sample_fwd_bf16_kernel,
            dcn.deform_sample_bwd_bf16_kernel,
            dcn.deform_sample_bwd_scatter_bf16_kernel,
-           dcn.mdcn_im2col_groups_kernel, dcn.mdcn_col2im_groups_kernel,
-           dcn.mdcn_col2im_groups_scatter_kernel, dcn.deform_im2col_kernel,
-           dcn.deform_col2im_kernel, dcn.deform_col2im_scatter_kernel,
            dcn.deform_sample_fwd_kernel, dcn.deform_sample_bwd_kernel,
            dcn.deform_sample_bwd_scatter_kernel,
            *ops_upfirdn2d.upfirdn2d_kernels,
@@ -217,8 +208,6 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
     in f32 and in bf16, launch no kernel and build no library."""
     monkeypatch.setattr(correlation, '_prologue_cuda', _refuse)
     monkeypatch.setattr(correlation, '_match_patches_cuda', _refuse)
-    monkeypatch.setattr(dcn, '_im2col_cuda', _refuse)
-    monkeypatch.setattr(dcn, '_col2im_cuda', _refuse)
     monkeypatch.setattr(dcn, '_mdcn_fused_forward_cuda', _refuse)
     monkeypatch.setattr(dcn, '_mdcn_fused_backward_cuda', _refuse)
     monkeypatch.setattr(dcn._DeformSample, 'apply', _refuse)
@@ -339,8 +328,6 @@ def test_video_nets_on_cpu_tensors_never_reach_a_kernel(monkeypatch):
     the CPU, forward and backward: no kernel launched, no library built."""
     from mrefsr_tpu_torch.archs.arch_util import DCNv2Pack
     from mrefsr_tpu_torch.archs.edvr_arch import EDVR
-    monkeypatch.setattr(dcn, '_im2col_cuda', _refuse)
-    monkeypatch.setattr(dcn, '_col2im_cuda', _refuse)
     monkeypatch.setattr(dcn._ModulatedDeformConv2d, 'apply', _refuse)
     before = [kernel.launches for kernel in KERNELS]
     net = EDVR(num_feat=8, deformable_groups=2, num_extract_block=1,
@@ -418,7 +405,13 @@ def _ctype_of(declaration):
             'float': ctypes.c_float}[kind]
 
 
-@pytest.mark.parametrize('kernel', KERNELS, ids=lambda k: k.symbol)
+# K3's and K5's Kernels call K2's C entry points: their ids name them
+_K3_K5 = {id(k): name for name, k in dcn.FUSED_KERNELS.items()
+          if not name.startswith(dcn.VARIANTS['k2'] + '_')}
+
+
+@pytest.mark.parametrize('kernel', KERNELS,
+                         ids=lambda k: _K3_K5.get(id(k), k.symbol))
 def test_kernel_argtypes_match_the_c_signature(kernel):
     """A Kernel's argtypes have the C entry point's arity, with
     ``c_void_p`` exactly where the C parameter is a pointer: a wrong
@@ -429,12 +422,11 @@ def test_kernel_argtypes_match_the_c_signature(kernel):
 
 
 def test_every_c_entry_point_has_a_kernel():
-    """The scan reads the macro-made signatures (mdcn.cu's IM2COL_ARGS,
-    mdcn_fused.cuh's FUSED_ARGS in mdcn_fused.cu and mdcn_bf16.cu,
+    """The scan reads the macro-made signatures (mdcn_fused.cuh's
+    FUSED_ARGS in mdcn_fused.cu and mdcn_bf16.cu,
     upfirdn2d.cu's UPFIRDN2D_ENTRY, fused_act.cu's FUSED_BWD_ENTRY), and
     every launch entry point is bound by a Kernel."""
     found = _c_entry_points()
-    assert len(found['mdcn_im2col_groups_launch']) == 4 + 18
     assert len(found['mdcn_fused_wgrad_launch']) == 7 + 17
     assert len(found['mdcn_fused_wgrad_bf16_launch']) == 7 + 17
     assert len(found['upfirdn2d_bwd2_launch']) == 16

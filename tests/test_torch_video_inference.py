@@ -104,10 +104,12 @@ def test_basicvsrpp_main_on_the_cpu(tmp_path, monkeypatch):
     frames in chunks of 2: one PNG per frame, x4, named as the JAX
     script names them; seeded weights when ``--model_path`` is missing;
     the same frames from the same seed; no kernel reached."""
-    monkeypatch.setattr(dcn, '_im2col_cuda', _refuse)
-    monkeypatch.setattr(dcn, '_col2im_cuda', _refuse)
-    launches = [k.launches for k in vars(dcn).values()
-                if isinstance(k, _build.Kernel)]
+    monkeypatch.setattr(dcn, '_mdcn_fused_forward_cuda', _refuse)
+    monkeypatch.setattr(dcn, '_mdcn_fused_backward_cuda', _refuse)
+    kernels = [*(k for k in vars(dcn).values()
+                 if isinstance(k, _build.Kernel)),
+               *dcn.FUSED_KERNELS.values()]
+    launches = [k.launches for k in kernels]
     clip = str(tmp_path / 'clip')
     _write_frames(clip, 4)
     outs = []
@@ -124,8 +126,7 @@ def test_basicvsrpp_main_on_the_cpu(tmp_path, monkeypatch):
         outs.append(np.stack(frames))
     np.testing.assert_array_equal(outs[0], outs[1])
     assert outs[0].std() > 1
-    assert [k.launches for k in vars(dcn).values()
-            if isinstance(k, _build.Kernel)] == launches
+    assert [k.launches for k in kernels] == launches
     assert _build._libs == {}
 
 
