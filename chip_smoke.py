@@ -2,8 +2,9 @@
 """Drive the port's main paths on one NVIDIA GPU: the 5-ref CUFED5 eval
 forward, the stage-3 training step with both alignments, in f32 and in the
 shipped bf16 mixed precision, StyleGAN2 sampling and training, video SR
-inference (BasicVSR++, EDVR, BasicVSR), and stage-3 training, validation
-and the sharded patch match over two ranks.
+inference (BasicVSR++, EDVR, BasicVSR), stage-3 training, validation
+and the sharded patch match over two ranks, and the training and test
+CLIs on the shipped YAMLs with the data loader in the loop.
 
     python3 chip_smoke.py        # from the root of a checkout
     python3 chip_smoke.py --repeat-grads 20   # only the whole-net gradient
@@ -11,6 +12,7 @@ and the sharded patch match over two ranks.
     python3 chip_smoke.py --ddp  # only the two-rank phase (17)
     python3 chip_smoke.py --bf16 # only the bf16 phases (11a-11e)
     python3 chip_smoke.py --dcn  # only K3, K5 and their module path (7)
+    python3 chip_smoke.py --cli  # only the CLI phase (11f)
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``). Phases, one JSON line each (one per shape where a
@@ -111,6 +113,29 @@ phase runs several):
     or a grad-x scatter; f32 master parameters, gradients and Adam
     state; the gradients behind the same forward within
     ``TRAIN_GRAD_BF16_TOL``; a profile of each;
+11f. cli: the port's CLIs on synthetic images (``make_synthetic_megadepth
+    .py``'s 88 JPEGs, 4 CUFED5-layout sets near 500x332, in a temporary
+    directory). ``cli_prefetch``: the shipped YAML's first loader batch
+    through the ``device`` prefetcher, bit for bit the host's ``astype(
+    float32) / 255`` on the card (and how many elements ``x.float() / 255``
+    on the card would change); ``cli``: ``train_pipeline`` in this process
+    on ``options/train/stage3_5ref_restoration_mse.yml`` as shipped (bf16,
+    B 6, gt 160, 6 loader threads, ``prefetch_mode: device``, uint8, the
+    decode cache) but for the dataroots, no pretrained extractor, 60
+    iterations, logs every 10, saves at 30 and 60, validates at 60: img/s
+    over iterations 11-60 from the host times of the log lines, the
+    logger's time and data time, peak memory, K1 and K2 launched at bf16
+    only in the training iterations and at f32 only in validation, a
+    finite PSNR; then the same model's step on one repeated batch;
+    ``cli_test``: ``python -m mrefsr_tpu_torch.test`` on
+    ``options/test/test_5ref_cufed5.yml`` with the run's
+    ``net_g_latest.pth``, its saved outputs bit for bit this process's from
+    the same file and loader, so every image's PSNR equal, and the logged
+    mean; ms a request; ``cli_preemption``: the training CLI in a process
+    of its own, SIGTERM after iteration 20: exit 0 and a saved ``.state``;
+    ``--auto_resume`` goes on from it to iteration 120; ``cli_lp``: ten
+    bf16 iterations of ``stage3_5ref_restoration_mse_lp.yml`` (gt 300,
+    B 3) through ``train_pipeline``, timed over iterations 6-10;
 12. stylegan2_serve: the FFHQ config-f generator at full width (1024,
     512 style features, 8 MLP layers, channel multiplier 2) with seeded
     weights, through the inference module: the mean latent of 4096 codes,
@@ -186,6 +211,7 @@ their records give the f32 CUDA-core bound beside.
 import contextlib
 import copy
 import json
+import logging
 import math
 import os
 import statistics
@@ -3725,6 +3751,488 @@ def profile_record(path, run, top=12):
                             for ms, n, name in kernels[:top]]}
 
 
+# ------------------------------------------------------------------ the CLI
+# the shipped YAMLs the CLI phase runs, as shipped but for the keys of
+# _cli_args (dataroots, the extractor's missing checkpoint, the length)
+CLI_TRAIN_YML = 'options/train/stage3_5ref_restoration_mse.yml'
+CLI_LP_YML = 'options/train/stage3_5ref_restoration_mse_lp.yml'
+CLI_TEST_YML = 'options/test/test_5ref_cufed5.yml'
+CLI_ITERS, CLI_PRINT, CLI_SAVE = 60, 10, 30
+CLI_PREEMPT_ITERS, CLI_PREEMPT_AT = 120, 20
+CLI_LP_ITERS, CLI_LP_PRINT = 10, 5
+# CUFED5-layout validation images, (h, w): CUFED5's are about 500x332
+CLI_CUFED_SIZES = ((332, 500), (500, 332), (328, 496), (336, 500))
+CLI_WAIT_S = 600                        # a CLI subprocess's time limit
+_ITER_LINE = r'iter:\s*([\d,]+), lr:.*time \(data\): ([\d.]+) \(([\d.]+)\)'
+
+
+def _cli_data(root):
+    """The CLI phase's images under ``root``: the LMR layout from
+    ``scripts/make_synthetic_megadepth.py`` (4 scenes, 64 samples, JPEGs of
+    640-1200 px, the script's defaults) and 4 CUFED5-layout sets of 6 PNGs
+    (``*_0.png`` input, ``*_1..5.png`` refs) of smooth seeded images near
+    500x332. Returns ``(lmr folder, annotation CSV, CUFED5 folder)``."""
+    from PIL import Image
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(repo, 'scripts', 'make_synthetic_megadepth.py')
+    subprocess.run([sys.executable, script, '--root', root, '--scenes', '4',
+                    '--samples', '64'],
+                   check=True, capture_output=True, timeout=CLI_WAIT_S)
+    cufed = os.path.join(root, 'CUFED5')
+    os.makedirs(cufed)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    for i, (h, w) in enumerate(CLI_CUFED_SIZES):
+        for j in range(6):
+            img = torch.nn.functional.interpolate(
+                torch.rand((1, 3, h // 16 + 2, w // 16 + 2), generator=gen),
+                size=(h, w), mode='bicubic', align_corners=False)
+            img = (img.clamp(0, 1)[0].permute(1, 2, 0) * 255).round()
+            Image.fromarray(img.to(torch.uint8).numpy()).save(
+                os.path.join(cufed, f'{i:03d}_{j}.png'))
+    return (os.path.join(root, 'MegaDepth_v3_5ref'),
+            os.path.join(root, 'meta_info_synth_5ref.csv'), cufed)
+
+
+def _cli_args(yml, data, experiments, iters, print_freq, save_freq,
+              val_freq, *extra):
+    """``-opt yml --force_yml ...``: the dataroots of ``data``, no
+    pretrained extractor, the run's length and frequencies, and the
+    experiments under ``experiments``."""
+    lmr, ann, cufed = data
+    return ['-opt', yml, '--force_yml',
+            f'datasets:train:dataroot_in={lmr}',
+            f'datasets:train:dataroot_ref={lmr}',
+            f'datasets:train:ann_file={ann}',
+            f'datasets:val:dataroot_in={cufed}',
+            f'datasets:val:dataroot_ref={cufed}',
+            'path:pretrain_network_feature_extractor=~',
+            f'train:total_iter={iters}', f'logger:print_freq={print_freq}',
+            f'logger:save_checkpoint_freq={save_freq}',
+            f'val:val_freq={val_freq}',
+            f'path:experiments_root={experiments}', *extra]
+
+
+class _LogLines(logging.Handler):
+    """The CLI logger's records, with their host times."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append((record.created, record.getMessage()))
+
+    def iterations(self):
+        """``{iter: (time, logged time, logged data time)}`` of the
+        iteration lines."""
+        import re
+        out = {}
+        for created, msg in self.records:
+            m = re.search(_ITER_LINE, msg)
+            if m:
+                out[int(m.group(1).replace(',', ''))] = (
+                    created, float(m.group(2)), float(m.group(3)))
+        return out
+
+
+def _cli_train(train_pipeline, root, args, kernels, batch, first, last):
+    """``train_pipeline(root, args)`` in this process, the launches counted
+    and the model's validation seen: returns the model, the launches of
+    the training iterations (those before the first validation) and of the
+    whole run, and the timings of iterations ``first + 1`` to ``last``
+    from the host times of their log lines (a log line reads the loss, so
+    it waits for the step); peak memory before the first validation (the
+    training's) and over the run (an f32 500x500 validation's)."""
+    from mrefsr_tpu_torch.models.multi_ref_restoration_model import \
+        MultiRefRestorationModel
+    lines = _LogLines()
+    logger = logging.getLogger('mrefsr_tpu_torch')
+    logger.addHandler(lines)
+    at_validation, peak_train = {}, []
+    validation = MultiRefRestorationModel.validation
+
+    def counted_validation(model, *args, **kwargs):
+        if not at_validation:
+            at_validation.update({n: k.launches for n, k in kernels.items()})
+            peak_train.append(torch.cuda.max_memory_allocated())
+        return validation(model, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(MultiRefRestorationModel, 'validation',
+                               counted_validation):
+            model = train_pipeline(root, args=args)
+    finally:
+        logger.removeHandler(lines)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: k.launches for n, k in kernels.items()}
+    its = lines.iterations()
+    check(first in its and last in its,
+          f'no log line of iteration {first} or {last}: {sorted(its)}')
+    seconds = its[last][0] - its[first][0]
+    logged = [its[i] for i in sorted(its)]
+    return model, at_validation or launches, launches, {
+        'iterations_timed': [first + 1, last],
+        'img_per_s': (last - first) * batch / seconds,
+        'mean_iter_ms': seconds / (last - first) * 1e3,
+        'logged_iters': sorted(its),
+        'logged_time_s': [t for _, t, _ in logged],
+        'logged_data_time_s': [d for _, _, d in logged],
+        'data_time_share_at_last': its[last][2] / its[last][1],
+        'losses_logged': [msg.split('l_pix: ')[1].strip()
+                          for _, msg in lines.records if 'l_pix: ' in msg],
+        'peak_mem_train_bytes': peak_train[0] if peak_train else peak,
+        'peak_mem_bytes': peak, 'wall_s': wall_s}
+
+
+def _cli_popen(args, log_path):
+    """``python -m <args>`` from the checkout, its output into
+    ``log_path``."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = open(log_path, 'w')
+    try:
+        return subprocess.Popen([sys.executable, '-m', *args], cwd=repo,
+                                stdout=out, stderr=subprocess.STDOUT,
+                                text=True), out
+    except BaseException:
+        out.close()
+        raise
+
+
+def _cli_wait(proc, out, log_path, until=None, then=None):
+    """Wait for ``proc`` (at most ``CLI_WAIT_S``), calling ``then()`` once
+    when its log first matches the regex ``until``; returns its exit code
+    and log. The process is killed if it outlives the wait."""
+    import re
+    t0 = time.perf_counter()
+    try:
+        while proc.poll() is None:
+            check(time.perf_counter() - t0 < CLI_WAIT_S,
+                  f'{proc.args} outlived {CLI_WAIT_S} s')
+            if until is not None:
+                with open(log_path) as f:
+                    if re.search(until, f.read()):
+                        then()
+                        until = None
+            time.sleep(0.2)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+    with open(log_path) as f:
+        return proc.returncode, f.read()
+
+
+def _cli_preemption(data, tmp):
+    """The training CLI in a process of its own, stopped by SIGTERM once its
+    log shows iteration ``CLI_PREEMPT_AT``, then resumed with
+    ``--auto_resume`` to its end at ``CLI_PREEMPT_ITERS``."""
+    import re
+    import signal
+    experiments = os.path.join(tmp, 'preempt')
+    args = ['mrefsr_tpu_torch.train', *_cli_args(
+        CLI_TRAIN_YML, data, experiments, CLI_PREEMPT_ITERS, CLI_PRINT,
+        1000, 1000, 'logger:use_tb_logger=false')]
+    log_path = os.path.join(tmp, 'preempt.log')
+    proc, out = _cli_popen(args, log_path)
+    t0 = time.perf_counter()
+    rc, log = _cli_wait(proc, out, log_path,
+                        until=rf'iter:\s*{CLI_PREEMPT_AT}, lr',
+                        then=lambda: proc.send_signal(signal.SIGTERM))
+    first_s = time.perf_counter() - t0
+    check(rc == 0, f'the preempted run exited {rc}:\n{log[-3000:]}')
+    m = re.search(r'saving state at iter (\d+) and stopping', log)
+    check(m is not None, f'no preemption save in the log:\n{log[-3000:]}')
+    stopped = int(m.group(1))
+    states = os.path.join(experiments, 'stage3_5ref_mrapa_restoration_mse_'
+                          'ps160_bs48', 'training_states')
+    check(os.path.isfile(os.path.join(states, f'{stopped}.state')),
+          f'no {stopped}.state after the preemption: '
+          f'{os.listdir(states) if os.path.isdir(states) else None}')
+    check(CLI_PREEMPT_AT <= stopped < CLI_PREEMPT_ITERS,
+          f'stopped at iteration {stopped}')
+
+    log_path = os.path.join(tmp, 'resume.log')
+    proc, out = _cli_popen(args + ['--auto_resume'], log_path)
+    t0 = time.perf_counter()
+    rc, log = _cli_wait(proc, out, log_path)
+    resume_s = time.perf_counter() - t0
+    check(rc == 0, f'the resumed run exited {rc}:\n{log[-3000:]}')
+    m = re.search(r'Resuming training from epoch: (\d+), iter: (\d+)\.', log)
+    check(m is not None and int(m.group(2)) == stopped,
+          f'the run did not resume at iteration {stopped}:\n{log[-3000:]}')
+    iters = [int(v.replace(',', '')) for v in re.findall(
+        r'iter:\s*([\d,]+), lr', log)]
+    check(iters and iters[0] > stopped and iters[-1] == CLI_PREEMPT_ITERS
+          and 'End of training' in log,
+          f'the resumed run logged {iters} and did not end at '
+          f'{CLI_PREEMPT_ITERS}:\n{log[-3000:]}')
+    return {'sigterm_after_iter': CLI_PREEMPT_AT, 'stopped_at': stopped,
+            'resumed_epoch': int(m.group(1)), 'resumed_logged': iters,
+            'preempted_run_s': first_s, 'resumed_run_s': resume_s}
+
+
+def _cli_test(data, tmp, latest):
+    """``python -m mrefsr_tpu_torch.test`` on the CUFED5-layout set with
+    ``latest``, against a model of this process built from the same
+    options and file and run on the same loader: the saved outputs must be
+    the in-process ones bit for bit, so every image's PSNR is equal."""
+    import re
+    import cv2
+    from mrefsr_tpu_torch.data import build_dataloader, build_dataset
+    from mrefsr_tpu_torch.metrics import calculate_psnr
+    from mrefsr_tpu_torch.models import build_model
+    from mrefsr_tpu_torch.utils import tensor2img
+    from mrefsr_tpu_torch.utils.options import parse_options
+    _, _, cufed = data
+    results = os.path.join(tmp, 'results')
+    args = ['-opt', CLI_TEST_YML, '--force_yml',
+            f'datasets:test_1:dataroot_in={cufed}',
+            f'datasets:test_1:dataroot_ref={cufed}',
+            f'path:pretrain_network_g={latest}',
+            'path:pretrain_network_feature_extractor=~',
+            f'path:results_root={results}']
+    log_path = os.path.join(tmp, 'test.log')
+    proc, out = _cli_popen(['mrefsr_tpu_torch.test', *args], log_path)
+    t0 = time.perf_counter()
+    rc, log = _cli_wait(proc, out, log_path)
+    test_s = time.perf_counter() - t0
+    check(rc == 0, f'test.py exited {rc}:\n{log[-3000:]}')
+    logged = re.search(r'# PSNR: (\S+) # PSNR_Y: (\S+) # SSIM_Y: (\S+)\.',
+                       log)
+    check(logged is not None, f'no PSNR in the test log:\n{log[-3000:]}')
+
+    opt, _ = parse_options(tmp, is_train=False, args=args)
+    model = build_model(opt)
+    dataset_opt = opt['datasets']['test_1']
+    loader = build_dataloader(build_dataset(dataset_opt), dataset_opt)
+    saved = os.path.join(results, opt['name'], 'visualization',
+                         dataset_opt['name'])
+    psnr_cli, psnr_here, request_ms = [], [], []
+    for i, val_data in enumerate(loader):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.feed_data(val_data)
+        model.test()
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        visuals = model.get_current_visuals()
+        height, width = np.asarray(val_data['original_size'])[0]
+        sr = tensor2img(visuals['rlt'])[:height, :width]
+        gt = tensor2img(visuals['gt'])
+        name = os.path.splitext(os.path.basename(val_data['lq_path'][0]))[0]
+        cli = cv2.imread(os.path.join(saved, f"{name}_{opt['name']}.png"))
+        check(cli is not None and cli.shape == sr.shape
+              and np.array_equal(cli, sr),
+              f'test.py wrote another output for {name} than this process '
+              f'computed')
+        psnr_cli.append(calculate_psnr(cli, gt, crop_border=4))
+        psnr_here.append(calculate_psnr(sr, gt, crop_border=4))
+    check(psnr_cli == psnr_here and all(np.isfinite(psnr_here)),
+          f'PSNR {psnr_cli} against {psnr_here}')
+    model.validation(loader, opt['name'], None, save_img=False)
+    mean = f"{model.metric_results['psnr']:.4e}"
+    check(mean == logged.group(1),
+          f'test.py logged PSNR {logged.group(1)}, this process {mean}')
+    del model
+    torch.cuda.empty_cache()
+    return {'images': len(psnr_here), 'psnr_per_image': psnr_here,
+            'psnr_logged': logged.group(1), 'psnr_y_logged': logged.group(2),
+            'ssim_y_logged': logged.group(3), 'outputs_bit_equal': True,
+            'request_ms': request_ms[1:],
+            'mean_request_ms': statistics.mean(request_ms[1:]),
+            'first_request_ms': request_ms[0], 'test_cli_s': test_s}
+
+
+def _cli_prefetch_check(data, tmp, device):
+    """The first batch of the shipped training loader through the
+    ``device`` prefetcher: each of the model's input keys on ``device`` as
+    float32, bit for bit the host formula ``astype(float32) / 255``; the
+    other keys left on the host as uint8. Also counts the elements that
+    ``x.float() / 255`` on the card would have put elsewhere. Then the
+    loader and the prefetcher alone, as the training run builds them (a
+    fresh dataset, its decode cache cold, the YAML's sampler): their img/s
+    over batches 11-60, with no step to feed."""
+    from mrefsr_tpu_torch.data import (BackgroundDevicePrefetcher,
+                                       EnlargedSampler, build_dataloader,
+                                       build_dataset)
+    from mrefsr_tpu_torch.models.multi_ref_restoration_model import \
+        MultiRefRestorationModel
+    from mrefsr_tpu_torch.utils.options import parse_options
+    opt, _ = parse_options(tmp, args=_cli_args(
+        CLI_TRAIN_YML, data, os.path.join(tmp, 'unused'), 1, 1, 1, 1))
+    dataset_opt = opt['datasets']['train']
+    loader = build_dataloader(build_dataset(dataset_opt, seed=SEED),
+                              dataset_opt, seed=SEED)
+    batches = iter(loader)
+    host = next(batches)
+    batches.close()
+    keys = MultiRefRestorationModel.device_input_keys
+    prefetcher = BackgroundDevicePrefetcher([host], device, opt,
+                                            device_keys=keys)
+    try:
+        got = prefetcher.next()
+        torch.cuda.synchronize()
+    finally:
+        prefetcher.close()
+    naive = {}
+    for key, value in host.items():
+        if key not in keys:
+            check(isinstance(got[key], np.ndarray)
+                  and got[key].dtype == np.uint8,
+                  f'{key} left the host or its type')
+            continue
+        check(value.dtype == np.uint8, f'the loader shipped {key} as '
+              f'{value.dtype}, not uint8')
+        t = got[key]
+        check(isinstance(t, torch.Tensor) and t.device == device
+              and t.dtype == torch.float32,
+              f'{key} is not float32 on {device}')
+        want = torch.from_numpy(value.astype(np.float32) / 255.)
+        check(torch.equal(t.cpu(), want),
+              f'{key}: the prefetched batch is not the host formula')
+        naive[key] = int((torch.from_numpy(value).to(device).float() / 255
+                          ).cpu().ne(want).sum())
+
+    dataset = build_dataset(dataset_opt, seed=SEED)
+    sampler = EnlargedSampler(dataset, 1, 0,
+                              dataset_opt['dataset_enlarge_ratio'])
+    prefetcher = BackgroundDevicePrefetcher(
+        build_dataloader(dataset, dataset_opt, sampler=sampler, seed=SEED),
+        device, opt, device_keys=keys)
+    stamps = []
+    try:
+        for _ in range(CLI_ITERS):
+            check(prefetcher.next() is not None, 'the loader ran dry')
+            torch.cuda.current_stream(device).synchronize()
+            stamps.append(time.perf_counter())
+    finally:
+        prefetcher.close()
+    emit({'phase': 'cli_prefetch', 'keys': list(keys),
+          'shapes': {k: list(host[k].shape) for k in keys},
+          'bit_equal_to_host_formula': True,
+          'elements_float_div_255_on_card_would_change': naive,
+          'loader_alone_batches_timed': [CLI_PRINT + 1, CLI_ITERS],
+          'loader_alone_img_per_s': (CLI_ITERS - CLI_PRINT)
+          * dataset_opt['batch_size_per_gpu']
+          / (stamps[-1] - stamps[CLI_PRINT - 1]),
+          'loader_alone_first_batches_s': stamps[CLI_PRINT - 1] - stamps[0]})
+
+
+def phase_cli(kernels, repeated_step_ms=None):
+    """The shipped stage-3 bf16 YAML through the port's CLIs with the loader
+    in the loop, on synthetic images: the device prefetcher's first batch;
+    ``CLI_ITERS`` iterations of ``train_pipeline`` in this process
+    (img/s over iterations 11-60 by the log lines' host times, the
+    logger's time and data time, peak memory, K1 and K2 launched at bf16
+    only in training and at f32 only in validation, a finite validation
+    PSNR); the model's step on one repeated batch, beside
+    ``repeated_step_ms`` (phase ``train_dcn_bf16``'s) where given;
+    ``test.py`` against this process; SIGTERM and ``--auto_resume``; ten
+    steps of the ``_lp`` YAML (gt 300, B 3). Returns the launches of the
+    two in-process runs by path."""
+    from mrefsr_tpu_torch.train import train_pipeline
+    device = torch.device('cuda', torch.cuda.current_device())
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = _cli_data(tmp)
+        emit({'phase': 'cli_data', 'seconds': time.perf_counter() - t0,
+              'lmr_images': sum(len(files) for _, _, files
+                                in os.walk(data[0])),
+              'cufed_sets': len(CLI_CUFED_SIZES)})
+        _cli_prefetch_check(data, tmp, device)
+
+        experiments = os.path.join(tmp, 'experiments')
+        model, train_launches, launches, rec = _cli_train(
+            train_pipeline, tmp, _cli_args(
+                CLI_TRAIN_YML, data, experiments, CLI_ITERS, CLI_PRINT,
+                CLI_SAVE, CLI_ITERS), kernels, TRAIN_B, CLI_PRINT, CLI_ITERS)
+        by_path['cli'] = launches
+        expect = _entries(('match', 'k2', 'k2_bwd'), BF16)
+        val_launches = {n: launches[n] - train_launches[n] for n in launches}
+        check(all(train_launches[n] > 0 for n in expect),
+              f'the CLI run did not launch {expect}: {train_launches}')
+        check(not any(train_launches[n] for n in _forbidden(BF16)),
+              f'the bf16 CLI steps launched an f32 entry point or a '
+              f'scatter: {train_launches}')
+        val_expect = _entries(('match', 'k2'), torch.float32)
+        check(all(val_launches[n] > 0 for n in val_expect)
+              and not any(val_launches[n] for n in SCATTERS),
+              f'validation launched {val_launches}')
+        psnr = model.metric_results['psnr']
+        check(np.isfinite(psnr), f'validation PSNR {psnr}')
+        check(all(np.isfinite(float(v)) for v in rec['losses_logged']),
+              f'non-finite losses {rec["losses_logged"]}')
+        check(model.train_dtype == BF16 and model.eval_dtype == torch.float32,
+              'the shipped YAML trains at bf16 and validates at f32')
+
+        # the same model's step on one repeated batch (chip_smoke's
+        # train_dcn_bf16 measure), for the loader's cost
+        batch = _train_batch(np.random.RandomState(SEED + 21), TRAIN_B)
+        step_ms = []
+        for it in range(CLI_ITERS + 1, CLI_ITERS + 7):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.feed_data(batch)
+            model.optimize_parameters(it)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        repeated = statistics.mean(step_ms[1:])
+        latest = os.path.join(experiments, model.opt['name'], 'models',
+                              'net_g_latest.pth')
+        check(os.path.isfile(latest), f'no {latest}')
+        del model
+        torch.cuda.empty_cache()
+        emit({'phase': 'cli', 'yml': CLI_TRAIN_YML, 'batch': TRAIN_B,
+              'gt': TRAIN_GT, 'iterations': CLI_ITERS, **rec,
+              'validation_psnr': psnr,
+              'repeated_batch_step_ms': step_ms[1:],
+              'repeated_batch_img_per_s': TRAIN_B / repeated * 1e3,
+              'train_dcn_bf16_mean_step_ms': repeated_step_ms,
+              'train_dcn_bf16_img_per_s': None if repeated_step_ms is None
+              else TRAIN_B / repeated_step_ms * 1e3,
+              'launches_train': {n: v for n, v in train_launches.items()
+                                 if v},
+              'launches_validation': {n: v for n, v in val_launches.items()
+                                      if v}})
+
+        emit({'phase': 'cli_test', **_cli_test(data, tmp, latest)})
+        emit({'phase': 'cli_preemption', **_cli_preemption(data, tmp)})
+
+        model, lp_launches, by_path['cli_lp'], lp = _cli_train(
+            train_pipeline, tmp, _cli_args(
+                CLI_LP_YML, data, os.path.join(tmp, 'lp'), CLI_LP_ITERS,
+                CLI_LP_PRINT, 1000, 1000, 'path:pretrain_network_g=~',
+                'path:resume_state=~'), kernels, 3, CLI_LP_PRINT,
+            CLI_LP_ITERS)
+        check(all(lp_launches[n] > 0 for n in expect)
+              and not any(lp_launches[n] for n in _forbidden(BF16)),
+              f'the _lp CLI steps launched {lp_launches}')
+        check(model.opt['datasets']['train']['gt_size'] == 300
+              and model.opt['datasets']['train']['batch_size_per_gpu'] == 3,
+              'the _lp YAML is gt 300, B 3')
+        check(np.isfinite(model.metric_results['psnr']),
+              f"_lp validation PSNR {model.metric_results['psnr']}")
+        del model
+        torch.cuda.empty_cache()
+        emit({'phase': 'cli_lp', 'yml': CLI_LP_YML, 'batch': 3, 'gt': 300,
+              'iterations': CLI_LP_ITERS, **lp,
+              'launches_train': {n: v for n, v in lp_launches.items() if v}})
+        # the runs' log files lie in the directory about to go
+        logger = logging.getLogger('mrefsr_tpu_torch')
+        for handler in [h for h in logger.handlers
+                        if isinstance(h, logging.FileHandler)]:
+            logger.removeHandler(handler)
+            handler.close()
+    return by_path
+
+
 # the TPU kernels the bf16 records replace: K1, K2, K4
 K1_TPU = 'mrefsr_tpu/ops/correlation.py:45'
 K6_TPU = 'mrefsr_tpu/ops/correlation.py:140'
@@ -3736,8 +4244,8 @@ def bf16_phases(correlation, dcn, arch, build_model, kernels):
     """The shipped precision of the main path: K1, K2 (forward and
     backward) and K4 at bf16 against their plain versions, the bf16
     CUFED5 request and the bf16 stage-3 step of both alignments. Returns
-    the kernels' ``(record, source, replaces)`` and the paths' launch
-    counts."""
+    the kernels' ``(record, source, replaces)``, the paths' launch counts
+    and the mean step ms of each alignment."""
     k1, k1p = phase_feature_match(correlation, dtype=BF16)
     k1['train_shape'], k1p['train_shape'] = phase_feature_match(
         correlation, pairs=TRAIN_B * T, h=TRAIN_GT // 4, ties=False,
@@ -3772,7 +4280,7 @@ def bf16_phases(correlation, dcn, arch, build_model, kernels):
         torch.cuda.empty_cache()
     emit({'phase': 'train_ratio_bf16',
           'flow_steps_per_dcn_step': step_ms['dcn'] / step_ms['flow']})
-    return described, by_path
+    return described, by_path, step_ms
 
 
 def dcn_phases(arch_util, mrapa_arch, dcn, kernels):
@@ -3842,9 +4350,11 @@ def main():
         torch.cuda.empty_cache()
     emit({'phase': 'train_ratio',
           'flow_steps_per_dcn_step': step_ms['dcn'] / step_ms['flow']})
-    bf16_described, bf16_paths = bf16_phases(correlation, dcn, arch,
-                                             build_model, kernels)
+    bf16_described, bf16_paths, bf16_step_ms = bf16_phases(
+        correlation, dcn, arch, build_model, kernels)
     by_path.update(bf16_paths)
+    by_path.update(phase_cli(kernels, bf16_step_ms['dcn']))
+    torch.cuda.empty_cache()
     sg2 = (stylegan2_arch, ops_upfirdn2d, fused_act, kernels)
     by_path['stylegan2_serve'] = phase_stylegan2_serve(inference_stylegan2,
                                                        *sg2)
@@ -3913,8 +4423,8 @@ def main_bf16():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     phase_build(_build.build)
     kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
-    described, by_path = bf16_phases(correlation, dcn, arch, build_model,
-                                     kernels)
+    described, by_path, _ = bf16_phases(correlation, dcn, arch, build_model,
+                                        kernels)
     emit({'kernels': _described(described, by_path), 'card': smi})
     print(smi, flush=True)
 
@@ -3936,6 +4446,22 @@ def main_dcn():
     kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
     described, by_path = dcn_phases(arch_util, arch, dcn, kernels)
     emit({'kernels': _described(described, by_path), 'card': smi})
+    print(smi, flush=True)
+
+
+def main_cli():
+    """``--cli``: the device, the build and the ``cli`` phase alone, then
+    the launches of its two in-process runs; no ``ok`` line."""
+    from mrefsr_tpu_torch.ops import _build, correlation, dcn, fused_act
+    import importlib
+    ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
+    _, smi = phase_device()
+    phase_build(_build.build)
+    kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
+    by_path = phase_cli(kernels)
+    emit({'cli_launches': {path: {n: v for n, v in counts.items() if v}
+                           for path, counts in by_path.items()},
+          'card': smi})
     print(smi, flush=True)
 
 
@@ -4036,5 +4562,7 @@ if __name__ == '__main__':
         main_bf16()
     elif sys.argv[1:2] == ['--dcn']:
         main_dcn()
+    elif sys.argv[1:2] == ['--cli']:
+        main_cli()
     else:
         main()

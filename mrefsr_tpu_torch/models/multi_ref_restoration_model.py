@@ -38,6 +38,7 @@ from mrefsr_tpu_torch.archs import build_network
 from mrefsr_tpu_torch.archs.vgg_arch import vgg_rename
 from mrefsr_tpu_torch.convert import drop_buffer_keys, state_dict_from_flax
 from mrefsr_tpu_torch.data.loader import default_collate
+from mrefsr_tpu_torch.data.prefetch_dataloader import uint8_to_float32
 from mrefsr_tpu_torch.losses import legacy_losses
 from mrefsr_tpu_torch.metrics import calculate_psnr, calculate_ssim
 from mrefsr_tpu_torch.ops.cpu_bf16 import f32_products
@@ -90,9 +91,10 @@ class MultiRefRestorationModel(BaseModel):
 
     Weights come from ``path.pretrain_network_g``,
     ``path.pretrain_network_feature_extractor`` and
-    ``path.vgg_pretrain_path`` where those files exist, from
-    :meth:`load_from_flax`, and otherwise from ``manual_seed`` through a
-    ``torch.Generator``. Runs on ``device`` (``cuda`` unless named).
+    ``path.vgg_pretrain_path`` where those keys name a file (a named file
+    that does not exist raises), from :meth:`load_from_flax`, and
+    otherwise from ``manual_seed`` through a ``torch.Generator``. Runs on
+    ``device`` (``cuda`` unless named).
 
     With ``is_train`` the extractor and the map stay frozen and run under
     ``torch.no_grad()``; ``net_g`` trains with f32 master parameters and
@@ -152,14 +154,27 @@ class MultiRefRestorationModel(BaseModel):
             net.to(memory_format=torch.channels_last)
 
     def _load_pretrained(self):
+        """The weights ``path`` names. A named file that is not on disk
+        raises (as the JAX package's loader does), rather than leaving the
+        seeded weights to train: set the key to ``~`` to start from
+        them."""
         path = self.opt.get('path') or {}
         strict = path.get('strict_load', True)
-        file = path.get('pretrain_network_feature_extractor')
-        if file and os.path.isfile(file):
+
+        def named(key):
+            file = path.get(key)
+            if file and not os.path.isfile(file):
+                raise FileNotFoundError(
+                    f'path.{key} names {file}, which does not exist (set it '
+                    'to ~ to start from the seeded weights)')
+            return file
+
+        file = named('pretrain_network_feature_extractor')
+        if file:
             self.load_network(self.net_extractor, file, strict,
                               rename=drop_buffer_keys)
-        file = path.get('vgg_pretrain_path')
-        if file and os.path.isfile(file):
+        file = named('vgg_pretrain_path')
+        if file:
             rename = vgg_rename(self.net_map.vgg_type)
             # torchvision's VGG goes deeper than the taps the map uses
             own = self.net_map.state_dict()
@@ -171,8 +186,8 @@ class MultiRefRestorationModel(BaseModel):
 
             self.load_network(self.net_map, file, True, param_key=None,
                               rename=map_key)
-        file = path.get('pretrain_network_g')
-        if file and os.path.isfile(file):
+        file = named('pretrain_network_g')
+        if file:
             self.load_network(self.get_bare_model(self.net_g), file, strict)
 
     def load_from_flax(self, vars_ex, vars_map, vars_g):
@@ -182,7 +197,19 @@ class MultiRefRestorationModel(BaseModel):
                                 strict=True)
         self._to_channels_last()
 
+    # the batch keys the model reads, which the device prefetchers move
+    # (the refs' lq and up stacks stay on the host: this model does not
+    # read them, and they would triple the bytes copied)
+    device_input_keys = ('img_in', 'img_in_lq', 'img_in_up', 'img_ref_list')
+
     def _tensor(self, value):
+        """A batch array as a float32 tensor on the model's device. uint8
+        (a dataset's ``output_dtype: uint8``) becomes ``astype(float32) /
+        255``, the JAX package's host formula (its ``_as_f32``); float
+        arrays are cast, and the f32 tensors a device prefetcher hands over
+        pass through as they are."""
+        if getattr(value, 'dtype', None) in (np.uint8, torch.uint8):
+            value = uint8_to_float32(value)
         return torch.as_tensor(value, dtype=torch.float32, device=self.device)
 
     def feed_data(self, data):

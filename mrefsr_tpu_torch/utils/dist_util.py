@@ -26,21 +26,26 @@ import torch.distributed as dist
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=60)
 
 
-def init_dist(launcher, backend=None, timeout=DEFAULT_TIMEOUT, **kwargs):
+def init_dist(launcher, backend=None, timeout=DEFAULT_TIMEOUT, port=None,
+              init_method='env://'):
     """Join the process group of this run; idempotent.
 
     ``launcher`` ``none`` or None runs one process and does nothing here;
     ``pytorch`` reads the env contract above. ``backend`` is ``nccl`` by
     default where CUDA is available and ``gloo`` otherwise. NCCL takes one
     rank per device; gloo also reduces CUDA tensors (through the host), so
-    several ranks may share one device with it. ``kwargs`` go to
-    ``init_process_group`` (``init_method='file:///...'`` in place of the
-    TCP store, for example)."""
+    several ranks may share one device with it. ``port`` (the YAML's
+    ``dist_params.port``) becomes ``MASTER_PORT`` where the environment
+    does not set it. ``init_method`` replaces the env rendezvous
+    (``'file:///...'``, for example). Any other keyword is a ``TypeError``:
+    nothing unknown reaches ``init_process_group``."""
     if launcher in (None, 'none') or dist.is_initialized():
         return
     if launcher != 'pytorch':
         raise ValueError(f'launcher {launcher!r} is not supported: the port '
                          'runs "pytorch" (torchrun\'s env contract) or none')
+    if port is not None:
+        os.environ.setdefault('MASTER_PORT', str(port))
     rank = int(os.environ['RANK'])
     world_size = int(os.environ['WORLD_SIZE'])
     local_rank = int(os.environ.get('LOCAL_RANK', rank))
@@ -48,9 +53,8 @@ def init_dist(launcher, backend=None, timeout=DEFAULT_TIMEOUT, **kwargs):
         torch.cuda.set_device(local_rank % torch.cuda.device_count())
     if backend is None:
         backend = 'nccl' if torch.cuda.is_available() else 'gloo'
-    kwargs.setdefault('init_method', 'env://')
-    dist.init_process_group(backend, rank=rank, world_size=world_size,
-                            timeout=timeout, **kwargs)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size, timeout=timeout)
 
 
 def get_dist_info():

@@ -74,4 +74,5 @@ class Registry:
 
 
 ARCH_REGISTRY = Registry('arch')
+DATASET_REGISTRY = Registry('dataset')
 MODEL_REGISTRY = Registry('model')

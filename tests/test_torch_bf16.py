@@ -932,13 +932,14 @@ def test_no_autocast_on_the_bf16_path(monkeypatch):
 
 # ---------------------------------------------------- the shipped configs
 # sections of a shipped YAML the model does not read, by name: the data
-# pipeline (prefetch_mode, output_dtype, decode_cache_size, pad_to: ROADMAP
-# A2, A3), the logger and launcher (A2), and the pretrained files, which are
-# not in the repository
+# pipeline, the logger and the launcher (read by the CLIs: see
+# test_shipped_data_keys_are_accepted below and tests/test_torch_cli.py),
+# and the pretrained files, which are not in the repository
 NOT_FED = {'datasets', 'logger', 'dist_params', 'path', 'name', 'num_gpu'}
 SHIPPED = {
     'options/train/stage3_5ref_restoration_mse.yml': ('train', 'dcn'),
     'options/train/stage3_5ref_restoration_mse_flow.yml': ('train', 'flow'),
+    'options/train/stage3_5ref_restoration_mse_lp.yml': ('train', 'dcn'),
     'options/test/test_5ref_cufed5_serving.yml': ('val', 'dcn')}
 
 
@@ -973,6 +974,53 @@ def test_shipped_bf16_configs_are_accepted(path):
     if section == 'train':
         model.optimize_parameters(1)
         assert np.isfinite(model.get_current_log()['l_pix'])
+
+
+@pytest.mark.parametrize('path', sorted(p for p in SHIPPED
+                                        if p.startswith('options/train')))
+def test_shipped_data_keys_are_accepted(path, tmp_path):
+    """The training set's keys of the shipped YAMLs as the CLI reads them:
+    ``prefetch_mode: device`` gives the background device prefetcher, its
+    queue twice ``steps_per_dispatch``; ``output_dtype: uint8`` ships uint8
+    samples; ``decode_cache_size`` sizes the decode cache. Other values of
+    ``prefetch_mode`` and ``output_dtype`` are refused by name."""
+    import logging
+    from types import SimpleNamespace
+
+    import torch_cli_data
+    from mrefsr_tpu_torch.data import (BackgroundDevicePrefetcher,
+                                       build_dataset)
+    from mrefsr_tpu_torch.models.multi_ref_restoration_model import \
+        MultiRefRestorationModel
+    from mrefsr_tpu_torch.train import _prefetcher
+    with open(os.path.join(REPO, path)) as f:
+        shipped = yaml.safe_load(f)
+    train_set = shipped['datasets']['train']
+    assert (train_set['prefetch_mode'], train_set['output_dtype'],
+            train_set['decode_cache_size'],
+            shipped['train']['steps_per_dispatch']) == ('device', 'uint8',
+                                                        4096, 16)
+    folder, ann = torch_cli_data.write_lmr(str(tmp_path), samples=1)
+    train_set = dict(train_set, dataroot_in=folder, dataroot_ref=folder,
+                     ann_file=ann, gt_size=32, scale=shipped['scale'])
+    dataset = build_dataset(train_set, seed=0)
+    assert dataset._cache_size == 4096
+    sample = dataset[0]
+    assert {v.dtype for v in sample.values()} == {np.dtype(np.uint8)}
+    model = SimpleNamespace(
+        device=torch.device('cpu'),
+        device_input_keys=MultiRefRestorationModel.device_input_keys)
+    opt = dict(shipped, datasets={'train': train_set})
+    logger = logging.getLogger('mrefsr_tpu_torch')
+    prefetcher = _prefetcher(opt, model, [sample], logger)
+    assert isinstance(prefetcher, BackgroundDevicePrefetcher)
+    assert prefetcher.depth == 32
+    prefetcher.close()
+    with pytest.raises(ValueError, match='prefetch_mode'):
+        _prefetcher(dict(opt, datasets={'train': dict(
+            train_set, prefetch_mode='tpu')}), model, [sample], logger)
+    with pytest.raises(ValueError, match='output_dtype'):
+        build_dataset(dict(train_set, output_dtype='float16'))
 
 
 def test_unknown_mixed_precision_raises():

@@ -87,6 +87,51 @@ def test_scan_sees_forbidden_imports(tmp_path):
     assert _imported_roots(bad) & FORBIDDEN == {'jax', 'mrefsr_tpu', 'flax'}
 
 
+# imported inside the functions that use them, never when a module of the
+# port is imported: the card's machine need not have them, and importing
+# the package must not pay for them
+LAZY = {'cv2', 'PIL', 'yaml', 'lmdb', 'tensorboard', 'wandb'}
+
+
+def _module_level_roots(path):
+    """The roots of the imports that run when ``path`` is imported: those
+    outside every function body."""
+    roots = set()
+    stack = list(ast.parse(path.read_text(), str(path)).body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split('.')[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split('.')[0])
+        stack.extend(ast.iter_child_nodes(node))
+    return roots
+
+
+@pytest.mark.parametrize('path', PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_optional_packages_are_imported_inside_functions(path):
+    assert not _module_level_roots(path) & LAZY
+
+
+def test_scan_covers_the_data_and_cli_modules(tmp_path):
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ('train.py', 'test.py', 'version.py', 'utils/options.py',
+                   'utils/logger.py', 'utils/misc.py', 'utils/registry.py',
+                   'data/transforms.py', 'data/data_util.py',
+                   'data/multi_ref_dataset.py', 'data/loader.py',
+                   'data/prefetch_dataloader.py', 'data/__init__.py'):
+        assert f'mrefsr_tpu_torch/{module}' in names
+    bad = tmp_path / 'bad.py'
+    bad.write_text('import os\nif os.name:\n    import cv2\n'
+                   'def f():\n    import yaml\n'
+                   'class C:\n    from PIL import Image\n')
+    assert _module_level_roots(bad) & LAZY == {'cv2', 'PIL'}
+
+
 def test_scan_covers_the_inference_modules():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert 'mrefsr_tpu_torch/inference/inference_stylegan2.py' in names
