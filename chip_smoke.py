@@ -3,8 +3,10 @@
 forward, the stage-3 training step with both alignments, in f32 and in the
 shipped bf16 mixed precision, StyleGAN2 sampling and training, video SR
 inference (BasicVSR++, EDVR, BasicVSR), stage-3 training, validation
-and the sharded patch match over two ranks, and the training and test
-CLIs on the shipped YAMLs with the data loader in the loop.
+and the sharded patch match over two ranks, the WGAN-GP phase after the
+pixel steps (one process and two ranks), the single-ref model, and the
+training and test CLIs on the shipped YAMLs with the data loader in the
+loop.
 
     python3 chip_smoke.py        # from the root of a checkout
     python3 chip_smoke.py --repeat-grads 20   # only the whole-net gradient
@@ -13,6 +15,8 @@ CLIs on the shipped YAMLs with the data loader in the loop.
     python3 chip_smoke.py --bf16 # only the bf16 phases (11a-11e)
     python3 chip_smoke.py --dcn  # only K3, K5 and their module path (7)
     python3 chip_smoke.py --cli  # only the CLI phase (11f)
+    python3 chip_smoke.py --gan  # only the GAN phases (11g)
+    python3 chip_smoke.py --ref  # only the single-ref phases (11h)
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``). Phases, one JSON line each (one per shape where a
@@ -88,6 +92,26 @@ phase runs several):
     against the plain versions behind the same forward (see
     ``TRAIN_GRAD_REL_TOL``), and the two outputs; then a profile of one
     step;
+11g. gan_dcn, gan_flow, gan_dcn_percep: ``options/ab/ab_dcn_gan.yml``'s
+    and ``ab_flow_gan.yml``'s nets at full width (MRAPA ngf 64, 16
+    blocks, 8 deform groups; ``ImageDiscriminator`` ndf 32), B 8, gt 160,
+    5 refs, the alternation cut to ``net_g_pretrain_steps`` 2,
+    ``net_d_steps`` 2, ``net_d_init_steps`` 1 (the last with SRNTT-form
+    perceptual and style losses on seeded VGG19 weights): both nets'
+    gradients of a GAN step through the kernels against the plain
+    versions behind the same forward (B 2), then 2 bf16 pixel steps (bf16
+    entry points only) and 6 f32 GAN steps (f32 entry points only), the
+    discriminator's norms written exactly twice a GAN step, the logs;
+    step ms by kind, peak memory, a profile of each kind of GAN step;
+    ddp_gan: two ranks (as ``ddp``) of B 4 against one process of B 8,
+    one GAN step: the norms' statistics and the losses within 1e-5, the
+    generator's gradients within 1e-4, the discriminator's by a two-part
+    rule (``DDP_GAN_D_MEDIAN``);
+11h. ref_train, ref_train_bf16: ``RefRestorationModel`` with
+    ``RestorationNet`` (ngf 64, 16 blocks, 8 deform groups) and one ref,
+    B 6, gt 160: the gradients against the plain versions, a warm-up and
+    three timed steps, a profile; ref_eval, ref_eval_bf16: two single-ref
+    500x500 requests, one against the plain versions;
 11a. feature_match_prologue_bf16 and feature_match_bf16: phase 3 in bf16
     (the prologue bit for bit but for norms near a bf16 rounding midpoint,
     counted; the match kernel on wgmma and TMA), the f32 kernel timed
@@ -131,11 +155,18 @@ phase runs several):
     ``options/test/test_5ref_cufed5.yml`` with the run's
     ``net_g_latest.pth``, its saved outputs bit for bit this process's from
     the same file and loader, so every image's PSNR equal, and the logged
-    mean; ms a request; ``cli_preemption``: the training CLI in a process
-    of its own, SIGTERM after iteration 20: exit 0 and a saved ``.state``;
-    ``--auto_resume`` goes on from it to iteration 120; ``cli_lp``: ten
-    bf16 iterations of ``stage3_5ref_restoration_mse_lp.yml`` (gt 300,
-    B 3) through ``train_pipeline``, timed over iterations 6-10;
+    mean; ms a request; ``cli_serving``: ``test_5ref_cufed5_serving.yml``
+    (``pad_to`` buckets, bf16) through ``test_pipeline`` in this process,
+    then a bf16 request at the 500x332 bucket against one on the 500x500
+    canvas, second requests, with K1's device ms of each;
+    ``cli_preemption``: the training CLI in a process of its own, SIGTERM
+    after iteration 20: exit 0 and a saved ``.state``; ``--auto_resume``
+    goes on from it to iteration 120; ``cli_lp``: ten bf16 iterations of
+    ``stage3_5ref_restoration_mse_lp.yml`` (gt 300, B 3) through
+    ``train_pipeline``, timed over iterations 6-10; ``cli_gan``:
+    ``options/ab/ab_dcn_gan.yml`` for 24 iterations, the pixel -> GAN
+    boundary at 8, a checkpoint at 16, then ``--auto_resume`` from it:
+    ``net_d`` and both optimizers back bit for bit;
 12. stylegan2_serve: the FFHQ config-f generator at full width (1024,
     512 style features, 8 MLP layers, channel multiplier 2) with seeded
     weights, through the inference module: the mean latent of 4096 codes,
@@ -2312,6 +2343,53 @@ SLICE_BF16_TOL = 4 * EPS_BF16
 BF16_VS_F32_MAX, BF16_VS_F32_MEAN = 0.1, 0.02
 
 
+def _request_vs_plain(model, correlation, dcn, request, dtype):
+    """One request through the kernels and through the plain versions; the
+    plain run takes the kernel's match so both align with the same
+    correspondences, and the match itself is checked on near-ties.
+    Returns the kernels' output and the comparison's record."""
+    record = {}
+    match_cuda = correlation._match_patches_cuda
+
+    def match_recorded(pin, pref, chunk=None):
+        record['match'] = match_cuda(pin, pref)
+        return record['match']
+
+    def match_plain(pin, pref, chunk=None):
+        idx_p, _ = correlation._match_patches_ref(pin, pref, 2048)
+        idx_k = record['match'][0]
+        differ = idx_k != idx_p
+        rows_k = pref.gather(1, idx_k.long()[..., None].expand(
+            -1, -1, pref.shape[2])).float()
+        rows_p = pref.gather(1, idx_p.long()[..., None].expand(
+            -1, -1, pref.shape[2])).float()
+        pin_f = pin.float()
+        gap = ((pin_f * rows_p).sum(2)
+               - (pin_f * rows_k).sum(2)).abs()[differ]
+        record['disagree'] = int(differ.sum())
+        record['gap'] = float(gap.max()) if gap.numel() else 0.0
+        return record['match']
+
+    model.feed_data(request)
+    with mock.patch.object(correlation, '_match_patches_cuda',
+                           match_recorded):
+        model.test()
+    out_k = model.output.clone()
+    with mock.patch.object(correlation, '_match_patches_cuda', match_plain), \
+            mock.patch.object(dcn, '_mdcn_fused_forward_cuda',
+                              dcn._mdcn_fused_forward_ref):
+        model.test()
+    diff = float((model.output - out_k).abs().max())
+    tol = SLICE_BF16_TOL if dtype == BF16 else SLICE_TOL
+    check(record['gap'] <= K1_IDX_GAP, f'the match differs where the plain '
+          f'scores differ by {record["gap"]}')
+    check(diff <= tol, f'request output {dtype}: kernels vs plain differ by '
+          f'{diff}')
+    return out_k, {'plain_vs_kernel_max_abs_diff': diff, 'tolerance': tol,
+                   'match_disagreements': record['disagree'],
+                   'worst_disagreement_gap': record['gap']}
+
+
 def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels,
                 dtype=torch.float32):
     """Two full-width requests through ``build_model`` / ``test``, in f32
@@ -2354,53 +2432,12 @@ def phase_slice(build_model, dyn_agg_cls, correlation, dcn, kernels,
                            _forbidden(dtype))
     peak = torch.cuda.max_memory_allocated()
 
-    # one request through the kernels and through the plain versions; the
-    # plain run takes the kernel's match so both align with the same
-    # correspondences, and the match itself is checked on near-ties
-    record = {}
-    match_cuda = correlation._match_patches_cuda
-
-    def match_recorded(pin, pref, chunk=None):
-        record['match'] = match_cuda(pin, pref)
-        return record['match']
-
-    def match_plain(pin, pref, chunk=None):
-        idx_p, _ = correlation._match_patches_ref(pin, pref, 2048)
-        idx_k = record['match'][0]
-        differ = idx_k != idx_p
-        rows_k = pref.gather(1, idx_k.long()[..., None].expand(
-            -1, -1, pref.shape[2])).float()
-        rows_p = pref.gather(1, idx_p.long()[..., None].expand(
-            -1, -1, pref.shape[2])).float()
-        pin_f = pin.float()
-        gap = ((pin_f * rows_p).sum(2)
-               - (pin_f * rows_k).sum(2)).abs()[differ]
-        record['disagree'] = int(differ.sum())
-        record['gap'] = float(gap.max()) if gap.numel() else 0.0
-        return record['match']
-
-    model.feed_data(requests[0])
-    with mock.patch.object(correlation, '_match_patches_cuda',
-                           match_recorded):
-        model.test()
-    out_k = model.output.clone()
-    with mock.patch.object(correlation, '_match_patches_cuda', match_plain), \
-            mock.patch.object(dcn, '_mdcn_fused_forward_cuda',
-                              dcn._mdcn_fused_forward_ref):
-        model.test()
-    diff = float((model.output - out_k).abs().max())
-    tol = SLICE_BF16_TOL if bf16 else SLICE_TOL
-    check(record['gap'] <= K1_IDX_GAP, f'slice match differs where the plain '
-          f'scores differ by {record["gap"]}')
-    check(diff <= tol, f'slice output {dtype}: kernels vs plain differ by '
-          f'{diff}')
+    out_k, cmp = _request_vs_plain(model, correlation, dcn, requests[0],
+                                   dtype)
     rec = {'phase': 'slice_bf16' if bf16 else 'slice', 'canvas': CANVAS,
            'refs': T, 'batch': 1, 'ngf': 64, 'n_blocks': 16, 'groups': 8,
            'dtype': str(dtype), 'request_ms': request_ms,
-           'peak_mem_bytes': peak, 'launches': launches,
-           'plain_vs_kernel_max_abs_diff': diff, 'tolerance': tol,
-           'match_disagreements': record['disagree'],
-           'worst_disagreement_gap': record['gap']}
+           'peak_mem_bytes': peak, 'launches': launches, **cmp}
     if bf16:    # the same weights and request in f32
         model.eval_dtype = torch.float32
         model.test()
@@ -4124,6 +4161,197 @@ def _cli_prefetch_check(data, tmp, device):
           'loader_alone_first_batches_s': stamps[CLI_PRINT - 1] - stamps[0]})
 
 
+# the GAN YAML's CLI run: 24 iterations, the pixel -> GAN boundary at 8, a
+# checkpoint at 16, then --auto_resume from it; and the serving YAML
+CLI_GAN_YML = 'options/ab/ab_dcn_gan.yml'
+CLI_GAN_ITERS, CLI_GAN_PRETRAIN, CLI_GAN_SAVE, CLI_GAN_PRINT = 24, 8, 16, 4
+CLI_SERVING_YML = 'options/test/test_5ref_cufed5_serving.yml'
+
+
+def _same_state(a, b):
+    """Whether two state dicts (nested dicts and lists of tensors and
+    plain values) are equal, tensors bit for bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a, key=str) == sorted(
+            b, key=str) and all(_same_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            _same_state(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
+            and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def _cli_gan(train_pipeline, data, tmp, kernels):
+    """``train_pipeline`` on ``options/ab/ab_dcn_gan.yml`` as shipped (bf16
+    pixel steps, B 8, gt 160, ``ImageDiscriminator`` ndf 32) but for the
+    dataroots and the validation canvas, 24 iterations with the boundary
+    at 8 and a checkpoint at 16: bf16 entry points only before the
+    boundary and f32 ones only after it, the GAN keys logged, ``net_d``
+    saved; then ``--auto_resume``: the
+    model resumed from iteration 16 holds ``net_d`` and both optimizers as
+    saved, bit for bit, and trains on to 24. Returns the launches of the
+    pixel and the GAN iterations, and the record."""
+    from mrefsr_tpu_torch.models.multi_ref_restoration_model import \
+        MultiRefRestorationModel as Model
+    experiments = os.path.join(tmp, 'gan')
+    # the YAML's validation canvas (160) suits the synthetic script's own
+    # CUFED sets; the phase's are near 500x332, so their canvas is 500
+    args = _cli_args(CLI_GAN_YML, data, experiments, CLI_GAN_ITERS,
+                     CLI_GAN_PRINT, CLI_GAN_SAVE, 1000,
+                     f'train:net_g_pretrain_steps={CLI_GAN_PRETRAIN}',
+                     'datasets:val:pad_to=500')
+    at_boundary = {}
+    optimize_gan = Model._optimize_gan
+
+    def counted_gan(model, step):
+        if not at_boundary:
+            at_boundary.update({n: k.launches for n, k in kernels.items()})
+        return optimize_gan(model, step)
+
+    with mock.patch.object(Model, '_optimize_gan', counted_gan):
+        model, train_launches, _, rec = _cli_train(
+            train_pipeline, tmp, args, kernels, GAN_B, CLI_GAN_PRETRAIN + 4,
+            CLI_GAN_ITERS)
+    pixel = dict(at_boundary)
+    gan = {n: train_launches[n] - at_boundary[n] for n in train_launches}
+    check(all(pixel[n] > 0 for n in _entries(('match', 'k2', 'k2_bwd'),
+                                              BF16))
+          and not any(pixel[n] for n in _forbidden(BF16)),
+          f'the pixel iterations launched {pixel}')
+    check(all(gan[n] > 0 for n in _entries(('match', 'k2', 'k2_bwd'),
+                                            torch.float32))
+          and not any(gan[n] for n in SCATTERS + BF16_ENTRIES),
+          f'the GAN iterations launched {gan}')
+    log = model.get_current_log()
+    check({'l_d_real', 'l_d_fake', 'l_grad_penalty', 'l_g_gan'} <= set(log)
+          and all(np.isfinite(v) for v in log.values()),
+          f'the GAN run logged {log}')
+    exp = os.path.join(experiments, model.opt['name'])
+    models = sorted(os.listdir(os.path.join(exp, 'models')))
+    check({f'net_d_{CLI_GAN_SAVE}.pth', 'net_d_latest.pth'} <= set(models),
+          f'the GAN run saved {models}')
+    del model
+    torch.cuda.empty_cache()
+
+    resumed = {}
+    resume_training = Model.resume_training
+
+    def recorded_resume(model, state):
+        resume_training(model, state)
+        resumed['iter'] = state['iter']
+        resumed['optimizers'] = copy.deepcopy(
+            [o.state_dict() for o in model.optimizers])
+        resumed['net_d'] = {k: v.clone()
+                            for k, v in model.net_d.state_dict().items()}
+
+    with mock.patch.object(Model, 'resume_training', recorded_resume):
+        model, _, _, rec_resumed = _cli_train(
+            train_pipeline, tmp, args + ['--auto_resume'], kernels, GAN_B,
+            CLI_GAN_SAVE + CLI_GAN_PRINT, CLI_GAN_ITERS)
+    state = torch.load(os.path.join(exp, 'training_states',
+                                    f'{CLI_GAN_SAVE}.state'),
+                       map_location='cpu', weights_only=True)
+    saved_d = torch.load(os.path.join(exp, 'models',
+                                      f'net_d_{CLI_GAN_SAVE}.pth'),
+                         map_location='cpu', weights_only=True)['params']
+    check(resumed.get('iter') == CLI_GAN_SAVE,
+          f'--auto_resume resumed from {resumed.get("iter")}')
+    check(len(state['optimizers']) == len(state['schedulers']) == 2,
+          'the .state holds G\'s and D\'s optimizers and schedulers')
+    check(_same_state(resumed['optimizers'], state['optimizers']),
+          'the resumed optimizers differ from the saved ones')
+    check(_same_state(resumed['net_d'], saved_d),
+          'the resumed net_d differs from the saved one')
+    check(set(log) <= set(model.get_current_log()),
+          f'the resumed run logged {model.get_current_log()}')
+    del model
+    torch.cuda.empty_cache()
+    return pixel, gan, {
+        **rec, 'yml': CLI_GAN_YML, 'batch': GAN_B, 'gt': TRAIN_GT,
+        'iterations': CLI_GAN_ITERS, 'net_g_pretrain_steps': CLI_GAN_PRETRAIN,
+        'checkpoint': CLI_GAN_SAVE, 'saved_models': models, 'last_log': log,
+        'resumed_from': resumed['iter'], 'resumed_bit_equal': True,
+        'resumed_run_wall_s': rec_resumed['wall_s'],
+        'launches_pixel_iterations': {n: v for n, v in pixel.items() if v},
+        'launches_gan_iterations': {n: v for n, v in gan.items() if v}}
+
+
+def _cli_serving(data, tmp, latest, kernels):
+    """``options/test/test_5ref_cufed5_serving.yml`` (per-dimension
+    ``pad_to`` buckets, bf16) through ``test_pipeline`` in this process on
+    the CUFED5-layout sets with ``latest``: bf16 entry points only, finite
+    metrics, two buckets or more; then a bf16 request at the 500x332
+    bucket against one on the 500x500 canvas (a ``pad_to`` of 500), each
+    the second of two, and K1's device ms (prologue and match) in a
+    profile of each. Returns the pipeline's launches and the record."""
+    from mrefsr_tpu_torch.data import build_dataset, default_collate
+    from mrefsr_tpu_torch.test import test_pipeline
+    _, _, cufed = data
+    args = ['-opt', CLI_SERVING_YML, '--force_yml',
+            f'datasets:test_1:dataroot_in={cufed}',
+            f'datasets:test_1:dataroot_ref={cufed}',
+            f'path:pretrain_network_g={latest}',
+            'path:pretrain_network_feature_extractor=~',
+            f'path:results_root={os.path.join(tmp, "serving")}']
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    model = test_pipeline(tmp, args)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counts(kernels, _entries(('match', 'k2'), BF16),
+                           _forbidden(BF16))
+    check(model.eval_dtype == BF16, 'the serving YAML evaluates at bf16')
+    check(all(np.isfinite(v) for v in model.metric_results.values()),
+          f'serving metrics {model.metric_results}')
+    dataset_opt = dict(model.opt['datasets']['test_1'])
+    dataset = build_dataset(dataset_opt)
+    canvases = [tuple(dataset[i]['img_in_up'].shape[:2])
+                for i in range(len(dataset))]
+    check(len(set(canvases)) >= 2, f'one bucket only: {canvases}')
+    rec = {'cli_s': cli_s, 'metric_results': model.metric_results,
+           'canvases': canvases,
+           'launches': {n: v for n, v in launches.items() if v}}
+    # CLI_CUFED_SIZES[1] is 500x332: its bucket, and the single canvas
+    for name, pad_to in (('500x332', dataset_opt['pad_to']),
+                         ('500x500', 500)):
+        batch = default_collate([build_dataset(dict(
+            dataset_opt, pad_to=pad_to))[1]])
+        request_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.feed_data(batch)
+            model.test()
+            torch.cuda.synchronize()
+            request_ms.append((time.perf_counter() - t1) * 1e3)
+
+        def one_request():
+            model.feed_data(batch)
+            model.test()
+
+        prof = profile_record(f'serving_{name}', one_request)
+        own = prof['hand_written_ms']
+        rec[name] = {'canvas': list(batch['img_in_up'].shape[1:3]),
+                     'request_ms': request_ms,
+                     'second_request_ms': request_ms[1],
+                     'k1_device_ms': own['prologue_kernel'] + own['::Bf16>'],
+                     'device_busy_ms': prof['device_busy_ms'],
+                     'device_idle_share': prof['device_idle_share']}
+    small, full = rec['500x332'], rec['500x500']
+    check(small['canvas'] == [500, 332] and full['canvas'] == [500, 500],
+          f'canvases {small["canvas"]}, {full["canvas"]}')
+    rec['area_ratio'] = 500 * 500 / (500 * 332)
+    rec['request_ratio'] = full['second_request_ms'] \
+        / small['second_request_ms']
+    rec['k1_ratio'] = full['k1_device_ms'] / small['k1_device_ms']
+    del model
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def phase_cli(kernels, repeated_step_ms=None):
     """The shipped stage-3 bf16 YAML through the port's CLIs with the loader
     in the loop, on synthetic images: the device prefetcher's first batch;
@@ -4203,6 +4431,9 @@ def phase_cli(kernels, repeated_step_ms=None):
                                       if v}})
 
         emit({'phase': 'cli_test', **_cli_test(data, tmp, latest)})
+        by_path['cli_serving'], serving = _cli_serving(data, tmp, latest,
+                                                       kernels)
+        emit({'phase': 'cli_serving', 'yml': CLI_SERVING_YML, **serving})
         emit({'phase': 'cli_preemption', **_cli_preemption(data, tmp)})
 
         model, lp_launches, by_path['cli_lp'], lp = _cli_train(
@@ -4224,6 +4455,9 @@ def phase_cli(kernels, repeated_step_ms=None):
         emit({'phase': 'cli_lp', 'yml': CLI_LP_YML, 'batch': 3, 'gt': 300,
               'iterations': CLI_LP_ITERS, **lp,
               'launches_train': {n: v for n, v in lp_launches.items() if v}})
+        by_path['cli_gan_pixel'], by_path['cli_gan'], gan = _cli_gan(
+            train_pipeline, data, tmp, kernels)
+        emit({'phase': 'cli_gan', **gan})
         # the runs' log files lie in the directory about to go
         logger = logging.getLogger('mrefsr_tpu_torch')
         for handler in [h for h in logger.handlers
@@ -4299,6 +4533,579 @@ def dcn_phases(arch_util, mrapa_arch, dcn, kernels):
         arch_util, mrapa_arch, dcn, kernels)}
 
 
+# ---------------------------------------------------------- the GAN phase
+# options/ab/ab_dcn_gan.yml's batch and crop; the alternation cut so that
+# GAN_STEPS steps hold 2 bf16 pixel steps, then GAN steps with G updating
+# every second one (a skipped G turn each time between)
+GAN_B, GAN_PRETRAIN, GAN_STEPS = 8, 2, 8
+BF16_ENTRIES = sum(ENTRIES[BF16].values(), ())
+# SRNTT-form terms for the perceptual + style case: the Frobenius distance
+# of relu5_1 features and of relu1_1-relu3_1 Gram matrices, on [0, 1]
+# images, VGG19 from seeded weights (no pretrained file is in the repo)
+GAN_PERCEPTUAL = {'layer_weights': {'relu5_1': 1.0}, 'vgg_type': 'vgg19',
+                  'perceptual_weight': 1e-4, 'style_weight': 0.,
+                  'norm_img': False, 'criterion': 'fro'}
+GAN_STYLE = {'layer_weights': {'relu1_1': 1.0, 'relu2_1': 1.0,
+                               'relu3_1': 1.0},
+             'vgg_type': 'vgg19', 'perceptual_weight': 0.,
+             'style_weight': 1e-3, 'norm_img': False, 'criterion': 'fro'}
+
+
+def _gan_opt(alignment, percep=False):
+    """The nets and train block of options/ab/ab_dcn_gan.yml (``dcn``) and
+    ab_flow_gan.yml (``flow``): MRAPA at ngf 64, 16 blocks, 8 deform
+    groups, ``ImageDiscriminator`` at ndf 32, wgan with ``gan_weight``
+    1e-5 and the penalty at 10, bf16 pixel steps; the alternation cut to
+    ``net_g_pretrain_steps`` 2, ``net_d_steps`` 2, ``net_d_init_steps`` 1;
+    with ``percep`` also :data:`GAN_PERCEPTUAL` and :data:`GAN_STYLE`."""
+    opt = _train_opt(alignment)
+    opt['network_g'].pop('ref_unroll', None)
+    if alignment == 'dcn':
+        opt['network_g']['dcn_outer_remat'] = True
+    opt['network_d'] = {'type': 'ImageDiscriminator', 'in_nc': 3, 'ndf': 32}
+    opt['train'].update(
+        lr_d=1e-4, weight_decay_d=0, beta_d=[0.9, 0.999], gan_type='wgan',
+        gan_weight=1e-5, grad_penalty_weight=10.0, total_iter=3008,
+        net_g_pretrain_steps=GAN_PRETRAIN, net_d_steps=2, net_d_init_steps=1,
+        mixed_precision='bfloat16')
+    if percep:
+        opt['train'].update(perceptual_opt=dict(GAN_PERCEPTUAL),
+                            style_opt=dict(GAN_STYLE))
+    return opt
+
+
+def _pre_norm_bias(name):
+    """A discriminator conv bias feeding a train-mode norm: its gradient
+    is exactly 0 (the norm takes any shift out), so each computation's is
+    rounding noise."""
+    parts = name.split('.')
+    return parts[0].startswith('conv_block') and parts[1] in ('0', '3') \
+        and parts[2] == 'bias'
+
+
+def _gan_backward(model, arch, dcn, alpha, plain_ops=False,
+                  plain_forward=False):
+    """The discriminator's gradients of its step's loss (penalty at
+    ``alpha``) and the generator's of its step's loss, at the model's
+    current weights, on the batch of ``feed_data``, the norms writing
+    nothing; through the kernels, through their Functions with the plain
+    forward values, or through the plain versions (as
+    :func:`_compare_grads`). Returns the output and both gradients."""
+    from mrefsr_tpu_torch.parallel.batch_norm import frozen_stats
+    net_d = model.net_d
+    with contextlib.ExitStack() as stack:
+        if plain_ops:
+            stack.enter_context(mock.patch.object(
+                arch, 'modulated_deform_conv2d',
+                dcn.modulated_deform_conv2d_ref))
+            stack.enter_context(mock.patch.object(
+                arch, 'deform_sample', dcn.deform_sample_ref))
+        if plain_forward:
+            stack.enter_context(mock.patch.object(
+                dcn, '_mdcn_fused_forward_cuda', dcn._mdcn_fused_forward_ref))
+            stack.enter_context(mock.patch.object(
+                dcn, '_deform_sample_fwd_cuda', dcn.deform_sample_ref))
+        stack.enter_context(frozen_stats(net_d))
+        model.net_g.zero_grad(set_to_none=True)
+        net_d.zero_grad(set_to_none=True)
+        output = model._forward(model.match_img_in, model.img_ref_list,
+                                model.img_in_lq, dtype=torch.float32)
+        net_d.requires_grad_(True)
+        losses = model.d_losses(output.detach(), alpha)
+        sum(v for k, v in losses.items() if k.startswith('l_')).backward()
+        d_grads = {n: p.grad.clone() for n, p in net_d.named_parameters()}
+        net_d.requires_grad_(False)
+        sum(model.g_losses(output).values()).backward()
+        g_grads = {n: p.grad.clone() for n, p in
+                   model.net_g.named_parameters()}
+    model.net_g.zero_grad(set_to_none=True)
+    net_d.zero_grad(set_to_none=True)
+    return output.detach(), d_grads, g_grads
+
+
+def _compare_gan_grads(model, arch, dcn, batch):
+    """:func:`_gan_backward` three ways on ``batch``: the discriminator's
+    and the generator's gradients through the kernels and behind the same
+    forward against the plain versions' (the discriminator's pre-norm conv
+    biases held to noise against their conv's weight gradient instead),
+    and the outputs."""
+    model.feed_data(batch)
+    alpha = model.penalty_alpha(batch['img_in'].shape[0], 1)
+    out_k, d_own, g_own = _gan_backward(model, arch, dcn, alpha)
+    out_s, d_same, g_same = _gan_backward(model, arch, dcn, alpha,
+                                          plain_forward=True)
+    out_p, d_plain, g_plain = _gan_backward(model, arch, dcn, alpha,
+                                            plain_ops=True)
+    noise = max(float(d_own[n].abs().max()
+                      / d_own[n[:-len('bias')] + 'weight'].abs().max())
+                for n in d_own if _pre_norm_bias(n))
+    keep = [n for n in d_plain if not _pre_norm_bias(n)]
+
+    def d_only(grads):
+        return {n: grads[n] for n in keep}
+
+    return {'d_same_forward': _rel_grad_errors(d_only(d_same),
+                                               d_only(d_plain)),
+            'd_own_forward': _rel_grad_errors(d_only(d_own),
+                                              d_only(d_plain)),
+            'd_pre_norm_bias_noise': noise,
+            'g_same_forward': _rel_grad_errors(g_same, g_plain),
+            'g_own_forward': _rel_grad_errors(g_own, g_plain),
+            'same_forward_bit_equal': bool(torch.equal(out_s, out_p)),
+            'own_forward_bit_equal': bool(torch.equal(out_k, out_p)),
+            'out_max_abs_diff': float((out_k - out_p).abs().max())}
+
+
+def _check_gan_grads(label, cmp):
+    """The checks of :func:`_check_grads` on both nets' gradients (f32:
+    a GAN step casts nothing)."""
+    for net in ('d', 'g'):
+        _check_grad_errors(f'{label}, {net}, behind the same forward',
+                           cmp[f'{net}_same_forward'])
+        if cmp['own_forward_bit_equal']:
+            _check_grad_errors(f'{label}, {net}', cmp[f'{net}_own_forward'])
+    check(cmp['d_pre_norm_bias_noise'] <= TRAIN_GRAD_REL_TOL,
+          f'{label}: a pre-norm bias gradient is not noise: {cmp}')
+    check(cmp['same_forward_bit_equal'], f'{label}: the plain forward values '
+          'did not give the plain forward')
+    check(cmp['out_max_abs_diff'] <= SLICE_TOL,
+          f'{label}: kernels and plain versions give other outputs: {cmp}')
+
+
+def _norm_writes(net_d):
+    from mrefsr_tpu_torch.parallel.batch_norm import BatchNorm2d
+    return {int(m.num_batches_tracked) for m in net_d.modules()
+            if isinstance(m, BatchNorm2d)}
+
+
+def phase_gan_train(alignment, build_model, arch, dcn, kernels,
+                    percep=False):
+    """``_gan_opt``'s model (B 8, gt 160, 5 refs) from seeded weights: the
+    gradients of a GAN step's two losses through the kernels against the
+    plain versions at B 2; then ``GAN_STEPS`` steps through
+    ``optimize_parameters`` on one repeated batch: 2 bf16 pixel steps
+    (bf16 entry points only), then GAN steps (f32 entry points only), the
+    discriminator's norms written exactly twice a GAN step, every logged
+    loss and the penalty finite, the zero G losses of a skipped turn; step
+    ms (the GAN steps after the first), peak memory, a profile of a GAN
+    step without G and of one with G. Returns the GAN steps' launches and
+    their mean ms."""
+    dtype_parts = ('match',) + (('k2', 'k2_bwd') if alignment == 'dcn'
+                                else ('k4', 'k4_bwd'))
+    opt = _gan_opt(alignment, percep)
+    model = build_model(opt)
+    check(model.device.type == 'cuda', f'model built on {model.device}')
+    check(model.train_dtype == BF16, 'the GAN YAMLs train bf16 pixel steps')
+    rng = np.random.RandomState(SEED + 30)
+    batch = _train_batch(rng, GAN_B)
+    cmp = _compare_gan_grads(model, arch, dcn, _train_batch(rng, 2))
+    tag = f'gan_{alignment}' + ('_percep' if percep else '')
+    _check_gan_grads(f'{tag}, fresh weights', cmp)
+
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    for step in range(1, GAN_PRETRAIN + 1):
+        model.feed_data(batch)
+        model.optimize_parameters(step)
+    pixel_launches = read_counts(kernels, _entries(dtype_parts, BF16),
+                                 _forbidden(BF16))
+    check(_norm_writes(model.net_d) == {0},
+          'a pixel step wrote the discriminator\'s norms')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    step_ms, logs = [], []
+    for step in range(GAN_PRETRAIN + 1, GAN_STEPS + 1):
+        t0 = time.perf_counter()
+        model.feed_data(batch)
+        model.optimize_parameters(step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logs.append(model.get_current_log())
+    launches = read_counts(kernels, _entries(dtype_parts, torch.float32),
+                           SCATTERS + BF16_ENTRIES)
+    peak = torch.cuda.max_memory_allocated()
+    gan_steps = GAN_STEPS - GAN_PRETRAIN
+    check(_norm_writes(model.net_d) == {2 * gan_steps},
+          f'the norms were written {_norm_writes(model.net_d)} times in '
+          f'{gan_steps} GAN steps, not twice a step')
+    want_keys = {'l_d_real', 'l_d_fake', 'out_d_real', 'out_d_fake',
+                 'l_grad_penalty', 'l_g_pix', 'l_g_gan'}
+    if percep:
+        want_keys |= {'l_g_percep', 'l_g_style'}
+    for k, log in enumerate(logs, 1):
+        check(set(log) == want_keys, f'GAN log keys {sorted(log)}')
+        check(all(np.isfinite(v) for v in log.values()),
+              f'non-finite GAN losses {log}')
+        g_turn = k % 2 == 0
+        check((log['l_g_gan'] != 0) == g_turn,
+              f'GAN step {k}: g_turn {g_turn} but l_g_gan {log["l_g_gan"]}')
+    mean_ms = statistics.mean(step_ms[1:])
+    emit({'phase': tag, 'batch': GAN_B, 'gt': TRAIN_GT, 'refs': T,
+          'network_g': opt['network_g'], 'network_d': opt['network_d'],
+          'pixel_steps': GAN_PRETRAIN, 'gan_steps': gan_steps,
+          'pixel_dtype': str(BF16), 'gan_dtype': str(torch.float32),
+          'step_ms': step_ms, 'mean_gan_step_ms': mean_ms,
+          'mean_g_turn_step_ms': statistics.mean(step_ms[1::2]),
+          'mean_d_only_step_ms': statistics.mean(step_ms[2::2]),
+          'img_per_s': GAN_B / mean_ms * 1e3, 'peak_mem_bytes': peak,
+          'logs': logs, 'grads_fresh_weights': cmp,
+          'grad_tolerance': TRAIN_GRAD_REL_TOL, 'out_tolerance': SLICE_TOL,
+          'launches_pixel_steps': {n: v for n, v in pixel_launches.items()
+                                   if v},
+          'launches_gan_steps': {n: v for n, v in launches.items() if v}})
+    # one GAN step of each kind: D only (k odd), then with G (k even)
+    for step, kind in ((GAN_STEPS + 1, 'd_only'), (GAN_STEPS + 2, 'g_turn')):
+        def one_step(step=step):
+            model.feed_data(batch)
+            model.optimize_parameters(step)
+
+        emit(dict(profile_record(tag, one_step), gan_step=kind))
+    del model
+    torch.cuda.empty_cache()
+    return launches, mean_ms
+
+
+# ``ddp_gan``: two ranks of DDP_GAN_B samples against one process of the
+# global batch, one GAN step with G from the same seeded weights, cuDNN
+# deterministic, the process's net_g run on the ranks' rows in turn (so
+# the fakes agree bit for bit). The ranks and the process still sum in
+# other orders (the norms' statistics over 2 x 4 samples or 8, the
+# discriminator's convolutions at B 4 or 8). What a rounding apart moves
+# little is held tight: the norms' running statistics and every logged
+# loss, the penalty included, within DDP_GAN_TOL of the process's
+# (measured, H100: 4.1e-7 and 8.2e-7), the generator's gradients within
+# DDP_GAN_G_TOL of each tensor's max (measured 1.4e-5; its gradient of
+# the GAN term crosses the discriminator). The discriminator's own
+# gradients go through the penalty's double backward, which moves by up to
+# 0.25 % of a tensor for an input a rounding apart (gan_train's
+# own-forward comparison, 6e-8 of the fake); they are held by a two-part
+# rule, the median tensor within DDP_GAN_D_MEDIAN and every one within
+# DDP_GAN_D_WORST (measured: 1.4e-3 and 1.5e-2). The rank reduction itself
+# is held to 1e-4 on the CPU (tests/test_torch_gan.py), where the
+# discriminator's arithmetic does not depend on the batch split.
+DDP_GAN_TOL, DDP_GAN_G_TOL = 1e-5, 1e-4
+DDP_GAN_D_MEDIAN, DDP_GAN_D_WORST = 5e-3, 5e-2
+DDP_GAN_B = GAN_B // DDP_WORLD
+
+
+def _ddp_gan_opt(dist_on):
+    opt = _gan_opt('dcn')
+    opt['dist'] = dist_on
+    opt['train'].update(net_g_pretrain_steps=0, net_d_steps=1,
+                        net_d_init_steps=0)
+    return opt
+
+
+def _gan_step_record(model, batch):
+    """One GAN step with G (iteration 1) on ``batch``: the gradients each
+    optimizer steps with, the discriminator's state after, and the log."""
+    grads = {}
+    for key, optimizer, net in (
+            ('d', model.optimizer_d, model.net_d),
+            ('g', model.optimizer_g, model.get_bare_model(model.net_g))):
+        stepper = optimizer.step
+
+        def recording(*args, _net=net, _key=key, _step=stepper, **kwargs):
+            grads[_key] = {n: p.grad.detach().clone()
+                           for n, p in _net.named_parameters()}
+            return _step(*args, **kwargs)
+
+        optimizer.step = recording
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.feed_data(batch)
+        model.optimize_parameters(1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return {'d_grads': grads['d'], 'g_grads': grads['g'],
+            'd_state': {k: v.detach().clone()
+                        for k, v in model.net_d.state_dict().items()},
+            'log': model.get_current_log(), 'step_ms': ms}
+
+
+def _ddp_gan_batch():
+    return _train_batch(np.random.RandomState(SEED + 31), GAN_B)
+
+
+def _ddp_gan_rank(rank, backend, root):
+    """One rank of ``ddp_gan``: joins the group as ``_ddp_rank`` does,
+    takes its rows of the global batch through one GAN step and saves
+    :func:`_gan_step_record` to ``root/rank<r>.pt``."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank))
+    import importlib
+
+    from mrefsr_tpu_torch.models import build_model
+    from mrefsr_tpu_torch.ops import correlation, dcn, fused_act
+    from mrefsr_tpu_torch.utils.dist_util import get_dist_info, init_dist
+    ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
+    init_dist('pytorch', backend=backend)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rank, world = get_dist_info()
+        kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
+        model = build_model(_ddp_gan_opt(True))
+        rows = slice(rank * DDP_GAN_B, (rank + 1) * DDP_GAN_B)
+        batch = {k: v[rows] for k, v in _ddp_gan_batch().items()}
+        reset_counts(kernels)
+        record = _gan_step_record(model, batch)
+        record['launches'] = {n: k.launches for n, k in kernels.items()}
+        record['peak_mem_bytes'] = torch.cuda.max_memory_allocated()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save({k: v for k, v in record.items()},
+               os.path.join(root, f'rank{rank}.pt'))
+
+
+def phase_ddp_gan(build_model):
+    """Two ranks (as ``ddp``: NCCL with a card a rank, else gloo on the
+    one card) of B 4 against this process on the global B 8, one GAN step
+    of the full-width ``dcn`` model with the discriminator's norms over
+    the global batch. Returns the ranks' launches summed."""
+    cards = torch.cuda.device_count()
+    backend = 'nccl' if cards >= DDP_WORLD else 'gloo'
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        os.environ.update(MASTER_ADDR='localhost',
+                          MASTER_PORT=str(_free_port()),
+                          WORLD_SIZE=str(DDP_WORLD))
+        ctx = torch.multiprocessing.spawn(_ddp_gan_rank,
+                                          args=(backend, root),
+                                          nprocs=DDP_WORLD, join=False)
+        try:
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() - t0 < DDP_WAIT_S,
+                      f'the ddp_gan ranks outlived {DDP_WAIT_S} s')
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(30)
+        ranks = [torch.load(os.path.join(root, f'rank{r}.pt'),
+                            map_location='cuda', weights_only=False)
+                 for r in range(DDP_WORLD)]
+    ranks_s = time.perf_counter() - t0
+    model = build_model(_ddp_gan_opt(False))
+    forward = model._forward
+
+    def in_rank_chunks(*args, **kwargs):
+        # net_g on the ranks' rows in turn: cuDNN picks its algorithms by
+        # shape, so a forward at B 8 is not the ranks' at B 4 bit for bit,
+        # and a discriminator fed a fake a rounding apart flips leaky-ReLU
+        # gates (gan_train's own-forward comparison: up to 0.25 % of D's
+        # gradients, 1.8 % of G's)
+        outs = [forward(*(a[r * DDP_GAN_B:(r + 1) * DDP_GAN_B]
+                          for a in args), **kwargs)
+                for r in range(DDP_WORLD)]
+        return torch.cat(outs)
+
+    model._forward = in_rank_chunks
+    one = _gan_step_record(model, _ddp_gan_batch())
+    del model
+    torch.cuda.empty_cache()
+    errors = []
+    for rank in ranks:
+        err = {}
+        for net in ('d', 'g'):
+            got, want = rank[f'{net}_grads'], one[f'{net}_grads']
+            floor = 1e-6 * max(float(v.abs().max()) for v in want.values())
+            rel = {n: float((got[n] - v).abs().max())
+                   / max(float(v.abs().max()), floor)
+                   for n, v in want.items()
+                   if not (net == 'd' and _pre_norm_bias(n))}
+            worst = max(rel, key=rel.get)
+            err[net] = {'worst': rel[worst], 'worst_name': worst,
+                        'median': float(np.median(list(rel.values())))}
+        stats = {k: float((rank['d_state'][k] - v).abs().max())
+                 / max(float(v.abs().max()), 1e-12)
+                 for k, v in one['d_state'].items() if 'running_' in k}
+        worst = max(stats, key=stats.get)
+        err['running_stats'] = {'worst': stats[worst], 'worst_name': worst}
+        err['log'] = {k: abs(rank['log'][k] - v) / max(abs(v), 1e-12)
+                      for k, v in one['log'].items()}
+        errors.append(err)
+    emit({'phase': 'ddp_gan_errors', 'errors_by_rank': errors})
+    for err in errors:
+        check(err['running_stats']['worst'] <= DDP_GAN_TOL
+              and max(err['log'].values()) <= DDP_GAN_TOL,
+              f'ddp_gan: the norms or the losses differ from one process: '
+              f'{err}')
+        check(err['d']['median'] <= DDP_GAN_D_MEDIAN
+              and err['d']['worst'] <= DDP_GAN_D_WORST,
+              f'ddp_gan: the discriminator differs from one process: {err}')
+        check(err['g']['worst'] <= DDP_GAN_G_TOL,
+              f'ddp_gan: the generator differs from one process: {err}')
+    for key, val in ranks[0]['d_state'].items():
+        check(torch.equal(ranks[1]['d_state'][key], val),
+              f'ddp_gan: the ranks hold other {key}')
+    launches = {n: sum(r['launches'][n] for r in ranks)
+                for n in ranks[0]['launches']}
+    check(all(launches[n] > 0 for n in _entries(('match', 'k2', 'k2_bwd'),
+                                                  torch.float32))
+          and not any(launches[n] for n in SCATTERS + BF16_ENTRIES),
+          f'ddp_gan launched {launches}')
+    emit({'phase': 'ddp_gan', 'backend': backend, 'world': DDP_WORLD,
+          'batch_a_rank': DDP_GAN_B, 'global_batch': GAN_B,
+          'network_g': _gan_opt('dcn')['network_g'],
+          'network_d': _gan_opt('dcn')['network_d'],
+          'errors_by_rank': errors,
+          'tolerances': {'stats_and_losses': DDP_GAN_TOL,
+                         'g': DDP_GAN_G_TOL, 'd_median': DDP_GAN_D_MEDIAN,
+                         'd_worst': DDP_GAN_D_WORST},
+          'rank_step_ms': [r['step_ms'] for r in ranks],
+          'one_process_step_ms': one['step_ms'],
+          'rank_peak_mem_bytes': [r['peak_mem_bytes'] for r in ranks],
+          'ranks_s': ranks_s,
+          'launches': {n: v for n, v in launches.items() if v}})
+    return launches
+
+
+# ------------------------------------------------------------ single ref
+def _ref_opt(dtype=torch.float32, train=True):
+    """``RefRestorationModel`` with ``RestorationNet`` at ngf 64, 16
+    blocks, 8 deform groups, ``ContrasExtractorSep``, the stage-3 train
+    block; ``dtype`` bf16 sets ``train`` and ``val.mixed_precision``."""
+    opt = _train_opt('dcn') if train else _cufed5_opt()
+    opt['model_type'] = 'RefRestorationModel'
+    opt['network_g'] = {'type': 'RestorationNet', 'ngf': 64, 'n_blocks': 16,
+                        'groups': 8}
+    opt['network_extractor'] = {'type': 'ContrasExtractorSep'}
+    if dtype == BF16:
+        if train:
+            opt['train']['mixed_precision'] = 'bfloat16'
+        opt['val'] = {'mixed_precision': 'bfloat16'}
+    return opt
+
+
+def _single_ref(batch):
+    """A 5-ref batch as a single-ref one: its first ref."""
+    out = {k: v for k, v in batch.items() if k != 'img_ref_list'}
+    out['img_ref'] = batch['img_ref_list'][:, 0]
+    return out
+
+
+def phase_ref_train(build_model, arch, dcn, kernels, dtype):
+    """A stage-3-shaped pixel step of the single-ref model (B 6, gt 160),
+    f32 or bf16: the gradients through the kernels against the plain
+    versions at B 1 (``_compare_grads``), a warm-up and three timed steps,
+    launches, peak memory, a profile. Returns the timed steps' launches."""
+    bf16 = dtype == BF16
+    model = build_model(_ref_opt(dtype))
+    check(model.train_dtype == dtype, f'train dtype {model.train_dtype}')
+    rng = np.random.RandomState(SEED + 32)
+    batch = _single_ref(_train_batch(rng, TRAIN_B))
+    cmp = _compare_grads(model, arch, dcn, _single_ref(_train_batch(rng, 1)))
+    tag = 'ref_train' + ('_bf16' if bf16 else '')
+    _check_grads(f'{tag}, fresh weights', cmp, dtype)
+    model.feed_data(batch)
+    model.optimize_parameters(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    step_ms, losses = [], []
+    for step in range(2, 5):
+        t0 = time.perf_counter()
+        model.feed_data(batch)
+        model.optimize_parameters(step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(model.get_current_log()['l_pix'])
+    launches = read_counts(kernels, _entries(('match', 'k2', 'k2_bwd'),
+                                             dtype), _forbidden(dtype))
+    check(all(np.isfinite(losses)), f'non-finite loss {losses}')
+    emit({'phase': tag, 'batch': TRAIN_B, 'gt': TRAIN_GT, 'refs': 1,
+          'network_g': model.opt['network_g'], 'dtype': str(dtype),
+          'step_ms': step_ms, 'mean_step_ms': statistics.mean(step_ms),
+          'peak_mem_bytes': torch.cuda.max_memory_allocated(),
+          'losses': losses, 'grads_fresh_weights': cmp,
+          'launches_3_steps': {n: v for n, v in launches.items() if v}})
+
+    def one_step():
+        model.feed_data(batch)
+        model.optimize_parameters(5)
+
+    phase_profile(tag, one_step)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ref_eval(build_model, correlation, dcn, kernels, dtype):
+    """Two single-ref requests at the 500x500 canvas (live offset heads),
+    f32 or bf16: the second's ms, launches, peak memory, one request
+    through the kernels against the plain versions. Returns the launches
+    of the two requests."""
+    bf16 = dtype == BF16
+    model = build_model(_ref_opt(dtype, train=False))
+    check(model.eval_dtype == dtype, f'eval dtype {model.eval_dtype}')
+    gen = torch.Generator().manual_seed(SEED + 33)
+    with torch.no_grad():
+        for m in model.net_g.modules():
+            if hasattr(m, 'conv_offset_mask'):
+                w, b = m.conv_offset_mask.weight, m.conv_offset_mask.bias
+                w.copy_(torch.randn(w.shape, generator=gen) * 0.01)
+                b.copy_(torch.rand(b.shape, generator=gen) * 2 - 1)
+    rng = np.random.RandomState(SEED + 34)
+    requests = [_single_ref(_request(rng)) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    request_ms = []
+    for batch in requests:
+        t0 = time.perf_counter()
+        model.feed_data(batch)
+        model.test()
+        rlt = model.get_current_visuals()['rlt']
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        check(rlt.shape == (1, CANVAS, CANVAS, 3)
+              and bool(np.isfinite(rlt).all()), f'output {rlt.shape}')
+    launches = read_counts(kernels, _entries(('match', 'k2'), dtype),
+                           _forbidden(dtype))
+    peak = torch.cuda.max_memory_allocated()
+    _, cmp = _request_vs_plain(model, correlation, dcn, requests[0], dtype)
+    tag = 'ref_eval' + ('_bf16' if bf16 else '')
+    emit({'phase': tag, 'canvas': CANVAS, 'refs': 1, 'dtype': str(dtype),
+          'request_ms': request_ms, 'second_request_ms': request_ms[1],
+          'peak_mem_bytes': peak, **cmp,
+          'launches': {n: v for n, v in launches.items() if v}})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gan_phases(build_model, arch, dcn, kernels):
+    """``gan_train`` (dcn, flow, dcn with the perceptual and style losses)
+    and ``ddp_gan``. Returns the launches by path."""
+    by_path = {}
+    for alignment, percep, path in (('dcn', False, 'gan'),
+                                    ('flow', False, 'gan_flow'),
+                                    ('dcn', True, 'gan_percep')):
+        by_path[path], _ = phase_gan_train(alignment, build_model, arch, dcn,
+                                           kernels, percep)
+    by_path['ddp_gan'] = phase_ddp_gan(build_model)
+    return by_path
+
+
+def ref_phases(build_model, arch, correlation, dcn, kernels):
+    """``ref_train`` and ``ref_eval`` in f32 and bf16. Returns the
+    launches by path."""
+    by_path = {}
+    for dtype, suffix in ((torch.float32, ''), (BF16, '_bf16')):
+        by_path['ref' + suffix] = phase_ref_train(build_model, arch, dcn,
+                                                  kernels, dtype)
+        by_path['ref_eval' + suffix] = phase_ref_eval(
+            build_model, correlation, dcn, kernels, dtype)
+    return by_path
+
+
 def main():
     import importlib
     from mrefsr_tpu_torch.archs import arch_util, edvr_arch
@@ -4350,6 +5157,8 @@ def main():
         torch.cuda.empty_cache()
     emit({'phase': 'train_ratio',
           'flow_steps_per_dcn_step': step_ms['dcn'] / step_ms['flow']})
+    by_path.update(gan_phases(build_model, arch, dcn, kernels))
+    by_path.update(ref_phases(build_model, arch, correlation, dcn, kernels))
     bf16_described, bf16_paths, bf16_step_ms = bf16_phases(
         correlation, dcn, arch, build_model, kernels)
     by_path.update(bf16_paths)
@@ -4465,6 +5274,40 @@ def main_cli():
     print(smi, flush=True)
 
 
+def _main_alone(phases):
+    """The device, the build and ``phases(build_model, arch, correlation,
+    dcn, kernels) -> launches by path`` alone, then those launches; no
+    ``ok`` line."""
+    import importlib
+    from mrefsr_tpu_torch.archs import ref_mrapa_restoration_arch as arch
+    from mrefsr_tpu_torch.models import build_model
+    from mrefsr_tpu_torch.ops import _build, correlation, dcn, fused_act
+    ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
+    _, smi = phase_device()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    phase_build(_build.build)
+    kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
+    by_path = phases(build_model, arch, correlation, dcn, kernels)
+    emit({'launches_by_path': {path: {n: v for n, v in counts.items() if v}
+                               for path, counts in by_path.items()},
+          'card': smi})
+    print(smi, flush=True)
+
+
+def main_gan():
+    """``--gan``: ``gan_train`` (dcn, flow, perceptual + style) and
+    ``ddp_gan`` alone."""
+    _main_alone(lambda build_model, arch, correlation, dcn, kernels:
+                gan_phases(build_model, arch, dcn, kernels))
+
+
+def main_ref():
+    """``--ref``: ``ref_train`` and ``ref_eval`` at both types alone."""
+    _main_alone(ref_phases)
+
+
 def main_repeat_grads(rounds):
     """``--repeat-grads N``: the whole-net gradient comparisons of the
     three training paths alone, from fresh weights and then N times more,
@@ -4564,5 +5407,9 @@ if __name__ == '__main__':
         main_dcn()
     elif sys.argv[1:2] == ['--cli']:
         main_cli()
+    elif sys.argv[1:2] == ['--gan']:
+        main_gan()
+    elif sys.argv[1:2] == ['--ref']:
+        main_ref()
     else:
         main()

@@ -1,5 +1,5 @@
-"""Contrastively trained VGG16-conv3_1 feature extractor, multi-ref form
-(port of ``mrefsr_tpu/archs/contras_extractor_arch.py``)."""
+"""Contrastively trained VGG16-conv3_1 feature extractors, single- and
+multi-ref forms (port of ``mrefsr_tpu/archs/contras_extractor_arch.py``)."""
 from torch import nn
 
 from mrefsr_tpu_torch.utils.registry import ARCH_REGISTRY
@@ -20,6 +20,27 @@ class ContrasExtractorLayer(nn.Module):
 
     def forward(self, x):
         return self.model(imagenet_normalize(x))['conv3_1']
+
+
+@ARCH_REGISTRY.register()
+class ContrasExtractorSep(nn.Module):
+    """Separate towers for the upsampled input and one ref (reference
+    contras_extractor_arch.py:47-62): ``(image1, image2)``, each
+    (B, 3, H, W), -> ``{'dense_features1', 'dense_features2'}``, each
+    (B, 256, h, w)."""
+
+    def __init__(self):
+        super().__init__()
+        self.feature_extraction_image1 = ContrasExtractorLayer()
+        self.feature_extraction_image2 = ContrasExtractorLayer()
+
+    def forward(self, image1, image2):
+        return {'dense_features1': self.feature_extraction_image1(image1),
+                'dense_features2': self.feature_extraction_image2(image2)}
+
+    def init_weights(self, generator):
+        self.feature_extraction_image1.model.init_weights(generator)
+        self.feature_extraction_image2.model.init_weights(generator)
 
 
 @ARCH_REGISTRY.register()

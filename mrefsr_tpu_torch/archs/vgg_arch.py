@@ -114,6 +114,7 @@ class VGGFeatureExtractor(nn.Module):
                  use_input_norm=True, range_norm=False, requires_grad=False,
                  remove_pooling=False, pooling_stride=2):
         super().__init__()
+        self.vgg_type = vgg_type
         self.use_input_norm = use_input_norm
         self.range_norm = range_norm
         names = NAMES[vgg_type]

@@ -10,7 +10,8 @@ modules keep (so ``load_state_dict(strict=True)`` takes them unchanged):
   a norm scale becomes ``weight``, anything else keeps its leaf name
   (DynAgg's and FlowAgg's parameters included);
   :func:`stylegan2_state_dict_from_flax` adds what the StyleGAN2 nets
-  need on top, and :func:`load_from_flax` loads a net whose constant
+  need on top, :func:`state_dict_from_flax_variables` a net's batch-norm
+  statistics (the discriminator's), and :func:`load_from_flax` loads a net whose constant
   buffers flax does not hold (SpyNet's ImageNet mean and std, in the
   video nets).
 
@@ -109,6 +110,23 @@ def state_dict_from_flax(params):
     dict of contiguous float tensors, ready for
     ``load_state_dict(strict=True)``."""
     return {k: torch.tensor(v) for k, v in flax_to_torch(params).items()}
+
+
+def state_dict_from_flax_variables(variables):
+    """A flax net's variables, ``params`` and (where it has batch norms)
+    ``batch_stats``, -> a torch state dict: :func:`state_dict_from_flax`
+    of the parameters (a norm's ``scale`` / ``bias`` become ``weight`` /
+    ``bias``), and each norm's ``mean`` / ``var`` its ``running_mean`` /
+    ``running_var``. flax counts no batches: a norm of the port fills its
+    ``num_batches_tracked`` with 0."""
+    out = state_dict_from_flax(variables['params'])
+    names = {'mean': 'running_mean', 'var': 'running_var'}
+    for key, val in _flatten(variables.get('batch_stats') or {}).items():
+        base, _, leaf = key.rpartition('.')
+        if leaf not in names:
+            raise ValueError(f'batch_stats.{key}: no torch buffer for it')
+        out[f'{base}.{names[leaf]}'] = torch.tensor(val)
+    return out
 
 
 def load_from_flax(net, params):

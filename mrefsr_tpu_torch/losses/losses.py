@@ -1,35 +1,18 @@
-"""Pixel losses (port of ``mrefsr_tpu/losses/losses.py:43-70`` with the
+"""Pixel losses (port of ``mrefsr_tpu/losses/losses.py:43-118`` with the
 weight-then-reduce contract of ``loss_util.py``; tensors are NHWC: the
-channel axis of a weight map is the last one), and the GAN loss with
-StyleGAN2's two penalties (``losses.py:185-273``)."""
+channel axis of a weight map is the last one), the perceptual and style
+loss over VGG taps (``:109-183``), the GAN loss with StyleGAN2's two
+penalties (``:185-273``) and the WGAN-GP penalty (``:276-294``)."""
 import math
 
 import torch
 from torch.nn import functional as F
 
+from mrefsr_tpu_torch.archs.vgg_arch import VGGFeatureExtractor
+
+from .loss_util import weight_reduce_loss
+
 _reduction_modes = ('none', 'mean', 'sum')
-
-
-def weight_reduce_loss(loss, weight=None, reduction='mean'):
-    """Apply an element-wise weight, then reduce. With a weight and
-    ``'mean'``, the mean runs over the weighted region (the weight's sum,
-    times C for a one-channel weight)."""
-    if weight is not None:
-        if weight.dim() != loss.dim() or weight.shape[-1] not in (
-                1, loss.shape[-1]):
-            raise ValueError(f'weight {tuple(weight.shape)} does not fit a '
-                             f'loss of shape {tuple(loss.shape)}')
-        loss = loss * weight
-    if reduction == 'none':
-        return loss
-    if reduction == 'sum':
-        return loss.sum()
-    if weight is None:
-        return loss.mean()
-    denom = weight.sum()
-    if weight.shape[-1] == 1:
-        denom = denom * loss.shape[-1]
-    return loss.sum() / denom
 
 
 class _PixelLoss:
@@ -61,6 +44,136 @@ class MSELoss(_PixelLoss):
     @staticmethod
     def elementwise(pred, target):
         return (pred - target) ** 2
+
+
+class CharbonnierLoss(_PixelLoss):
+    """Charbonnier loss ``sqrt((pred - target)^2 + eps)`` (reference
+    losses.py:86-118)."""
+
+    def __init__(self, loss_weight=1.0, reduction='mean', eps=1e-12):
+        super().__init__(loss_weight, reduction)
+        self.eps = eps
+
+    def elementwise(self, pred, target):
+        return torch.sqrt((pred - target) ** 2 + self.eps)
+
+
+def gram_mat(x):
+    """The Gram matrix of NHWC features over the positions, divided by
+    ``c * h * w`` (reference losses.py:245-258): (N, C, C), f32 sums."""
+    n, h, w, c = x.shape
+    feats = x.reshape(n, h * w, c).float()
+    return feats.transpose(1, 2) @ feats / (c * h * w)
+
+
+def vgg_features(vgg, x):
+    """``vgg``'s taps of NHWC ``x``, each NHWC."""
+    return {k: v.permute(0, 2, 3, 1)
+            for k, v in vgg(x.permute(0, 3, 1, 2)).items()}
+
+
+def _feature_criterion(criterion):
+    """``(a, b) -> loss`` of a perceptual loss's ``criterion``; None for
+    ``fro``, whose norm runs over a whole tensor. ``l2`` is a mean square:
+    the reference's branch names a class that does not exist
+    (losses.py:189), the JAX package implements the intent."""
+    if criterion == 'l1':
+        return lambda a, b: torch.abs(a - b).mean()
+    if criterion == 'l2':
+        return lambda a, b: ((a - b) ** 2).mean()
+    if criterion == 'fro':
+        return None
+    raise NotImplementedError(f'{criterion} criterion has not been '
+                              'supported.')
+
+
+class PerceptualLoss:
+    """Perceptual and style loss over VGG taps (reference
+    losses.py:149-258). ``loss(x, gt)`` on NHWC images returns
+    ``(percep, style)``, each None where its weight is 0. The tower is
+    :attr:`vgg`, a :class:`VGGFeatureExtractor` whose weights the model
+    loads (``path.vgg_pretrain_path``) or seeds; ``gt``'s features take no
+    gradient."""
+
+    def __init__(self, layer_weights, vgg_type='vgg19', use_input_norm=True,
+                 range_norm=False, perceptual_weight=1.0, style_weight=0.,
+                 criterion='l1'):
+        self.perceptual_weight = perceptual_weight
+        self.style_weight = style_weight
+        self.layer_weights = dict(layer_weights)
+        self.vgg = VGGFeatureExtractor(
+            layer_name_list=tuple(layer_weights), vgg_type=vgg_type,
+            use_input_norm=use_input_norm, range_norm=range_norm)
+        self.criterion_type = criterion
+        self.criterion = _feature_criterion(criterion)
+
+    def _term(self, a, b):
+        if self.criterion is None:
+            return torch.linalg.vector_norm((a - b).reshape(-1))
+        return self.criterion(a, b)
+
+    def __call__(self, x, gt):
+        x_features = vgg_features(self.vgg, x)
+        with torch.no_grad():
+            gt_features = vgg_features(self.vgg, gt.detach())
+        percep_loss = None
+        if self.perceptual_weight > 0:
+            percep_loss = 0.
+            for k in x_features:
+                percep_loss = percep_loss + self._term(
+                    x_features[k], gt_features[k]) * self.layer_weights[k]
+            percep_loss = percep_loss * self.perceptual_weight
+        style_loss = None
+        if self.style_weight > 0:
+            style_loss = 0.
+            for k in x_features:
+                style_loss = style_loss + self._term(
+                    gram_mat(x_features[k]), gram_mat(gt_features[k])) \
+                    * self.layer_weights[k]
+            style_loss = style_loss * self.style_weight
+        return percep_loss, style_loss
+
+
+def penalty_interpolates(real_data, fake_data, alpha=None, generator=None):
+    """``alpha * real + (1 - alpha) * fake``, ``alpha`` (B, 1, 1, 1)
+    given or drawn U[0, 1) on the CPU from ``generator`` (so a seed gives
+    the same draw on every device); the result requires a gradient."""
+    if alpha is None:
+        if generator is None:
+            raise ValueError('a gradient penalty needs alpha or the '
+                             'torch.Generator to draw it from')
+        alpha = torch.rand((real_data.shape[0], 1, 1, 1),
+                           generator=generator, dtype=real_data.dtype)
+    alpha = alpha.to(device=real_data.device, dtype=real_data.dtype)
+    interpolates = alpha * real_data + (1. - alpha) * fake_data
+    if not interpolates.requires_grad:
+        interpolates.requires_grad_(True)
+    return interpolates
+
+
+def penalty_gradients(disc_fn, interpolates):
+    """d ``disc_fn(interpolates).sum()`` / d ``interpolates``, itself
+    differentiable (the penalty's double backward)."""
+    grads, = torch.autograd.grad(disc_fn(interpolates).sum(), interpolates,
+                                 create_graph=True)
+    return grads
+
+
+def gradient_penalty_loss(disc_fn, real_data, fake_data, alpha=None,
+                          generator=None, weight=None):
+    """WGAN-GP penalty (reference losses.py:420-456) on NHWC images:
+    ``disc_fn`` maps the interpolates to predictions; the norm of the
+    gradient runs over the channel axis only, as the reference's; with a
+    ``weight`` map the penalty is divided by its mean."""
+    gradients = penalty_gradients(disc_fn, penalty_interpolates(
+        real_data, fake_data, alpha, generator))
+    if weight is not None:
+        gradients = gradients * weight
+    norms = torch.sqrt((gradients ** 2).sum(-1) + 1e-12)
+    penalty = ((norms - 1) ** 2).mean()
+    if weight is not None:
+        penalty = penalty / weight.mean()
+    return penalty
 
 
 class GANLoss:

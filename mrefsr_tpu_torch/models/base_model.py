@@ -138,6 +138,42 @@ class BaseModel:
             state = rename_keys(state, rename)
         self.get_bare_model(net).load_state_dict(state, strict=strict)
 
+    def named_file(self, key):
+        """``path.<key>``, or None where it is unset. A named file that is
+        not on disk raises (as the JAX package's loader does), rather than
+        leaving seeded weights to train: set the key to ``~`` to start from
+        them."""
+        file = (self.opt.get('path') or {}).get(key)
+        if file and not os.path.isfile(file):
+            raise FileNotFoundError(
+                f'path.{key} names {file}, which does not exist (set it '
+                'to ~ to start from the seeded weights)')
+        return file
+
+    @torch.no_grad()
+    def load_vgg_weights(self, vgg):
+        """Weights for the VGG tower of a perceptual, style or texture loss
+        (a :class:`~mrefsr_tpu_torch.archs.vgg_arch.VGGFeatureExtractor`,
+        made on ``meta`` or anywhere), on this model's device (JAX package
+        base_model.py:372-390): from ``path.vgg_pretrain_path``, a
+        torchvision-layout ``.pth``, where it names one; else seeded
+        (N(0, 1/fan_in), from seed 0, as the JAX package's fall-back
+        initialises with key 0)."""
+        from mrefsr_tpu_torch.archs.vgg_arch import vgg_rename
+        vgg.to_empty(device=self.device)
+        file = self.named_file('vgg_pretrain_path')
+        if not file:
+            vgg.init_weights(torch.Generator().manual_seed(0))
+        else:
+            own = vgg.state_dict()
+            rename = vgg_rename(vgg.vgg_type)
+            state = rename_keys(load_torch_state_dict(file, param_key=None),
+                                lambda key: key if rename(key) in own
+                                else None)
+            vgg.load_state_dict(rename_keys(state, rename), strict=True)
+        vgg.eval().requires_grad_(False)
+        return vgg
+
     @master_only
     def save_training_state(self, epoch, current_iter):
         """Write the trainer's state into ``path.training_states`` as

@@ -9,6 +9,17 @@ process that feeds its own batch to its own copy of the net
 ``DistributedDataParallel`` averages the gradients in the backward. With
 equal batches on every rank that is the gradient of the global batch's
 mean loss, the JAX step's.
+
+The GAN phase's discriminator is not wrapped. One discriminator loss holds
+three forwards (real, fake and the gradient penalty's interpolates) and a
+``torch.autograd.grad(create_graph=True)`` inside, and the generator's loss
+runs it a fourth time; DDP pairs each forward with one backward and by
+default broadcasts rank 0's buffers at every forward, which would overwrite
+the running statistics the real and fake passes write. So the model keeps
+``net_d`` bare: :func:`broadcast_module` makes the ranks start equal,
+:func:`all_reduce_grads_mean` averages its gradients after the backward,
+and its norms reduce their statistics over the ranks themselves
+(:mod:`.batch_norm`), so every rank holds the same running statistics.
 """
 import torch
 import torch.distributed as dist
@@ -46,3 +57,30 @@ def all_reduce_mean(tensors):
     stacked = torch.stack([t.detach().reshape(()) for t in tensors])
     dist.all_reduce(stacked)
     return list(stacked / dist.get_world_size())
+
+
+def broadcast_module(net):
+    """Rank 0's parameters and buffers of ``net`` to every rank, in place;
+    nothing outside a process group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    with torch.no_grad():
+        for tensor in net.state_dict().values():
+            dist.broadcast(tensor, 0)
+
+
+def all_reduce_grads_mean(params):
+    """The gradients of ``params`` averaged over the ranks, in place, in
+    one all-reduce (what DDP's backward does for a wrapped net); nothing
+    outside a process group."""
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()

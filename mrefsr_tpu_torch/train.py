@@ -25,7 +25,9 @@ Where the JAX CLI's choices were the TPU's, this one decides otherwise:
   an iteration and logs, saves and validates at each multiple of
   ``print_freq``, ``save_checkpoint_freq`` and ``val_freq``, where the JAX
   CLI fires where a wave of steps crosses one (with waves of 16 and
-  ``print_freq`` 100 it logs at 112; this loop logs at 100).
+  ``print_freq`` 100 it logs at 112; this loop logs at 100). A wave that
+  crosses ``net_g_pretrain_steps`` needs no special case either: the
+  iteration after the boundary is the first GAN step.
 * **Prefetch.** ``prefetch_mode: device`` copies the batches on a thread of
   their own and turns uint8 into float32 on the card
   (``data/prefetch_dataloader.py``); ``cuda`` copies on a side stream of
@@ -34,8 +36,8 @@ Where the JAX CLI's choices were the TPU's, this one decides otherwise:
   kernel before ``init_dist``, so that no first-launch ``nvcc`` run falls
   inside the collectives' 60 s timeout.
 * **Preemption.** The first SIGTERM or SIGINT sets a flag; the loop ends
-  the iteration, saves ``<iter>.state`` and ``net_g_<iter>.pth`` and
-  returns, and the process exits 0. A second signal kills. Every rank of a
+  the iteration, saves ``<iter>.state`` and ``net_g_<iter>.pth`` (and
+  ``net_d_<iter>.pth`` in a GAN run) and returns, and the process exits 0. A second signal kills. Every rank of a
   run must get the signal (launchers forward it). ``--auto_resume`` takes
   the newest ``.state`` under ``path.training_states``, loaded onto the
   rank's device, and the loop goes on from its iteration and epoch. The

@@ -3,8 +3,28 @@
 Same semantics as ``mrefsr_tpu/utils/registry.py`` (itself a rebuild of
 the reference's basicsr/utils/registry.py:4-88): objects are looked up by
 the ``type:`` strings of experiment options, with a package-suffix
-fallback and the reference's ``_basicsr`` suffix fallback.
+fallback and the reference's ``_basicsr`` suffix fallback. A name the JAX
+package registers and the port does not yet (:data:`PENDING`) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
+
+# the JAX package's names the port has still to port, by registry, with
+# their ROADMAP items
+PENDING = {
+    'model': {'SRModel': 'A6', 'EDVRModel': 'A7', 'VideoBaseModel': 'A7',
+              'VideoRecurrentModel': 'A7', 'VideoGANModel': 'A8',
+              'VideoRecurrentGANModel': 'A8', 'ESRGANModel': 'A9',
+              'SRGANModel': 'A9', 'SwinIRModel': 'A9',
+              'SwinIRGANModel': 'A9', 'RealESRGANModel': 'A10',
+              'RealESRNetModel': 'A10', 'HiFaceGANModel': 'A11'},
+    'arch': {'VGGStyleDiscriminator': 'A9', 'UNetDiscriminatorSN': 'A10',
+             'HiFaceGANDiscriminator': 'A11'},
+    'dataset': {'PairedImageDataset': 'A6', 'SISRMegaDepthDataset': 'A6',
+                'SISRCUFEDDataset': 'A6', 'SingleImageDataset': 'A6',
+                'REDSDataset': 'A7', 'REDSRecurrentDataset': 'A7',
+                'Vimeo90KDataset': 'A7', 'VideoTestDataset': 'A7',
+                'RealESRGANDataset': 'A10', 'FFHQDataset': 'A11'},
+}
 
 
 class Registry:
@@ -54,6 +74,10 @@ class Registry:
             # reference-compat: classes the reference registered with its
             # '_basicsr' suffix keep resolving (registry.py:65-72)
             ret = self._obj_map.get(name + '_basicsr')
+        if ret is None and name in PENDING.get(self._name, {}):
+            raise NotImplementedError(
+                f"{self._name} '{name}' is not ported yet (ROADMAP "
+                f'{PENDING[self._name][name]})')
         if ret is None:
             raise KeyError(
                 f"No object named '{name}' found in '{self._name}' registry! "

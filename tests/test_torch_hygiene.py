@@ -198,25 +198,45 @@ def test_model_refuses_what_is_not_ported():
     """Options of parts that are not ported raise and name the roadmap
     item; none is silently ignored. The options without any of them
     build, and so do they with the bf16 mixed precision of training and
-    of eval, which is ported."""
+    of eval, and with the GAN phase's keys (ROADMAP A4, ported). Every
+    name the port refuses is one the JAX package registers."""
+    from mrefsr_tpu.utils import registry as jax_registry
+    from mrefsr_tpu_torch.utils.registry import PENDING
     assert build_model(_tiny_train_opt(), device='cpu').is_train
     opt = _tiny_train_opt()
     opt['train']['mixed_precision'] = 'bfloat16'
     opt['val'] = {'mixed_precision': 'bfloat16'}
     model = build_model(opt, device='cpu')
     assert model.train_dtype == model.eval_dtype == torch.bfloat16
+    opt = _tiny_train_opt()
+    opt['network_d'] = {'type': 'ImageDiscriminator', 'ndf': 4}
+    opt['train'].update(
+        gan_type='wgan', gan_weight=1e-5, lr_d=1e-4,
+        perceptual_opt={'layer_weights': {'relu5_1': 1.0}},
+        style_opt={'layer_weights': {'relu1_1': 1.0}, 'style_weight': 1.})
+    model = build_model(opt, device='cpu')
+    assert model.net_d is not None and model.cri_style is not None
     for where, key, value, item in [
-            ('train', 'perceptual_opt', {'layer_weights': {'relu5_1': 1.0}},
-             'ROADMAP A4'),
-            ('train', 'style_opt', {'layer_weights': {'relu1_1': 1.0}},
-             'ROADMAP A4'),
-            ('train', 'gan_type', 'wgan', 'ROADMAP A4'),
-            (None, 'network_d', {'type': 'ImageDiscriminator'},
-             'ROADMAP A4')]:
+            (None, 'model_type', 'SRModel', 'ROADMAP A6'),
+            (None, 'model_type', 'EDVRModel', 'ROADMAP A7'),
+            (None, 'network_d', {'type': 'VGGStyleDiscriminator'},
+             'ROADMAP A9'),
+            (None, 'network_d', {'type': 'UNetDiscriminatorSN'},
+             'ROADMAP A10')]:
         opt = _tiny_train_opt()
-        (opt if where is None else opt.setdefault(where, {}))[key] = value
+        opt['train']['gan_type'] = 'wgan'
+        opt[key] = value
         with pytest.raises(NotImplementedError, match=item):
             build_model(opt, device='cpu')
+    jax_names = {'model': jax_registry.MODEL_REGISTRY,
+                 'arch': jax_registry.ARCH_REGISTRY,
+                 'dataset': jax_registry.DATASET_REGISTRY}
+    import mrefsr_tpu.archs  # noqa: F401  (fill the JAX registries)
+    import mrefsr_tpu.data  # noqa: F401
+    import mrefsr_tpu.models  # noqa: F401
+    for kind, names in PENDING.items():
+        for name in names:
+            jax_names[kind].get(name)       # raises where it is unknown
 
 
 def test_seeded_weights_are_reproducible():
@@ -277,6 +297,62 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
         assert np.isfinite(model.get_current_log()['l_pix'])
     assert [kernel.launches for kernel in KERNELS] == before
     assert _build._libs == {}
+
+
+def test_cpu_tensors_never_reach_a_kernel_in_the_gan_and_ref_steps(
+        monkeypatch):
+    """A bf16 pixel step, then a GAN step (the penalty's double backward
+    included), of either alignment, and a single-ref request and step, on
+    the CPU, launch no kernel and build no library."""
+    monkeypatch.setattr(correlation, '_prologue_cuda', _refuse)
+    monkeypatch.setattr(correlation, '_match_patches_cuda', _refuse)
+    monkeypatch.setattr(dcn, '_mdcn_fused_forward_cuda', _refuse)
+    monkeypatch.setattr(dcn, '_mdcn_fused_backward_cuda', _refuse)
+    monkeypatch.setattr(dcn._DeformSample, 'apply', _refuse)
+    before = [kernel.launches for kernel in KERNELS]
+    rng = np.random.RandomState(1)
+    batch = {'img_in': rng.rand(1, 32, 32, 3),
+             'img_in_lq': rng.rand(1, 8, 8, 3),
+             'img_in_up': rng.rand(1, 32, 32, 3),
+             'img_ref_list': rng.rand(1, 2, 32, 32, 3)}
+    for alignment in ('dcn', 'flow'):
+        opt = _tiny_train_opt()
+        opt['network_g']['alignment'] = alignment
+        opt['network_d'] = {'type': 'ImageDiscriminator', 'ndf': 4}
+        opt['train'].update(mixed_precision='bfloat16', gan_type='wgan',
+                            gan_weight=1e-5, grad_penalty_weight=10.,
+                            lr_d=1e-4, net_g_pretrain_steps=1)
+        model = build_model(opt, device='cpu')
+        for step in (1, 2):
+            model.feed_data(batch)
+            model.optimize_parameters(step)
+            assert all(np.isfinite(v)
+                       for v in model.get_current_log().values())
+    opt = _tiny_train_opt()
+    opt.update(model_type='RefRestorationModel',
+               network_extractor={'type': 'ContrasExtractorSep'})
+    opt['network_g']['type'] = 'RestorationNet'
+    model = build_model(opt, device='cpu')
+    single = dict(batch, img_ref=batch['img_ref_list'][:, 0])
+    del single['img_ref_list']
+    model.feed_data(single)
+    model.test()
+    assert np.isfinite(model.get_current_visuals()['rlt']).all()
+    model.optimize_parameters(1)
+    assert np.isfinite(model.get_current_log()['l_pix'])
+    assert [kernel.launches for kernel in KERNELS] == before
+    assert _build._libs == {}
+
+
+def test_scan_covers_the_gan_and_single_ref_modules():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ('parallel/batch_norm.py', 'archs/discriminator_arch.py',
+                   'archs/ref_restoration_arch.py', 'losses/loss_util.py',
+                   'losses/legacy_losses.py',
+                   'models/ref_restoration_model.py',
+                   'data/ref_megadepth_dataset.py',
+                   'data/ref_cufed_dataset.py'):
+        assert f'mrefsr_tpu_torch/{module}' in names
 
 
 def test_cpu_tensors_never_reach_the_stylegan2_kernels(monkeypatch):

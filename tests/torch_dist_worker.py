@@ -60,13 +60,29 @@ def train_opt(alignment, root, dist=True):
     }
 
 
-def batch(rng, b):
-    """A training batch of ``b`` samples in the dry run's shapes."""
+def gan_opt(alignment, root, dist=True, pretrain=0):
+    """The JAX model tests' GAN options (``ImageDiscriminator`` of ndf 4,
+    wgan, ``gan_weight`` 1e-5, penalty 10) on :func:`train_opt`'s, G
+    updating every ``net_d_steps: 2`` GAN steps after the first."""
+    opt = train_opt(alignment, root, dist)
+    opt['network_d'] = {'type': 'ImageDiscriminator', 'in_nc': 3, 'ndf': 4}
+    opt['train'].update(
+        net_g_pretrain_steps=pretrain, net_d_steps=2, net_d_init_steps=1,
+        lr_d=1e-4, weight_decay_d=0, beta_d=[0.9, 0.999], gan_type='wgan',
+        gan_weight=1e-5, grad_penalty_weight=10.0,
+        scheduler={'type': 'MultiStepLR', 'milestones': [300000],
+                   'gamma': 0.5})
+    return opt
+
+
+def batch(rng, b, gt=GT):
+    """A training batch of ``b`` samples in the dry run's shapes (at
+    ``gt``)."""
     return {
-        'img_in': rng.rand(b, GT, GT, 3).astype(np.float32),
-        'img_in_lq': rng.rand(b, GT // 4, GT // 4, 3).astype(np.float32),
-        'img_in_up': rng.rand(b, GT, GT, 3).astype(np.float32),
-        'img_ref_list': rng.rand(b, T, GT, GT, 3).astype(np.float32),
+        'img_in': rng.rand(b, gt, gt, 3).astype(np.float32),
+        'img_in_lq': rng.rand(b, gt // 4, gt // 4, 3).astype(np.float32),
+        'img_in_up': rng.rand(b, gt, gt, 3).astype(np.float32),
+        'img_ref_list': rng.rand(b, T, gt, gt, 3).astype(np.float32),
     }
 
 
@@ -345,8 +361,50 @@ def run_ddp_bf16(spec, rank, world):
     return report
 
 
+def _recorded_grads(optimizer, net, record):
+    """Append ``net``'s gradients by name to ``record`` at each step of
+    ``optimizer``, before it steps."""
+    step = optimizer.step
+
+    def recording(*args, **kwargs):
+        record.append({n: p.grad.detach().clone()
+                       for n, p in net.named_parameters()})
+        return step(*args, **kwargs)
+
+    optimizer.step = recording
+
+
+def run_ddp_gan(spec, rank, world):
+    """GAN steps (G on each) of the ``dcn`` model with
+    ``dist: true`` on this rank's sample, and the same on every rank in
+    one process without DDP on the global batch: D's and G's gradients at
+    each step, D's state and the logs."""
+    from mrefsr_tpu_torch.models import build_model
+    report = {}
+    for prefix, dist_on, rows in (('', True, rank), ('single_', False,
+                                                      None)):
+        opt = gan_opt('dcn', '', dist=dist_on)
+        opt['train'].update(net_d_steps=1, net_d_init_steps=0)
+        model = build_model(opt, device='cpu')
+        d_grads, g_grads = [], []
+        _recorded_grads(model.optimizer_d, model.net_d, d_grads)
+        _recorded_grads(model.optimizer_g,
+                        model.get_bare_model(model.net_g), g_grads)
+        for step, full in enumerate(spec['batches'], 1):
+            model.feed_data(_rank_batch(full, rows) if dist_on else
+                            {k: v.numpy() for k, v in full.items()})
+            model.optimize_parameters(step)
+        report[prefix + 'd_grads'] = d_grads
+        report[prefix + 'g_grads'] = g_grads
+        report[prefix + 'd_state'] = {k: v.clone() for k, v in
+                                      model.net_d.state_dict().items()}
+        report[prefix + 'log'] = model.get_current_log()
+        del model
+    return report
+
+
 TASKS = {'sharded_match': run_sharded_match, 'ddp': run_ddp,
-         'ddp_bf16': run_ddp_bf16}
+         'ddp_bf16': run_ddp_bf16, 'ddp_gan': run_ddp_gan}
 
 
 def main():
