@@ -2,11 +2,12 @@
 """Drive the port's main paths on one NVIDIA GPU: the 5-ref CUFED5 eval
 forward, the stage-3 training step with both alignments, in f32 and in the
 shipped bf16 mixed precision, StyleGAN2 sampling and training, video SR
-inference (BasicVSR++, EDVR, BasicVSR), stage-3 training, validation
-and the sharded patch match over two ranks, the WGAN-GP phase after the
-pixel steps (one process and two ranks), the single-ref model, and the
-training and test CLIs on the shipped YAMLs with the data loader in the
-loop.
+inference (BasicVSR++, EDVR, BasicVSR) and training (EDVR-M, BasicVSR,
+BasicVSR++, MSRResNet through ``SRModel`` and the CLIs), stage-3 training,
+validation and the sharded patch match over two ranks, the WGAN-GP phase
+after the pixel steps (one process and two ranks), the single-ref model,
+and the training and test CLIs on the shipped YAMLs with the data loader
+in the loop.
 
     python3 chip_smoke.py        # from the root of a checkout
     python3 chip_smoke.py --repeat-grads 20   # only the whole-net gradient
@@ -17,6 +18,7 @@ loop.
     python3 chip_smoke.py --cli  # only the CLI phase (11f)
     python3 chip_smoke.py --gan  # only the GAN phases (11g)
     python3 chip_smoke.py --ref  # only the single-ref phases (11h)
+    python3 chip_smoke.py --video  # only the video training phases (16b)
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``). Phases, one JSON line each (one per shape where a
@@ -196,6 +198,30 @@ phase runs several):
 16. basicvsr_serve: BasicVSR (64 features, 30 blocks) through
     ``inference`` on one 15-frame chunk: time only (no kernel of this
     repository on its path);
+16b. the video training phases, on a synthetic REDS (two clips of 100
+    frames, LQ 180x320, GT 720x1280, written to a temporary directory)
+    and seeded weights at the widths of BasicSR's training YAMLs
+    (``YAML_SOURCES``; each cut in the line's ``reduced``).
+    ``video_train``: EDVR-M woTSA (f32, bf16), EDVR-M with TSA across
+    ``tsa_iter`` 2, BasicVSR (64, 30 blocks) and BasicVSR++ (the REDS
+    configuration; f32, bf16) through ``SRModel``'s step at B 4, gt 256,
+    5 or 15 frames: the gradients through the kernels against the plain
+    versions behind the same forward at B 1 (``TRAIN_GRAD_REL_TOL``, at
+    bf16 ``TRAIN_GRAD_BF16_TOL``), from fresh weights and again after the
+    timed steps, two warm-ups (the frozen parameters, of which there must
+    be some, bit-equal through iteration 1, then moving), ten timed steps
+    that launch exactly K2's forward, scatter dgrad, wgrad and sum at the
+    step's type (BasicVSR none), peak memory, a profile with the scatter
+    apart (``k2_dgrad_scatter_ms``); ``video_scatter``: the scatter dgrad
+    alone at those steps' shapes, what one launch writes held to the
+    plain version (``_k2_tol``), timed beside the dgrad without grad x and
+    cuDNN's grad input; ``sr_train``: MSRResNet (64, 16 blocks) at gt 128,
+    B 16, f32 and bf16, no kernel of this repository; ``cli_video``: the
+    EDVR-M woTSA YAML through ``train_pipeline`` for 60 iterations (3
+    loader threads, the device prefetcher, validation at 20, 40, 60 on a
+    20-frame clip), SIGTERM and ``--auto_resume`` in processes of their
+    own, beside them ``python -m mrefsr_tpu_torch.test`` with BasicVSR on
+    a 100-frame folder, its saved frames bit for bit this process's;
 17. ddp: two ranks started with ``torch.multiprocessing`` (spawn) under
     the torchrun env contract, each joining through the port's
     ``init_dist('pytorch')``: NCCL with a card a rank where there are two
@@ -883,7 +909,7 @@ def _sum_records(name, shapes, extra):
             'kernel_only_with_grad_x_ms', 'kernel_only_with_grad_x_call_ms',
             'with_grad_x_ms', 'with_grad_x_call_ms', 'plain_ms',
             'plain_call_ms', 'library_ms', 'library_call_ms', 'bound_ms',
-            'bound_f32_cuda_cores_ms')
+            'bound_f32_cuda_cores_ms', 'bound_with_atomics_ms')
     total = {k: sum(rec[k] for rec in shapes) for k in keys
              if k in shapes[0]}
     ops_s = sum(rec.get('ops_s', rec['flops'] / PEAK_F32_FLOPS)
@@ -1014,7 +1040,8 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
     col2im = (20.0 * rows * 9 * c, PEAK_F32_FLOPS)
     sample = (9.0 * rows * 9 * c, PEAK_F32_FLOPS)
     # every input read once, every output written once: grad offset (f32)
-    # and mask, grad x (f32), the f32 partials of grad weight and bias
+    # and mask, grad x at x's type (as the Function returns it), the f32
+    # partials of grad weight and bias
     ins = size * (cot.numel() + x.numel() + mask.numel()) \
         + 4.0 * offset.numel()
     outs_bytes = size * mask.numel() + 4.0 * offset.numel()
@@ -1022,7 +1049,7 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
         'dgrad': ([mm, col2im], ins + size * weight.numel() + outs_bytes,
                   lambda: plain((1, 2)), lambda: library(x_nchw)),
         'dgrad_scatter': ([mm, col2im], ins + size * weight.numel()
-                          + outs_bytes + 4.0 * x.numel(),
+                          + outs_bytes + size * x.numel(),
                           lambda: plain((0, 1, 2)), lambda: library(x_nchw)),
         'wgrad': ([mm, sample], ins + 4.0 * partial.numel(),
                   lambda: plain((3,)), lambda: library(w_oihw)),
@@ -1058,7 +1085,17 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
                                      .abs().max())
                                for name, g in got.items()),
             'max_rel_err': max(errs.values()), 'rel_err': errs}
+    recs['dgrad_scatter']['bound_with_atomics_ms'] = scatter_atomics_bound(
+        spec['dgrad_scatter'][0], spec['dgrad_scatter'][1], x)
     return recs
+
+
+def scatter_atomics_bound(flops, nbytes, x):
+    """The bound of K2's scatter dgrad with what its atomics cost beside
+    the work: grad x read and written in f32 (8 bytes an element) where
+    the work writes it once at x's type. Reported beside ``bound_ms``,
+    never in its place."""
+    return bound(flops, nbytes + (8.0 - x.element_size()) * x.numel())[0]
 
 
 def phase_mdcn_backward(dcn, dtype=torch.float32):
@@ -1625,8 +1662,7 @@ def phase_dcn_modules(arch_util, mrapa_arch, dcn, kernels):
     entry points launched (x takes a gradient: dgrad's scatter variant,
     not dgrad). Returns
     the launch counts of the kernels' runs."""
-    from mrefsr_tpu_torch.models.multi_ref_restoration_model import \
-        cast_tensors
+    from mrefsr_tpu_torch.models.base_model import cast_tensors
     n, h, w, c = EDVR_L1
     gen = torch.Generator().manual_seed(SEED + 18)
     with torch.device('meta'):
@@ -2483,7 +2519,14 @@ TRAIN_GRAD_REL_TOL = 1e-3
 # and the column gradients, and through them every gradient before the
 # DCN, by a bf16 ulp or so of a tensor's entries. Measured (H100, the first
 # run of these phases): worst tensor 0.0066 (0.84 EPS_BF16) after 6 steps,
-# median 0; from fresh weights 0.0011.
+# median 0; from fresh weights 0.0011. The video steps (video_train) hold
+# the same rule: there grad x goes through K2's scatter, whose f32 atomics
+# add in an order that varies from run to run, and at bf16 it is rounded
+# after the sum, so an order that moves a sum across a rounding boundary
+# moves grad x by one bf16 ulp and every gradient upstream with it.
+# Measured (H100, their first run, fresh weights): f32 worst tensor 1.4e-6
+# (EDVR-M) and 1.2e-6 (BasicVSR++); bf16 0.0067 (0.86 EPS_BF16, EDVR-M) and
+# 0.0114 (1.45 EPS_BF16, BasicVSR++, SpyNet's first conv).
 TRAIN_GRAD_BF16_TOL = 4 * EPS_BF16
 
 
@@ -3750,13 +3793,25 @@ def phase_profile(path, run, top=12):
     emit(profile_record(path, run, top))
 
 
+def _is_k2_scatter(name):
+    """Whether a profiled kernel is K2's dgrad with the grad-x scatter
+    (``mdcn_fused::dgrad_kernel<T, BN, kScatter, kMask>``, kScatter
+    true)."""
+    import re
+    m = re.search(r'mdcn_fused::dgrad_kernel<([^>]*)>', name)
+    args = [a.strip() for a in m.group(1).split(',')] if m else []
+    return len(args) >= 3 and args[2] in ('true', '1')
+
+
 def profile_record(path, run, top=12):
-    """:func:`phase_profile`'s line, returned rather than printed."""
+    """:func:`phase_profile`'s line, returned rather than printed. Only the
+    device is traced (its kernels are all the line reads): tracing the
+    host's operators too would add to ``wall_ms`` and so to the idle
+    share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -3779,10 +3834,13 @@ def profile_record(path, run, top=12):
     library = sum(ms for ms, _, key in kernels
                   if any(mark in key for mark in LIBRARY_MARKS)
                   and not any(name in key for name in OWN_KERNELS))
+    scatter = sum(ms for ms, _, key in kernels if _is_k2_scatter(key))
+    k2 = sum(ms for ms, _, key in kernels if 'mdcn_fused::' in key)
     return {'phase': 'profile', 'path': path, 'wall_ms': wall_ms,
             'device_busy_ms': busy,
             'device_idle_share': 1 - busy / wall_ms if busy else None,
-            'hand_written_ms': own, 'cudnn_cublas_ms': library,
+            'hand_written_ms': own, 'k2_dgrad_scatter_ms': scatter,
+            'k2_other_ms': k2 - scatter, 'cudnn_cublas_ms': library,
             'other_ms': busy - library - sum(own.values()),
             'top_kernels': [{'ms': ms, 'calls': n, 'name': name[:90]}
                             for ms, n, name in kernels[:top]]}
@@ -3872,7 +3930,8 @@ class _LogLines(logging.Handler):
         return out
 
 
-def _cli_train(train_pipeline, root, args, kernels, batch, first, last):
+def _cli_train(train_pipeline, root, args, kernels, batch, first, last,
+               model_cls=None):
     """``train_pipeline(root, args)`` in this process, the launches counted
     and the model's validation seen: returns the model, the launches of
     the training iterations (those before the first validation) and of the
@@ -3880,13 +3939,14 @@ def _cli_train(train_pipeline, root, args, kernels, batch, first, last):
     from the host times of their log lines (a log line reads the loss, so
     it waits for the step); peak memory before the first validation (the
     training's) and over the run (an f32 500x500 validation's)."""
-    from mrefsr_tpu_torch.models.multi_ref_restoration_model import \
-        MultiRefRestorationModel
+    if model_cls is None:
+        from mrefsr_tpu_torch.models.multi_ref_restoration_model import \
+            MultiRefRestorationModel as model_cls
     lines = _LogLines()
     logger = logging.getLogger('mrefsr_tpu_torch')
     logger.addHandler(lines)
     at_validation, peak_train = {}, []
-    validation = MultiRefRestorationModel.validation
+    validation = model_cls.validation
 
     def counted_validation(model, *args, **kwargs):
         if not at_validation:
@@ -3899,8 +3959,7 @@ def _cli_train(train_pipeline, root, args, kernels, batch, first, last):
     reset_counts(kernels)
     t0 = time.perf_counter()
     try:
-        with mock.patch.object(MultiRefRestorationModel, 'validation',
-                               counted_validation):
+        with mock.patch.object(model_cls, 'validation', counted_validation):
             model = train_pipeline(root, args=args)
     finally:
         logger.removeHandler(lines)
@@ -5081,6 +5140,755 @@ def phase_ref_eval(build_model, correlation, dcn, kernels, dtype):
     return launches
 
 
+# ----------------------------------------------------------- video training
+# The video training phases (video_train, sr_train, cli_video): full width
+# by BasicSR's published training YAMLs, EDVR-M's options/train/EDVR/
+# train_EDVR_M_x4_SR_REDS_woTSA.yml (and train_EDVR_M_x4_SR_REDS.yml with
+# TSA), BasicVSR's options/train/BasicVSR/train_BasicVSR_REDS.yml and
+# MSRResNet's options/train/SRResNet_SRGAN/train_MSRResNet_x4.yml, on
+# synthetic data in REDS's layout and seeded weights. No BasicVSR++
+# training YAML is in the repository or the JAX package's tests: its net is
+# the REDS configuration of inference/inference_basicvsrpp.py (mid 64, 7
+# blocks, residue 10), its train block and data BasicVSR's.
+REDS_FRAMES, REDS_LQ = 100, (180, 320)      # a REDS clip, its LQ frames
+VAL_FRAMES = 20                 # cli_video's validation clip (011)
+VIDEO_B, VIDEO_GT = 4, 256
+VIDEO_WARMUP, VIDEO_STEPS = 2, 10
+CUT = 2                    # tsa_iter (YAML 50000) and fix_flow (YAML 5000)
+SR_B, SR_GT, SR_IMAGES = 16, 128, 16
+YAML_SOURCES = {
+    'edvr': 'BasicSR options/train/EDVR/train_EDVR_M_x4_SR_REDS_woTSA.yml',
+    'edvr_tsa': 'BasicSR options/train/EDVR/train_EDVR_M_x4_SR_REDS.yml',
+    'basicvsr': 'BasicSR options/train/BasicVSR/train_BasicVSR_REDS.yml',
+    'basicvsrpp': 'net: inference/inference_basicvsrpp.py REDS_KWARGS '
+                  '(BasicSR test_BasicVSRPP_REDS.yml); train block and data: '
+                  'BasicSR options/train/BasicVSR/train_BasicVSR_REDS.yml',
+    'sr': 'BasicSR options/train/SRResNet_SRGAN/train_MSRResNet_x4.yml'}
+def _smooth_clip(seed, frames, h, w):
+    """``frames`` uint8 BGR frames (h, w, 3) of one smooth seeded scene
+    moving 1 pixel down and 2 right a frame (SpyNet has motion to find)."""
+    gen = torch.Generator().manual_seed(seed)
+    bh, bw = h + frames, w + 2 * frames
+    base = torch.nn.functional.interpolate(
+        torch.rand((1, 3, bh // 16 + 4, bw // 16 + 4), generator=gen),
+        size=(bh, bw), mode='bicubic', align_corners=False).clamp(0, 1)[0]
+    base = (base * 255).round().to(torch.uint8).permute(1, 2, 0).numpy()
+    return [np.ascontiguousarray(base[i:i + h, 2 * i:2 * i + w])
+            for i in range(frames)]
+
+
+def _reds_data(root):
+    """A synthetic REDS under ``root``: clips ``000`` (of REDS4, the test
+    CLI's folder) and ``001`` (training) of ``REDS_FRAMES`` frames and
+    ``011`` (of REDS4, ``cli_video``'s validation) of ``VAL_FRAMES``, GT
+    720x1280 (``train_sharp``) and LQ 180x320 (``train_sharp_bicubic/X4``,
+    OpenCV's area resize), PNG, and the meta-info files (the training
+    set's, clip 011's, clip 000's). Returns the paths."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+    h, w = REDS_LQ
+    gt_root = os.path.join(root, 'train_sharp')
+    lq_root = os.path.join(root, 'train_sharp_bicubic', 'X4')
+    jobs = []
+    clips = (('000', REDS_FRAMES), ('001', REDS_FRAMES), ('011', VAL_FRAMES))
+    for k, (clip, frames) in enumerate(clips):
+        for d in (gt_root, lq_root):
+            os.makedirs(os.path.join(d, clip))
+        for i, gt in enumerate(_smooth_clip(SEED + 30 + k, frames,
+                                            4 * h, 4 * w)):
+            jobs.append((os.path.join(gt_root, clip, f'{i:08d}.png'), gt))
+            jobs.append((os.path.join(lq_root, clip, f'{i:08d}.png'),
+                         cv2.resize(gt, (w, h),
+                                    interpolation=cv2.INTER_AREA)))
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: cv2.imwrite(
+            job[0], job[1], [cv2.IMWRITE_PNG_COMPRESSION, 1]), jobs))
+    meta = os.path.join(root, 'meta_info_REDS.txt')
+    with open(meta, 'w') as f:
+        f.write(''.join(f'{c} {REDS_FRAMES} ({4 * h},{4 * w},3)\n'
+                        for c in ('000', '001')))
+    out = {'gt': gt_root, 'lq': lq_root, 'meta': meta}
+    for key, (clip, frames) in (('meta_test', clips[0]),
+                                ('meta_val', clips[2])):
+        out[key] = os.path.join(root, f'meta_info_REDS4_{clip}.txt')
+        with open(out[key], 'w') as f:
+            f.write(f'{clip} {frames} ({4 * h},{4 * w},3)\n')
+    return out
+
+
+def _reds_train_set(data, recurrent):
+    """The YAMLs' training set: REDS4 held out, gt 256, flips and
+    rotations, interval 1, no reverse; 5 frames for EDVR, 15 recurrent."""
+    opt = {'name': 'REDS', 'phase': 'train', 'scale': 4,
+           'dataroot_gt': data['gt'], 'dataroot_lq': data['lq'],
+           'meta_info_file': data['meta'], 'val_partition': 'REDS4',
+           'io_backend': {'type': 'disk'}, 'gt_size': VIDEO_GT,
+           'interval_list': [1], 'random_reverse': False,
+           'use_hflip': True, 'use_rot': True}
+    if recurrent:
+        opt.update(type='REDSRecurrentDataset', num_frame=15,
+                   test_mode=False)
+    else:
+        opt.update(type='REDSDataset', num_frame=5, dataroot_flow=None)
+    return opt
+
+
+def _video_batch(dataset_opt, seed, b=VIDEO_B):
+    """``b`` samples of the set, from its seeded draws, collated."""
+    from mrefsr_tpu_torch.data import build_dataset, default_collate
+    dataset = build_dataset(dataset_opt, seed=seed)
+    step = len(dataset) // b
+    return default_collate([dataset[i * step] for i in range(b)])
+
+
+def _video_train_opt(kind, dtype=torch.float32):
+    """The model options of ``kind`` (edvr, edvr_tsa, basicvsr,
+    basicvsrpp) at full width: the YAMLs' network and train blocks,
+    ``tsa_iter`` / ``fix_flow`` cut to ``CUT``."""
+    from mrefsr_tpu_torch.inference.inference_basicvsrpp import REDS_KWARGS
+    if kind.startswith('edvr'):
+        net = dict(type='EDVR', **EDVR_M, with_predeblur=False,
+                   hr_in=False)
+        net['with_tsa'] = kind == 'edvr_tsa'
+        train = {'optim_g': {'type': 'Adam', 'lr': 4e-4,
+                             'betas': [0.9, 0.99]},
+                 'scheduler': {'type': 'CosineAnnealingRestartLR',
+                               'periods': [150000] * 4,
+                               'restart_weights': [1] * 4, 'eta_min': 1e-7},
+                 'total_iter': 600000, 'warmup_iter': -1, 'dcn_lr_mul': 1,
+                 'pixel_opt': {'type': 'CharbonnierLoss', 'loss_weight': 1.0,
+                               'reduction': 'sum'}}
+        if kind == 'edvr_tsa':
+            train['tsa_iter'] = CUT
+        model_type = 'EDVRModel'
+    else:
+        net = {'type': 'BasicVSR', 'num_feat': 64, 'num_block': 30} \
+            if kind == 'basicvsr' else dict(type='BasicVSRPlusPlus',
+                                            **REDS_KWARGS)
+        train = {'optim_g': {'type': 'Adam', 'lr': 2e-4,
+                             'betas': [0.9, 0.99]},
+                 'scheduler': {'type': 'CosineAnnealingRestartLR',
+                               'periods': [300000], 'restart_weights': [1],
+                               'eta_min': 1e-7},
+                 'total_iter': 300000, 'warmup_iter': -1, 'fix_flow': CUT,
+                 'flow_lr_mul': 0.125,
+                 'pixel_opt': {'type': 'CharbonnierLoss', 'loss_weight': 1.0,
+                               'reduction': 'mean'}}
+        model_type = 'VideoRecurrentModel'
+    if dtype == BF16:
+        train['mixed_precision'] = 'bfloat16'
+    return {'name': f'{kind}_train', 'model_type': model_type, 'scale': 4,
+            'num_gpu': 1, 'manual_seed': SEED, 'is_train': True,
+            'dist': False, 'network_g': net,
+            'path': {'pretrain_network_g': None, 'strict_load_g': True},
+            'train': train}
+
+
+def _liven_dcn(net, arch_util, basicvsrpp_arch, gen):
+    """Seeded non-zero offset convs (a fresh net has zeros there, which
+    samples on the grid): EDVR's ``DCNv2Pack`` as phase ``edvr`` makes
+    them, BasicVSR++'s last offset conv as ``basicvsrpp_serve``."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, arch_util.DCNv2Pack):
+                w, b = m.conv_offset.weight, m.conv_offset.bias
+                w.copy_(torch.randn(w.shape, generator=gen) * 0.01)
+                b.copy_(torch.rand(b.shape, generator=gen) * 2 - 1)
+            elif isinstance(m, basicvsrpp_arch.SecondOrderDeformableAlignment):
+                last = m.conv_offset[-1]
+                last.weight.copy_(torch.randn(last.weight.shape,
+                                              generator=gen) * 0.01)
+                last.bias.copy_(torch.randn(last.bias.shape, generator=gen)
+                                * 0.1)
+
+
+def _video_compare_grads(model, dcn_modules, dcn, batch):
+    """``_compare_grads`` for an ``SRModel``: one backward of the step's
+    loss through the kernels, through the kernels' Functions with the plain
+    forward values, and through the plain versions (``modulated_deform_
+    conv2d`` of each module of ``dcn_modules`` replaced)."""
+    model.feed_data(batch)
+
+    def backward(plain_ops=False, plain_forward=False):
+        model.net_g.zero_grad(set_to_none=True)
+        with contextlib.ExitStack() as stack:
+            if plain_ops:
+                for module in dcn_modules:
+                    stack.enter_context(mock.patch.object(
+                        module, 'modulated_deform_conv2d',
+                        dcn.modulated_deform_conv2d_ref))
+            if plain_forward:
+                stack.enter_context(mock.patch.object(
+                    dcn, '_mdcn_fused_forward_cuda',
+                    dcn._mdcn_fused_forward_ref))
+            out = model._run(model.net_g, model.train_dtype, False, model.lq)
+            loss = sum(model.losses(out, model.gt).values())
+        loss.backward()          # outside: the backward kernels all launch
+        return out.detach(), {name: p.grad.clone() for name, p
+                              in model.net_g.named_parameters()}
+
+    out_k, own = backward()
+    out_s, same = backward(plain_forward=True)
+    out_p, plain = backward(plain_ops=True)
+    model.net_g.zero_grad(set_to_none=True)
+    return {'same_forward': _rel_grad_errors(same, plain),
+            'same_forward_bit_equal': bool(torch.equal(out_s, out_p)),
+            'own_forward': _rel_grad_errors(own, plain),
+            'own_forward_bit_equal': bool(torch.equal(out_k, out_p)),
+            'out_max_abs_diff': float((out_k - out_p).abs().max())}
+
+
+def _freeze_steps(model, batch, freezes):
+    """Steps 1 and 2 (the warm-ups): with ``freeze_until`` 2 every frozen
+    parameter bit-equal through step 1, and moving at step 2. Where the
+    model ``freezes`` (``tsa_iter``, ``fix_flow``), it must freeze some
+    parameter; otherwise none."""
+    keep = model.freeze_keep
+    frozen = {n: p.detach().clone() for n, p in model.net_g.named_parameters()
+              if keep is not None and not keep(n)}
+    check(bool(frozen) == freezes, f'{len(frozen)} frozen parameters; '
+          f'the model should {"" if freezes else "not "}freeze some')
+    model.feed_data(batch)
+    model.optimize_parameters(1)
+    held = all(torch.equal(p, frozen[n])
+               for n, p in model.net_g.named_parameters() if n in frozen)
+    check(held, 'a frozen parameter moved in iteration 1')
+    model.optimize_parameters(2)
+    moved = sum(not torch.equal(p, frozen[n])
+                for n, p in model.net_g.named_parameters() if n in frozen)
+    check(not frozen or moved, 'no frozen parameter moved after the '
+          'freeze')
+    return {'freeze_until': model.freeze_until, 'frozen_tensors': len(frozen),
+            'bit_equal_through_iter_1': held, 'moved_at_iter_2': moved}
+
+
+def _video_expect(dtype):
+    """K2's entry points of a video training step with grad x: the
+    forward, the scatter dgrad, wgrad and its sum, at ``dtype`` only."""
+    tag = '_bf16' if dtype == BF16 else ''
+    return tuple(f'mdcn_fused_{e}{tag}' for e in
+                 ('fwd', 'dgrad_scatter', 'wgrad', 'wgrad_sum'))
+
+
+def phase_video_train(kind, data, kernels, dcn, modules, dtype=torch.float32):
+    """``kind``'s full-width training step at B 4 on one batch of the
+    synthetic REDS: the gradients through the kernels against the plain
+    versions behind the same forward at B 1 (nets with a DCN), two warm-ups
+    (the freeze, where ``kind`` has one), ``VIDEO_STEPS`` timed steps, their
+    launches (exactly K2's forward, scatter dgrad, wgrad and sum at the
+    step's type, nothing else; nothing for BasicVSR), peak memory and a
+    profile with the scatter apart."""
+    from mrefsr_tpu_torch.models import build_model
+    arch_util, basicvsrpp_arch, edvr_arch = modules
+    bf16 = dtype == BF16
+    tag = f'{kind}_train' + ('_bf16' if bf16 else '')
+    opt = _video_train_opt(kind, dtype)
+    recurrent = not kind.startswith('edvr')
+    batch = _video_batch(_reds_train_set(data, recurrent), SEED + 31)
+    model = build_model(opt)
+    check(model.train_dtype == dtype, f'train dtype {model.train_dtype}')
+    _liven_dcn(model.net_g, arch_util, basicvsrpp_arch,
+               torch.Generator().manual_seed(SEED + 32))
+    expect = () if kind == 'basicvsr' else _video_expect(dtype)
+    dcn_modules = {'edvr': (arch_util,), 'edvr_tsa': (arch_util,),
+                   'basicvsrpp': (basicvsrpp_arch,)}.get(kind, ())
+    compare = expect and kind != 'edvr_tsa'
+    small = {k: v[:1] for k, v in batch.items() if isinstance(v, np.ndarray)}
+    grads = trained = None
+    if compare:
+        grads = _video_compare_grads(model, dcn_modules, dcn, small)
+        _check_grads(f'{tag}, fresh weights', grads, dtype)
+    reset_counts(kernels)
+    freeze = _freeze_steps(model, batch, freezes=kind != 'edvr')
+    warm_launches = {n: k.launches for n, k in kernels.items()}
+    if kind == 'edvr_tsa':
+        _only(kernels, warm_launches, expect)
+        emit({'phase': 'video_train', 'path': tag,
+              'source': YAML_SOURCES[kind], 'network_g': opt['network_g'],
+              'batch': VIDEO_B, 'gt': VIDEO_GT, 'frames': 5,
+              'dtype': str(dtype), 'freeze': freeze,
+              'launches_2_steps': {n: v for n, v in warm_launches.items()
+                                   if v},
+              'reduced': [f'tsa_iter {CUT} (YAML 50000)', '2 steps',
+                          'one repeated batch', 'seeded weights, live '
+                          'offset convs (the YAML starts from the woTSA '
+                          'checkpoint)']})
+        return warm_launches, None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    step_ms, losses = [], []
+    for step in range(VIDEO_WARMUP + 1, VIDEO_WARMUP + VIDEO_STEPS + 1):
+        t0 = time.perf_counter()
+        model.feed_data(batch)
+        model.optimize_parameters(step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(model.get_current_log()['l_pix'])
+    launches = {n: k.launches for n, k in kernels.items()}
+    if expect:
+        _only(kernels, launches, expect)
+    else:
+        check(not any(launches.values()), f'{tag} launched {launches}')
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f'non-finite loss: {losses}')
+    for p in model.net_g.parameters():
+        state = model.optimizer_g.state[p]
+        check(p.dtype == p.grad.dtype == state['exp_avg'].dtype
+              == torch.float32, 'master parameters, gradients and Adam '
+              'state must be f32')
+    if compare:
+        trained = _video_compare_grads(model, dcn_modules, dcn, small)
+        _check_grads(f'{tag}, after {VIDEO_WARMUP + VIDEO_STEPS} steps',
+                     trained, dtype)
+    frames = batch['lq'].shape[1]
+    mean_ms = statistics.mean(step_ms)
+    reduced = ['one repeated batch', f'{VIDEO_STEPS} timed steps',
+               'seeded weights, live offset convs' if expect
+               else 'seeded weights']
+    if kind != 'edvr':
+        reduced.insert(0, f'fix_flow {CUT} (YAML 5000)')
+    emit({'phase': 'video_train', 'path': tag, 'source': YAML_SOURCES[kind],
+          'network_g': opt['network_g'], 'train': opt['train'],
+          'batch': VIDEO_B, 'gt': VIDEO_GT, 'frames': frames,
+          'dtype': str(dtype), 'step_ms': step_ms, 'mean_step_ms': mean_ms,
+          'step_ms_range': [min(step_ms), max(step_ms)],
+          'clips_per_s': VIDEO_B / mean_ms * 1e3, 'peak_mem_bytes': peak,
+          'losses': losses, 'freeze': freeze,
+          'learning_rates': model.get_current_learning_rate(),
+          'launches_10_steps': {n: v for n, v in launches.items() if v},
+          'grads_fresh_weights': grads,
+          f'grads_after_{VIDEO_WARMUP + VIDEO_STEPS}_steps': trained,
+          'grad_tolerance': (TRAIN_GRAD_BF16_TOL if bf16
+                             else TRAIN_GRAD_REL_TOL) if grads else None,
+          'out_tolerance': (SLICE_BF16_TOL if bf16 else SLICE_TOL)
+          if grads else None, 'reduced': reduced})
+
+    def one_step():
+        model.feed_data(batch)
+        model.optimize_parameters(VIDEO_WARMUP + VIDEO_STEPS + 1)
+
+    if expect:               # the profile splits K2: BasicVSR has none
+        phase_profile(tag, one_step)
+    del model
+    torch.cuda.empty_cache()
+    return launches, mean_ms
+
+
+def _sr_data(root):
+    """``SR_IMAGES`` smooth seeded 256x256 GT PNGs and their 64x64 LQ
+    (area resize), as a paired folder; the training set's options."""
+    import cv2
+    gt_dir, lq_dir = os.path.join(root, 'sr_gt'), os.path.join(root, 'sr_lq')
+    os.makedirs(gt_dir)
+    os.makedirs(lq_dir)
+    for i, gt in enumerate(_smooth_clip(SEED + 40, SR_IMAGES, 256, 256)):
+        cv2.imwrite(os.path.join(gt_dir, f'{i:04d}.png'), gt)
+        cv2.imwrite(os.path.join(lq_dir, f'{i:04d}.png'),
+                    cv2.resize(gt, (64, 64), interpolation=cv2.INTER_AREA))
+    return {'name': 'sr_train', 'type': 'PairedImageDataset',
+            'phase': 'train', 'scale': 4, 'dataroot_gt': gt_dir,
+            'dataroot_lq': lq_dir, 'io_backend': {'type': 'disk'},
+            'gt_size': SR_GT, 'use_hflip': True, 'use_rot': True}
+
+
+def phase_sr_train(root, kernels, dtype=torch.float32):
+    """``SRModel`` + MSRResNet (64 features, 16 blocks, x4) as BasicSR's
+    ``train_MSRResNet_x4.yml``: gt 128, B 16, L1, Adam 2e-4, on a paired
+    folder; two warm-ups and ``VIDEO_STEPS`` timed steps. It launches no
+    kernel of this repository (checked)."""
+    from mrefsr_tpu_torch.models import build_model
+    bf16 = dtype == BF16
+    tag = 'sr_train' + ('_bf16' if bf16 else '')
+    batch = _video_batch(_sr_data(os.path.join(root, tag)), SEED + 41,
+                         b=SR_B)
+    train = {'ema_decay': 0.999,
+             'optim_g': {'type': 'Adam', 'lr': 2e-4, 'betas': [0.9, 0.99]},
+             'scheduler': {'type': 'CosineAnnealingRestartLR',
+                           'periods': [250000] * 4,
+                           'restart_weights': [1] * 4, 'eta_min': 1e-7},
+             'total_iter': 1000000, 'warmup_iter': -1,
+             'pixel_opt': {'type': 'L1Loss', 'loss_weight': 1.0,
+                           'reduction': 'mean'}}
+    if bf16:
+        train['mixed_precision'] = 'bfloat16'
+    opt = {'name': tag, 'model_type': 'SRModel', 'scale': 4, 'num_gpu': 1,
+           'manual_seed': SEED, 'is_train': True, 'dist': False,
+           'network_g': {'type': 'MSRResNet', 'num_in_ch': 3,
+                         'num_out_ch': 3, 'num_feat': 64, 'num_block': 16,
+                         'upscale': 4},
+           'path': {'pretrain_network_g': None}, 'train': train}
+    model = build_model(opt)
+    reset_counts(kernels)
+    model.feed_data(batch)
+    for step in range(1, VIDEO_WARMUP + 1):
+        model.optimize_parameters(step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for step in range(VIDEO_WARMUP + 1, VIDEO_WARMUP + VIDEO_STEPS + 1):
+        t0 = time.perf_counter()
+        model.feed_data(batch)
+        model.optimize_parameters(step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(model.get_current_log()['l_pix'])
+    launches = {n: k.launches for n, k in kernels.items()}
+    check(not any(launches.values()), f'{tag} launched a kernel of this '
+          f'repository: {launches}')
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f'{tag} losses {losses}')
+    mean_ms = statistics.mean(step_ms)
+    emit({'phase': 'sr_train', 'path': tag, 'source': YAML_SOURCES['sr'],
+          'network_g': opt['network_g'], 'train': train, 'batch': SR_B,
+          'gt': SR_GT, 'dtype': str(dtype), 'step_ms': step_ms,
+          'mean_step_ms': mean_ms,
+          'step_ms_range': [min(step_ms), max(step_ms)],
+          'img_per_s': SR_B / mean_ms * 1e3,
+          'peak_mem_bytes': torch.cuda.max_memory_allocated(),
+          'losses': losses, 'hand_written_kernels_launched': 0,
+          'reduced': [f'a folder of {SR_IMAGES} synthetic 256x256 images '
+                      '(DIV2K sub-images in the YAML)',
+                      'one repeated batch', f'{VIDEO_STEPS} timed steps']})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# K2's grad-x scatter against the dgrad without it and cuDNN's grad input,
+# alone, at the video training steps' shapes: (case, N, C, Cout, H, W, dg)
+VIDEO_TRAIN_K2_SHAPES = (
+    ('edvr_m_l1', VIDEO_B * 5, 64, 64, 64, 64, 8),
+    ('edvr_m_l2', VIDEO_B * 5, 64, 64, 32, 32, 8),
+    ('edvr_m_l3', VIDEO_B * 5, 64, 64, 16, 16, 8),
+    ('basicvsrpp', VIDEO_B, 128, 64, 64, 64, 16))
+
+
+def phase_video_scatter(dcn, dtype=torch.float32):
+    """``mdcn_fused_dgrad_scatter`` (and its bf16 twin) alone at the
+    shapes of ``VIDEO_TRAIN_K2_SHAPES``: what one launch writes (grad x,
+    grad offset, grad mask) held to autograd of the plain version within
+    ``_k2_tol``, then its device ms beside the dgrad without grad x and
+    cuDNN's grad input (autograd of ``F.conv2d``: no gather, no grad
+    offset or mask); the bound: the dgrad's work (the grad columns'
+    product, the bilinear derivatives) and its bytes, grad x written once
+    at x's type, and beside it the bound with the atomics' f32 read and
+    write of grad x."""
+    gen = torch.Generator().manual_seed(SEED + 33)
+    _, k_dgrad, k_scatter, _, _ = dcn._fused_kernels(dtype)
+    size = torch.finfo(dtype).bits // 8
+    tol = _k2_tol(dtype)
+    recs = []
+    for case, n, c, cout, h, w, dg in VIDEO_TRAIN_K2_SHAPES:
+        x, offset, mask, weight, bias = _mdcn_inputs(
+            gen, c, h, dg=dg, n=n, dtype=dtype, w=w, cout=cout)
+        cot = torch.randn((n, h, w, cout), generator=gen).to(dtype).cuda()
+        geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, w))
+        fused = dcn._fused_args(x, offset, weight, geom)
+        g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
+        g_x = torch.zeros_like(x, dtype=torch.float32)
+        head = (cot.data_ptr(), x.data_ptr(), offset.data_ptr(),
+                mask.data_ptr(), weight.data_ptr(), g_off.data_ptr(),
+                g_mask.data_ptr())
+        k_scatter(*head, g_x.data_ptr(), *fused)
+        got = {'x': g_x.to(dtype), 'offset': g_off.clone(),
+               'mask': g_mask.clone()}
+        inputs = [t.detach().requires_grad_(i < 3) for i, t in
+                  enumerate((x, offset, mask, weight, bias))]
+        want = dict(zip(('x', 'offset', 'mask'), torch.autograd.grad(
+            dcn.modulated_deform_conv2d_ref(*inputs, deform_groups=dg),
+            inputs[:3], cot)))
+        errs = {k: _rel_err(g.float(), want[k].float())
+                for k, g in got.items()}
+        for k, err in errs.items():
+            check(err <= tol, f'video_scatter {case} {dtype}: grad {k} '
+                  f'differs by {err} of its max')
+        abs_err = max(float((g.float() - want[k].float()).abs().max())
+                      for k, g in got.items())
+        del got, want, inputs
+        x_nchw = x.permute(0, 3, 1, 2).requires_grad_()
+        w_oihw = weight.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        out_l = torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1)
+        cot_l = cot.permute(0, 3, 1, 2)
+        times = timed({
+            'ms': lambda: k_scatter(*head, g_x.data_ptr(), *fused),
+            'dgrad_ms': lambda: k_dgrad(*head, *fused),
+            'library_ms': lambda: torch.autograd.grad(
+                out_l, x_nchw, cot_l, retain_graph=True)})
+        rows = n * h * w
+        flops = [_k2_products(rows * 9.0 * c * cout, dtype),
+                 (20.0 * rows * 9 * c, PEAK_F32_FLOPS)]
+        # every input read once, every output written once: grad offset
+        # (f32) and mask, grad x at x's type (as the Function returns it)
+        nbytes = size * (cot.numel() + 2 * x.numel() + 2 * mask.numel()
+                         + weight.numel()) + 4.0 * 2 * offset.numel()
+        b_ms, b_by = bound(flops, nbytes)
+        rec = {'phase': 'video_scatter', 'case': case, 'n': n, 'c': c,
+               'cout': cout, 'h': h, 'w': w, 'deform_groups': dg,
+               'dtype': str(dtype), 'rel_err': errs, 'tolerance': tol,
+               'max_abs_err': abs_err, **times, 'bound_ms': b_ms,
+               'bound_by': b_by, 'bytes': nbytes,
+               'bound_with_atomics_ms': scatter_atomics_bound(flops, nbytes,
+                                                              x),
+               'ms_is': 'mdcn_fused_dgrad_scatter alone; dgrad_ms the '
+                        'dgrad without grad x; library_ms cuDNN grad input',
+               'timing': TIMING_NOTE}
+        emit(rec)
+        recs.append(rec)
+        del x, offset, mask, weight, bias, cot, g_off, g_mask, g_x
+        del x_nchw, out_l
+        torch.cuda.empty_cache()
+    return recs
+
+
+def _cli_video_yml(root, data, iters, val=True, name='edvr_m_wotsa_cli'):
+    """The EDVR-M woTSA YAML of ``cli_video``: the train block of
+    ``_video_train_opt('edvr')``, BasicSR's REDS training set (3 loader
+    threads a GPU, enlarge ratio 200) through the device prefetcher, and
+    validation every 20 iterations on clip 011 (``VideoTestDataset``,
+    REDS4 layout, cached), PSNR. Returns its path."""
+    import yaml
+    opt = _video_train_opt('edvr')
+    train_set = dict(_reds_train_set(data, False),
+                     batch_size_per_gpu=VIDEO_B, num_worker_per_gpu=3,
+                     dataset_enlarge_ratio=200, prefetch_mode='device')
+    train_set.pop('phase')
+    train_set.pop('scale')
+    doc = {'name': name, 'model_type': opt['model_type'], 'scale': 4,
+           'num_gpu': 1, 'manual_seed': SEED,
+           'datasets': {'train': train_set},
+           'network_g': opt['network_g'],
+           'path': {'pretrain_network_g': None, 'strict_load_g': True,
+                    'resume_state': None,
+                    'experiments_root': os.path.join(root, 'experiments')},
+           'train': dict(opt['train'], total_iter=iters),
+           'logger': {'print_freq': 10, 'save_checkpoint_freq': 30,
+                      'use_tb_logger': False},
+           'dist_params': {'backend': 'nccl', 'port': 29500}}
+    if val:
+        doc['datasets']['val'] = {
+            'name': 'REDS4', 'type': 'VideoTestDataset',
+            'dataroot_gt': data['gt'], 'dataroot_lq': data['lq'],
+            'meta_info_file': data['meta_val'], 'io_backend': {'type': 'disk'},
+            'cache_data': True, 'num_frame': 5,
+            'padding': 'reflection_circle'}
+        doc['val'] = {'val_freq': 20, 'save_img': False,
+                      'metrics': {'psnr': {'type': 'calculate_psnr',
+                                           'crop_border': 0,
+                                           'test_y_channel': False}}}
+    path = os.path.join(root, f'{name}_{iters}.yml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(doc, f)
+    return path
+
+
+CLI_VIDEO_ITERS, CLI_VIDEO_PREEMPT_AT, CLI_VIDEO_RESUME_TO = 60, 4, 10
+
+
+def _cli_video_preemption(root, data):
+    """The EDVR-M CLI in a process of its own (no validation set), SIGTERM
+    once its log shows iteration ``CLI_VIDEO_PREEMPT_AT``: exit 0 and a
+    saved ``.state``; ``--auto_resume`` goes on from it to
+    ``CLI_VIDEO_RESUME_TO``."""
+    import re
+    import signal
+    yml = _cli_video_yml(root, data, CLI_VIDEO_RESUME_TO, val=False,
+                         name='edvr_m_preempt')
+    args = ['mrefsr_tpu_torch.train', '-opt', yml, '--force_yml',
+            'logger:print_freq=2', 'logger:save_checkpoint_freq=1000']
+    log_path = os.path.join(root, 'video_preempt.log')
+    proc, out = _cli_popen(args, log_path)
+    rc, log = _cli_wait(proc, out, log_path,
+                        until=rf'iter:\s*{CLI_VIDEO_PREEMPT_AT}, lr',
+                        then=lambda: proc.send_signal(signal.SIGTERM))
+    check(rc == 0, f'the preempted video run exited {rc}:\n{log[-3000:]}')
+    m = re.search(r'saving state at iter (\d+) and stopping', log)
+    check(m is not None, f'no preemption save in the log:\n{log[-3000:]}')
+    stopped = int(m.group(1))
+    states = os.path.join(root, 'experiments', 'edvr_m_preempt',
+                          'training_states')
+    check(os.path.isfile(os.path.join(states, f'{stopped}.state'))
+          and CLI_VIDEO_PREEMPT_AT <= stopped < CLI_VIDEO_RESUME_TO,
+          f'stopped at {stopped}; states: {os.listdir(states)}')
+    log_path = os.path.join(root, 'video_resume.log')
+    proc, out = _cli_popen(args + ['--auto_resume'], log_path)
+    rc, log = _cli_wait(proc, out, log_path)
+    check(rc == 0, f'the resumed video run exited {rc}:\n{log[-3000:]}')
+    m = re.search(r'Resuming training from epoch: (\d+), iter: (\d+)\.', log)
+    iters = [int(v.replace(',', '')) for v in re.findall(
+        r'iter:\s*([\d,]+), lr', log)]
+    check(m is not None and int(m.group(2)) == stopped and iters
+          and iters[0] > stopped and iters[-1] == CLI_VIDEO_RESUME_TO
+          and 'End of training' in log,
+          f'the video run did not resume at {stopped} to '
+          f'{CLI_VIDEO_RESUME_TO}:\n{log[-3000:]}')
+    return {'sigterm_after_iter': CLI_VIDEO_PREEMPT_AT, 'stopped_at': stopped,
+            'resumed_logged': iters}
+
+
+def _cli_video_test_start(root, data):
+    """Start ``python -m mrefsr_tpu_torch.test`` with ``VideoRecurrentModel``
+    + BasicVSR (64 features, 30 blocks, seeded weights saved to a ``.pth``)
+    on clip 000 (``VideoRecurrentTestDataset``, 100 frames of 180x320),
+    saving every frame. Returns what :func:`_cli_video_test` waits on."""
+    import yaml
+    from mrefsr_tpu_torch.models import build_model
+    net = {'type': 'BasicVSR', 'num_feat': 64, 'num_block': 30}
+    seeded = build_model({'name': 'seed', 'model_type': 'VideoRecurrentModel',
+                          'scale': 4, 'manual_seed': SEED + 34,
+                          'is_train': False, 'network_g': net,
+                          'path': {'models': os.path.join(root, 'models')}})
+    weights = seeded.save_network(seeded.net_g, 'net_g', 0)
+    del seeded
+    doc = {'name': 'basicvsr_reds4_cli', 'model_type': 'VideoRecurrentModel',
+           'scale': 4, 'num_gpu': 1, 'manual_seed': SEED,
+           'datasets': {'test_1': {
+               'name': 'REDS4', 'type': 'VideoRecurrentTestDataset',
+               'dataroot_gt': data['gt'], 'dataroot_lq': data['lq'],
+               'meta_info_file': data['meta_test'],
+               'io_backend': {'type': 'disk'}, 'cache_data': True,
+               'num_frame': -1}},
+           'network_g': net,
+           'path': {'pretrain_network_g': weights, 'strict_load_g': True,
+                    'results_root': os.path.join(root, 'results')},
+           'val': {'save_img': True, 'flip_seq': False,
+                   'center_frame_only': False,
+                   'metrics': {'psnr': {'type': 'calculate_psnr',
+                                        'crop_border': 0,
+                                        'test_y_channel': False}}}}
+    yml = os.path.join(root, 'test_basicvsr.yml')
+    with open(yml, 'w') as f:
+        yaml.safe_dump(doc, f)
+    log_path = os.path.join(root, 'video_test.log')
+    proc, out = _cli_popen(['mrefsr_tpu_torch.test', '-opt', yml], log_path)
+    return yml, proc, out, log_path, time.perf_counter()
+
+
+def _cli_video_test(root, started):
+    """Wait for the test CLI of :func:`_cli_video_test_start`; then this
+    process's model from the same options and file on the same clip: every
+    saved frame equal to this process's bit for bit, the per-frame PSNR
+    array's mean the logged one. Times this process's request for the
+    whole folder."""
+    import re
+    import cv2
+    from mrefsr_tpu_torch.data import build_dataloader, build_dataset
+    from mrefsr_tpu_torch.metrics import calculate_psnr
+    from mrefsr_tpu_torch.models import build_model
+    from mrefsr_tpu_torch.utils import tensor2img
+    from mrefsr_tpu_torch.utils.options import parse_options
+    yml, proc, out, log_path, t0 = started
+    rc, log = _cli_wait(proc, out, log_path)
+    test_s = time.perf_counter() - t0
+    check(rc == 0, f'the video test.py exited {rc}:\n{log[-3000:]}')
+    logged = re.search(r'# psnr: (\S+)\t # 000: (\S+)', log)
+    check(logged is not None, f'no PSNR in the test log:\n{log[-3000:]}')
+
+    opt, _ = parse_options(root, is_train=False, args=['-opt', yml])
+    model = build_model(opt)
+    dataset_opt = opt['datasets']['test_1']
+    loader = build_dataloader(build_dataset(dataset_opt), dataset_opt)
+    sample = next(iter(loader))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.feed_data(sample)
+    model.test()
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - t0) * 1e3
+    visuals = model.get_current_visuals()
+    saved = os.path.join(opt['path']['visualization'], 'REDS4', '000')
+    psnr = []
+    for fidx in range(REDS_FRAMES):
+        img = tensor2img(visuals['result'][0, fidx])
+        cli = cv2.imread(os.path.join(saved,
+                                      f"{fidx:08d}_{opt['name']}.png"))
+        check(cli is not None and np.array_equal(cli, img),
+              f'test.py wrote another frame {fidx} than this process '
+              'computed')
+        psnr.append(calculate_psnr(img, tensor2img(visuals['gt'][0, fidx]),
+                                   crop_border=0))
+    # the folder's mean as the model takes it: over a float32 array
+    mean = f'{np.asarray(psnr, np.float32).mean():.4f}'
+    check(mean == logged.group(2), f'test.py logged PSNR {logged.group(2)}, '
+          f'this process {mean}')
+    del model, visuals
+    torch.cuda.empty_cache()
+    return {'frames': REDS_FRAMES, 'h': REDS_LQ[0], 'w': REDS_LQ[1],
+            'outputs_bit_equal': True, 'psnr_per_frame': psnr,
+            'psnr_logged': logged.group(1), 'request_ms': request_ms,
+            'test_cli_s': test_s,
+            'test_cli_s_is': 'the process, beside the preemption runs'}
+
+
+def phase_cli_video(root, data, kernels):
+    """``cli_video``: the EDVR-M woTSA YAML through ``train_pipeline`` in
+    this process for ``CLI_VIDEO_ITERS`` iterations (3 loader threads, the
+    device prefetcher, validation at 20, 40 and 60 on clip 011): img/s over
+    iterations 11-60 from the host times of the log lines, data time over
+    iteration time, peak memory, the launches (K2's f32 entries with the
+    scatter in the training iterations); SIGTERM and ``--auto_resume``; then
+    the test CLI with BasicVSR on a 100-frame folder."""
+    from mrefsr_tpu_torch.models.video_base_model import EDVRModel
+    from mrefsr_tpu_torch.train import train_pipeline
+    yml = _cli_video_yml(root, data, CLI_VIDEO_ITERS)
+    model, train_launches, launches, rec = _cli_train(
+        train_pipeline, root, ['-opt', yml], kernels, VIDEO_B, 10,
+        CLI_VIDEO_ITERS, model_cls=EDVRModel)
+    _only(kernels, train_launches, _video_expect(torch.float32))
+    psnr = float(np.mean([arr.mean() for arr in
+                          model.metric_results.values()]))
+    check(np.isfinite(psnr), f'validation PSNR {psnr}')
+    del model
+    torch.cuda.empty_cache()
+    rec.update(psnr_val=psnr, launches_training={
+        n: v for n, v in train_launches.items() if v},
+        launches_run={n: v for n, v in launches.items() if v})
+    # the test CLI's process runs beside the preemption's two
+    started = _cli_video_test_start(root, data)
+    rec['preemption'] = _cli_video_preemption(root, data)
+    rec['test'] = _cli_video_test(root, started)
+    emit({'phase': 'cli_video', 'source': YAML_SOURCES['edvr'],
+          'batch': VIDEO_B, 'gt': VIDEO_GT, 'iterations': CLI_VIDEO_ITERS,
+          **rec,
+          'reduced': [f'{CLI_VIDEO_ITERS} iterations (YAML 600000)',
+                      'two synthetic 100-frame clips (REDS: 270); one '
+                      f'validation clip of {VAL_FRAMES} frames (REDS4: 4 '
+                      'of 100)',
+                      'prefetch_mode device (YAML: unset)',
+                      'validation every 20 (YAML 5000)']})
+    return launches
+
+
+def video_phases(build_model, arch, correlation, dcn, kernels):
+    """``video_train`` (EDVR-M woTSA f32 and bf16, EDVR-M with TSA across
+    ``tsa_iter``, BasicVSR, BasicVSR++ f32 and bf16), ``video_scatter``,
+    ``sr_train`` (f32, bf16) and ``cli_video``, on a synthetic REDS written
+    to a temporary directory. Returns the launches by path."""
+    from mrefsr_tpu_torch.archs import arch_util, basicvsrpp_arch, edvr_arch
+    modules = (arch_util, basicvsrpp_arch, edvr_arch)
+    by_path = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        data = _reds_data(root)
+        emit({'phase': 'video_data', 'seconds': time.perf_counter() - t0,
+              'clips': 2, 'frames': REDS_FRAMES, 'lq': list(REDS_LQ)})
+        for kind, dtype in (('edvr', torch.float32), ('edvr', BF16),
+                            ('edvr_tsa', torch.float32),
+                            ('basicvsr', torch.float32),
+                            ('basicvsrpp', torch.float32),
+                            ('basicvsrpp', BF16)):
+            tag = f'{kind}_train' + ('_bf16' if dtype == BF16 else '')
+            by_path[tag], _ = phase_video_train(kind, data, kernels, dcn,
+                                                modules, dtype)
+        for dtype in (torch.float32, BF16):
+            phase_video_scatter(dcn, dtype)
+            tag = 'sr_train' + ('_bf16' if dtype == BF16 else '')
+            by_path[tag] = phase_sr_train(root, kernels, dtype)
+        by_path['cli_video'] = phase_cli_video(root, data, kernels)
+    return by_path
+
+
 def gan_phases(build_model, arch, dcn, kernels):
     """``gan_train`` (dcn, flow, dcn with the perceptual and style losses)
     and ``ddp_gan``. Returns the launches by path."""
@@ -5179,6 +5987,9 @@ def main():
     torch.cuda.empty_cache()
     by_path['basicvsr_serve'] = phase_basicvsr_serve(inference_basicvsr,
                                                      kernels)
+    torch.cuda.empty_cache()
+    by_path.update(video_phases(build_model, arch, correlation, dcn,
+                                kernels))
     torch.cuda.empty_cache()
     by_path['ddp'], (k6, k6b) = phase_ddp()
 
@@ -5308,6 +6119,12 @@ def main_ref():
     _main_alone(ref_phases)
 
 
+def main_video():
+    """``--video``: the video training phases alone (``video_train``,
+    ``video_scatter``, ``sr_train``, ``cli_video``)."""
+    _main_alone(video_phases)
+
+
 def main_repeat_grads(rounds):
     """``--repeat-grads N``: the whole-net gradient comparisons of the
     three training paths alone, from fresh weights and then N times more,
@@ -5411,5 +6228,7 @@ if __name__ == '__main__':
         main_gan()
     elif sys.argv[1:2] == ['--ref']:
         main_ref()
+    elif sys.argv[1:2] == ['--video']:
+        main_video()
     else:
         main()

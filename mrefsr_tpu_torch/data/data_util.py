@@ -1,8 +1,110 @@
-"""Crops and paired paths of the datasets (port of
-``mrefsr_tpu/data/data_util.py:143-184, 267``). The rest of that module
-comes with the paired and video datasets (ROADMAP A6, A7)."""
+"""Crops, paths and frame indices of the datasets (port of
+``mrefsr_tpu/data/data_util.py``, the reference's
+``basicsr/data/data_util.py``); ``read_img_seq`` is in ``utils/img_util.py``.
+``duf_downsample`` waits for DUF (ROADMAP A8) and the ``pack`` paths for
+``data/packio.py`` (A12)."""
 import os
 import os.path as osp
+
+__all__ = ['generate_frame_indices', 'match_point_crop',
+           'paired_paths_from_ann_file', 'paired_paths_from_folder',
+           'paired_paths_from_lmdb', 'paired_paths_from_meta_info_file',
+           'paths_from_folder', 'paths_from_lmdb', 'scandir']
+
+PADDINGS = ('replicate', 'reflection', 'reflection_circle', 'circle')
+
+
+def generate_frame_indices(crt_idx, max_frame_num, num_frames,
+                           padding='reflection'):
+    """The indices of the ``num_frames`` frames centred on ``crt_idx`` in a
+    clip of ``max_frame_num`` frames, those past either end replaced as
+    ``padding`` says (reference data_util.py:43-92)."""
+    if num_frames % 2 != 1:
+        raise ValueError('num_frames should be an odd number.')
+    if padding not in PADDINGS:
+        raise ValueError(f'Wrong padding mode: {padding}.')
+    max_frame_num = max_frame_num - 1  # start from 0
+    num_pad = num_frames // 2
+    indices = []
+    for i in range(crt_idx - num_pad, crt_idx + num_pad + 1):
+        if i < 0:
+            if padding == 'replicate':
+                pad_idx = 0
+            elif padding == 'reflection':
+                pad_idx = -i
+            elif padding == 'reflection_circle':
+                pad_idx = crt_idx + num_pad - i
+            else:
+                pad_idx = num_frames + i
+        elif i > max_frame_num:
+            if padding == 'replicate':
+                pad_idx = max_frame_num
+            elif padding == 'reflection':
+                pad_idx = max_frame_num * 2 - i
+            elif padding == 'reflection_circle':
+                pad_idx = (crt_idx - num_pad) - (i - max_frame_num)
+            else:
+                pad_idx = i - num_frames
+        else:
+            pad_idx = i
+        indices.append(pad_idx)
+    return indices
+
+
+def _lmdb_keys(folder):
+    """The keys an lmdb folder's ``meta_info.txt`` lists."""
+    with open(osp.join(folder, 'meta_info.txt')) as fin:
+        return [line.split('.')[0] for line in fin]
+
+
+def paired_paths_from_lmdb(folders, keys):
+    """``[{'<input key>_path', '<gt key>_path'}]``: the keys the two lmdb
+    folders' ``meta_info.txt`` list, which must be the same set, sorted
+    (reference data_util.py:95-151)."""
+    (input_folder, gt_folder), (input_key, gt_key) = folders, keys
+    if not (input_folder.endswith('.lmdb') and gt_folder.endswith('.lmdb')):
+        raise ValueError(
+            f'{input_key} folder and {gt_key} folder should both in lmdb '
+            f'formats. But received {input_key}: {input_folder}; '
+            f'{gt_key}: {gt_folder}')
+    input_keys = _lmdb_keys(input_folder)
+    if set(input_keys) != set(_lmdb_keys(gt_folder)):
+        raise ValueError(f'Keys in {input_key}_folder and {gt_key}_folder '
+                         'are different.')
+    return [{f'{input_key}_path': key, f'{gt_key}_path': key}
+            for key in sorted(input_keys)]
+
+
+def paired_paths_from_meta_info_file(folders, keys, meta_info_file,
+                                     filename_tmpl):
+    """``[{'<input key>_path', '<gt key>_path'}]`` from a meta-info file
+    whose lines start with a gt name; the input is
+    ``filename_tmpl.format(<basename>)<ext>`` (reference
+    data_util.py:154-195)."""
+    (input_folder, gt_folder), (input_key, gt_key) = folders, keys
+    with open(meta_info_file) as fin:
+        gt_names = [line.strip().split(' ')[0] for line in fin]
+    paths = []
+    for gt_name in gt_names:
+        basename, ext = osp.splitext(osp.basename(gt_name))
+        input_name = f'{filename_tmpl.format(basename)}{ext}'
+        paths.append({f'{input_key}_path': osp.join(input_folder,
+                                                    input_name),
+                      f'{gt_key}_path': osp.join(gt_folder, gt_name)})
+    return paths
+
+
+def paths_from_folder(folder):
+    """The files of ``folder`` (reference data_util.py:275-287)."""
+    return [osp.join(folder, name) for name in scandir(folder)]
+
+
+def paths_from_lmdb(folder):
+    """The keys an lmdb folder's ``meta_info.txt`` lists (reference
+    data_util.py:290-303)."""
+    if not folder.endswith('.lmdb'):
+        raise ValueError(f'Folder {folder} should in lmdb format.')
+    return _lmdb_keys(folder)
 
 
 def match_point_crop(img, center_xy, gt_h, gt_w):

@@ -1,10 +1,9 @@
 """Host-side image transforms on HWC numpy arrays (port of
-``mrefsr_tpu/data/transforms.py:13,63``, the reference's
-``basicsr/data/transforms.py:6-158``). ``augment`` draws from the
-``random.Random`` its caller passes, where the JAX package draws from
-python's global generator: the same seed gives the same draws.
-``paired_random_crop`` and ``img_rotate`` come with the paired datasets
-(ROADMAP A6)."""
+``mrefsr_tpu/data/transforms.py:13-158``, the reference's
+``basicsr/data/transforms.py:6-158``). ``paired_random_crop`` and
+``augment`` draw from the ``random.Random`` their caller passes, where the
+JAX package draws from python's global generator: the same seed gives the
+same draws. ``img_rotate`` is on no dataset's path and is not ported."""
 import numpy as np
 
 
@@ -15,6 +14,37 @@ def mod_crop(img, scale):
         raise ValueError(f'Wrong img ndim: {img.ndim}.')
     h, w = img.shape[0], img.shape[1]
     return img[:h - h % scale, :w - w % scale, ...]
+
+
+def paired_random_crop(img_gts, img_lqs, gt_patch_size, scale, gt_path=None,
+                       *, rng):
+    """One random ``gt_patch_size`` window of every gt image and the
+    ``gt_patch_size // scale`` window at the same place of every lq image
+    (reference transforms.py:26-93): two ``rng.randint`` draws, top then
+    left, in lq pixels. A single array in gives a single array out."""
+    if not isinstance(img_gts, list):
+        img_gts = [img_gts]
+    if not isinstance(img_lqs, list):
+        img_lqs = [img_lqs]
+    h_lq, w_lq = img_lqs[0].shape[0:2]
+    h_gt, w_gt = img_gts[0].shape[0:2]
+    lq_patch_size = gt_patch_size // scale
+    if h_gt != h_lq * scale or w_gt != w_lq * scale:
+        raise ValueError(f'Scale mismatches. GT ({h_gt}, {w_gt}) is not '
+                         f'{scale}x multiplication of LQ ({h_lq}, {w_lq}).')
+    if h_lq < lq_patch_size or w_lq < lq_patch_size:
+        raise ValueError(f'LQ ({h_lq}, {w_lq}) is smaller than patch size '
+                         f'({lq_patch_size}, {lq_patch_size}). '
+                         f'Please remove {gt_path}.')
+    top = rng.randint(0, h_lq - lq_patch_size)
+    left = rng.randint(0, w_lq - lq_patch_size)
+    img_lqs = [v[top:top + lq_patch_size, left:left + lq_patch_size, ...]
+               for v in img_lqs]
+    top_gt, left_gt = int(top * scale), int(left * scale)
+    img_gts = [v[top_gt:top_gt + gt_patch_size,
+                 left_gt:left_gt + gt_patch_size, ...] for v in img_gts]
+    return (img_gts[0] if len(img_gts) == 1 else img_gts,
+            img_lqs[0] if len(img_lqs) == 1 else img_lqs)
 
 
 def augment(imgs, hflip=True, rotation=True, flows=None,

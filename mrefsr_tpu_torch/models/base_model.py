@@ -14,18 +14,56 @@ In a run of several ranks (``opt['dist']``, see ``utils/dist_util.py``)
 only rank 0 writes either file, from the bare net (no ``module.``
 prefix), and every rank resumes from them onto its own device.
 """
+import logging
 import os
 from collections import OrderedDict
 
+import numpy as np
 import torch
+from torch.func import functional_call
 from torch.nn.parallel import DistributedDataParallel
 
 from mrefsr_tpu_torch.convert import load_torch_state_dict, rename_keys
+from mrefsr_tpu_torch.data.prefetch_dataloader import uint8_to_float32
+from mrefsr_tpu_torch.ops.cpu_bf16 import f32_products
 from mrefsr_tpu_torch.parallel import all_reduce_mean
 from mrefsr_tpu_torch.utils import resolve_device
 from mrefsr_tpu_torch.utils.dist_util import master_only
 
 from .lr_scheduler import ScheduleLR, build_schedule
+
+logger = logging.getLogger(__name__)
+
+# the values of train.mixed_precision / val.mixed_precision (unset: f32)
+COMPUTE_DTYPES = {None: torch.float32, 'bfloat16': torch.bfloat16}
+
+
+def compute_dtype(opt, section):
+    """The compute dtype ``opt[section]['mixed_precision']`` names."""
+    value = (opt.get(section) or {}).get('mixed_precision') or None
+    if value not in COMPUTE_DTYPES:
+        raise ValueError(f'{section}.mixed_precision is bfloat16 or unset, '
+                         f'got {value!r}')
+    return COMPUTE_DTYPES[value]
+
+
+def cast_tensors(net, dtype):
+    """``net``'s floating parameters and buffers in ``dtype``, by name: a
+    differentiable cast where autograd records, so the gradients of the
+    copies reach the originals (the JAX package's ``cast_tree``)."""
+    return {name: t.to(dtype) if t.is_floating_point() else t
+            for name, t in (*net.named_parameters(), *net.named_buffers())}
+
+
+def constant_buffers(net):
+    """The names of ``net``'s buffers that no flax variable holds: every
+    buffer but a norm's running mean and variance (SpyNet's ImageNet mean
+    and std, ``num_batches_tracked``)."""
+    stats = {f'{name}.{stat}' if name else stat
+             for name, module in net.named_modules()
+             if isinstance(module, torch.nn.modules.batchnorm._NormBase)
+             for stat in ('running_mean', 'running_var')}
+    return {name for name, _ in net.named_buffers()} - stats
 
 
 class BaseModel:
@@ -37,6 +75,8 @@ class BaseModel:
         self.optimizers = []
         self.schedulers = []
         self.log_dict = {}
+        # bf16 copies of frozen or eval weights, by net: (source key, copies)
+        self._cast_cache = {}
 
     # ----------------------------------------------------------- schedulers
     def setup_schedulers(self):
@@ -90,6 +130,31 @@ class BaseModel:
             self.nondist_validation(dataloader, current_iter, tb_logger,
                                     save_img)
 
+    # ------------------------------------------------------- best metrics
+    def _initialize_best_metric_results(self, dataset_name):
+        """The best value and iteration of each ``val.metrics`` entry on
+        ``dataset_name``, -inf / inf to start (reference
+        base_model.py:50-73); kept where it is already there."""
+        if not hasattr(self, 'best_metric_results'):
+            self.best_metric_results = {}
+        if dataset_name in self.best_metric_results:
+            return
+        record = {}
+        for metric, content in self.opt['val']['metrics'].items():
+            better = content.get('better', 'higher')
+            record[metric] = {'better': better, 'iter': -1,
+                              'val': float('-inf') if better == 'higher'
+                              else float('inf')}
+        self.best_metric_results[dataset_name] = record
+
+    def _update_best_metric_result(self, dataset_name, metric, val,
+                                   current_iter):
+        rec = self.best_metric_results[dataset_name][metric]
+        if (val >= rec['val']) if rec['better'] == 'higher' \
+                else (val <= rec['val']):
+            rec['val'] = val
+            rec['iter'] = current_iter
+
     def get_current_log(self):
         """The last step's losses as python floats. Converting waits for
         the device, so the step itself keeps them as tensors."""
@@ -132,11 +197,72 @@ class BaseModel:
                      rename=None):
         """Load a reference-format ``.pth`` into ``net`` (reference
         base_model.py:280-306, the ``params_ema`` -> ``params`` fall-back
-        included). ``rename(key) -> key or None`` maps or drops keys."""
+        included) as the JAX package's ``_merge_loaded`` overlays a file
+        on the initialised variables (its base_model.py:324): a key the
+        file lacks, a key the net lacks and a tensor of another size are
+        each logged and keep the net's value, and with ``strict`` raise. A
+        constant buffer the file lacks (:func:`constant_buffers`: a JAX
+        checkpoint holds none) keeps its value without a word. ``rename(key)
+        -> key or None`` maps or drops the file's keys."""
         state = load_torch_state_dict(load_path, param_key=param_key)
         if rename is not None:
             state = rename_keys(state, rename)
-        self.get_bare_model(net).load_state_dict(state, strict=strict)
+        net = self.get_bare_model(net)
+        own = net.state_dict()
+        constants = constant_buffers(net)
+        problems, keep = [], {}
+        for key, value in state.items():
+            if key not in own:
+                problems.append(f'unexpected ckpt key: {key}')
+            elif tuple(value.shape) != tuple(own[key].shape):
+                problems.append(f'Size different for {key}: ckpt '
+                                f'{tuple(value.shape)} vs model '
+                                f'{tuple(own[key].shape)}; ignored.')
+            else:
+                keep[key] = value
+        problems += [f'missing key in checkpoint: {key}' for key in own
+                     if key not in state and key not in constants]
+        if strict and problems:
+            raise ValueError(
+                'Checkpoint does not match the network (strict load): '
+                + '; '.join(problems[:20])
+                + (f'; ... {len(problems) - 20} more'
+                   if len(problems) > 20 else ''))
+        for msg in problems:
+            logger.warning(msg)
+        logger.info(f'Loading {type(net).__name__} from {load_path} '
+                    f'[param_key: {param_key}].')
+        net.load_state_dict(keep, strict=False)
+
+    def _run(self, net, dtype, cached, *args):
+        """``net(*args)`` with its parameters and buffers in ``dtype``; at
+        bf16 they are cast copies: made anew, differentiable, unless
+        ``cached`` (eval, frozen nets), then once per weights; on the CPU
+        the convolutions and products run in f32 and round once
+        (:func:`~mrefsr_tpu_torch.ops.cpu_bf16.f32_products`)."""
+        if dtype == torch.float32:
+            return net(*args)
+        with f32_products(self.device):
+            if not cached:
+                return functional_call(net, cast_tensors(net, dtype), args)
+            sources = [*net.parameters(), *net.buffers()]
+            key = (dtype, tuple((t.data_ptr(), t._version) for t in sources))
+            hit = self._cast_cache.get(id(net))
+            if hit is None or hit[0] != key:
+                with torch.no_grad():
+                    hit = self._cast_cache[id(net)] = (
+                        key, cast_tensors(net, dtype))
+            return functional_call(net, hit[1], args)
+
+    def _tensor(self, value):
+        """A batch array as a float32 tensor on the model's device. uint8
+        (a dataset's ``output_dtype: uint8``) becomes ``astype(float32) /
+        255``, the JAX package's host formula (its ``_as_f32``); float
+        arrays are cast, and the f32 tensors a device prefetcher hands over
+        pass through as they are."""
+        if getattr(value, 'dtype', None) in (np.uint8, torch.uint8):
+            value = uint8_to_float32(value)
+        return torch.as_tensor(value, dtype=torch.float32, device=self.device)
 
     def named_file(self, key):
         """``path.<key>``, or None where it is unset. A named file that is

@@ -37,17 +37,14 @@ from collections import OrderedDict
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.func import functional_call
 
 from mrefsr_tpu_torch.archs import build_network
 from mrefsr_tpu_torch.archs.vgg_arch import vgg_rename
 from mrefsr_tpu_torch.convert import (drop_buffer_keys, state_dict_from_flax,
                                       state_dict_from_flax_variables)
 from mrefsr_tpu_torch.data.loader import default_collate
-from mrefsr_tpu_torch.data.prefetch_dataloader import uint8_to_float32
 from mrefsr_tpu_torch.losses import legacy_losses
 from mrefsr_tpu_torch.metrics import calculate_psnr, calculate_ssim
-from mrefsr_tpu_torch.ops.cpu_bf16 import f32_products
 from mrefsr_tpu_torch.parallel import data_parallel
 from mrefsr_tpu_torch.parallel.batch_norm import BatchNorm2d, frozen_stats
 from mrefsr_tpu_torch.parallel.ddp import (all_reduce_grads_mean,
@@ -56,31 +53,10 @@ from mrefsr_tpu_torch.utils import imwrite, tensor2img
 from mrefsr_tpu_torch.utils.dist_util import get_dist_info
 from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY
 
-from .base_model import BaseModel
+from .base_model import BaseModel, compute_dtype
 
 # the Adam groups of net_g, in the order of the learning-rate log
 PARAM_GROUPS = ('g', 'offset', 'relu3_offset', 'relu2_offset')
-# the values of train.mixed_precision / val.mixed_precision (unset: f32)
-COMPUTE_DTYPES = {None: torch.float32, 'bfloat16': torch.bfloat16}
-
-
-def compute_dtype(opt, section):
-    """The compute dtype ``opt[section]['mixed_precision']`` names."""
-    value = (opt.get(section) or {}).get('mixed_precision') or None
-    if value not in COMPUTE_DTYPES:
-        raise ValueError(f'{section}.mixed_precision is bfloat16 or unset, '
-                         f'got {value!r}')
-    return COMPUTE_DTYPES[value]
-
-
-def cast_tensors(net, dtype):
-    """``net``'s floating parameters and buffers in ``dtype``, by name: a
-    differentiable cast where autograd records, so the gradients of the
-    copies reach the originals (the JAX package's ``cast_tree``)."""
-    return {name: t.to(dtype) if t.is_floating_point() else t
-            for name, t in (*net.named_parameters(), *net.named_buffers())}
-
-
 def param_group_of(name):
     """The Adam group of a net_g parameter, by its name (reference
     multi_ref_restoration_model.py:60-89): the offset convs of the small
@@ -141,8 +117,6 @@ the WGAN-GP phase.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
-        # bf16 copies of frozen or eval weights, by net: (source key, copies)
-        self._cast_cache = {}
 
         with torch.device('meta'):
             self.net_extractor = build_network(opt['network_extractor'])
@@ -238,16 +212,6 @@ the WGAN-GP phase.
     # (the refs' lq and up stacks stay on the host: this model does not
     # read them, and they would triple the bytes copied)
     device_input_keys = ('img_in', 'img_in_lq', 'img_in_up', 'img_ref_list')
-
-    def _tensor(self, value):
-        """A batch array as a float32 tensor on the model's device. uint8
-        (a dataset's ``output_dtype: uint8``) becomes ``astype(float32) /
-        255``, the JAX package's host formula (its ``_as_f32``); float
-        arrays are cast, and the f32 tensors a device prefetcher hands over
-        pass through as they are."""
-        if getattr(value, 'dtype', None) in (np.uint8, torch.uint8):
-            value = uint8_to_float32(value)
-        return torch.as_tensor(value, dtype=torch.float32, device=self.device)
 
     def feed_data(self, data):
         self.img_in_lq = self._tensor(data['img_in_lq'])
@@ -510,24 +474,6 @@ the WGAN-GP phase.
         out = self._run(net_g, dtype, cached, lq.to(dtype).permute(0, 3, 1, 2),
                         pre_offset, img_ref_feat)
         return out.permute(0, 2, 3, 1).float()
-
-    def _run(self, net, dtype, cached, *args):
-        """``net(*args)`` with its parameters and buffers in ``dtype``; at
-        bf16 on the CPU its convolutions and products in f32, rounded once
-        (:func:`~mrefsr_tpu_torch.ops.cpu_bf16.f32_products`)."""
-        if dtype == torch.float32:
-            return net(*args)
-        with f32_products(self.device):
-            if not cached:
-                return functional_call(net, cast_tensors(net, dtype), args)
-            sources = [*net.parameters(), *net.buffers()]
-            key = (dtype, tuple((t.data_ptr(), t._version) for t in sources))
-            hit = self._cast_cache.get(id(net))
-            if hit is None or hit[0] != key:
-                with torch.no_grad():
-                    hit = self._cast_cache[id(net)] = (
-                        key, cast_tensors(net, dtype))
-            return functional_call(net, hit[1], args)
 
     def _ref_inputs(self, match_img_in, refs, dtype=torch.float32):
         """``(pre_offset, img_ref_feat)`` of ``net_g`` (leaves (B, T, ...)

@@ -1,10 +1,11 @@
 """Small shared helpers of the port."""
 import torch
 
-from .img_util import img2tensor, imwrite, read_img_seq, tensor2img
+from .img_util import (imfrombytes, img2tensor, imwrite, read_img_seq,
+                       tensor2img)
 
-__all__ = ['img2tensor', 'imwrite', 'read_img_seq', 'resolve_device',
-           'tensor2img']
+__all__ = ['imfrombytes', 'img2tensor', 'imwrite', 'read_img_seq',
+           'resolve_device', 'tensor2img']
 
 
 def resolve_device(device=None):

@@ -70,6 +70,20 @@ def imwrite(img, file_path, params=None, auto_mkdir=True):
         raise IOError('Failed in writing images.')
 
 
+def imfrombytes(content, flag='color', float32=False):
+    """An image decoded from bytes with OpenCV: HWC BGR uint8, or float32
+    in [0, 1] with ``float32`` (reference img_util.py:114-133)."""
+    import cv2
+    flags = {'color': cv2.IMREAD_COLOR, 'grayscale': cv2.IMREAD_GRAYSCALE,
+             'unchanged': cv2.IMREAD_UNCHANGED}
+    img = cv2.imdecode(np.frombuffer(content, np.uint8), flags[flag])
+    if img is None:
+        raise IOError('cannot decode an image from the bytes given')
+    if float32:
+        img = img.astype(np.float32) / 255.
+    return img
+
+
 def img2tensor(imgs, bgr2rgb=True, float32=True):
     """Numpy HWC image(s) -> contiguous HWC RGB numpy array(s), float32
     unless ``float32`` is false (the JAX package's contract: the arrays

@@ -11,21 +11,17 @@ package registers and the port does not yet (:data:`PENDING`) raises
 # the JAX package's names the port has still to port, by registry, with
 # their ROADMAP items
 PENDING = {
-    'model': {'SRModel': 'A6', 'EDVRModel': 'A7', 'VideoBaseModel': 'A7',
-              'VideoRecurrentModel': 'A7', 'VideoGANModel': 'A8',
-              'VideoRecurrentGANModel': 'A8', 'ESRGANModel': 'A9',
-              'SRGANModel': 'A9', 'SwinIRModel': 'A9',
+    'model': {'VideoGANModel': 'A8', 'VideoRecurrentGANModel': 'A8',
+              'ESRGANModel': 'A9', 'SRGANModel': 'A9', 'SwinIRModel': 'A9',
               'SwinIRGANModel': 'A9', 'RealESRGANModel': 'A10',
               'RealESRNetModel': 'A10', 'HiFaceGANModel': 'A11'},
-    'arch': {'VGGStyleDiscriminator': 'A9', 'UNetDiscriminatorSN': 'A10',
+    'arch': {'IconVSR': 'A8', 'TOFlow': 'A8', 'DUF': 'A8',
+             'VGGStyleDiscriminator': 'A9', 'UNetDiscriminatorSN': 'A10',
              'HiFaceGANDiscriminator': 'A11'},
-    'dataset': {'PairedImageDataset': 'A6', 'SISRMegaDepthDataset': 'A6',
-                'SISRCUFEDDataset': 'A6', 'SingleImageDataset': 'A6',
-                'REDSDataset': 'A7', 'REDSRecurrentDataset': 'A7',
-                'Vimeo90KDataset': 'A7', 'VideoTestDataset': 'A7',
-                'RealESRGANDataset': 'A10', 'FFHQDataset': 'A11'},
+    'dataset': {'VideoTestDUFDataset': 'A8', 'SISRMegaDepthDataset': 'A9',
+                'SISRCUFEDDataset': 'A9', 'RealESRGANDataset': 'A10',
+                'FFHQDataset': 'A11'},
 }
-
 
 class Registry:
     """Name -> object mapping supporting decorator-based registration.
@@ -100,3 +96,4 @@ class Registry:
 ARCH_REGISTRY = Registry('arch')
 DATASET_REGISTRY = Registry('dataset')
 MODEL_REGISTRY = Registry('model')
+METRIC_REGISTRY = Registry('metric')

@@ -386,8 +386,7 @@ def test_aggregation_hands_the_kernels_the_promoted_dtypes(monkeypatch, agg):
     (K4) the same: x and the mask bf16, the offset (flow) f32."""
     from mrefsr_tpu.archs import ref_mrapa_restoration_arch as jax_arch
     from mrefsr_tpu_torch.archs import ref_mrapa_restoration_arch as arch
-    from mrefsr_tpu_torch.models.multi_ref_restoration_model import \
-        cast_tensors
+    from mrefsr_tpu_torch.models.base_model import cast_tensors
     c, dg = 16, 2
     bf = jnp.bfloat16
     x = jnp.zeros((1, 6, 6, c), bf)

@@ -162,3 +162,51 @@ def test_dcn_to_flow_refuses_a_wrong_group_count(tmp_path):
     with pytest.raises(ValueError, match='conv_offset_mask'):
         convert.dcn_to_flow_state_dict(model.net_g.state_dict(),
                                        deform_groups=8)
+
+
+def _net(width):
+    """A conv, a norm with running statistics and a constant buffer."""
+    net = torch.nn.Sequential(torch.nn.Conv2d(3, width, 3),
+                              torch.nn.BatchNorm2d(width))
+    net.register_buffer('mean', torch.full((3,), 0.5))
+    return net
+
+
+@pytest.mark.parametrize('case', ['strict', 'constants', 'not_strict'])
+def test_load_network_follows_merge_loaded(tmp_path, case):
+    """``BaseModel.load_network``, every model's loader, by the JAX
+    package's ``_merge_loaded`` (its base_model.py:324): a key the file
+    lacks, a key the net lacks and a tensor of another size are each
+    logged and keep the net's value, and with ``strict`` raise; a norm's
+    running statistics count as keys (flax's ``batch_stats``), the constant
+    buffers flax has no variable for do not."""
+    from mrefsr_tpu_torch.models.base_model import BaseModel
+    model = BaseModel({'is_train': False}, device='cpu')
+    src = _net(4 if case == 'not_strict' else 8)
+    with torch.no_grad():
+        for t in src.state_dict().values():
+            t.copy_(torch.arange(t.numel()).reshape(t.shape) % 7 + 1)
+    state = src.state_dict()
+    drop = {'strict': ('1.running_mean',),
+            'constants': ('mean', '1.num_batches_tracked'),
+            'not_strict': ()}[case]
+    state = {k: v for k, v in state.items() if k not in drop}
+    if case == 'not_strict':
+        state['extra.weight'] = torch.zeros(2)
+    path = str(tmp_path / 'net.pth')
+    torch.save({'params': state}, path)
+    dst = _net(8)
+    before = {k: v.clone() for k, v in dst.state_dict().items()}
+    if case == 'strict':
+        with pytest.raises(ValueError,
+                           match='missing key in checkpoint: 1.running_mean'):
+            model.load_network(dst, path, strict=True)
+        return
+    model.load_network(dst, path, strict=case == 'constants')
+    for key, value in dst.state_dict().items():
+        want = state[key] if key in state and (
+            state[key].shape == before[key].shape) else before[key]
+        assert torch.equal(value, want), key
+    if case == 'not_strict':
+        with pytest.raises(ValueError, match='Size different.*unexpected'):
+            model.load_network(dst, path, strict=True)

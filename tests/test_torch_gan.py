@@ -21,8 +21,7 @@ from mrefsr_tpu_torch.archs.discriminator_arch import ImageDiscriminator
 from mrefsr_tpu_torch.convert import (state_dict_from_flax,
                                       state_dict_from_flax_variables)
 from mrefsr_tpu_torch.losses import legacy_losses, losses
-from mrefsr_tpu_torch.models import build_model
-from mrefsr_tpu_torch.models import multi_ref_restoration_model as mref
+from mrefsr_tpu_torch.models import base_model, build_model
 from mrefsr_tpu_torch.parallel.batch_norm import BatchNorm2d, frozen_stats
 
 LR = 1e-4
@@ -677,7 +676,7 @@ def test_gan_step_runs_f32_under_bf16_mixed_precision(monkeypatch):
     def refuse(*_):
         raise AssertionError('a GAN step cast to bf16')
 
-    monkeypatch.setattr(mref, 'cast_tensors', refuse)
+    monkeypatch.setattr(base_model, 'cast_tensors', refuse)
     logs, got = run('bfloat16')
     assert logs == want_logs
     for net in ('g', 'd', 'stats'):

@@ -201,7 +201,7 @@ def test_model_refuses_what_is_not_ported():
     of eval, and with the GAN phase's keys (ROADMAP A4, ported). Every
     name the port refuses is one the JAX package registers."""
     from mrefsr_tpu.utils import registry as jax_registry
-    from mrefsr_tpu_torch.utils.registry import PENDING
+    from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY, PENDING
     assert build_model(_tiny_train_opt(), device='cpu').is_train
     opt = _tiny_train_opt()
     opt['train']['mixed_precision'] = 'bfloat16'
@@ -217,8 +217,8 @@ def test_model_refuses_what_is_not_ported():
     model = build_model(opt, device='cpu')
     assert model.net_d is not None and model.cri_style is not None
     for where, key, value, item in [
-            (None, 'model_type', 'SRModel', 'ROADMAP A6'),
-            (None, 'model_type', 'EDVRModel', 'ROADMAP A7'),
+            (None, 'model_type', 'VideoGANModel', 'ROADMAP A8'),
+            (None, 'model_type', 'VideoRecurrentGANModel', 'ROADMAP A8'),
             (None, 'network_d', {'type': 'VGGStyleDiscriminator'},
              'ROADMAP A9'),
             (None, 'network_d', {'type': 'UNetDiscriminatorSN'},
@@ -228,6 +228,16 @@ def test_model_refuses_what_is_not_ported():
         opt[key] = value
         with pytest.raises(NotImplementedError, match=item):
             build_model(opt, device='cpu')
+    # the models of ROADMAP A6 and A7 are ported: SRModel, the video models
+    for model_type in ('SRModel', 'VideoBaseModel', 'EDVRModel',
+                       'VideoRecurrentModel'):
+        assert MODEL_REGISTRY.get(model_type).__name__ == model_type
+    from mrefsr_tpu_torch.data import build_dataset
+    from mrefsr_tpu_torch.utils.file_client import FileClient
+    with pytest.raises(NotImplementedError, match='ROADMAP A8'):
+        build_dataset({'type': 'VideoTestDUFDataset', 'name': 'Vid4'})
+    with pytest.raises(NotImplementedError, match='ROADMAP A12'):
+        FileClient('pack', db_paths=['x.pack'])
     jax_names = {'model': jax_registry.MODEL_REGISTRY,
                  'arch': jax_registry.ARCH_REGISTRY,
                  'dataset': jax_registry.DATASET_REGISTRY}
@@ -342,6 +352,18 @@ def test_cpu_tensors_never_reach_a_kernel_in_the_gan_and_ref_steps(
     assert np.isfinite(model.get_current_log()['l_pix'])
     assert [kernel.launches for kernel in KERNELS] == before
     assert _build._libs == {}
+
+
+def test_scan_covers_the_sr_and_video_training_modules():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ('utils/file_client.py', 'metrics/__init__.py',
+                   'metrics/psnr_ssim.py', 'models/sr_model.py',
+                   'models/video_base_model.py',
+                   'models/video_recurrent_model.py',
+                   'data/reds_dataset.py', 'data/vimeo90k_dataset.py',
+                   'data/video_test_dataset.py',
+                   'data/paired_image_dataset.py', 'archs/srresnet_arch.py'):
+        assert f'mrefsr_tpu_torch/{module}' in names
 
 
 def test_scan_covers_the_gan_and_single_ref_modules():
@@ -462,6 +484,39 @@ def test_video_nets_on_cpu_tensors_never_reach_a_kernel(monkeypatch):
                                   torch.rand((3, 3, 4, 4)), groups=2,
                                   deform_groups=2).mean()
     out.backward()
+    assert [kernel.launches for kernel in KERNELS] == before
+    assert _build._libs == {}
+
+
+@pytest.mark.parametrize('mp', [None, 'bfloat16'])
+def test_video_training_steps_on_cpu_never_reach_a_kernel(monkeypatch, mp):
+    """An ``EDVRModel`` step (grad x through every DCN) and a
+    ``VideoRecurrentModel`` step with BasicVSR++ on the CPU, in f32 and
+    with ``train.mixed_precision: bfloat16``: no kernel launched, no
+    library built."""
+    monkeypatch.setattr(dcn._ModulatedDeformConv2d, 'apply', _refuse)
+    before = [kernel.launches for kernel in KERNELS]
+    train = {'optim_g': {'type': 'Adam', 'lr': 1e-4},
+             'pixel_opt': {'type': 'CharbonnierLoss'}}
+    if mp:
+        train['mixed_precision'] = mp
+    for model_type, net, t, lq in (
+            ('EDVRModel', {'type': 'EDVR', 'num_feat': 8,
+                           'deformable_groups': 2, 'num_extract_block': 1,
+                           'num_reconstruct_block': 1}, 5, 16),
+            ('VideoRecurrentModel', {'type': 'BasicVSRPlusPlus',
+                                     'mid_channels': 8, 'num_blocks': 1},
+             2, 64)):
+        model = build_model({'model_type': model_type, 'is_train': True,
+                             'network_g': net, 'path': {},
+                             'train': dict(train)}, device='cpu')
+        rng = np.random.RandomState(0)
+        gt = (1, 4 * lq, 4 * lq, 3) if model_type == 'EDVRModel' \
+            else (1, t, 4 * lq, 4 * lq, 3)
+        model.feed_data({'lq': rng.rand(1, t, lq, lq, 3).astype(np.float32),
+                         'gt': rng.rand(*gt).astype(np.float32)})
+        model.optimize_parameters(1)
+        assert np.isfinite(model.get_current_log()['l_pix'])
     assert [kernel.launches for kernel in KERNELS] == before
     assert _build._libs == {}
 

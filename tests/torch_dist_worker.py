@@ -403,8 +403,30 @@ def run_ddp_gan(spec, rank, world):
     return report
 
 
+def video_validation(spec):
+    """Each ``(model options, dataset options)`` of ``spec['video']``
+    through ``validation`` (frames sharded over the ranks for a sliding-
+    window model, folders for a recurrent one): the per-folder metric
+    arrays as tensors."""
+    from mrefsr_tpu_torch.data import build_dataloader, build_dataset
+    from mrefsr_tpu_torch.models import build_model
+    report = {}
+    for name, (model_opt, data_opt) in spec['video'].items():
+        model = build_model(model_opt, device='cpu')
+        loader = build_dataloader(build_dataset(data_opt), data_opt)
+        model.validation(loader, 1, None, save_img=False)
+        report[name] = {folder: torch.from_numpy(arr) for folder, arr
+                        in model.metric_results.items()}
+    return report
+
+
+def run_video_val(spec, rank, world):
+    return video_validation(spec)
+
+
 TASKS = {'sharded_match': run_sharded_match, 'ddp': run_ddp,
-         'ddp_bf16': run_ddp_bf16, 'ddp_gan': run_ddp_gan}
+         'ddp_bf16': run_ddp_bf16, 'ddp_gan': run_ddp_gan,
+         'video_val': run_video_val}
 
 
 def main():
