@@ -47,8 +47,9 @@ phase runs several):
    (N = 30), every gradient, x's through dgrad's scatter variant; again
    as the training step runs it (x frozen), two such calls bit-equal in
    grad offset, mask, weight and bias; each entry point launched alone
-   with its own outputs checked; with integer offsets and samples on the
-   border;
+   with its own outputs checked, the scatter variant also under offsets
+   uniform on [-SCATTER_NEAR, SCATTER_NEAR]; with integer offsets and
+   samples on the border;
 6. deform_sample (kernel K4, forward and backward) against its plain
    version at the three training shapes, and bit for bit against ``x``
    indexed at the shifted positions for integer flows;
@@ -56,7 +57,8 @@ phase runs several):
    at padding 0, groups 1 and 8) on the fused kernels, in f32 and then in
    bf16 (``*_bf16``), against their plain versions, forward and every
    gradient, at EDVR-M's L1 shape (5, 180, 320, 64), deform groups 8
-   (``DCN_VARIANT_TOL``, at bf16 ``K2_BF16_TOL``); the backward as a
+   (``DCN_VARIANT_TOL``, at bf16 ``K2_BF16_TOL``), and again with grad x
+   under offsets uniform on [-SCATTER_NEAR, SCATTER_NEAR]; the backward as a
    training step asks it run twice, bit-equal, launching the variant's own
    entry points of the type and no scatter; K3 at groups 2 against two K2
    calls on the channel slices; then dcn_modules: ``DCNv2Pack`` and
@@ -213,9 +215,10 @@ phase runs several):
     that launch exactly K2's forward, scatter dgrad, wgrad and sum at the
     step's type (BasicVSR none), peak memory, a profile with the scatter
     apart (``k2_dgrad_scatter_ms``); ``video_scatter``: the scatter dgrad
-    alone at those steps' shapes, what one launch writes held to the
-    plain version (``_k2_tol``), timed beside the dgrad without grad x and
-    cuDNN's grad input; ``sr_train``: MSRResNet (64, 16 blocks) at gt 128,
+    alone at those steps' shapes under ``randn * 4`` offsets and offsets
+    uniform on [-SCATTER_NEAR, SCATTER_NEAR], what one launch writes held
+    to the plain version (``_k2_tol``), timed beside the dgrad without
+    grad x and cuDNN's grad input; ``sr_train``: MSRResNet (64, 16 blocks) at gt 128,
     B 16, f32 and bf16, no kernel of this repository; ``cli_video``: the
     EDVR-M woTSA YAML through ``train_pipeline`` for 60 iterations (3
     loader threads, the device prefetcher, validation at 20, 40, 60 on a
@@ -909,7 +912,10 @@ def _sum_records(name, shapes, extra):
             'kernel_only_with_grad_x_ms', 'kernel_only_with_grad_x_call_ms',
             'with_grad_x_ms', 'with_grad_x_call_ms', 'plain_ms',
             'plain_call_ms', 'library_ms', 'library_call_ms', 'bound_ms',
-            'bound_f32_cuda_cores_ms', 'bound_with_atomics_ms')
+            'bound_f32_cuda_cores_ms', 'bound_with_atomics_ms', 'dgrad_ms',
+            'near_offsets_ms', 'near_offsets_call_ms',
+            'with_grad_x_near_offsets_ms',
+            'with_grad_x_near_offsets_call_ms')
     total = {k: sum(rec[k] for rec in shapes) for k in keys
              if k in shapes[0]}
     ops_s = sum(rec.get('ops_s', rec['flops'] / PEAK_F32_FLOPS)
@@ -972,7 +978,9 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
     carries the errors of what its own launch wrote against ``want``, the
     plain version's gradients by name: dgrad grad offset and grad mask, the
     scatter variant also grad x, wgrad and the sum grad weight and grad
-    bias."""
+    bias. The scatter's record also carries the dgrad's ms and its own
+    under offsets uniform on [-SCATTER_NEAR, SCATTER_NEAR] (``near_offsets_*``,
+    held to the plain version first)."""
     n, h, _, c = x.shape
     dtype = x.dtype
     size = x.element_size()
@@ -1085,8 +1093,31 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
                                      .abs().max())
                                for name, g in got.items()),
             'max_rel_err': max(errs.values()), 'rel_err': errs}
-    recs['dgrad_scatter']['bound_with_atomics_ms'] = scatter_atomics_bound(
+    scatter = recs['dgrad_scatter']
+    scatter['bound_with_atomics_ms'] = scatter_atomics_bound(
         spec['dgrad_scatter'][0], spec['dgrad_scatter'][1], x)
+    scatter['dgrad_ms'] = recs['dgrad']['ms']
+    # the scatter again under offsets uniform on [-SCATTER_NEAR,
+    # SCATTER_NEAR], held to the plain version first
+    near = _near_offsets(torch.Generator().manual_seed(SEED + 35), offset)
+    fused_near = dcn._fused_args(x, near, weight, geom)
+    head_near = (cot.data_ptr(), x.data_ptr(), near.data_ptr(),
+                 mask.data_ptr(), weight.data_ptr(), g_off.data_ptr(),
+                 g_mask.data_ptr())
+
+    def scatter_near():
+        k_scatter(*head_near, g_x.data_ptr(), *fused_near)
+
+    errs, abs_err = _scatter_vs_plain(
+        dcn, scatter_near, cot, x, near, mask, weight, 8, g_off, g_mask, g_x,
+        K2_BF16_TOL if dtype == BF16 else GRAD_REL_TOL,
+        f'dgrad_scatter alone, near offsets, C={c} {dtype}')
+    times = timed({'ms': scatter_near})
+    scatter.update(near_offsets_ms=times['ms'],
+                   near_offsets_call_ms=times['call_ms'],
+                   near_offsets_rel_err=errs,
+                   near_offsets_max_abs_err=abs_err)
+    del near
     return recs
 
 
@@ -1425,11 +1456,13 @@ def _dcn_variant(dcn, kernels, gen, groups, masked, padding, dtype):
     """One K3 (``masked``, ``groups > 1``) or K5 (not ``masked``) case at
     EDVR-M's L1 shape, deform groups 8, at ``dtype`` (the offset f32):
     forward and every gradient through the fused kernels against the plain
-    version; the backward as a training step asks it (x frozen) run twice,
-    bit-equal, launching the variant's own entry points of the type and no
-    other (no scatter); then the device time a call (``ms``) and the
+    version, and again with the offsets uniform on [-SCATTER_NEAR,
+    SCATTER_NEAR]; the backward as a training step asks it (x frozen) run
+    twice, bit-equal, launching the variant's own entry points of the type
+    and no other (no scatter); then the device time a call (``ms``) and the
     events around one (``call_ms``) of the forward, of that backward and of
-    the backward with grad x, beside the plain version and the library
+    the backward with grad x (under both offset cases), beside the plain
+    version and the library
     yardstick (grouped ``F.conv2d`` and its autograd at the same type: no
     gather, a lower bound). The bound is the grouped work's (MACs / G):
     the kernels run the block-diagonal weight, G times the products.
@@ -1498,8 +1531,25 @@ def _dcn_variant(dcn, kernels, gen, groups, masked, padding, dtype):
           f'differ: {bit_equal}')
     del step, again, want
 
+    # with grad x under offsets uniform on [-SCATTER_NEAR, SCATTER_NEAR]:
+    # every gradient held to the plain version before it is timed
+    near = _near_offsets(torch.Generator().manual_seed(SEED + 36), offset)
+    args_near = (x, near, *args[2:])
+    got, want = (_grads_all(kernel, args_near, cot),
+                 _grads_all(plain, args_near, cot))
+    near_errs = {name: _rel_err(g.float(), wt.float())
+                 for name, g, wt in zip(names, got, want)}
+    for name, e in near_errs.items():
+        check(e <= tol, f'{label}, near offsets: {name} differs by {e} of '
+              f'its max')
+    abs_err = max(abs_err, *(float((g.float() - wt.float()).abs().max())
+                             for g, wt in zip(got, want)))
+    del got, want
+    wrt_near = [a.detach().requires_grad_() for a in args_near]
+
     wrt_x = [a.detach().requires_grad_() for a in args]
     out_k, out_kx, out_p = kernel(*wrt), kernel(*wrt_x), plain(*wrt)
+    out_kn = kernel(*wrt_near)
     x_nchw = x.permute(0, 3, 1, 2).requires_grad_()
     w_oihw = weight.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last).requires_grad_()
@@ -1519,6 +1569,8 @@ def _dcn_variant(dcn, kernels, gen, groups, masked, padding, dtype):
                      out_k, wrt[1:], cot, retain_graph=True),
                  'with_grad_x_ms': lambda: torch.autograd.grad(
                      out_kx, wrt_x, cot, retain_graph=True),
+                 'with_grad_x_near_offsets_ms': lambda: torch.autograd.grad(
+                     out_kn, wrt_near, cot, retain_graph=True),
                  'plain_ms': lambda: torch.autograd.grad(
                      out_p, wrt[1:], cot, retain_graph=True),
                  'library_ms': lambda: torch.autograd.grad(
@@ -1542,18 +1594,19 @@ def _dcn_variant(dcn, kernels, gen, groups, masked, padding, dtype):
                                                            nbytes),
                    macs_run=products * groups, macs_grouped=products,
                    max_abs_err=abs_err,
-                   max_rel_err=max(*errs.values(), *step_errs.values()))
+                   max_rel_err=max(*errs.values(), *step_errs.values(),
+                                   *near_errs.values()))
         rec['bound_ms'], rec['bound_by'] = bound(flops, nbytes)
     emit({'phase': f'{"mdcn_groups" if masked else "dcn_v1"}'
                    f'{"_bf16" if bf16 else ""}',
           'n': n, 'h': h, 'w': w, 'c': c, 'cout': cout, 'deform_groups': dg,
           'groups': groups, 'padding': padding, 'dtype': str(dtype),
           'rel_err': errs, 'step_rel_err': step_errs,
-          'bit_equal_rerun': bit_equal,
+          'near_offsets_rel_err': near_errs, 'bit_equal_rerun': bit_equal,
           'launches': {k: v for k, v in launches.items() if v},
           'tolerance': tol, 'forward': fwd, 'backward': bwd,
           'timing': TIMING_NOTE})
-    del out_k, out_kx, out_p, out_l
+    del out_k, out_kx, out_kn, out_p, out_l, near, args_near, wrt_near
     torch.cuda.empty_cache()
     return fwd, bwd
 
@@ -5562,81 +5615,116 @@ VIDEO_TRAIN_K2_SHAPES = (
     ('edvr_m_l2', VIDEO_B * 5, 64, 64, 32, 32, 8),
     ('edvr_m_l3', VIDEO_B * 5, 64, 64, 16, 16, 8),
     ('basicvsrpp', VIDEO_B, 128, 64, 64, 64, 16))
+# the scatter's second offset case beside _mdcn_inputs' randn * 4: uniform
+# on [-SCATTER_NEAR, SCATTER_NEAR], samples within a pixel and a half of
+# their taps, as smooth offsets put them (their corners crowd together)
+SCATTER_NEAR = 1.5
+
+
+def _near_offsets(gen, like):
+    """Offsets of ``like``'s shape, uniform on [-SCATTER_NEAR,
+    SCATTER_NEAR], on the card."""
+    return ((torch.rand(like.shape, generator=gen) * 2 - 1)
+            * SCATTER_NEAR).cuda()
+
+
+def _scatter_vs_plain(dcn, launch, cot, x, offset, mask, weight, dg, g_off,
+                      g_mask, g_x, tol, label):
+    """What one ``launch()`` of the scatter dgrad writes (grad x, grad
+    offset, grad mask) against autograd of the plain version, each within
+    ``tol`` of its largest entry; returns the errors and the largest
+    absolute one."""
+    g_x.zero_()
+    launch()
+    got = {'x': g_x.to(x.dtype), 'offset': g_off.clone(),
+           'mask': g_mask.clone()}
+    inputs = [t.detach().requires_grad_(i < 3) for i, t in
+              enumerate((x, offset, mask, weight))]
+    want = dict(zip(('x', 'offset', 'mask'), torch.autograd.grad(
+        dcn.modulated_deform_conv2d_ref(*inputs, deform_groups=dg),
+        inputs[:3], cot)))
+    errs = {k: _rel_err(g.float(), want[k].float()) for k, g in got.items()}
+    for k, err in errs.items():
+        check(err <= tol, f'{label}: grad {k} differs by {err} of its max')
+    return errs, max(float((g.float() - want[k].float()).abs().max())
+                     for k, g in got.items())
 
 
 def phase_video_scatter(dcn, dtype=torch.float32):
     """``mdcn_fused_dgrad_scatter`` (and its bf16 twin) alone at the
-    shapes of ``VIDEO_TRAIN_K2_SHAPES``: what one launch writes (grad x,
-    grad offset, grad mask) held to autograd of the plain version within
-    ``_k2_tol``, then its device ms beside the dgrad without grad x and
-    cuDNN's grad input (autograd of ``F.conv2d``: no gather, no grad
-    offset or mask); the bound: the dgrad's work (the grad columns'
-    product, the bilinear derivatives) and its bytes, grad x written once
-    at x's type, and beside it the bound with the atomics' f32 read and
-    write of grad x."""
+    shapes of ``VIDEO_TRAIN_K2_SHAPES``, under two offset cases:
+    ``_mdcn_inputs``' ``randn * 4`` and offsets uniform on
+    [-SCATTER_NEAR, SCATTER_NEAR]. In each, what one launch writes (grad
+    x, grad offset, grad mask) is held to autograd of the plain version
+    within ``_k2_tol``, then its device ms is timed beside the dgrad
+    without grad x and cuDNN's grad input (autograd of ``F.conv2d``: no
+    gather, no grad offset or mask); the bound: the dgrad's work (the grad
+    columns' product, the bilinear derivatives) and its bytes, grad x
+    written once at x's type, and beside it the bound with the atomics' f32
+    read and write of grad x."""
     gen = torch.Generator().manual_seed(SEED + 33)
+    # the near offsets from a generator of their own: the randn * 4 case's
+    # inputs stay as they were before the near case was added
+    near_gen = torch.Generator().manual_seed(SEED + 34)
     _, k_dgrad, k_scatter, _, _ = dcn._fused_kernels(dtype)
     size = torch.finfo(dtype).bits // 8
     tol = _k2_tol(dtype)
     recs = []
     for case, n, c, cout, h, w, dg in VIDEO_TRAIN_K2_SHAPES:
-        x, offset, mask, weight, bias = _mdcn_inputs(
+        x, randn4, mask, weight, bias = _mdcn_inputs(
             gen, c, h, dg=dg, n=n, dtype=dtype, w=w, cout=cout)
         cot = torch.randn((n, h, w, cout), generator=gen).to(dtype).cuda()
+        near = _near_offsets(near_gen, randn4)
         geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, w))
-        fused = dcn._fused_args(x, offset, weight, geom)
-        g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
+        g_off, g_mask = torch.empty_like(randn4), torch.empty_like(mask)
         g_x = torch.zeros_like(x, dtype=torch.float32)
-        head = (cot.data_ptr(), x.data_ptr(), offset.data_ptr(),
-                mask.data_ptr(), weight.data_ptr(), g_off.data_ptr(),
-                g_mask.data_ptr())
-        k_scatter(*head, g_x.data_ptr(), *fused)
-        got = {'x': g_x.to(dtype), 'offset': g_off.clone(),
-               'mask': g_mask.clone()}
-        inputs = [t.detach().requires_grad_(i < 3) for i, t in
-                  enumerate((x, offset, mask, weight, bias))]
-        want = dict(zip(('x', 'offset', 'mask'), torch.autograd.grad(
-            dcn.modulated_deform_conv2d_ref(*inputs, deform_groups=dg),
-            inputs[:3], cot)))
-        errs = {k: _rel_err(g.float(), want[k].float())
-                for k, g in got.items()}
-        for k, err in errs.items():
-            check(err <= tol, f'video_scatter {case} {dtype}: grad {k} '
-                  f'differs by {err} of its max')
-        abs_err = max(float((g.float() - want[k].float()).abs().max())
-                      for k, g in got.items())
-        del got, want, inputs
         x_nchw = x.permute(0, 3, 1, 2).requires_grad_()
         w_oihw = weight.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         out_l = torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1)
         cot_l = cot.permute(0, 3, 1, 2)
-        times = timed({
-            'ms': lambda: k_scatter(*head, g_x.data_ptr(), *fused),
-            'dgrad_ms': lambda: k_dgrad(*head, *fused),
-            'library_ms': lambda: torch.autograd.grad(
-                out_l, x_nchw, cot_l, retain_graph=True)})
         rows = n * h * w
         flops = [_k2_products(rows * 9.0 * c * cout, dtype),
                  (20.0 * rows * 9 * c, PEAK_F32_FLOPS)]
         # every input read once, every output written once: grad offset
         # (f32) and mask, grad x at x's type (as the Function returns it)
         nbytes = size * (cot.numel() + 2 * x.numel() + 2 * mask.numel()
-                         + weight.numel()) + 4.0 * 2 * offset.numel()
+                         + weight.numel()) + 4.0 * 2 * randn4.numel()
         b_ms, b_by = bound(flops, nbytes)
-        rec = {'phase': 'video_scatter', 'case': case, 'n': n, 'c': c,
-               'cout': cout, 'h': h, 'w': w, 'deform_groups': dg,
-               'dtype': str(dtype), 'rel_err': errs, 'tolerance': tol,
-               'max_abs_err': abs_err, **times, 'bound_ms': b_ms,
-               'bound_by': b_by, 'bytes': nbytes,
-               'bound_with_atomics_ms': scatter_atomics_bound(flops, nbytes,
-                                                              x),
-               'ms_is': 'mdcn_fused_dgrad_scatter alone; dgrad_ms the '
-                        'dgrad without grad x; library_ms cuDNN grad input',
-               'timing': TIMING_NOTE}
-        emit(rec)
-        recs.append(rec)
-        del x, offset, mask, weight, bias, cot, g_off, g_mask, g_x
+        for spread, offset in (('randn4', randn4), ('near', near)):
+            fused = dcn._fused_args(x, offset, weight, geom)
+            head = (cot.data_ptr(), x.data_ptr(), offset.data_ptr(),
+                    mask.data_ptr(), weight.data_ptr(), g_off.data_ptr(),
+                    g_mask.data_ptr())
+            errs, abs_err = _scatter_vs_plain(
+                dcn, lambda: k_scatter(*head, g_x.data_ptr(), *fused), cot,
+                x, offset, mask, weight, dg, g_off, g_mask, g_x, tol,
+                f'video_scatter {case} {spread} {dtype}')
+            torch.cuda.empty_cache()
+            times = timed({
+                'ms': lambda: k_scatter(*head, g_x.data_ptr(), *fused),
+                'dgrad_ms': lambda: k_dgrad(*head, *fused),
+                'library_ms': lambda: torch.autograd.grad(
+                    out_l, x_nchw, cot_l, retain_graph=True)})
+            rec = {'phase': 'video_scatter', 'case': case,
+                   'offsets': ('randn * 4' if spread == 'randn4' else
+                               f'uniform on [-{SCATTER_NEAR}, '
+                               f'{SCATTER_NEAR}]'),
+                   'n': n, 'c': c, 'cout': cout, 'h': h, 'w': w,
+                   'deform_groups': dg, 'dtype': str(dtype),
+                   'rel_err': errs, 'tolerance': tol, 'max_abs_err': abs_err,
+                   **times, 'bound_ms': b_ms, 'bound_by': b_by,
+                   'bytes': nbytes,
+                   'bound_share': b_ms / times['ms'],
+                   'bound_with_atomics_ms': scatter_atomics_bound(
+                       flops, nbytes, x),
+                   'ms_is': 'mdcn_fused_dgrad_scatter alone; dgrad_ms the '
+                            'dgrad without grad x; library_ms cuDNN grad '
+                            'input',
+                   'timing': TIMING_NOTE}
+            emit(rec)
+            recs.append(rec)
+        del x, randn4, near, mask, weight, bias, cot, g_off, g_mask, g_x
         del x_nchw, out_l
         torch.cuda.empty_cache()
     return recs

@@ -9,6 +9,7 @@ A, B, B, A).
     python3 k1_compare.py --checkout DIR --k2
     python3 k1_compare.py --checkout DIR --k7
     python3 k1_compare.py --checkout DIR --k3
+    python3 k1_compare.py --checkout DIR --scatter
 
 ``DIR`` is the root of a checkout (this one by default). From its
 ``chip_smoke.py`` the script runs: the device and build phases; K1's phase
@@ -56,6 +57,18 @@ backward with grad x, each one's ``device_ms`` and ``call_ms`` by the
 timers of the ``chip_smoke.py`` beside this script, and a line of sums a
 kernel and type. A call the checkout refuses (a bf16 K3 or K5 before they
 ran on the fused walk) gives a line with ``refused`` and the error.
+
+With ``--scatter`` it runs instead: the device and build phases; K2's
+dgrad with the grad-x scatter (``mdcn_fused_dgrad_scatter`` and its bf16
+twin), launched alone through the checkout's ``dcn._fused_kernels``, at
+the video training steps' shapes (EDVR-M's L1, L2, L3 and BasicVSR++'s)
+and the stage-3 training shapes, f32 and bf16, under two offset
+distributions (``randn * 4`` and uniform on [-1.5, 1.5]), each launch's
+grad x, grad offset and grad mask first held to autograd of the plain
+version within ``_k2_tol`` (``scatter_function`` lines); beside it the
+dgrad without grad x, and
+at the stage-3 shapes the forward and wgrad; then ``--k3``'s lines. Device
+times by the timers of the ``chip_smoke.py`` beside this script.
 
 Needs one CUDA device and ``nvcc``.
 """
@@ -401,6 +414,83 @@ def k3_functions(smoke, dcn):
                         **total})
 
 
+# the scatter's shapes: (case, N, C, Cout, H, W, deform groups): the video
+# training steps' (chip_smoke.py's VIDEO_TRAIN_K2_SHAPES at B 4) and the
+# stage-3 training shapes (B 6 x 5 refs)
+SCATTER_SHAPES = (('edvr_m_l1', 20, 64, 64, 64, 64, 8),
+                  ('edvr_m_l2', 20, 64, 64, 32, 32, 8),
+                  ('edvr_m_l3', 20, 64, 64, 16, 16, 8),
+                  ('basicvsrpp', 4, 128, 64, 64, 64, 16),
+                  ('stage3_c256', 30, 256, 256, 40, 40, 8),
+                  ('stage3_c128', 30, 128, 128, 80, 80, 8),
+                  ('stage3_c64', 30, 64, 64, 160, 160, 8))
+# offsets: randn * 4 (chip_smoke.py's), most corners far from the patch,
+# and one whose samples stay within a pixel and a half of their taps
+SCATTER_OFFSETS = {
+    'randn4': lambda gen, shape: torch.randn(shape, generator=gen) * 4,
+    'uniform1.5': lambda gen, shape: torch.rand(shape, generator=gen) * 3
+    - 1.5}
+
+
+def scatter_functions(smoke, dcn):
+    """``--scatter``: see the module docstring."""
+    here = _timers_here()
+    for dtype in (torch.float32, smoke.BF16):
+        k_fwd, k_dgrad, k_scatter, k_wgrad, _ = dcn._fused_kernels(dtype)
+        tol = here._k2_tol(dtype)
+        for case, n, c, cout, h, w, dg in SCATTER_SHAPES:
+            for spread, make in SCATTER_OFFSETS.items():
+                gen = torch.Generator().manual_seed(smoke.SEED + 43)
+                x = torch.randn((n, h, w, c), generator=gen).to(dtype).cuda()
+                offset = make(gen, (n, h, w, dg, 9, 2)).cuda()
+                mask = torch.rand((n, h, w, dg, 9), generator=gen).to(
+                    dtype).cuda()
+                weight = (torch.randn((3, 3, c, cout), generator=gen)
+                          * 0.02).to(dtype).cuda()
+                cot = torch.randn((n, h, w, cout), generator=gen).to(
+                    dtype).cuda()
+                geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, w))
+                fused = dcn._fused_args(x, offset, weight, geom)
+                g_off, g_mask = torch.empty_like(offset), \
+                    torch.empty_like(mask)
+                g_x = torch.zeros_like(x, dtype=torch.float32)
+                head = (cot.data_ptr(), x.data_ptr(), offset.data_ptr(),
+                        mask.data_ptr(), weight.data_ptr(), g_off.data_ptr(),
+                        g_mask.data_ptr())
+                errs, _ = here._scatter_vs_plain(
+                    dcn, lambda: k_scatter(*head, g_x.data_ptr(), *fused),
+                    cot, x, offset, mask, weight, dg, g_off, g_mask, g_x, tol,
+                    f'{case} {spread} {dtype}')
+                torch.cuda.empty_cache()
+                rec = {'phase': 'scatter_function', 'case': case,
+                       'offsets': spread, 'dtype': str(dtype), 'n': n,
+                       'c': c, 'cout': cout, 'h': h, 'w': w,
+                       'deform_groups': dg, 'rel_err': errs,
+                       'tolerance': tol}
+                calls = {'ms': lambda: k_scatter(*head, g_x.data_ptr(),
+                                                 *fused),
+                         'dgrad_ms': lambda: k_dgrad(*head, *fused)}
+                if case.startswith('stage3') and spread == 'randn4':
+                    splits, split_patches = dcn._wgrad_slices(
+                        n, h, w, 9, c, cout, dtype)
+                    partial = torch.empty((splits, 9 * c + 1, cout),
+                                          device='cuda')
+                    wt = weight.reshape(9 * c, cout).t().contiguous()
+                    out = torch.empty_like(cot)
+                    calls['fwd_ms'] = lambda: k_fwd(
+                        x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+                        wt.data_ptr(), None, out.data_ptr(), *fused)
+                    calls['wgrad_ms'] = lambda: k_wgrad(
+                        *head[:4], partial.data_ptr(), splits,
+                        split_patches, *fused)
+                rec.update(zip(calls, here.device_ms_each(
+                    list(calls.values()))))
+                smoke.emit(rec)
+                del x, offset, mask, weight, cot, g_off, g_mask, g_x, calls
+                torch.cuda.empty_cache()
+    k3_functions(smoke, dcn)
+
+
 def main_k7(smoke, build_model, arch, correlation, dcn, ops_upfirdn2d,
             fused_act):
     """``--k7``: see the module docstring."""
@@ -439,6 +529,8 @@ def main():
                         help='time K7, K8 and the StyleGAN2 paths instead')
     parser.add_argument('--k3', action='store_true',
                         help='time K3 and K5 through the functions instead')
+    parser.add_argument('--scatter', action='store_true',
+                        help='time K2\'s grad-x scatter dgrad instead')
     args = parser.parse_args()
     root = os.path.abspath(args.checkout)
     sys.path.insert(0, root)
@@ -462,6 +554,9 @@ def main():
     smoke.phase_build(_build.build)
     if args.k3:
         k3_functions(smoke, dcn)
+        return
+    if args.scatter:
+        scatter_functions(smoke, dcn)
         return
     if args.k7:
         main_k7(smoke, build_model, arch, correlation, dcn, ops_upfirdn2d,

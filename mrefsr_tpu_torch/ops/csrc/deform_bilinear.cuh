@@ -213,35 +213,77 @@ __device__ __forceinline__ float segment_sum(float v, int width) {
   return v;
 }
 
+// p[0 .. 3] += v in f32: one 16-byte vector reduction (REDG.E.ADD.F32x4 on
+// sm_90) where scalar atomics took four; `p` 16-byte aligned.
+__device__ __forceinline__ void red_add4(float* p, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+}
+
+// p[0 .. N - 1] += g * s, N / 4 vector reductions.
 template <int N>
-__device__ __forceinline__ void atomic_add_run(float* p, const float (&g)[N],
-                                               float s) {
+__device__ __forceinline__ void red_add_run(float* p, const float (&g)[N],
+                                            float s) {
+  static_assert(N % 4 == 0, "runs of 4 floats");
 #pragma unroll
-  for (int j = 0; j < N; ++j) atomicAdd(p + j, g[j] * s);
+  for (int j = 0; j < N; j += 4)
+    red_add4(p + j,
+             make_float4(g[j] * s, g[j + 1] * s, g[j + 2] * s, g[j + 3] * s));
 }
 
 // grad_x += g * m * (corner weight), over the corners inside the image, into
-// an f32 buffer whatever the type of x (no bf16 atomics). `gxn` points at
-// this thread's channels of pixel (0, 0) of its item; a pixel is `ch` floats
-// wide. Atomic adds: the order of the additions, and so the last bits of the
-// sum, change from run to run.
+// an f32 buffer whatever the type of x (no bf16 atomics), by vector
+// reductions (red_add_run). `gxn` points at this thread's channels of pixel
+// (0, 0) of its item; a pixel is `ch` floats wide, `ch` and the channels'
+// start multiples of 4. Every lane of the warp calls it, `live` false for a
+// lane that adds nothing: at bf16 (N = 8, a lane's run is one 32-byte
+// sector of grad x, two reductions) the lanes of a pair l, l ^ 1 trade
+// halves by shuffles, so that each of the pair's two reductions covers one
+// whole sector, the even lane's and then the odd lane's, where on its own
+// each lane would send two half-sector requests. Atomic adds: the order of
+// the additions, and so the last bits of the sum, change from run to run.
 template <int N>
 __device__ __forceinline__ void scatter_corners(float* __restrict__ gxn,
                                                 const Corners& c,
                                                 const float (&g)[N], float m,
-                                                int w, int ch) {
-  if (c.in00)
-    atomic_add_run(gxn + ((size_t)c.y0 * w + c.x0) * ch, g,
-                   m * c.wy0 * c.wx0);
-  if (c.in01)
-    atomic_add_run(gxn + ((size_t)c.y0 * w + c.x0 + 1) * ch, g,
-                   m * c.wy0 * c.wx1);
-  if (c.in10)
-    atomic_add_run(gxn + ((size_t)(c.y0 + 1) * w + c.x0) * ch, g,
-                   m * c.wy1 * c.wx0);
-  if (c.in11)
-    atomic_add_run(gxn + ((size_t)(c.y0 + 1) * w + c.x0 + 1) * ch, g,
-                   m * c.wy1 * c.wx1);
+                                                int w, int ch, bool live) {
+  static_assert(N == 4 || N == 8, "runs of 4 or 8 channels");
+  const bool in[4] = {c.in00, c.in01, c.in10, c.in11};
+  const float wt[4] = {m * c.wy0 * c.wx0, m * c.wy0 * c.wx1,
+                       m * c.wy1 * c.wx0, m * c.wy1 * c.wx1};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool ok = live && in[k];
+    const float s = wt[k];
+    float* p = ok ? gxn + ((size_t)(c.y0 + (k >> 1)) * w + c.x0 + (k & 1)) * ch
+                  : gxn;
+    if constexpr (N == 4) {
+      if (ok) red_add_run(p, g, s);
+    } else {
+      const bool odd = threadIdx.x & 1;
+      // the half the partner sends: the odd lane its lower, the even its
+      // upper
+      float give[4], got[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        give[e] = (odd ? g[e] : g[e + 4]) * s;
+        got[e] = __shfl_xor_sync(0xffffffffu, give[e], 1);
+      }
+      float* q = reinterpret_cast<float*>(__shfl_xor_sync(
+          0xffffffffu, reinterpret_cast<unsigned long long>(p), 1));
+      const bool q_ok = __shfl_xor_sync(0xffffffffu, (int)ok, 1);
+      // the even lane's sector, then the odd lane's
+      float4 first, second;
+      if (odd) {
+        first = make_float4(got[0], got[1], got[2], got[3]);
+        second = make_float4(g[4] * s, g[5] * s, g[6] * s, g[7] * s);
+      } else {
+        first = make_float4(g[0] * s, g[1] * s, g[2] * s, g[3] * s);
+        second = make_float4(got[0], got[1], got[2], got[3]);
+      }
+      if (odd ? q_ok : ok) red_add4(odd ? q + 4 : p, first);
+      if (odd ? ok : q_ok) red_add4(odd ? p + 4 : q, second);
+    }
+  }
 }
 
 }  // namespace deform

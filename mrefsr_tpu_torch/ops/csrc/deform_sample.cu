@@ -41,7 +41,8 @@
 // In the backward the cg / N threads of one
 // (pixel, group) are neighbouring lanes: they add their shares with warp
 // shuffles and one lane writes, so grad_flow has one writer and is the same
-// from run to run; grad_x uses atomic adds and is not. Coordinates are f32.
+// from run to run; grad_x takes 16-byte vector reductions (atomic adds,
+// deform_bilinear.cuh) and is not. Coordinates are f32.
 // Requires C % N == 0 and cg % N == 0, and for the backward cg / N a power
 // of two <= 32, which the wrapper checks.
 #include <cuda_bf16.h>
@@ -120,9 +121,9 @@ deform_sample_bwd_kernel(const typename Run<T>::Raw* __restrict__ grad_out,
     grad_flow[p.flow_at] = dfy;
     grad_flow[p.flow_at + 1] = dfx;
   }
-  if (kScatter && live)
+  if (kScatter)  // every lane: the bf16 pairs trade halves by shuffles
     deform::scatter_corners(grad_x + (size_t)p.n * h * w * cvn * N + p.cv * N,
-                            cn, go, 1.f, w, cvn * N);
+                            cn, go, 1.f, w, cvn * N, live);
 }
 
 template <typename T>

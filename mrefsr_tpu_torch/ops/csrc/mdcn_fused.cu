@@ -15,9 +15,9 @@
 // chunks of rows, no cuBLAS call. The forward writes out = sum + bias in
 // f32 (torch.addmm's order); dgrad computes grad_col = go . W^T in f32 and
 // runs the col2im arithmetic on it (grad offset, grad mask, and in the
-// _scatter variant grad x by f32 atomics); wgrad writes f32 partials
-// of grad weight and grad bias per slice of 8 x 8 output patches, added
-// in a fixed order by the sum kernel.
+// _scatter variant grad x by f32 vector reductions); wgrad writes f32
+// partials of grad weight and grad bias per slice of 8 x 8 output
+// patches, added in a fixed order by the sum kernel.
 //
 // Arithmetic: 3xTF32. Each operand value x is split into hi =
 // tf32_rna(x) and lo = x - hi (tc::split_tf32: hi as feature_match.cu

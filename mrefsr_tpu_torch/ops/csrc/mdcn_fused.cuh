@@ -20,7 +20,8 @@
 //   dgrad    gcol[r,k,c] = sum_o go[r, o] W[k, c, o], and from it the
 //            col2im arithmetic: grad offset (f32, times the mask) and grad
 //            mask (T, none without a mask) summed over the group's
-//            channels, grad x (f32, atomic) in the _scatter variant;
+//            channels, grad x (f32, vector reductions) in the _scatter
+//            variant;
 //   wgrad    gW[k*C + c, o] = sum_r col[r, k, c] go[r, o]   (f32), and
 //            grad bias gb[o] = sum_r go[r, o]                  (f32)
 // with every sum over (k, c), o or r in f32 on the tensor cores. Where the
@@ -71,6 +72,22 @@
 //    shuffles, one writer per (pixel, group, tap), whose gradients replace
 //    the staged offset and mask just read; they are written back,
 //    coalesced, at the end.
+//  - The _scatter dgrad also adds each sample's grad_col run, times its
+//    corner weights and mask, into grad x at its four corners: f32 in
+//    device memory, whatever T, so the additions land by atomics, their
+//    order (the last bits of grad x) changing from run to run. Each is one
+//    16-byte vector reduction (REDG.E.ADD.F32x4) for each 4 channels and
+//    corner, where a scalar atomic took each channel; at bf16 a lane's 8
+//    channels are one 32-byte sector, which the lanes of a pair trade
+//    halves of so that each of their two reductions covers one sector
+//    whole (deform_bilinear.cuh's scatter_corners). What bounds it is the
+//    L2's rate of reductions: at C 64 and dg 8 a (pixel, tap, corner) is
+//    16 of them whatever T, and at bf16 they add their time to the rest of
+//    the dgrad's, which at f32 hides part of them. A window of grad x in
+//    shared memory, summing a patch's corners before they leave, does not
+//    pay on the H100: a shared f32 atomicAdd is a compare-and-swap loop
+//    (ATOMS.CAST.SPIN), and a window made the kernel slower at every shape
+//    and offset spread tried (PERF.md, Findings).
 //  - wgrad: a block owns (tap, BK channels) x all of Cout and a slice of
 //    patches, one patch a step: the gathered column tile and the grad_out
 //    tile are staged row-major and read across (A = col^T, B = go); the
@@ -961,11 +978,11 @@ dgrad_kernel(const T* __restrict__ go, const typename Prec<T>::Raw* __restrict__
         off_s[2 * at[q]] = dfy;
         off_s[2 * at[q] + 1] = dfx;
       }
-      if (kScatter && live[q])
+      if constexpr (kScatter)  // every lane: bf16 pairs trade by shuffles
         deform::scatter_corners(
             grad_x + (size_t)px[q].n * g.h * g.w * g.c +
                 (st.ci * RUNS_K + j) * N,
-            p[q].cn, gc, p[q].m, g.w, g.c);
+            p[q].cn, gc, p[q].m, g.w, g.c, live[q]);
     }
   }
   __syncthreads();  // every gradient of the patch is staged

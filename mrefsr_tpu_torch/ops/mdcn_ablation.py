@@ -18,6 +18,16 @@ splits), ``splits`` (f32 only: the TF32 split left out, hi = x, lo = 0)
 and ``gather+products``. A cut variant computes wrong values; only its
 time counts. Prints one JSON line per shape and variant, the median ms of
 7 launches after a warm-up, then the card's name and power limit.
+
+    python3 -m mrefsr_tpu_torch.ops.mdcn_ablation --scatter [--bf16]
+
+times the dgrad with the grad-x scatter instead, at EDVR-M's L1, BasicVSR++
+and the stage-3 C 64 shapes, offsets ``randn * 4`` and uniform on [-1.5,
+1.5], built as is and with one of its levers undone by the same kind of
+text edit (these variants compute right values): ``scalar atomics`` (each
+16-byte vector reduction split into four scalar atomic adds) and
+``unpaired`` (at bf16, each lane reducing its own two half sectors, no
+trade between the lanes of a pair).
 """
 import ctypes
 import json
@@ -63,10 +73,26 @@ VARIANTS = {'as is': (), 'gather': ('gather',), 'offsets': ('offsets',),
             'operands': ('operands',), 'products': ('products',),
             'splits': ('splits',), 'gather+products': ('gather', 'products')}
 
+# the scatter's levers undone: (header, its text, the replacement, count)
+CUTS.update({
+    'scalar atomics': [('deform_bilinear.cuh',
+                        '  atomicAdd(reinterpret_cast<float4*>(p), v);',
+                        '  atomicAdd(p, v.x), atomicAdd(p + 1, v.y), '
+                        'atomicAdd(p + 2, v.z), atomicAdd(p + 3, v.w);', 1)],
+    'unpaired': [('deform_bilinear.cuh', '    if constexpr (N == 4) {',
+                  '    if constexpr (N == 4 || N == 8) {', 1)]})
+SCATTER_VARIANTS = {'as is': (), 'scalar atomics': ('scalar atomics',),
+                    'unpaired': ('unpaired',)}
+# (case, N, C, Cout, H, W, deform groups)
+SCATTER_SHAPES = (('edvr_m_l1', 20, 64, 64, 64, 64, 8),
+                  ('basicvsrpp', 4, 128, 64, 64, 64, 16),
+                  ('stage3_c64', ITEMS, 64, 64, 160, 160, DG))
+
 
 def _headers(cuts):
     texts = {name: (CSRC / name).read_text()
-             for name in ('mdcn_fused.cuh', 'mma_sync.cuh')}
+             for name in ('mdcn_fused.cuh', 'mma_sync.cuh',
+                          'deform_bilinear.cuh')}
     for cut in cuts:
         for name, old, new, count in CUTS[cut]:
             if texts[name].count(old) != count:
@@ -77,14 +103,14 @@ def _headers(cuts):
     return texts
 
 
-def _build_variants(source, variants):
+def _build_variants(source, variants, table=VARIANTS):
     out_dir = BUILD_DIR / 'ablation' / source.split('.')[0]
     procs = {}
     for name in variants:
         stem = name.replace(' ', '_').replace('+', '_')
         (out_dir / stem).mkdir(parents=True, exist_ok=True)
         # the source finds the cut headers beside it before those in CSRC
-        for header, text in _headers(VARIANTS[name]).items():
+        for header, text in _headers(table[name]).items():
             (out_dir / stem / header).write_text(text)
         src = out_dir / stem / source
         src.write_text((CSRC / source).read_text())
@@ -134,11 +160,66 @@ def _inputs(c, h, gen, dtype):
             for t in (x, offset, mask, weight, go)]
 
 
+def scatter(dcn, bf16):
+    """``--scatter``: see the module docstring."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    suffix = '_bf16' if bf16 else ''
+    # the f32 runs trade nothing between lanes: no 'unpaired' there
+    variants = {name: cuts for name, cuts in SCATTER_VARIANTS.items()
+                if bf16 or name != 'unpaired'}
+    libs = _build_variants('mdcn_bf16.cu' if bf16 else 'mdcn_fused.cu',
+                           variants, variants)
+    ptr, geo = ctypes.c_void_p, [ctypes.c_int] * 16 + [ctypes.c_void_p]
+    entries = {}
+    for name, lib in libs.items():
+        launch = getattr(lib, f'mdcn_fused_dgrad_scatter{suffix}_launch')
+        launch.argtypes = [ptr] * 8 + geo
+        entries[name] = launch
+    for case, n, c, cout, h, w, dg in SCATTER_SHAPES:
+        for spread in ('randn4', 'uniform1.5'):
+            gen = torch.Generator().manual_seed(0)
+            shape = (n, h, w, dg, 9, 2)
+            offset = (torch.randn(shape, generator=gen) * 4
+                      if spread == 'randn4' else
+                      torch.rand(shape, generator=gen) * 3 - 1.5).cuda()
+            x = torch.randn((n, h, w, c), generator=gen).to(dtype).cuda()
+            mask = torch.rand((n, h, w, dg, 9), generator=gen).to(
+                dtype).cuda()
+            weight = (torch.randn((3, 3, c, cout), generator=gen)
+                      * 0.02).to(dtype).cuda()
+            go = torch.randn((n * h * w, cout), generator=gen).to(
+                dtype).cuda()
+            geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, w))
+            args = dcn._fused_args(x, offset, weight, geom)
+            g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
+            g_x = torch.zeros_like(x, dtype=torch.float32)
+            head = (go.data_ptr(), x.data_ptr(), offset.data_ptr(),
+                    mask.data_ptr(), weight.data_ptr(), g_off.data_ptr(),
+                    g_mask.data_ptr(), g_x.data_ptr())
+            for name, launch in entries.items():
+                print(json.dumps({
+                    'case': case, 'offsets': spread, 'n': n, 'c': c,
+                    'cout': cout, 'h': h, 'w': w, 'deform_groups': dg,
+                    'dtype': str(dtype), 'variant': name,
+                    'scatter_ms': _ms(lambda: _check(launch(*head,
+                                                            *args)))}),
+                      flush=True)
+            del x, offset, mask, weight, go, g_off, g_mask, g_x
+            torch.cuda.empty_cache()
+
+
 def main(argv=None):
     from . import dcn
-    bf16 = '--bf16' in (sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    bf16 = '--bf16' in argv
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
+    if '--scatter' in argv:
+        scatter(dcn, bf16)
+        print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                              '--format=csv,noheader'], capture_output=True,
+                             text=True).stdout.strip())
+        return
     dtype = torch.bfloat16 if bf16 else torch.float32
     suffix = '_bf16' if bf16 else ''
     variants = [v for v in VARIANTS if not (bf16 and v == 'splits')]
