@@ -5207,12 +5207,22 @@ REDS_FRAMES, REDS_LQ = 100, (180, 320)      # a REDS clip, its LQ frames
 VAL_FRAMES = 20                 # cli_video's validation clip (011)
 VIDEO_B, VIDEO_GT = 4, 256
 VIDEO_WARMUP, VIDEO_STEPS = 2, 10
+ICONVSR_STEPS = 4          # IconVSR's timed training steps at each type
 CUT = 2                    # tsa_iter (YAML 50000) and fix_flow (YAML 5000)
 SR_B, SR_GT, SR_IMAGES = 16, 128, 16
 YAML_SOURCES = {
     'edvr': 'BasicSR options/train/EDVR/train_EDVR_M_x4_SR_REDS_woTSA.yml',
     'edvr_tsa': 'BasicSR options/train/EDVR/train_EDVR_M_x4_SR_REDS.yml',
     'basicvsr': 'BasicSR options/train/BasicVSR/train_BasicVSR_REDS.yml',
+    'iconvsr': 'BasicSR options/train/BasicVSR/train_IconVSR_REDS.yml',
+    'iconvsr_serve': 'BasicSR options/test/BasicVSR/test_IconVSR_REDS.yml',
+    'tof_serve': 'BasicSR options/test/TOF/test_TOF_official.yml',
+    'duf_serve': 'BasicSR options/test/DUF/test_DUF_official.yml',
+    'video_gan': 'GAN block: BasicSR options/train/SRResNet_SRGAN/'
+                 'train_MSRGAN_x4.yml (L1 1e-2, VGG19 conv5_4 perceptual, '
+                 'vanilla GAN 5e-3, Adam 1e-4 for net_d); net_g: the video '
+                 'YAML of its kind; net_d: VGGStyleDiscriminator num_feat 64, '
+                 'input 256',
     'basicvsrpp': 'net: inference/inference_basicvsrpp.py REDS_KWARGS '
                   '(BasicSR test_BasicVSRPP_REDS.yml); train block and data: '
                   'BasicSR options/train/BasicVSR/train_BasicVSR_REDS.yml',
@@ -5294,8 +5304,16 @@ def _video_batch(dataset_opt, seed, b=VIDEO_B):
     return default_collate([dataset[i * step] for i in range(b)])
 
 
+# IconVSR of test_IconVSR_REDS.yml / train_IconVSR_REDS.yml
+ICONVSR = {'type': 'IconVSR', 'num_feat': 64, 'num_block': 30,
+           'keyframe_stride': 5, 'temporal_padding': 2}
+# K2 launches of one IconVSR forward: the keyframes' EDVR windows folded
+# into one batch run the four deformable convs of one PCD alignment once
+ICONVSR_DCNS = 4
+
+
 def _video_train_opt(kind, dtype=torch.float32):
-    """The model options of ``kind`` (edvr, edvr_tsa, basicvsr,
+    """The model options of ``kind`` (edvr, edvr_tsa, basicvsr, iconvsr,
     basicvsrpp) at full width: the YAMLs' network and train blocks,
     ``tsa_iter`` / ``fix_flow`` cut to ``CUT``."""
     from mrefsr_tpu_torch.inference.inference_basicvsrpp import REDS_KWARGS
@@ -5315,9 +5333,11 @@ def _video_train_opt(kind, dtype=torch.float32):
             train['tsa_iter'] = CUT
         model_type = 'EDVRModel'
     else:
-        net = {'type': 'BasicVSR', 'num_feat': 64, 'num_block': 30} \
-            if kind == 'basicvsr' else dict(type='BasicVSRPlusPlus',
-                                            **REDS_KWARGS)
+        net = {'basicvsr': {'type': 'BasicVSR', 'num_feat': 64,
+                            'num_block': 30},
+               'iconvsr': dict(ICONVSR),
+               'basicvsrpp': dict(type='BasicVSRPlusPlus',
+                                  **REDS_KWARGS)}[kind]
         train = {'optim_g': {'type': 'Adam', 'lr': 2e-4,
                              'betas': [0.9, 0.99]},
                  'scheduler': {'type': 'CosineAnnealingRestartLR',
@@ -5391,11 +5411,12 @@ def _video_compare_grads(model, dcn_modules, dcn, batch):
             'out_max_abs_diff': float((out_k - out_p).abs().max())}
 
 
-def _freeze_steps(model, batch, freezes):
+def _freeze_steps(model, batch, freezes, must_move=()):
     """Steps 1 and 2 (the warm-ups): with ``freeze_until`` 2 every frozen
     parameter bit-equal through step 1, and moving at step 2. Where the
     model ``freezes`` (``tsa_iter``, ``fix_flow``), it must freeze some
-    parameter; otherwise none."""
+    parameter; otherwise none. Each prefix of ``must_move`` (IconVSR's
+    ``spynet.`` and ``edvr.``) must be frozen and then move."""
     keep = model.freeze_keep
     frozen = {n: p.detach().clone() for n, p in model.net_g.named_parameters()
               if keep is not None and not keep(n)}
@@ -5411,8 +5432,16 @@ def _freeze_steps(model, batch, freezes):
                 for n, p in model.net_g.named_parameters() if n in frozen)
     check(not frozen or moved, 'no frozen parameter moved after the '
           'freeze')
+    params = dict(model.net_g.named_parameters())
+    moved_by = {prefix: sum(not torch.equal(params[n], p) for n, p
+                            in frozen.items() if n.startswith(prefix))
+                for prefix in must_move}
+    check(all(moved_by.values()) and all(
+        any(n.startswith(prefix) for n in frozen) for prefix in must_move),
+        f'frozen and then moved, by prefix: {moved_by}')
     return {'freeze_until': model.freeze_until, 'frozen_tensors': len(frozen),
-            'bit_equal_through_iter_1': held, 'moved_at_iter_2': moved}
+            'bit_equal_through_iter_1': held, 'moved_at_iter_2': moved,
+            'moved_at_iter_2_by_prefix': moved_by}
 
 
 def _video_expect(dtype):
@@ -5427,10 +5456,13 @@ def phase_video_train(kind, data, kernels, dcn, modules, dtype=torch.float32):
     """``kind``'s full-width training step at B 4 on one batch of the
     synthetic REDS: the gradients through the kernels against the plain
     versions behind the same forward at B 1 (nets with a DCN), two warm-ups
-    (the freeze, where ``kind`` has one), ``VIDEO_STEPS`` timed steps, their
-    launches (exactly K2's forward, scatter dgrad, wgrad and sum at the
-    step's type, nothing else; nothing for BasicVSR), peak memory and a
-    profile with the scatter apart."""
+    (the freeze, where ``kind`` has one), ``VIDEO_STEPS`` timed steps
+    (``ICONVSR_STEPS`` for IconVSR), their launches (exactly K2's forward,
+    scatter dgrad, wgrad and sum at the step's type, nothing else; nothing
+    for BasicVSR; for IconVSR each of the four exactly once a step: its
+    keyframes' EDVR windows run folded into one batch through the four
+    deformable convs of one PCD alignment), peak memory and a profile with
+    the scatter apart."""
     from mrefsr_tpu_torch.models import build_model
     arch_util, basicvsrpp_arch, edvr_arch = modules
     bf16 = dtype == BF16
@@ -5444,7 +5476,9 @@ def phase_video_train(kind, data, kernels, dcn, modules, dtype=torch.float32):
                torch.Generator().manual_seed(SEED + 32))
     expect = () if kind == 'basicvsr' else _video_expect(dtype)
     dcn_modules = {'edvr': (arch_util,), 'edvr_tsa': (arch_util,),
+                   'iconvsr': (arch_util,),
                    'basicvsrpp': (basicvsrpp_arch,)}.get(kind, ())
+    steps = ICONVSR_STEPS if kind == 'iconvsr' else VIDEO_STEPS
     compare = expect and kind != 'edvr_tsa'
     small = {k: v[:1] for k, v in batch.items() if isinstance(v, np.ndarray)}
     grads = trained = None
@@ -5452,7 +5486,9 @@ def phase_video_train(kind, data, kernels, dcn, modules, dtype=torch.float32):
         grads = _video_compare_grads(model, dcn_modules, dcn, small)
         _check_grads(f'{tag}, fresh weights', grads, dtype)
     reset_counts(kernels)
-    freeze = _freeze_steps(model, batch, freezes=kind != 'edvr')
+    freeze = _freeze_steps(model, batch, freezes=kind != 'edvr',
+                           must_move=('spynet.', 'edvr.')
+                           if kind == 'iconvsr' else ())
     warm_launches = {n: k.launches for n, k in kernels.items()}
     if kind == 'edvr_tsa':
         _only(kernels, warm_launches, expect)
@@ -5471,7 +5507,7 @@ def phase_video_train(kind, data, kernels, dcn, modules, dtype=torch.float32):
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
     step_ms, losses = [], []
-    for step in range(VIDEO_WARMUP + 1, VIDEO_WARMUP + VIDEO_STEPS + 1):
+    for step in range(VIDEO_WARMUP + 1, VIDEO_WARMUP + steps + 1):
         t0 = time.perf_counter()
         model.feed_data(batch)
         model.optimize_parameters(step)
@@ -5483,6 +5519,10 @@ def phase_video_train(kind, data, kernels, dcn, modules, dtype=torch.float32):
         _only(kernels, launches, expect)
     else:
         check(not any(launches.values()), f'{tag} launched {launches}')
+    if kind == 'iconvsr':
+        check(all(launches[e] == ICONVSR_DCNS * steps for e in expect),
+              f'IconVSR launched {launches} in {steps} steps, expected '
+              f'{ICONVSR_DCNS} of each of {expect} a step')
     peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses)), f'non-finite loss: {losses}')
     for p in model.net_g.parameters():
@@ -5492,11 +5532,11 @@ def phase_video_train(kind, data, kernels, dcn, modules, dtype=torch.float32):
               'state must be f32')
     if compare:
         trained = _video_compare_grads(model, dcn_modules, dcn, small)
-        _check_grads(f'{tag}, after {VIDEO_WARMUP + VIDEO_STEPS} steps',
+        _check_grads(f'{tag}, after {VIDEO_WARMUP + steps} steps',
                      trained, dtype)
     frames = batch['lq'].shape[1]
     mean_ms = statistics.mean(step_ms)
-    reduced = ['one repeated batch', f'{VIDEO_STEPS} timed steps',
+    reduced = ['one repeated batch', f'{steps} timed steps',
                'seeded weights, live offset convs' if expect
                else 'seeded weights']
     if kind != 'edvr':
@@ -5509,9 +5549,10 @@ def phase_video_train(kind, data, kernels, dcn, modules, dtype=torch.float32):
           'clips_per_s': VIDEO_B / mean_ms * 1e3, 'peak_mem_bytes': peak,
           'losses': losses, 'freeze': freeze,
           'learning_rates': model.get_current_learning_rate(),
-          'launches_10_steps': {n: v for n, v in launches.items() if v},
+          f'launches_{steps}_steps': {n: v for n, v in launches.items()
+                                      if v},
           'grads_fresh_weights': grads,
-          f'grads_after_{VIDEO_WARMUP + VIDEO_STEPS}_steps': trained,
+          f'grads_after_{VIDEO_WARMUP + steps}_steps': trained,
           'grad_tolerance': (TRAIN_GRAD_BF16_TOL if bf16
                              else TRAIN_GRAD_REL_TOL) if grads else None,
           'out_tolerance': (SLICE_BF16_TOL if bf16 else SLICE_TOL)
@@ -5519,7 +5560,7 @@ def phase_video_train(kind, data, kernels, dcn, modules, dtype=torch.float32):
 
     def one_step():
         model.feed_data(batch)
-        model.optimize_parameters(VIDEO_WARMUP + VIDEO_STEPS + 1)
+        model.optimize_parameters(VIDEO_WARMUP + steps + 1)
 
     if expect:               # the profile splits K2: BasicVSR has none
         phase_profile(tag, one_step)
@@ -5614,7 +5655,15 @@ VIDEO_TRAIN_K2_SHAPES = (
     ('edvr_m_l1', VIDEO_B * 5, 64, 64, 64, 64, 8),
     ('edvr_m_l2', VIDEO_B * 5, 64, 64, 32, 32, 8),
     ('edvr_m_l3', VIDEO_B * 5, 64, 64, 16, 16, 8),
-    ('basicvsrpp', VIDEO_B, 128, 64, 64, 64, 16))
+    ('basicvsrpp', VIDEO_B, 128, 64, 64, 64, 16),
+    # IconVSR's PCD levels: B clips x 4 keyframes x 5 frames in training,
+    # 4 keyframes x 5 frames of a 180x320 chunk in serving
+    ('iconvsr_l1', VIDEO_B * 4 * 5, 64, 64, 64, 64, 8),
+    ('iconvsr_l2', VIDEO_B * 4 * 5, 64, 64, 32, 32, 8),
+    ('iconvsr_l3', VIDEO_B * 4 * 5, 64, 64, 16, 16, 8),
+    ('iconvsr_serve_l1', 4 * 5, 64, 64, 180, 320, 8),
+    ('iconvsr_serve_l2', 4 * 5, 64, 64, 90, 160, 8),
+    ('iconvsr_serve_l3', 4 * 5, 64, 64, 45, 80, 8))
 # the scatter's second offset case beside _mdcn_inputs' randn * 4: uniform
 # on [-SCATTER_NEAR, SCATTER_NEAR], samples within a pixel and a half of
 # their taps, as smooth offsets put them (their corners crowd together)
@@ -5948,11 +5997,378 @@ def phase_cli_video(root, data, kernels):
     return launches
 
 
+def _video_model(opt, modules):
+    """``build_model(opt)`` with live offset convs (a fresh net's are
+    zero, which samples on the grid)."""
+    from mrefsr_tpu_torch.models import build_model
+    arch_util, basicvsrpp_arch, _ = modules
+    model = build_model(opt)
+    _liven_dcn(model.get_bare_model(model.net_g), arch_util,
+               basicvsrpp_arch, torch.Generator().manual_seed(SEED + 35))
+    return model
+
+
+def phase_iconvsr_serve(kernels, dcn, modules, dtype=torch.float32):
+    """IconVSR of ``test_IconVSR_REDS.yml`` (64 features, 30 blocks,
+    keyframe stride 5, temporal padding 2) through ``VideoRecurrentModel``'s
+    test path (``feed_data`` -> ``test``; ``val.mixed_precision`` at bf16),
+    seeded weights with live offset convs: a warm-up, then two timed
+    15-frame 180x320 chunks, each launching K2's forward at ``dtype``
+    exactly ``ICONVSR_DCNS`` times and nothing else of this repository;
+    peak memory; one chunk through the kernels against the plain K2
+    forward; a profile."""
+    bf16 = dtype == BF16
+    tag = 'iconvsr_serve' + ('_bf16' if bf16 else '')
+    opt = {'name': tag, 'model_type': 'VideoRecurrentModel', 'scale': 4,
+           'num_gpu': 1, 'manual_seed': SEED, 'is_train': False,
+           'dist': False, 'network_g': dict(ICONVSR), 'path': {},
+           'val': {'mixed_precision': 'bfloat16'} if bf16 else {}}
+    model = _video_model(opt, modules)
+    check(model.eval_dtype == dtype, f'eval dtype {model.eval_dtype}')
+    lq = _video_frames(SEED + 36, VSR_T, VSR_H, VSR_W)[None]
+    name = 'mdcn_fused_fwd' + ('_bf16' if bf16 else '')
+
+    def chunk():
+        model.feed_data({'lq': lq})
+        model.test()
+        return model.output
+
+    chunk()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chunk_ms = []
+    for _ in range(2):
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        out = chunk()
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_counts(kernels, (name,))
+        _only(kernels, launches, (name,))
+        check(launches[name] == ICONVSR_DCNS, f'a chunk launched {name} '
+              f'{launches[name]} times, expected {ICONVSR_DCNS}')
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(out.shape) == (1, VSR_T, 4 * VSR_H, 4 * VSR_W, 3)
+          and out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+          and float(out.std()) > 0, f'output {tuple(out.shape)}')
+    x = model.lq
+    out_k, out_p, diff = _kernel_vs_plain(lambda: model.eval_forward(x), dcn)
+    scale = float(out_p.abs().max())
+    tol = SLICE_BF16_TOL if bf16 else VIDEO_TOL * scale
+    check(diff <= tol, f'{tag}: kernels vs plain differ by {diff} (max '
+          f'|out| {scale}, tolerance {tol})')
+    del out_k, out_p, out
+    mean_ms = sum(chunk_ms) / len(chunk_ms)
+    emit({'phase': 'iconvsr_serve', 'path': tag,
+          'source': YAML_SOURCES['iconvsr_serve'], 'network_g': ICONVSR,
+          'frames': VSR_T, 'h': VSR_H, 'w': VSR_W, 'dtype': str(dtype),
+          'chunk_ms': chunk_ms, 'frame_ms': mean_ms / VSR_T,
+          'frames_per_s': VSR_T / mean_ms * 1e3, 'peak_mem_bytes': peak,
+          'launches_per_chunk': {n: v for n, v in launches.items() if v},
+          'plain_vs_kernel_max_abs_diff': diff, 'max_abs_out': scale,
+          'tolerance': tol,
+          'reduced': ['seeded weights, live offset convs (the YAML loads '
+                      'the REDS checkpoints)', 'one synthetic 15-frame '
+                      'chunk (REDS4: 100-frame clips)']})
+    phase_profile(tag, chunk)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _serve_times(kernels, run, reps=3):
+    """A warm-up, then ``reps`` timed calls of ``run()`` (host clock around
+    a synchronised call) and the peak memory; no kernel of this repository
+    may launch."""
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts(kernels, ())
+    check(not any(launches.values()), f'launched {launches}')
+    return out, times, torch.cuda.max_memory_allocated(), launches
+
+
+def phase_tof_serve(kernels):
+    """TOFlow of ``test_TOF_official.yml`` (the official frame order)
+    through ``VideoBaseModel``'s test path on one window of 7 Vimeo-90K
+    frames already upsampled to 256x448, seeded weights, norms on their
+    running statistics: time and peak memory (no kernel of this
+    repository runs on this path)."""
+    from mrefsr_tpu_torch.models import build_model
+    opt = {'name': 'tof_serve', 'model_type': 'VideoBaseModel', 'scale': 4,
+           'num_gpu': 1, 'manual_seed': SEED, 'is_train': False,
+           'dist': False, 'path': {}, 'val': {},
+           'network_g': {'type': 'TOFlow', 'adapt_official_weights': True}}
+    model = build_model(opt)
+    lq = _video_frames(SEED + 37, 7, 256, 448)[None]
+
+    def window():
+        model.feed_data({'lq': lq})
+        model.test()
+        return model.output
+
+    out, times, peak, launches = _serve_times(kernels, window)
+    check(tuple(out.shape) == (1, 256, 448, 3)
+          and bool(torch.isfinite(out).all()), f'output {tuple(out.shape)}')
+    emit({'phase': 'tof_serve', 'source': YAML_SOURCES['tof_serve'],
+          'network_g': opt['network_g'], 'frames': 7, 'h': 256, 'w': 448,
+          'dtype': 'torch.float32', 'window_ms': times,
+          'peak_mem_bytes': peak, 'hand_written_kernels_launched': 0,
+          'reduced': ['seeded weights (the YAML loads the official TOF '
+                      'weights)', 'one synthetic window (Vimeo-90K test: '
+                      '7824 septuplets)']})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_duf_serve(kernels, root):
+    """DUF-52L of ``test_DUF_official.yml`` through ``VideoTestDUFDataset``
+    (``use_duf_downsampling``: the LQ frames made from the GT frames on
+    the host) and ``VideoBaseModel``'s test path, on a synthetic Vid4-layout
+    clip of 7 frames, GT 576x720: one window of 7 (the centre frame's), the
+    sample's host time apart; seeded weights, norms on their running
+    statistics; time and peak memory (no kernel of this repository)."""
+    import cv2
+    from mrefsr_tpu_torch.data import build_dataset
+    from mrefsr_tpu_torch.models import build_model
+    gt_dir = os.path.join(root, 'vid4', 'GT', 'calendar')
+    lq_dir = os.path.join(root, 'vid4', 'BIx4', 'calendar')
+    os.makedirs(gt_dir)
+    os.makedirs(lq_dir)
+    for i, gt in enumerate(_smooth_clip(SEED + 38, 7, 576, 720)):
+        cv2.imwrite(os.path.join(gt_dir, f'{i:08d}.png'), gt)
+        cv2.imwrite(os.path.join(lq_dir, f'{i:08d}.png'),
+                    cv2.resize(gt, (180, 144), interpolation=cv2.INTER_AREA))
+    dataset = build_dataset({
+        'name': 'Vid4', 'type': 'VideoTestDUFDataset', 'phase': 'test',
+        'scale': 4, 'dataroot_gt': os.path.dirname(gt_dir),
+        'dataroot_lq': os.path.dirname(lq_dir), 'io_backend': {'type':
+                                                                'disk'},
+        'cache_data': False, 'num_frame': 7, 'padding': 'reflection_circle',
+        'use_duf_downsampling': True})
+    t0 = time.perf_counter()
+    sample = dataset[3]
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    check(sample['lq'].shape == (7, 144, 180, 3), f'lq {sample["lq"].shape}')
+    opt = {'name': 'duf_serve', 'model_type': 'VideoBaseModel', 'scale': 4,
+           'num_gpu': 1, 'manual_seed': SEED, 'is_train': False,
+           'dist': False, 'path': {}, 'val': {},
+           'network_g': {'type': 'DUF', 'scale': 4, 'num_layer': 52,
+                         'adapt_official_weights': True}}
+    model = build_model(opt)
+    batch = {'lq': sample['lq'][None], 'gt': sample['gt'][None]}
+
+    def window():
+        model.feed_data(batch)
+        model.test()
+        return model.output
+
+    out, times, peak, launches = _serve_times(kernels, window)
+    check(tuple(out.shape) == (1, 576, 720, 3)
+          and bool(torch.isfinite(out).all()), f'output {tuple(out.shape)}')
+    emit({'phase': 'duf_serve', 'source': YAML_SOURCES['duf_serve'],
+          'network_g': opt['network_g'], 'frames': 7, 'lq': [144, 180],
+          'gt': [576, 720], 'dtype': 'torch.float32', 'window_ms': times,
+          'sample_ms': sample_ms, 'peak_mem_bytes': peak,
+          'hand_written_kernels_launched': 0,
+          'reduced': ['seeded weights (the YAML loads the official DUF '
+                      'weights)', 'one synthetic 7-frame clip, one window '
+                      '(Vid4: 4 clips, 171 frames)']})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+VIDEO_GAN_STEPS = 4
+
+
+def _video_gan_opt(kind):
+    """``VideoGANModel`` with EDVR-M woTSA or ``VideoRecurrentGANModel`` with
+    IconVSR: the video YAML's net, optimizer and schedule for ``net_g``
+    (``fix_flow`` and ``flow_lr_mul`` for IconVSR), MSRGAN's GAN block,
+    ``VGGStyleDiscriminator`` (64 features, input 256) and a seeded VGG19;
+    f32, as every GAN step."""
+    opt = _video_train_opt(kind)
+    train = opt['train']
+    train.pop('pixel_opt')
+    train.update(
+        pixel_opt={'type': 'L1Loss', 'loss_weight': 1e-2,
+                   'reduction': 'mean'},
+        perceptual_opt={'type': 'PerceptualLoss',
+                        'layer_weights': {'conv5_4': 1}, 'vgg_type': 'vgg19',
+                        'use_input_norm': True, 'range_norm': False,
+                        'perceptual_weight': 1.0, 'style_weight': 0,
+                        'criterion': 'l1'},
+        gan_opt={'type': 'GANLoss', 'gan_type': 'vanilla',
+                 'real_label_val': 1.0, 'fake_label_val': 0.0,
+                 'loss_weight': 5e-3},
+        optim_d={'type': 'Adam', 'lr': 1e-4, 'betas': [0.9, 0.99]},
+        net_d_iters=1, net_d_init_iters=0)
+    opt.update(name=f'video_gan_{kind}',
+               model_type='VideoGANModel' if kind == 'edvr'
+               else 'VideoRecurrentGANModel',
+               network_d={'type': 'VGGStyleDiscriminator', 'num_in_ch': 3,
+                          'num_feat': 64, 'input_size': VIDEO_GT})
+    opt['path']['vgg_pretrain_path'] = None
+    return opt
+
+
+def _video_gan_compare_grads(model, dcn_modules, dcn, batch):
+    """One generator and one discriminator backward of a GAN step (the
+    generator's pixel, perceptual and GAN terms; the discriminator's on the
+    real and the detached fake frames, its norms writing nothing), three
+    times as :func:`_video_compare_grads`: through the kernels, through the
+    kernels' Functions behind the plain forward values, through the plain
+    versions. Both nets' gradients against the third."""
+    from mrefsr_tpu_torch.parallel.batch_norm import frozen_stats
+    model.feed_data(batch)
+
+    def backward(plain_ops=False, plain_forward=False):
+        model.net_g.zero_grad(set_to_none=True)
+        model.net_d.zero_grad(set_to_none=True)
+        with contextlib.ExitStack() as stack:
+            if plain_ops:
+                for module in dcn_modules:
+                    stack.enter_context(mock.patch.object(
+                        module, 'modulated_deform_conv2d',
+                        dcn.modulated_deform_conv2d_ref))
+            if plain_forward:
+                stack.enter_context(mock.patch.object(
+                    dcn, '_mdcn_fused_forward_cuda',
+                    dcn._mdcn_fused_forward_ref))
+            out = model._run(model.net_g, torch.float32, False, model.lq)
+            loss = sum(model.g_losses(out).values())
+        loss.backward()
+        model.net_d.requires_grad_(True)
+        with frozen_stats(model.net_d):
+            d = model.d_losses(out.detach())
+        (d['l_d_real'] + d['l_d_fake']).backward()
+        model.net_d.requires_grad_(False)
+        grads = {f'g.{n}': p.grad.clone()
+                 for n, p in model.net_g.named_parameters()}
+        grads.update({f'd.{n}': p.grad.clone()
+                      for n, p in model.net_d.named_parameters()})
+        return out.detach(), grads
+
+    out_k, own = backward()
+    out_s, same = backward(plain_forward=True)
+    out_p, plain = backward(plain_ops=True)
+    model.net_g.zero_grad(set_to_none=True)
+    model.net_d.zero_grad(set_to_none=True)
+    return {'same_forward': _rel_grad_errors(same, plain),
+            'same_forward_bit_equal': bool(torch.equal(out_s, out_p)),
+            'own_forward': _rel_grad_errors(own, plain),
+            'own_forward_bit_equal': bool(torch.equal(out_k, out_p)),
+            'out_max_abs_diff': float((out_k - out_p).abs().max())}
+
+
+def phase_video_gan(kind, data, kernels, dcn, modules):
+    """``kind``'s GAN training (``_video_gan_opt``) at B ``VIDEO_B``, gt
+    256, f32, on one batch of the synthetic REDS: both nets' gradients
+    through the kernels against the plain versions behind the same forward
+    at B 1, two warm-ups (IconVSR's ``fix_flow`` among them), then
+    ``VIDEO_GAN_STEPS`` timed steps launching exactly K2's forward, scatter
+    dgrad, wgrad and sum at f32; step ms and peak memory."""
+    arch_util = modules[0]
+    opt = _video_gan_opt(kind)
+    model = _video_model(opt, modules)
+    batch = _video_batch(_reds_train_set(data, kind != 'edvr'), SEED + 39)
+    small = {k: v[:1] for k, v in batch.items() if isinstance(v, np.ndarray)}
+    grads = _video_gan_compare_grads(model, (arch_util,), dcn, small)
+    _check_grads(f'video_gan {kind}, fresh weights', grads)
+    expect = _video_expect(torch.float32)
+    reset_counts(kernels)
+    for step in range(1, VIDEO_WARMUP + 1):
+        model.feed_data(batch)
+        model.optimize_parameters(step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    step_ms, logs = [], []
+    for step in range(VIDEO_WARMUP + 1, VIDEO_WARMUP + VIDEO_GAN_STEPS + 1):
+        t0 = time.perf_counter()
+        model.feed_data(batch)
+        model.optimize_parameters(step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logs.append(model.get_current_log())
+    launches = {n: k.launches for n, k in kernels.items()}
+    _only(kernels, launches, expect)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(v) for log in logs for v in log.values()),
+          f'non-finite GAN losses: {logs}')
+    mean_ms = statistics.mean(step_ms)
+    emit({'phase': 'video_gan', 'path': f'video_gan_{kind}',
+          'model_type': opt['model_type'], 'source': YAML_SOURCES['video_gan'],
+          'net_g_source': YAML_SOURCES[kind], 'network_g': opt['network_g'],
+          'network_d': opt['network_d'], 'batch': VIDEO_B,
+          'gt': VIDEO_GT, 'frames': batch['lq'].shape[1],
+          'dtype': 'torch.float32', 'step_ms': step_ms,
+          'mean_step_ms': mean_ms, 'peak_mem_bytes': peak, 'logs': logs,
+          'launches_per_step': {n: v / VIDEO_GAN_STEPS
+                                for n, v in launches.items() if v},
+          'grads_fresh_weights': grads, 'grad_tolerance': TRAIN_GRAD_REL_TOL,
+          'out_tolerance': SLICE_TOL,
+          'reduced': [f'{VIDEO_GAN_STEPS} timed steps', 'one repeated batch',
+                      'seeded weights, live offset convs, seeded VGG19']
+          + ([f'fix_flow {CUT} (YAML 5000)'] if kind != 'edvr' else [])})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _zoo_serving_phases(root, data, kernels, dcn, modules):
+    """``iconvsr_serve`` (f32, bf16), ``tof_serve``, ``duf_serve`` and
+    ``video_gan`` (EDVR-M woTSA, IconVSR). Returns the launches by
+    path."""
+    by_path = {}
+    for dtype in (torch.float32, BF16):
+        tag = 'iconvsr_serve' + ('_bf16' if dtype == BF16 else '')
+        by_path[tag] = phase_iconvsr_serve(kernels, dcn, modules, dtype)
+    by_path['tof_serve'] = phase_tof_serve(kernels)
+    by_path['duf_serve'] = phase_duf_serve(kernels, root)
+    for kind in ('edvr', 'iconvsr'):
+        by_path[f'video_gan_{kind}'] = phase_video_gan(kind, data, kernels,
+                                                       dcn, modules)
+    return by_path
+
+
+def zoo_phases(build_model, arch, correlation, dcn, kernels):
+    """The phases of the video zoo that IconVSR, TOFlow, DUF and the video
+    GAN models add to :func:`video_phases`: IconVSR's ``video_train`` at
+    both types, :func:`_zoo_serving_phases` and ``video_scatter`` at both
+    types. Returns the launches by path."""
+    from mrefsr_tpu_torch.archs import arch_util, basicvsrpp_arch, edvr_arch
+    modules = (arch_util, basicvsrpp_arch, edvr_arch)
+    by_path = {}
+    with tempfile.TemporaryDirectory() as root:
+        data = _reds_data(root)
+        for dtype in (torch.float32, BF16):
+            tag = 'iconvsr_train' + ('_bf16' if dtype == BF16 else '')
+            by_path[tag], _ = phase_video_train('iconvsr', data, kernels,
+                                                dcn, modules, dtype)
+        by_path.update(_zoo_serving_phases(root, data, kernels, dcn,
+                                           modules))
+        for dtype in (torch.float32, BF16):
+            phase_video_scatter(dcn, dtype)
+    return by_path
+
+
 def video_phases(build_model, arch, correlation, dcn, kernels):
     """``video_train`` (EDVR-M woTSA f32 and bf16, EDVR-M with TSA across
-    ``tsa_iter``, BasicVSR, BasicVSR++ f32 and bf16), ``video_scatter``,
-    ``sr_train`` (f32, bf16) and ``cli_video``, on a synthetic REDS written
-    to a temporary directory. Returns the launches by path."""
+    ``tsa_iter``, BasicVSR, BasicVSR++ f32 and bf16, IconVSR f32 and bf16),
+    ``iconvsr_serve`` (f32, bf16), ``tof_serve``, ``duf_serve``,
+    ``video_gan`` (EDVR-M woTSA, IconVSR), ``video_scatter``, ``sr_train``
+    (f32, bf16) and ``cli_video``, on a synthetic REDS written to a
+    temporary directory. Returns the launches by path."""
     from mrefsr_tpu_torch.archs import arch_util, basicvsrpp_arch, edvr_arch
     modules = (arch_util, basicvsrpp_arch, edvr_arch)
     by_path = {}
@@ -5965,10 +6381,13 @@ def video_phases(build_model, arch, correlation, dcn, kernels):
                             ('edvr_tsa', torch.float32),
                             ('basicvsr', torch.float32),
                             ('basicvsrpp', torch.float32),
-                            ('basicvsrpp', BF16)):
+                            ('basicvsrpp', BF16),
+                            ('iconvsr', torch.float32), ('iconvsr', BF16)):
             tag = f'{kind}_train' + ('_bf16' if dtype == BF16 else '')
             by_path[tag], _ = phase_video_train(kind, data, kernels, dcn,
                                                 modules, dtype)
+        by_path.update(_zoo_serving_phases(root, data, kernels, dcn,
+                                           modules))
         for dtype in (torch.float32, BF16):
             phase_video_scatter(dcn, dtype)
             tag = 'sr_train' + ('_bf16' if dtype == BF16 else '')
@@ -6208,9 +6627,13 @@ def main_ref():
 
 
 def main_video():
-    """``--video``: the video training phases alone (``video_train``,
-    ``video_scatter``, ``sr_train``, ``cli_video``)."""
+    """``--video``: the video phases of :func:`video_phases` alone."""
     _main_alone(video_phases)
+
+
+def main_zoo():
+    """``--zoo``: the video zoo's phases alone (:func:`zoo_phases`)."""
+    _main_alone(zoo_phases)
 
 
 def main_repeat_grads(rounds):
@@ -6318,5 +6741,7 @@ if __name__ == '__main__':
         main_ref()
     elif sys.argv[1:2] == ['--video']:
         main_video()
+    elif sys.argv[1:2] == ['--zoo']:
+        main_zoo()
     else:
         main()

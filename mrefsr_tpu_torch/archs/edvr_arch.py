@@ -255,3 +255,43 @@ class EDVR(nn.Module):
         out = self.conv_last(lrelu(self.conv_hr(out)))
         base = x_center if self.hr_in else resize(x_center, scale_factor=4)
         return out + base
+
+
+class EDVRFeatureExtractor(nn.Module):
+    """IconVSR's keyframe features (JAX package edvr_arch.py:275-313, the
+    reference's basicvsr_arch.py:273-336): EDVR's feature pyramid, PCD
+    alignment (8 deform groups) of every frame against the centre frame,
+    and TSA fusion. Call ``x (B, T, 3, H, W)`` with ``T ==
+    num_input_frame`` and H, W multiples of 4; returns ``(B, C, H, W)``.
+    As in :class:`EDVR`, the frames run folded into the batch through one
+    PCD call (the JAX package calls it once a frame): each of its four
+    deformable convs launches once for all ``B * T`` frames."""
+
+    def __init__(self, num_input_frame, num_feat):
+        super().__init__()
+        nf = num_feat
+        self.center_frame_idx = num_input_frame // 2
+        self.conv_first = nn.Conv2d(3, nf, 3, 1, 1)
+        self.feature_extraction = make_layer(ResidualBlockNoBN, 5,
+                                             num_feat=nf)
+        self.conv_l2_1 = nn.Conv2d(nf, nf, 3, 2, 1)
+        self.conv_l2_2 = nn.Conv2d(nf, nf, 3, 1, 1)
+        self.conv_l3_1 = nn.Conv2d(nf, nf, 3, 2, 1)
+        self.conv_l3_2 = nn.Conv2d(nf, nf, 3, 1, 1)
+        self.pcd_align = PCDAlignment(num_feat=nf, deformable_groups=8)
+        self.fusion = TSAFusion(num_feat=nf, num_frame=num_input_frame,
+                                center_frame_idx=self.center_frame_idx)
+
+    def init_weights(self, generator):
+        default_init_(self, generator)
+
+    def forward(self, x):
+        b, t, c, h, w = x.shape
+        feat_l1 = self.feature_extraction(lrelu(self.conv_first(
+            x.reshape(-1, c, h, w))))
+        feat_l2 = lrelu(self.conv_l2_2(lrelu(self.conv_l2_1(feat_l1))))
+        feat_l3 = lrelu(self.conv_l3_2(lrelu(self.conv_l3_1(feat_l2))))
+        nbr = [feat_l1, feat_l2, feat_l3]
+        ref = [f.view(b, t, *f.shape[1:])[:, self.center_frame_idx, None]
+               .expand(b, t, *f.shape[1:]).reshape(f.shape) for f in nbr]
+        return self.fusion(self.pcd_align(nbr, ref).view(b, t, -1, h, w))

@@ -6,14 +6,17 @@ modules keep (so ``load_state_dict(strict=True)`` takes them unchanged):
 * a reference-format ``.pth`` (:func:`load_torch_state_dict`);
 * the flax parameter tree of the JAX package (:func:`state_dict_from_flax`,
   numpy in, torch state dict out): a kernel ``(kh, kw, I, O)`` becomes the
-  weight ``(O, I, kh, kw)``, a dense kernel ``(I, O)`` becomes ``(O, I)``,
+  weight ``(O, I, kh, kw)`` (a 3-D one ``(kd, kh, kw, I, O)`` the weight
+  ``(O, I, kd, kh, kw)``), a dense kernel ``(I, O)`` becomes ``(O, I)``,
   a norm scale becomes ``weight``, anything else keeps its leaf name
   (DynAgg's and FlowAgg's parameters included);
   :func:`stylegan2_state_dict_from_flax` adds what the StyleGAN2 nets
   need on top, :func:`state_dict_from_flax_variables` a net's batch-norm
-  statistics (the discriminator's), and :func:`load_from_flax` loads a net whose constant
-  buffers flax does not hold (SpyNet's ImageNet mean and std, in the
-  video nets).
+  statistics (the discriminator's),
+  :func:`vgg_style_discriminator_state_dict_from_flax` the permutation of
+  ``VGGStyleDiscriminator``'s ``linear1``, and :func:`load_from_flax`
+  loads a net whose constant buffers flax does not hold (SpyNet's
+  ImageNet mean and std, in the video nets).
 
 :func:`dcn_to_flow_state_dict` warm-starts a flow-alignment net from a
 DCN-alignment checkpoint.
@@ -90,7 +93,9 @@ def flax_to_torch(params):
     for key, val in _flatten(params).items():
         base, dot, leaf = key.rpartition('.')
         if leaf == 'kernel':
-            if val.ndim == 4:  # conv HWIO -> OIHW
+            if val.ndim == 5:  # conv DHWIO -> OIDHW
+                val = val.transpose(4, 3, 0, 1, 2)
+            elif val.ndim == 4:  # conv HWIO -> OIHW
                 val = val.transpose(3, 2, 0, 1)
             elif val.ndim == 2:  # dense (I, O) -> (O, I)
                 val = val.transpose(1, 0)
@@ -127,6 +132,29 @@ def state_dict_from_flax_variables(variables):
             raise ValueError(f'batch_stats.{key}: no torch buffer for it')
         out[f'{base}.{names[leaf]}'] = torch.tensor(val)
     return out
+
+
+def nhwc_dense_to_nchw(weight, channels):
+    """A torch dense weight ``(O, H * W * C)`` that reads a map flattened
+    NHWC -> the weight ``(O, C * H * W)`` that reads torch's NCHW flatten
+    of the same map (H = W)."""
+    out = weight.shape[0]
+    side = round((weight.shape[1] // channels) ** 0.5)
+    return weight.reshape(out, side, side, channels).transpose(0, 3, 1, 2) \
+        .reshape(out, -1)
+
+
+def vgg_style_discriminator_state_dict_from_flax(variables):
+    """The JAX package's ``VGGStyleDiscriminator`` variables -> the port's
+    state dict: :func:`state_dict_from_flax_variables`, and ``linear1``
+    permuted from the NHWC flatten the JAX net applies to the NCHW one
+    (:func:`nhwc_dense_to_nchw`; the last map has ``num_feat * 8``
+    channels)."""
+    state = state_dict_from_flax_variables(variables)
+    state['linear1.weight'] = torch.from_numpy(np.ascontiguousarray(
+        nhwc_dense_to_nchw(state['linear1.weight'].numpy(),
+                           state['bn0_1.weight'].shape[0] * 8)))
+    return state
 
 
 def load_from_flax(net, params):

@@ -1,12 +1,14 @@
 """Crops, paths and frame indices of the datasets (port of
 ``mrefsr_tpu/data/data_util.py``, the reference's
 ``basicsr/data/data_util.py``); ``read_img_seq`` is in ``utils/img_util.py``.
-``duf_downsample`` waits for DUF (ROADMAP A8) and the ``pack`` paths for
-``data/packio.py`` (A12)."""
+The ``pack`` paths wait for ``data/packio.py`` (ROADMAP A12)."""
 import os
 import os.path as osp
 
-__all__ = ['generate_frame_indices', 'match_point_crop',
+import numpy as np
+
+__all__ = ['duf_downsample', 'generate_frame_indices',
+           'generate_gaussian_kernel', 'match_point_crop',
            'paired_paths_from_ann_file', 'paired_paths_from_folder',
            'paired_paths_from_lmdb', 'paired_paths_from_meta_info_file',
            'paths_from_folder', 'paths_from_lmdb', 'scandir']
@@ -170,3 +172,36 @@ def paired_paths_from_folder(folders, keys, filename_tmpl):
                                                     input_name),
                       f'{gt_key}_path': osp.join(gt_folder, gt_name)})
     return paths
+
+
+def generate_gaussian_kernel(kernel_size=13, sigma=1.6):
+    """The ``kernel_size`` square Gaussian of ``sigma``: scipy's
+    ``gaussian_filter`` of a centred impulse (reference
+    data_util.py:306-321), float64."""
+    from scipy import ndimage
+    kernel = np.zeros((kernel_size, kernel_size))
+    kernel[kernel_size // 2, kernel_size // 2] = 1
+    return ndimage.gaussian_filter(kernel, sigma)
+
+
+def duf_downsample(x, kernel_size=13, scale=4):
+    """DUF's degradation (reference data_util.py:324-352): each channel
+    reflect-padded by ``kernel_size // 2``, blurred by the Gaussian of
+    sigma ``0.4 * scale`` and sampled every ``scale`` pixels, in float32
+    (a depthwise strided ``conv2d`` on the CPU). ``x`` is a numpy ``(T, H,
+    W, C)`` or ``(H, W, C)`` array; returns the same layout."""
+    import torch
+    import torch.nn.functional as F
+    if scale not in (2, 3, 4):
+        raise ValueError(f'Only support scale (2, 3, 4), but got {scale}.')
+    squeeze = x.ndim == 3
+    frames = torch.from_numpy(np.ascontiguousarray(
+        x[None] if squeeze else x, dtype=np.float32)).permute(0, 3, 1, 2)
+    c = frames.shape[1]
+    pad = kernel_size // 2
+    kernel = torch.from_numpy(generate_gaussian_kernel(
+        kernel_size, 0.4 * scale).astype(np.float32))
+    out = F.conv2d(F.pad(frames, (pad, pad, pad, pad), mode='reflect'),
+                   kernel.expand(c, 1, kernel_size, kernel_size),
+                   stride=scale, groups=c).permute(0, 2, 3, 1).numpy()
+    return out[0] if squeeze else out

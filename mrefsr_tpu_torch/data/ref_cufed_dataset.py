@@ -7,16 +7,18 @@ The random draws come from the dataset's own ``random.Random(seed)``
 (the flips) and ``np.random.RandomState(seed)`` (the CVT homography), in
 the order of the JAX package's draws from python's and numpy's global
 generators, so one seed gives both packages the same samples. Images are
-read from disk (``io_backend: disk``); the lmdb backend comes with the
-file client (ROADMAP A6)."""
+read through the file client (``io_backend``: ``disk``, or ``lmdb`` with
+the two folders as its databases, keys ``in`` and ``ref``)."""
 import random
 
 import numpy as np
 
 from mrefsr_tpu_torch.utils import img2tensor
+from mrefsr_tpu_torch.utils.file_client import ensure_file_client
 from mrefsr_tpu_torch.utils.registry import DATASET_REGISTRY
 
-from .data_util import paired_paths_from_ann_file, paired_paths_from_folder
+from .data_util import (paired_paths_from_ann_file, paired_paths_from_folder,
+                        paired_paths_from_lmdb)
 from .multi_ref_dataset import _impad_to
 from .transforms import augment, mod_crop
 
@@ -86,22 +88,25 @@ class RefCUFEDDataset:
     ``gt_size`` and flips both; testing mod-crops both and zero-pads them to
     a common size (``padding``, ``original_size``). Samples hold
     ``img_in``, ``img_in_lq``, ``img_in_up``, ``img_ref``, ``img_ref_lq``,
-    ``img_ref_up``."""
+    ``img_ref_up``. With ``io_backend: lmdb`` the pairs are the keys both
+    databases' ``meta_info.txt`` list (JAX package
+    ref_cufed_dataset.py:89-112)."""
 
     def __init__(self, opt, seed=None):
         self.opt = opt
         self.rng = random.Random(seed)
         self.np_rng = np.random.RandomState(seed)
-        backend = opt['io_backend']['type']
-        if backend != 'disk':
-            raise NotImplementedError(
-                f'io_backend {backend!r}: the port reads from disk; the '
-                'file client comes with ROADMAP A6')
+        self.file_client = None
+        self.io_backend_opt = dict(opt['io_backend'])
         self.in_folder = opt['dataroot_in']
         self.ref_folder = opt['dataroot_ref']
         self.filename_tmpl = opt.get('filename_tmpl', '{}')
         folders, keys = [self.in_folder, self.ref_folder], ['in', 'ref']
-        if 'ann_file' in opt:
+        if self.io_backend_opt['type'] == 'lmdb':
+            self.io_backend_opt['db_paths'] = folders
+            self.io_backend_opt['client_keys'] = keys
+            self.paths = paired_paths_from_lmdb(folders, keys)
+        elif 'ann_file' in opt:
             self.paths = paired_paths_from_ann_file(folders, keys,
                                                     opt['ann_file'])
         else:
@@ -110,15 +115,16 @@ class RefCUFEDDataset:
 
     def _load_pair(self, index):
         import cv2
+        client = ensure_file_client(self)
 
-        def read(path):
-            with open(path, 'rb') as f:
-                data = np.frombuffer(f.read(), np.uint8)
+        def read(path, key):
+            data = np.frombuffer(client.get(path, key), np.uint8)
             return cv2.imdecode(data, cv2.IMREAD_COLOR).astype(
                 np.float32) / 255.
 
         ref_path = self.paths[index]['ref_path']
-        return read(self.paths[index]['in_path']), read(ref_path), ref_path
+        return (read(self.paths[index]['in_path'], 'in'),
+                read(ref_path, 'ref'), ref_path)
 
     def _train_pair(self, img_in, img_ref):
         """The ref resized to ``gt_size`` (Pillow), then one flip draw for

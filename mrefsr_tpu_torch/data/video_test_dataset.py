@@ -1,8 +1,7 @@
 """Video test sets (port of ``mrefsr_tpu/data/video_test_dataset.py``, the
 reference's basicsr/data/video_test_dataset.py): HWC RGB float32 frames in
 [0, 1] from clip folders, read with OpenCV. They draw nothing at random;
-``seed`` is accepted as every dataset of the port takes it.
-``VideoTestDUFDataset`` waits for DUF's downsampling (ROADMAP A8)."""
+``seed`` is accepted as every dataset of the port takes it."""
 import glob
 from os import path as osp
 
@@ -10,7 +9,7 @@ from mrefsr_tpu_torch.utils import read_img_seq
 from mrefsr_tpu_torch.utils.logger import get_root_logger
 from mrefsr_tpu_torch.utils.registry import DATASET_REGISTRY
 
-from .data_util import generate_frame_indices, scandir
+from .data_util import duf_downsample, generate_frame_indices, scandir
 
 
 def _check_backend(opt):
@@ -145,6 +144,45 @@ class VideoTestVimeo90KDataset:
 
     def __len__(self):
         return len(self.data_info['gt_path'])
+
+
+@DATASET_REGISTRY.register()
+class VideoTestDUFDataset(VideoTestDataset):
+    """``VideoTestDataset`` for DUF (reference video_test_dataset.py:
+    202-252): with ``use_duf_downsampling`` the ``lq`` frames are made from
+    the gt frames (mod-cropped to ``scale`` when read from disk) by
+    :func:`~.data_util.duf_downsample`, with or without ``cache_data``;
+    ``gt`` is mod-cropped to ``scale`` when read from disk."""
+
+    def __getitem__(self, index):
+        folder = self.data_info['folder'][index]
+        idx, max_idx = (int(v) for v in
+                        self.data_info['idx'][index].split('/'))
+        select_idx = generate_frame_indices(idx, max_idx,
+                                            self.opt['num_frame'],
+                                            padding=self.opt['padding'])
+        scale = self.opt['scale']
+        duf = self.opt['use_duf_downsampling']
+        if self.cache_data:
+            imgs_lq = (self.imgs_gt if duf else self.imgs_lq)[folder][
+                select_idx]
+            img_gt = self.imgs_gt[folder][idx]
+        else:
+            if duf:
+                imgs_lq = read_img_seq([self.imgs_gt[folder][i]
+                                        for i in select_idx],
+                                       require_mod_crop=True, scale=scale)
+            else:
+                imgs_lq = read_img_seq([self.imgs_lq[folder][i]
+                                        for i in select_idx])
+            img_gt = read_img_seq([self.imgs_gt[folder][idx]],
+                                  require_mod_crop=True, scale=scale)[0]
+        if duf:
+            imgs_lq = duf_downsample(imgs_lq, kernel_size=13, scale=scale)
+        return {'lq': imgs_lq, 'gt': img_gt, 'folder': folder,
+                'idx': self.data_info['idx'][index],
+                'border': self.data_info['border'][index],
+                'lq_path': self.data_info['lq_path'][index]}
 
 
 @DATASET_REGISTRY.register()

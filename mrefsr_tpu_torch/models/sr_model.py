@@ -48,6 +48,7 @@ from mrefsr_tpu_torch.convert import state_dict_from_flax
 from mrefsr_tpu_torch.losses import build_loss
 from mrefsr_tpu_torch.metrics import calculate_metric
 from mrefsr_tpu_torch.parallel import data_parallel
+from mrefsr_tpu_torch.parallel.batch_norm import BatchNorm2d
 from mrefsr_tpu_torch.utils import imwrite, tensor2img
 from mrefsr_tpu_torch.utils.dist_util import get_dist_info
 from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY
@@ -73,8 +74,9 @@ def ema_state(net):
     running statistics (the JAX package's variables)."""
     out = dict(net.named_parameters())
     for name, module in net.named_modules():
-        if isinstance(module, torch.nn.modules.batchnorm._NormBase) \
-                and module.track_running_stats:
+        if isinstance(module, BatchNorm2d) or (
+                isinstance(module, torch.nn.modules.batchnorm._NormBase)
+                and module.track_running_stats):
             prefix = f'{name}.' if name else ''
             out[prefix + 'running_mean'] = module.running_mean
             out[prefix + 'running_var'] = module.running_var
@@ -179,8 +181,7 @@ class SRModel(BaseModel):
             with torch.device('meta'):
                 self.cri_perceptual = build_loss(train_opt['perceptual_opt'])
             self.load_vgg_weights(self.cri_perceptual.vgg)
-        if self.cri_pix is None and self.cri_perceptual is None:
-            raise ValueError('Both pixel and perceptual losses are None.')
+        self.check_losses()
         optim_opt = dict(train_opt['optim_g'])
         self.optimizer_g = build_optimizer(
             [{'params': params, 'lr': lr}
@@ -188,6 +189,11 @@ class SRModel(BaseModel):
             optim_opt)
         self.optimizers = [self.optimizer_g]
         self.setup_schedulers()
+
+    def check_losses(self):
+        """A pixel or a perceptual loss must train ``net_g``."""
+        if self.cri_pix is None and self.cri_perceptual is None:
+            raise ValueError('Both pixel and perceptual losses are None.')
 
     def param_groups(self, base_lr):
         """``[(parameters, base rate)]`` of the optimizer: one group."""

@@ -6,8 +6,8 @@ reference's basicsr/models/video_base_model.py and edvr_model.py).
 folder's (frames, metrics) array, and the arrays are summed over the ranks
 by one ``all_reduce`` (the JAX package's ``process_allgather`` sum, the
 reference's ``dist.reduce``), so every rank ends with the whole set's.
-``EDVRModel`` adds the ``dcn`` learning rate and the TSA-only start.
-``VideoGANModel`` waits for ``SRGANModel`` (ROADMAP A8).
+``EDVRModel`` adds the ``dcn`` learning rate and the TSA-only start;
+``VideoGANModel`` trains a sliding-window net as ``SRGANModel`` does.
 """
 import logging
 import os.path as osp
@@ -23,6 +23,7 @@ from mrefsr_tpu_torch.utils.dist_util import get_dist_info
 from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY
 
 from .sr_model import SRModel
+from .srgan_model import SRGANModel
 
 logger = logging.getLogger(__name__)
 
@@ -171,3 +172,10 @@ class EDVRModel(VideoBaseModel):
         mul = self.opt['train'].get('dcn_lr_mul', 1)
         logger.info(f'Multiple the learning rate for dcn with {mul}.')
         return self._labelled_groups(base_lr, 'dcn', base_lr * mul, 'DCN')
+
+
+@MODEL_REGISTRY.register()
+class VideoGANModel(SRGANModel, VideoBaseModel):
+    """``SRGANModel``'s training with ``VideoBaseModel``'s validation, in
+    the JAX package's order of bases (reference video_gan_model.py:7-17):
+    the window's output frame against ``net_d``."""

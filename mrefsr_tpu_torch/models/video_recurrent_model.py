@@ -1,8 +1,8 @@
 """Recurrent video SR training (port of
 ``mrefsr_tpu/models/video_recurrent_model.py``, the reference's
-basicsr/models/video_recurrent_model.py): BasicVSR-style nets that take a
-whole clip. ``VideoRecurrentGANModel`` waits for ``SRGANModel`` (ROADMAP
-A8).
+basicsr/models/video_recurrent_model.py and
+video_recurrent_gan_model.py): BasicVSR-style nets that take a whole clip,
+trained on their own or against a discriminator.
 """
 import logging
 import os.path as osp
@@ -14,6 +14,7 @@ from mrefsr_tpu_torch.utils import imwrite, tensor2img
 from mrefsr_tpu_torch.utils.dist_util import get_dist_info
 from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY
 
+from .srgan_model import SRGANModel
 from .video_base_model import VideoBaseModel
 
 logger = logging.getLogger(__name__)
@@ -121,3 +122,20 @@ class VideoRecurrentModel(VideoBaseModel):
             if rank == 0:
                 self._log_validation_metric_values(current_iter,
                                                    dataset_name, tb_logger)
+
+
+@MODEL_REGISTRY.register()
+class VideoRecurrentGANModel(SRGANModel, VideoRecurrentModel):
+    """``SRGANModel``'s training of a recurrent net (reference
+    video_recurrent_gan_model.py:12-180, JAX package
+    video_recurrent_model.py:189-210): the clip's frames go through
+    ``net_d`` and the VGG as a batch; ``net_g``'s ``spynet`` parameters
+    train at ``train.lr_flow``, else ``flow_lr_mul`` times the rate
+    (:meth:`VideoRecurrentModel.param_groups`); a ``fix_flow`` that is not
+    a bool freezes them and an ``edvr`` extractor's for that many
+    iterations; validation is the recurrent one."""
+
+    def __init__(self, opt, device=None):
+        super().__init__(opt, device)
+        if isinstance((opt.get('train') or {}).get('fix_flow'), bool):
+            self.freeze_until, self.freeze_keep = 0, None

@@ -24,6 +24,7 @@ things of it that torch's ``BatchNorm2d`` and ``SyncBatchNorm`` do not:
 
 flax's ``momentum=0.9`` (the weight of the old value) is torch's
 ``momentum=0.1`` (the weight of the new one), the value this module takes.
+:class:`BatchNorm3d` is the same norm on NCDHW (DUF's).
 """
 import contextlib
 
@@ -89,13 +90,14 @@ class BatchNorm2d(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def batch_stats(self, x):
-        """``(mean, var)`` of ``x`` per channel, over every rank's batch
-        where :attr:`sync` is set, f32, the variance biased (flax's
-        ``use_fast_variance``)."""
+        """``(mean, var)`` of ``x`` per channel (over every dimension but
+        1), over every rank's batch where :attr:`sync` is set, f32, the
+        variance biased (flax's ``use_fast_variance``)."""
         c = x.shape[1]
         x = x.float()
         count = x.new_full((1,), x.numel() // c)
-        sums = torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)), count])
+        dims = (0, *range(2, x.dim()))
+        sums = torch.cat([x.sum(dims), (x * x).sum(dims), count])
         if self.sync:
             sums = all_reduce_sum(sums)
         mean = sums[:c] / sums[-1]
@@ -116,9 +118,14 @@ class BatchNorm2d(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean.view(1, -1, 1, 1).to(x.dtype))
-                * mul.view(1, -1, 1, 1).to(x.dtype)
-                + self.bias.view(1, -1, 1, 1).to(x.dtype))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return ((x - mean.view(shape).to(x.dtype))
+                * mul.view(shape).to(x.dtype)
+                + self.bias.view(shape).to(x.dtype))
+
+
+class BatchNorm3d(BatchNorm2d):
+    """:class:`BatchNorm2d` on NCDHW: the statistics over N, D, H and W."""
 
 
 @contextlib.contextmanager

@@ -198,8 +198,9 @@ def test_model_refuses_what_is_not_ported():
     """Options of parts that are not ported raise and name the roadmap
     item; none is silently ignored. The options without any of them
     build, and so do they with the bf16 mixed precision of training and
-    of eval, and with the GAN phase's keys (ROADMAP A4, ported). Every
-    name the port refuses is one the JAX package registers."""
+    of eval, and with the GAN phase's keys (ROADMAP A4, ported). The names
+    of ROADMAP A8 and the SRGAN pieces of A9 are registered. Every name
+    the port refuses is one the JAX package registers."""
     from mrefsr_tpu.utils import registry as jax_registry
     from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY, PENDING
     assert build_model(_tiny_train_opt(), device='cpu').is_train
@@ -217,10 +218,7 @@ def test_model_refuses_what_is_not_ported():
     model = build_model(opt, device='cpu')
     assert model.net_d is not None and model.cri_style is not None
     for where, key, value, item in [
-            (None, 'model_type', 'VideoGANModel', 'ROADMAP A8'),
-            (None, 'model_type', 'VideoRecurrentGANModel', 'ROADMAP A8'),
-            (None, 'network_d', {'type': 'VGGStyleDiscriminator'},
-             'ROADMAP A9'),
+            (None, 'model_type', 'ESRGANModel', 'ROADMAP A9'),
             (None, 'network_d', {'type': 'UNetDiscriminatorSN'},
              'ROADMAP A10')]:
         opt = _tiny_train_opt()
@@ -228,14 +226,25 @@ def test_model_refuses_what_is_not_ported():
         opt[key] = value
         with pytest.raises(NotImplementedError, match=item):
             build_model(opt, device='cpu')
-    # the models of ROADMAP A6 and A7 are ported: SRModel, the video models
+    # the models of ROADMAP A6-A8 are ported: SRModel, the video models,
+    # SRGANModel and the video GAN models
     for model_type in ('SRModel', 'VideoBaseModel', 'EDVRModel',
-                       'VideoRecurrentModel'):
+                       'VideoRecurrentModel', 'SRGANModel', 'VideoGANModel',
+                       'VideoRecurrentGANModel'):
         assert MODEL_REGISTRY.get(model_type).__name__ == model_type
+        assert model_type not in PENDING['model']
     from mrefsr_tpu_torch.data import build_dataset
     from mrefsr_tpu_torch.utils.file_client import FileClient
-    with pytest.raises(NotImplementedError, match='ROADMAP A8'):
-        build_dataset({'type': 'VideoTestDUFDataset', 'name': 'Vid4'})
+    from mrefsr_tpu_torch.utils.registry import (ARCH_REGISTRY,
+                                                 DATASET_REGISTRY)
+    for arch in ('IconVSR', 'TOFlow', 'DUF', 'VGGStyleDiscriminator'):
+        assert ARCH_REGISTRY.get(arch).__name__ == arch
+        assert arch not in PENDING['arch']
+    assert DATASET_REGISTRY.get('VideoTestDUFDataset').__name__ \
+        == 'VideoTestDUFDataset'
+    assert 'VideoTestDUFDataset' not in PENDING['dataset']
+    with pytest.raises(NotImplementedError, match='ROADMAP A9'):
+        build_dataset({'type': 'SISRSun80Set', 'name': 'Sun80'})
     with pytest.raises(NotImplementedError, match='ROADMAP A12'):
         FileClient('pack', db_paths=['x.pack'])
     jax_names = {'model': jax_registry.MODEL_REGISTRY,
@@ -375,6 +384,48 @@ def test_scan_covers_the_gan_and_single_ref_modules():
                    'data/ref_megadepth_dataset.py',
                    'data/ref_cufed_dataset.py'):
         assert f'mrefsr_tpu_torch/{module}' in names
+
+
+def test_scan_covers_the_video_zoo_modules():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ('archs/basicvsr_arch.py', 'archs/edvr_arch.py',
+                   'archs/tof_arch.py', 'archs/duf_arch.py',
+                   'archs/discriminator_arch.py', 'data/data_util.py',
+                   'data/video_test_dataset.py', 'models/srgan_model.py',
+                   'models/video_base_model.py',
+                   'models/video_recurrent_model.py', 'convert.py'):
+        assert f'mrefsr_tpu_torch/{module}' in names
+
+
+@pytest.mark.parametrize('mp', [None, 'bfloat16'])
+def test_cpu_tensors_never_reach_a_kernel_in_an_iconvsr_step(monkeypatch,
+                                                              mp):
+    """An IconVSR training step (its keyframes' deformable alignment
+    included; lq 36, which SpyNet takes at 64) and its eval on the CPU, in
+    f32 and in bf16, launch no kernel and build no library."""
+    monkeypatch.setattr(dcn, '_mdcn_fused_forward_cuda', _refuse)
+    monkeypatch.setattr(dcn, '_mdcn_fused_backward_cuda', _refuse)
+    before = [kernel.launches for kernel in KERNELS]
+    train = {'optim_g': {'type': 'Adam', 'lr': 1e-4},
+             'pixel_opt': {'type': 'CharbonnierLoss'}, 'fix_flow': 2,
+             'flow_lr_mul': 0.125}
+    val = {}
+    if mp:
+        train['mixed_precision'] = val['mixed_precision'] = mp
+    model = build_model({
+        'model_type': 'VideoRecurrentModel', 'scale': 4, 'is_train': True,
+        'network_g': {'type': 'IconVSR', 'num_feat': 8, 'num_block': 1},
+        'path': {}, 'train': train, 'val': val}, device='cpu')
+    rng = np.random.RandomState(2)
+    model.feed_data({'lq': rng.rand(1, 5, 36, 36, 3),
+                     'gt': rng.rand(1, 5, 144, 144, 3)})
+    model.optimize_parameters(1)
+    assert np.isfinite(model.get_current_log()['l_pix'])
+    model.test()
+    assert model.output.shape == (1, 5, 144, 144, 3)
+    assert torch.isfinite(model.output).all()
+    assert [kernel.launches for kernel in KERNELS] == before
+    assert _build._libs == {}
 
 
 def test_cpu_tensors_never_reach_the_stylegan2_kernels(monkeypatch):

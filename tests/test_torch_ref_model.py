@@ -409,15 +409,92 @@ def test_ref_datasets_match_jax_for_a_seed(roots, case):
                     assert got[key] == val, key
 
 
+def _cufed_lmdb(roots):
+    """``in.lmdb`` and ``ref.lmdb`` folders holding the CUFED images and a
+    ``meta_info.txt`` of their keys (the layout the lmdb backend reads; no
+    lmdb environment, which the stand-in backend below does without)."""
+    out = {}
+    for kind, folder in (('in', 'input'), ('ref', 'ref')):
+        db = roots / 'cufed' / f'{kind}.lmdb'
+        db.mkdir(exist_ok=True)
+        for name in ('x', 'y', 'z'):
+            (db / f'{name}.png').write_bytes(
+                (roots / 'cufed' / folder / f'{name}.png').read_bytes())
+        (db / 'meta_info.txt').write_text(
+            'z.png (88,96,3) 1\nx.png (88,96,3) 1\ny.png (88,96,3) 1\n')
+        out[kind] = str(db)
+    return out
+
+
+class _StandInLmdb:
+    """The lmdb backend's interface over the folders of :func:`_cufed_lmdb`:
+    ``get(key, client_key)`` returns the bytes of ``<db>/<key>.png``."""
+
+    def __init__(self, db_paths, client_keys='default', **kwargs):
+        self.paths = dict(zip(client_keys, db_paths))
+
+    def get(self, filepath, client_key):
+        with open(os.path.join(self.paths[client_key],
+                               f'{filepath}.png'), 'rb') as f:
+            return f.read()
+
+
 def test_ref_dataset_split_and_lmdb(roots):
     """RefMegaDepth trains on the scenes outside the test split (two match
     points of one row: the rows stop at similarity ``L``) and tests on
-    the test scene; the lmdb backend waits for the file client."""
+    the test scene; the CUFED sets with ``io_backend: lmdb`` pair the keys
+    of both databases' ``meta_info.txt`` as the JAX package's do, and give
+    their file client the two databases under the keys ``in`` and
+    ``ref``."""
     opts = _dataset_opts(roots)
     assert len(build_dataset(opts['ref_md_train'])) == 2
     val = build_dataset(opts['ref_md_val'])
     assert len(val) == 1 and val[0]['lq_path'].endswith(
         os.path.join('0000', 'b.jpg'))
-    with pytest.raises(NotImplementedError, match='ROADMAP A6'):
-        build_dataset(dict(opts['ref_cufed_val'],
-                           io_backend={'type': 'lmdb'}))
+    dbs = _cufed_lmdb(roots)
+    for case in ('ref_cufed_val', 'ref_cufed_cvt_train'):
+        opt = dict(opts[case], io_backend={'type': 'lmdb'},
+                   dataroot_in=dbs['in'], dataroot_ref=dbs['ref'])
+        ours, theirs = build_dataset(opt, seed=5), jax_build_dataset(opt)
+        assert ours.paths == theirs.paths == [
+            {'in_path': k, 'ref_path': k} for k in ('x', 'y', 'z')]
+        assert ours.io_backend_opt == theirs.io_backend_opt == {
+            'type': 'lmdb', 'db_paths': [dbs['in'], dbs['ref']],
+            'client_keys': ['in', 'ref']}
+
+
+@pytest.mark.parametrize('case', ['ref_cufed_train', 'ref_cufed_val',
+                                  'ref_cufed_cvt_train'])
+def test_ref_cufed_lmdb_samples_through_a_stand_in_backend(
+        roots, monkeypatch, case):
+    """``lmdb`` is not installed: with a stand-in lmdb backend that serves
+    the databases' keys, every item of two epochs of the port's lmdb set
+    (seeded 5) equals the JAX package's folder set on the same images
+    (``random.seed(5)``, ``np.random.seed(5)``; its pairs listed by an
+    ``ann_file`` in the keys' sorted order) bit for bit; ``lq_path`` is the
+    key."""
+    from mrefsr_tpu_torch.utils.file_client import FileClient
+    monkeypatch.setitem(FileClient._backends, 'lmdb', _StandInLmdb)
+    dbs = _cufed_lmdb(roots)
+    opt = _dataset_opts(roots)[case]
+    ours = build_dataset(dict(opt, io_backend={'type': 'lmdb'},
+                              dataroot_in=dbs['in'],
+                              dataroot_ref=dbs['ref']), seed=5)
+    ann = roots / 'cufed' / 'ann_xyz.txt'
+    ann.write_text('x.png\ny.png\nz.png\n')
+    random.seed(5)
+    np.random.seed(5)
+    theirs = jax_build_dataset(dict(opt, ann_file=str(ann)))
+    assert len(ours) == len(theirs) == 3
+    for _ in range(2):
+        for i in range(3):
+            got, want = ours[i], theirs[i]
+            assert sorted(got) == sorted(want)
+            for key, val in want.items():
+                if key == 'lq_path':
+                    assert got[key] == 'xyz'[i]
+                elif isinstance(val, np.ndarray):
+                    np.testing.assert_array_equal(got[key], val,
+                                                  err_msg=key)
+                else:
+                    assert got[key] == val, key
