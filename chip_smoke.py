@@ -19,6 +19,8 @@ in the loop.
     python3 chip_smoke.py --gan  # only the GAN phases (11g)
     python3 chip_smoke.py --ref  # only the single-ref phases (11h)
     python3 chip_smoke.py --video  # only the video training phases (16b)
+    python3 chip_smoke.py --zoo    # only the video zoo's phases (16b)
+    python3 chip_smoke.py --sr-zoo # only the SR zoo's phases (16c)
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``). Phases, one JSON line each (one per shape where a
@@ -165,7 +167,7 @@ phase runs several):
     canvas, second requests, with K1's device ms of each;
     ``cli_preemption``: the training CLI in a process of its own, SIGTERM
     after iteration 20: exit 0 and a saved ``.state``; ``--auto_resume``
-    goes on from it to iteration 120; ``cli_lp``: ten bf16 iterations of
+    goes on from it to iteration 60; ``cli_lp``: ten bf16 iterations of
     ``stage3_5ref_restoration_mse_lp.yml`` (gt 300, B 3) through
     ``train_pipeline``, timed over iterations 6-10; ``cli_gan``:
     ``options/ab/ab_dcn_gan.yml`` for 24 iterations, the pixel -> GAN
@@ -211,7 +213,7 @@ phase runs several):
     versions behind the same forward at B 1 (``TRAIN_GRAD_REL_TOL``, at
     bf16 ``TRAIN_GRAD_BF16_TOL``), from fresh weights and again after the
     timed steps, two warm-ups (the frozen parameters, of which there must
-    be some, bit-equal through iteration 1, then moving), ten timed steps
+    be some, bit-equal through iteration 1, then moving), five timed steps
     that launch exactly K2's forward, scatter dgrad, wgrad and sum at the
     step's type (BasicVSR none), peak memory, a profile with the scatter
     apart (``k2_dgrad_scatter_ms``); ``video_scatter``: the scatter dgrad
@@ -225,6 +227,31 @@ phase runs several):
     20-frame clip), SIGTERM and ``--auto_resume`` in processes of their
     own, beside them ``python -m mrefsr_tpu_torch.test`` with BasicVSR on
     a 100-frame folder, its saved frames bit for bit this process's;
+16c. the SR zoo (RRDBNet, EDSR, RCAN, SRVGGNetCompact, ECBSR, RIDNet,
+    SwinIR; ``ESRGANModel``, ``SwinIRModel``; the SISR datasets and the
+    three SR inference scripts), seeded weights and synthetic images at the
+    widths of ``SR_ZOO_YAMLS``, none of it launching a kernel of this
+    repository (checked). ``sr_zoo_serve``: each net through the registry
+    and ``SRModel.test`` / ``SwinIRModel.test`` on one 256x256 LQ (SwinIR
+    253x251, reflect-padded to its window), f32 and ``val.mixed_precision:
+    bfloat16``, ms a forward and peak memory, the f32 output on a 64x64 LQ
+    against the same net on the CPU (``SR_ZOO_CPU_TOL``);
+    ``esrgan_train``: ``train_ESRGAN_x4.yml``'s nets and losses at B 16,
+    gt 160 (this repository's ``VGGStyleDiscriminator`` takes 160 or
+    256), one step at B 1 against the CPU's (both nets' gradients within
+    ``TRAIN_GRAD_REL_TOL`` for the pixel loss's, the logged terms, the
+    parameters and statistics after it), two warm-ups and
+    ``SR_ZOO_STEPS`` timed steps,
+    a profile; ``swinir_train``: the P48W8 YAML at gt 192, B 4, drop path
+    0.1, f32 and bf16: two models from one seed give one first loss,
+    another drop-path seed another; timed steps, peak memory, one step's
+    device time split among attention, linears, layer norm and cuDNN;
+    ``cli_sisr``: an ``ESRGANModel`` YAML through ``train_pipeline`` for
+    ``CLI_SISR_ITERS`` iterations on ``SISRMegaDepthDataset``, validating
+    on ``SISRSun80Set`` and ``SISRCUFEDDataset``, beside it
+    ``mrefsr_tpu_torch.inference.inference_esrgan``, ``_swinir`` and
+    ``_ridnet`` as processes on seeded reference-layout ``.pth`` files,
+    every PNG they write bit for bit this process's output;
 17. ddp: two ranks started with ``torch.multiprocessing`` (spawn) under
     the torchrun env contract, each joining through the port's
     ``init_dist('pytorch')``: NCCL with a card a rank where there are two
@@ -298,7 +325,14 @@ K2_REL_TOL = 1e-4                     # max |kernel - plain| / max |plain|
 SLICE_TOL = 1e-4                      # output is about [0, 1]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries ``at_s``, the seconds since
+    the script started (the whole run has a time limit)."""
+    if 'phase' in obj:
+        obj = dict(obj, at_s=round(time.perf_counter() - _T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -1916,14 +1950,15 @@ def _order_calls(fn, x, orders, bias=None):
 
 
 def _time_orders(fn, x, orders=('fwd', 'bwd', 'bwd2'), reps=3, runs=None,
-                 bias=None):
+                 bias=None, warmup=1):
     """Each order of :func:`_order_calls` timed two ways: ``call``, the
-    median ms of ``reps`` calls, each between its own pair of CUDA events
-    (host time included: a small call's is mostly the host's), and
-    ``device``, the ms of device work a call, over ``runs`` calls
-    (:func:`device_ms_each`)."""
+    median ms of ``reps`` calls after ``warmup`` more, each between its own
+    pair of CUDA events (host time included: a small call's is mostly the
+    host's), and ``device``, the ms of device work a call, over ``runs``
+    calls (:func:`device_ms_each`)."""
     calls = _order_calls(fn, x, orders, bias)
-    call = {o: cuda_ms(c, reps=reps) for o, c in calls.items()}
+    call = {o: cuda_ms(c, reps=reps, warmup=warmup)
+            for o, c in calls.items()}
     device = device_ms_each(list(calls.values()),
                             runs=DEVICE_RUNS if runs is None else runs,
                             warmup=0)
@@ -2059,9 +2094,11 @@ def phase_upfirdn2d(ops_upfirdn2d):
                                         ('library', library))}
             else:
                 # one run each of the plain and the library version: cuDNN
-                # takes seconds for some of their double backwards
+                # takes seconds for some of their double backwards; the
+                # plain version's three orders ran just above (its warm-up)
                 times = {'kernel': _time_orders(kernel, x),
-                         'plain': _time_orders(plain, x, reps=1, runs=1),
+                         'plain': _time_orders(plain, x, reps=1, runs=1,
+                                               warmup=0),
                          'library': _time_orders(library, x, reps=1,
                                                  runs=1)}
             side = (h * up + sum(pad) - 4) // down + 1
@@ -3906,7 +3943,7 @@ CLI_TRAIN_YML = 'options/train/stage3_5ref_restoration_mse.yml'
 CLI_LP_YML = 'options/train/stage3_5ref_restoration_mse_lp.yml'
 CLI_TEST_YML = 'options/test/test_5ref_cufed5.yml'
 CLI_ITERS, CLI_PRINT, CLI_SAVE = 60, 10, 30
-CLI_PREEMPT_ITERS, CLI_PREEMPT_AT = 120, 20
+CLI_PREEMPT_ITERS, CLI_PREEMPT_AT = 60, 20
 CLI_LP_ITERS, CLI_LP_PRINT = 10, 5
 # CUFED5-layout validation images, (h, w): CUFED5's are about 500x332
 CLI_CUFED_SIZES = ((332, 500), (500, 332), (328, 496), (336, 500))
@@ -5206,7 +5243,7 @@ def phase_ref_eval(build_model, correlation, dcn, kernels, dtype):
 REDS_FRAMES, REDS_LQ = 100, (180, 320)      # a REDS clip, its LQ frames
 VAL_FRAMES = 20                 # cli_video's validation clip (011)
 VIDEO_B, VIDEO_GT = 4, 256
-VIDEO_WARMUP, VIDEO_STEPS = 2, 10
+VIDEO_WARMUP, VIDEO_STEPS = 2, 5
 ICONVSR_STEPS = 4          # IconVSR's timed training steps at each type
 CUT = 2                    # tsa_iter (YAML 50000) and fix_flow (YAML 5000)
 SR_B, SR_GT, SR_IMAGES = 16, 128, 16
@@ -6421,6 +6458,653 @@ def ref_phases(build_model, arch, correlation, dcn, kernels):
     return by_path
 
 
+# ------------------------------------------------------------------ SR zoo
+# The single-image nets of the SR zoo at their published widths, seeded
+# weights and synthetic images. None of their paths launches a kernel of
+# this repository (checked): cuDNN convolutions, cuBLAS products, ATen's
+# resampling, pixel shuffles and softmax.
+SR_ZOO_YAMLS = {
+    'rrdbnet_x4': 'BasicSR options/train/ESRGAN/train_ESRGAN_x4.yml',
+    'rrdbnet_x2': 'Real-ESRGAN options/train_realesrgan_x2plus.yml',
+    'edsr_m_x4': 'BasicSR options/train/EDSR/train_EDSR_Mx4.yml',
+    'rcan_x4': 'BasicSR options/train/RCAN/train_RCAN_x2.yml at upscale 4',
+    'srvgg_x4': 'Real-ESRGAN realesr-general-x4v3 (SRVGGNetCompact)',
+    'ecbsr_m4c16_x4': 'BasicSR options/train/ECBSR/'
+                      'train_ECBSR_x4_m4c16_prelu_RGB.yml',
+    'ridnet': 'BasicSR inference/inference_ridnet.py (RIDNet(3, 64, 3))',
+    'swinir_classical_x4': 'BasicSR options/train/SwinIR/'
+                           'train_SwinIR_SRx4_scratch_P48W8_DIV2K_500k_'
+                           'B4G8.yml'}
+YAML_SOURCES.update(
+    esrgan_train='BasicSR options/train/ESRGAN/train_ESRGAN_x4.yml',
+    swinir_train=SR_ZOO_YAMLS['swinir_classical_x4'],
+    **SR_ZOO_YAMLS)
+_RGB_MEAN = [0.4488, 0.4371, 0.4040]
+RRDB_X4 = {'type': 'RRDBNet', 'num_in_ch': 3, 'num_out_ch': 3, 'scale': 4,
+           'num_feat': 64, 'num_block': 23, 'num_grow_ch': 32}
+SWINIR_X4 = {'type': 'SwinIR', 'upscale': 4, 'in_chans': 3, 'img_size': 48,
+             'window_size': 8, 'img_range': 1., 'depths': [6] * 6,
+             'embed_dim': 180, 'num_heads': [6] * 6, 'mlp_ratio': 2,
+             'upsampler': 'pixelshuffle', 'resi_connection': '1conv',
+             'drop_path_rate': 0.1}
+# (path, model type, network_g, scale)
+SR_ZOO = (
+    ('rrdbnet_x4', 'SRModel', RRDB_X4, 4),
+    ('rrdbnet_x2', 'SRModel', dict(RRDB_X4, scale=2), 2),
+    ('edsr_m_x4', 'SRModel',
+     {'type': 'EDSR', 'num_in_ch': 3, 'num_out_ch': 3, 'num_feat': 64,
+      'num_block': 16, 'upscale': 4, 'res_scale': 1, 'img_range': 255.,
+      'rgb_mean': _RGB_MEAN}, 4),
+    ('rcan_x4', 'SRModel',
+     {'type': 'RCAN', 'num_in_ch': 3, 'num_out_ch': 3, 'num_feat': 64,
+      'num_group': 10, 'num_block': 20, 'squeeze_factor': 16, 'upscale': 4,
+      'res_scale': 1, 'img_range': 255., 'rgb_mean': _RGB_MEAN}, 4),
+    ('srvgg_x4', 'SRModel',
+     {'type': 'SRVGGNetCompact', 'num_in_ch': 3, 'num_out_ch': 3,
+      'num_feat': 64, 'num_conv': 32, 'upscale': 4, 'act_type': 'prelu'}, 4),
+    ('ecbsr_m4c16_x4', 'SRModel',
+     {'type': 'ECBSR', 'num_in_ch': 3, 'num_out_ch': 3, 'num_block': 4,
+      'num_channel': 16, 'with_idt': False, 'act_type': 'prelu',
+      'scale': 4}, 4),
+    ('ridnet', 'SRModel', {'type': 'RIDNet', 'in_channels': 3,
+                           'mid_channels': 64, 'out_channels': 3}, 1),
+    ('swinir_classical_x4', 'SwinIRModel', SWINIR_X4, 4))
+SR_ZOO_LQ, SR_ZOO_CPU_LQ = 256, 64
+SR_ZOO_ODD = (3, 5)         # SwinIR's LQ is this much smaller: padded
+SR_ZOO_CPU_TOL = 1e-4       # card against CPU, share of the largest entry
+ESRGAN_B, ESRGAN_GT, SWINIR_B, SWINIR_GT = 16, 160, 4, 192
+SR_ZOO_STEPS = 5
+SR_ZOO_LOSS_TOL = 1e-4      # card against CPU, relative, a logged term
+
+
+def _sr_image(seed, h, w, scale=1.):
+    """One smooth seeded RGB image (1, h, w, 3), float32 in [0, scale]."""
+    bgr = _smooth_clip(seed, 1, h, w)[0]
+    return np.ascontiguousarray(bgr[None, :, :, ::-1], np.float32) \
+        / 255. * scale
+
+
+def _sr_serve_opt(path, model_type, net, scale, dtype, device='cuda'):
+    opt = {'name': path, 'model_type': model_type, 'scale': scale,
+           'num_gpu': 1, 'manual_seed': SEED, 'is_train': False,
+           'dist': False, 'network_g': copy.deepcopy(net), 'path': {},
+           'val': {'mixed_precision': 'bfloat16'} if dtype == BF16 else {}}
+    from mrefsr_tpu_torch.models import build_model
+    return build_model(opt, device=device)
+
+
+def _sr_test(model, lq):
+    model.feed_data({'lq': lq})
+    model.test()
+    return model.output
+
+
+def phase_sr_zoo_serve(kernels):
+    """Each net of ``SR_ZOO`` built through the registry at its published
+    width, one 256x256 LQ (SwinIR 253x251, which ``SwinIRModel.test``
+    reflect-pads to the window) through ``SRModel.test`` /
+    ``SwinIRModel.test``, f32 and ``val.mixed_precision: bfloat16``: ms a
+    forward and peak memory; then the card's f32 output on a 64x64 LQ
+    (SwinIR 61x59) against the same net on the CPU. Returns the launches
+    (none)."""
+    launches = {n: 0 for n in kernels}
+    for path, model_type, net, scale in SR_ZOO:
+        odd = SR_ZOO_ODD if model_type == 'SwinIRModel' else (0, 0)
+        rng = 255. if net['type'] == 'RIDNet' else 1.
+        lq = _sr_image(SEED + 50, SR_ZOO_LQ - odd[0], SR_ZOO_LQ - odd[1],
+                       rng)
+        rec = {'phase': 'sr_zoo_serve', 'path': path,
+               'source': SR_ZOO_YAMLS[path], 'model_type': model_type,
+               'network_g': net, 'lq': list(lq.shape[1:3])}
+        for dtype in (torch.float32, BF16):
+            model = _sr_serve_opt(path, model_type, net, scale, dtype)
+            x = torch.from_numpy(lq).cuda()
+            out, times, peak, counts = _serve_times(
+                kernels, lambda: _sr_test(model, x))
+            want = (1, lq.shape[1] * scale, lq.shape[2] * scale, 3)
+            check(tuple(out.shape) == want
+                  and bool(torch.isfinite(out).all()),
+                  f'{path} {dtype}: output {tuple(out.shape)}, want {want}')
+            tag = 'bf16' if dtype == BF16 else 'f32'
+            rec[f'{tag}_forward_ms'] = times
+            rec[f'{tag}_peak_mem_bytes'] = peak
+            if dtype == torch.float32:
+                small = np.ascontiguousarray(
+                    lq[:, :SR_ZOO_CPU_LQ - odd[0], :SR_ZOO_CPU_LQ - odd[1]])
+                card = _sr_test(model, torch.from_numpy(small).cuda()).cpu()
+                cpu = _sr_serve_opt(path, model_type, net, scale, dtype,
+                                    device='cpu')
+                plain = _sr_test(cpu, torch.from_numpy(small))
+                err = float((card - plain).abs().max()
+                            / plain.abs().max())
+                check(err <= SR_ZOO_CPU_TOL,
+                      f'{path}: card and CPU differ by {err}')
+                rec.update(cpu_check_lq=list(small.shape[1:3]),
+                           card_vs_cpu_rel_err=err,
+                           card_vs_cpu_tolerance=SR_ZOO_CPU_TOL)
+                del cpu
+            for n, v in counts.items():
+                launches[n] += v
+            del model
+            torch.cuda.empty_cache()
+        emit(dict(rec, hand_written_kernels_launched=0,
+                  reduced=['seeded weights (the published checkpoints are '
+                           'not in the repository)', 'one synthetic image']))
+    return launches
+
+
+def _esrgan_opt():
+    """``ESRGANModel`` as ``train_ESRGAN_x4.yml``: RRDBNet 64/23/32 against
+    ``VGGStyleDiscriminator`` (64 features), L1 1e-2, VGG19 ``conv5_4``
+    perceptual 1.0, vanilla GAN 5e-3, Adam 1e-4 for both nets; a seeded
+    VGG19. The discriminator takes 160x160: this repository's takes 160
+    or 256 (the YAML's 128 is BasicSR's later ``VGGStyleDiscriminator``)."""
+    return {'name': 'esrgan_train', 'model_type': 'ESRGANModel', 'scale': 4,
+            'num_gpu': 1, 'manual_seed': SEED, 'is_train': True,
+            'dist': False, 'network_g': dict(RRDB_X4),
+            'network_d': {'type': 'VGGStyleDiscriminator', 'num_in_ch': 3,
+                          'num_feat': 64, 'input_size': ESRGAN_GT},
+            'path': {'pretrain_network_g': None, 'vgg_pretrain_path': None},
+            'train': {
+                'ema_decay': 0.999,
+                'optim_g': {'type': 'Adam', 'lr': 1e-4, 'betas': [0.9, 0.99]},
+                'optim_d': {'type': 'Adam', 'lr': 1e-4, 'betas': [0.9, 0.99]},
+                'scheduler': {'type': 'MultiStepLR',
+                              'milestones': [50000, 100000, 200000, 300000],
+                              'gamma': 0.5},
+                'total_iter': 400000, 'warmup_iter': -1,
+                'pixel_opt': {'type': 'L1Loss', 'loss_weight': 1e-2,
+                              'reduction': 'mean'},
+                'perceptual_opt': {'type': 'PerceptualLoss',
+                                   'layer_weights': {'conv5_4': 1},
+                                   'vgg_type': 'vgg19',
+                                   'use_input_norm': True,
+                                   'range_norm': False,
+                                   'perceptual_weight': 1.0,
+                                   'style_weight': 0, 'criterion': 'l1'},
+                'gan_opt': {'type': 'GANLoss', 'gan_type': 'vanilla',
+                            'real_label_val': 1.0, 'fake_label_val': 0.0,
+                            'loss_weight': 5e-3},
+                'net_d_iters': 1, 'net_d_init_iters': 0}}
+
+
+def _sr_pairs(seed, b, gt, scale=4):
+    """``b`` smooth seeded gt crops and their LQ (OpenCV's area resize)."""
+    import cv2
+    frames = _smooth_clip(seed, b, gt, gt)
+    lq = [cv2.resize(f, (gt // scale, gt // scale),
+                     interpolation=cv2.INTER_AREA) for f in frames]
+    as_rgb = lambda imgs: np.ascontiguousarray(  # noqa: E731
+        np.stack(imgs)[..., ::-1], np.float32) / 255.
+    return {'lq': as_rgb(lq), 'gt': as_rgb(frames)}
+
+
+def _pixel_grads(model):
+    """``net_g``'s gradients of the pixel loss alone, by name, on the
+    CPU."""
+    model.net_g.zero_grad(set_to_none=True)
+    out = model._run(model.net_g, torch.float32, False, model.lq)
+    model.cri_pix(out, model.gt).backward()
+    grads = {n: p.grad.cpu() for n, p in model.net_g.named_parameters()}
+    model.net_g.zero_grad(set_to_none=True)
+    return grads
+
+
+def _esrgan_card_vs_cpu(batch):
+    """One ``ESRGANModel`` step at B 1 on the card and on the CPU from the
+    same seeded weights. Held: ``net_g``'s gradients of the pixel loss
+    (``TRAIN_GRAD_REL_TOL``), the logged terms (``SR_ZOO_LOSS_TOL``), and
+    after the step every parameter within 2 lr of the CPU's with 99 % of
+    each net's entries within lr / 10 (Adam's first step moves an entry by
+    lr whatever its gradient's size, so only a sign that differs moves it
+    apart: the rule of the video GAN trajectories' CPU tests), the running
+    statistics (``SR_ZOO_CPU_TOL``). The whole step's gradients are not
+    compared: through the discriminator (B 1, its norms over 25 positions
+    at the last level) and the perceptual loss's L1, f32 itself moves them
+    by about 0.6 % of a tensor's largest entry (median; the CPU in f32
+    against f64: ``PERF.md`` PR 17)."""
+    from mrefsr_tpu_torch.models import build_model
+    models = {dev: build_model(_esrgan_opt(), device=dev)
+              for dev in ('cuda', 'cpu')}
+    for model in models.values():
+        model.feed_data(batch)
+    pixel = _rel_grad_errors(_pixel_grads(models['cuda']),
+                             _pixel_grads(models['cpu']))
+    _check_grad_errors('esrgan_train pixel loss, card against CPU', pixel)
+    logs = {}
+    for dev, model in models.items():
+        model.optimize_parameters(1)
+        logs[dev] = model.get_current_log()
+    loss_err = max(abs(logs['cuda'][k] - v) / max(abs(v), 1e-12)
+                   for k, v in logs['cpu'].items())
+    check(loss_err <= SR_ZOO_LOSS_TOL, f'esrgan_train logs {logs}')
+    lr = _esrgan_opt()['train']['optim_g']['lr']
+    params, stats_err = {}, 0.
+    for net in ('net_g', 'net_d'):
+        card = getattr(models['cuda'], net).state_dict()
+        worst, near, count = 0., 0, 0
+        for key, val in getattr(models['cpu'], net).state_dict().items():
+            if not val.is_floating_point():
+                continue
+            diff = (card[key].cpu().double() - val.double()).abs()
+            if 'running' in key:
+                stats_err = max(stats_err, float(diff.max() / val.abs().max()))
+                continue
+            worst = max(worst, float(diff.max()) / lr)
+            near += int((diff <= lr / 10).sum())
+            count += diff.numel()
+        params[net] = {'max_diff_in_lr': worst,
+                       'share_within_lr_10th': near / count}
+        check(worst <= 2 and near / count >= 0.99,
+              f'esrgan_train {net} after a step: {params[net]}')
+    check(stats_err <= SR_ZOO_CPU_TOL,
+          f'esrgan_train running statistics differ by {stats_err}')
+    return {'pixel_grads': pixel, 'logs': logs, 'logs_rel_err': loss_err, 'params': params,
+            'stats_rel_err': stats_err}
+
+
+def _timed_steps(model, batch, first, steps):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, logs = [], []
+    for step in range(first, first + steps):
+        t0 = time.perf_counter()
+        model.feed_data(batch)
+        model.optimize_parameters(step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logs.append(model.get_current_log())
+    return step_ms, logs, torch.cuda.max_memory_allocated()
+
+
+def phase_esrgan_train(kernels):
+    """``_esrgan_opt`` at B 16, gt 160, f32 (the JAX GAN step casts
+    nothing): the card against the CPU on one step at B 1, two warm-ups
+    and ``SR_ZOO_STEPS`` timed steps (finite relativistic terms), peak
+    memory and a profile of one step."""
+    from mrefsr_tpu_torch.models import build_model
+    batch = _sr_pairs(SEED + 51, ESRGAN_B, ESRGAN_GT)
+    cmp = _esrgan_card_vs_cpu({k: v[:1] for k, v in batch.items()})
+    model = build_model(_esrgan_opt())
+    reset_counts(kernels)
+    for step in (1, 2):
+        model.feed_data(batch)
+        model.optimize_parameters(step)
+    step_ms, logs, peak = _timed_steps(model, batch, 3, SR_ZOO_STEPS)
+    launches = read_counts(kernels, ())
+    check(not any(launches.values()), f'esrgan_train launched {launches}')
+    check(all(np.isfinite(v) for log in logs for v in log.values()),
+          f'non-finite ESRGAN terms: {logs}')
+    mean_ms = statistics.mean(step_ms)
+    opt = _esrgan_opt()
+    emit({'phase': 'esrgan_train', 'source': YAML_SOURCES['esrgan_train'],
+          'network_g': opt['network_g'], 'network_d': opt['network_d'],
+          'train': opt['train'], 'batch': ESRGAN_B, 'gt': ESRGAN_GT,
+          'dtype': 'torch.float32', 'step_ms': step_ms,
+          'mean_step_ms': mean_ms, 'img_per_s': ESRGAN_B / mean_ms * 1e3,
+          'peak_mem_bytes': peak, 'logs': logs, 'card_vs_cpu_b1': cmp,
+          'grad_tolerance': TRAIN_GRAD_REL_TOL,
+          'hand_written_kernels_launched': 0,
+          'reduced': [f'{SR_ZOO_STEPS} timed steps', 'one repeated batch of '
+                      'synthetic images (DIV2K/OST sub-images in the YAML)',
+                      'seeded weights and VGG19 (the YAML starts from '
+                      'ESRGAN_PSNR_SRx4 and the torchvision VGG19)',
+                      f'gt {ESRGAN_GT} (YAML 128, a discriminator this '
+                      'repository lacks)']})
+
+    def one_step():
+        model.feed_data(batch)
+        model.optimize_parameters(3 + SR_ZOO_STEPS)
+
+    phase_profile('esrgan_train', one_step)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# torch.profiler's operators of a SwinIR step, by what they compute: the
+# attention's two products are batched (bmm), the linears' plain (mm,
+# addmm); forward and backward
+SWINIR_OPS = {
+    'attention_matmul': ('aten::bmm',),
+    'attention_softmax': ('aten::_softmax', 'aten::_softmax_backward_data'),
+    'linear_matmul': ('aten::mm', 'aten::addmm'),
+    'layer_norm': ('aten::native_layer_norm',
+                   'aten::native_layer_norm_backward'),
+    'cudnn_conv': ('aten::cudnn_convolution',
+                   'aten::convolution_backward'),
+}
+
+
+def _swinir_split(run):
+    """``run()`` under torch.profiler (host and device): each operator's
+    own device time (the kernels it launched itself; the kernels' own
+    entries and annotations such as the optimizer's step range are left
+    out, which would count those kernels twice), summed by ``SWINIR_OPS``,
+    the rest as ``other``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    own = {}
+    for event in prof.key_averages():
+        if event.device_type != DeviceType.CPU \
+                or getattr(event, 'is_user_annotation', False):
+            continue
+        us = getattr(event, 'self_device_time_total', None)
+        us = event.self_cuda_time_total if us is None else us
+        if us:
+            own[event.key] = own.get(event.key, 0.) + us / 1e3
+    split = {name: sum(own.get(op, 0.) for op in ops)
+             for name, ops in SWINIR_OPS.items()}
+    total = sum(own.values())
+    split['other'] = total - sum(split.values())
+    return {'device_ms_by_kind': split, 'device_ms': total,
+            'top_ops': sorted(((ms, op) for op, ms in own.items()),
+                              reverse=True)[:8]}
+
+
+def _swinir_opt(dtype):
+    train = {'ema_decay': 0.999,
+             'optim_g': {'type': 'Adam', 'lr': 2e-4, 'weight_decay': 0,
+                         'betas': [0.9, 0.99]},
+             'scheduler': {'type': 'MultiStepLR',
+                           'milestones': [250000, 400000, 450000, 475000],
+                           'gamma': 0.5},
+             'total_iter': 500000, 'warmup_iter': -1,
+             'pixel_opt': {'type': 'L1Loss', 'loss_weight': 1.0,
+                           'reduction': 'mean'}}
+    if dtype == BF16:
+        train['mixed_precision'] = 'bfloat16'
+    return {'name': 'swinir_train', 'model_type': 'SwinIRModel', 'scale': 4,
+            'num_gpu': 1, 'manual_seed': SEED, 'is_train': True,
+            'dist': False, 'network_g': dict(SWINIR_X4),
+            'path': {'pretrain_network_g': None}, 'train': train}
+
+
+def phase_swinir_train(kernels, dtype):
+    """``SwinIRModel`` as the P48W8 scratch YAML: gt 192, B 4, L1, Adam
+    2e-4, drop path 0.1 in training, ``dtype``. Two models from one seed
+    give the same first loss; the second's drop path reseeded (another
+    ``manual_seed`` after the build: the same weights) another. Then a
+    warm-up, ``SR_ZOO_STEPS`` timed steps, peak memory, and one step's
+    device time split among the attention, the linears, layer norm and
+    cuDNN."""
+    from mrefsr_tpu_torch.models import build_model
+    batch = _sr_pairs(SEED + 52, SWINIR_B, SWINIR_GT)
+    first = {}
+    for key, seed in (('a', SEED), ('b', SEED), ('other_seed', SEED + 1)):
+        model = build_model(_swinir_opt(dtype))
+        model.opt['manual_seed'] = seed
+        model.feed_data(batch)
+        model.optimize_parameters(1)
+        first[key] = model.get_current_log()['l_pix']
+    check(first['a'] == first['b'] and first['other_seed'] != first['a'],
+          f'swinir_train drop path not seeded: {first}')
+    reset_counts(kernels)
+    model.opt['manual_seed'] = SEED
+    model.feed_data(batch)
+    model.optimize_parameters(2)
+    step_ms, logs, peak = _timed_steps(model, batch, 3, SR_ZOO_STEPS)
+    launches = read_counts(kernels, ())
+    check(not any(launches.values()), f'swinir_train launched {launches}')
+    losses = [log['l_pix'] for log in logs]
+    check(all(np.isfinite(losses)), f'swinir_train losses {losses}')
+
+    def one_step():
+        model.feed_data(batch)
+        model.optimize_parameters(3 + SR_ZOO_STEPS)
+
+    split = _swinir_split(one_step)
+    mean_ms = statistics.mean(step_ms)
+    emit({'phase': 'swinir_train', 'path': 'swinir_train'
+          + ('_bf16' if dtype == BF16 else ''),
+          'source': YAML_SOURCES['swinir_train'],
+          'network_g': SWINIR_X4, 'train': _swinir_opt(dtype)['train'],
+          'batch': SWINIR_B, 'gt': SWINIR_GT, 'dtype': str(dtype),
+          'first_losses_by_seed': first, 'step_ms': step_ms,
+          'mean_step_ms': mean_ms, 'img_per_s': SWINIR_B / mean_ms * 1e3,
+          'peak_mem_bytes': peak, 'losses': losses, 'profile': split,
+          'hand_written_kernels_launched': 0,
+          'reduced': [f'{SR_ZOO_STEPS} timed steps, one repeated batch of '
+                      'synthetic images (DIV2K sub-images in the YAML)',
+                      'one card (the YAML: 8, B 4 each)']})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+CLI_SISR_ITERS = 20
+SISR_SCRIPTS = (
+    # (module, network_g, param key of the .pth, arguments)
+    ('inference_esrgan', RRDB_X4, 'params', ('--input', '{inp}', '--output',
+                                             '{out}')),
+    ('inference_swinir', SWINIR_X4, 'params_ema',
+     ('--input', '{inp}', '--output', '{out}', '--task', 'classical_sr',
+      '--scale', '4', '--patch_size', '48')),
+    ('inference_ridnet', {'type': 'RIDNet', 'in_channels': 3,
+                          'mid_channels': 64, 'out_channels': 3}, None,
+     ('--test_path', '{rni}', '--noise_g', '25')))
+
+
+def _sisr_data(root):
+    """A MegaDepth-layout training set (16 smooth 256x256 PNGs in one
+    scene, the annotation CSV), a Sun80 folder and a CUFED pair folder of
+    2 images each, and the inference scripts' 2-image folders."""
+    import csv
+    import cv2
+    md = os.path.join(root, 'md', '0001')
+    os.makedirs(md)
+    names = [f'{i:04d}.png' for i in range(16)]
+    for name, img in zip(names, _smooth_clip(SEED + 53, 16, 256, 256)):
+        cv2.imwrite(os.path.join(md, name), img)
+    ann = os.path.join(root, 'md.csv')
+    gen = np.random.RandomState(SEED + 54)
+    with open(ann, 'w', newline='') as f:
+        out = csv.writer(f)
+        out.writerow(['target', 'H', 'M1', 'M2', 'L1', 'L2', 'p0', 'p1',
+                      'p2', 'p3', 'p4', 'p5', 'scene'])
+        for name in names:
+            point = str([int(v) for v in gen.randint(80, 176, 2)])
+            out.writerow([name] * 6 + [point] * 6 + ['0001'])
+    folders = {'sun80': os.path.join(root, 'sun80',
+                                     'Sun_Hays_SR_groundtruth'),
+               'cufed_in': os.path.join(root, 'cufed', 'in'),
+               'cufed_ref': os.path.join(root, 'cufed', 'ref'),
+               'inp': os.path.join(root, 'sisr_in'),
+               'rni': os.path.join(root, 'rni', 'X25')}
+    for key, folder in folders.items():
+        os.makedirs(folder)
+        for i, (h, w) in enumerate(((120, 96), (92, 132))):
+            img = _smooth_clip(SEED + 55 + i, 1, h, w)[0]
+            ext = '.jpg' if key == 'sun80' else '.png'
+            cv2.imwrite(os.path.join(folder, f'im{i}{ext}'), img)
+    folders['rni'] = os.path.dirname(folders['rni'])
+    folders['sun80'] = os.path.dirname(folders['sun80'])
+    return md, ann, folders
+
+
+def _cli_sisr_yml(root, md, ann, folders):
+    """``_esrgan_opt`` as a YAML over ``SISRMegaDepthDataset`` (gt 160, B
+    16, 4 loader threads), validating on ``SISRSun80Set`` and
+    ``SISRCUFEDDataset`` at the end (PSNR). Returns its path."""
+    import yaml
+    opt = _esrgan_opt()
+    doc = {'name': 'esrgan_sisr_cli', 'model_type': 'ESRGANModel',
+           'scale': 4, 'num_gpu': 1, 'manual_seed': SEED,
+           'datasets': {
+               'train': {'name': 'md', 'type': 'SISRMegaDepthDataset',
+                         'dataroot_in': os.path.dirname(md),
+                         'dataroot_ref': os.path.dirname(md),
+                         'ann_file': ann, 'gt_size': ESRGAN_GT,
+                         'use_flip': True, 'use_rot': True,
+                         'batch_size_per_gpu': ESRGAN_B,
+                         'num_worker_per_gpu': 4,
+                         'dataset_enlarge_ratio': 100},
+               'val_1': {'name': 'Sun80', 'type': 'SISRSun80Set',
+                         'dataroot_in': folders['sun80']},
+               'val_2': {'name': 'CUFED', 'type': 'SISRCUFEDDataset',
+                         'dataroot_in': folders['cufed_in'],
+                         'dataroot_ref': folders['cufed_ref'],
+                         'io_backend': {'type': 'disk'}}},
+           'network_g': opt['network_g'], 'network_d': opt['network_d'],
+           'path': {'pretrain_network_g': None, 'strict_load_g': True,
+                    'resume_state': None, 'vgg_pretrain_path': None,
+                    'experiments_root': os.path.join(root, 'experiments')},
+           'train': dict(opt['train'], total_iter=CLI_SISR_ITERS),
+           'val': {'val_freq': CLI_SISR_ITERS, 'save_img': False,
+                   'metrics': {'psnr': {'type': 'calculate_psnr',
+                                        'crop_border': 4,
+                                        'test_y_channel': True}}},
+           'logger': {'print_freq': 5, 'save_checkpoint_freq':
+                      CLI_SISR_ITERS, 'use_tb_logger': False},
+           'dist_params': {'backend': 'nccl', 'port': 29500}}
+    path = os.path.join(root, 'esrgan_sisr_cli.yml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(doc, f)
+    return path
+
+
+def _sisr_script_start(root, folders, module, net, key, argv):
+    """Write a seeded reference-layout ``.pth`` of ``net`` and start
+    ``python -m mrefsr_tpu_torch.inference.<module>`` on it in ``root``
+    (RIDNet writes under the working directory's ``results/``)."""
+    from mrefsr_tpu_torch.archs import build_network
+    net = build_network(dict(net))
+    net.init_weights(torch.Generator().manual_seed(SEED + 56))
+    state = {k: v.contiguous() for k, v in net.state_dict().items()}
+    pth = os.path.join(root, f'{module}.pth')
+    torch.save(state if key is None else {key: state}, pth)
+    out = os.path.join(root, f'{module}_out')
+    args = [a.format(inp=folders['inp'], out=out, rni=folders['rni'])
+            for a in argv] + ['--model_path', pth]
+    log_path = os.path.join(root, f'{module}.log')
+    log = open(log_path, 'w')
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get('PYTHONPATH', ''))
+    proc = subprocess.Popen(
+        [sys.executable, '-m', f'mrefsr_tpu_torch.inference.{module}',
+         *args], cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, log, log_path, pth, args
+
+
+def _sisr_script_check(root, module, started):
+    """Wait for the script; then this process's net from the same file
+    through the module's own ``build_model`` and ``inference``: every PNG
+    the script wrote equal to this process's output bit for bit."""
+    import cv2
+    import importlib
+    proc, log, log_path, pth, args = started
+    t0 = time.perf_counter()
+    rc, text = _cli_wait(proc, log, log_path)
+    check(rc == 0, f'{module} exited {rc}:\n{text[-3000:]}')
+    mod = importlib.import_module(f'mrefsr_tpu_torch.inference.{module}')
+    parsed = mod.parse_args(args)
+    if module == 'inference_swinir':
+        kwargs = mod.model_kwargs(parsed)
+        model = mod.build_model(mod.SwinIR, kwargs, pth, 'cuda',
+                                param_key='params_ema')
+        run = lambda img: mod.inference(  # noqa: E731
+            img, model, kwargs['window_size'], kwargs['upscale'])
+        pairs = [(p, os.path.join(parsed.output, os.path.splitext(
+            os.path.basename(p))[0] + '_SwinIR.png'))
+            for p in (_files(parsed.input))]
+    elif module == 'inference_esrgan':
+        model = mod.build_model(mod.RRDBNet, mod.NET_KWARGS, pth, 'cuda')
+        run = lambda img: mod.inference(img, model)  # noqa: E731
+        pairs = [(p, os.path.join(parsed.output, os.path.splitext(
+            os.path.basename(p))[0] + '_ESRGAN.png'))
+            for p in (_files(parsed.input))]
+    else:
+        model = mod.build_model(mod.RIDNet, mod.NET_KWARGS, pth, 'cuda',
+                                param_key=None)
+        run = lambda img: mod.inference(img, model)  # noqa: E731
+        results = os.path.join(root, 'results', 'RIDNet',
+                               os.path.basename(parsed.test_path))
+        pairs = [(p, os.path.join(results, os.path.basename(p).split('.')[0]
+                                  + '_x25_RIDNet.png'))
+                 for p in (_files(os.path.join(
+                     parsed.test_path, 'X25')))]
+    check(len(pairs) == 2, f'{module}: inputs {pairs}')
+    for src, written in pairs:
+        # as the script reads it: RIDNet takes [0, 255]
+        img = cv2.imread(src, cv2.IMREAD_COLOR).astype(np.float32)
+        if module != 'inference_ridnet':
+            img = img / 255.
+        cli = cv2.imread(written, cv2.IMREAD_UNCHANGED)
+        check(cli is not None and np.array_equal(cli, run(img)),
+              f'{module} wrote another {written} than this process '
+              'computed')
+    del model
+    return {'script': f'mrefsr_tpu_torch.inference.{module}',
+            'images': len(pairs), 'pngs_bit_equal': True,
+            'script_s_after_train': time.perf_counter() - t0}
+
+
+def _files(folder):
+    """The files of ``folder``, sorted."""
+    return sorted(os.path.join(folder, n) for n in os.listdir(folder))
+
+
+def phase_cli_sisr(kernels):
+    """``cli_sisr``: the three SR inference scripts started as processes
+    beside ``train_pipeline`` in this process running ``_cli_sisr_yml``
+    for ``CLI_SISR_ITERS`` iterations; then the scripts' PNGs against
+    this process's outputs. Returns the training run's launches (none)."""
+    from mrefsr_tpu_torch.models.esrgan_model import ESRGANModel
+    from mrefsr_tpu_torch.train import train_pipeline
+    with tempfile.TemporaryDirectory() as root:
+        md, ann, folders = _sisr_data(root)
+        started = {module: _sisr_script_start(root, folders, module, net,
+                                              key, argv)
+                   for module, net, key, argv in SISR_SCRIPTS}
+        yml = _cli_sisr_yml(root, md, ann, folders)
+        model, _, launches, rec = _cli_train(
+            train_pipeline, root, ['-opt', yml], kernels, ESRGAN_B, 5,
+            CLI_SISR_ITERS, model_cls=ESRGANModel)
+        check(not any(launches.values()), f'cli_sisr launched {launches}')
+        psnr = {name: model.best_metric_results[name]['psnr']['val']
+                for name in ('Sun80', 'CUFED')}
+        check(all(np.isfinite(v) for v in psnr.values()),
+              f'cli_sisr validation PSNR {psnr}')
+        del model
+        torch.cuda.empty_cache()
+        scripts = [_sisr_script_check(root, module, started[module])
+                   for module, _, _, _ in SISR_SCRIPTS]
+    emit({'phase': 'cli_sisr', 'source': YAML_SOURCES['esrgan_train'],
+          'iterations': CLI_SISR_ITERS, 'batch': ESRGAN_B, 'gt': ESRGAN_GT,
+          'psnr_val': psnr, **{k: v for k, v in rec.items()
+                               if k != 'losses_logged'},
+          'scripts': scripts, 'hand_written_kernels_launched': 0,
+          'reduced': [f'{CLI_SISR_ITERS} iterations (YAML 400000)',
+                      '16 synthetic 256x256 images in the MegaDepth layout '
+                      '(SISRCUFEDDataset gives empty training samples, as '
+                      'the reference and the JAX package do)',
+                      'validation on 2 synthetic images of each set']})
+    return launches
+
+
+def sr_zoo_phases(build_model, arch, correlation, dcn, kernels):
+    """The SR zoo's phases: ``sr_zoo_serve``, ``esrgan_train``,
+    ``swinir_train`` (f32, bf16) and ``cli_sisr``. Returns the launches
+    by path (all none)."""
+    by_path = {'sr_zoo_serve': phase_sr_zoo_serve(kernels)}
+    torch.cuda.empty_cache()
+    by_path['esrgan_train'] = phase_esrgan_train(kernels)
+    torch.cuda.empty_cache()
+    for dtype in (torch.float32, BF16):
+        by_path['swinir_train' + ('_bf16' if dtype == BF16 else '')] = \
+            phase_swinir_train(kernels, dtype)
+        torch.cuda.empty_cache()
+    by_path['cli_sisr'] = phase_cli_sisr(kernels)
+    return by_path
+
+
 def main():
     import importlib
     from mrefsr_tpu_torch.archs import arch_util, edvr_arch
@@ -6497,6 +7181,9 @@ def main():
     torch.cuda.empty_cache()
     by_path.update(video_phases(build_model, arch, correlation, dcn,
                                 kernels))
+    torch.cuda.empty_cache()
+    by_path.update(sr_zoo_phases(build_model, arch, correlation, dcn,
+                                 kernels))
     torch.cuda.empty_cache()
     by_path['ddp'], (k6, k6b) = phase_ddp()
 
@@ -6636,6 +7323,11 @@ def main_zoo():
     _main_alone(zoo_phases)
 
 
+def main_sr_zoo():
+    """``--sr-zoo``: the SR zoo's phases alone (:func:`sr_zoo_phases`)."""
+    _main_alone(sr_zoo_phases)
+
+
 def main_repeat_grads(rounds):
     """``--repeat-grads N``: the whole-net gradient comparisons of the
     three training paths alone, from fresh weights and then N times more,
@@ -6743,5 +7435,7 @@ if __name__ == '__main__':
         main_video()
     elif sys.argv[1:2] == ['--zoo']:
         main_zoo()
+    elif sys.argv[1:2] == ['--sr-zoo']:
+        main_sr_zoo()
     else:
         main()

@@ -52,6 +52,19 @@ def uniform_(tensor, bound, generator):
 
 
 @torch.no_grad()
+def torch_default_init_(module, generator, types=(nn.Conv2d, nn.Linear)):
+    """Every submodule of ``module`` of one of ``types`` as torch
+    initialises a fresh one: weight and bias U(+-1/sqrt(fan_in))
+    (``kaiming_uniform_(a=sqrt(5))``), drawn from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, types):
+            bound = 1 / math.sqrt(m.weight[0].numel())
+            uniform_(m.weight, bound, generator)
+            if m.bias is not None:
+                uniform_(m.bias, bound, generator)
+
+
+@torch.no_grad()
 def default_init_(module, generator):
     """Seeded weights as the reference initialises a fresh video net: every
     conv torch's default (weight and bias U(+-1/sqrt(fan_in)), i.e.
@@ -60,12 +73,7 @@ def default_init_(module, generator):
     bias (the reference's ``default_init_weights(..., 0.1)``); then each
     submodule's own ``reset_parameters_(generator)`` (the deformable convs'
     weights and zero offset convs, SpyNet's ImageNet constants)."""
-    for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            bound = 1 / math.sqrt(m.weight[0].numel())
-            uniform_(m.weight, bound, generator)
-            if m.bias is not None:
-                uniform_(m.bias, bound, generator)
+    torch_default_init_(module, generator, (nn.Conv2d,))
     for m in module.modules():
         if isinstance(m, ResidualBlockNoBN):
             for conv in (m.conv1, m.conv2):
@@ -93,16 +101,38 @@ def warp(x, flow, padding_mode='zeros'):
 
 
 class ResidualBlockNoBN(nn.Module):
-    """Conv-ReLU-Conv residual block (reference arch_util.py:89-117)."""
+    """Conv-ReLU-Conv residual block (reference arch_util.py:89-117), the
+    branch scaled by ``res_scale``."""
 
-    def __init__(self, num_feat=64):
+    def __init__(self, num_feat=64, res_scale=1.0):
         super().__init__()
+        self.res_scale = res_scale
         self.conv1 = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
         self.conv2 = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
 
     def forward(self, x):
         out = self.conv2(torch.relu(self.conv1(x)))
-        return x + out
+        return x + (out if self.res_scale == 1 else out * self.res_scale)
+
+
+class Upsample(nn.Sequential):
+    """Conv + pixel shuffle by 2, ``log2(scale)`` times, or once by 3
+    (reference arch_util.py:120-141): convs ``0``, ``2``, ..., the
+    shuffles between them."""
+
+    def __init__(self, scale, num_feat):
+        layers = []
+        if scale & (scale - 1) == 0:
+            for _ in range(int(math.log2(scale))):
+                layers += [nn.Conv2d(num_feat, 4 * num_feat, 3, 1, 1),
+                           nn.PixelShuffle(2)]
+        elif scale == 3:
+            layers += [nn.Conv2d(num_feat, 9 * num_feat, 3, 1, 1),
+                       nn.PixelShuffle(3)]
+        else:
+            raise ValueError(f'scale {scale} is not supported. Supported '
+                             'scales: 2^n and 3.')
+        super().__init__(*layers)
 
 
 def make_layer(block_cls, num_blocks, **kwargs):

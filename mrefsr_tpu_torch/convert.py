@@ -16,7 +16,10 @@ modules keep (so ``load_state_dict(strict=True)`` takes them unchanged):
   :func:`vgg_style_discriminator_state_dict_from_flax` the permutation of
   ``VGGStyleDiscriminator``'s ``linear1``, and :func:`load_from_flax`
   loads a net whose constant buffers flax does not hold (SpyNet's
-  ImageNet mean and std, in the video nets).
+  ImageNet mean and std, in the video nets; SwinIR's
+  ``relative_position_index`` and ``attn_mask``), through
+  :func:`net_state_dict_from_flax` (ECBSR's edge ``scale`` keeps its name,
+  :func:`ecbsr_state_dict_from_flax`).
 
 :func:`dcn_to_flow_state_dict` warm-starts a flow-alignment net from a
 DCN-alignment checkpoint.
@@ -157,12 +160,41 @@ def vgg_style_discriminator_state_dict_from_flax(variables):
     return state
 
 
+def ecbsr_state_dict_from_flax(params):
+    """The JAX package's ``ECBSR`` parameters -> the port's state dict:
+    :func:`state_dict_from_flax`, but an edge branch's ``scale`` (a
+    ``(out, 1, 1, 1)`` parameter of ``conv1x1_sbx`` / ``_sby`` / ``_lpl``)
+    keeps its name rather than becoming a norm's ``weight``. The branches'
+    ``k0`` / ``b0`` / ``k1`` / ``b1`` and ``mask`` are OIHW on both
+    sides."""
+    edges = ('.conv1x1_sbx', '.conv1x1_sby', '.conv1x1_lpl')
+    return {(key[:-len('weight')] + 'scale'
+             if key.endswith('.weight') and key[:-len('.weight')].endswith(
+                 edges) else key): val
+            for key, val in state_dict_from_flax(params).items()}
+
+
+def net_state_dict_from_flax(net, params):
+    """The state dict of flax ``params`` for the port net ``net``:
+    :func:`state_dict_from_flax`, or a net's own conversion where it needs
+    one (:func:`ecbsr_state_dict_from_flax`)."""
+    if type(net).__name__ == 'ECBSR':
+        return ecbsr_state_dict_from_flax(params)
+    return state_dict_from_flax(params)
+
+
 def load_from_flax(net, params):
     """Load flax parameters into a port net strictly: every parameter must
     be there and nothing else. The net's buffers that the tree lacks keep
     their values: a reference ``.pth`` carries SpyNet's ``mean`` and
     ``std``, a flax tree does not."""
-    state = state_dict_from_flax(params)
+    return load_keeping_buffers(net, net_state_dict_from_flax(net, params))
+
+
+def load_keeping_buffers(net, state):
+    """Load ``state`` into ``net`` strictly, but for the net's buffers that
+    ``state`` lacks, which keep their values (a SwinIR ``.pth`` without
+    its ``relative_position_index`` and ``attn_mask``). Returns ``net``."""
     buffers = dict(net.named_buffers())
     for key, val in net.state_dict().items():
         if key in buffers:

@@ -21,23 +21,26 @@ import numpy as np
 import torch
 
 from mrefsr_tpu_torch.archs.basicvsr_arch import BasicVSR
-from mrefsr_tpu_torch.convert import load_torch_state_dict
+from mrefsr_tpu_torch.convert import (load_keeping_buffers,
+                                      load_torch_state_dict)
 from mrefsr_tpu_torch.utils import (imwrite, read_img_seq, resolve_device,
                                     tensor2img)
 
 SEED = 0
 
 
-def build_model(model_cls, kwargs, model_path, device, seed=SEED):
+def build_model(model_cls, kwargs, model_path, device, seed=SEED,
+                param_key='params'):
     """``model_cls(**kwargs)`` on ``device`` for inference: seeded weights,
-    then the checkpoint's ``params`` where the file exists."""
+    then the checkpoint's ``param_key`` (None: a bare state dict) where
+    the file exists, strictly but for buffers the file lacks."""
     with torch.device('meta'):
         net = model_cls(**kwargs)
     net.to_empty(device=device)
     net.init_weights(torch.Generator().manual_seed(seed))
     if model_path and os.path.isfile(model_path):
-        net.load_state_dict(load_torch_state_dict(model_path, 'params'),
-                            strict=True)
+        load_keeping_buffers(net, load_torch_state_dict(model_path,
+                                                        param_key))
     return net.eval().requires_grad_(False)
 
 

@@ -1,19 +1,22 @@
 """Losses of the port (port of ``mrefsr_tpu/losses``). The multi-ref
 models fetch theirs by name from :mod:`.legacy_losses`; a ``pixel_opt``,
 ``perceptual_opt`` or ``gan_opt`` block names its class by ``type``, which
-:func:`build_loss` looks up here. WeightedTV, ``MultiScaleGANLoss`` and
-``GANFeatLoss`` come with their consumers (ROADMAP A9, A11)."""
+:func:`build_loss` looks up here. ``MultiScaleGANLoss`` and
+``GANFeatLoss`` come with their consumers (ROADMAP A11)."""
 from copy import deepcopy
 
 from .losses import (CharbonnierLoss, GANLoss, L1Loss, MSELoss,
-                     PerceptualLoss, g_path_regularize, r1_penalty)
+                     PerceptualLoss, WeightedTVLoss, g_path_regularize,
+                     r1_penalty)
 
 __all__ = ['CharbonnierLoss', 'GANLoss', 'L1Loss', 'MSELoss',
-           'PerceptualLoss', 'build_loss', 'g_path_regularize', 'r1_penalty']
+           'PerceptualLoss', 'WeightedTVLoss', 'build_loss',
+           'g_path_regularize', 'r1_penalty']
 
 _LOSSES = {'CharbonnierLoss': CharbonnierLoss, 'GANLoss': GANLoss,
            'L1Loss': L1Loss, 'MSELoss': MSELoss,
-           'PerceptualLoss': PerceptualLoss}
+           'PerceptualLoss': PerceptualLoss,
+           'WeightedTVLoss': WeightedTVLoss}
 
 
 def build_loss(opt):

@@ -1,4 +1,5 @@
-"""Pixel losses (port of ``mrefsr_tpu/losses/losses.py:43-118`` with the
+"""Pixel losses and total variation (port of
+``mrefsr_tpu/losses/losses.py:43-118`` with the
 weight-then-reduce contract of ``loss_util.py``; tensors are NHWC: the
 channel axis of a weight map is the last one), the perceptual and style
 loss over VGG taps (``:109-183``), the GAN loss with StyleGAN2's two
@@ -56,6 +57,26 @@ class CharbonnierLoss(_PixelLoss):
 
     def elementwise(self, pred, target):
         return torch.sqrt((pred - target) ** 2 + self.eps)
+
+
+class WeightedTVLoss(L1Loss):
+    """Total variation: the L1 loss between each pixel and its lower and
+    its right neighbour of NHWC ``pred``, under an optional weight map
+    cropped alike, ``mean`` or ``sum`` (reference losses.py:120-146, JAX
+    package losses.py:86-106)."""
+
+    def __init__(self, loss_weight=1.0, reduction='mean'):
+        if reduction not in ('mean', 'sum'):
+            raise ValueError(f'Unsupported reduction mode: {reduction}. '
+                             'Supported ones are: mean | sum')
+        super().__init__(loss_weight, reduction)
+
+    def __call__(self, pred, weight=None):
+        y_weight = None if weight is None else weight[:, :-1]
+        x_weight = None if weight is None else weight[:, :, :-1]
+        y_diff = super().__call__(pred[:, :-1], pred[:, 1:], y_weight)
+        x_diff = super().__call__(pred[:, :, :-1], pred[:, :, 1:], x_weight)
+        return x_diff + y_diff
 
 
 def gram_mat(x):

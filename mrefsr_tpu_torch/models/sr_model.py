@@ -27,6 +27,10 @@ The JAX step's choices, carried over:
   them, and their step count would lag from the unfreeze on.)
 * **EMA over all variables** (``train.ema_decay``): every parameter and
   every norm's running statistics; ``test`` then runs the EMA net.
+* **Stochastic depth** (SwinIR's ``drop_path_rate``): the training forward
+  draws its drop masks from a generator seeded by the step
+  (:meth:`SRModel.stochastic_depth`); the GAN models' steps draw none, as
+  the JAX package's GAN step passes no ``droppath`` key.
 
 Weights come from ``manual_seed`` through a ``torch.Generator``, from
 ``path.pretrain_network_g`` (``param_key_g``, ``strict_load_g``: a
@@ -35,16 +39,18 @@ sizes otherwise, each with a log line, as the JAX package's
 ``_merge_loaded``: :meth:`BaseModel.load_network`), or from
 :meth:`load_from_flax`.
 """
+import contextlib
 import copy
 import logging
 import os.path as osp
 from collections import OrderedDict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mrefsr_tpu_torch.archs import build_network
-from mrefsr_tpu_torch.convert import state_dict_from_flax
+from mrefsr_tpu_torch.convert import load_from_flax
 from mrefsr_tpu_torch.losses import build_loss
 from mrefsr_tpu_torch.metrics import calculate_metric
 from mrefsr_tpu_torch.parallel import data_parallel
@@ -151,11 +157,8 @@ class SRModel(BaseModel):
     def load_from_flax(self, variables):
         """Take the JAX package's flax variables of ``network_g``
         (``params``); the EMA starts from them, as the JAX model's."""
-        net = self.get_bare_model(self.net_g)
-        state = state_dict_from_flax(variables['params'])
-        for key, val in net.state_dict().items():
-            state.setdefault(key, val)      # constant buffers flax lacks
-        net.load_state_dict(state, strict=True)
+        net = load_from_flax(self.get_bare_model(self.net_g),
+                             variables['params'])
         if self.net_g_ema is not None:
             self.net_g_ema.load_state_dict(net.state_dict())
 
@@ -246,7 +249,8 @@ class SRModel(BaseModel):
             raise RuntimeError('the model was built with is_train false')
         self.update_learning_rate(current_iter)
         self.optimizer_g.zero_grad(set_to_none=True)
-        output = self._run(self.net_g, self.train_dtype, False, self.lq)
+        with self.stochastic_depth(current_iter):
+            output = self._run(self.net_g, self.train_dtype, False, self.lq)
         losses = self.losses(output, self.gt)
         sum(losses.values()).backward()
         if self.frozen(current_iter):
@@ -259,6 +263,26 @@ class SRModel(BaseModel):
             self.ema_update()
         self.log_dict = self.reduce_loss_dict(OrderedDict(
             (k, v.detach()) for k, v in losses.items()))
+
+    @contextlib.contextmanager
+    def stochastic_depth(self, current_iter):
+        """Within the block a net with a ``drop_path_rate`` (SwinIR) drops
+        branches in training mode, drawing from a generator on the model's
+        device seeded by ``manual_seed``, the rank and ``current_iter``:
+        as the JAX step folds the step index into its ``droppath`` key, a
+        resumed run draws the masks it would have drawn."""
+        net = self.get_bare_model(self.net_g)
+        if not getattr(net, 'drop_path_rate', 0):
+            yield
+            return
+        seed = np.random.SeedSequence([self.opt.get('manual_seed') or 0,
+                                       get_dist_info()[0], current_iter])
+        net.generator = torch.Generator(device=self.device).manual_seed(
+            int(seed.generate_state(1, np.uint64)[0]))
+        try:
+            yield
+        finally:
+            net.generator = None
 
     @torch.no_grad()
     def ema_update(self):

@@ -29,8 +29,9 @@ over the ranks by ``all_reduce_grads_mean`` and its norms' statistics
 taken over the global batch (``sync``). ``save`` writes ``net_d_<iter>
 .pth`` beside ``net_g_<iter>.pth``; the ``.state`` holds both optimizers
 and both schedulers, G then D. ``train.ldl_opt`` needs the artifact map
-of Real-ESRGAN (ROADMAP A10); the relativistic loss of ``ESRGANModel``
-comes with it (A9).
+of Real-ESRGAN (ROADMAP A10). ``ESRGANModel`` (``models/esrgan_model.py``)
+replaces the GAN terms of both steps by their relativistic form
+(:meth:`SRGANModel.g_gan_loss`, :meth:`SRGANModel.d_losses`).
 """
 from collections import OrderedDict
 
@@ -149,10 +150,15 @@ class SRGANModel(SRModel):
         losses = OrderedDict()
         for key, value in self.losses(output, self.gt).items():
             losses[key.replace('l_', 'l_g_', 1)] = value
-        with frozen_stats(self.net_d):
-            losses['l_g_gan'] = self.cri_gan(self._net_d_forward(output),
-                                             True, is_disc=False)
+        losses['l_g_gan'] = self.g_gan_loss(output)
         return losses
+
+    def g_gan_loss(self, output):
+        """The generator's GAN term: ``output`` judged real; the
+        discriminator's pass writes no running statistics."""
+        with frozen_stats(self.net_d):
+            return self.cri_gan(self._net_d_forward(output), True,
+                                is_disc=False)
 
     def d_losses(self, fake):
         """The discriminator's terms on ``gt`` (real, first) and

@@ -1,5 +1,6 @@
 """``F.interpolate`` at the JAX package's layout and size rule (port of
-``mrefsr_tpu/ops/resize.py::interpolate``).
+``mrefsr_tpu/ops/resize.py::interpolate``), and ``pixel_unshuffle`` (its
+``pixel_unshuffle``) on NCHW tensors.
 
 The output size is always ``int(h * scale_factor)`` (as the JAX package
 computes it) and passed to ``F.interpolate`` as ``size=``: given a
@@ -23,3 +24,12 @@ def interpolate(x, scale_factor=None, size=None, mode='bilinear',
     out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode=mode,
                         **kwargs)
     return out.permute(0, 2, 3, 1)
+
+
+def pixel_unshuffle(x, scale):
+    """Fold each ``scale`` x ``scale`` block of NCHW ``x`` into channels:
+    (N, C, H, W) -> (N, C * scale^2, H / scale, W / scale), output channel
+    ``c * scale^2 + i * scale + j`` taking pixel (i, j) of channel ``c``'s
+    blocks (reference arch_util.py:272-289, the JAX package's
+    ``pixel_unshuffle`` on NHWC)."""
+    return F.pixel_unshuffle(x, scale)

@@ -11,18 +11,12 @@ package registers and the port does not yet (:data:`PENDING`) raises
 # the JAX package's names the port has still to port, by registry, with
 # their ROADMAP items
 PENDING = {
-    'model': {'ESRGANModel': 'A9', 'SwinIRModel': 'A9',
-              'SwinIRGANModel': 'A9', 'RealESRGANModel': 'A10',
-              'RealESRNetModel': 'A10', 'HiFaceGANModel': 'A11'},
-    'arch': {'RRDBNet': 'A9', 'EDSR': 'A9', 'RCAN': 'A9', 'RIDNet': 'A9',
-             'SRVGGNetCompact': 'A9', 'ECBSR': 'A9', 'SwinIR': 'A9',
-             'UNetDiscriminatorSN': 'A10', 'DFDNet': 'A11',
+    'model': {'RealESRGANModel': 'A10', 'RealESRNetModel': 'A10',
+              'HiFaceGANModel': 'A11'},
+    'arch': {'UNetDiscriminatorSN': 'A10', 'DFDNet': 'A11',
              'HiFaceGAN': 'A11', 'SPADEGenerator': 'A11',
              'HiFaceGANDiscriminator': 'A11'},
-    'dataset': {'SISRMegaDepthDataset': 'A9', 'SISRCUFEDDataset': 'A9',
-                'SISRSun80Set': 'A9', 'SISRManga109Set': 'A9',
-                'SISRWRSRSet': 'A9', 'SISRMegaDepthTestSet': 'A9',
-                'SISRMegaDepthv3TestSet': 'A9', 'RealESRGANDataset': 'A10',
+    'dataset': {'RealESRGANDataset': 'A10',
                 'RealESRGANPairedDataset': 'A10', 'FFHQDataset': 'A11'},
 }
 

@@ -199,8 +199,8 @@ def test_model_refuses_what_is_not_ported():
     item; none is silently ignored. The options without any of them
     build, and so do they with the bf16 mixed precision of training and
     of eval, and with the GAN phase's keys (ROADMAP A4, ported). The names
-    of ROADMAP A8 and the SRGAN pieces of A9 are registered. Every name
-    the port refuses is one the JAX package registers."""
+    of ROADMAP A8 and A9 are registered. Every name the port refuses is
+    one the JAX package registers."""
     from mrefsr_tpu.utils import registry as jax_registry
     from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY, PENDING
     assert build_model(_tiny_train_opt(), device='cpu').is_train
@@ -218,7 +218,7 @@ def test_model_refuses_what_is_not_ported():
     model = build_model(opt, device='cpu')
     assert model.net_d is not None and model.cri_style is not None
     for where, key, value, item in [
-            (None, 'model_type', 'ESRGANModel', 'ROADMAP A9'),
+            (None, 'model_type', 'RealESRGANModel', 'ROADMAP A10'),
             (None, 'network_d', {'type': 'UNetDiscriminatorSN'},
              'ROADMAP A10')]:
         opt = _tiny_train_opt()
@@ -226,25 +226,31 @@ def test_model_refuses_what_is_not_ported():
         opt[key] = value
         with pytest.raises(NotImplementedError, match=item):
             build_model(opt, device='cpu')
-    # the models of ROADMAP A6-A8 are ported: SRModel, the video models,
-    # SRGANModel and the video GAN models
+    # the models of ROADMAP A6-A9 are ported: SRModel, the video models,
+    # SRGANModel, the video GAN models, ESRGAN and SwinIR's
     for model_type in ('SRModel', 'VideoBaseModel', 'EDVRModel',
                        'VideoRecurrentModel', 'SRGANModel', 'VideoGANModel',
-                       'VideoRecurrentGANModel'):
+                       'VideoRecurrentGANModel', 'ESRGANModel',
+                       'SwinIRModel', 'SwinIRGANModel'):
         assert MODEL_REGISTRY.get(model_type).__name__ == model_type
         assert model_type not in PENDING['model']
     from mrefsr_tpu_torch.data import build_dataset
     from mrefsr_tpu_torch.utils.file_client import FileClient
     from mrefsr_tpu_torch.utils.registry import (ARCH_REGISTRY,
                                                  DATASET_REGISTRY)
-    for arch in ('IconVSR', 'TOFlow', 'DUF', 'VGGStyleDiscriminator'):
+    for arch in ('IconVSR', 'TOFlow', 'DUF', 'VGGStyleDiscriminator',
+                 'RRDBNet', 'EDSR', 'RCAN', 'SRVGGNetCompact', 'ECBSR',
+                 'RIDNet', 'SwinIR'):
         assert ARCH_REGISTRY.get(arch).__name__ == arch
         assert arch not in PENDING['arch']
-    assert DATASET_REGISTRY.get('VideoTestDUFDataset').__name__ \
-        == 'VideoTestDUFDataset'
-    assert 'VideoTestDUFDataset' not in PENDING['dataset']
-    with pytest.raises(NotImplementedError, match='ROADMAP A9'):
-        build_dataset({'type': 'SISRSun80Set', 'name': 'Sun80'})
+    for dataset in ('VideoTestDUFDataset', 'SISRMegaDepthDataset',
+                    'SISRCUFEDDataset', 'SISRSun80Set', 'SISRManga109Set',
+                    'SISRWRSRSet', 'SISRMegaDepthTestSet',
+                    'SISRMegaDepthv3TestSet'):
+        assert DATASET_REGISTRY.get(dataset).__name__ == dataset
+        assert dataset not in PENDING['dataset']
+    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
+        build_dataset({'type': 'FFHQDataset', 'name': 'FFHQ'})
     with pytest.raises(NotImplementedError, match='ROADMAP A12'):
         FileClient('pack', db_paths=['x.pack'])
     jax_names = {'model': jax_registry.MODEL_REGISTRY,
