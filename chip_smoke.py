@@ -5247,6 +5247,10 @@ VIDEO_WARMUP, VIDEO_STEPS = 2, 5
 ICONVSR_STEPS = 4          # IconVSR's timed training steps at each type
 CUT = 2                    # tsa_iter (YAML 50000) and fix_flow (YAML 5000)
 SR_B, SR_GT, SR_IMAGES = 16, 128, 16
+# sr_train's timed steps: its loss must fall over them, and at bf16 it
+# rises at the fourth step of this batch (by 3e-4), so five steps left the
+# last loss within 1e-5 of the first, on either side (about 20 ms a step)
+SR_STEPS = 10
 YAML_SOURCES = {
     'edvr': 'BasicSR options/train/EDVR/train_EDVR_M_x4_SR_REDS_woTSA.yml',
     'edvr_tsa': 'BasicSR options/train/EDVR/train_EDVR_M_x4_SR_REDS.yml',
@@ -5626,7 +5630,7 @@ def _sr_data(root):
 def phase_sr_train(root, kernels, dtype=torch.float32):
     """``SRModel`` + MSRResNet (64 features, 16 blocks, x4) as BasicSR's
     ``train_MSRResNet_x4.yml``: gt 128, B 16, L1, Adam 2e-4, on a paired
-    folder; two warm-ups and ``VIDEO_STEPS`` timed steps. It launches no
+    folder; two warm-ups and ``SR_STEPS`` timed steps. It launches no
     kernel of this repository (checked)."""
     from mrefsr_tpu_torch.models import build_model
     bf16 = dtype == BF16
@@ -5657,7 +5661,7 @@ def phase_sr_train(root, kernels, dtype=torch.float32):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
-    for step in range(VIDEO_WARMUP + 1, VIDEO_WARMUP + VIDEO_STEPS + 1):
+    for step in range(VIDEO_WARMUP + 1, VIDEO_WARMUP + SR_STEPS + 1):
         t0 = time.perf_counter()
         model.feed_data(batch)
         model.optimize_parameters(step)
@@ -5680,7 +5684,7 @@ def phase_sr_train(root, kernels, dtype=torch.float32):
           'losses': losses, 'hand_written_kernels_launched': 0,
           'reduced': [f'a folder of {SR_IMAGES} synthetic 256x256 images '
                       '(DIV2K sub-images in the YAML)',
-                      'one repeated batch', f'{VIDEO_STEPS} timed steps']})
+                      'one repeated batch', f'{SR_STEPS} timed steps']})
     del model
     torch.cuda.empty_cache()
     return launches
@@ -7105,6 +7109,509 @@ def sr_zoo_phases(build_model, arch, correlation, dcn, kernels):
     return by_path
 
 
+# -------------------------------------------------------------- Real-ESRGAN
+# Real-ESRGAN's two published configurations, as dicts: the degradations,
+# the dataset's kernels, the nets and the train blocks of
+# train_realesrgan_x4plus.yml / train_realesrnet_x4plus.yml. No kernel of
+# this repository lies on their paths (checked): cuDNN convolutions (the
+# nets, the blurs as grouped convolutions), cuBLAS products (the resize
+# matrices, the JPEG DCT), ATen's element-wise and sampling passes.
+YAML_SOURCES.update(
+    realesrgan='Real-ESRGAN options/train_realesrgan_x4plus.yml',
+    realesrnet='Real-ESRGAN options/train_realesrnet_x4plus.yml')
+REALESR_DEGRADE = {
+    'resize_prob': [0.2, 0.7, 0.1], 'resize_range': [0.15, 1.5],
+    'gaussian_noise_prob': 0.5, 'noise_range': [1, 30],
+    'poisson_scale_range': [0.05, 3], 'gray_noise_prob': 0.4,
+    'jpeg_range': [30, 95], 'second_blur_prob': 0.8,
+    'resize_prob2': [0.3, 0.4, 0.3], 'resize_range2': [0.3, 1.2],
+    'gaussian_noise_prob2': 0.5, 'noise_range2': [1, 25],
+    'poisson_scale_range2': [0.05, 2.5], 'gray_noise_prob2': 0.4,
+    'jpeg_range2': [30, 95], 'gt_size': 256, 'queue_size': 180}
+_KERNEL_LIST = ['iso', 'aniso', 'generalized_iso', 'generalized_aniso',
+                'plateau_iso', 'plateau_aniso']
+REALESR_KERNELS = {
+    'blur_kernel_size': 21, 'kernel_list': _KERNEL_LIST,
+    'kernel_prob': [0.45, 0.25, 0.12, 0.03, 0.12, 0.03], 'sinc_prob': 0.1,
+    'blur_sigma': [0.2, 3], 'betag_range': [0.5, 4], 'betap_range': [1, 2],
+    'blur_kernel_size2': 21, 'kernel_list2': _KERNEL_LIST,
+    'kernel_prob2': [0.45, 0.25, 0.12, 0.03, 0.12, 0.03], 'sinc_prob2': 0.1,
+    'blur_sigma2': [0.2, 1.5], 'betag_range2': [0.5, 4],
+    'betap_range2': [1, 2], 'final_sinc_prob': 0.8}
+UNET_D = {'type': 'UNetDiscriminatorSN', 'num_in_ch': 3, 'num_feat': 64,
+          'skip_connection': True}
+REALESR_PERCEPTUAL = {
+    'type': 'PerceptualLoss',
+    'layer_weights': {'conv1_2': 0.1, 'conv2_2': 0.1, 'conv3_4': 1,
+                      'conv4_4': 1, 'conv5_4': 1},
+    'vgg_type': 'vgg19', 'use_input_norm': True, 'perceptual_weight': 1.0,
+    'style_weight': 0, 'range_norm': False, 'criterion': 'l1'}
+LDL_OPT = {'type': 'L1Loss', 'loss_weight': 1.0, 'reduction': 'mean'}
+# the per-GPU batch, the dataset's crop_pad_size, the timed steps and the
+# gt of the card-against-CPU checks at B 1 (the CPU's share of the time)
+REALESR_B, REALESR_PAD, REALESR_STEPS, REALESR_CPU_GT = 12, 400, 3, 64
+REALESR_IMAGES = 24
+# The synthesis on the card against the CPU under deterministic noise, B 2,
+# gt 400: JPEG rounds each DCT coefficient, so a coefficient that lies at a
+# rounding tie within the two devices' difference (about 1e-6) moves its
+# whole 8 x 8 block; the last rounding to 8-bit levels moves one pixel.
+# Held: the share of entries more than SYNTH_PRE_TOL apart before the last
+# rounding, and of entries a level or more apart after it.
+SYNTH_PRE_TOL, SYNTH_PRE_SHARE, SYNTH_LEVEL_SHARE = 1e-5, 1e-3, 1e-3
+# a bf16 RealESRNet step, card against CPU (the CPU's bf16 convs sum in f32
+# and round once, cuDNN's otherwise): the pixel loss's gradients, each
+# tensor's worst entry as a share of its largest (measured, H100, the first
+# run: worst 0.0288, 3.7 EPS_BF16, median 0.0050), and the logged loss
+# (2.5e-4)
+REALESR_BF16_GRAD_TOL, REALESR_BF16_LOSS_TOL = 8 * EPS_BF16, 2 * EPS_BF16
+# a parameter after one Adam step, card against CPU, in lr: an entry whose
+# gradient has another sign on the two devices moves lr one way and lr the
+# other (measured up to 1.9998 lr), plus the rounding of an f32 parameter
+REALESR_STEP_LR_TOL = 2.001
+
+
+def _realesr_opt(kind, dtype=torch.float32, ldl=False, gt=None):
+    """``realesrnet`` or ``realesrgan`` as the published YAMLs (the module
+    note above), at ``dtype`` (RealESRNet) and with LDL where asked; a
+    seeded VGG19 and seeded nets (the YAMLs start from ESRGAN's and
+    RealESRNet's checkpoints)."""
+    opt = {'name': f'{kind}_train', 'scale': 4, 'num_gpu': 1,
+           'manual_seed': SEED, 'is_train': True, 'dist': False,
+           **REALESR_DEGRADE, 'network_g': dict(RRDB_X4),
+           'path': {'pretrain_network_g': None, 'vgg_pretrain_path': None}}
+    if gt:
+        opt['gt_size'] = gt
+    adam = {'type': 'Adam', 'weight_decay': 0, 'betas': [0.9, 0.99]}
+    pixel = {'type': 'L1Loss', 'loss_weight': 1.0, 'reduction': 'mean'}
+    if kind == 'realesrnet':
+        opt.update(model_type='RealESRNetModel', gt_usm=True)
+        opt['train'] = {'ema_decay': 0.999, 'optim_g': dict(adam, lr=2e-4),
+                        'scheduler': {'type': 'MultiStepLR',
+                                      'milestones': [1000000], 'gamma': 0.5},
+                        'total_iter': 1000000, 'warmup_iter': -1,
+                        'pixel_opt': pixel}
+        if dtype == BF16:
+            opt['train']['mixed_precision'] = 'bfloat16'
+        return opt
+    opt.update(model_type='RealESRGANModel', l1_gt_usm=True,
+               percep_gt_usm=True, gan_gt_usm=False, network_d=dict(UNET_D))
+    opt['train'] = {'ema_decay': 0.999, 'optim_g': dict(adam, lr=1e-4),
+                    'optim_d': dict(adam, lr=1e-4),
+                    'scheduler': {'type': 'MultiStepLR',
+                                  'milestones': [400000], 'gamma': 0.5},
+                    'total_iter': 400000, 'warmup_iter': -1,
+                    'pixel_opt': pixel,
+                    'perceptual_opt': dict(REALESR_PERCEPTUAL),
+                    'gan_opt': {'type': 'GANLoss', 'gan_type': 'vanilla',
+                                'real_label_val': 1.0, 'fake_label_val': 0.0,
+                                'loss_weight': 1e-1},
+                    'net_d_iters': 1, 'net_d_init_iters': 0}
+    if ldl:
+        opt['train']['ldl_opt'] = dict(LDL_OPT)
+    return opt
+
+
+def _realesr_dataset_opt(folder):
+    return {'name': 'DF2K_OST_synthetic', 'type': 'RealESRGANDataset',
+            'dataroot_gt': folder, 'io_backend': {'type': 'disk'},
+            'use_hflip': True, 'use_rot': False,
+            'crop_pad_size': REALESR_PAD, **REALESR_KERNELS,
+            'batch_size_per_gpu': REALESR_B, 'num_worker_per_gpu': 4,
+            'dataset_enlarge_ratio': 1}
+
+
+def _realesr_data(root):
+    """``REALESR_IMAGES`` smooth seeded 400x400 PNGs (the training set)
+    and two 256x256 gt / 64x64 lq pairs (validation)."""
+    import cv2
+    folders = {k: os.path.join(root, k) for k in ('hr', 'val_gt', 'val_lq')}
+    for folder in folders.values():
+        os.makedirs(folder)
+    for i, img in enumerate(_smooth_clip(SEED + 60, REALESR_IMAGES,
+                                         REALESR_PAD, REALESR_PAD)):
+        cv2.imwrite(os.path.join(folders['hr'], f'{i:04d}.png'), img)
+    for i in range(2):
+        img = _smooth_clip(SEED + 61 + i, 1, 256, 256)[0]
+        cv2.imwrite(os.path.join(folders['val_gt'], f'v{i}.png'), img)
+        cv2.imwrite(os.path.join(folders['val_lq'], f'v{i}.png'),
+                    cv2.resize(img, (64, 64), interpolation=cv2.INTER_AREA))
+    return folders
+
+
+def _on_card(batch):
+    """A collated batch's arrays as tensors on the card (a device
+    prefetcher's batch)."""
+    return {k: torch.from_numpy(v).cuda() if isinstance(v, np.ndarray)
+            else v for k, v in batch.items()}
+
+
+def _synth_card_vs_cpu(batch):
+    """The synthesis under deterministic noise (``noise_range`` /
+    ``poisson_scale_range`` [0, 0], one JPEG quality a stage) at B 2 on
+    the card and on the CPU, two plans drawn on the host and set to cover
+    both orders of the last resize and JPEG and both noise families."""
+    from mrefsr_tpu_torch.models.degradation_synth import \
+        DegradationSynthesizer
+    det = dict(REALESR_DEGRADE, scale=4, noise_range=[0, 0],
+               noise_range2=[0, 0], poisson_scale_range=[0, 0],
+               poisson_scale_range2=[0, 0], jpeg_range=[70, 70],
+               jpeg_range2=[45, 45])
+    card = DegradationSynthesizer(det, 'cuda', SEED)
+    cpu = DegradationSynthesizer(det, 'cpu', SEED)
+    inputs = [torch.from_numpy(batch[k][:2]) for k in ('gt', 'kernel1',
+                                                       'kernel2',
+                                                       'sinc_kernel')]
+    records = []
+    for first, gaussian in ((True, True), (False, False)):
+        plan = dict(card.draw(), resize_first=first, second_blur=True,
+                    noise1_gaussian=gaussian, noise2_gaussian=not gaussian)
+        usm_c, pre_c = card.degrade(*(x.cuda() for x in inputs), plan=plan)
+        usm_p, pre_p = cpu.degrade(*inputs, plan=plan)
+        pre = (pre_c.clamp(0, 1).cpu() - pre_p.clamp(0, 1)).abs()
+        levels = ((torch.round(pre_c.cpu() * 255).clamp(0, 255)
+                   - torch.round(pre_p * 255).clamp(0, 255)).abs())
+        records.append({
+            'resize_first': first, 'noise1_gaussian': gaussian,
+            'modes': [plan[f'mode{i}'] for i in (1, 2, 3)],
+            'scales': [plan['s1'], plan['s2']],
+            'gt_usm_max_abs_diff': float((usm_c.cpu() - usm_p).abs().max()),
+            'pre_round_max_abs_diff': float(pre.max()),
+            'pre_round_share_over_tol': float((pre > SYNTH_PRE_TOL).float()
+                                              .mean()),
+            'lq_share_one_level_or_more': float((levels > 0).float().mean()),
+            'lq_max_levels_apart': float(levels.max())})
+    for rec in records:
+        check(rec['gt_usm_max_abs_diff'] <= SYNTH_PRE_TOL
+              and rec['pre_round_share_over_tol'] <= SYNTH_PRE_SHARE
+              and rec['lq_share_one_level_or_more'] <= SYNTH_LEVEL_SHARE,
+              f'the synthesis on the card and the CPU differ: {records}')
+    return {'cases': records, 'pre_round_tol': SYNTH_PRE_TOL,
+            'pre_round_share_tol': SYNTH_PRE_SHARE,
+            'lq_level_share_tol': SYNTH_LEVEL_SHARE}
+
+
+def phase_realesrgan_synth(kernels, model, folders):
+    """``realesrgan_synth``: a ``RealESRGANDataset`` batch (B 12, 400x400,
+    the published kernels) timed on the host; the synthesizer's host draws
+    and matrices timed alone; ``model.feed_data`` (synthesis, crop, pool,
+    the swapped gt sharpened) with the batch on the card, after 15 calls
+    that fill the pool of 180: host ms with a sync and device ms; then the
+    card's synthesis against the CPU's (:func:`_synth_card_vs_cpu`).
+    Returns the batch and the launches (none)."""
+    from mrefsr_tpu_torch.data import build_dataset, default_collate
+    dataset = build_dataset(_realesr_dataset_opt(folders['hr']), seed=SEED)
+    batch_ms = []
+    for rnd in range(2):
+        t0 = time.perf_counter()
+        batch = default_collate([dataset[rnd * REALESR_B + i]
+                                 for i in range(REALESR_B)])
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    draws = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        model.synth.host_inputs(model.synth.draw(), REALESR_PAD, REALESR_PAD)
+        draws.append((time.perf_counter() - t0) * 1e3)
+    on_card = _on_card(batch)
+    reset_counts(kernels)
+    fill = REALESR_DEGRADE['queue_size'] // REALESR_B
+    for _ in range(fill):
+        model.feed_data(on_card)
+    torch.cuda.synchronize()
+    check(model.pool.queue_ptr == model.pool.queue_size,
+          f'the pool holds {model.pool.queue_ptr} pairs after {fill} calls')
+    feed_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        model.feed_data(on_card)
+        torch.cuda.synchronize()
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+    feed_device = device_ms_each([lambda: model.feed_data(on_card)],
+                                 runs=3)[0]
+    launches = read_counts(kernels, ())
+    check(not any(launches.values()), f'realesrgan_synth launched {launches}')
+    gt = REALESR_DEGRADE['gt_size']
+    check(tuple(model.lq.shape) == (REALESR_B, gt // 4, gt // 4, 3)
+          and tuple(model.gt_usm.shape) == (REALESR_B, gt, gt, 3)
+          and bool(torch.isfinite(model.lq).all()),
+          f'feed_data gave lq {tuple(model.lq.shape)}')
+    cmp = _synth_card_vs_cpu(batch)
+    emit({'phase': 'realesrgan_synth', 'source': YAML_SOURCES['realesrgan'],
+          'degradations': REALESR_DEGRADE, 'kernels': REALESR_KERNELS,
+          'batch': REALESR_B, 'crop_pad_size': REALESR_PAD, 'gt': gt,
+          'dataset_batch_host_ms': batch_ms,
+          'synth_host_draws_ms': statistics.mean(draws),
+          'feed_data_ms': feed_ms, 'feed_data_device_ms': feed_device,
+          'pool_bytes': sum(t.numel() * t.element_size() for t in
+                            (model.pool.queue_lr, model.pool.queue_gt)),
+          'card_vs_cpu_b2': cmp, 'hand_written_kernels_launched': 0,
+          'reduced': [f'{REALESR_IMAGES} smooth synthetic 400x400 images '
+                      '(DF2K and OST in the YAML)',
+                      'five timed calls, on one repeated batch']})
+    return batch, launches
+
+
+def _pixel_grads_at(model):
+    """``net_g``'s gradients of the pixel loss alone at the model's
+    training dtype, by name, on the CPU."""
+    model.net_g.zero_grad(set_to_none=True)
+    out = model._run(model.net_g, model.train_dtype, False, model.lq)
+    model.cri_pix(out, model._train_step_inputs()[1]
+                  if hasattr(model, '_train_step_inputs') else model.gt) \
+        .backward()
+    grads = {n: p.grad.cpu() for n, p in model.net_g.named_parameters()}
+    model.net_g.zero_grad(set_to_none=True)
+    return grads
+
+
+def _realesr_card_vs_cpu(kind, batch, dtype=torch.float32, ldl=False):
+    """One step at B 1, gt ``REALESR_CPU_GT``, on the card and on the CPU
+    from the same seeded weights, on the pair the card's ``feed_data``
+    synthesised (given to the CPU model as it is). Held, as
+    ``esrgan_train``'s: the pixel loss's gradients
+    (``TRAIN_GRAD_REL_TOL``, ``REALESR_BF16_GRAD_TOL`` at bf16), the
+    logged terms (``SR_ZOO_LOSS_TOL``, ``REALESR_BF16_LOSS_TOL``), each
+    net's parameters after the step within ``REALESR_STEP_LR_TOL`` lr of
+    the CPU's with 99 % of the entries within lr / 10, and the
+    discriminator's ``u`` / ``v`` (``SR_ZOO_CPU_TOL``)."""
+    from mrefsr_tpu_torch.models import build_model
+    opt = _realesr_opt(kind, dtype, ldl, gt=REALESR_CPU_GT)
+    models = {dev: build_model(opt, device=dev) for dev in ('cuda', 'cpu')}
+    models['cuda'].feed_data(_on_card({k: v[:1] for k, v in batch.items()
+                                       if isinstance(v, np.ndarray)}))
+    for key in ('lq', 'gt', 'gt_usm'):
+        value = getattr(models['cuda'], key, None)
+        if value is not None:
+            setattr(models['cpu'], key, value.cpu())
+    bf16 = dtype == BF16
+    pixel = _rel_grad_errors(_pixel_grads_at(models['cuda']),
+                             _pixel_grads_at(models['cpu']))
+    _check_grad_errors(f'{kind} pixel loss, card against CPU', pixel,
+                       REALESR_BF16_GRAD_TOL if bf16 else TRAIN_GRAD_REL_TOL)
+    logs = {}
+    for dev, model in models.items():
+        model.optimize_parameters(1)
+        logs[dev] = model.get_current_log()
+    loss_err = max(abs(logs['cuda'][k] - v) / max(abs(v), 1e-12)
+                   for k, v in logs['cpu'].items())
+    check(loss_err <= (REALESR_BF16_LOSS_TOL if bf16 else SR_ZOO_LOSS_TOL),
+          f'{kind} logs {logs}')
+    lr = opt['train']['optim_g']['lr']
+    params, uv_err = {}, 0.
+    nets = ('net_g', 'net_d') if kind == 'realesrgan' else ('net_g',)
+    for net in nets:
+        card = getattr(models['cuda'], net).state_dict()
+        worst, near, count = 0., 0, 0
+        for key, val in getattr(models['cpu'], net).state_dict().items():
+            diff = (card[key].cpu().double() - val.double()).abs()
+            if key.endswith(('weight_u', 'weight_v')):
+                uv_err = max(uv_err, float(diff.max() / val.abs().max()))
+                continue
+            worst = max(worst, float(diff.max()) / lr)
+            near += int((diff <= lr / 10).sum())
+            count += diff.numel()
+        params[net] = {'max_diff_in_lr': worst,
+                       'share_within_lr_10th': near / count}
+        check(worst <= REALESR_STEP_LR_TOL and near / count >= 0.99,
+              f'{kind} {net} after a step: {params[net]}')
+    check(uv_err <= SR_ZOO_CPU_TOL, f'{kind} u / v differ by {uv_err}')
+    del models
+    return {'gt': REALESR_CPU_GT, 'ldl': ldl, 'pixel_grads': pixel,
+            'logs': logs, 'logs_rel_err': loss_err, 'params': params,
+            'uv_rel_err': uv_err if kind == 'realesrgan' else None}
+
+
+def _realesr_split(model, batch):
+    """One step's time by part, each part run alone between two CUDA
+    events (the median of two runs after a warm-up; host time in it): the
+    synthesis (``feed_data``: synthesis, crop, pool), G (``net_g``'s
+    forward and the pixel loss's backward, at the step's dtype), and for
+    the GAN the VGG (the perceptual loss's forward and backward to the
+    output) and D (the generator's GAN term and the discriminator's two
+    passes, forward and backward); then the whole step (``feed_data`` and
+    ``optimize_parameters``) under torch.profiler: its device busy time,
+    wall time, idle share and top kernels (:func:`profile_record`)."""
+    gan = hasattr(model, 'net_d')
+    on_card = _on_card(batch)
+    model.feed_data(on_card)
+    lq, gt_pix, gt_percep = model._train_step_inputs()[:3] if gan \
+        else (model.lq, model.gt, model.gt)
+
+    def net_g():
+        model.net_g.zero_grad(set_to_none=True)
+        out = model._run(model.net_g, model.train_dtype, False, lq)
+        model.cri_pix(out, gt_pix).backward()
+
+    with torch.no_grad():
+        output = model._run(model.net_g, torch.float32, False, lq)
+    parts = {'synthesis': lambda: model.feed_data(on_card), 'G': net_g}
+    if gan:
+        def vgg():
+            leaf = output.clone().requires_grad_(True)
+            percep, _ = model.cri_perceptual(leaf, gt_percep)
+            percep.backward()
+
+        def net_d():
+            model.net_d.zero_grad(set_to_none=True)
+            leaf = output.clone().requires_grad_(True)
+            model.g_gan_loss(leaf).backward()
+            model.net_d.requires_grad_(True)
+            d = model.d_losses(output)
+            (d['l_d_real'] + d['l_d_fake']).backward()
+            model.net_d.requires_grad_(False)
+
+        parts.update(VGG=vgg, D=net_d)
+    split = dict(zip(parts, cuda_ms_each(list(parts.values()), reps=2)))
+    model.net_g.zero_grad(set_to_none=True)
+    if gan:
+        model.net_d.zero_grad(set_to_none=True)
+
+    def step():
+        model.feed_data(on_card)
+        model.optimize_parameters(100)
+
+    whole = profile_record('step', step)
+    return {'ms_by_part': split, 'step_device_busy_ms':
+            whole['device_busy_ms'], 'step_wall_ms': whole['wall_ms'],
+            'step_device_idle_share': whole['device_idle_share'],
+            'top_kernels': whole['top_kernels'][:6]}
+
+
+def phase_realesr_train(kind, kernels, model, batch, dtype=torch.float32):
+    """``realesrnet_train`` (f32, bf16) or ``realesrgan_train`` (f32; with
+    LDL in its card-against-CPU check only, as the published YAML trains
+    without it): the card against the CPU on one step at B 1
+    (:func:`_realesr_card_vs_cpu`), then at B 12, gt 256: the pool filled
+    by ``feed_data`` alone, two warm-ups and ``REALESR_STEPS`` timed steps
+    (``feed_data`` and ``optimize_parameters``: the mixing ones), peak
+    memory, and the device time by part (:func:`_realesr_split`)."""
+    bf16 = dtype == BF16
+    tag = f'{kind}_train' + ('_bf16' if bf16 else '')
+    cmp = [_realesr_card_vs_cpu(kind, batch, dtype)]
+    if kind == 'realesrgan':
+        cmp.append(_realesr_card_vs_cpu(kind, batch, dtype, ldl=True))
+    on_card = _on_card(batch)
+    reset_counts(kernels)
+    while model.pool.queue_ptr < model.pool.queue_size:
+        model.feed_data(on_card)
+    for step in (1, 2):
+        model.feed_data(on_card)
+        model.optimize_parameters(step)
+    step_ms, logs, peak = _timed_steps(model, on_card, 3, REALESR_STEPS)
+    launches = read_counts(kernels, ())
+    check(not any(launches.values()), f'{tag} launched {launches}')
+    check(all(np.isfinite(v) for log in logs for v in log.values()),
+          f'non-finite {tag} terms: {logs}')
+    split = _realesr_split(model, batch)
+    mean_ms = statistics.mean(step_ms)
+    opt = _realesr_opt(kind, dtype)
+    emit({'phase': f'{kind}_train', 'path': tag,
+          'source': YAML_SOURCES[kind], 'network_g': opt['network_g'],
+          'network_d': opt.get('network_d'), 'train': opt['train'],
+          'batch': REALESR_B, 'gt': opt['gt_size'], 'dtype': str(dtype),
+          'step_ms': step_ms, 'mean_step_ms': mean_ms,
+          'img_per_s': REALESR_B / mean_ms * 1e3, 'peak_mem_bytes': peak,
+          'logs': logs, 'profile': split, 'card_vs_cpu_b1': cmp,
+          'hand_written_kernels_launched': 0,
+          'reduced': [f'{REALESR_STEPS} timed steps on one repeated batch '
+                      'of synthetic images (DF2K and OST in the YAML)',
+                      'seeded weights and VGG19 (the YAML starts from '
+                      + ('ESRGAN_SRx4_DF2KOST_official' if kind ==
+                         'realesrnet' else 'RealESRNet_x4plus')
+                      + ' and the torchvision VGG19)',
+                      f'the card-against-CPU step at B 1, gt '
+                      f'{REALESR_CPU_GT}']})
+    return launches
+
+
+def _cli_realesrgan_yml(root, folders):
+    """``_realesr_opt('realesrgan')`` as a YAML over the PNG folder
+    (``RealESRGANDataset``, B 12, 4 loader threads), ``CLI_REALESR_ITERS``
+    iterations, validating on a ``RealESRGANPairedDataset`` folder at the
+    end (PSNR). Returns its path."""
+    import yaml
+    doc = _realesr_opt('realesrgan')
+    doc.update(name='realesrgan_cli', datasets={
+        'train': dict(_realesr_dataset_opt(folders['hr']), phase='train'),
+        'val': {'name': 'pairs', 'type': 'RealESRGANPairedDataset',
+                'dataroot_gt': folders['val_gt'],
+                'dataroot_lq': folders['val_lq'],
+                'io_backend': {'type': 'disk'}}},
+        path={'pretrain_network_g': None, 'strict_load_g': True,
+              'resume_state': None, 'vgg_pretrain_path': None,
+              'experiments_root': os.path.join(root, 'experiments')},
+        val={'val_freq': CLI_REALESR_ITERS, 'save_img': False,
+             'metrics': {'psnr': {'type': 'calculate_psnr',
+                                  'crop_border': 4,
+                                  'test_y_channel': False}}},
+        logger={'print_freq': 5, 'save_checkpoint_freq': CLI_REALESR_ITERS,
+                'use_tb_logger': False},
+        dist_params={'backend': 'nccl', 'port': 29500})
+    doc['train']['total_iter'] = CLI_REALESR_ITERS
+    doc.pop('is_train')
+    doc.pop('dist')
+    path = os.path.join(root, 'realesrgan_cli.yml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(doc, f)
+    return path
+
+
+CLI_REALESR_ITERS = 10
+
+
+def phase_cli_realesrgan(kernels, root, folders):
+    """``cli_realesrgan``: ``_cli_realesrgan_yml`` through
+    ``train_pipeline`` in this process, the loader on the PNG folder; the
+    validation's PSNR finite, no kernel launched. The pool of 180 does not
+    fill in 10 iterations: every batch passes through it."""
+    from mrefsr_tpu_torch.models.realesrgan_model import RealESRGANModel
+    from mrefsr_tpu_torch.train import train_pipeline
+    yml = _cli_realesrgan_yml(root, folders)
+    model, _, launches, rec = _cli_train(
+        train_pipeline, root, ['-opt', yml], kernels, REALESR_B, 5,
+        CLI_REALESR_ITERS, model_cls=RealESRGANModel)
+    check(not any(launches.values()), f'cli_realesrgan launched {launches}')
+    psnr = model.best_metric_results['pairs']['psnr']['val']
+    check(np.isfinite(psnr), f'cli_realesrgan validation PSNR {psnr}')
+    del model
+    torch.cuda.empty_cache()
+    emit({'phase': 'cli_realesrgan', 'source': YAML_SOURCES['realesrgan'],
+          'iterations': CLI_REALESR_ITERS, 'batch': REALESR_B,
+          'gt': REALESR_DEGRADE['gt_size'], 'psnr_val': psnr,
+          **{k: v for k, v in rec.items() if k != 'losses_logged'},
+          'hand_written_kernels_launched': 0,
+          'reduced': [f'{CLI_REALESR_ITERS} iterations (YAML 400000): the '
+                      'pool of 180 does not fill',
+                      f'{REALESR_IMAGES} synthetic 400x400 images',
+                      'validation on 2 synthetic pairs']})
+    return launches
+
+
+def realesrgan_phases(build_model, arch, correlation, dcn, kernels):
+    """Real-ESRGAN's phases: ``realesrgan_synth``, ``realesrnet_train``
+    (f32, bf16), ``realesrgan_train`` and ``cli_realesrgan``. Returns the
+    launches by path (all none)."""
+    by_path = {}
+    with tempfile.TemporaryDirectory() as root:
+        folders = _realesr_data(root)
+        model = build_model(_realesr_opt('realesrgan'))
+        batch, by_path['realesrgan_synth'] = phase_realesrgan_synth(
+            kernels, model, folders)
+        by_path['realesrgan_train'] = phase_realesr_train(
+            'realesrgan', kernels, model, batch)
+        del model
+        torch.cuda.empty_cache()
+        for dtype in (torch.float32, BF16):
+            model = build_model(_realesr_opt('realesrnet', dtype))
+            by_path['realesrnet_train' + ('_bf16' if dtype == BF16
+                                          else '')] = phase_realesr_train(
+                'realesrnet', kernels, model, batch, dtype)
+            del model
+            torch.cuda.empty_cache()
+        by_path['cli_realesrgan'] = phase_cli_realesrgan(kernels, root,
+                                                         folders)
+    return by_path
+
+
 def main():
     import importlib
     from mrefsr_tpu_torch.archs import arch_util, edvr_arch
@@ -7184,6 +7691,9 @@ def main():
     torch.cuda.empty_cache()
     by_path.update(sr_zoo_phases(build_model, arch, correlation, dcn,
                                  kernels))
+    torch.cuda.empty_cache()
+    by_path.update(realesrgan_phases(build_model, arch, correlation, dcn,
+                                     kernels))
     torch.cuda.empty_cache()
     by_path['ddp'], (k6, k6b) = phase_ddp()
 
@@ -7328,6 +7838,12 @@ def main_sr_zoo():
     _main_alone(sr_zoo_phases)
 
 
+def main_realesrgan():
+    """``--realesrgan``: Real-ESRGAN's phases alone
+    (:func:`realesrgan_phases`)."""
+    _main_alone(realesrgan_phases)
+
+
 def main_repeat_grads(rounds):
     """``--repeat-grads N``: the whole-net gradient comparisons of the
     three training paths alone, from fresh weights and then N times more,
@@ -7437,5 +7953,7 @@ if __name__ == '__main__':
         main_zoo()
     elif sys.argv[1:2] == ['--sr-zoo']:
         main_sr_zoo()
+    elif sys.argv[1:2] == ['--realesrgan']:
+        main_realesrgan()
     else:
         main()

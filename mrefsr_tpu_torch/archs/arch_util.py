@@ -86,6 +86,59 @@ def default_init_(module, generator):
             m.reset_parameters_(generator)
 
 
+def _l2norm(v, eps=1e-12):
+    return v / (torch.linalg.vector_norm(v) + eps)
+
+
+class SNConv2d(nn.Conv2d):
+    """A conv with spectral normalisation (the JAX package's ``SNConv``,
+    hifacegan_util.py:40; torch's ``spectral_norm`` names): the parameter
+    ``weight_orig`` (O, I, kh, kw) and the buffers ``weight_u`` (O) and
+    ``weight_v`` (I * kh * kw) of the power iteration, so a reference
+    ``.pth`` loads as it is. The conv's weight is ``weight_orig / sigma``,
+    ``sigma = u . (W v)`` with W the weight as (O, I * kh * kw). In
+    training mode each forward first takes one power iteration from the
+    stored vectors (``v = norm(W^T u)``, ``u = norm(W v)``, x / (|x| +
+    1e-12), no gradient) and stores them while :attr:`update_stats` is set
+    (:func:`~mrefsr_tpu_torch.parallel.batch_norm.frozen_stats` clears it:
+    the JAX GAN step iterates in the generator's pass and drops the
+    result); in eval mode the stored vectors give sigma."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        weight = self.weight
+        del self.weight
+        self.weight_orig = nn.Parameter(weight.detach())
+        self.register_buffer('weight_u', weight.new_empty(weight.shape[0]))
+        self.register_buffer('weight_v', weight.new_empty(
+            weight[0].numel()))
+        self.update_stats = True
+
+    @torch.no_grad()
+    def reset_vectors_(self, generator):
+        """``weight_u`` and ``weight_v`` normalised N(0, 1), from
+        ``generator`` on the CPU."""
+        for buf in (self.weight_u, self.weight_v):
+            buf.copy_(_l2norm(torch.randn(buf.shape, generator=generator)))
+
+    def sn_weight(self):
+        """``weight_orig / sigma``, after one power iteration in training
+        mode."""
+        w_mat = self.weight_orig.flatten(1)
+        u, v = self.weight_u, self.weight_v
+        if self.training:
+            with torch.no_grad():
+                v = _l2norm(w_mat.t() @ u)
+                u = _l2norm(w_mat @ v)
+                if self.update_stats:
+                    self.weight_u.copy_(u)
+                    self.weight_v.copy_(v)
+        return self.weight_orig / (u @ (w_mat @ v))
+
+    def forward(self, x):
+        return self._conv_forward(x, self.sn_weight(), self.bias)
+
+
 def resize(x, scale_factor=None, size=None, mode='bilinear',
            align_corners=False):
     """:func:`mrefsr_tpu_torch.ops.interpolate` on an NCHW tensor."""

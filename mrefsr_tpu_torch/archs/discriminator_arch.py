@@ -1,15 +1,18 @@
 """Discriminators (port of ``mrefsr_tpu/archs/discriminator_arch.py``):
 the SRNTT ``ImageDiscriminator`` of the Ref models' GAN phase (:28-67) and
 the ``VGGStyleDiscriminator`` of ``SRGANModel`` and the video GAN models
-(:70-107). ``UNetDiscriminatorSN`` comes with Real-ESRGAN (ROADMAP
-A10)."""
+(:70-107), and Real-ESRGAN's ``UNetDiscriminatorSN`` (:110-160)."""
+import contextlib
+
 import torch
 from torch import nn
 
+from mrefsr_tpu_torch.ops import interpolate
 from mrefsr_tpu_torch.parallel.batch_norm import BatchNorm2d
 from mrefsr_tpu_torch.utils.registry import ARCH_REGISTRY
 
-from .arch_util import default_init_, srntt_normal_init_
+from .arch_util import (SNConv2d, default_init_, srntt_normal_init_,
+                        torch_default_init_, uniform_)
 
 
 def _conv_block(in_ch, out_ch):
@@ -130,3 +133,89 @@ class VGGStyleDiscriminator(nn.Module):
                 feat = self.lrelu(getattr(self, f'bn{idx}_{sub}')(conv(feat)))
         feat = self.lrelu(self.linear1(feat.flatten(1)))
         return self.linear2(feat)
+
+
+@ARCH_REGISTRY.register()
+class UNetDiscriminatorSN(nn.Module):
+    """Real-ESRGAN's U-Net discriminator (reference
+    discriminator_arch.py:128-186): a 3x3 conv, three stride-2 4x4
+    spectral-norm convs down (``num_feat`` x 2, 4, 8), three 3x3 ones up
+    after 2x bilinear upsampling (x 4, 2, 1; each added to the map of its
+    size on the way down with ``skip_connection``), two more at
+    ``num_feat`` and a 3x3 conv to one channel: a map of the input's size.
+    ``conv1`` to ``conv8`` are :class:`~.arch_util.SNConv2d` without
+    bias; LeakyReLU(0.2) after every conv but the last. NCHW, H and W
+    multiples of 8.
+
+    ``conv5``'s forward runs without cuDNN (ATen's im2col and a cuBLAS
+    product): with TF32 off, cuDNN's heuristic, and its benchmark too,
+    take FFT tiling for it at the published width (256 -> 128 channels at
+    128 x 128, B 2 to 12 on an H100: 430-460 ms and 16 GB of workspace a
+    forward, against 3.8 ms). Its backward stays on cuDNN."""
+
+    def __init__(self, num_in_ch=3, num_feat=64, skip_connection=True):
+        super().__init__()
+        nf = num_feat
+        self.skip_connection = skip_connection
+        self.conv0 = nn.Conv2d(num_in_ch, nf, 3, 1, 1)
+        for i, (cin, cout) in enumerate(((nf, nf * 2), (nf * 2, nf * 4),
+                                         (nf * 4, nf * 8)), start=1):
+            setattr(self, f'conv{i}', SNConv2d(cin, cout, 4, 2, 1,
+                                               bias=False))
+        for i, (cin, cout) in enumerate(((nf * 8, nf * 4), (nf * 4, nf * 2),
+                                         (nf * 2, nf), (nf, nf), (nf, nf)),
+                                        start=4):
+            setattr(self, f'conv{i}', SNConv2d(cin, cout, 3, 1, 1,
+                                               bias=False))
+        self.conv9 = nn.Conv2d(nf, 1, 3, 1, 1)
+        self.lrelu = nn.LeakyReLU(0.2)
+
+    @torch.no_grad()
+    def init_weights(self, generator):
+        """torch's default convs (U(+-1/sqrt(fan_in)), seeded), as the
+        reference initialises them, and normalised N(0, 1) power-iteration
+        vectors."""
+        for m in self.modules():
+            if isinstance(m, SNConv2d):
+                uniform_(m.weight_orig, 1 / m.weight_orig[0].numel() ** 0.5,
+                         generator)
+                m.reset_vectors_(generator)
+            elif isinstance(m, nn.Conv2d):
+                torch_default_init_(m, generator, (nn.Conv2d,))
+
+    @staticmethod
+    def _up(x):
+        return interpolate(x.permute(0, 2, 3, 1), scale_factor=2,
+                           mode='bilinear').permute(0, 3, 1, 2)
+
+    def forward(self, x):
+        act = self.lrelu
+        x0 = act(self.conv0(x))
+        x1 = act(self.conv1(x0))
+        x2 = act(self.conv2(x1))
+        x3 = act(self.conv3(x2))
+        x4 = act(self.conv4(self._up(x3)))
+        if self.skip_connection:
+            x4 = x4 + x2
+        with _without_cudnn():
+            x5 = act(self.conv5(self._up(x4)))
+        if self.skip_connection:
+            x5 = x5 + x1
+        x6 = act(self.conv6(self._up(x5)))
+        if self.skip_connection:
+            x6 = x6 + x0
+        out = act(self.conv7(x6))
+        out = act(self.conv8(out))
+        return self.conv9(out)
+
+
+@contextlib.contextmanager
+def _without_cudnn():
+    """cuDNN off within the block (``torch.backends.cudnn.enabled``), its
+    other settings as they are."""
+    before = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = before

@@ -12,7 +12,7 @@ modules keep (so ``load_state_dict(strict=True)`` takes them unchanged):
   (DynAgg's and FlowAgg's parameters included);
   :func:`stylegan2_state_dict_from_flax` adds what the StyleGAN2 nets
   need on top, :func:`state_dict_from_flax_variables` a net's batch-norm
-  statistics (the discriminator's),
+  statistics and spectral-norm vectors (the discriminators'),
   :func:`vgg_style_discriminator_state_dict_from_flax` the permutation of
   ``VGGStyleDiscriminator``'s ``linear1``, and :func:`load_from_flax`
   loads a net whose constant buffers flax does not hold (SpyNet's
@@ -122,18 +122,28 @@ def state_dict_from_flax(params):
 
 def state_dict_from_flax_variables(variables):
     """A flax net's variables, ``params`` and (where it has batch norms)
-    ``batch_stats``, -> a torch state dict: :func:`state_dict_from_flax`
-    of the parameters (a norm's ``scale`` / ``bias`` become ``weight`` /
-    ``bias``), and each norm's ``mean`` / ``var`` its ``running_mean`` /
-    ``running_var``. flax counts no batches: a norm of the port fills its
+    ``batch_stats`` and (where it has spectral-norm convs) ``spectral``,
+    -> a torch state dict: :func:`state_dict_from_flax` of the parameters
+    (a norm's ``scale`` / ``bias`` become ``weight`` / ``bias``), each
+    norm's ``mean`` / ``var`` its ``running_mean`` / ``running_var``, and
+    each spectral-norm conv's kernel its ``weight_orig``, its ``u`` / ``v``
+    its ``weight_u`` / ``weight_v`` (torch's ``spectral_norm`` names,
+    which the port's ``SNConv2d`` and a reference ``.pth`` share). flax
+    counts no batches: a norm of the port fills its
     ``num_batches_tracked`` with 0."""
     out = state_dict_from_flax(variables['params'])
-    names = {'mean': 'running_mean', 'var': 'running_var'}
-    for key, val in _flatten(variables.get('batch_stats') or {}).items():
-        base, _, leaf = key.rpartition('.')
-        if leaf not in names:
-            raise ValueError(f'batch_stats.{key}: no torch buffer for it')
-        out[f'{base}.{names[leaf]}'] = torch.tensor(val)
+    names = {'mean': 'running_mean', 'var': 'running_var',
+             'u': 'weight_u', 'v': 'weight_v'}
+    for collection in ('batch_stats', 'spectral'):
+        for key, val in _flatten(variables.get(collection) or {}).items():
+            base, _, leaf = key.rpartition('.')
+            if leaf not in names or (leaf in ('u', 'v')) != (
+                    collection == 'spectral'):
+                raise ValueError(f'{collection}.{key}: no torch buffer '
+                                 'for it')
+            out[f'{base}.{names[leaf]}'] = torch.tensor(val)
+            if leaf == 'u':
+                out[f'{base}.weight_orig'] = out.pop(f'{base}.weight')
     return out
 
 

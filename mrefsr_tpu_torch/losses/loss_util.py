@@ -1,7 +1,11 @@
 """The weight-then-reduce contract of the element-wise losses (port of
-``mrefsr_tpu/losses/loss_util.py:1-53``). Tensors are NHWC: a weight map
-has 1 or C channels on the last axis."""
+``mrefsr_tpu/losses/loss_util.py``), and the LDL artifact map of
+Real-ESRGAN's ``train.ldl_opt`` (:func:`get_refined_artifact_map`).
+Tensors are NHWC: a weight map has 1 or C channels on the last axis."""
 import functools
+
+import torch
+import torch.nn.functional as F
 
 
 def weight_reduce_loss(loss, weight=None, reduction='mean'):
@@ -43,3 +47,33 @@ def weighted_loss(loss_func):
 
 
 masked_loss = weighted_loss
+
+
+def get_local_weights(residual, ksize):
+    """The unbiased variance of ``residual`` (B, H, W, 1) over each
+    ``ksize`` x ``ksize`` window, reflect-padded (reference
+    basicsr/losses/loss_util.py:96-118): (s2 - s1^2 / n) / (n - 1) of the
+    window's sums s1 of x and s2 of x^2, n = ksize^2."""
+    pad = (ksize - 1) // 2
+    x = F.pad(residual.permute(0, 3, 1, 2), (pad, pad, pad, pad),
+              mode='reflect')
+    n = ksize * ksize
+    s1 = F.avg_pool2d(x, ksize, stride=1, divisor_override=1)
+    s2 = F.avg_pool2d(x * x, ksize, stride=1, divisor_override=1)
+    return ((s2 - s1 * s1 / n) / (n - 1)).permute(0, 2, 3, 1)
+
+
+def get_refined_artifact_map(img_gt, img_output, img_ema, ksize):
+    """LDL's artifact map (reference loss_util.py:121-145), NHWC (B, H, W,
+    1): the channel sum of |gt - output|'s variance over the image to the
+    1/5 (ddof 1) times its local variance (:func:`get_local_weights`), and
+    0 where the output is closer to ``gt`` than the EMA's output
+    ``img_ema`` is."""
+    residual_ema = (img_gt - img_ema).abs().sum(-1, keepdim=True)
+    residual_sr = (img_gt - img_output).abs().sum(-1, keepdim=True)
+    patch_level_weight = torch.var(residual_sr, dim=(1, 2, 3), keepdim=True,
+                                   correction=1) ** (1 / 5)
+    overall_weight = patch_level_weight * get_local_weights(residual_sr,
+                                                            ksize)
+    return torch.where(residual_sr < residual_ema,
+                       torch.zeros_like(overall_weight), overall_weight)

@@ -28,13 +28,13 @@ class ESRGANModel(SRGANModel):
     def g_gan_loss(self, output):
         with frozen_stats(self.net_d):
             fake = self._net_d_forward(output)
-            real = self._net_d_forward(self.gt).detach()
+            real = self._net_d_forward(self._train_step_inputs()[3]).detach()
         l_g_real = self.cri_gan(real - fake.mean(), False, is_disc=False)
         l_g_fake = self.cri_gan(fake - real.mean(), True, is_disc=False)
         return (l_g_real + l_g_fake) / 2
 
     def d_losses(self, fake):
-        real_pred = self._net_d_forward(self.gt)
+        real_pred = self._net_d_forward(self._train_step_inputs()[3])
         fake_pred = self._net_d_forward(fake)
         return OrderedDict(
             l_d_real=self.cri_gan(real_pred - fake_pred.detach().mean(), True,

@@ -220,16 +220,18 @@ class SRModel(BaseModel):
         return from_net_layout(super()._run(
             net, dtype, cached, to_net_layout(x.to(dtype)))).float()
 
-    def losses(self, output, gt):
+    def losses(self, output, gt, gt_percep=None):
         """The step's terms of ``output`` against ``gt``: ``l_pix``,
-        ``l_percep``, ``l_style`` where configured; the loss is their
-        sum. A clip's frames go through the VGG as a batch."""
+        ``l_percep``, ``l_style`` where configured (the last two against
+        ``gt_percep`` where given); the loss is their sum. A clip's frames
+        go through the VGG as a batch."""
         losses = OrderedDict()
         if self.cri_pix is not None:
             losses['l_pix'] = self.cri_pix(output, gt)
         if self.cri_perceptual is not None:
             flat = (lambda x: x.flatten(0, 1) if x.dim() == 5 else x)
-            percep, style = self.cri_perceptual(flat(output), flat(gt))
+            percep, style = self.cri_perceptual(
+                flat(output), flat(gt if gt_percep is None else gt_percep))
             if percep is not None:
                 losses['l_percep'] = percep
             if style is not None:

@@ -28,10 +28,23 @@ Under ``dist`` ``net_d`` is not wrapped in DDP: its gradients are averaged
 over the ranks by ``all_reduce_grads_mean`` and its norms' statistics
 taken over the global batch (``sync``). ``save`` writes ``net_d_<iter>
 .pth`` beside ``net_g_<iter>.pth``; the ``.state`` holds both optimizers
-and both schedulers, G then D. ``train.ldl_opt`` needs the artifact map
-of Real-ESRGAN (ROADMAP A10). ``ESRGANModel`` (``models/esrgan_model.py``)
+and both schedulers, G then D. ``ESRGANModel`` (``models/esrgan_model.py``)
 replaces the GAN terms of both steps by their relativistic form
 (:meth:`SRGANModel.g_gan_loss`, :meth:`SRGANModel.d_losses`).
+
+Two hooks of Real-ESRGAN (JAX package srgan_model.py:49-50, 158-167,
+272):
+
+* ``train.ldl_opt`` adds ``l_g_ldl`` after the pixel term: the loss of
+  ``map * output`` against ``map * gt``, the map
+  :func:`~mrefsr_tpu_torch.losses.loss_util.get_refined_artifact_map` of
+  ``gt``, the output and the EMA net's output on the same ``lq`` (before
+  this step's EMA update, no gradient; the map itself passes the output's
+  gradient, as the JAX step's does). It needs ``ema_decay``.
+* :meth:`SRGANModel._train_step_inputs` gives each term its target: ``lq``
+  and the ``gt`` of the pixel, perceptual, GAN (the discriminator's real
+  images) and LDL terms, ``gt`` for all four here; ``RealESRGANModel``
+  routes its sharpened ``gt`` to some of them.
 """
 from collections import OrderedDict
 
@@ -43,6 +56,7 @@ from mrefsr_tpu_torch.convert import (
     state_dict_from_flax_variables,
     vgg_style_discriminator_state_dict_from_flax)
 from mrefsr_tpu_torch.losses import build_loss
+from mrefsr_tpu_torch.losses.loss_util import get_refined_artifact_map
 from mrefsr_tpu_torch.parallel.batch_norm import BatchNorm2d, frozen_stats
 from mrefsr_tpu_torch.parallel.ddp import (all_reduce_grads_mean,
                                            broadcast_module)
@@ -77,10 +91,6 @@ class SRGANModel(SRModel):
         ``path.pretrain_network_d``), the GAN loss, ``net_d``'s optimizer
         and both schedules (JAX package srgan_model.py:31-70)."""
         train_opt = self.opt['train']
-        if train_opt.get('ldl_opt'):
-            raise NotImplementedError(
-                'train.ldl_opt needs the artifact map of Real-ESRGAN, which '
-                'is not ported yet (ROADMAP A10)')
         with torch.device('meta'):
             self.net_d = build_network(self.opt['network_d'])
         self.net_d.to_empty(device=self.device)
@@ -97,6 +107,11 @@ class SRGANModel(SRModel):
         self.net_d_iters = train_opt.get('net_d_iters', 1)
         self.net_d_init_iters = train_opt.get('net_d_init_iters', 0)
         super().init_training_settings()
+        self.cri_ldl = build_loss(train_opt['ldl_opt']) \
+            if train_opt.get('ldl_opt') else None
+        if self.cri_ldl is not None and self.net_g_ema is None:
+            raise ValueError('train.ldl_opt needs train.ema_decay > 0: the '
+                             "artifact map compares with the EMA net's output")
         optim_opt = dict(train_opt['optim_d'])
         self.optimizer_d = build_optimizer(
             [{'params': list(self.net_d.parameters()),
@@ -137,6 +152,8 @@ class SRGANModel(SRModel):
         """The generator's terms, in the order :meth:`g_losses` gives
         them."""
         keys = ['l_g_pix'] if self.cri_pix is not None else []
+        if self.cri_ldl is not None:
+            keys.append('l_g_ldl')
         if self.cri_perceptual is not None:
             if self.cri_perceptual.perceptual_weight > 0:
                 keys.append('l_g_percep')
@@ -144,14 +161,39 @@ class SRGANModel(SRModel):
                 keys.append('l_g_style')
         return keys + ['l_g_gan']
 
+    def _train_step_inputs(self):
+        """``(lq, gt_pix, gt_percep, gt_gan, gt_ldl)``: the input and the
+        target of each term (module docstring); ``gt`` for every term
+        here."""
+        return self.lq, self.gt, self.gt, self.gt, self.gt
+
     def g_losses(self, output):
-        """The generator's terms of ``output`` against ``gt``; the
-        discriminator's pass writes no running statistics."""
+        """The generator's terms of ``output`` against their targets
+        (:meth:`_train_step_inputs`), in the JAX step's order: pixel, LDL,
+        perceptual and style, GAN; the discriminator's pass writes no
+        running statistics."""
+        lq, gt_pix, gt_percep, _, gt_ldl = self._train_step_inputs()
+        terms = self.losses(output, gt_pix, gt_percep)
         losses = OrderedDict()
-        for key, value in self.losses(output, self.gt).items():
+        if 'l_pix' in terms:
+            losses['l_g_pix'] = terms.pop('l_pix')
+        losses.update(self.ldl_loss(lq, output, gt_ldl))
+        for key, value in terms.items():
             losses[key.replace('l_', 'l_g_', 1)] = value
         losses['l_g_gan'] = self.g_gan_loss(output)
         return losses
+
+    def ldl_loss(self, lq, output, gt):
+        """``{'l_g_ldl': ...}`` where ``train.ldl_opt`` is set, else empty
+        (module docstring). A clip's frames count as a batch."""
+        if self.cri_ldl is None:
+            return {}
+        with torch.no_grad():
+            output_ema = self._run(self.net_g_ema, torch.float32, False, lq)
+        output, gt, output_ema = (_frames_as_batch(x)
+                                  for x in (output, gt, output_ema))
+        weight = get_refined_artifact_map(gt, output, output_ema, 7)
+        return {'l_g_ldl': self.cri_ldl(weight * output, weight * gt)}
 
     def g_gan_loss(self, output):
         """The generator's GAN term: ``output`` judged real; the
@@ -161,9 +203,10 @@ class SRGANModel(SRModel):
                                 is_disc=False)
 
     def d_losses(self, fake):
-        """The discriminator's terms on ``gt`` (real, first) and
-        ``fake``; the loss is ``l_d_real + l_d_fake``."""
-        real_pred = self._net_d_forward(self.gt)
+        """The discriminator's terms on the real images (``gt_gan`` of
+        :meth:`_train_step_inputs`, first) and ``fake``; the loss is
+        ``l_d_real + l_d_fake``."""
+        real_pred = self._net_d_forward(self._train_step_inputs()[3])
         fake_pred = self._net_d_forward(fake)
         return OrderedDict(
             l_d_real=self.cri_gan(real_pred, True, is_disc=True),

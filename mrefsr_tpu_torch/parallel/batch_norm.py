@@ -132,8 +132,11 @@ class BatchNorm3d(BatchNorm2d):
 def frozen_stats(module):
     """Within the block, the :class:`BatchNorm2d` layers of ``module``
     still normalise by their batch in training mode but leave their
-    running statistics as they are."""
-    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    running statistics as they are; so do the spectral-norm convs
+    (:class:`~mrefsr_tpu_torch.archs.arch_util.SNConv2d`, whose state is
+    their power iteration's vectors): every submodule with an
+    ``update_stats`` flag."""
+    norms = [m for m in module.modules() if hasattr(m, 'update_stats')]
     before = [m.update_stats for m in norms]
     for m in norms:
         m.update_stats = False

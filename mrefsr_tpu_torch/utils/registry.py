@@ -11,13 +11,10 @@ package registers and the port does not yet (:data:`PENDING`) raises
 # the JAX package's names the port has still to port, by registry, with
 # their ROADMAP items
 PENDING = {
-    'model': {'RealESRGANModel': 'A10', 'RealESRNetModel': 'A10',
-              'HiFaceGANModel': 'A11'},
-    'arch': {'UNetDiscriminatorSN': 'A10', 'DFDNet': 'A11',
-             'HiFaceGAN': 'A11', 'SPADEGenerator': 'A11',
+    'model': {'HiFaceGANModel': 'A11'},
+    'arch': {'DFDNet': 'A11', 'HiFaceGAN': 'A11', 'SPADEGenerator': 'A11',
              'HiFaceGANDiscriminator': 'A11'},
-    'dataset': {'RealESRGANDataset': 'A10',
-                'RealESRGANPairedDataset': 'A10', 'FFHQDataset': 'A11'},
+    'dataset': {'FFHQDataset': 'A11'},
 }
 
 class Registry:

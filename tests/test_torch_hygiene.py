@@ -199,7 +199,7 @@ def test_model_refuses_what_is_not_ported():
     item; none is silently ignored. The options without any of them
     build, and so do they with the bf16 mixed precision of training and
     of eval, and with the GAN phase's keys (ROADMAP A4, ported). The names
-    of ROADMAP A8 and A9 are registered. Every name the port refuses is
+    of ROADMAP A8, A9 and A10 are registered. Every name the port refuses is
     one the JAX package registers."""
     from mrefsr_tpu.utils import registry as jax_registry
     from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY, PENDING
@@ -218,20 +218,21 @@ def test_model_refuses_what_is_not_ported():
     model = build_model(opt, device='cpu')
     assert model.net_d is not None and model.cri_style is not None
     for where, key, value, item in [
-            (None, 'model_type', 'RealESRGANModel', 'ROADMAP A10'),
-            (None, 'network_d', {'type': 'UNetDiscriminatorSN'},
-             'ROADMAP A10')]:
+            (None, 'model_type', 'HiFaceGANModel', 'ROADMAP A11'),
+            (None, 'network_d', {'type': 'HiFaceGANDiscriminator'},
+             'ROADMAP A11')]:
         opt = _tiny_train_opt()
         opt['train']['gan_type'] = 'wgan'
         opt[key] = value
         with pytest.raises(NotImplementedError, match=item):
             build_model(opt, device='cpu')
-    # the models of ROADMAP A6-A9 are ported: SRModel, the video models,
-    # SRGANModel, the video GAN models, ESRGAN and SwinIR's
+    # the models of ROADMAP A6-A10 are ported: SRModel, the video models,
+    # SRGANModel, the video GAN models, ESRGAN, SwinIR's and Real-ESRGAN's
     for model_type in ('SRModel', 'VideoBaseModel', 'EDVRModel',
                        'VideoRecurrentModel', 'SRGANModel', 'VideoGANModel',
                        'VideoRecurrentGANModel', 'ESRGANModel',
-                       'SwinIRModel', 'SwinIRGANModel'):
+                       'SwinIRModel', 'SwinIRGANModel', 'RealESRGANModel',
+                       'RealESRNetModel'):
         assert MODEL_REGISTRY.get(model_type).__name__ == model_type
         assert model_type not in PENDING['model']
     from mrefsr_tpu_torch.data import build_dataset
@@ -240,13 +241,14 @@ def test_model_refuses_what_is_not_ported():
                                                  DATASET_REGISTRY)
     for arch in ('IconVSR', 'TOFlow', 'DUF', 'VGGStyleDiscriminator',
                  'RRDBNet', 'EDSR', 'RCAN', 'SRVGGNetCompact', 'ECBSR',
-                 'RIDNet', 'SwinIR'):
+                 'RIDNet', 'SwinIR', 'UNetDiscriminatorSN'):
         assert ARCH_REGISTRY.get(arch).__name__ == arch
         assert arch not in PENDING['arch']
     for dataset in ('VideoTestDUFDataset', 'SISRMegaDepthDataset',
                     'SISRCUFEDDataset', 'SISRSun80Set', 'SISRManga109Set',
                     'SISRWRSRSet', 'SISRMegaDepthTestSet',
-                    'SISRMegaDepthv3TestSet'):
+                    'SISRMegaDepthv3TestSet', 'RealESRGANDataset',
+                    'RealESRGANPairedDataset'):
         assert DATASET_REGISTRY.get(dataset).__name__ == dataset
         assert dataset not in PENDING['dataset']
     with pytest.raises(NotImplementedError, match='ROADMAP A11'):

@@ -211,7 +211,16 @@ def test_save_and_resume_carry_on_bit_for_bit(run):
 
 
 def test_ldl_waits_for_real_esrgan():
+    """Real-ESRGAN (ROADMAP A10) brought LDL's artifact map:
+    ``train.ldl_opt`` builds, and its term comes after the pixel one;
+    without an EMA it raises, since the map compares with the EMA net's
+    output (the step itself is held to JAX's in
+    ``test_torch_realesrgan_model.py``)."""
     opt = _opt()
     opt['train']['ldl_opt'] = {'type': 'L1Loss', 'loss_weight': 1.0}
-    with pytest.raises(NotImplementedError, match='ROADMAP A10'):
+    model = build_model(opt, device='cpu')
+    assert model.cri_ldl is not None
+    assert model.g_loss_keys() == ['l_g_pix', 'l_g_ldl', 'l_g_gan']
+    opt['train']['ema_decay'] = 0
+    with pytest.raises(ValueError, match='ema_decay'):
         build_model(opt, device='cpu')
