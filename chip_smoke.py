@@ -21,6 +21,8 @@ in the loop.
     python3 chip_smoke.py --video  # only the video training phases (16b)
     python3 chip_smoke.py --zoo    # only the video zoo's phases (16b)
     python3 chip_smoke.py --sr-zoo # only the SR zoo's phases (16c)
+    python3 chip_smoke.py --realesrgan  # only Real-ESRGAN's phases (16d)
+    python3 chip_smoke.py --face   # only the face family's phases (16e)
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``). Phases, one JSON line each (one per shape where a
@@ -29,7 +31,8 @@ phase runs several):
 1. device: the card's name and count, and its power limit from
    ``nvidia-smi``;
 2. build: the CUDA sources built with ``nvcc`` from this checkout, with
-   ``-Xptxas -v``'s registers, shared memory and spills;
+   ``-Xptxas -v``'s registers, shared memory and spills; the profiler's
+   first start (seconds of CUPTI's set-up) in a thread beside it;
 3. feature_match_prologue (K1's unfold and norms, one kernel) against its
    plain PyTorch version: f32 within ``PROLOGUE_F32_TOL``; then
    feature_match (kernel K1, 3xTF32) against the plain match behind the
@@ -70,7 +73,9 @@ phase runs several):
 8. upfirdn2d (kernel K7: the tile kernel for StyleGAN2's 4x4 cases, the
    gather kernel for any other) against its plain version, forward,
    backward and double backward, at every shape of a 1024x1024 16-sample
-   generator forward and of a 256x256 B = 8 generator and discriminator
+   generator forward (there the plain double backward in closed form,
+   twice the plain forward of the plain gradient: the op is linear) and
+   of a 256x256 B = 8 generator and discriminator
    forward (the smoothing filter after a transposed conv and before a
    strided conv, the x2 upsampling of the RGB skip), at two odd cases (a
    stride; the gather: a negative pad, a 3x5 filter, a non-square map),
@@ -109,7 +114,9 @@ phase runs several):
     entry points only) and 6 f32 GAN steps (f32 entry points only), the
     discriminator's norms written exactly twice a GAN step, the logs;
     step ms by kind, peak memory, a profile of each kind of GAN step;
-    ddp_gan: two ranks (as ``ddp``) of B 4 against one process of B 8,
+    ddp_gan (its ranks are the ``ddp`` phase's processes, after their
+    own parts, and its lines follow that phase's): two ranks (as ``ddp``)
+    of B 4 against one process of B 8,
     one GAN step: the norms' statistics and the losses within 1e-5, the
     generator's gradients within 1e-4, the discriminator's by a two-part
     rule (``DDP_GAN_D_MEDIAN``);
@@ -144,8 +151,9 @@ phase runs several):
     state; the gradients behind the same forward within
     ``TRAIN_GRAD_BF16_TOL``; a profile of each;
 11f. cli: the port's CLIs on synthetic images (``make_synthetic_megadepth
-    .py``'s 88 JPEGs, 4 CUFED5-layout sets near 500x332, in a temporary
-    directory). ``cli_prefetch``: the shipped YAML's first loader batch
+    .py``'s 88 JPEGs, written by a process started beside the build, 4
+    CUFED5-layout sets near 500x332, in temporary directories).
+    ``cli_prefetch``: the shipped YAML's first loader batch
     through the ``device`` prefetcher, bit for bit the host's ``astype(
     float32) / 255`` on the card (and how many elements ``x.float() / 255``
     on the card would change); ``cli``: ``train_pipeline`` in this process
@@ -166,8 +174,9 @@ phase runs several):
     then a bf16 request at the 500x332 bucket against one on the 500x500
     canvas, second requests, with K1's device ms of each;
     ``cli_preemption``: the training CLI in a process of its own, SIGTERM
-    after iteration 20: exit 0 and a saved ``.state``; ``--auto_resume``
-    goes on from it to iteration 60; ``cli_lp``: ten bf16 iterations of
+    after iteration 10: exit 0 and a saved ``.state``; ``--auto_resume``
+    goes on from it to iteration 30;
+    ``cli_lp``: ten bf16 iterations of
     ``stage3_5ref_restoration_mse_lp.yml`` (gt 300, B 3) through
     ``train_pipeline``, timed over iterations 6-10; ``cli_gan``:
     ``options/ab/ab_dcn_gan.yml`` for 24 iterations, the pixel -> GAN
@@ -213,8 +222,9 @@ phase runs several):
     versions behind the same forward at B 1 (``TRAIN_GRAD_REL_TOL``, at
     bf16 ``TRAIN_GRAD_BF16_TOL``), from fresh weights and again after the
     timed steps, two warm-ups (the frozen parameters, of which there must
-    be some, bit-equal through iteration 1, then moving), five timed steps
-    that launch exactly K2's forward, scatter dgrad, wgrad and sum at the
+    be some, bit-equal through iteration 1, then moving), three timed
+    steps (IconVSR two) that launch exactly K2's forward, scatter dgrad,
+    wgrad and sum at the
     step's type (BasicVSR none), peak memory, a profile with the scatter
     apart (``k2_dgrad_scatter_ms``); ``video_scatter``: the scatter dgrad
     alone at those steps' shapes under ``randn * 4`` offsets and offsets
@@ -252,6 +262,24 @@ phase runs several):
     ``mrefsr_tpu_torch.inference.inference_esrgan``, ``_swinir`` and
     ``_ridnet`` as processes on seeded reference-layout ``.pth`` files,
     every PNG they write bit for bit this process's output;
+16d. Real-ESRGAN: the synthesis on the card (``realesrgan_synth``), the
+    RealESRNet and RealESRGAN steps (``realesr*_train``) and
+    ``cli_realesrgan`` at the published YAMLs' widths (``REALESR_*``);
+16e. the face family and the learned metrics, seeded weights, no kernel
+    of this repository on their paths but StyleGAN2's (checked):
+    ``hifacegan_serve`` (``HiFaceGAN`` at the JAX package's defaults, a
+    512x512 face through ``SRModel.test``, f32 and bf16; the card against
+    the CPU at ``HIFACEGAN_SMALL``), ``hifacegan_train``
+    (``HiFaceGANModel`` with ``HiFaceGANDiscriminator``, B ``FACE_B`` at
+    512, a skipped G turn, timed steps; one step against the CPU at a
+    small width: losses, gradients by name, ``u`` / ``v``),
+    ``dfdnet_serve`` (``mrefsr_tpu_torch.inference.inference_dfdnet`` on
+    a face, its landmark file and a seeded dictionary; the card against
+    the CPU), ``cli_stylegan2`` (the FFHQ-256 recipe through
+    ``train_pipeline`` on ``FFHQDataset``, a sample grid, a checkpoint and
+    ``--auto_resume``; every K7 and K8 entry launched, counted by the
+    wrappers and by a profile) and ``face_metrics`` (FID's Inception
+    features, LPIPS, each against the CPU; NIQE on the host);
 17. ddp: two ranks started with ``torch.multiprocessing`` (spawn) under
     the torchrun env contract, each joining through the port's
     ``init_dist('pytorch')``: NCCL with a card a rank where there are two
@@ -274,7 +302,8 @@ phase runs several):
     rank takes a step, the ``.pth`` loads strictly into a model of one
     process); the parent prints one line for each. sharded_match runs
     again at bf16 (K6 through the bf16 kernel's sharded entry point); the
-    training and validation of this phase are f32;
+    training and validation of this phase are f32. Then the same ranks
+    take ddp_gan's step (11g), and the parent checks it;
 18. the ``kernels`` line.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
@@ -297,10 +326,12 @@ their records give the f32 CUDA-core bound beside.
 """
 import contextlib
 import copy
+import gc
 import json
 import logging
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -402,7 +433,6 @@ def device_ms_each(fns, runs=DEVICE_RUNS, warmup=1):
             torch.cuda._sleep(SETTLE_CYCLES)
         torch.cuda.synchronize()
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         for fn in fns:
@@ -417,26 +447,59 @@ def device_ms_each(fns, runs=DEVICE_RUNS, warmup=1):
                     fn()
                 torch.cuda.synchronize()
                 settle(tries)
-            events = [e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA
-                      and SETTLE_NAME not in e.name
-                      and not getattr(e, 'is_user_annotation', False)]
-            steady = [e for e in events
-                      if not any(name in e.name for name in VARYING_EVENTS)]
+            events = [(name, us) for name, us in device_events(prof)
+                      if SETTLE_NAME not in name]
+            steady = [name for name, _ in events
+                      if not any(v in name for v in VARYING_EVENTS)]
             if steady and len(steady) % runs == 0:
                 break
         check(steady and len(steady) % runs == 0,
               f'{len(steady)} device events profiled for {runs} calls, '
               f'{DEVICE_TRIES} times: '
-              f'{sorted({e.name[:60] for e in events})}')
-        out.append(sum(e.time_range.elapsed_us() for e in events)
-                   / runs / 1e3)
+              f'{sorted({name[:60] for name, _ in events})}')
+        out.append(sum(us for _, us in events) / runs / 1e3)
     return out
 
 
+def device_events(prof):
+    """``(name, us)`` of each device event (kernel, memset, copy) that the
+    finished profile ``prof`` recorded, user annotations left out. Read
+    from the profiler's raw results: building torch.profiler's event tree
+    (``events()``, ``key_averages()``) takes seconds for the tens of
+    thousands of events of a video training step, this a fraction of
+    one."""
+    from torch.autograd import DeviceType
+    out = []
+    for event in prof.profiler.kineto_results.events():
+        if (event.device_type() != DeviceType.CUDA
+                or getattr(event, 'is_user_annotation', lambda: False)()
+                or getattr(event, 'is_hidden_event', lambda: False)()):
+            continue
+        name = event.name()
+        if name.startswith('_Z'):       # as torch.profiler names it
+            name = torch._C._demangle(name)
+        out.append((name, event.duration_ns() / 1e3))
+    return out
+
+
+def device_time_by_name(prof):
+    """``[(ms, calls, name)]`` of the device events of :func:`device_events`
+    summed by name, the largest first."""
+    by_name = {}
+    for name, us in device_events(prof):
+        ms, calls = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + us / 1e3, calls + 1)
+    return sorted(((ms, calls, name) for name, (ms, calls) in by_name.items()),
+                  reverse=True)
+
+
 # the plain versions' calls profiled a fn (device_ms_each): each takes tens
-# to hundreds of ms
+# to hundreds of ms; K7's and K8's serving cases time their plain and
+# library versions so too (PLAIN_TIMING: one call between CUDA events,
+# then PLAIN_DEVICE_RUNS profiled), to keep the whole script inside its
+# time limit
 PLAIN_DEVICE_RUNS = 3
+PLAIN_TIMING = {'reps': 1, 'runs': PLAIN_DEVICE_RUNS}
 
 
 def timed(fns, reps=3):
@@ -480,9 +543,35 @@ def phase_device():
     return device, smi
 
 
+def _start_profiler_once():
+    """One profile of one small kernel: the profiler's first start in a
+    process (CUPTI's set-up) takes seconds on the H100 machine, and
+    :func:`phase_build` has it run beside the build."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda._sleep(SETTLE_CYCLES)
+        torch.cuda.synchronize()
+
+
 def phase_build(build):
+    """``build()`` (nvcc in processes of its own) with the profiler's
+    first start (:func:`_start_profiler_once`) in a thread beside it."""
+    import threading
     t0 = time.perf_counter()
-    info = build()
+    started = {}
+
+    def start_profiler():
+        _start_profiler_once()
+        started['s'] = time.perf_counter() - t0
+
+    profiler = threading.Thread(target=start_profiler)
+    profiler.start()
+    try:
+        info = build()
+    finally:
+        profiler.join()
+    check('s' in started, 'the profiler did not start (see the thread\'s '
+          'error above)')
     ptxas = {}
     for stem, rec in info.items():
         ptxas[stem] = [line.split(':', 1)[1].strip()
@@ -490,7 +579,8 @@ def phase_build(build):
                        if line.startswith('ptxas info') and (
                            'registers' in line or 'spill' in line)]
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
-          'built': sorted(info), 'ptxas': ptxas})
+          'profiler_started_s': started['s'], 'built': sorted(info),
+          'ptxas': ptxas})
 
 
 # K1's prologue against its plain version on the same features: at f32 the
@@ -1914,6 +2004,23 @@ def _three_orders(fn, x, extra=()):
     return [out.detach(), *(g.detach() for g in grads), second]
 
 
+def _three_orders_linear(fn, x):
+    """:func:`_three_orders` of ``fn`` linear in ``x``, its one input, with
+    the double backward in closed form: for the gradient ``g = J^T cot``,
+    the gradient of ``sum(g ** 2)`` in ``cot`` is ``2 J g = 2 fn(g)``. The
+    same cotangent; no graph through the backward, whose autograd runs
+    through cuDNN's depthwise double backward, slow at K7's serving
+    shapes."""
+    xg = x.detach().requires_grad_()
+    out = fn(xg)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 9)
+    cot = torch.randn(out.shape, generator=gen, device='cuda')
+    grad, = torch.autograd.grad(out, xg, cot)
+    with torch.no_grad():
+        second = 2 * fn(grad)
+    return [out.detach(), grad, second]
+
+
 def _order_calls(fn, x, orders, bias=None):
     """One call of each of ``orders``: ``fwd``, ``fn`` on ``x`` without a
     graph; ``bwd``, its gradient in ``x``; ``bwd_bias``, its gradients in
@@ -1950,19 +2057,39 @@ def _order_calls(fn, x, orders, bias=None):
 
 
 def _time_orders(fn, x, orders=('fwd', 'bwd', 'bwd2'), reps=3, runs=None,
-                 bias=None, warmup=1):
+                 bias=None, warmup=1, once=()):
     """Each order of :func:`_order_calls` timed two ways: ``call``, the
     median ms of ``reps`` calls after ``warmup`` more, each between its own
     pair of CUDA events (host time included: a small call's is mostly the
     host's), and ``device``, the ms of device work a call, over ``runs``
-    calls (:func:`device_ms_each`)."""
+    calls (:func:`device_ms_each`). The orders in ``once`` are timed both
+    ways on one call and no warm-up (:func:`_one_call_ms`)."""
     calls = _order_calls(fn, x, orders, bias)
-    call = {o: cuda_ms(c, reps=reps, warmup=warmup)
-            for o, c in calls.items()}
-    device = device_ms_each(list(calls.values()),
-                            runs=DEVICE_RUNS if runs is None else runs,
-                            warmup=0)
-    return {'call': call, 'device': dict(zip(calls, device))}
+    many = {o: c for o, c in calls.items() if o not in once}
+    call = {o: cuda_ms(c, reps=reps, warmup=warmup) for o, c in many.items()}
+    device = dict(zip(many, device_ms_each(
+        list(many.values()), runs=DEVICE_RUNS if runs is None else runs,
+        warmup=0)))
+    for order in once:
+        call[order], device[order] = _one_call_ms(calls[order])
+    return {'call': {o: call[o] for o in calls},
+            'device': {o: device[o] for o in calls}}
+
+
+def _one_call_ms(fn):
+    """``(call ms, device ms)`` of one call of ``fn``: the CUDA events
+    around it and the device events of the profile that
+    :func:`device_ms_each` takes of that call, for a call of seconds."""
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+
+    def between_events():
+        start.record()
+        fn()
+        end.record()
+
+    device, = device_ms_each([between_events], runs=1, warmup=0)
+    return start.elapsed_time(end), device
 
 
 def _upfirdn2d_library(x, fir, up, down, pad):
@@ -2077,7 +2204,11 @@ def phase_upfirdn2d(ops_upfirdn2d):
                 return _upfirdn2d_library(t, fir, up, down, pad)
 
             errs = {}
-            got, want = _three_orders(kernel, x), _three_orders(plain, x)
+            # serving runs the forward alone: the plain version's double
+            # backward at its shapes in closed form
+            got = _three_orders(kernel, x)
+            want = (_three_orders_linear(plain, x) if path == 'serve'
+                    else _three_orders(plain, x))
             for order, g, w in zip(('fwd', 'bwd', 'bwd2'), got, want):
                 errs[order] = _rel_err(g, w)
                 worst_abs = max(worst_abs, float((g - w).abs().max()))
@@ -2089,18 +2220,22 @@ def phase_upfirdn2d(ops_upfirdn2d):
                   f'from the plain version by {lib_err}')
             del got, want
             if path == 'serve':      # no gradient runs when serving
-                times = {key: _time_orders(f, x, ('fwd',))
+                # the plain and the library forward over PLAIN_DEVICE_RUNS
+                # calls: one takes up to hundreds of ms at 1025 x 1025
+                times = {key: _time_orders(f, x, ('fwd',), **(
+                    {} if key == 'kernel' else PLAIN_TIMING))
                          for key, f in (('kernel', kernel), ('plain', plain),
                                         ('library', library))}
             else:
                 # one run each of the plain and the library version: cuDNN
-                # takes seconds for some of their double backwards; the
-                # plain version's three orders ran just above (its warm-up)
+                # takes seconds for some of their double backwards, timed
+                # both ways on one call; the plain version's three orders
+                # ran just above (its warm-up)
                 times = {'kernel': _time_orders(kernel, x),
                          'plain': _time_orders(plain, x, reps=1, runs=1,
-                                               warmup=0),
+                                               warmup=0, once=('bwd2',)),
                          'library': _time_orders(library, x, reps=1,
-                                                 runs=1)}
+                                                 runs=1, once=('bwd2',))}
             side = (h * up + sum(pad) - 4) // down + 1
             out_numel = float(n * c) * side ** 2
             moved = 4.0 * (x.numel() + out_numel)
@@ -2241,7 +2376,8 @@ def phase_fused_act(fused_act):
             impls = (('kernel', kernel), ('plain', plain),
                      ('library', library))
             if path == 'serve':
-                times = {key: _time_orders(f, x, ('fwd',), bias=bias)
+                times = {key: _time_orders(f, x, ('fwd',), bias=bias, **(
+                    {} if key == 'kernel' else PLAIN_TIMING))
                          for key, f in impls}
             else:
                 # the backward as the path runs it, the bias taking a
@@ -3731,7 +3867,8 @@ def _ddp_resume(build_model, model, batch, main, rank, root):
 def _ddp_rank(rank, backend, root):
     """One rank of the ``ddp`` phase, a process of its own: joins the
     group under the torchrun env contract the parent set, runs the four
-    parts, and writes its report to ``root/rank<r>.json``."""
+    parts, and writes its report to ``root/rank<r>.json``; then, where
+    ``root/with_gan`` exists, ``ddp_gan``'s part (:func:`_ddp_gan_part`)."""
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank))
     import importlib
 
@@ -3763,19 +3900,26 @@ def _ddp_rank(rank, backend, root):
         report['seconds'] = time.perf_counter() - t0
         report['launches'] = main.total
         dist.barrier()
+        with open(os.path.join(root, f'rank{rank}.json'), 'w') as f:
+            json.dump(report, f)
+        if os.path.exists(os.path.join(root, 'with_gan')):
+            del model, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            _ddp_gan_part(build_model, main.kernels, rank, root)
     finally:
         dist.destroy_process_group()
-    with open(os.path.join(root, f'rank{rank}.json'), 'w') as f:
-        json.dump(report, f)
 
 
-def phase_ddp():
+def phase_ddp(gan_build_model=None):
     """Two ranks, each a process started with ``torch.multiprocessing``
     (spawn) under the torchrun env contract: NCCL with a card a rank where
     there are two cards or more, else gloo with both ranks on the one
     card (NCCL refuses two ranks on one device; gloo reduces CUDA tensors
-    through the host). Returns the launches of the main path summed over
-    the ranks, and K6's record."""
+    through the host). Given ``gan_build_model``, the ranks then take
+    ``ddp_gan``'s step, checked by :func:`_ddp_gan_check`: two processes
+    fewer to start. Returns the launches of the main path summed over the
+    ranks, K6's record, and ``ddp_gan``'s launches (or None)."""
     cards = torch.cuda.device_count()
     backend = 'nccl' if cards >= DDP_WORLD else 'gloo'
     emit({'phase': 'ddp', 'backend': backend, 'world': DDP_WORLD,
@@ -3784,24 +3928,15 @@ def phase_ddp():
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
-        os.environ.update(MASTER_ADDR='localhost',
-                          MASTER_PORT=str(_free_port()),
-                          WORLD_SIZE=str(DDP_WORLD))
-        ctx = torch.multiprocessing.spawn(_ddp_rank, args=(backend, root),
-                                          nprocs=DDP_WORLD, join=False)
-        try:        # a failed rank raises here, and the others are ended
-            while not ctx.join(timeout=5):
-                check(time.perf_counter() - t0 < DDP_WAIT_S,
-                      f'the ddp ranks outlived {DDP_WAIT_S} s')
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-                proc.join(30)
+        if gan_build_model is not None:
+            open(os.path.join(root, 'with_gan'), 'w').close()
+        _spawn_ranks(_ddp_rank, backend, root, 'ddp')
         reports = []
         for rank in range(DDP_WORLD):
             with open(os.path.join(root, f'rank{rank}.json')) as f:
                 reports.append(json.load(f))
+        gan_ranks = (None if gan_build_model is None
+                     else _ddp_gan_records(root))
     seconds = time.perf_counter() - t0
 
     shard = [r['sharded_match'] for r in reports]
@@ -3839,7 +3974,11 @@ def phase_ddp():
     scatter = [k for k in launches if '_scatter' in k and launches[k]]
     check(not scatter, f'grad-x scatter launched on the ddp path: {scatter}')
     emit({'phase': 'ddp_summary', 'backend': backend, 'seconds': seconds,
+          'seconds_are': 'the ranks\' processes' + (
+              '' if gan_ranks is None else ', ddp_gan\'s part included'),
           'launches': launches})
+    gan_launches = None if gan_ranks is None else _ddp_gan_check(
+        gan_build_model, gan_ranks, backend, {'ranks_s_with_ddp': seconds})
     k6 = [{'name': name,
            'max_abs_err': max(r['max_abs_err'] for r in recs),
            **{key: max(r[key] for r in recs)
@@ -3856,7 +3995,7 @@ def phase_ddp():
           for name, recs, dtype in (
               ('feature_match_sharded', shard, 'f32'),
               ('feature_match_sharded_bf16', shard_bf16, 'bf16'))]
-    return launches, k6
+    return launches, k6, gan_launches
 
 
 # how the profile sorts device kernels: the hand-written ones by name,
@@ -3898,7 +4037,6 @@ def profile_record(path, run, top=12):
     device is traced (its kernels are all the line reads): tracing the
     host's operators too would add to ``wall_ms`` and so to the idle
     share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3906,18 +4044,9 @@ def profile_record(path, run, top=12):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def device_ms(event):
-        us = getattr(event, 'self_device_time_total', None)
-        return (event.self_cuda_time_total if us is None else us) / 1e3
-
     # device kernels only: a record_function range (DDP's forward) also
     # shows on the device as a user annotation spanning its kernels
-    kernels = sorted(((device_ms(e), e.count, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and not getattr(e, 'is_user_annotation', False)),
-                     reverse=True)
+    kernels = device_time_by_name(prof)
     busy = sum(ms for ms, _, _ in kernels)
     own = {name: sum(ms for ms, _, key in kernels if name in key)
            for name in OWN_KERNELS}
@@ -3943,7 +4072,7 @@ CLI_TRAIN_YML = 'options/train/stage3_5ref_restoration_mse.yml'
 CLI_LP_YML = 'options/train/stage3_5ref_restoration_mse_lp.yml'
 CLI_TEST_YML = 'options/test/test_5ref_cufed5.yml'
 CLI_ITERS, CLI_PRINT, CLI_SAVE = 60, 10, 30
-CLI_PREEMPT_ITERS, CLI_PREEMPT_AT = 60, 20
+CLI_PREEMPT_ITERS, CLI_PREEMPT_AT = 30, 10
 CLI_LP_ITERS, CLI_LP_PRINT = 10, 5
 # CUFED5-layout validation images, (h, w): CUFED5's are about 500x332
 CLI_CUFED_SIZES = ((332, 500), (500, 332), (328, 496), (336, 500))
@@ -3951,18 +4080,52 @@ CLI_WAIT_S = 600                        # a CLI subprocess's time limit
 _ITER_LINE = r'iter:\s*([\d,]+), lr:.*time \(data\): ([\d.]+) \(([\d.]+)\)'
 
 
-def _cli_data(root):
-    """The CLI phase's images under ``root``: the LMR layout from
-    ``scripts/make_synthetic_megadepth.py`` (4 scenes, 64 samples, JPEGs of
-    640-1200 px, the script's defaults) and 4 CUFED5-layout sets of 6 PNGs
-    (``*_0.png`` input, ``*_1..5.png`` refs) of smooth seeded images near
-    500x332. Returns ``(lmr folder, annotation CSV, CUFED5 folder)``."""
+class _LmrImages:
+    """``scripts/make_synthetic_megadepth.py`` (4 scenes, 64 samples,
+    JPEGs of 640-1200 px, the script's defaults) writing the LMR layout
+    into a directory of its own, in a process started at construction:
+    the whole script starts it beside the build, whose time it shares."""
+
+    def __init__(self):
+        repo = os.path.dirname(os.path.abspath(__file__))
+        script = os.path.join(repo, 'scripts', 'make_synthetic_megadepth.py')
+        self.root = tempfile.mkdtemp(prefix='lmr_')
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, script, '--root', self.root, '--scenes', '4',
+             '--samples', '64'], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+    def wait(self):
+        """The script's output directory, once it has exited 0; the
+        seconds from its start."""
+        try:
+            out, _ = self.proc.communicate(timeout=CLI_WAIT_S)
+        finally:
+            self.stop()
+        check(self.proc.returncode == 0, f'make_synthetic_megadepth.py '
+              f'exited {self.proc.returncode}:\n{out[-3000:]}')
+        return self.root, time.perf_counter() - self.t0
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def close(self):
+        """Stop the process and remove its directory."""
+        self.stop()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def _cli_data(root, lmr):
+    """The CLI phase's images: the LMR layout that ``lmr``
+    (:class:`_LmrImages`) writes, and under ``root`` 4 CUFED5-layout sets
+    of 6 PNGs (``*_0.png`` input, ``*_1..5.png`` refs) of smooth seeded
+    images near 500x332. Returns ``(lmr folder, annotation CSV, CUFED5
+    folder)`` and the LMR script's seconds from its start."""
     from PIL import Image
-    repo = os.path.dirname(os.path.abspath(__file__))
-    script = os.path.join(repo, 'scripts', 'make_synthetic_megadepth.py')
-    subprocess.run([sys.executable, script, '--root', root, '--scenes', '4',
-                    '--samples', '64'],
-                   check=True, capture_output=True, timeout=CLI_WAIT_S)
+    lmr_root, lmr_s = lmr.wait()
     cufed = os.path.join(root, 'CUFED5')
     os.makedirs(cufed)
     gen = torch.Generator().manual_seed(SEED + 20)
@@ -3974,8 +4137,8 @@ def _cli_data(root):
             img = (img.clamp(0, 1)[0].permute(1, 2, 0) * 255).round()
             Image.fromarray(img.to(torch.uint8).numpy()).save(
                 os.path.join(cufed, f'{i:03d}_{j}.png'))
-    return (os.path.join(root, 'MegaDepth_v3_5ref'),
-            os.path.join(root, 'meta_info_synth_5ref.csv'), cufed)
+    return (os.path.join(lmr_root, 'MegaDepth_v3_5ref'),
+            os.path.join(lmr_root, 'meta_info_synth_5ref.csv'), cufed), lmr_s
 
 
 def _cli_args(yml, data, experiments, iters, print_freq, save_freq,
@@ -4501,7 +4664,7 @@ def _cli_serving(data, tmp, latest, kernels):
     return launches, rec
 
 
-def phase_cli(kernels, repeated_step_ms=None):
+def phase_cli(kernels, repeated_step_ms=None, lmr=None):
     """The shipped stage-3 bf16 YAML through the port's CLIs with the loader
     in the loop, on synthetic images: the device prefetcher's first batch;
     ``CLI_ITERS`` iterations of ``train_pipeline`` in this process
@@ -4512,14 +4675,17 @@ def phase_cli(kernels, repeated_step_ms=None):
     ``repeated_step_ms`` (phase ``train_dcn_bf16``'s) where given;
     ``test.py`` against this process; SIGTERM and ``--auto_resume``; ten
     steps of the ``_lp`` YAML (gt 300, B 3). Returns the launches of the
-    two in-process runs by path."""
+    two in-process runs by path. ``lmr``: the :class:`_LmrImages` started
+    beside the build (else started here); its directory is removed."""
     from mrefsr_tpu_torch.train import train_pipeline
     device = torch.device('cuda', torch.cuda.current_device())
     by_path = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    lmr = _LmrImages() if lmr is None else lmr
+    with tempfile.TemporaryDirectory() as tmp, contextlib.closing(lmr):
         t0 = time.perf_counter()
-        data = _cli_data(tmp)
+        data, lmr_s = _cli_data(tmp, lmr)
         emit({'phase': 'cli_data', 'seconds': time.perf_counter() - t0,
+              'lmr_script_s': lmr_s,
               'lmr_images': sum(len(files) for _, _, files
                                 in os.walk(data[0])),
               'cufed_sets': len(CLI_CUFED_SIZES)})
@@ -4981,10 +5147,27 @@ def _ddp_gan_batch():
     return _train_batch(np.random.RandomState(SEED + 31), GAN_B)
 
 
+def _ddp_gan_part(build_model, kernels, rank, root):
+    """``ddp_gan``'s part of a rank in a joined group: its rows of the
+    global batch through one GAN step, :func:`_gan_step_record` saved to
+    ``root/gan_rank<r>.pt``."""
+    t0 = time.perf_counter()
+    model = build_model(_ddp_gan_opt(True))
+    rows = slice(rank * DDP_GAN_B, (rank + 1) * DDP_GAN_B)
+    batch = {k: v[rows] for k, v in _ddp_gan_batch().items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    record = _gan_step_record(model, batch)
+    record['launches'] = {n: k.launches for n, k in kernels.items()}
+    record['peak_mem_bytes'] = torch.cuda.max_memory_allocated()
+    record['part_s'] = time.perf_counter() - t0
+    dist.barrier()
+    torch.save(record, os.path.join(root, f'gan_rank{rank}.pt'))
+
+
 def _ddp_gan_rank(rank, backend, root):
-    """One rank of ``ddp_gan``: joins the group as ``_ddp_rank`` does,
-    takes its rows of the global batch through one GAN step and saves
-    :func:`_gan_step_record` to ``root/rank<r>.pt``."""
+    """One rank of ``ddp_gan`` alone (``--gan``): joins the group as
+    ``_ddp_rank`` does and runs :func:`_ddp_gan_part`."""
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank))
     import importlib
 
@@ -4996,51 +5179,60 @@ def _ddp_gan_rank(rank, backend, root):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        rank, world = get_dist_info()
-        kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
-        model = build_model(_ddp_gan_opt(True))
-        rows = slice(rank * DDP_GAN_B, (rank + 1) * DDP_GAN_B)
-        batch = {k: v[rows] for k, v in _ddp_gan_batch().items()}
-        reset_counts(kernels)
-        record = _gan_step_record(model, batch)
-        record['launches'] = {n: k.launches for n, k in kernels.items()}
-        record['peak_mem_bytes'] = torch.cuda.max_memory_allocated()
-        dist.barrier()
+        rank, _ = get_dist_info()
+        _ddp_gan_part(build_model, kernel_objects(
+            correlation, dcn, ops_upfirdn2d, fused_act), rank, root)
     finally:
         dist.destroy_process_group()
-    torch.save({k: v for k, v in record.items()},
-               os.path.join(root, f'rank{rank}.pt'))
+
+
+def _spawn_ranks(fn, backend, root, label):
+    """``fn(rank, backend, root)`` in ``DDP_WORLD`` processes (spawn)
+    under the torchrun env contract; waits for them (at most
+    ``DDP_WAIT_S``), and a failed rank raises here and ends the others."""
+    t0 = time.perf_counter()
+    os.environ.update(MASTER_ADDR='localhost', MASTER_PORT=str(_free_port()),
+                      WORLD_SIZE=str(DDP_WORLD))
+    ctx = torch.multiprocessing.spawn(fn, args=(backend, root),
+                                      nprocs=DDP_WORLD, join=False)
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() - t0 < DDP_WAIT_S,
+                  f'the {label} ranks outlived {DDP_WAIT_S} s')
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(30)
 
 
 def phase_ddp_gan(build_model):
-    """Two ranks (as ``ddp``: NCCL with a card a rank, else gloo on the
-    one card) of B 4 against this process on the global B 8, one GAN step
-    of the full-width ``dcn`` model with the discriminator's norms over
-    the global batch. Returns the ranks' launches summed."""
+    """``ddp_gan`` alone (``--gan``): its two ranks in processes of their
+    own, then :func:`_ddp_gan_check`. The whole script runs the ranks'
+    part in the ``ddp`` phase's processes instead."""
     cards = torch.cuda.device_count()
     backend = 'nccl' if cards >= DDP_WORLD else 'gloo'
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
-        os.environ.update(MASTER_ADDR='localhost',
-                          MASTER_PORT=str(_free_port()),
-                          WORLD_SIZE=str(DDP_WORLD))
-        ctx = torch.multiprocessing.spawn(_ddp_gan_rank,
-                                          args=(backend, root),
-                                          nprocs=DDP_WORLD, join=False)
-        try:
-            while not ctx.join(timeout=5):
-                check(time.perf_counter() - t0 < DDP_WAIT_S,
-                      f'the ddp_gan ranks outlived {DDP_WAIT_S} s')
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-                proc.join(30)
-        ranks = [torch.load(os.path.join(root, f'rank{r}.pt'),
-                            map_location='cuda', weights_only=False)
-                 for r in range(DDP_WORLD)]
-    ranks_s = time.perf_counter() - t0
+        _spawn_ranks(_ddp_gan_rank, backend, root, 'ddp_gan')
+        ranks = _ddp_gan_records(root)
+    return _ddp_gan_check(build_model, ranks, backend,
+                          {'ranks_s': time.perf_counter() - t0})
+
+
+def _ddp_gan_records(root):
+    return [torch.load(os.path.join(root, f'gan_rank{r}.pt'),
+                       map_location='cuda', weights_only=False)
+            for r in range(DDP_WORLD)]
+
+
+def _ddp_gan_check(build_model, ranks, backend, seconds):
+    """``ddp_gan``: two ranks (as ``ddp``: NCCL with a card a rank, else
+    gloo on the one card) of B 4, each ``ranks``' record, against this
+    process on the global B 8, one GAN step of the full-width ``dcn``
+    model with the discriminator's norms over the global batch. Returns
+    the ranks' launches summed."""
     model = build_model(_ddp_gan_opt(False))
     forward = model._forward
 
@@ -5111,7 +5303,7 @@ def phase_ddp_gan(build_model):
           'rank_step_ms': [r['step_ms'] for r in ranks],
           'one_process_step_ms': one['step_ms'],
           'rank_peak_mem_bytes': [r['peak_mem_bytes'] for r in ranks],
-          'ranks_s': ranks_s,
+          'rank_part_s': [r['part_s'] for r in ranks], **seconds,
           'launches': {n: v for n, v in launches.items() if v}})
     return launches
 
@@ -5243,8 +5435,8 @@ def phase_ref_eval(build_model, correlation, dcn, kernels, dtype):
 REDS_FRAMES, REDS_LQ = 100, (180, 320)      # a REDS clip, its LQ frames
 VAL_FRAMES = 20                 # cli_video's validation clip (011)
 VIDEO_B, VIDEO_GT = 4, 256
-VIDEO_WARMUP, VIDEO_STEPS = 2, 5
-ICONVSR_STEPS = 4          # IconVSR's timed training steps at each type
+VIDEO_WARMUP, VIDEO_STEPS = 2, 3
+ICONVSR_STEPS = 2          # IconVSR's timed training steps at each type
 CUT = 2                    # tsa_iter (YAML 50000) and fix_flow (YAML 5000)
 SR_B, SR_GT, SR_IMAGES = 16, 128, 16
 # sr_train's timed steps: its loss must fall over them, and at bf16 it
@@ -6437,16 +6629,18 @@ def video_phases(build_model, arch, correlation, dcn, kernels):
     return by_path
 
 
-def gan_phases(build_model, arch, dcn, kernels):
+def gan_phases(build_model, arch, dcn, kernels, ddp_gan=True):
     """``gan_train`` (dcn, flow, dcn with the perceptual and style losses)
-    and ``ddp_gan``. Returns the launches by path."""
+    and, where ``ddp_gan``, ``ddp_gan`` in processes of its own. Returns
+    the launches by path."""
     by_path = {}
     for alignment, percep, path in (('dcn', False, 'gan'),
                                     ('flow', False, 'gan_flow'),
                                     ('dcn', True, 'gan_percep')):
         by_path[path], _ = phase_gan_train(alignment, build_model, arch, dcn,
                                            kernels, percep)
-    by_path['ddp_gan'] = phase_ddp_gan(build_model)
+    if ddp_gan:
+        by_path['ddp_gan'] = phase_ddp_gan(build_model)
     return by_path
 
 
@@ -7612,6 +7806,713 @@ def realesrgan_phases(build_model, arch, correlation, dcn, kernels):
     return by_path
 
 
+# ---------------------------------------------------------- the face family
+# HiFaceGAN at the JAX package's defaults (hifacegan_arch.py:35-43: num_feat
+# 64, crop 512, spectral SPADE with sync-batch (an instance norm on one
+# card), init_train_phase 3) and its discriminator's (:147-154); the
+# reference's training YAML is not in the repository: the losses are L1,
+# hinge MultiScaleGANLoss and GANFeatLoss 10 (pix2pixHD's weight), the
+# rates the JAX package's own HiFaceGAN test's (1e-4 / 4e-4)
+HIFACEGAN = {'type': 'HiFaceGAN', 'num_in_ch': 3, 'num_feat': 64,
+             'use_vae': False, 'z_dim': 256, 'crop_size': 512,
+             'norm_g': 'spectralspadesyncbatch3x3', 'is_train': True,
+             'init_train_phase': 3}
+HIFACEGAN_D = {'type': 'HiFaceGANDiscriminator', 'num_in_ch': 3,
+               'num_out_ch': 3, 'conditional_d': True, 'num_d': 2,
+               'n_layers_d': 4, 'num_feat': 64, 'norm_d': 'spectralinstance',
+               'keep_features': True}
+# the card-against-CPU checks' widths (crop 64: maps of 2 x 2 at the bottom)
+HIFACEGAN_SMALL = {'num_feat': 8, 'crop_size': 64}
+HIFACEGAN_D_SMALL = {'num_feat': 8, 'n_layers_d': 3}
+# B 4 a step at 512 x 512: the reference trains on one 512 face a card
+# (its YAML is not here); 4 keeps a step under a second and the phase
+# inside its share of the script's time limit
+FACE_B, FACE_STEPS, FACE_SIDE = 4, 3, 512
+# card against CPU, as a share of the CPU tensor's largest entry: outputs
+# and u / v (SR_ZOO_CPU_TOL), the step's gradients by tensor
+# (TRAIN_GRAD_REL_TOL, median and worst) but for those of exactly zero (a
+# conv's bias ahead of an instance norm: the CPU's f64 gradient within
+# ZERO_GRAD_SHARE of the net's largest), whose rounding is held to
+# ZERO_GRAD_TOL of the net's largest gradient, the logged terms relative.
+# Measured (H100, 700 W): G worst 1.5e-5, median 4.0e-6 (the CPU's own f32
+# against f64: 2.5e-5, 3.7e-6); D 4.8e-6; the zero ones 2.6e-8 of the
+# largest; the logs 1.5e-7; u / v 4.0e-7. Before G's LIP pools and D's
+# pool between scales took arch_util.avg_pool2d (a contiguous copy: the
+# CUDA pool's backward for channels-last inputs is wrong in this PyTorch),
+# G's median was 0.16 and its zero ones 2.5e-3.
+FACE_LOSS_TOL, ZERO_GRAD_SHARE, ZERO_GRAD_TOL = 1e-4, 1e-9, 1e-6
+# bf16 eval against f32, the mean absolute difference of outputs in [-1, 1]
+# (measured, H100: 0.0022, the largest 0.054)
+FACE_BF16_MEAN_TOL = 2 * EPS_BF16
+# DFDNet's seeded dictionary: atoms a part and scale, K = 512 as in the
+# DFDNet paper (Li et al., ECCV 2020, section 3.1: K-means centres of each
+# component at each scale, whence the published DictionaryCenter512's name;
+# the file is not in the repository, so its shapes were not read), each
+# part's side in 512-space (eyes 80, nose 96, mouth 128), the atom planted
+# as each part's own VGG features, and the least lead of its score over the
+# second, as a share of its score (tests/test_torch_dfdnet.py's GAP_SHARE)
+DFD_ATOMS, DFD_PLANTED, DFD_GAP_SHARE = 512, 1, 1e-3
+DFD_SIDES = {'left_eye': 80, 'right_eye': 80, 'nose': 96, 'mouth': 128}
+# cli_stylegan2: _sg2_train_opt through the CLI on FFHQDataset, 8 iterations
+# (path penalty at 4 and 8), then --auto_resume to 12
+SG2_CLI_IMAGES, SG2_CLI_ITERS, SG2_CLI_RESUME = 64, 8, 12
+# face_metrics: Inception features of 64 images at 299 x 299 (the first 8
+# against the CPU), LPIPS on 16 pairs at 256 x 256 (the first 4 against
+# the CPU), NIQE of one 512 x 512 image on the host
+FID_IMAGES, FID_CPU, LPIPS_PAIRS, LPIPS_CPU = 64, 8, 16, 4
+
+
+def _face_images(seed, b, side):
+    """``b`` smooth seeded RGB images (b, side, side, 3) in [0, 1], as
+    float32 numpy."""
+    gen = torch.Generator().manual_seed(seed)
+    low = torch.rand((b, 3, side // 16 + 4, side // 16 + 4), generator=gen)
+    img = torch.nn.functional.interpolate(low, size=(side, side),
+                                          mode='bicubic',
+                                          align_corners=False).clamp(0, 1)
+    return np.ascontiguousarray(img.permute(0, 2, 3, 1).numpy())
+
+
+def _face_pairs(seed, b, side):
+    """``{'lq', 'gt'}``: smooth faces and their degraded copies (a 4x
+    average-pool blur, noise of sigma 0.05), NHWC float32."""
+    gt = _face_images(seed, b, side)
+    t = torch.from_numpy(gt).permute(0, 3, 1, 2)
+    blur = torch.nn.functional.interpolate(
+        torch.nn.functional.avg_pool2d(t, 4), scale_factor=4,
+        mode='bilinear', align_corners=False)
+    noise = torch.randn(blur.shape,
+                        generator=torch.Generator().manual_seed(seed + 1))
+    lq = (blur + 0.05 * noise).clamp(0, 1).permute(0, 2, 3, 1).numpy()
+    return {'lq': np.ascontiguousarray(lq), 'gt': gt}
+
+
+def _hifacegan_opt(is_train, small=False, dtype=torch.float32):
+    net_g = dict(HIFACEGAN, **(HIFACEGAN_SMALL if small else {}))
+    opt = {'name': 'hifacegan', 'model_type': 'HiFaceGANModel', 'scale': 1,
+           'num_gpu': 1, 'manual_seed': SEED, 'is_train': is_train,
+           'dist': False, 'network_g': net_g, 'path': {},
+           'val': {'mixed_precision': 'bfloat16'} if dtype == BF16 else {}}
+    if is_train:
+        opt['network_d'] = dict(HIFACEGAN_D,
+                                **(HIFACEGAN_D_SMALL if small else {}))
+        opt['train'] = {
+            'optim_g': {'type': 'Adam', 'lr': 1e-4, 'betas': [0.9, 0.99]},
+            'optim_d': {'type': 'Adam', 'lr': 4e-4, 'betas': [0.9, 0.99]},
+            'scheduler': {'type': 'MultiStepLR', 'milestones': [100000],
+                          'gamma': 0.5},
+            'pixel_opt': {'type': 'L1Loss', 'loss_weight': 1.0,
+                          'reduction': 'mean'},
+            'gan_opt': {'type': 'MultiScaleGANLoss', 'gan_type': 'hinge',
+                        'loss_weight': 1.0},
+            'feature_matching_opt': {'type': 'GANFeatLoss',
+                                     'criterion': 'l1', 'loss_weight': 10.0},
+            'net_d_iters': 1, 'net_d_init_iters': 1,
+            'total_iter': 100000, 'warmup_iter': -1}
+    return opt
+
+
+def _vectors_rel_err(card, cpu):
+    """The largest difference of the spectral-norm vectors of two nets, as
+    a share of each vector's largest entry."""
+    a, b = card.state_dict(), cpu.state_dict()
+    return max(float((a[k].cpu() - v).abs().max() / v.abs().max())
+               for k, v in b.items() if k.endswith(('weight_u', 'weight_v')))
+
+
+def _hifacegan_grads(dev, batch, cudnn=True, dtype=torch.float32):
+    """One G turn (iteration 2) of the small HiFaceGAN on ``dev`` in
+    ``dtype``: the log, every G and D gradient by name (the step leaves
+    them in ``.grad``), and the model."""
+    from mrefsr_tpu_torch.models import build_model
+    before = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        model = build_model(_hifacegan_opt(True, small=True), device=dev)
+        model.feed_data(batch)
+        if dtype == torch.float64:
+            model.net_g.double()
+            model.net_d.double()
+            model.lq, model.gt = model.lq.double(), model.gt.double()
+            model._run = lambda net, dt, cached, x: net(
+                x.movedim(-1, -3)).movedim(-3, -1)
+        model.optimize_parameters(2)
+    finally:
+        torch.backends.cudnn.enabled = before
+    grads = {net: {n: p.grad.detach().double().cpu() for n, p in
+                   getattr(model, net).named_parameters()}
+             for net in ('net_g', 'net_d')}
+    return model.get_current_log(), grads, model
+
+
+def _split_grad_errors(got, want, exact):
+    """``got`` against ``want`` (:func:`_rel_grad_errors`) over the tensors
+    whose gradient ``exact`` (the CPU's in f64) is not zero; a conv's bias
+    ahead of an instance norm has a gradient of exactly zero, where each
+    device keeps the rounding of a sum that cancels: those are given apart
+    as their largest entry on either device, a share of the net's largest
+    gradient."""
+    top = max(float(v.abs().max()) for v in exact.values())
+    zero = {k for k, v in exact.items()
+            if float(v.abs().max()) <= ZERO_GRAD_SHARE * top}
+    rec = _rel_grad_errors({k: v for k, v in got.items() if k not in zero},
+                           {k: v for k, v in want.items() if k not in zero})
+    rec.update(zero_by_construction=len(zero), zero_largest_share=max(
+        (max(float(got[k].abs().max()), float(want[k].abs().max())) / top
+         for k in zero), default=0.))
+    return rec
+
+
+def _hifacegan_card_vs_cpu():
+    """One G turn (iteration 2) at ``HIFACEGAN_SMALL``, B 1, on the card and
+    on the CPU from the same seeded weights: the logged terms, every G and
+    D gradient by name (:func:`_split_grad_errors`), both nets' ``u`` /
+    ``v`` after the step; and G's gradients on the card with cuDNN off
+    beside (the share of the difference that is cuDNN's choice of
+    algorithms)."""
+    batch = _face_pairs(SEED + 70, 1, HIFACEGAN_SMALL['crop_size'])
+    runs = {dev: _hifacegan_grads(dev, batch) for dev in ('cuda', 'cpu')}
+    logs = {dev: run[0] for dev, run in runs.items()}
+    loss_err = max(abs(logs['cuda'][k] - v) / max(abs(v), 1e-12)
+                   for k, v in logs['cpu'].items())
+    _, no_cudnn, _ = _hifacegan_grads('cuda', batch, cudnn=False)
+    _, exact, _ = _hifacegan_grads('cpu', batch, dtype=torch.float64)
+    models = {dev: run[2] for dev, run in runs.items()}
+    card, cpu = runs['cuda'][1], runs['cpu'][1]
+    return {'width': dict(HIFACEGAN_SMALL, d=HIFACEGAN_D_SMALL), 'batch': 1,
+            'logs': logs, 'logs_rel_err': loss_err,
+            'grads_g': _split_grad_errors(card['net_g'], cpu['net_g'],
+                                          exact['net_g']),
+            'grads_d': _split_grad_errors(card['net_d'], cpu['net_d'],
+                                          exact['net_d']),
+            'grads_g_cudnn_off': _split_grad_errors(
+                no_cudnn['net_g'], cpu['net_g'], exact['net_g']),
+            'grads_g_cpu_f32_vs_f64': _split_grad_errors(
+                cpu['net_g'], exact['net_g'], exact['net_g']),
+            'uv_rel_err': max(_vectors_rel_err(models['cuda'].net_g,
+                                               models['cpu'].net_g),
+                              _vectors_rel_err(models['cuda'].net_d,
+                                               models['cpu'].net_d)),
+            'grad_tolerance': TRAIN_GRAD_REL_TOL,
+            'zero_grad_share': ZERO_GRAD_SHARE,
+            'zero_grad_tolerance': ZERO_GRAD_TOL,
+            'loss_tolerance': FACE_LOSS_TOL, 'uv_tolerance': SR_ZOO_CPU_TOL}
+
+
+def phase_hifacegan_serve(kernels):
+    """``hifacegan_serve``: ``HiFaceGAN`` at the JAX package's defaults in
+    eval mode through ``SRModel.test`` on one 512 x 512 face, f32 and
+    ``val.mixed_precision: bfloat16``: ms a face (a warm-up, 3 timed),
+    peak memory, a profile of the f32 forward; the bf16 output against
+    the f32 one (``FACE_BF16_MEAN_TOL``); the f32 net at
+    ``HIFACEGAN_SMALL`` against the CPU (``SR_ZOO_CPU_TOL``). Returns the
+    launches (none)."""
+    from mrefsr_tpu_torch.models import build_model
+    lq = torch.from_numpy(_face_pairs(SEED + 71, 1, FACE_SIDE)['lq']).cuda()
+    rec = {'phase': 'hifacegan_serve', 'network_g': HIFACEGAN,
+           'side': FACE_SIDE}
+    launches, outs = {n: 0 for n in kernels}, {}
+    for dtype in (torch.float32, BF16):
+        model = build_model(_hifacegan_opt(False, dtype=dtype))
+        out, times, peak, counts = _serve_times(
+            kernels, lambda: _sr_test(model, lq))
+        check(tuple(out.shape) == (1, FACE_SIDE, FACE_SIDE, 3)
+              and bool(torch.isfinite(out).all()),
+              f'hifacegan {dtype}: output {tuple(out.shape)}')
+        tag = 'bf16' if dtype == BF16 else 'f32'
+        outs[tag] = out.float().cpu()
+        rec[f'{tag}_ms'] = times
+        rec[f'{tag}_peak_mem_bytes'] = peak
+        if dtype == torch.float32:
+            rec['f32_profile'] = {
+                k: v for k, v in profile_record(
+                    'hifacegan_serve', lambda: _sr_test(model, lq)).items()
+                if k in ('wall_ms', 'device_busy_ms', 'device_idle_share',
+                         'cudnn_cublas_ms', 'other_ms', 'top_kernels')}
+        for n, v in counts.items():
+            launches[n] += v
+        del model
+        torch.cuda.empty_cache()
+    diff = (outs['bf16'] - outs['f32']).abs()
+    rec.update(bf16_vs_f32_mean_abs=float(diff.mean()),
+               bf16_vs_f32_max_abs=float(diff.max()),
+               bf16_mean_tolerance=FACE_BF16_MEAN_TOL)
+    check(rec['bf16_vs_f32_mean_abs'] <= FACE_BF16_MEAN_TOL,
+          f'hifacegan bf16 against f32: {rec["bf16_vs_f32_mean_abs"]}')
+    small = _face_pairs(SEED + 72, 1, HIFACEGAN_SMALL['crop_size'])['lq']
+    card = build_model(_hifacegan_opt(False, small=True))
+    cpu = build_model(_hifacegan_opt(False, small=True), device='cpu')
+    got = _sr_test(card, torch.from_numpy(small).cuda()).cpu()
+    want = _sr_test(cpu, torch.from_numpy(small))
+    err = float((got - want).abs().max() / want.abs().max())
+    check(err <= SR_ZOO_CPU_TOL, f'hifacegan card and CPU differ by {err}')
+    rec.update(card_vs_cpu_width=HIFACEGAN_SMALL, card_vs_cpu_rel_err=err,
+               card_vs_cpu_tolerance=SR_ZOO_CPU_TOL)
+    check(not any(launches.values()), f'hifacegan_serve launched {launches}')
+    emit(dict(rec, hand_written_kernels_launched=0,
+              reduced=['seeded weights (no published HiFaceGAN checkpoint '
+                       'in the repository)', 'one synthetic face']))
+    return launches
+
+
+def phase_hifacegan_train(kernels):
+    """``hifacegan_train``: ``HiFaceGANModel`` at the JAX package's widths
+    (G and D), L1 + hinge ``MultiScaleGANLoss`` + ``GANFeatLoss``, B
+    ``FACE_B`` at 512 x 512 through ``feed_data`` -> ``optimize_parameters``:
+    iteration 1 skips G's turn (``net_d_init_iters`` 1: G as it was, its
+    terms 0, its ``u`` / ``v`` moved), iteration 2 a warm-up, then
+    ``FACE_STEPS`` timed steps, peak memory, a profile of one step; first
+    the card against the CPU at ``HIFACEGAN_SMALL``, B 1
+    (:func:`_hifacegan_card_vs_cpu`). Returns the launches (none)."""
+    from mrefsr_tpu_torch.models import build_model
+    cmp = _hifacegan_card_vs_cpu()
+    emit(dict(cmp, phase='hifacegan_train_card_vs_cpu'))
+    _check_grad_errors('hifacegan G, card against CPU', cmp['grads_g'])
+    _check_grad_errors('hifacegan D, card against CPU', cmp['grads_d'])
+    check(max(cmp['grads_g']['zero_largest_share'],
+              cmp['grads_d']['zero_largest_share']) <= ZERO_GRAD_TOL
+          and cmp['logs_rel_err'] <= FACE_LOSS_TOL
+          and cmp['uv_rel_err'] <= SR_ZOO_CPU_TOL,
+          f'hifacegan logs or u / v, card against CPU: {cmp}')
+    model = build_model(_hifacegan_opt(True))
+    batch = _on_card(_face_pairs(SEED + 73, FACE_B, FACE_SIDE))
+    reset_counts(kernels)
+    g_before = {k: v.clone() for k, v in model.net_g.state_dict().items()}
+    model.feed_data(batch)
+    model.optimize_parameters(1)
+    skipped = model.get_current_log()
+    g_after = model.net_g.state_dict()
+    moved_uv = [k for k, v in g_before.items()
+                if k.endswith('weight_u') and not torch.equal(v, g_after[k])]
+    check(all(torch.equal(v, g_after[k]) for k, v in g_before.items()
+              if not k.endswith(('weight_u', 'weight_v')))
+          and moved_uv and skipped['l_g_gan'] == 0,
+          f'hifacegan: the skipped G turn changed G or left its u / v: '
+          f'{skipped}')
+    model.feed_data(batch)
+    model.optimize_parameters(2)
+    step_ms, logs, peak = _timed_steps(model, batch, 3, FACE_STEPS)
+    launches = read_counts(kernels, ())
+    check(not any(launches.values()), f'hifacegan_train launched {launches}')
+    check(all(np.isfinite(v) for log in logs for v in log.values()),
+          f'non-finite hifacegan terms: {logs}')
+
+    def step():
+        model.feed_data(batch)
+        model.optimize_parameters(10)
+
+    prof = profile_record('hifacegan_train', step)
+    mean_ms = statistics.mean(step_ms)
+    emit({'phase': 'hifacegan_train', 'network_g': HIFACEGAN,
+          'network_d': HIFACEGAN_D, 'train': _hifacegan_opt(True)['train'],
+          'batch': FACE_B, 'side': FACE_SIDE, 'dtype': 'float32',
+          'skipped_g_turn_log': skipped, 'step_ms': step_ms,
+          'mean_step_ms': mean_ms, 'img_per_s': FACE_B / mean_ms * 1e3,
+          'peak_mem_bytes': peak, 'logs': logs,
+          'profile': {k: v for k, v in prof.items()
+                      if k in ('wall_ms', 'device_busy_ms',
+                               'device_idle_share', 'cudnn_cublas_ms',
+                               'other_ms', 'top_kernels')},
+          'hand_written_kernels_launched': 0,
+          'reduced': [f'{FACE_STEPS} timed steps on one repeated batch of '
+                      'synthetic faces (FFHQ in the reference)',
+                      'seeded weights', f'B {FACE_B} (the reference YAML is '
+                      'not in the repository)']})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _dfdnet_gap_share(query, atoms):
+    """The top correlation's lead over the second as a share of the top,
+    and the top's index (``DFDNet.swap_feat``'s scores; the softmax is
+    monotonic)."""
+    from mrefsr_tpu_torch.archs.dfdnet_util import (
+        adaptive_instance_normalization)
+    sims = torch.einsum('chw,kchw->k', query[0],
+                        adaptive_instance_normalization(atoms, query))
+    top2 = torch.topk(sims, 2).values
+    return float((top2[0] - top2[1]) / top2[0].abs()), int(sims.argmax())
+
+
+def _dfdnet_queries(net, x, locations):
+    """Each scale's and part's box of ``x``'s VGG features sampled at the
+    atoms' size, as ``DFDNet.swap_feat`` samples it."""
+    from mrefsr_tpu_torch.archs.dfdnet_arch import (
+        FEATURE_SIZES, PARTS, VGG_LAYERS, crop_resize_bilinear)
+    with torch.inference_mode():
+        feats = net.vgg_extractor(x)
+    queries = {}
+    for layer, size in zip(VGG_LAYERS, FEATURE_SIZES):
+        for part_idx, part in enumerate(PARTS):
+            side = DFD_SIDES[part] * size // 512
+            x0, y0, x1, y1 = [int(v) // (512 // size)
+                              for v in locations[part_idx][0]]
+            queries[str(size), part] = crop_resize_bilinear(
+                feats[layer], (y0, x0, y1, x1), (side, side)).clone()
+    return queries
+
+
+def _dfdnet_gaps(net, x, locations, face_dict):
+    """The least lead of a top score over the second (share of the top)
+    over every scale and part, checked to fall on ``DFD_PLANTED``."""
+    shares = []
+    for (size, part), query in _dfdnet_queries(net, x, locations).items():
+        with torch.inference_mode():
+            share, top = _dfdnet_gap_share(query, face_dict[size][part])
+        check(top == DFD_PLANTED, f'dfdnet: atom {top} wins at {size} '
+              f'{part}, not the planted {DFD_PLANTED}')
+        shares.append(share)
+    return min(shares)
+
+
+def _dfdnet_inputs(root, device='cuda'):
+    """A 512 x 512 face (PNG), its 68 landmarks (``.npy``) and a seeded
+    dictionary of ``DFD_ATOMS`` atoms a part and scale (``.pth``) under
+    ``root``: N(0, 1) from a generator on ``device``, atom ``DFD_PLANTED``
+    each part's own VGG features under the seeded net. Returns the folders'
+    and the dictionary's paths, the dictionary on ``device`` and on the CPU,
+    and the seeded net on ``device``."""
+    import cv2
+    from mrefsr_tpu_torch.archs.dfdnet_arch import (CHANNEL_SIZES,
+                                                    FEATURE_SIZES, PARTS)
+    from mrefsr_tpu_torch.inference import inference_dfdnet
+    paths = {k: os.path.join(root, k) for k in ('faces', 'landmarks',
+                                                 'out')}
+    for folder in paths.values():
+        os.makedirs(folder)
+    img = _face_images(SEED + 74, 1, FACE_SIDE)[0][:, :, ::-1]
+    cv2.imwrite(os.path.join(paths['faces'], 'face0.png'),
+                np.round(img * 255).astype(np.uint8))
+    rng = np.random.RandomState(SEED + 75)
+    pts = np.zeros((68, 2))
+    for idx, centre in ((range(17, 22), (180, 190)),
+                        (range(36, 42), (180, 210)),
+                        (range(22, 27), (330, 190)),
+                        (range(42, 48), (330, 210)),
+                        (range(27, 36), (256, 290)),
+                        (range(48, 68), (256, 380)),
+                        (range(0, 17), (256, 300))):
+        for i in idx:
+            pts[i] = np.asarray(centre) + rng.randn(2) * 12
+    np.save(os.path.join(paths['landmarks'], 'face0.npy'), pts)
+    net = inference_dfdnet.build_model('', device, SEED)
+    x = inference_dfdnet.read_face(os.path.join(paths['faces'],
+                                                'face0.png')).to(device)
+    queries = _dfdnet_queries(net, x,
+                              inference_dfdnet.get_part_location(pts))
+    gen = torch.Generator(device).manual_seed(SEED + 76)
+    face_dict = {}
+    for size, channels in zip(FEATURE_SIZES, CHANNEL_SIZES):
+        face_dict[str(size)] = {}
+        for part in PARTS:
+            side = DFD_SIDES[part] * size // 512
+            atoms = torch.randn((DFD_ATOMS, channels, side, side),
+                                generator=gen, device=device)
+            atoms[DFD_PLANTED] = queries[str(size), part][0]
+            face_dict[str(size)][part] = atoms
+    cpu_dict = {s: {p: a.cpu() for p, a in d.items()}
+                for s, d in face_dict.items()}
+    paths['dict'] = os.path.join(root, 'dfdnet_dict.pth')
+    torch.save(cpu_dict, paths['dict'])
+    return paths, face_dict, cpu_dict, net
+
+
+def phase_dfdnet_serve(kernels, root):
+    """``dfdnet_serve``: ``python -m mrefsr_tpu_torch.inference
+    .inference_dfdnet`` (its ``main``, on the card) on one face with its
+    landmark file and the seeded dictionary file of ``_dfdnet_inputs``
+    (seeded weights: ``--model_path ''``); then the same net and
+    dictionary: ms a face (a warm-up, 3 timed), peak memory, the written
+    PNG within a level of ``restore``'s, the planted atom winning on the
+    card by at least ``DFD_GAP_SHARE``, and the float output against the
+    CPU's (``SR_ZOO_CPU_TOL``; an atom the CPU chose otherwise would fail
+    it). Returns the launches (none)."""
+    import cv2
+    from mrefsr_tpu_torch.inference import inference_dfdnet
+    t0 = time.perf_counter()
+    paths, face_dict, cpu_dict, net = _dfdnet_inputs(root)
+    torch.cuda.synchronize()
+    dict_s = time.perf_counter() - t0
+    argv = ['--test_path', paths['faces'], '--landmark_dir',
+            paths['landmarks'], '--dict_path', paths['dict'],
+            '--model_path', '', '--save_path', paths['out'],
+            '--seed', str(SEED)]
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    inference_dfdnet.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    x = inference_dfdnet.read_face(os.path.join(paths['faces'],
+                                                'face0.png'))
+    landmarks = np.load(os.path.join(paths['landmarks'], 'face0.npy'))
+    locations = inference_dfdnet.get_part_location(landmarks)
+    card_gap = _dfdnet_gaps(net, x.cuda(), locations, face_dict)
+    img, times, peak, counts = _serve_times(
+        kernels, lambda: inference_dfdnet.restore(net, face_dict, x,
+                                                  landmarks))
+    written = cv2.imread(os.path.join(paths['out'], 'face0_DFDNet.png'))
+    levels = int(np.abs(written.astype(int) - img.astype(int)).max())
+    check(levels <= 1, f'dfdnet: main wrote a PNG {levels} levels off')
+    with torch.inference_mode():
+        card = net(x.cuda(), locations, face_dict).cpu()
+    del net, face_dict
+    torch.cuda.empty_cache()
+    check(card_gap >= DFD_GAP_SHARE, f'dfdnet: the planted atom leads by '
+          f'{card_gap}, under {DFD_GAP_SHARE}')
+    cpu_net = inference_dfdnet.build_model('', 'cpu', SEED)
+    with torch.inference_mode():
+        plain = cpu_net(x, locations, cpu_dict)
+    err = float((card - plain).abs().max() / plain.abs().max())
+    check(err <= SR_ZOO_CPU_TOL, f'dfdnet card and CPU differ by {err}')
+    launches = {n: k.launches for n, k in kernels.items()}
+    check(not any(launches.values()), f'dfdnet_serve launched {launches}')
+    emit({'phase': 'dfdnet_serve', 'num_feat': 64, 'side': FACE_SIDE,
+          'dictionary': {'atoms': DFD_ATOMS, 'sides_512': DFD_SIDES,
+                         'planted': DFD_PLANTED,
+                         'bytes': sum(a.numel() * a.element_size()
+                                      for d in cpu_dict.values()
+                                      for a in d.values())},
+          'planted_lead_share': card_gap,
+          'planted_lead_share_least': DFD_GAP_SHARE,
+          'part_boxes_xyxy': [loc[0].tolist() for loc in locations],
+          'dict_s': dict_s, 'main_s': main_s, 'ms': times,
+          'peak_mem_bytes': peak,
+          'png_levels_off': levels, 'card_vs_cpu_rel_err': err,
+          'card_vs_cpu_tolerance': SR_ZOO_CPU_TOL,
+          'hand_written_kernels_launched': 0,
+          'reduced': ['seeded weights (the published DFDNet weights are '
+                      'not in the repository)', 'a seeded dictionary at '
+                      f'{DFD_ATOMS} atoms a part and scale, atom '
+                      f'{DFD_PLANTED} planted (DictionaryCenter512 is not '
+                      'in the repository)', 'one synthetic face, landmarks '
+                      'given (no dlib)']})
+    return launches
+
+
+def _ffhq_folder(root):
+    """``SG2_CLI_IMAGES`` smooth seeded 256 x 256 PNGs named ``%08d.png``."""
+    import cv2
+    folder = os.path.join(root, 'ffhq')
+    os.makedirs(folder)
+    for i in range(0, SG2_CLI_IMAGES, 16):
+        for j, img in enumerate(_face_images(SEED + 80 + i, 16,
+                                             SG2_TRAIN_SIZE)):
+            cv2.imwrite(os.path.join(folder, f'{i + j:08d}.png'),
+                        np.round(img[:, :, ::-1] * 255).astype(np.uint8))
+    return folder
+
+
+def _cli_stylegan2_yml(root, folder, iters):
+    """``_sg2_train_opt`` (the reference's FFHQ-256 recipe) as a YAML over
+    ``FFHQDataset`` (B 8, 4 loader threads, flips, mean / std 0.5), a
+    sample grid of 16 at the end, a checkpoint at ``SG2_CLI_ITERS``."""
+    import yaml
+    doc = _sg2_train_opt(root)
+    doc.pop('is_train')
+    doc.update(num_gpu=1, datasets={'train': {
+        'name': 'FFHQ', 'type': 'FFHQDataset', 'phase': 'train',
+        'dataroot_gt': folder, 'io_backend': {'type': 'disk'},
+        'use_hflip': True, 'mean': [0.5, 0.5, 0.5], 'std': [0.5, 0.5, 0.5],
+        'batch_size_per_gpu': SG2_TRAIN_B, 'num_worker_per_gpu': 4,
+        'dataset_enlarge_ratio': 1}},
+        path={'pretrain_network_g': None, 'strict_load_g': True,
+              'resume_state': None,
+              'experiments_root': os.path.join(root, 'experiments')},
+        val={'num_val_samples': 16, 'val_freq': SG2_CLI_ITERS,
+             'save_img': True},
+        logger={'print_freq': 1, 'save_checkpoint_freq': SG2_CLI_ITERS,
+                'use_tb_logger': False},
+        dist_params={'backend': 'nccl', 'port': 29500})
+    doc['train']['total_iter'] = iters
+    path = os.path.join(root, f'stylegan2_cli_{iters}.yml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(doc, f)
+    return path
+
+
+def _profiled_launches(run, names):
+    """The device kernels ``run()`` launches, counted by a profile: calls
+    of each kernel whose name holds one of ``names``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    counts = {name: 0 for name in names}
+    for _, calls, key in device_time_by_name(prof):
+        for name in names:
+            if name in key:
+                counts[name] += calls
+    return counts
+
+
+def phase_cli_stylegan2(kernels, root):
+    """``cli_stylegan2``: the FFHQ-256 StyleGAN2 recipe through
+    ``train_pipeline`` in this process on ``FFHQDataset`` over
+    ``SG2_CLI_IMAGES`` synthetic faces: ``SG2_CLI_ITERS`` iterations (the
+    path penalty on 4 and 8), a checkpoint and a sample grid at the last
+    (validation without a validation set), then ``--auto_resume`` on to
+    ``SG2_CLI_RESUME``; img/s over iterations 3-8, the logger's data time,
+    every K7 and K8 entry launched (counted by the kernels' wrappers, and
+    by a profile of an iteration with both penalties). Returns the
+    launches of both runs."""
+    from mrefsr_tpu_torch.models.stylegan2_model import StyleGAN2Model
+    from mrefsr_tpu_torch.train import train_pipeline
+    folder = _ffhq_folder(root)
+    yml = _cli_stylegan2_yml(root, folder, SG2_CLI_ITERS)
+    model, train_launches, launches, rec = _cli_train(
+        train_pipeline, root, ['-opt', yml], kernels, SG2_TRAIN_B, 2,
+        SG2_CLI_ITERS, model_cls=StyleGAN2Model)
+    for name in SG2_KERNELS:
+        check(train_launches[name] > 0,
+              f'cli_stylegan2: {name} not launched in training')
+    exp = os.path.join(root, 'experiments', 'stylegan2_256')
+    grid = os.path.join(exp, 'visualization', 'train',
+                        f'train_{SG2_CLI_ITERS}.png')
+    check(os.path.isfile(grid)
+          and os.path.isfile(os.path.join(
+              exp, 'training_states', f'{SG2_CLI_ITERS}.state')),
+          'cli_stylegan2 wrote no sample grid or no state')
+    del model
+    torch.cuda.empty_cache()
+    lines = _LogLines()
+    logger = logging.getLogger('mrefsr_tpu_torch')
+    logger.addHandler(lines)
+    try:
+        resumed, _, resumed_launches, _ = _cli_train(
+            train_pipeline, root,
+            ['-opt', _cli_stylegan2_yml(root, folder, SG2_CLI_RESUME),
+             '--auto_resume'], kernels, SG2_TRAIN_B, SG2_CLI_ITERS + 2,
+            SG2_CLI_RESUME, model_cls=StyleGAN2Model)
+    finally:
+        logger.removeHandler(lines)
+    check(any(f'iter: {SG2_CLI_ITERS}.' in msg and 'Resuming' in msg
+              for _, msg in lines.records),
+          'cli_stylegan2 did not resume from its state')
+    batch = {'gt': _on_card(_sg2_train_batch())['gt']}
+
+    def both_penalties():
+        resumed.feed_data(batch)
+        resumed.optimize_parameters(16)
+
+    profiled = _profiled_launches(both_penalties, (
+        'upfirdn2d_tile_kernel', 'upfirdn2d_gather_kernel',
+        'fused_leaky_relu_fwd_kernel', 'fused_leaky_relu_bwd_kernel',
+        'fused_leaky_relu_bwd_rows_kernel'))
+    check(profiled['upfirdn2d_tile_kernel'] > 0
+          and profiled['fused_leaky_relu_fwd_kernel'] > 0
+          and profiled['fused_leaky_relu_bwd_kernel']
+          + profiled['fused_leaky_relu_bwd_rows_kernel'] > 0,
+          f'cli_stylegan2: the profile saw no K7 or K8 kernel: {profiled}')
+    del resumed
+    torch.cuda.empty_cache()
+    total = {n: launches[n] + resumed_launches[n] for n in kernels}
+    emit({'phase': 'cli_stylegan2', 'source': 'the reference FFHQ-256 '
+          'recipe (out 256, channel multiplier 2, B 8, R1 every 16, path '
+          'length every 4), chip_smoke._sg2_train_opt',
+          'iterations': SG2_CLI_ITERS, 'resumed_to': SG2_CLI_RESUME,
+          'batch': SG2_TRAIN_B, 'images': SG2_CLI_IMAGES,
+          **{k: v for k, v in rec.items() if k != 'losses_logged'},
+          'launches_training': {n: train_launches[n] for n in SG2_KERNELS},
+          'launches_both_runs': {n: total[n] for n in SG2_KERNELS},
+          'launches_per_iteration': {
+              n: train_launches[n] / SG2_CLI_ITERS for n in SG2_KERNELS},
+          'profiled_kernel_calls_iteration_16': profiled,
+          'reduced': [f'{SG2_CLI_ITERS} + '
+                      f'{SG2_CLI_RESUME - SG2_CLI_ITERS} iterations '
+                      '(800000 in the recipe)',
+                      f'{SG2_CLI_IMAGES} synthetic faces (FFHQ: 70000)']})
+    return total
+
+
+def phase_face_metrics(kernels):
+    """``face_metrics``: FID's Inception features (seeded weights) of
+    ``FID_IMAGES`` images at 299 x 299 in batches of 16, ms; LPIPS (seeded
+    weights) on ``LPIPS_PAIRS`` pairs at 256 x 256, ms; each against the
+    CPU on its first images (``SR_ZOO_CPU_TOL``); NIQE of one 512 x 512
+    image on the host, s. Returns the launches (none)."""
+    from mrefsr_tpu_torch.metrics import (calculate_niqe,
+                                          extract_inception_features,
+                                          load_patched_inception_v3)
+    from mrefsr_tpu_torch.metrics.lpips import build_lpips
+    reset_counts(kernels)
+    rec = {'phase': 'face_metrics'}
+    imgs = _face_images(SEED + 90, FID_IMAGES, 299)
+    batches = [imgs[i:i + 16] for i in range(0, FID_IMAGES, 16)]
+    inception = load_patched_inception_v3(device='cuda')
+    extract_inception_features(batches[:1], inception)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    feats = extract_inception_features(batches, inception)
+    rec['inception_ms'] = (time.perf_counter() - t0) * 1e3
+    rec['inception_peak_mem_bytes'] = torch.cuda.max_memory_allocated()
+    cpu_feats = extract_inception_features(
+        [imgs[:FID_CPU]], load_patched_inception_v3(device='cpu'))
+    rec['inception_card_vs_cpu_rel_err'] = float(
+        np.abs(feats[:FID_CPU] - cpu_feats).max() / np.abs(cpu_feats).max())
+    check(feats.shape == (FID_IMAGES, 2048) and np.isfinite(feats).all()
+          and rec['inception_card_vs_cpu_rel_err'] <= SR_ZOO_CPU_TOL,
+          f'inception features: {rec}')
+    del inception
+    pairs = [torch.from_numpy(_face_images(SEED + 91 + k, LPIPS_PAIRS, 256))
+             .permute(0, 3, 1, 2) * 2 - 1 for k in (0, 1)]
+    lpips = build_lpips(device='cuda')
+    with torch.inference_mode():
+        x, y = (p.cuda() for p in pairs)
+        lpips(x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist_card = lpips(x, y).cpu()
+        torch.cuda.synchronize()
+        rec['lpips_ms'] = (time.perf_counter() - t0) * 1e3
+        dist_cpu = build_lpips(device='cpu')(pairs[0][:LPIPS_CPU],
+                                             pairs[1][:LPIPS_CPU])
+    rec['lpips'] = dist_card.tolist()
+    rec['lpips_card_vs_cpu_rel_err'] = float(
+        (dist_card[:LPIPS_CPU] - dist_cpu).abs().max()
+        / dist_cpu.abs().max())
+    check(bool(torch.isfinite(dist_card).all())
+          and rec['lpips_card_vs_cpu_rel_err'] <= SR_ZOO_CPU_TOL,
+          f'lpips: {rec}')
+    del lpips
+    torch.cuda.empty_cache()
+    img = np.round(_face_images(SEED + 93, 1, FACE_SIDE)[0][:, :, ::-1]
+                   * 255).astype(np.float32)
+    t0 = time.perf_counter()
+    rec['niqe'] = calculate_niqe(img, crop_border=0)
+    rec['niqe_host_s'] = time.perf_counter() - t0
+    check(np.isfinite(rec['niqe']), f'niqe {rec["niqe"]}')
+    launches = read_counts(kernels, ())
+    check(not any(launches.values()), f'face_metrics launched {launches}')
+    emit(dict(rec, fid_images=FID_IMAGES, fid_cpu_images=FID_CPU,
+              lpips_pairs=LPIPS_PAIRS, lpips_cpu_pairs=LPIPS_CPU,
+              card_vs_cpu_tolerance=SR_ZOO_CPU_TOL,
+              hand_written_kernels_launched=0,
+              reduced=['seeded Inception and LPIPS weights (pt_inception, '
+                       'vgg.pth and torchvision vgg16 are not in the '
+                       'repository)', 'synthetic images']))
+    return launches
+
+
+def face_phases(build_model, arch, correlation, dcn, kernels):
+    """The face family and the learned metrics: ``hifacegan_serve``,
+    ``hifacegan_train``, ``dfdnet_serve``, ``cli_stylegan2``,
+    ``face_metrics``. Returns the launches by path."""
+    by_path = {'hifacegan_serve': phase_hifacegan_serve(kernels)}
+    torch.cuda.empty_cache()
+    by_path['hifacegan_train'] = phase_hifacegan_train(kernels)
+    with tempfile.TemporaryDirectory() as root:
+        by_path['dfdnet_serve'] = phase_dfdnet_serve(kernels, root)
+        torch.cuda.empty_cache()
+        by_path['cli_stylegan2'] = phase_cli_stylegan2(kernels, root)
+    torch.cuda.empty_cache()
+    by_path['face_metrics'] = phase_face_metrics(kernels)
+    return by_path
+
+
 def main():
     import importlib
     from mrefsr_tpu_torch.archs import arch_util, edvr_arch
@@ -7631,89 +8532,100 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    phase_build(_build.build)
-    k1, k1p = phase_feature_match(correlation)
-    k1['train_shape'], k1p['train_shape'] = phase_feature_match(
-        correlation, pairs=TRAIN_B * T, h=TRAIN_GT // 4, ties=False)
-    torch.cuda.empty_cache()
-    k2 = phase_mdcn(dcn)
-    k2['train_shape'] = phase_mdcn(dcn, n=TRAIN_B * T, shapes=TRAIN_SHAPES)
-    k2['video_shapes'] = phase_mdcn(dcn, video=True)
-    k2b = phase_mdcn_backward(dcn)
-    k4f, k4b = phase_deform_sample(dcn)
-    torch.cuda.empty_cache()
-    kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
-    dcn_described, by_path = dcn_phases(arch_util, arch, dcn, kernels)
-    k7 = phase_upfirdn2d(ops_upfirdn2d)
-    k8 = phase_fused_act(fused_act)
-    by_path['slice'], model, batch = phase_slice(
-        build_model, arch.DynAgg, correlation, dcn, kernels)
-
-    def one_request():
-        model.feed_data(batch)
-        model.test()
-
-    phase_profile('slice', one_request)
-    del model
-    torch.cuda.empty_cache()
-    step_ms = {}
-    for alignment in ('dcn', 'flow'):
-        by_path[f'train_{alignment}'], step_ms[alignment] = phase_train(
-            alignment, build_model, arch, dcn, kernels)
+    # the CLI phase's LMR images, written by a process beside the build
+    lmr = _LmrImages()
+    try:
+        phase_build(_build.build)
+        k1, k1p = phase_feature_match(correlation)
+        k1['train_shape'], k1p['train_shape'] = phase_feature_match(
+            correlation, pairs=TRAIN_B * T, h=TRAIN_GT // 4, ties=False)
         torch.cuda.empty_cache()
-    emit({'phase': 'train_ratio',
-          'flow_steps_per_dcn_step': step_ms['dcn'] / step_ms['flow']})
-    by_path.update(gan_phases(build_model, arch, dcn, kernels))
-    by_path.update(ref_phases(build_model, arch, correlation, dcn, kernels))
-    bf16_described, bf16_paths, bf16_step_ms = bf16_phases(
-        correlation, dcn, arch, build_model, kernels)
-    by_path.update(bf16_paths)
-    by_path.update(phase_cli(kernels, bf16_step_ms['dcn']))
-    torch.cuda.empty_cache()
-    sg2 = (stylegan2_arch, ops_upfirdn2d, fused_act, kernels)
-    by_path['stylegan2_serve'] = phase_stylegan2_serve(inference_stylegan2,
-                                                       *sg2)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as root:
-        by_path['stylegan2_train'] = phase_stylegan2_train(build_model, *sg2,
-                                                           root)
-    torch.cuda.empty_cache()
-    by_path['basicvsrpp_serve'] = phase_basicvsrpp_serve(
-        inference_basicvsr, inference_basicvsrpp, dcn, kernels)
-    torch.cuda.empty_cache()
-    by_path['edvr'] = phase_edvr(edvr_arch, arch_util, dcn, kernels)
-    torch.cuda.empty_cache()
-    by_path['basicvsr_serve'] = phase_basicvsr_serve(inference_basicvsr,
-                                                     kernels)
-    torch.cuda.empty_cache()
-    by_path.update(video_phases(build_model, arch, correlation, dcn,
-                                kernels))
-    torch.cuda.empty_cache()
-    by_path.update(sr_zoo_phases(build_model, arch, correlation, dcn,
-                                 kernels))
-    torch.cuda.empty_cache()
-    by_path.update(realesrgan_phases(build_model, arch, correlation, dcn,
-                                     kernels))
-    torch.cuda.empty_cache()
-    by_path['ddp'], (k6, k6b) = phase_ddp()
+        k2 = phase_mdcn(dcn)
+        k2['train_shape'] = phase_mdcn(dcn, n=TRAIN_B * T, shapes=TRAIN_SHAPES)
+        k2['video_shapes'] = phase_mdcn(dcn, video=True)
+        k2b = phase_mdcn_backward(dcn)
+        k4f, k4b = phase_deform_sample(dcn)
+        torch.cuda.empty_cache()
+        kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
+        dcn_described, by_path = dcn_phases(arch_util, arch, dcn, kernels)
+        k7 = phase_upfirdn2d(ops_upfirdn2d)
+        k8 = phase_fused_act(fused_act)
+        by_path['slice'], model, batch = phase_slice(
+            build_model, arch.DynAgg, correlation, dcn, kernels)
 
-    described = (
-        (k1p, 'feature_match_prologue.cu', K1_PROLOGUE_TPU),
-        (k1, 'feature_match.cu', K1_TPU),
-        (k6, 'feature_match.cu', K6_TPU),
-        *bf16_described,
-        (k6b, 'feature_match_bf16.cu', K6_TPU),
-        *((rec, 'mdcn_fused.cu', K2_TPU) for rec in [k2, *k2b]),
-        *dcn_described,
-        (k4f, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
-        (k4b, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
-        *((rec, 'upfirdn2d.cu', 'mrefsr_tpu/ops/upfirdn2d.py:13')
-          for rec in k7),
-        *((rec, 'fused_act.cu', 'mrefsr_tpu/ops/fused_act.py:12')
-          for rec in k8))
-    emit({'kernels': _described(described, by_path), 'card': smi})
-    print(smi, flush=True)
-    emit({'ok': True, 'device': device})
+        def one_request():
+            model.feed_data(batch)
+            model.test()
+
+        phase_profile('slice', one_request)
+        del model
+        torch.cuda.empty_cache()
+        step_ms = {}
+        for alignment in ('dcn', 'flow'):
+            by_path[f'train_{alignment}'], step_ms[alignment] = phase_train(
+                alignment, build_model, arch, dcn, kernels)
+            torch.cuda.empty_cache()
+        emit({'phase': 'train_ratio',
+              'flow_steps_per_dcn_step': step_ms['dcn'] / step_ms['flow']})
+        # ddp_gan's ranks run in the ddp phase's processes, at the end
+        by_path.update(gan_phases(build_model, arch, dcn, kernels,
+                                  ddp_gan=False))
+        by_path.update(ref_phases(build_model, arch, correlation, dcn,
+                                  kernels))
+        bf16_described, bf16_paths, bf16_step_ms = bf16_phases(
+            correlation, dcn, arch, build_model, kernels)
+        by_path.update(bf16_paths)
+        by_path.update(phase_cli(kernels, bf16_step_ms['dcn'], lmr))
+        torch.cuda.empty_cache()
+        sg2 = (stylegan2_arch, ops_upfirdn2d, fused_act, kernels)
+        by_path['stylegan2_serve'] = phase_stylegan2_serve(inference_stylegan2,
+                                                           *sg2)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as root:
+            by_path['stylegan2_train'] = phase_stylegan2_train(
+                build_model, *sg2, root)
+        torch.cuda.empty_cache()
+        by_path['basicvsrpp_serve'] = phase_basicvsrpp_serve(
+            inference_basicvsr, inference_basicvsrpp, dcn, kernels)
+        torch.cuda.empty_cache()
+        by_path['edvr'] = phase_edvr(edvr_arch, arch_util, dcn, kernels)
+        torch.cuda.empty_cache()
+        by_path['basicvsr_serve'] = phase_basicvsr_serve(inference_basicvsr,
+                                                         kernels)
+        torch.cuda.empty_cache()
+        by_path.update(video_phases(build_model, arch, correlation, dcn,
+                                    kernels))
+        torch.cuda.empty_cache()
+        by_path.update(sr_zoo_phases(build_model, arch, correlation, dcn,
+                                     kernels))
+        torch.cuda.empty_cache()
+        by_path.update(realesrgan_phases(build_model, arch, correlation, dcn,
+                                         kernels))
+        torch.cuda.empty_cache()
+        by_path.update(face_phases(build_model, arch, correlation, dcn,
+                                   kernels))
+        torch.cuda.empty_cache()
+        by_path['ddp'], (k6, k6b), by_path['ddp_gan'] = phase_ddp(build_model)
+
+        described = (
+            (k1p, 'feature_match_prologue.cu', K1_PROLOGUE_TPU),
+            (k1, 'feature_match.cu', K1_TPU),
+            (k6, 'feature_match.cu', K6_TPU),
+            *bf16_described,
+            (k6b, 'feature_match_bf16.cu', K6_TPU),
+            *((rec, 'mdcn_fused.cu', K2_TPU) for rec in [k2, *k2b]),
+            *dcn_described,
+            (k4f, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
+            (k4b, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
+            *((rec, 'upfirdn2d.cu', 'mrefsr_tpu/ops/upfirdn2d.py:13')
+              for rec in k7),
+            *((rec, 'fused_act.cu', 'mrefsr_tpu/ops/fused_act.py:12')
+              for rec in k8))
+        emit({'kernels': _described(described, by_path), 'card': smi})
+        print(smi, flush=True)
+        emit({'ok': True, 'device': device})
+    finally:
+        lmr.close()
 
 
 def _described(described, by_path):
@@ -7844,6 +8756,12 @@ def main_realesrgan():
     _main_alone(realesrgan_phases)
 
 
+def main_face():
+    """``--face``: the face family's and the metrics' phases alone
+    (:func:`face_phases`)."""
+    _main_alone(face_phases)
+
+
 def main_repeat_grads(rounds):
     """``--repeat-grads N``: the whole-net gradient comparisons of the
     three training paths alone, from fresh weights and then N times more,
@@ -7921,7 +8839,7 @@ def main_ddp():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build(_build.build)
-    launches, k6s = phase_ddp()
+    launches, k6s, _ = phase_ddp()
     for k6, source in zip(k6s, ('feature_match.cu', 'feature_match_bf16.cu')):
         k6.update(route='cuda',
                   source=f'mrefsr_tpu_torch/ops/csrc/{source}',
@@ -7955,5 +8873,7 @@ if __name__ == '__main__':
         main_sr_zoo()
     elif sys.argv[1:2] == ['--realesrgan']:
         main_realesrgan()
+    elif sys.argv[1:2] == ['--face']:
+        main_face()
     else:
         main()

@@ -14,6 +14,7 @@ import math
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from mrefsr_tpu_torch.ops import (flow_warp, interpolate,
                                   modulated_deform_conv2d,
@@ -121,6 +122,21 @@ class SNConv2d(nn.Conv2d):
         for buf in (self.weight_u, self.weight_v):
             buf.copy_(_l2norm(torch.randn(buf.shape, generator=generator)))
 
+    @torch.no_grad()
+    def settle_vectors_(self, iterations):
+        """``iterations`` power iterations from the stored vectors, kept:
+        sigma then lies near the weight's largest singular value, as in a
+        trained net (normalised random vectors give sigma any size and
+        sign, and a net that never iterates, as one in eval mode, keeps
+        them)."""
+        w_mat = self.weight_orig.flatten(1)
+        u = self.weight_u
+        for _ in range(iterations):
+            v = _l2norm(w_mat.t() @ u)
+            u = _l2norm(w_mat @ v)
+        self.weight_u.copy_(u)
+        self.weight_v.copy_(v)
+
     def sn_weight(self):
         """``weight_orig / sigma``, after one power iteration in training
         mode."""
@@ -137,6 +153,17 @@ class SNConv2d(nn.Conv2d):
 
     def forward(self, x):
         return self._conv_forward(x, self.sn_weight(), self.bias)
+
+
+def avg_pool2d(x, *args, **kwargs):
+    """``F.avg_pool2d`` of ``x`` in torch's contiguous layout. The CUDA
+    kernel's backward for a channels-last input is wrong on the H100
+    machine's PyTorch (2.11.0+cu128: a 3x3 stride-2 pool's input gradient
+    off by 82-110 % of its largest entry, f32 and f64, whatever the
+    cotangent's layout; contiguous inputs and the CPU agree to the last
+    bit), and a conv of an NHWC-viewed input hands its output on in
+    channels-last."""
+    return F.avg_pool2d(x.contiguous(), *args, **kwargs)
 
 
 def resize(x, scale_factor=None, size=None, mode='bilinear',

@@ -21,6 +21,10 @@ modules keep (so ``load_state_dict(strict=True)`` takes them unchanged):
   :func:`net_state_dict_from_flax` (ECBSR's edge ``scale`` keeps its name,
   :func:`ecbsr_state_dict_from_flax`).
 
+:func:`state_dict_from_flax_with_counts` takes HiFaceGAN's nets and the FID
+Inception from their flax variables, :func:`lpips_state_dict_from_flax`
+LPIPS's.
+
 :func:`dcn_to_flow_state_dict` warm-starts a flow-alignment net from a
 DCN-alignment checkpoint.
 
@@ -245,6 +249,33 @@ def load_stylegan2_from_flax(net, params):
         if key.startswith('noises.noise') and key not in state:
             state[key] = own[key]
     net.load_state_dict(state, strict=True)
+
+
+def state_dict_from_flax_with_counts(variables):
+    """:func:`state_dict_from_flax_variables` with a zero
+    ``num_batches_tracked`` beside each ``running_mean``, for nets whose
+    norms are torch's own (flax counts no batches): HiFaceGAN's (SPADE's
+    ``batch`` norm) and the FID Inception's. DFDNet's variables (the
+    spectral-norm convs' ``u`` / ``v``) take
+    :func:`state_dict_from_flax_variables` as they are."""
+    state = state_dict_from_flax_variables(variables)
+    for key in [k for k in state if k.endswith('.running_mean')]:
+        state.setdefault(key[:-len('running_mean')] + 'num_batches_tracked',
+                         torch.tensor(0, dtype=torch.long))
+    return state
+
+
+def lpips_state_dict_from_flax(variables):
+    """The JAX package's ``LPIPSVgg`` variables -> the port's state dict:
+    the VGG16 tower under ``vgg.``, each head ``lin{i}`` (C,) as the
+    official ``lin{i}.model.1.weight`` (1, C, 1, 1)."""
+    params = dict(variables['params'])
+    state = {'vgg.' + k: v for k, v in
+             state_dict_from_flax(params.pop('vgg')).items()}
+    for name, weight in params.items():
+        state[f'{name}.model.1.weight'] = torch.tensor(
+            np.asarray(weight)).reshape(1, -1, 1, 1)
+    return state
 
 
 def dcn_to_flow_state_dict(sd, deform_groups=8, kernel_size=3):

@@ -1,20 +1,20 @@
 """Losses of the port (port of ``mrefsr_tpu/losses``). The multi-ref
 models fetch theirs by name from :mod:`.legacy_losses`; a ``pixel_opt``,
-``perceptual_opt`` or ``gan_opt`` block names its class by ``type``, which
-:func:`build_loss` looks up here. ``MultiScaleGANLoss`` and
-``GANFeatLoss`` come with their consumers (ROADMAP A11)."""
+``perceptual_opt``, ``gan_opt`` or ``feature_matching_opt`` block names
+its class by ``type``, which :func:`build_loss` looks up here."""
 from copy import deepcopy
 
-from .losses import (CharbonnierLoss, GANLoss, L1Loss, MSELoss,
-                     PerceptualLoss, WeightedTVLoss, g_path_regularize,
-                     r1_penalty)
+from .losses import (CharbonnierLoss, GANFeatLoss, GANLoss, L1Loss,
+                     MSELoss, MultiScaleGANLoss, PerceptualLoss,
+                     WeightedTVLoss, g_path_regularize, r1_penalty)
 
-__all__ = ['CharbonnierLoss', 'GANLoss', 'L1Loss', 'MSELoss',
-           'PerceptualLoss', 'WeightedTVLoss', 'build_loss',
-           'g_path_regularize', 'r1_penalty']
+__all__ = ['CharbonnierLoss', 'GANFeatLoss', 'GANLoss', 'L1Loss', 'MSELoss',
+           'MultiScaleGANLoss', 'PerceptualLoss', 'WeightedTVLoss',
+           'build_loss', 'g_path_regularize', 'r1_penalty']
 
-_LOSSES = {'CharbonnierLoss': CharbonnierLoss, 'GANLoss': GANLoss,
-           'L1Loss': L1Loss, 'MSELoss': MSELoss,
+_LOSSES = {'CharbonnierLoss': CharbonnierLoss, 'GANFeatLoss': GANFeatLoss,
+           'GANLoss': GANLoss, 'L1Loss': L1Loss, 'MSELoss': MSELoss,
+           'MultiScaleGANLoss': MultiScaleGANLoss,
            'PerceptualLoss': PerceptualLoss,
            'WeightedTVLoss': WeightedTVLoss}
 

@@ -3,7 +3,9 @@
 weight-then-reduce contract of ``loss_util.py``; tensors are NHWC: the
 channel axis of a weight map is the last one), the perceptual and style
 loss over VGG taps (``:109-183``), the GAN loss with StyleGAN2's two
-penalties (``:185-273``) and the WGAN-GP penalty (``:276-294``)."""
+penalties (``:185-273``), the WGAN-GP penalty (``:276-294``), and
+HiFaceGAN's multi-scale GAN loss and feature matching (``:232``,
+``:297``)."""
 import math
 
 import torch
@@ -237,6 +239,50 @@ class GANLoss:
         else:
             loss = self._base_loss(x, target_is_real)
         return loss if is_disc else loss * self.loss_weight
+
+
+class MultiScaleGANLoss(GANLoss):
+    """:class:`GANLoss` over a multi-scale discriminator's outputs
+    (reference losses.py:364-388): for a list, the mean over the scales of
+    each scale's loss on its last tensor (a scale's list of features ends
+    with the prediction); a tensor as :class:`GANLoss`."""
+
+    def __call__(self, x, target_is_real, is_disc=False):
+        if not isinstance(x, list):
+            return super().__call__(x, target_is_real, is_disc)
+        loss = 0.
+        for pred_i in x:
+            if isinstance(pred_i, list):
+                pred_i = pred_i[-1]
+            loss = loss + super().__call__(pred_i, target_is_real,
+                                           is_disc).mean()
+        return loss / len(x)
+
+
+class GANFeatLoss:
+    """Feature matching over a multi-scale discriminator's stages
+    (reference losses.py:460-492): ``criterion`` (``l1``, ``l2`` or
+    ``charbonnier``, itself weighted by ``loss_weight``) between each
+    scale's stage outputs but the last for the fake and the real images
+    (the real ones detached), summed over stages, divided by the number of
+    scales, then weighted by ``loss_weight`` again, as the reference
+    does."""
+
+    def __init__(self, criterion='l1', loss_weight=1.0, reduction='mean'):
+        losses = {'l1': L1Loss, 'l2': MSELoss, 'charbonnier': CharbonnierLoss}
+        if criterion not in losses:
+            raise ValueError(f'Unsupported loss mode: {criterion}. '
+                             'Supported ones are: l1|l2|charbonnier')
+        self.loss_op = losses[criterion](loss_weight, reduction)
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred_fake, pred_real):
+        num_d = len(pred_fake)
+        loss = 0.
+        for fake, real in zip(pred_fake, pred_real):
+            for j in range(len(fake) - 1):
+                loss = loss + self.loss_op(fake[j], real[j].detach()) / num_d
+        return loss * self.loss_weight
 
 
 def r1_penalty(real_pred, real_img):

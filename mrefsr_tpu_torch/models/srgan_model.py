@@ -214,6 +214,11 @@ class SRGANModel(SRModel):
             out_d_real=real_pred.detach().mean(),
             out_d_fake=fake_pred.detach().mean())
 
+    @staticmethod
+    def d_total(d_losses):
+        """The loss the discriminator steps on: ``l_d_real + l_d_fake``."""
+        return d_losses['l_d_real'] + d_losses['l_d_fake']
+
     def optimize_parameters(self, current_iter):
         """One GAN step on the batch of :meth:`feed_data` at iteration
         ``current_iter`` (1 on the first; module docstring)."""
@@ -240,7 +245,7 @@ class SRGANModel(SRModel):
         self.net_d.requires_grad_(True)
         self.optimizer_d.zero_grad(set_to_none=True)
         d_losses = self.d_losses(output.detach())
-        (d_losses['l_d_real'] + d_losses['l_d_fake']).backward()
+        self.d_total(d_losses).backward()
         if self.opt.get('dist'):
             all_reduce_grads_mean(self.net_d.parameters())
         self.optimizer_d.step()

@@ -36,6 +36,7 @@ from mrefsr_tpu_torch.convert import load_stylegan2_from_flax
 from mrefsr_tpu_torch.losses import (build_loss, g_path_regularize,
                                      r1_penalty)
 from mrefsr_tpu_torch.utils import imwrite, tensor2img
+from mrefsr_tpu_torch.utils.dist_util import get_dist_info
 from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY
 
 from .base_model import BaseModel
@@ -48,7 +49,10 @@ class StyleGAN2Model(BaseModel):
     """StyleGAN2 model. Weights come from ``path.pretrain_network_g`` /
     ``path.pretrain_network_d`` where those files are named, from
     :meth:`load_from_flax`, and otherwise from ``manual_seed``. Runs on
-    ``device`` (``cuda`` unless named)."""
+    ``device`` (``cuda`` unless named). Its validation samples the fixed
+    codes and takes no data (:attr:`validates_without_data`)."""
+
+    validates_without_data = True
 
     def __init__(self, opt, device=None):
         super().__init__(opt, device)
@@ -247,6 +251,13 @@ class StyleGAN2Model(BaseModel):
             output, _ = self.net_g_ema([self.fixed_sample],
                                        generator=self.generator)
         self.output = output.permute(0, 2, 3, 1)
+
+    def dist_validation(self, dataloader, current_iter, tb_logger,
+                        save_img):
+        """Rank 0 samples on its own."""
+        if get_dist_info()[0] == 0:
+            self.nondist_validation(dataloader, current_iter, tb_logger,
+                                    save_img)
 
     def nondist_validation(self, dataloader, current_iter, tb_logger,
                            save_img):

@@ -43,7 +43,10 @@ Where the JAX CLI's choices were the TPU's, this one decides otherwise:
   rank's device, and the loop goes on from its iteration and epoch. The
   handlers are put back as they were when the pipeline returns.
 * **Validation** goes through the model's ``validation``, sharded over the
-  ranks in a run of several.
+  ranks in a run of several. A model that validates without data
+  (``validates_without_data``: StyleGAN2's samples of fixed codes) does so
+  at ``val.val_freq`` when the options name no validation set, where the
+  JAX CLI, finding no loader, never validates it.
 
 The JAX CLI's XLA compilation cache and its ``profiler`` window have no
 counterpart here.
@@ -232,6 +235,9 @@ def train_pipeline(root_path, args=None):
         create_train_val_dataloader(opt, logger)
 
     model = build_model(opt, device=device)
+    if opt.get('val') and not val_loaders \
+            and getattr(model, 'validates_without_data', False):
+        val_loaders = [None]
     if resume_state:
         model.resume_training(resume_state)
         logger.info(f"Resuming training from epoch: {resume_state['epoch']}, "

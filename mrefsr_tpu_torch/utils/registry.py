@@ -9,13 +9,9 @@ package registers and the port does not yet (:data:`PENDING`) raises
 """
 
 # the JAX package's names the port has still to port, by registry, with
-# their ROADMAP items
-PENDING = {
-    'model': {'HiFaceGANModel': 'A11'},
-    'arch': {'DFDNet': 'A11', 'HiFaceGAN': 'A11', 'SPADEGenerator': 'A11',
-             'HiFaceGANDiscriminator': 'A11'},
-    'dataset': {'FFHQDataset': 'A11'},
-}
+# their ROADMAP items: none is left
+PENDING = {'model': {}, 'arch': {}, 'dataset': {}}
+
 
 class Registry:
     """Name -> object mapping supporting decorator-based registration.

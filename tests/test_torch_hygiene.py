@@ -141,6 +141,76 @@ def test_scan_covers_the_inference_modules():
     assert 'chip_smoke.py' in names
 
 
+def test_scan_covers_the_face_and_metric_modules():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ('archs/hifacegan_arch.py', 'archs/hifacegan_util.py',
+                   'archs/dfdnet_arch.py', 'archs/dfdnet_util.py',
+                   'archs/inception.py', 'models/hifacegan_model.py',
+                   'data/ffhq_dataset.py', 'inference/inference_dfdnet.py',
+                   'metrics/niqe.py', 'metrics/fid.py', 'metrics/lpips.py',
+                   'utils/matlab_functions.py',
+                   'model_conversion/convert_stylegan.py',
+                   'model_conversion/convert_dfdnet.py'):
+        assert f'mrefsr_tpu_torch/{module}' in names
+
+
+# the one file of the JAX package the port opens: data, read in place
+JAX_PACKAGE_DATA = REPO / 'mrefsr_tpu' / 'metrics' / 'niqe_pris_params.npz'
+DATA_SUFFIXES = ('.npz', '.npy', '.pth', '.pt', '.pkl', '.json', '.yml',
+                 '.yaml', '.txt', '.png', '.csv')
+
+
+def _string_constants(path):
+    """The string literals of ``path`` that are not docstrings."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body \
+                and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant):
+            docs.add(id(node.body[0].value))
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+def test_no_path_into_the_jax_package_but_the_niqe_parameters():
+    """No literal of the port or ``chip_smoke.py`` names a data file under
+    ``mrefsr_tpu/``, and the package's name stands alone as a path
+    component only in ``metrics/niqe.py``, which joins it into the path of
+    NIQE's pristine parameters."""
+    joined = set()
+    for path in PORT_FILES:
+        for value in _string_constants(path):
+            assert not (re.search(r'(^|/)mrefsr_tpu/', value)
+                        and value.endswith(DATA_SUFFIXES)), (path, value)
+            if value == 'mrefsr_tpu':
+                joined.add(str(path.relative_to(REPO)))
+    assert joined == {'mrefsr_tpu_torch/metrics/niqe.py'}
+    from mrefsr_tpu_torch.metrics import niqe
+    assert REPO / niqe.PRIS_PARAMS == JAX_PACKAGE_DATA
+
+
+def test_niqe_opens_only_its_parameters_in_the_jax_package(monkeypatch):
+    """``calculate_niqe`` from a cold cache opens one file under
+    ``mrefsr_tpu/``: its pristine parameters."""
+    import builtins
+    from mrefsr_tpu_torch.metrics import niqe
+    opened, real_open = [], builtins.open
+
+    def recording_open(file, *args, **kwargs):
+        opened.append(Path(os.fspath(file)).resolve())
+        return real_open(file, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, 'open', recording_open)
+    monkeypatch.setattr(niqe, '_PRIS_CACHE', {})
+    img = np.random.RandomState(0).rand(96, 96, 3).astype(np.float32) * 255
+    assert np.isfinite(niqe.calculate_niqe(img, crop_border=0))
+    inside = [p for p in opened if (REPO / 'mrefsr_tpu') in p.parents]
+    assert inside == [JAX_PACKAGE_DATA]
+
+
 def _tiny_opt():
     return {
         'model_type': 'MultiRefRestorationModel', 'manual_seed': 0,
@@ -194,13 +264,28 @@ def _tiny_train_opt():
     return opt
 
 
+def _tiny_hifacegan_opt():
+    return {
+        'model_type': 'HiFaceGANModel', 'manual_seed': 0, 'is_train': True,
+        'network_g': {'type': 'HiFaceGAN', 'num_feat': 2, 'crop_size': 32},
+        'network_d': {'type': 'HiFaceGANDiscriminator', 'num_feat': 2,
+                      'n_layers_d': 2},
+        'path': {},
+        'train': {'optim_g': {'type': 'Adam', 'lr': 1e-4},
+                  'optim_d': {'type': 'Adam', 'lr': 1e-4},
+                  'pixel_opt': {'type': 'L1Loss'},
+                  'gan_opt': {'type': 'MultiScaleGANLoss',
+                              'gan_type': 'hinge'}}}
+
+
 def test_model_refuses_what_is_not_ported():
     """Options of parts that are not ported raise and name the roadmap
     item; none is silently ignored. The options without any of them
     build, and so do they with the bf16 mixed precision of training and
     of eval, and with the GAN phase's keys (ROADMAP A4, ported). The names
-    of ROADMAP A8, A9 and A10 are registered. Every name the port refuses is
-    one the JAX package registers."""
+    of ROADMAP A8 to A11 are registered, and no model, net or dataset is
+    left to refuse (``PENDING``); the ``pack`` backend of A12 still is.
+    Every name the port refuses is one the JAX package registers."""
     from mrefsr_tpu.utils import registry as jax_registry
     from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY, PENDING
     assert build_model(_tiny_train_opt(), device='cpu').is_train
@@ -217,22 +302,18 @@ def test_model_refuses_what_is_not_ported():
         style_opt={'layer_weights': {'relu1_1': 1.0}, 'style_weight': 1.})
     model = build_model(opt, device='cpu')
     assert model.net_d is not None and model.cri_style is not None
-    for where, key, value, item in [
-            (None, 'model_type', 'HiFaceGANModel', 'ROADMAP A11'),
-            (None, 'network_d', {'type': 'HiFaceGANDiscriminator'},
-             'ROADMAP A11')]:
-        opt = _tiny_train_opt()
-        opt['train']['gan_type'] = 'wgan'
-        opt[key] = value
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(opt, device='cpu')
+    # the models, nets and dataset of ROADMAP A11 are ported: HiFaceGAN's
+    # model with its discriminator, and FFHQDataset, build
+    model = build_model(_tiny_hifacegan_opt(), device='cpu')
+    assert type(model).__name__ == 'HiFaceGANModel'
+    assert type(model.net_d).__name__ == 'HiFaceGANDiscriminator'
     # the models of ROADMAP A6-A10 are ported: SRModel, the video models,
     # SRGANModel, the video GAN models, ESRGAN, SwinIR's and Real-ESRGAN's
     for model_type in ('SRModel', 'VideoBaseModel', 'EDVRModel',
                        'VideoRecurrentModel', 'SRGANModel', 'VideoGANModel',
                        'VideoRecurrentGANModel', 'ESRGANModel',
                        'SwinIRModel', 'SwinIRGANModel', 'RealESRGANModel',
-                       'RealESRNetModel'):
+                       'RealESRNetModel', 'HiFaceGANModel'):
         assert MODEL_REGISTRY.get(model_type).__name__ == model_type
         assert model_type not in PENDING['model']
     from mrefsr_tpu_torch.data import build_dataset
@@ -251,8 +332,14 @@ def test_model_refuses_what_is_not_ported():
                     'RealESRGANPairedDataset'):
         assert DATASET_REGISTRY.get(dataset).__name__ == dataset
         assert dataset not in PENDING['dataset']
-    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
-        build_dataset({'type': 'FFHQDataset', 'name': 'FFHQ'})
+    for arch in ('HiFaceGAN', 'SPADEGenerator', 'HiFaceGANDiscriminator',
+                 'DFDNet'):
+        assert ARCH_REGISTRY.get(arch).__name__ == arch
+    assert type(build_dataset({
+        'type': 'FFHQDataset', 'name': 'FFHQ', 'dataroot_gt': str(REPO),
+        'num_images': 2, 'io_backend': {'type': 'disk'}, 'mean': [0.5],
+        'std': [0.5]})).__name__ == 'FFHQDataset'
+    assert PENDING == {'model': {}, 'arch': {}, 'dataset': {}}
     with pytest.raises(NotImplementedError, match='ROADMAP A12'):
         FileClient('pack', db_paths=['x.pack'])
     jax_names = {'model': jax_registry.MODEL_REGISTRY,

@@ -96,8 +96,10 @@ def test_build_loss_and_unknown_types():
                       GANLoss)
     with pytest.raises(NotImplementedError, match='not implemented'):
         GANLoss('wgan_gp')
+    assert isinstance(build_loss({'type': 'MultiScaleGANLoss',
+                                  'gan_type': 'hinge'}), GANLoss)
     with pytest.raises(KeyError, match='not ported'):
-        build_loss({'type': 'MultiScaleGANLoss', 'gan_type': 'hinge'})
+        build_loss({'type': 'NoSuchLoss', 'gan_type': 'hinge'})
 
 
 # ------------------------------------------------------ losses and updates
