@@ -32,7 +32,9 @@ phase runs several):
    ``nvidia-smi``;
 2. build: the CUDA sources built with ``nvcc`` from this checkout, with
    ``-Xptxas -v``'s registers, shared memory and spills; the profiler's
-   first start (seconds of CUPTI's set-up) in a thread beside it;
+   first start (seconds of CUPTI's set-up) and the packed-shard library
+   (``data/csrc/packio.cpp``, host code, built with ``g++`` and held to a
+   written and read shard) in threads beside it;
 3. feature_match_prologue (K1's unfold and norms, one kernel) against its
    plain PyTorch version: f32 within ``PROLOGUE_F32_TOL``; then
    feature_match (kernel K1, 3xTF32) against the plain match behind the
@@ -164,7 +166,10 @@ phase runs several):
     over iterations 11-60 from the host times of the log lines, the
     logger's time and data time, peak memory, K1 and K2 launched at bf16
     only in the training iterations and at f32 only in validation, a
-    finite PSNR; then the same model's step on one repeated batch;
+    finite PSNR; the CLI's profiler window over iterations 3 and 4
+    (``logger.profile_start_iter``, before the timed ones), its Chrome
+    trace read back, K1's and K2's kernels among its device events; then
+    the same model's step on one repeated batch;
     ``cli_test``: ``python -m mrefsr_tpu_torch.test`` on
     ``options/test/test_5ref_cufed5.yml`` with the run's
     ``net_g_latest.pth``, its saved outputs bit for bit this process's from
@@ -278,7 +283,16 @@ phase runs several):
     the CPU), ``cli_stylegan2`` (the FFHQ-256 recipe through
     ``train_pipeline`` on ``FFHQDataset``, a sample grid, a checkpoint and
     ``--auto_resume``; every K7 and K8 entry launched, counted by the
-    wrappers and by a profile) and ``face_metrics`` (FID's Inception
+    wrappers and by a profile), ``metrics_cli`` (the metric CLIs on its
+    faces: ``calculate_fid_stats_from_datasets``;
+    ``calculate_stylegan2_fid`` at its defaults, size 256, channel
+    multiplier 2, batch 64, 128 samples at truncation 1 and 0.7, from a
+    seeded ``params_ema`` checkpoint, K7 and K8 launches for one batch and
+    for the run, no plain version called; the first batch's images and
+    Inception features against the same codes and noise through the plain
+    versions, the FID against the plain run's; ``calculate_psnr_ssim``,
+    ``calculate_niqe``, ``calculate_lpips`` on seeded weight files and
+    ``calculate_fid_folder``) and ``face_metrics`` (FID's Inception
     features, LPIPS, each against the CPU; NIQE on the host);
 17. ddp: two ranks started with ``torch.multiprocessing`` (spawn) under
     the torchrun env contract, each joining through the port's
@@ -554,24 +568,47 @@ def _start_profiler_once():
 
 
 def phase_build(build):
-    """``build()`` (nvcc in processes of its own) with the profiler's
-    first start (:func:`_start_profiler_once`) in a thread beside it."""
+    """``build()`` (nvcc in processes of its own) with, in threads beside
+    it, the profiler's first start (:func:`_start_profiler_once`) and the
+    packed-shard library's ``g++`` build (``data/packio.py``, host code),
+    which must load and round-trip a shard."""
     import threading
+    from mrefsr_tpu_torch.data import packio
     t0 = time.perf_counter()
-    started = {}
+    started, packed = {}, {}
 
     def start_profiler():
         _start_profiler_once()
         started['s'] = time.perf_counter() - t0
 
-    profiler = threading.Thread(target=start_profiler)
-    profiler.start()
+    def build_packio():
+        path, built = packio.build()
+        shard = os.path.join(tempfile.mkdtemp(prefix='packio_'), 'a.pack')
+        try:
+            writer = packio.PackWriter(shard)
+            writer.put('key', b'value')
+            writer.close()
+            reader = packio.PackReader(shard)
+            packed.update(s=time.perf_counter() - t0, built=built,
+                          library=os.path.basename(path),
+                          read_back=reader.get('key') == b'value')
+            reader.close()
+        finally:
+            shutil.rmtree(os.path.dirname(shard), ignore_errors=True)
+
+    threads = [threading.Thread(target=fn)
+               for fn in (start_profiler, build_packio)]
+    for thread in threads:
+        thread.start()
     try:
         info = build()
     finally:
-        profiler.join()
+        for thread in threads:
+            thread.join()
     check('s' in started, 'the profiler did not start (see the thread\'s '
           'error above)')
+    check(packed.get('read_back'), f'the packio library did not build or '
+          f'read back a shard (see the thread\'s error above): {packed}')
     ptxas = {}
     for stem, rec in info.items():
         ptxas[stem] = [line.split(':', 1)[1].strip()
@@ -580,7 +617,7 @@ def phase_build(build):
                            'registers' in line or 'spill' in line)]
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
           'profiler_started_s': started['s'], 'built': sorted(info),
-          'ptxas': ptxas})
+          'packio': packed, 'ptxas': ptxas})
 
 
 # K1's prologue against its plain version on the same features: at f32 the
@@ -4664,6 +4701,36 @@ def _cli_serving(data, tmp, latest, kernels):
     return launches, rec
 
 
+# the training CLI's profiler window (logger.profile_start_iter and
+# profile_num_steps) in the cli run: iterations 3 and 4, before the timed
+# ones (CLI_PRINT + 1 on)
+CLI_PROFILE_WINDOW = (3, 2)
+
+
+def _cli_profile_window(model):
+    """The Chrome trace the ``cli`` run's profiler window wrote under
+    ``<experiments_root>/tb_logger``, read back: its kernel events must
+    name K1's and K2's kernels."""
+    first, steps = CLI_PROFILE_WINDOW
+    path = os.path.join(model.opt['path']['experiments_root'], 'tb_logger',
+                        f'trace_iter{first}-{first + steps - 1}.json')
+    check(os.path.isfile(path), f'the profiler window wrote no {path}')
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    kernels = [e['name'] for e in events if e.get('cat') == 'kernel']
+    out = {'trace': os.path.basename(path),
+           'trace_bytes': os.path.getsize(path),
+           'kernel_events': len(kernels),
+           'k1_match_events': sum('match_kernel' in n for n in kernels),
+           'k1_prologue_events': sum('prologue_kernel' in n
+                                     for n in kernels),
+           'k2_events': sum('mdcn_fused::' in n for n in kernels)}
+    check(out['k1_match_events'] > 0 and out['k1_prologue_events'] > 0
+          and out['k2_events'] > 0,
+          f'the profiler window\'s trace names no K1 or K2 kernel: {out}')
+    return out
+
+
 def phase_cli(kernels, repeated_step_ms=None, lmr=None):
     """The shipped stage-3 bf16 YAML through the port's CLIs with the loader
     in the loop, on synthetic images: the device prefetcher's first batch;
@@ -4692,10 +4759,16 @@ def phase_cli(kernels, repeated_step_ms=None, lmr=None):
         _cli_prefetch_check(data, tmp, device)
 
         experiments = os.path.join(tmp, 'experiments')
+        first, steps = CLI_PROFILE_WINDOW
         model, train_launches, launches, rec = _cli_train(
             train_pipeline, tmp, _cli_args(
                 CLI_TRAIN_YML, data, experiments, CLI_ITERS, CLI_PRINT,
-                CLI_SAVE, CLI_ITERS), kernels, TRAIN_B, CLI_PRINT, CLI_ITERS)
+                CLI_SAVE, CLI_ITERS, f'logger:profile_start_iter={first}',
+                f'logger:profile_num_steps={steps}'), kernels, TRAIN_B,
+            CLI_PRINT, CLI_ITERS)
+        check(first + steps - 1 <= CLI_PRINT,
+              'the profiled iterations must lie outside the timed ones')
+        rec['profile_window'] = _cli_profile_window(model)
         by_path['cli'] = launches
         expect = _entries(('match', 'k2', 'k2_bwd'), BF16)
         val_launches = {n: launches[n] - train_launches[n] for n in launches}
@@ -8497,10 +8570,357 @@ def phase_face_metrics(kernels):
     return launches
 
 
+# metrics_cli: calculate_stylegan2_fid at its defaults (the FFHQ-256
+# recipe's generator: size 256, channel multiplier 2, 512-wide style, an
+# 8-layer MLP; batch 64) on SG2_FID_SAMPLES samples, at truncation 1 and
+# at SG2_FID_TRUNCATION over the mean of 4096 codes, against the statistics
+# of the cli_stylegan2 phase's 64 faces; the other metric CLIs on
+# METRIC_CLI_PAIRS of those faces and degraded copies
+SG2_FID_SIZE, SG2_FID_B, SG2_FID_SAMPLES = 256, 64, 128
+SG2_FID_TRUNCATION, SG2_FID_MEAN = 0.7, 4096
+METRIC_CLI_PAIRS = 8
+# the first batch through the kernels against the same codes and noise
+# through the plain versions: images as SG2_TOL; their Inception features
+# (max |kernel - plain| / max |plain|); the FID of the run at truncation
+# 0.7 against the plain run's (|difference| / plain)
+SG2_FID_FEATURE_TOL = 1e-4
+SG2_FID_TOL = 1e-3
+
+
+def _counting(module, name, counts):
+    """``module.name`` wrapped to count its calls into ``counts[name]``."""
+    fn = getattr(module, name)
+    counts[name] = 0
+
+    def counted(*args, **kwargs):
+        counts[name] += 1
+        return fn(*args, **kwargs)
+
+    return mock.patch.object(module, name, counted)
+
+
+def _sg2_fid_checkpoint(root, arch):
+    """A seeded FFHQ-256 generator (live noise strengths and biases) saved
+    as ``params_ema`` in the reference layout."""
+    net = arch.StyleGAN2Generator(SG2_FID_SIZE, 512, 8, channel_multiplier=2)
+    gen = torch.Generator().manual_seed(SEED + 95)
+    net.init_weights(gen)
+    _liven(net, gen)
+    path = os.path.join(root, 'stylegan2_ffhq256_seeded.pth')
+    torch.save({'params_ema': net.state_dict()}, path)
+    return path
+
+
+def _sg2_fid_first_batch(sg2_fid, ckpt, arch, ops_upfirdn2d, fused_act,
+                         kernels):
+    """The first batch of ``main``'s run at SG2_FID_TRUNCATION (seed 0: the
+    mean latent's codes, then the batch's codes, then its noise layer by
+    layer), its noise drawn here and passed in: the images through the
+    kernels (those of the generator's own draws, within SG2_TOL), their
+    launches,
+    and the images and Inception features against the plain versions."""
+    from mrefsr_tpu_torch.metrics import (extract_inception_features,
+                                          load_patched_inception_v3)
+    device = torch.device('cuda', torch.cuda.current_device())
+    net = sg2_fid.build_generator(ckpt, SG2_FID_SIZE, 2, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    latent = sg2_fid.mean_latent(net, torch.randn(
+        (SG2_FID_MEAN, 512), generator=gen, device=device))
+    z = torch.randn((SG2_FID_B, 512), generator=gen, device=device)
+    state = gen.get_state()
+    noise = [torch.randn((SG2_FID_B, 1, 2 ** ((i + 5) // 2),
+                          2 ** ((i + 5) // 2)), generator=gen, device=device)
+             for i in range(net.num_layers)]
+    gen.set_state(state)
+    reset_counts(kernels)
+    imgs = sg2_fid.sample(net, z, SG2_FID_TRUNCATION, latent, noise=noise)
+    torch.cuda.synchronize()
+    launches = read_counts(kernels, ('upfirdn2d_fwd', 'fused_leaky_relu_fwd'))
+    drawn = sg2_fid.sample(net, z, SG2_FID_TRUNCATION, latent, generator=gen)
+    # the transposed convs' cuDNN algorithms need not repeat to the bit; a
+    # different noise would move the images by about its strength, 0.1
+    drawn_err = float((imgs - drawn).abs().max() / drawn.abs().max())
+    check(drawn_err <= SG2_TOL, f'metrics_cli: the noise drawn here is not '
+          f'the noise the generator draws: {drawn_err}')
+    with _plain_ops(arch, ops_upfirdn2d, fused_act):
+        plain = sg2_fid.sample(net, z, SG2_FID_TRUNCATION, latent,
+                               noise=noise)
+    inception = load_patched_inception_v3(device=device)
+    feats, plain_feats = (extract_inception_features([x], inception)
+                          for x in (imgs, plain))
+    rec = {'batch_own_draws_rel_err': drawn_err,
+           'batch_images_rel_err': float((imgs - plain).abs().max()
+                                         / plain.abs().max()),
+           'batch_features_rel_err': float(
+               np.abs(feats - plain_feats).max() / np.abs(plain_feats).max()),
+           'batch_images_range': [float(imgs.min()), float(imgs.max())]}
+    check(rec['batch_images_rel_err'] <= SG2_TOL
+          and rec['batch_features_rel_err'] <= SG2_FID_FEATURE_TOL
+          and imgs.shape == (SG2_FID_B, SG2_FID_SIZE, SG2_FID_SIZE, 3)
+          and bool(torch.isfinite(imgs).all()),
+          f'metrics_cli: the first batch against the plain versions: {rec}')
+    return rec, {n: v for n, v in launches.items() if v}
+
+
+def _metric_cli_folders(root, faces):
+    """``gt``: the first METRIC_CLI_PAIRS faces; ``restored``: every face
+    blurred and noised (seeded), the first METRIC_CLI_PAIRS in ``restored8``.
+    Returns the three folders."""
+    import cv2
+    rng = np.random.RandomState(SEED + 96)
+    out = {name: os.path.join(root, name) for name in ('gt8', 'restored',
+                                                       'restored8')}
+    for folder in out.values():
+        os.makedirs(folder)
+    for i, name in enumerate(sorted(os.listdir(faces))):
+        img = cv2.imread(os.path.join(faces, name))
+        degraded = np.clip(cv2.GaussianBlur(img, (5, 5), 1.2)
+                           + rng.randn(*img.shape) * 6, 0, 255).astype(
+                               np.uint8)
+        cv2.imwrite(os.path.join(out['restored'], name), degraded)
+        if i < METRIC_CLI_PAIRS:
+            cv2.imwrite(os.path.join(out['gt8'], name), img)
+            cv2.imwrite(os.path.join(out['restored8'], name), degraded)
+    return out
+
+
+def _lpips_files(root):
+    """Seeded LPIPS weights as the official ``vgg.pth`` (the heads) and a
+    torchvision ``vgg16`` state dict (the tower), the layout the LPIPS CLI
+    reads."""
+    from mrefsr_tpu_torch.archs.vgg_arch import NAMES
+    from mrefsr_tpu_torch.metrics.lpips import build_lpips
+    state = build_lpips(device='cpu', seed=SEED + 97).state_dict()
+    index = {name: i for i, name in enumerate(NAMES['vgg16'])}
+    heads = os.path.join(root, 'lpips_vgg.pth')
+    tower = os.path.join(root, 'vgg16.pth')
+    torch.save({k: v for k, v in state.items() if k.startswith('lin')},
+               heads)
+    torch.save({f'features.{index[k.split(".")[2]]}.{k.split(".")[3]}': v
+                for k, v in state.items() if k.startswith('vgg.')}, tower)
+    return heads, tower
+
+
+# a metric CLI's main in a process of its own: argv[1] the module,
+# argv[2] 'plain' (StyleGAN2 through the plain versions of K7 and K8) or
+# 'kernels', the rest the CLI's; its last line the result, the K7 / K8
+# launches and (with the kernels) the plain versions' calls
+_METRIC_CHILD = """
+import contextlib, importlib, json, sys
+from unittest import mock
+from mrefsr_tpu_torch.archs import stylegan2_arch
+from mrefsr_tpu_torch.ops import fused_act
+ups = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
+kernels = {n: getattr(m, n + '_kernel') for m, names in (
+    (ups, ('upfirdn2d_fwd', 'upfirdn2d_bwd', 'upfirdn2d_bwd2')),
+    (fused_act, ('fused_leaky_relu_fwd', 'fused_leaky_relu_bwd',
+                 'fused_leaky_relu_bwd2'))) for n in names}
+plain_calls = {}
+
+
+def counted(module, name):
+    fn = getattr(module, name)
+    plain_calls[name] = 0
+
+    def call(*args, **kwargs):
+        plain_calls[name] += 1
+        return fn(*args, **kwargs)
+
+    return mock.patch.object(module, name, call)
+
+
+with contextlib.ExitStack() as stack:
+    if sys.argv[2] == 'plain':
+        stack.enter_context(mock.patch.object(stylegan2_arch, 'upfirdn2d',
+                                              ups.upfirdn2d_ref))
+        stack.enter_context(mock.patch.object(
+            stylegan2_arch, 'fused_leaky_relu',
+            fused_act.fused_leaky_relu_ref))
+    else:
+        stack.enter_context(counted(ups, '_upfirdn2d_plain'))
+        stack.enter_context(counted(fused_act, 'fused_leaky_relu_ref'))
+    result = importlib.import_module(sys.argv[1]).main(sys.argv[3:])
+print(json.dumps({'result': float(result), 'plain_calls': plain_calls,
+                  'launches': {n: k.launches for n, k in kernels.items()}}))
+"""
+_METRICS = 'mrefsr_tpu_torch.scripts.metrics.'
+
+
+def _metric_child(root, name, module, mode, argv):
+    """:data:`_METRIC_CHILD` started on ``module``'s main; returns the
+    process, its log file and the log's path."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    log_path = os.path.join(root, f'metrics_cli_{name}.log')
+    # scipy's sqrtm is one host thread but for its Schur step: BLAS threads
+    # a process would only fight the other processes' for the cores
+    env = dict(os.environ, OMP_NUM_THREADS='1', OPENBLAS_NUM_THREADS='1',
+               MKL_NUM_THREADS='1')
+    out = open(log_path, 'w')
+    try:
+        return subprocess.Popen(
+            [sys.executable, '-c', _METRIC_CHILD, _METRICS + module, mode,
+             *argv], cwd=repo, env=env, stdout=out,
+            stderr=subprocess.STDOUT, text=True), out, log_path
+    except BaseException:
+        out.close()
+        raise
+
+
+def _metric_child_result(name, started):
+    """The JSON line of a :func:`_metric_child`, once it has exited 0, and
+    its seconds from its start."""
+    proc, out, log_path = started[name][:3]
+    code, log = _cli_wait(proc, out, log_path)
+    check(code == 0, f'metrics_cli {name} exited {code}:\n{log[-3000:]}')
+    out = json.loads([line for line in log.splitlines()
+                      if line.startswith('{"result"')][-1])
+    out['s'] = time.perf_counter() - started[name][3]
+    return out
+
+
+def phase_metrics_cli(kernels, root):
+    """``metrics_cli``: the port's metric CLIs through their ``main``, on the
+    card: ``calculate_fid_stats_from_datasets`` on the ``cli_stylegan2``
+    phase's 64 faces under ``root/ffhq``; ``calculate_stylegan2_fid`` at its
+    defaults from a seeded ``params_ema`` checkpoint, SG2_FID_SAMPLES
+    samples at SG2_FID_TRUNCATION here (every resampling and activation
+    through K7 and K8, launches counted for the run and for one batch; no
+    plain version called), its first batch held to the plain versions;
+    beside it, in processes of their own (each FID is scipy's ``sqrtm`` of
+    a 2048 x 2048 product, seconds of one host core), the run at
+    truncation 1 (counted there), the plain run at SG2_FID_TRUNCATION whose
+    FID the kernels' is held to, and ``calculate_fid_folder`` on degraded
+    copies of the faces; then ``calculate_psnr_ssim``, ``calculate_niqe``
+    and ``calculate_lpips`` here. Returns the launches of the two StyleGAN2
+    FID runs through the kernels."""
+    import importlib
+    from mrefsr_tpu_torch.archs import stylegan2_arch as arch
+    from mrefsr_tpu_torch.ops import fused_act
+    from mrefsr_tpu_torch.scripts.metrics import (
+        calculate_fid_stats_from_datasets, calculate_lpips, calculate_niqe,
+        calculate_psnr_ssim)
+    from mrefsr_tpu_torch.scripts.metrics import \
+        calculate_stylegan2_fid as sg2_fid
+    ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
+    t_phase = time.perf_counter()
+    faces = os.path.join(root, 'ffhq')
+    if not os.path.isdir(faces):
+        faces = _ffhq_folder(root)
+    rec = {'phase': 'metrics_cli', 'faces': len(os.listdir(faces))}
+    stats = os.path.join(root, 'inception_ffhq_256_faces.pth')
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    calculate_fid_stats_from_datasets.main([
+        '--dataroot', faces, '--size', str(SG2_FID_SIZE), '--num_sample',
+        str(rec['faces']), '--batch_size', str(SG2_FID_B), '--save', stats])
+    rec['stats_s'] = time.perf_counter() - t0
+    check(not any(read_counts(kernels, ()).values()),
+          'the FID statistics launched a kernel of this repository')
+
+    ckpt = _sg2_fid_checkpoint(root, arch)
+    folders = _metric_cli_folders(root, faces)
+    argv = [ckpt, stats, '--num_sample', str(SG2_FID_SAMPLES)]
+    cut = ['--truncation', str(SG2_FID_TRUNCATION), '--truncation_mean',
+           str(SG2_FID_MEAN)]
+    started = {}
+    try:
+        for name, module, mode, child_argv in (
+                ('truncation_1', 'calculate_stylegan2_fid', 'kernels', argv),
+                ('plain_run', 'calculate_stylegan2_fid', 'plain',
+                 argv + cut),
+                ('fid_folder', 'calculate_fid_folder', 'kernels',
+                 [folders['restored'], '--fid_stats', stats, '--batch_size',
+                  str(SG2_FID_B)])):
+            started[name] = (*_metric_child(root, name, module, mode,
+                                            child_argv), time.perf_counter())
+        name = f'truncation_{SG2_FID_TRUNCATION}'
+        plain_calls = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        with _counting(ops_upfirdn2d, '_upfirdn2d_plain', plain_calls), \
+                _counting(fused_act, 'fused_leaky_relu_ref', plain_calls):
+            fid = float(sg2_fid.main(argv + cut))
+        torch.cuda.synchronize()
+        launches = read_counts(kernels, ('upfirdn2d_fwd',
+                                         'fused_leaky_relu_fwd'))
+        rec[name] = {'fid': fid, 's': time.perf_counter() - t0,
+                     'peak_mem_bytes': torch.cuda.max_memory_allocated(),
+                     'launches': {n: v for n, v in launches.items() if v},
+                     'plain_calls': plain_calls}
+        batch, rec['launches_one_batch'] = _sg2_fid_first_batch(
+            sg2_fid, ckpt, arch, ops_upfirdn2d, fused_act, kernels)
+        rec.update(batch)
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        rec['psnr'], rec['ssim'] = calculate_psnr_ssim.main([
+            '--gt', folders['gt8'], '--restored', folders['restored8'],
+            '--crop_border', '4', '--test_y_channel'])
+        rec['niqe'] = calculate_niqe.main(['--input', folders['restored8']])
+        heads, tower = _lpips_files(root)
+        rec['lpips'] = calculate_lpips.main([
+            '--gt', folders['gt8'], '--restored', folders['restored8'],
+            '--lpips_weights', heads, '--vgg16_weights', tower])
+        rec['psnr_niqe_lpips_s'] = time.perf_counter() - t0
+        check(not any(read_counts(kernels, ()).values()),
+              'the PSNR / NIQE / LPIPS CLIs launched a kernel of this '
+              'repository')
+        for child in started:
+            rec[child] = _metric_child_result(child, started)
+    finally:
+        for proc, out, _, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    total = {n: launches[n] + rec['truncation_1']['launches'].get(n, 0)
+             for n in kernels}
+    for child, sg2 in (('truncation_1', True), ('plain_run', False),
+                       ('fid_folder', False)):
+        got = rec[child]['launches']
+        check(not any(rec[child]['plain_calls'].values()) and not any(
+            got[n] for n in SG2_KERNELS if 'bwd' in n or not sg2),
+              f'metrics_cli {child}: {rec[child]}')
+        check(not sg2 or (got['upfirdn2d_fwd'] > 0
+                          and got['fused_leaky_relu_fwd'] > 0),
+              f'metrics_cli {child} launched no K7 or K8: {rec[child]}')
+    check(not any(plain_calls.values()) and not any(
+        launches[n] for n in SG2_KERNELS if 'bwd' in n),
+          f'metrics_cli {name}: a plain version or a backward ran: '
+          f'{rec[name]}')
+    rec['fid_rel_err'] = abs(fid - rec['plain_run']['result']) \
+        / abs(rec['plain_run']['result'])
+    check(rec['fid_rel_err'] <= SG2_FID_TOL and np.isfinite(fid) and fid > 0
+          and rec['truncation_1']['result'] > 0,
+          f'metrics_cli: FID through the kernels against the plain run: '
+          f'{rec}')
+    check(all(np.isfinite(rec[k]) for k in ('psnr', 'ssim', 'niqe', 'lpips'))
+          and 10 < rec['psnr'] < 60 and rec['lpips'] > 0
+          and rec['fid_folder']['result'] > 0,
+          f'metrics_cli: the other CLIs: {rec}')
+    emit(dict(rec, seconds=time.perf_counter() - t_phase,
+              source='calculate_stylegan2_fid defaults (the FFHQ-256 '
+                     'recipe: size 256, channel multiplier 2, 512, 8-layer '
+                     'MLP, batch 64)',
+              samples=SG2_FID_SAMPLES, truncation_mean=SG2_FID_MEAN,
+              tolerances={'images': SG2_TOL,
+                          'features': SG2_FID_FEATURE_TOL,
+                          'fid': SG2_FID_TOL},
+              launches_both_runs={n: v for n, v in total.items() if v},
+              reduced=[f'{SG2_FID_SAMPLES} samples (50000 in the script)',
+                       f'statistics of {rec["faces"]} synthetic faces (FFHQ: '
+                       '70000; its published statistics are not in the '
+                       'repository)', 'seeded generator, Inception and '
+                       'LPIPS weights']))
+    return total
+
+
 def face_phases(build_model, arch, correlation, dcn, kernels):
     """The face family and the learned metrics: ``hifacegan_serve``,
     ``hifacegan_train``, ``dfdnet_serve``, ``cli_stylegan2``,
-    ``face_metrics``. Returns the launches by path."""
+    ``metrics_cli`` (on ``cli_stylegan2``'s faces), ``face_metrics``.
+    Returns the launches by path."""
     by_path = {'hifacegan_serve': phase_hifacegan_serve(kernels)}
     torch.cuda.empty_cache()
     by_path['hifacegan_train'] = phase_hifacegan_train(kernels)
@@ -8508,6 +8928,8 @@ def face_phases(build_model, arch, correlation, dcn, kernels):
         by_path['dfdnet_serve'] = phase_dfdnet_serve(kernels, root)
         torch.cuda.empty_cache()
         by_path['cli_stylegan2'] = phase_cli_stylegan2(kernels, root)
+        torch.cuda.empty_cache()
+        by_path['metrics_cli'] = phase_metrics_cli(kernels, root)
     torch.cuda.empty_cache()
     by_path['face_metrics'] = phase_face_metrics(kernels)
     return by_path

@@ -236,6 +236,52 @@ class ConvResidualBlocks(nn.Module):
         return self.main(x)
 
 
+class RefAwareBlock(nn.Module):
+    """A per-sample mixture of ``num_experts`` 3x3 convs (reference
+    arch_util.py:142-197; the JAX package's arch_util.py:135): from the
+    spatial mean of the concatenated (input, ref) features, a sigmoid
+    routing mixes the experts' kernels and biases, the sample's own kernel
+    is applied (all samples as one grouped conv), and an SE branch on the
+    same mean gates the result. The reference's parameter names: ``weight``
+    (E, out, in, 3, 3), ``bias`` (E, out), ``routing_func.0``, ``se.0``,
+    ``se.2``. On no registered arch."""
+
+    def __init__(self, out_channels=3, nf=64, ref_nf=256, num_experts=4):
+        super().__init__()
+        c = nf + ref_nf
+        self.out_channels = out_channels
+        self.weight = nn.Parameter(torch.empty(num_experts, out_channels, c,
+                                               3, 3))
+        self.bias = nn.Parameter(torch.empty(num_experts, out_channels))
+        self.routing_func = nn.Sequential(nn.Linear(c, num_experts))
+        self.se = nn.Sequential(nn.Conv2d(c, c, 1), nn.ReLU(),
+                                nn.Conv2d(c, out_channels, 1))
+
+    def init_weights(self, generator):
+        """The experts N(0, 0.02) with zero biases, the routing and SE
+        layers as torch initialises them."""
+        normal_(self.weight, 0.02, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+        torch_default_init_(self, generator)
+
+    def forward(self, x, ref, original_size=None):
+        x = torch.cat([x, ref], 1)
+        b, c, h, w = x.shape
+        if original_size is not None:
+            x_m = x[:, :, :original_size[0], :original_size[1]].mean((2, 3))
+        else:
+            x_m = x.mean((2, 3))
+        routing = torch.sigmoid(self.routing_func(x_m))
+        kernel = torch.einsum('be,eoihw->boihw', routing, self.weight)
+        bias = routing @ self.bias
+        out = F.conv2d(x.reshape(1, b * c, h, w),
+                       kernel.reshape(b * self.out_channels, c, 3, 3),
+                       bias.reshape(-1), padding=1, groups=b)
+        se = torch.sigmoid(self.se(x_m[:, :, None, None]))
+        return out.reshape(b, self.out_channels, h, w) * se
+
+
 class DCNv2Pack(nn.Module):
     """Modulated deformable conv whose offsets and masks come from a second
     feature map (JAX package arch_util.py:81-132, the reference's

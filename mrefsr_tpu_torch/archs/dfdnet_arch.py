@@ -86,6 +86,22 @@ def paste_indices(box, atom_hw, full_hw):
     return out
 
 
+def paste_nearest(atom, box, full_hw):
+    """``atom`` (C, h, w) pasted by :func:`paste_indices` into the ``box``
+    of a zero (1, C, H, W) map of ``full_hw``; returns the map and the
+    (1, 1, H, W) mask of the pasted pixels (the JAX package's
+    dfdnet_arch.py:74)."""
+    full = atom.new_zeros((1, atom.shape[0], *full_hw))
+    mask = atom.new_zeros((1, 1, *full_hw))
+    where = paste_indices(box, atom.shape[-2:], full_hw)
+    if where is not None:
+        (rows, iy), (cols, ix) = where
+        full[0, :, rows, cols] = atom[:, iy.to(atom.device)][
+            :, :, ix.to(atom.device)]
+        mask[..., rows, cols] = 1
+    return full, mask
+
+
 def load_dfdnet_dict(dict_path, device='cpu'):
     """The facial-component dictionary (``DictionaryCenter512.pth``):
     ``{'256': {'left_eye': (K, C, h, w), ...}, ...}`` as float32 tensors on

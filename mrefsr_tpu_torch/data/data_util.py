@@ -1,7 +1,7 @@
 """Crops, paths and frame indices of the datasets (port of
 ``mrefsr_tpu/data/data_util.py``, the reference's
 ``basicsr/data/data_util.py``); ``read_img_seq`` is in ``utils/img_util.py``.
-The ``pack`` paths wait for ``data/packio.py`` (ROADMAP A12)."""
+The ``pack`` paths read the keys of packed shards (``data/packio.py``)."""
 import os
 import os.path as osp
 
@@ -11,7 +11,8 @@ __all__ = ['duf_downsample', 'generate_frame_indices',
            'generate_gaussian_kernel', 'match_point_crop',
            'paired_paths_from_ann_file', 'paired_paths_from_folder',
            'paired_paths_from_lmdb', 'paired_paths_from_meta_info_file',
-           'paths_from_folder', 'paths_from_lmdb', 'scandir']
+           'paired_paths_from_pack', 'paths_from_folder', 'paths_from_lmdb',
+           'paths_from_pack', 'scandir']
 
 PADDINGS = ('replicate', 'reflection', 'reflection_circle', 'circle')
 
@@ -75,6 +76,33 @@ def paired_paths_from_lmdb(folders, keys):
                          'are different.')
     return [{f'{input_key}_path': key, f'{gt_key}_path': key}
             for key in sorted(input_keys)]
+
+
+def _pack_keys(path):
+    from .packio import PackReader
+    reader = PackReader(str(path))
+    try:
+        return reader.keys()
+    finally:
+        reader.close()
+
+
+def paired_paths_from_pack(pack_paths, keys):
+    """``[{'<input key>_path', '<gt key>_path'}]``: the keys of two packed
+    shards, which must be the same set, sorted (the JAX package's
+    data_util.py:103-119, ``paired_paths_from_lmdb`` over shards)."""
+    (input_pack, gt_pack), (input_key, gt_key) = pack_paths, keys
+    input_keys = set(_pack_keys(input_pack))
+    if input_keys != set(_pack_keys(gt_pack)):
+        raise ValueError(f'Keys in the {input_key} and {gt_key} packs are '
+                         'different.')
+    return [{f'{input_key}_path': key, f'{gt_key}_path': key}
+            for key in sorted(input_keys)]
+
+
+def paths_from_pack(pack_path):
+    """The keys of a packed shard, sorted."""
+    return sorted(_pack_keys(pack_path))
 
 
 def paired_paths_from_meta_info_file(folders, keys, meta_info_file,

@@ -52,6 +52,14 @@ def pdf2(sigma_matrix, grid):
     return np.exp(-0.5 * np.sum(np.dot(grid, inverse_sigma) * grid, 2))
 
 
+def cdf2(d_matrix, grid):
+    """The standard bivariate Gaussian's cdf at ``grid`` skewed by
+    ``d_matrix`` (reference :66-81)."""
+    from scipy.stats import multivariate_normal
+    rv = multivariate_normal([0, 0], [[1, 0], [0, 1]])
+    return rv.cdf(np.dot(grid, d_matrix))
+
+
 def _sigma(sig_x, sig_y, theta, isotropic):
     if isotropic:
         return np.array([[sig_x**2, 0], [0, sig_x**2]])
@@ -238,13 +246,21 @@ def add_gaussian_noise(img, sigma=10, clip=True, rounds=False,
     return _clip_round(img + noise, clip, rounds)
 
 
-def random_add_gaussian_noise(img, sigma_range=(0, 1.0), gray_prob=0,
-                              clip=True, rounds=False, *, np_rng):
-    """(reference :516-534)"""
+def random_generate_gaussian_noise(img, sigma_range=(0, 10), gray_prob=0,
+                                   *, np_rng):
+    """Gaussian noise of a sigma drawn from ``sigma_range``, gray with
+    probability ``gray_prob`` (reference :516-522)."""
     sigma = np_rng.uniform(sigma_range[0], sigma_range[1])
     gray_noise = np_rng.uniform() < gray_prob
-    return add_gaussian_noise(img, sigma, clip, rounds, gray_noise,
-                              np_rng=np_rng)
+    return generate_gaussian_noise(img, sigma, gray_noise, np_rng=np_rng)
+
+
+def random_add_gaussian_noise(img, sigma_range=(0, 1.0), gray_prob=0,
+                              clip=True, rounds=False, *, np_rng):
+    """(reference :525-534)"""
+    noise = random_generate_gaussian_noise(img, sigma_range, gray_prob,
+                                           np_rng=np_rng)
+    return _clip_round(img + noise, clip, rounds)
 
 
 def generate_poisson_noise(img, scale=1.0, gray_noise=False, *, np_rng):
@@ -270,13 +286,21 @@ def add_poisson_noise(img, scale=1.0, clip=True, rounds=False,
     return _clip_round(img + noise, clip, rounds)
 
 
-def random_add_poisson_noise(img, scale_range=(0, 1.0), gray_prob=0,
-                             clip=True, rounds=False, *, np_rng):
-    """(reference :686-704)"""
+def random_generate_poisson_noise(img, scale_range=(0, 1.0), gray_prob=0,
+                                  *, np_rng):
+    """Shot noise of a scale drawn from ``scale_range``, gray with
+    probability ``gray_prob`` (reference :686-692)."""
     scale = np_rng.uniform(scale_range[0], scale_range[1])
     gray_noise = np_rng.uniform() < gray_prob
-    return add_poisson_noise(img, scale, clip, rounds, gray_noise,
-                             np_rng=np_rng)
+    return generate_poisson_noise(img, scale, gray_noise, np_rng=np_rng)
+
+
+def random_add_poisson_noise(img, scale_range=(0, 1.0), gray_prob=0,
+                             clip=True, rounds=False, *, np_rng):
+    """(reference :695-704)"""
+    noise = random_generate_poisson_noise(img, scale_range, gray_prob,
+                                          np_rng=np_rng)
+    return _clip_round(img + noise, clip, rounds)
 
 
 def add_jpg_compression(img, quality=90):

@@ -2,9 +2,11 @@
 ``mrefsr_tpu/data/paired_image_dataset.py``, the reference's
 basicsr/data/paired_image_dataset.py and single_image_dataset.py): HWC RGB
 float32 in [0, 1] (or the Y channel with ``color: y``), normalised by
-``mean`` / ``std`` where given. Paths from an lmdb pair, a meta-info file
-or two folders. Training crops and flips draw from the dataset's own
-``random.Random(seed)``, in the JAX package's order."""
+``mean`` / ``std`` where given. Paths from an lmdb pair, a pair of packed
+shards (``io_backend: {type: pack}``, the dataroots naming the ``.pack``
+files), a meta-info file or two folders. Training crops and flips draw
+from the dataset's own ``random.Random(seed)``, in the JAX package's
+order."""
 import os.path as osp
 import random
 
@@ -16,8 +18,9 @@ from mrefsr_tpu_torch.utils.file_client import ensure_file_client
 from mrefsr_tpu_torch.utils.registry import DATASET_REGISTRY
 
 from .data_util import (paired_paths_from_folder, paired_paths_from_lmdb,
-                        paired_paths_from_meta_info_file, paths_from_folder,
-                        paths_from_lmdb)
+                        paired_paths_from_meta_info_file,
+                        paired_paths_from_pack, paths_from_folder,
+                        paths_from_lmdb, paths_from_pack)
 from .transforms import augment, paired_random_crop
 
 
@@ -25,12 +28,6 @@ def _normalise(img, mean, std):
     if mean is None and std is None:
         return img
     return (img - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
-
-
-def _refuse_pack(io_backend_opt):
-    if io_backend_opt['type'] == 'pack':
-        raise NotImplementedError("io_backend 'pack' is not ported yet "
-                                  '(ROADMAP A12)')
 
 
 @DATASET_REGISTRY.register()
@@ -48,11 +45,12 @@ class PairedImageDataset:
         self.gt_folder, self.lq_folder = opt['dataroot_gt'], opt['dataroot_lq']
         self.filename_tmpl = opt.get('filename_tmpl', '{}')
         folders, keys = [self.lq_folder, self.gt_folder], ['lq', 'gt']
-        _refuse_pack(self.io_backend_opt)
-        if self.io_backend_opt['type'] == 'lmdb':
+        if self.io_backend_opt['type'] in ('lmdb', 'pack'):
             self.io_backend_opt['db_paths'] = folders
             self.io_backend_opt['client_keys'] = keys
-            self.paths = paired_paths_from_lmdb(folders, keys)
+            self.paths = (paired_paths_from_lmdb(folders, keys)
+                          if self.io_backend_opt['type'] == 'lmdb'
+                          else paired_paths_from_pack(folders, keys))
         elif opt.get('meta_info_file') is not None:
             self.paths = paired_paths_from_meta_info_file(
                 folders, keys, opt['meta_info_file'], self.filename_tmpl)
@@ -102,11 +100,12 @@ class SingleImageDataset:
         self.io_backend_opt = dict(opt['io_backend'])
         self.mean, self.std = opt.get('mean'), opt.get('std')
         self.lq_folder = opt['dataroot_lq']
-        _refuse_pack(self.io_backend_opt)
-        if self.io_backend_opt['type'] == 'lmdb':
+        if self.io_backend_opt['type'] in ('lmdb', 'pack'):
             self.io_backend_opt['db_paths'] = [self.lq_folder]
             self.io_backend_opt['client_keys'] = ['lq']
-            self.paths = paths_from_lmdb(self.lq_folder)
+            self.paths = (paths_from_lmdb(self.lq_folder)
+                          if self.io_backend_opt['type'] == 'lmdb'
+                          else paths_from_pack(self.lq_folder))
         elif opt.get('meta_info_file') is not None:
             with open(opt['meta_info_file']) as fin:
                 self.paths = [osp.join(self.lq_folder,

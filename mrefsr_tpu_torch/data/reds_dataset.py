@@ -7,8 +7,9 @@ The random draws (interval, window, reverse, crop, flips) come from the
 dataset's own ``random.Random(seed)``, in the order of the JAX package's
 draws from python's global generator, so one seed gives both packages the
 same samples. REDS clips hold 100 frames, which the windows' bounds assume
-(``CLIP_FRAMES``), as the reference's do. Quantized flows
-(``dataroot_flow``) wait for ``utils/flow_util.py`` (ROADMAP A12)."""
+(``CLIP_FRAMES``), as the reference's do. ``REDSDataset`` also reads the
+quantized flows of ``dataroot_flow`` (the ``flow`` client key), as the
+JAX package's does."""
 import random
 from pathlib import Path
 
@@ -16,6 +17,7 @@ import numpy as np
 
 from mrefsr_tpu_torch.utils import imfrombytes, img2tensor
 from mrefsr_tpu_torch.utils.file_client import ensure_file_client
+from mrefsr_tpu_torch.utils.flow_util import dequantize_flow
 from mrefsr_tpu_torch.utils.logger import get_root_logger
 from mrefsr_tpu_torch.utils.registry import DATASET_REGISTRY
 
@@ -53,9 +55,6 @@ class _REDSBase:
         self.rng = random.Random(seed)
         self.gt_root = Path(opt['dataroot_gt'])
         self.lq_root = Path(opt['dataroot_lq'])
-        if opt.get('dataroot_flow') is not None:
-            raise NotImplementedError('REDS flows (dataroot_flow) are not '
-                                      'ported yet (ROADMAP A12)')
         self.keys = _meta_keys(opt['meta_info_file'])
         self.file_client = None
         self.io_backend_opt = dict(opt['io_backend'])
@@ -87,10 +86,17 @@ class REDSDataset(_REDSBase):
     ``interval_list``), the window moved inside the clip where it would
     cross an end, reversed with probability 1/2 under
     ``random_reverse``; then one crop and one flip / transpose draw for
-    all."""
+    all. With ``dataroot_flow`` the sample also holds ``flow``, (T, h, w,
+    2): the quantized flows of the centre frame to its previous neighbours,
+    then to its next ones, zeros at the centre."""
 
     def __init__(self, opt, seed=None):
         super().__init__(opt, seed)
+        self.flow_root = (Path(opt['dataroot_flow'])
+                          if opt.get('dataroot_flow') is not None else None)
+        if self.is_lmdb and self.flow_root is not None:
+            self.io_backend_opt['db_paths'].append(self.flow_root)
+            self.io_backend_opt['client_keys'].append('flow')
         if opt['num_frame'] % 2 != 1:
             raise ValueError(f'num_frame should be odd number, but got '
                              f'{opt["num_frame"]}')
@@ -121,15 +127,45 @@ class REDSDataset(_REDSBase):
             neighbor_list.reverse()
         img_gt, img_gt_path = self._read('gt', clip_name, center)
         img_lqs = [self._read('lq', clip_name, n)[0] for n in neighbor_list]
-        img_gt, img_lqs = paired_random_crop(img_gt, img_lqs,
-                                             self.opt['gt_size'],
-                                             self.opt['scale'], img_gt_path,
-                                             rng=rng)
+        flows = None if self.flow_root is None else self._flows(clip_name,
+                                                                center)
+        img_gt, img_lqs = paired_random_crop(
+            img_gt, img_lqs + (flows or []), self.opt['gt_size'],
+            self.opt['scale'], img_gt_path, rng=rng)
+        if flows is not None:
+            img_lqs, flows = img_lqs[:self.num_frame], img_lqs[self.num_frame:]
         img_lqs.append(img_gt)
-        results = img2tensor(augment(img_lqs, self.opt['use_hflip'],
-                                     self.opt['use_rot'], rng=rng))
-        return {'lq': np.stack(results[:-1], axis=0), 'gt': results[-1],
-                'key': key}
+        if flows is None:
+            img_lqs = augment(img_lqs, self.opt['use_hflip'],
+                              self.opt['use_rot'], rng=rng)
+        else:
+            img_lqs, flows = augment(img_lqs, self.opt['use_hflip'],
+                                     self.opt['use_rot'], flows, rng=rng)
+        results = img2tensor(img_lqs)
+        out = {'lq': np.stack(results[:-1], axis=0), 'gt': results[-1],
+               'key': key}
+        if flows is not None:
+            flows.insert(half, np.zeros_like(flows[0]))
+            out['flow'] = np.stack([f.astype(np.float32) for f in flows], 0)
+        return out
+
+    def _flows(self, clip, center):
+        """The dequantized flows of frame ``center``: to its previous
+        neighbours, nearest last, then to its next ones, nearest first."""
+        half = self.num_half_frames
+        flows = []
+        for tag, steps in (('p', range(half, 0, -1)),
+                           ('n', range(1, half + 1))):
+            for i in steps:
+                name = f'{center:08d}_{tag}{i}'
+                path = (f'{clip}/{name}' if self.is_lmdb
+                        else self.flow_root / clip / f'{name}.png')
+                cat_flow = imfrombytes(self.file_client.get(path, 'flow'),
+                                       flag='grayscale')
+                dx, dy = np.split(cat_flow, 2, axis=0)
+                flows.append(dequantize_flow(dx, dy, max_val=20,
+                                             denorm=False))
+        return flows
 
 
 @DATASET_REGISTRY.register()

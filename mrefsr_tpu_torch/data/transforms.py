@@ -3,7 +3,7 @@
 ``basicsr/data/transforms.py:6-158``). ``paired_random_crop`` and
 ``augment`` draw from the ``random.Random`` their caller passes, where the
 JAX package draws from python's global generator: the same seed gives the
-same draws. ``img_rotate`` is on no dataset's path and is not ported."""
+same draws. ``img_rotate`` (on no dataset's path) rotates with OpenCV."""
 import numpy as np
 
 
@@ -94,3 +94,15 @@ def augment(imgs, hflip=True, rotation=True, flows=None,
     if return_status:
         return imgs, (hflip, vflip, rot90)
     return imgs
+
+
+def img_rotate(img, angle, center=None, scale=1.0):
+    """``img`` turned ``angle`` degrees counter-clockwise about ``center``
+    (the middle by default) and scaled, with OpenCV's ``warpAffine``
+    (reference transforms.py:161-179)."""
+    import cv2
+    h, w = img.shape[:2]
+    if center is None:
+        center = ((w - 1) * 0.5, (h - 1) * 0.5)
+    matrix = cv2.getRotationMatrix2D(center, angle, scale)
+    return cv2.warpAffine(img, matrix, (w, h))

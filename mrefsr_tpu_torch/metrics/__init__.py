@@ -1,7 +1,7 @@
 """Image quality metrics of the port (port of ``mrefsr_tpu/metrics``):
 PSNR and SSIM on BGR uint8 images (numpy) and their batched versions on
-NHWC tensors (``*_pt``); NIQE (numpy, the pristine model read from the
-JAX package's data file); FID (the Inception features on the device, the
+NHWC tensors (``*_pt``); NIQE (numpy, the pristine model from the
+package's own data file); FID (the Inception features on the device, the
 distance in scipy); LPIPS (VGG16 on the device). Each ``calculate_*``
 dispatches by a YAML's ``type:`` through :func:`calculate_metric`."""
 from copy import deepcopy

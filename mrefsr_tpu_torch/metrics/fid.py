@@ -40,15 +40,33 @@ def load_patched_inception_v3(weights_path=None, resize_input=True,
 def extract_inception_features(data_generator, inception,
                                len_generator=None):
     """The (N, 2048) float32 features of every batch of
-    ``data_generator`` (NHWC arrays or tensors in [0, 1]) through
-    ``inception`` on its device (reference fid.py:19-47)."""
+    ``data_generator`` (NHWC arrays, or tensors on any device, in the
+    range ``inception`` takes) through ``inception`` on its device
+    (reference fid.py:19-47). A tensor on that device is used in place."""
     device = next(inception.parameters()).device
     features = []
     for data in data_generator:
-        x = torch.as_tensor(np.asarray(data, np.float32), device=device)
+        if torch.is_tensor(data):
+            x = data.to(device=device, dtype=torch.float32)
+        else:
+            x = torch.as_tensor(np.asarray(data, np.float32), device=device)
         feat = inception(x.permute(0, 3, 1, 2))[0]
         features.append(feat.reshape(feat.shape[0], -1).cpu().numpy())
     return np.concatenate(features, axis=0)
+
+
+def load_fid_stats(path):
+    """``(mean, cov)`` as float64 arrays from a statistics ``.pth`` (a
+    dict with ``mean`` and ``cov``), numpy arrays as the reference and
+    the stats CLI write them, or tensors. The file is read with
+    ``weights_only``, numpy's arrays allowed."""
+    core = getattr(np, '_core', None) or np.core
+    allowed = [core.multiarray._reconstruct, np.ndarray, np.dtype,
+               type(np.dtype(np.float64)), type(np.dtype(np.float32))]
+    with torch.serialization.safe_globals(allowed):
+        stats = torch.load(path, map_location='cpu', weights_only=True)
+    return (np.asarray(stats['mean'], np.float64),
+            np.asarray(stats['cov'], np.float64))
 
 
 @METRIC_REGISTRY.register()

@@ -1,9 +1,8 @@
 """NIQE, the Natural Image Quality Evaluator (copy of
 ``mrefsr_tpu/metrics/niqe.py``, the reference's basicsr/metrics/niqe.py:
-13-197), numpy and scipy on the host. The pristine model's parameters are
-the JAX package's data file ``mrefsr_tpu/metrics/niqe_pris_params.npz``
-(the LIVE lab's release), read in place (:data:`PRIS_PARAMS`): the one
-file of that package the port opens, and it imports nothing of it."""
+13-197), numpy and scipy on the host. The pristine model's parameters (the
+LIVE lab's release) are the package's own data file beside this module,
+:data:`PRIS_PARAMS`."""
 import math
 import os
 
@@ -16,17 +15,16 @@ from mrefsr_tpu_torch.utils.registry import METRIC_REGISTRY
 
 from .metric_util import reorder_image, to_y_channel
 
-# the pristine parameters, relative to the repository's root
-PRIS_PARAMS = os.path.join('mrefsr_tpu', 'metrics', 'niqe_pris_params.npz')
+# the pristine parameters
+PRIS_PARAMS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'niqe_pris_params.npz')
 _PRIS_CACHE = {}
 
 
 def pris_params():
     """``(mu_pris_param, cov_pris_param, gaussian_window)``, read once."""
     if not _PRIS_CACHE:
-        root = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))))
-        with np.load(os.path.join(root, PRIS_PARAMS)) as f:
+        with np.load(PRIS_PARAMS) as f:
             _PRIS_CACHE.update(mu=f['mu_pris_param'],
                                cov=f['cov_pris_param'],
                                window=f['gaussian_window'])

@@ -48,8 +48,13 @@ Where the JAX CLI's choices were the TPU's, this one decides otherwise:
   at ``val.val_freq`` when the options name no validation set, where the
   JAX CLI, finding no loader, never validates it.
 
-The JAX CLI's XLA compilation cache and its ``profiler`` window have no
-counterpart here.
+* **Profiler window.** ``logger.profile_start_iter`` (with
+  ``profile_num_steps`` and ``profile_dir``) profiles that many iterations
+  from the first at or past it with ``torch.profiler`` and writes a Chrome
+  trace under ``<experiments_root>/tb_logger/`` (``utils/profiler.py``),
+  as the JAX CLI's ``jax.profiler`` window.
+
+The JAX CLI's XLA compilation cache has no counterpart here.
 """
 import datetime
 import logging
@@ -74,6 +79,7 @@ from mrefsr_tpu_torch.utils.misc import (check_resume, get_time_str,
                                          scandir)
 from mrefsr_tpu_torch.utils.options import (copy_opt_file, dict2str,
                                             parse_options)
+from mrefsr_tpu_torch.utils.profiler import StepProfiler
 
 PREFETCH_MODES = (None, 'cpu', 'cuda', 'device')
 
@@ -262,6 +268,7 @@ def train_pipeline(root_path, args=None):
     logger.info(f'Start training from epoch: {start_epoch}, '
                 f'iter: {current_iter}')
     data_timer, iter_timer = AvgTimer(), AvgTimer()
+    profiler = StepProfiler(opt)
     start_time = time.time()
     start_iter = current_iter
     preempt = _Preemption()
@@ -276,8 +283,10 @@ def train_pipeline(root_path, args=None):
                 current_iter += 1
                 model.update_learning_rate(current_iter,
                                            warmup_iter=warmup_iter)
+                profiler.maybe_start(current_iter)
                 model.feed_data(train_data)
                 model.optimize_parameters(current_iter)
+                profiler.maybe_stop(current_iter)
                 iter_timer.record()
                 if current_iter == start_iter + 1:
                     msg_logger.reset_start_time()
@@ -307,6 +316,7 @@ def train_pipeline(root_path, args=None):
                 return model
             epoch += 1
 
+        profiler.close(current_iter)    # before the last save and validation
         consumed = str(datetime.timedelta(seconds=int(time.time()
                                                       - start_time)))
         logger.info(f'End of training. Time consumed: {consumed}')
@@ -318,6 +328,8 @@ def train_pipeline(root_path, args=None):
                                  save_img)
         return model
     finally:
+        # writes a window still open when the loop ends, however it ends
+        profiler.close(current_iter)
         preempt.restore()
         prefetcher.close()
         if tb_logger:

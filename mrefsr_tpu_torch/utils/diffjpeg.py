@@ -65,6 +65,62 @@ def _block_merge(blocks, height, width):
         .permute(0, 1, 3, 2, 4).reshape(b, height, width)
 
 
+def constants_on(device):
+    """The codec's tables, basis and colour matrices as tensors on
+    ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in _CONSTANTS.items()}
+
+
+def _factor(factor, b, device):
+    return torch.as_tensor(factor, dtype=torch.float32,
+                           device=device).expand(b).reshape(b, 1, 1)
+
+
+def compress_jpeg(x, factor, rounding=torch.round, const=None):
+    """NHWC RGB in [0, 1] (height and width multiples of 16) -> the
+    quantised 8 x 8 DCT blocks of Y, Cb and Cr, each (B, blocks, 8, 8) in
+    raster order; ``factor`` a number or one a sample (reference
+    CompressJpeg, diffjpeg.py:208-245). ``const``: :func:`constants_on`
+    of ``x``'s device, made here where not given."""
+    const = constants_on(x.device) if const is None else const
+    b, hh, ww, _ = x.shape
+    factor = _factor(factor, b, x.device)
+    ycbcr = torch.tensordot(x * 255., const['rgb2ycbcr'], dims=1) \
+        + const['ycbcr_shift']
+    planes = [ycbcr[..., 0]]
+    for i in (1, 2):
+        planes.append(ycbcr[..., i].reshape(
+            b, hh // 2, 2, ww // 2, 2).mean(dim=(2, 4)))
+    dct, alpha = const['dct'], const['alpha'].reshape(64)
+    out = []
+    for plane, table in zip(planes, ('y_table', 'c_table', 'c_table')):
+        quant = const[table].reshape(64) * factor
+        blocks = 0.25 * alpha * ((_block_split(plane) - 128) @ dct)
+        out.append(rounding(blocks / quant).reshape(b, -1, 8, 8))
+    return tuple(out)
+
+
+def decompress_jpeg(y, cb, cr, imgh, imgw, factor, const=None):
+    """The inverse of :func:`compress_jpeg`: the blocks dequantised, the
+    inverse DCT, the chroma repeated 2 x 2, NHWC RGB clipped to [0, 1]
+    (reference DeCompressJpeg, diffjpeg.py:401-446)."""
+    const = constants_on(y.device) if const is None else const
+    b = y.shape[0]
+    factor = _factor(factor, b, y.device)
+    dct, alpha = const['dct'], const['alpha'].reshape(64)
+    out = []
+    for comp, table, (h, w) in ((y, 'y_table', (imgh, imgw)),
+                                (cb, 'c_table', (imgh // 2, imgw // 2)),
+                                (cr, 'c_table', (imgh // 2, imgw // 2))):
+        deq = comp.reshape(b, -1, 64) * (const[table].reshape(64) * factor)
+        rec = 0.25 * ((deq * alpha) @ dct.t()) + 128
+        out.append(_block_merge(rec, h, w))
+    up = [p.repeat_interleave(2, 1).repeat_interleave(2, 2) for p in out[1:]]
+    ycbcr = torch.stack([out[0], *up], dim=-1) - const['ycbcr_shift']
+    rgb = torch.tensordot(ycbcr, const['ycbcr2rgb'], dims=1)
+    return torch.clamp(rgb, 0., 255.) / 255.
+
+
 class DiffJPEG:
     """JPEG round trip of NHWC RGB batches in [0, 1] (reference DiffJPEG,
     diffjpeg.py:449-478); ``quality`` is a (B,) tensor of qualities, one a
@@ -74,38 +130,16 @@ class DiffJPEG:
         self.rounding = diff_round if differentiable else torch.round
         self._on = {}
 
-    def _constants(self, device):
-        if device not in self._on:
-            self._on[device] = {k: torch.from_numpy(v).to(device)
-                                for k, v in _CONSTANTS.items()}
-        return self._on[device]
-
     def __call__(self, x, quality):
-        const = self._constants(x.device)
+        if x.device not in self._on:
+            self._on[x.device] = constants_on(x.device)
+        const = self._on[x.device]
         b, h, w, _ = x.shape
         quality = torch.as_tensor(quality, dtype=torch.float32,
                                   device=x.device).expand(b)
-        factor = quality_to_factor(quality).view(b, 1, 1)
+        factor = quality_to_factor(quality)
         h_pad, w_pad = (16 - h % 16) % 16, (16 - w % 16) % 16
         x = torch.nn.functional.pad(x, (0, 0, 0, w_pad, 0, h_pad))
-        hh, ww = h + h_pad, w + w_pad
-        ycbcr = torch.tensordot(x * 255., const['rgb2ycbcr'], dims=1) \
-            + const['ycbcr_shift']
-        planes = [ycbcr[..., 0]]
-        for i in (1, 2):
-            planes.append(ycbcr[..., i].reshape(
-                b, hh // 2, 2, ww // 2, 2).mean(dim=(2, 4)))
-        dct, alpha = const['dct'], const['alpha'].reshape(64)
-        out = []
-        for plane, table in zip(planes, ('y_table', 'c_table',
-                                         'c_table')):
-            quant = (const[table].reshape(64) * factor)
-            blocks = 0.25 * alpha * ((_block_split(plane) - 128) @ dct)
-            deq = self.rounding(blocks / quant) * quant
-            rec = 0.25 * ((deq * alpha) @ dct.t()) + 128
-            out.append(_block_merge(rec, plane.shape[1], plane.shape[2]))
-        up = [p.repeat_interleave(2, 1).repeat_interleave(2, 2)
-              for p in out[1:]]
-        ycbcr = torch.stack([out[0], *up], dim=-1) - const['ycbcr_shift']
-        rgb = torch.tensordot(ycbcr, const['ycbcr2rgb'], dims=1)
-        return (torch.clamp(rgb, 0., 255.) / 255.)[:, :h, :w, :]
+        y, cb, cr = compress_jpeg(x, factor, self.rounding, const)
+        return decompress_jpeg(y, cb, cr, h + h_pad, w + w_pad, factor,
+                               const)[:, :h, :w, :]

@@ -1,10 +1,10 @@
 """Where a dataset reads its bytes (port of
-``mrefsr_tpu/utils/file_client.py:73-176``, the reference's
+``mrefsr_tpu/utils/file_client.py``, the reference's
 ``basicsr/utils/file_client.py``): ``disk`` reads files, ``lmdb`` reads
-keys of one or more lmdb environments (``lmdb`` is imported where one is
-opened). The JAX package's ``memcached`` backend is not ported, and its
-``pack`` backend (a native packed-shard reader) waits for
-``data/packio.py``: both raise naming their ROADMAP item.
+keys of one or more lmdb environments, ``pack`` keys of one or more packed
+shards (``data/packio.py``), ``memcached`` keys of a memcached cluster.
+``lmdb`` and ``mc`` are imported where a backend is made, and raise
+``ImportError`` naming the module where it is missing.
 
 The loader's workers are threads sharing one dataset, so
 :func:`ensure_file_client` makes the dataset's client once, under a lock.
@@ -66,15 +66,71 @@ class LmdbBackend:
         raise NotImplementedError
 
 
+class PackBackend:
+    """Keys of packed shards, one per client key (the JAX package's
+    file_client.py:127-158): the ``lmdb`` backend's ``db_paths`` /
+    ``client_keys`` interface over ``data/packio.py``'s readers."""
+
+    def __init__(self, db_paths, client_keys='default', **kwargs):
+        from mrefsr_tpu_torch.data.packio import PackReader
+        db_paths, client_keys = _normalize_paths(db_paths, client_keys,
+                                                 'PackBackend')
+        self._client = {key: PackReader(path)
+                        for key, path in zip(client_keys, db_paths)}
+
+    def get(self, filepath, client_key):
+        if client_key not in self._client:
+            raise KeyError(f'client_key {client_key} is not in pack '
+                           'clients.')
+        return self._client[client_key].get(str(filepath))
+
+    def get_text(self, filepath):
+        raise NotImplementedError
+
+
+class MemcachedBackend:
+    """Keys of a memcached cluster through its ``mc`` client module
+    (reference file_client.py:22-55); ``sys_path`` is put on ``sys.path``
+    first where given. The loader's workers are threads sharing one
+    client, so each thread has a receive buffer of its own."""
+
+    def __init__(self, server_list_cfg, client_cfg, sys_path=None):
+        if sys_path is not None:
+            import sys
+            sys.path.append(sys_path)
+        try:
+            import mc
+        except ImportError as exc:
+            raise ImportError('MemcachedBackend needs the memcached client '
+                              "module 'mc', which is not installed") from exc
+        self.server_list_cfg = server_list_cfg
+        self.client_cfg = client_cfg
+        self._mc = mc
+        self._client = mc.MemcachedClient.GetInstance(server_list_cfg,
+                                                      client_cfg)
+        self._local = threading.local()
+
+    def get(self, filepath):
+        buf = getattr(self._local, 'mc_buffer', None)
+        if buf is None:
+            buf = self._local.mc_buffer = self._mc.pyvector()
+        self._client.Get(str(filepath), buf)
+        return self._mc.ConvertBuffer(buf)
+
+    def get_text(self, filepath):
+        raise NotImplementedError
+
+
 # the JAX package's backends the port does not have, with their ROADMAP
-# items
-PENDING_BACKENDS = {'pack': 'A12', 'memcached': 'A12'}
+# items: none is left
+PENDING_BACKENDS = {}
 
 
 class FileClient:
     """A backend by name (reference file_client.py:132-167)."""
 
-    _backends = {'disk': HardDiskBackend, 'lmdb': LmdbBackend}
+    _backends = {'disk': HardDiskBackend, 'lmdb': LmdbBackend,
+                 'pack': PackBackend, 'memcached': MemcachedBackend}
 
     def __init__(self, backend='disk', **kwargs):
         if backend in PENDING_BACKENDS:
@@ -88,7 +144,7 @@ class FileClient:
         self.client = self._backends[backend](**kwargs)
 
     def get(self, filepath, client_key='default'):
-        if self.backend == 'lmdb':
+        if self.backend in ('lmdb', 'pack'):
             return self.client.get(filepath, client_key)
         return self.client.get(filepath)
 

@@ -60,6 +60,32 @@ def tensor2img(tensor, rgb2bgr=True, out_type=np.uint8, min_max=(0, 1)):
     return result[0] if single_input else result
 
 
+def tensor2img_fast(tensor, rgb2bgr=True, min_max=(0, 1)):
+    """One (1, h, w, c) or (h, w, c) image (tensor or array) as uint8:
+    clipped to ``min_max``, scaled to [0, 255] and truncated, as the
+    reference's ``.type(torch.uint8)`` (reference img_util.py:97-111)."""
+    if torch.is_tensor(tensor):
+        tensor = tensor.detach().float().cpu().numpy()
+    arr = np.asarray(tensor, dtype=np.float32)
+    if arr.ndim == 4:
+        arr = arr[0]
+    arr = np.clip(arr, min_max[0], min_max[1])
+    arr = ((arr - min_max[0]) / (min_max[1] - min_max[0]) * 255).astype(
+        np.uint8)
+    return np.ascontiguousarray(arr[:, :, ::-1]) if rgb2bgr else arr
+
+
+def crop_border(imgs, crop_border):
+    """HWC image(s) without ``crop_border`` pixels at each edge (reference
+    img_util.py:156-172)."""
+    if crop_border == 0:
+        return imgs
+    if isinstance(imgs, list):
+        return [v[crop_border:-crop_border, crop_border:-crop_border, ...]
+                for v in imgs]
+    return imgs[crop_border:-crop_border, crop_border:-crop_border, ...]
+
+
 def imwrite(img, file_path, params=None, auto_mkdir=True):
     """Write a BGR HWC image (reference img_util.py:135-153)."""
     import cv2

@@ -59,11 +59,12 @@ def _parse_scalar(value):
         return value
 
 
-def _yaml_loader():
-    """PyYAML's safe loader, the C one where it is built (dicts keep the
-    file's order)."""
+def ordered_yaml():
+    """``(Loader, Dumper)``: PyYAML's safe ones, the C ones where they are
+    built; dicts keep the file's order (reference options.py:12-34)."""
     import yaml
-    return getattr(yaml, 'CSafeLoader', yaml.SafeLoader)
+    return (getattr(yaml, 'CSafeLoader', yaml.SafeLoader),
+            getattr(yaml, 'CSafeDumper', yaml.SafeDumper))
 
 
 def yaml_load(f):
@@ -73,10 +74,10 @@ def yaml_load(f):
     import yaml
     if osp.isfile(f):
         with open(f, 'r') as fh:
-            return yaml.load(fh, Loader=_yaml_loader())
+            return yaml.load(fh, Loader=ordered_yaml()[0])
     if f.endswith(('.yml', '.yaml')) and '\n' not in f:
         raise FileNotFoundError(f'Option file not found: {f}')
-    return yaml.load(f, Loader=_yaml_loader())
+    return yaml.load(f, Loader=ordered_yaml()[0])
 
 
 def dict2str(opt, indent_level=1):

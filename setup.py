@@ -21,7 +21,10 @@ setup(
     package_data={'mrefsr_tpu.metrics': ['niqe_pris_params.npz'],
                   # CUDA sources of the PyTorch port, built by nvcc at
                   # first use (mrefsr_tpu_torch/ops/_build.py)
-                  'mrefsr_tpu_torch.ops': ['csrc/*.cu', 'csrc/*.cuh']},
+                  'mrefsr_tpu_torch.ops': ['csrc/*.cu', 'csrc/*.cuh'],
+                  # NIQE's pristine parameters, the host library's source
+                  'mrefsr_tpu_torch.metrics': ['niqe_pris_params.npz'],
+                  'mrefsr_tpu_torch.data': ['csrc/*.cpp']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'numpy', 'opencv-python', 'Pillow',

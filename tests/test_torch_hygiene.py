@@ -141,6 +141,34 @@ def test_scan_covers_the_inference_modules():
     assert 'chip_smoke.py' in names
 
 
+def test_scan_covers_the_a12_and_script_modules():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ('utils/flow_util.py', 'utils/lmdb_util.py',
+                   'utils/profiler.py', 'utils/file_client.py',
+                   'data/packio.py', 'scripts/__init__.py',
+                   'scripts/data_preparation/create_pack.py',
+                   'scripts/data_preparation/create_lmdb.py',
+                   'scripts/metrics/calculate_psnr_ssim.py',
+                   'scripts/metrics/calculate_niqe.py',
+                   'scripts/metrics/calculate_lpips.py',
+                   'scripts/metrics/calculate_fid_folder.py',
+                   'scripts/metrics/calculate_fid_stats_from_datasets.py',
+                   'scripts/metrics/calculate_stylegan2_fid.py',
+                   'model_conversion/convert_models.py',
+                   'model_conversion/convert_ridnet.py',
+                   'model_conversion/convert_dcn_to_flow.py'):
+        assert f'mrefsr_tpu_torch/{module}' in names
+
+
+def test_no_file_client_backend_is_pending():
+    """Every backend of the JAX package's ``FileClient`` is ported."""
+    from mrefsr_tpu.utils.file_client import FileClient as JaxFileClient
+    from mrefsr_tpu_torch.utils.file_client import (PENDING_BACKENDS,
+                                                    FileClient)
+    assert PENDING_BACKENDS == {}
+    assert set(FileClient._backends) == set(JaxFileClient._backends)
+
+
 def test_scan_covers_the_face_and_metric_modules():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for module in ('archs/hifacegan_arch.py', 'archs/hifacegan_util.py',
@@ -154,10 +182,7 @@ def test_scan_covers_the_face_and_metric_modules():
         assert f'mrefsr_tpu_torch/{module}' in names
 
 
-# the one file of the JAX package the port opens: data, read in place
-JAX_PACKAGE_DATA = REPO / 'mrefsr_tpu' / 'metrics' / 'niqe_pris_params.npz'
-DATA_SUFFIXES = ('.npz', '.npy', '.pth', '.pt', '.pkl', '.json', '.yml',
-                 '.yaml', '.txt', '.png', '.csv')
+JAX_NIQE_PARAMS = REPO / 'mrefsr_tpu' / 'metrics' / 'niqe_pris_params.npz'
 
 
 def _string_constants(path):
@@ -175,26 +200,25 @@ def _string_constants(path):
             and id(node) not in docs]
 
 
-def test_no_path_into_the_jax_package_but_the_niqe_parameters():
-    """No literal of the port or ``chip_smoke.py`` names a data file under
-    ``mrefsr_tpu/``, and the package's name stands alone as a path
-    component only in ``metrics/niqe.py``, which joins it into the path of
-    NIQE's pristine parameters."""
-    joined = set()
+# a citation of a TPU kernel's source line (the ``replaces`` key of
+# ``chip_smoke.py``'s ``kernels`` line): a name, never a path opened
+SOURCE_LINE = re.compile(r'mrefsr_tpu/[\w/]+\.py:\d+')
+
+
+def test_no_literal_names_the_jax_package_as_a_path():
+    """No literal of the port or ``chip_smoke.py`` names ``mrefsr_tpu`` as
+    a path component: neither the name alone (joined into a path) nor a
+    path through it, but for the citations of a TPU kernel's line."""
     for path in PORT_FILES:
         for value in _string_constants(path):
-            assert not (re.search(r'(^|/)mrefsr_tpu/', value)
-                        and value.endswith(DATA_SUFFIXES)), (path, value)
-            if value == 'mrefsr_tpu':
-                joined.add(str(path.relative_to(REPO)))
-    assert joined == {'mrefsr_tpu_torch/metrics/niqe.py'}
-    from mrefsr_tpu_torch.metrics import niqe
-    assert REPO / niqe.PRIS_PARAMS == JAX_PACKAGE_DATA
+            assert value != 'mrefsr_tpu', (path, value)
+            assert SOURCE_LINE.fullmatch(value) or not re.search(
+                r'(^|[/\\])mrefsr_tpu([/\\]|$)', value), (path, value)
 
 
-def test_niqe_opens_only_its_parameters_in_the_jax_package(monkeypatch):
-    """``calculate_niqe`` from a cold cache opens one file under
-    ``mrefsr_tpu/``: its pristine parameters."""
+def test_niqe_opens_no_file_of_the_jax_package(monkeypatch):
+    """``calculate_niqe`` from a cold cache opens its pristine parameters
+    in the port and no file under ``mrefsr_tpu/``."""
     import builtins
     from mrefsr_tpu_torch.metrics import niqe
     opened, real_open = [], builtins.open
@@ -207,8 +231,19 @@ def test_niqe_opens_only_its_parameters_in_the_jax_package(monkeypatch):
     monkeypatch.setattr(niqe, '_PRIS_CACHE', {})
     img = np.random.RandomState(0).rand(96, 96, 3).astype(np.float32) * 255
     assert np.isfinite(niqe.calculate_niqe(img, crop_border=0))
-    inside = [p for p in opened if (REPO / 'mrefsr_tpu') in p.parents]
-    assert inside == [JAX_PACKAGE_DATA]
+    assert Path(niqe.PRIS_PARAMS).resolve() in opened
+    assert not [p for p in opened if (REPO / 'mrefsr_tpu') in p.parents]
+
+
+def test_niqe_parameters_are_the_jax_packages_bytes():
+    """The port's copy of NIQE's pristine parameters is byte-equal to the
+    JAX package's file, and setup.py ships it."""
+    from mrefsr_tpu_torch.metrics import niqe
+    assert Path(niqe.PRIS_PARAMS).parent == \
+        REPO / 'mrefsr_tpu_torch' / 'metrics'
+    assert Path(niqe.PRIS_PARAMS).read_bytes() == JAX_NIQE_PARAMS.read_bytes()
+    assert "'mrefsr_tpu_torch.metrics': ['niqe_pris_params.npz']" in \
+        (REPO / 'setup.py').read_text()
 
 
 def _tiny_opt():
@@ -284,7 +319,7 @@ def test_model_refuses_what_is_not_ported():
     build, and so do they with the bf16 mixed precision of training and
     of eval, and with the GAN phase's keys (ROADMAP A4, ported). The names
     of ROADMAP A8 to A11 are registered, and no model, net or dataset is
-    left to refuse (``PENDING``); the ``pack`` backend of A12 still is.
+    left to refuse (``PENDING``), and the ``pack`` backend of A12 builds.
     Every name the port refuses is one the JAX package registers."""
     from mrefsr_tpu.utils import registry as jax_registry
     from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY, PENDING
@@ -340,8 +375,17 @@ def test_model_refuses_what_is_not_ported():
         'num_images': 2, 'io_backend': {'type': 'disk'}, 'mean': [0.5],
         'std': [0.5]})).__name__ == 'FFHQDataset'
     assert PENDING == {'model': {}, 'arch': {}, 'dataset': {}}
-    with pytest.raises(NotImplementedError, match='ROADMAP A12'):
-        FileClient('pack', db_paths=['x.pack'])
+    # the pack backend of A12 is ported: it builds over a shard
+    from mrefsr_tpu_torch.data.packio import PackWriter
+    shard = REPO / 'build' / 'mrefsr_tpu_torch' / f'hygiene-{os.getpid()}.pack'
+    shard.parent.mkdir(parents=True, exist_ok=True)
+    writer = PackWriter(str(shard))
+    writer.put('k', b'v')
+    writer.close()
+    try:
+        assert FileClient('pack', db_paths=[str(shard)]).get('k') == b'v'
+    finally:
+        shard.unlink()
     jax_names = {'model': jax_registry.MODEL_REGISTRY,
                  'arch': jax_registry.ARCH_REGISTRY,
                  'dataset': jax_registry.DATASET_REGISTRY}

@@ -1,6 +1,7 @@
 """The port's video and paired-image data against the JAX package's on the
-CPU: the REDS, REDSRecurrent, Vimeo-90K (and recurrent) training sets,
-the three video test sets and the paired / single image sets bit for bit
+CPU: the REDS (with quantized flows too), REDSRecurrent, Vimeo-90K (and
+recurrent) training sets, the three video test sets and the paired /
+single image sets (from folders and from packed shards) bit for bit
 for a seed (JAX's global ``random`` against the port dataset's
 ``random.Random(seed)``), the path and frame-index helpers, the file
 client, and the metric dispatch with the batched ``_pt`` metrics."""
@@ -129,10 +130,21 @@ def test_reds_recurrent_dataset_matches_jax(root, test_mode):
 
 
 def test_reds_flows_are_refused_by_name(root):
+    """REDS flows are ported: ``dataroot_flow``'s quantized flows of clip
+    001 (both halves of each PNG random levels) give the JAX dataset's
+    samples, ``flow`` (5, 4, 4, 2) with zeros at the centre, through
+    every interval, reversal, crop and flip / transpose draw."""
+    rng = np.random.RandomState(9)
+    for i in range(CLIP):
+        for tag in ('p1', 'p2', 'n1', 'n2'):
+            _write(root / 'flow' / '001' / f'{i:08d}_{tag}.png',
+                   rng.randint(0, 256, (2 * LQ, LQ), dtype=np.uint8))
     opt = _reds_opt(root, 'REDSDataset', val_partition='REDS4',
-                    dataroot_flow=str(root))
-    with pytest.raises(NotImplementedError, match='ROADMAP A12'):
-        build_dataset(opt)
+                    dataroot_flow=str(root / 'flow'), gt_size=16)
+    port = _same_samples(opt, [0, 1, 50, 98, 99, 7, 33, 60])
+    sample = port[3]
+    assert sample['flow'].shape == (5, 4, 4, 2)     # gt 16 at x4
+    assert not sample['flow'][2].any() and sample['flow'][0].any()
 
 
 @pytest.mark.parametrize('kind,extra', [
@@ -217,11 +229,41 @@ def test_single_image_dataset_matches_jax(root):
     _same_samples(dict(opt, color='y', mean=[0.5], std=[0.25]), [2])
 
 
-def test_pack_backend_is_refused_by_name(root):
-    with pytest.raises(NotImplementedError, match='ROADMAP A12'):
-        build_dataset(_paired_opt(root, 'train', io_backend={'type': 'pack'}))
-    with pytest.raises(NotImplementedError, match='ROADMAP A12'):
-        FileClient('pack', db_paths=[str(root)])
+def test_pack_backend_is_refused_by_name(root, tmp_path):
+    """The ``pack`` backend is ported: ``PairedImageDataset`` on an lq and
+    a gt shard (written by the JAX package's writer, keyed alike) gives
+    the JAX dataset's samples in training and validation, and
+    ``SingleImageDataset`` reads the lq shard's images by key."""
+    from mrefsr_tpu.data.packio import PackWriter as JaxPackWriter
+    from test_torch_a12_data import jax_packio_built_here
+    patch = jax_packio_built_here(tmp_path)
+    try:
+        packs = {}
+        for kind in ('lq', 'gt'):
+            packs[kind] = str(tmp_path / f'{kind}.pack')
+            writer = JaxPackWriter(packs[kind])
+            for i in range(4):
+                name = f'{i:04d}x4.png' if kind == 'lq' else f'{i:04d}.png'
+                writer.put(f'{i:04d}',
+                           (root / 'paired' / kind / name).read_bytes())
+            writer.close()
+        for phase in ('train', 'val'):
+            _same_samples(_paired_opt(root, phase, io_backend={'type': 'pack'},
+                                      dataroot_lq=packs['lq'],
+                                      dataroot_gt=packs['gt']), [0, 3, 1, 2])
+        single = build_dataset({'name': 'single', 'type': 'SingleImageDataset',
+                                'phase': 'test', 'dataroot_lq': packs['lq'],
+                                'io_backend': {'type': 'pack'}})
+        assert [single[i]['lq_path'] for i in range(len(single))] == \
+            ['0000', '0001', '0002', '0003']
+        np.testing.assert_array_equal(
+            single[1]['lq'], cv2.imread(str(root / 'paired' / 'lq' /
+                                            '0001x4.png'))[:, :, ::-1]
+            .astype(np.float32) / 255.)
+        assert FileClient('pack', db_paths=[packs['gt']]).get('0002') == \
+            (root / 'paired' / 'gt' / '0002.png').read_bytes()
+    finally:
+        patch.undo()
 
 
 def test_disk_file_client_reads_bytes_and_text(root):
