@@ -23,6 +23,8 @@ in the loop.
     python3 chip_smoke.py --sr-zoo # only the SR zoo's phases (16c)
     python3 chip_smoke.py --realesrgan  # only Real-ESRGAN's phases (16d)
     python3 chip_smoke.py --face   # only the face family's phases (16e)
+    python3 chip_smoke.py --last   # only C5's check, eval_parity and the
+                                   # ddp phase with RealESRNet (10b, 17)
 
 Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``). Phases, one JSON line each (one per shape where a
@@ -96,6 +98,18 @@ phase runs several):
     one request through the kernels and through the plain versions,
     compared; profile: one more request under ``torch.profiler``, device
     time by kernel and the device's idle share;
+10b. adaptive_pool_grad (ROADMAP C5): ``nn.AdaptiveAvgPool2d(1)``'s
+    input gradient on a channels-last input, card against CPU, at
+    ``ImageDiscriminator``'s and RCAN's shapes (``POOL_GRAD_CASES``);
+    eval_parity: the port's CUFED5 gate script
+    (``mrefsr_tpu_torch.scripts.eval_parity``) in this process on a
+    synthetic CUFED5 folder (two inputs near 480 x 480, 5 refs each, padded
+    to the 500 canvas) and seeded full-width checkpoints in the reference
+    ``.pth`` layout, at f32 and with ``--bf16``: the launches of each run
+    (exactly 1 prologue, 1 match and 3 K2 a request), every output through
+    the kernels against the plain versions (slice's tolerances), the plain
+    run passing the script's gate at the kernels' metrics (exit 0), a gate
+    0.2 dB off failing (exit 2);
 11. train_dcn and train_flow: the same model built for training
     (``alignment`` dcn, then flow) takes one warm-up and five timed
     steps at B = 6, gt 160, T = 5, f32 on one repeated batch; the launch
@@ -317,7 +331,12 @@ phase runs several):
     process); the parent prints one line for each. sharded_match runs
     again at bf16 (K6 through the bf16 kernel's sharded entry point); the
     training and validation of this phase are f32. Then the same ranks
-    take ddp_gan's step (11g), and the parent checks it;
+    take ddp_gan's step (11g), and the parent checks it; then
+    ddp_realesrnet (ROADMAP A13): ``RealESRNetModel`` with ``dist: true``
+    at the x4plus width (RRDBNet 64 / 23), f32, B 4 a rank, gt 256, a
+    pool of 8 a rank, three steps: the ranks' parameters bit-equal after
+    them, and each rank's pairs bit for bit those of a model of one
+    process seeded ``manual_seed`` plus the rank fed the same batches;
 18. the ``kernels`` line.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
@@ -3905,7 +3924,8 @@ def _ddp_rank(rank, backend, root):
     """One rank of the ``ddp`` phase, a process of its own: joins the
     group under the torchrun env contract the parent set, runs the four
     parts, and writes its report to ``root/rank<r>.json``; then, where
-    ``root/with_gan`` exists, ``ddp_gan``'s part (:func:`_ddp_gan_part`)."""
+    ``root/with_gan`` exists, ``ddp_gan``'s part (:func:`_ddp_gan_part`),
+    and last A13's (:func:`_ddp_realesr_part`)."""
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank))
     import importlib
 
@@ -3939,11 +3959,14 @@ def _ddp_rank(rank, backend, root):
         dist.barrier()
         with open(os.path.join(root, f'rank{rank}.json'), 'w') as f:
             json.dump(report, f)
+        del model, batch
         if os.path.exists(os.path.join(root, 'with_gan')):
-            del model, batch
             gc.collect()
             torch.cuda.empty_cache()
             _ddp_gan_part(build_model, main.kernels, rank, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _ddp_realesr_part(build_model, main.kernels, rank, root)
     finally:
         dist.destroy_process_group()
 
@@ -3955,8 +3978,10 @@ def phase_ddp(gan_build_model=None):
     card (NCCL refuses two ranks on one device; gloo reduces CUDA tensors
     through the host). Given ``gan_build_model``, the ranks then take
     ``ddp_gan``'s step, checked by :func:`_ddp_gan_check`: two processes
-    fewer to start. Returns the launches of the main path summed over the
-    ranks, K6's record, and ``ddp_gan``'s launches (or None)."""
+    fewer to start. The ranks then train RealESRNet under DDP
+    (``ddp_realesrnet``, :func:`_ddp_realesr_check`). Returns the
+    launches of the main path summed over the ranks, K6's record, and
+    ``ddp_gan``'s launches (or None)."""
     cards = torch.cuda.device_count()
     backend = 'nccl' if cards >= DDP_WORLD else 'gloo'
     emit({'phase': 'ddp', 'backend': backend, 'world': DDP_WORLD,
@@ -3968,6 +3993,7 @@ def phase_ddp(gan_build_model=None):
         if gan_build_model is not None:
             open(os.path.join(root, 'with_gan'), 'w').close()
         _spawn_ranks(_ddp_rank, backend, root, 'ddp')
+        _ddp_realesr_check(root, backend)
         reports = []
         for rank in range(DDP_WORLD):
             with open(os.path.join(root, f'rank{rank}.json')) as f:
@@ -4012,7 +4038,8 @@ def phase_ddp(gan_build_model=None):
     check(not scatter, f'grad-x scatter launched on the ddp path: {scatter}')
     emit({'phase': 'ddp_summary', 'backend': backend, 'seconds': seconds,
           'seconds_are': 'the ranks\' processes' + (
-              '' if gan_ranks is None else ', ddp_gan\'s part included'),
+              '' if gan_ranks is None else ', ddp_gan\'s part included') +
+              ', ddp_realesrnet\'s part included',
           'launches': launches})
     gan_launches = None if gan_ranks is None else _ddp_gan_check(
         gan_build_model, gan_ranks, backend, {'ranks_s_with_ddp': seconds})
@@ -8935,6 +8962,331 @@ def face_phases(build_model, arch, correlation, dcn, kernels):
     return by_path
 
 
+# ------------------------------------------------ the last modules (PR 21)
+# C5: the input gradient of nn.AdaptiveAvgPool2d(1) on a channels-last
+# input, card against CPU, at ImageDiscriminator's pool (ndf 32 x 16
+# channels at the gan_* phases' 160 -> 5 x 5 maps, B 8, and ddp_gan's B 4)
+# and RCAN's channel attention (64 channels at 64 x 64). Each entry of the
+# gradient is the cotangent / (h w), one rounding: held within
+# POOL_GRAD_TOL of the largest entry (the card's channels-last avg_pool2d
+# was off by 82-110 %, PR 19)
+POOL_GRAD_CASES = (('image_discriminator', 8, 512, 5),
+                   ('image_discriminator_ddp_gan', 4, 512, 5),
+                   ('rcan_channel_attention', 4, 64, 64))
+POOL_GRAD_TOL = 1e-6
+
+
+def phase_adaptive_pool_grad():
+    """C5's check: ``nn.AdaptiveAvgPool2d(1)``'s input gradient on an NHWC
+    view (as a conv of ``img.permute(0, 3, 1, 2)`` gives it), card
+    against CPU; the contiguous input beside it."""
+    pool = torch.nn.AdaptiveAvgPool2d(1)
+    gen = torch.Generator().manual_seed(SEED + 81)
+    cases = []
+    for name, b, c, hw in POOL_GRAD_CASES:
+        x = torch.randn(b, hw, hw, c, generator=gen).permute(0, 3, 1, 2)
+        cot = torch.randn(b, c, 1, 1, generator=gen)
+        rec = {'case': name, 'shape': [b, c, hw, hw]}
+        for layout, inp in (('channels_last', x), ('contiguous',
+                                                   x.contiguous())):
+            grads = []
+            for device in ('cuda', 'cpu'):
+                leaf = inp.to(device).detach().requires_grad_()
+                check(leaf.is_contiguous(memory_format=torch.channels_last)
+                      == (layout == 'channels_last'), f'{name}: {layout}')
+                pool(leaf).backward(cot.to(device))
+                grads.append(leaf.grad.cpu())
+            err = float((grads[0] - grads[1]).abs().max()) \
+                / float(grads[1].abs().max())
+            rec[f'{layout}_rel_err'] = err
+            check(err <= POOL_GRAD_TOL, f'C5: AdaptiveAvgPool2d\'s input '
+                  f'gradient, {name}, {layout}: card against CPU {err}')
+        cases.append(rec)
+    emit({'phase': 'adaptive_pool_grad', 'tolerance': POOL_GRAD_TOL,
+          'cases': cases,
+          'sites': ['archs/discriminator_arch.py ImageDiscriminator',
+                    'archs/rcan_arch.py ChannelAttention']})
+
+
+# eval_parity: the port's CUFED5 gate script (mrefsr_tpu_torch/scripts/
+# eval_parity.py) in this process on a synthetic CUFED5 folder of
+# EVAL_PARITY_SIZES inputs, each with 5 refs, padded to the 500 canvas, and
+# seeded full-width checkpoints in the reference .pth layout. Its requests
+# through the kernels against the same requests through the plain versions
+# (the plain match takes the kernel's indices, as slice's does): each
+# output within slice's tolerance (SLICE_TOL, at bf16 SLICE_BF16_TOL), and
+# the plain run must pass the script's own gate at the kernels' metrics
+EVAL_PARITY_SIZES = ((480, 472), (472, 480))
+
+
+def _eval_parity_assets(root, build_model, dyn_agg_cls):
+    """The CUFED5 folder and the two ``.pth`` files under ``root``:
+    ``_cufed5_opt``'s seeded nets, net_g's offset convs live as slice's."""
+    import cv2
+    cufed = os.path.join(root, 'CUFED5')
+    os.makedirs(cufed)
+    for g, (h, w) in enumerate(EVAL_PARITY_SIZES):
+        for i, img in enumerate(_smooth_clip(SEED + 90 + g, T + 1, h, w)):
+            cv2.imwrite(os.path.join(cufed, f'{g:03d}_{i}.png'), img)
+    model = build_model(_cufed5_opt())
+    gen = torch.Generator().manual_seed(SEED + 2)
+    with torch.no_grad():
+        for m in model.net_g.modules():
+            if isinstance(m, dyn_agg_cls):
+                w = m.conv_offset_mask.weight
+                w.copy_(torch.randn(w.shape, generator=gen) * 0.01)
+                b = m.conv_offset_mask.bias
+                b.copy_(torch.rand(b.shape, generator=gen) * 2 - 1)
+    files = {}
+    for key, net in (('net_g', model.net_g), ('extractor',
+                                              model.net_extractor)):
+        files[key] = os.path.join(root, f'{key}.pth')
+        torch.save({'params': {k: v.detach().contiguous().cpu()
+                               for k, v in net.state_dict().items()}},
+                   files[key])
+    del model
+    torch.cuda.empty_cache()
+    return cufed, files
+
+
+def _eval_parity_run(main, argv, plain, correlation, dcn, matches):
+    """``main(argv)`` in this process: its exit status, JSON report and the
+    output of each request. Through the kernels, each request's match is
+    kept in ``matches``; through the plain versions (``plain``) the
+    prologue and K2 run plain and the match takes the kernel's indices in
+    turn, its gap to the plain match's scores recorded."""
+    import io
+    from mrefsr_tpu_torch.models.multi_ref_restoration_model import \
+        MultiRefRestorationModel
+    outputs, gaps = [], []
+    test = MultiRefRestorationModel.test
+    match_cuda = correlation._match_patches_cuda
+
+    def recorded_test(self):
+        test(self)
+        outputs.append(self.output.detach().clone())
+
+    def match_recorded(pin, pref, chunk=None):
+        matches.append(match_cuda(pin, pref))
+        return matches[-1]
+
+    def match_plain(pin, pref, chunk=None):
+        idx_p, _ = correlation._match_patches_ref(pin, pref, 2048)
+        kernel = matches[len(gaps)]
+        idx_k = kernel[0].long()
+        rows = [pref.gather(1, i.long()[..., None].expand(
+            -1, -1, pref.shape[2])).float() for i in (idx_k, idx_p)]
+        gap = ((pin.float() * rows[1]).sum(2)
+               - (pin.float() * rows[0]).sum(2)).abs()[idx_k != idx_p]
+        gaps.append(float(gap.max()) if gap.numel() else 0.0)
+        return kernel
+
+    out = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(
+            MultiRefRestorationModel, 'test', recorded_test))
+        if plain:
+            for name, fn in (('_prologue_cuda', correlation._prologue_ref),
+                             ('_match_patches_cuda', match_plain)):
+                stack.enter_context(mock.patch.object(correlation, name, fn))
+            stack.enter_context(mock.patch.object(
+                dcn, '_mdcn_fused_forward_cuda', dcn._mdcn_fused_forward_ref))
+        else:
+            stack.enter_context(mock.patch.object(
+                correlation, '_match_patches_cuda', match_recorded))
+        stack.enter_context(contextlib.redirect_stdout(out))
+        code = main(argv)
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    return code, report, outputs, gaps
+
+
+def phase_eval_parity(build_model, dyn_agg_cls, correlation, dcn, kernels):
+    """The gate script at f32 and with ``--bf16``: the kernels' launches a
+    run (1 prologue, 1 match and 3 K2 a request), each output and the
+    metrics against the plain versions, a gate passing (0) and one failing
+    (2). Returns the launches by path."""
+    from mrefsr_tpu_torch.scripts import eval_parity
+    t0 = time.perf_counter()
+    by_path, records = {}, []
+    with tempfile.TemporaryDirectory() as root:
+        cufed, files = _eval_parity_assets(root, build_model, dyn_agg_cls)
+        base = ['--net_g', files['net_g'], '--extractor', files['extractor'],
+                '--cufed5', cufed, '--results-dir',
+                os.path.join(root, 'results')]
+        n = len(EVAL_PARITY_SIZES)
+        for dtype in (torch.float32, BF16):
+            bf16 = dtype == BF16
+            argv = base + (['--bf16'] if bf16 else [])
+            matches, result = [], []
+            reset_counts(kernels)
+            # the run under the profiler (the device only): its kernels'
+            # device time and the run's wall time
+            profile = profile_record(
+                'eval_parity' + ('_bf16' if bf16 else ''),
+                lambda: result.extend(_eval_parity_run(
+                    eval_parity.main, argv, False, correlation, dcn,
+                    matches)))
+            code, report, out_k, _ = result
+            launches = read_counts(kernels, _entries(('match', 'k2'), dtype),
+                                   _forbidden(dtype))
+            want = {name: per * n for parts, per in ((('match',), 1),
+                                                    (('k2',), 3))
+                    for name in _entries(parts, dtype)}
+            check(all(launches[k] == v for k, v in want.items())
+                  and sum(launches.values()) == sum(want.values()),
+                  f'eval_parity {dtype}: launches {launches}, want {want}')
+            check(code == 0 and report['parity_ok'] is None,
+                  f'eval_parity without a gate: {code} {report}')
+            by_path['eval_parity' + ('_bf16' if bf16 else '')] = launches
+            metrics = report['metrics']
+            gate = ['--expected-psnr', repr(metrics['psnr']),
+                    '--expected-psnr-y', repr(metrics['psnr_y']),
+                    '--expected-ssim-y', repr(metrics['ssim_y'])]
+            code_p, report_p, out_p, gaps = _eval_parity_run(
+                eval_parity.main, argv + gate, True, correlation, dcn,
+                matches)
+            check(len(out_k) == len(out_p) == n,
+                  f'eval_parity: {len(out_k)} and {len(out_p)} requests')
+            diff = max(float((a - b).abs().max()) for a, b in zip(out_k,
+                                                                  out_p))
+            tol = SLICE_BF16_TOL if bf16 else SLICE_TOL
+            check(diff <= tol, f'eval_parity {dtype}: outputs through the '
+                  f'kernels and the plain versions differ by {diff}')
+            check(max(gaps) <= K1_IDX_GAP, f'eval_parity: the match differs '
+                  f'where the plain scores differ by {max(gaps)}')
+            check(code_p == 0 and report_p['parity_ok'] is True,
+                  f'eval_parity: the plain run fails the kernels\' gate: '
+                  f'{report_p}')
+            records.append({
+                'dtype': str(dtype), 'run_s': profile['wall_ms'] / 1e3,
+                'profile': profile, 'launches': {
+                    k: v for k, v in launches.items() if v},
+                'metrics': metrics, 'plain_metrics': report_p['metrics'],
+                'plain_delta': {k: report_p['metrics'][k] - v
+                                for k, v in metrics.items()},
+                'gate_at_kernels_metrics': {'exit': code_p,
+                                            'gates': report_p['gates']},
+                'output_max_abs_diff': diff, 'output_tolerance': tol,
+                'worst_match_gap': max(gaps)})
+        # a gate 0.2 dB off the bf16 run's PSNR fails: exit status 2
+        off = metrics['psnr'] + 0.2
+        code_f, report_f, _, _ = _eval_parity_run(
+            eval_parity.main, argv + ['--expected-psnr', repr(off)], False,
+            correlation, dcn, [])
+        check(code_f == 2 and report_f['parity_ok'] is False
+              and report_f['metrics'] == metrics,
+              f'eval_parity: a failing gate gave {code_f} {report_f}')
+    emit({'phase': 'eval_parity', 'canvas': CANVAS, 'refs': T,
+          'requests_a_run': n, 'sizes': EVAL_PARITY_SIZES, 'ngf': 64,
+          'n_blocks': 16, 'groups': 8, 'runs': records,
+          'failing_gate': {'exit': code_f, 'gates': report_f['gates']},
+          'seconds': time.perf_counter() - t0})
+    return by_path
+
+
+# A13 in the ddp ranks: RealESRNet at the x4plus width (RRDBNet 64 / 23),
+# B 4 a rank, gt 256, a pool of 8 a rank (two steps fill it, the third
+# mixes), f32, dist: true; each rank's pool stream against a model of one
+# process seeded manual_seed + rank, and the ranks' parameters bit-equal
+REALESR_DDP_B, REALESR_DDP_QUEUE, REALESR_DDP_STEPS = 4, 8, 3
+
+
+def _realesr_ddp_batch(rank, step):
+    """A collated batch of ``RealESRGANDataset``'s shape: 400 x 400 smooth
+    RGB gt and 21 x 21 kernels (a Gaussian, a sinc, a pulse)."""
+    from mrefsr_tpu_torch.data.degradations import (bivariate_Gaussian,
+                                                    circular_lowpass_kernel)
+    rng = np.random.RandomState(SEED + 100 * rank + step)
+    gt = np.stack(_smooth_clip(SEED + 100 * rank + step, REALESR_DDP_B,
+                               REALESR_PAD, REALESR_PAD))[..., ::-1]
+    pulse = np.zeros((21, 21), np.float32)
+    pulse[10, 10] = 1
+    k1 = [bivariate_Gaussian(21, s, s, 0)
+          for s in rng.uniform(0.5, 3, REALESR_DDP_B)]
+    k2 = [circular_lowpass_kernel(c, 21)
+          for c in rng.uniform(1, 3, REALESR_DDP_B)]
+    return {'gt': np.ascontiguousarray(gt, np.float32) / 255.,
+            'kernel1': np.stack(k1).astype(np.float32),
+            'kernel2': np.stack(k2).astype(np.float32),
+            'sinc_kernel': np.stack([pulse] * REALESR_DDP_B)}
+
+
+def _ddp_realesr_opt(dist_on, seed=SEED):
+    opt = _realesr_opt('realesrnet')
+    opt.update(dist=dist_on, manual_seed=seed, queue_size=REALESR_DDP_QUEUE,
+               datasets={'train': {'batch_size_per_gpu': REALESR_DDP_B}})
+    return opt
+
+
+def _ddp_realesr_part(build_model, kernels, rank, root):
+    """A13's part of a rank in a joined group: ``REALESR_DDP_STEPS``
+    steps, the pairs each gave, whether the ranks' parameters are
+    bit-equal after them; then the same batches through a model of one
+    process seeded ``manual_seed + rank``: its pairs against the rank's.
+    Saved to ``root/realesr_rank<r>.json``."""
+    t0 = time.perf_counter()
+    model = build_model(_ddp_realesr_opt(True))
+    batches = [_realesr_ddp_batch(rank, s)
+               for s in range(REALESR_DDP_STEPS)]
+    pairs, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    for step, batch in enumerate(batches, 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.feed_data(batch)
+        pairs.append((model.lq.clone(), model.gt.clone()))
+        model.optimize_parameters(step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = {n: k.launches for n, k in kernels.items() if k.launches}
+    bare = model.get_bare_model(model.net_g)
+    params_equal = _same_on_all_ranks(torch.cat(
+        [p.detach().reshape(-1) for p in bare.parameters()]))
+    report = {'step_ms': step_ms, 'launches': launches,
+              'params_equal_across_ranks': params_equal,
+              'loss': model.get_current_log()['l_pix'],
+              'peak_mem_bytes': torch.cuda.max_memory_allocated()}
+    del model, bare
+    torch.cuda.empty_cache()
+    one = build_model(_ddp_realesr_opt(False, SEED + rank))
+    same = []
+    for batch, (lq, gt) in zip(batches, pairs):
+        one.feed_data(batch)
+        same.append(bool(torch.equal(one.lq, lq) and torch.equal(one.gt, gt)))
+    # the third step's gt rows came out of the pool's earlier pairs
+    held = torch.cat([gt for _, gt in pairs[:-1]])
+    report['third_step_from_pool'] = all(
+        any(torch.equal(row, h) for h in held) for row in pairs[-1][1])
+    report.update(pairs_equal_one_process=same,
+                  part_s=time.perf_counter() - t0)
+    del one
+    dist.barrier()
+    with open(os.path.join(root, f'realesr_rank{rank}.json'), 'w') as f:
+        json.dump(report, f)
+
+
+def _ddp_realesr_check(root, backend):
+    ranks = []
+    for rank in range(DDP_WORLD):
+        with open(os.path.join(root, f'realesr_rank{rank}.json')) as f:
+            ranks.append(json.load(f))
+    emit({'phase': 'ddp_realesrnet', 'backend': backend, 'world': DDP_WORLD,
+          'network_g': RRDB_X4, 'batch_a_rank': REALESR_DDP_B,
+          'gt': REALESR_DEGRADE['gt_size'], 'queue_size': REALESR_DDP_QUEUE,
+          'steps': REALESR_DDP_STEPS, 'ranks': ranks})
+    for rank, rec in enumerate(ranks):
+        check(rec['params_equal_across_ranks'],
+              'ddp_realesrnet: the ranks hold other parameters')
+        check(all(rec['pairs_equal_one_process']),
+              f'ddp_realesrnet: rank {rank}\'s pairs differ from one process '
+              f'seeded manual_seed + rank: {rec["pairs_equal_one_process"]}')
+        check(rec['third_step_from_pool'],
+              f'ddp_realesrnet: rank {rank}\'s pool did not mix')
+        check(not rec['launches'], f'ddp_realesrnet launched {rec}')
+        check(math.isfinite(rec['loss']), f'ddp_realesrnet: loss {rec}')
+
+
 def main():
     import importlib
     from mrefsr_tpu_torch.archs import arch_util, edvr_arch
@@ -8982,6 +9334,10 @@ def main():
         phase_profile('slice', one_request)
         del model
         torch.cuda.empty_cache()
+        phase_adaptive_pool_grad()
+        by_path.update(phase_eval_parity(build_model, arch.DynAgg,
+                                         correlation, dcn, kernels))
+        torch.cuda.empty_cache()
         step_ms = {}
         for alignment in ('dcn', 'flow'):
             by_path[f'train_{alignment}'], step_ms[alignment] = phase_train(
@@ -9027,7 +9383,8 @@ def main():
         by_path.update(face_phases(build_model, arch, correlation, dcn,
                                    kernels))
         torch.cuda.empty_cache()
-        by_path['ddp'], (k6, k6b), by_path['ddp_gan'] = phase_ddp(build_model)
+        by_path['ddp'], (k6, k6b), by_path['ddp_gan'] = phase_ddp(
+            build_model)
 
         described = (
             (k1p, 'feature_match_prologue.cu', K1_PROLOGUE_TPU),
@@ -9184,6 +9541,31 @@ def main_face():
     _main_alone(face_phases)
 
 
+def main_last():
+    """``--last``: the device, the build, C5's pool check, ``eval_parity``
+    and the ``ddp`` phase with ``ddp_realesrnet``'s part, then the
+    launches of ``eval_parity``'s runs; no ``ok`` line."""
+    from mrefsr_tpu_torch.archs import ref_mrapa_restoration_arch as arch
+    from mrefsr_tpu_torch.models import build_model
+    from mrefsr_tpu_torch.ops import _build, correlation, dcn, fused_act
+    import importlib
+    ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
+    _, smi = phase_device()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    phase_build(_build.build)
+    kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
+    phase_adaptive_pool_grad()
+    by_path = phase_eval_parity(build_model, arch.DynAgg, correlation, dcn,
+                                kernels)
+    phase_ddp()
+    emit({'launches_by_path': {path: {n: v for n, v in counts.items() if v}
+                               for path, counts in by_path.items()},
+          'card': smi})
+    print(smi, flush=True)
+
+
 def main_repeat_grads(rounds):
     """``--repeat-grads N``: the whole-net gradient comparisons of the
     three training paths alone, from fresh weights and then N times more,
@@ -9254,14 +9636,16 @@ def main_repeat_grads(rounds):
 
 
 def main_ddp():
-    """``--ddp``: the device, the build and the ``ddp`` phase alone, then
-    K6's entry of the ``kernels`` line; no ``ok`` line."""
+    """``--ddp``: the device, the build and the multi-rank phases alone
+    (``ddp``, with ``ddp_gan``'s and ``ddp_realesrnet``'s parts in its
+    ranks), then K6's entry of the ``kernels`` line; no ``ok`` line."""
+    from mrefsr_tpu_torch.models import build_model
     from mrefsr_tpu_torch.ops import _build
     _, smi = phase_device()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build(_build.build)
-    launches, k6s, _ = phase_ddp()
+    launches, k6s, _ = phase_ddp(build_model)
     for k6, source in zip(k6s, ('feature_match.cu', 'feature_match_bf16.cu')):
         k6.update(route='cuda',
                   source=f'mrefsr_tpu_torch/ops/csrc/{source}',
@@ -9297,5 +9681,7 @@ if __name__ == '__main__':
         main_realesrgan()
     elif sys.argv[1:2] == ['--face']:
         main_face()
+    elif sys.argv[1:2] == ['--last']:
+        main_last()
     else:
         main()

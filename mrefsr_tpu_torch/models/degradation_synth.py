@@ -266,8 +266,9 @@ class TrainingPairPool:
         b = lq.shape[0]
         if self.queue_lr is None:
             if self.queue_size % b:
-                raise ValueError(f'queue size {self.queue_size} should be '
-                                 f'divisible by batch size {b}')
+                raise ValueError(
+                    f'queue size {self.queue_size} should be divisible by '
+                    f'the batch size of a rank (batch_size_per_gpu) {b}')
             self.queue_lr = lq.new_zeros((self.queue_size,) + lq.shape[1:])
             self.queue_gt = gt.new_zeros((self.queue_size,) + gt.shape[1:])
             self.queue_ptr = 0

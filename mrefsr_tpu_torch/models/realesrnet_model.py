@@ -12,8 +12,14 @@ through the pool (:class:`~.degradation_synth.TrainingPairPool`,
 ``queue_size``). The step is ``SRModel``'s, at ``train.mixed_precision``.
 Otherwise, and in validation (which runs without synthesis), it takes
 ``lq`` / ``gt`` pairs as ``SRModel`` does. The synthesis, the crop and the
-pool draw from generators seeded by ``manual_seed`` (plus the rank), on
-the model's device.
+pool draw from generators seeded by ``manual_seed`` (plus the rank under
+``opt['dist']``), on the model's device.
+
+Under ``opt['dist']`` each rank synthesises its own ``batch_size_per_gpu``
+samples and keeps its own pool of ``queue_size`` pairs, as the reference's
+DDP run does (the JAX package keeps one pool over the batch of all its
+devices); ``net_g`` trains in ``DistributedDataParallel`` as ``SRModel``'s
+does, and rank 0 alone saves and validates.
 """
 from mrefsr_tpu_torch.utils.dist_util import get_dist_info
 from mrefsr_tpu_torch.utils.registry import MODEL_REGISTRY
@@ -28,7 +34,8 @@ class SynthesisMixin:
     without synthesis."""
 
     def _init_synthesis(self):
-        seed = (self.opt.get('manual_seed') or 0) + get_dist_info()[0]
+        rank = get_dist_info()[0] if self.opt.get('dist') else 0
+        seed = (self.opt.get('manual_seed') or 0) + rank
         self.synth = DegradationSynthesizer(self.opt, self.device, seed)
         self.pool = TrainingPairPool(self.opt.get('queue_size', 180),
                                      self.synth.generator)

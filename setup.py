@@ -24,7 +24,9 @@ setup(
                   'mrefsr_tpu_torch.ops': ['csrc/*.cu', 'csrc/*.cuh'],
                   # NIQE's pristine parameters, the host library's source
                   'mrefsr_tpu_torch.metrics': ['niqe_pris_params.npz'],
-                  'mrefsr_tpu_torch.data': ['csrc/*.cpp']},
+                  'mrefsr_tpu_torch.data': ['csrc/*.cpp'],
+                  # the port's launchers (one GPU, or torchrun)
+                  'mrefsr_tpu_torch.scripts': ['*.sh']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'numpy', 'opencv-python', 'Pillow',

@@ -90,7 +90,8 @@ def test_scan_sees_forbidden_imports(tmp_path):
 # imported inside the functions that use them, never when a module of the
 # port is imported: the card's machine need not have them, and importing
 # the package must not pay for them
-LAZY = {'cv2', 'PIL', 'yaml', 'lmdb', 'tensorboard', 'wandb'}
+LAZY = {'cv2', 'PIL', 'yaml', 'lmdb', 'tensorboard', 'wandb', 'requests',
+        'tensorflow'}
 
 
 def _module_level_roots(path):
@@ -158,6 +159,42 @@ def test_scan_covers_the_a12_and_script_modules():
                    'model_conversion/convert_ridnet.py',
                    'model_conversion/convert_dcn_to_flow.py'):
         assert f'mrefsr_tpu_torch/{module}' in names
+
+
+def test_scan_covers_the_a15_modules():
+    """The last modules (ROADMAP A15): the downloads, the scripts and the
+    launchers; with them every JAX script but those deliberately left out
+    has a module of the same name in the port."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ('utils/download_util.py', 'scripts/eval_parity.py',
+                   'scripts/download_gdrive.py',
+                   'scripts/download_pretrained_models.py',
+                   'scripts/publish_models.py',
+                   'scripts/data_preparation/extract_subimages.py',
+                   'scripts/data_preparation/generate_meta_info.py',
+                   'scripts/data_preparation/generate_bicubic_img.py',
+                   'scripts/data_preparation/regroup_reds_dataset.py',
+                   'scripts/data_preparation/prepare_hifacegan_dataset.py',
+                   'scripts/data_preparation/'
+                   'extract_images_from_tfrecords.py',
+                   'scripts/data_preparation/download_datasets.py',
+                   'scripts/matlab_scripts/back_projection.py',
+                   'scripts/matlab_scripts/generate_lr_vimeo90k.py'):
+        assert f'mrefsr_tpu_torch/{module}' in names
+    not_ported = {'benchmarks', 'prune_jax_cache.py',
+                  'make_synthetic_megadepth.py'}
+    for path in (REPO / 'scripts').rglob('*'):
+        rel = path.relative_to(REPO / 'scripts')
+        if rel.parts[0] in not_ported or path.suffix not in ('.py', '.sh'):
+            continue
+        # the converters are modules of their own group (PR 20)
+        port = REPO / 'mrefsr_tpu_torch' / (
+            rel if rel.parts[0] == 'model_conversion' else 'scripts' / rel)
+        assert port.exists(), rel
+    for path in (REPO / 'mrefsr_tpu').rglob('*.py'):
+        rel = path.relative_to(REPO / 'mrefsr_tpu')
+        if rel != Path('parallel', 'mesh.py'):   # the TPU mesh: DDP here
+            assert (REPO / 'mrefsr_tpu_torch' / rel).exists(), rel
 
 
 def test_no_file_client_backend_is_pending():

@@ -403,6 +403,59 @@ def run_ddp_gan(spec, rank, world):
     return report
 
 
+def _net_d_state(model):
+    return {k: v.detach().clone() for k, v in
+            model.net_d.state_dict().items()}
+
+
+def run_realesr(spec, rank, world):
+    """``RealESRNetModel`` and ``RealESRGANModel`` with ``dist: true``,
+    each of ``spec['runs']`` (by name) in turn: each step this rank's
+    batch through ``feed_data`` (synthesis, crop, this rank's pool), the
+    pairs that come out, the bare nets' parameters (and ``net_d``'s power
+    iteration vectors) before the step and the averaged gradients it steps
+    with; then a save and validation (rank 0 alone writes and scores)."""
+    from mrefsr_tpu_torch.data import build_dataloader, build_dataset
+    from mrefsr_tpu_torch.models import build_model
+    reports = {}
+    for name, run in spec['runs'].items():
+        model = build_model(run['opt'], device='cpu')
+        gan = getattr(model, 'net_d', None) is not None
+        report = {'lq': [], 'gt': [], 'params_before': [], 'grads': []}
+        _recorded_grads(model.optimizer_g, model.get_bare_model(model.net_g),
+                        report['grads'])
+        if gan:
+            report.update(d_before=[], d_grads=[])
+            _recorded_grads(model.optimizer_d, model.net_d,
+                            report['d_grads'])
+        for step, batch in enumerate(run['batches'][rank], 1):
+            model.feed_data({k: v.numpy() for k, v in batch.items()})
+            report['lq'].append(model.lq.clone())
+            report['gt'].append(model.gt.clone())
+            report['params_before'].append(_params(model))
+            if gan:
+                report['d_before'].append(_net_d_state(model))
+            model.optimize_parameters(step)
+        report['params'] = _params(model)
+        if gan:
+            report['d_state'] = _net_d_state(model)
+        report['ema'] = {k: v.detach().clone() for k, v in
+                         model.net_g_ema.state_dict().items()}
+        written = []
+        with _recorded_saves(written):
+            model.save(0, len(run['batches'][rank]))
+        report['written'] = written
+        val_opt = spec['val_opt']
+        model.validation(build_dataloader(build_dataset(val_opt), val_opt),
+                         1, None, save_img=False)
+        report['metric_results'] = {k: float(v) for k, v in
+                                    getattr(model, 'metric_results',
+                                            {}).items()}
+        reports[name] = report
+        del model
+    return reports
+
+
 def video_validation(spec):
     """Each ``(model options, dataset options)`` of ``spec['video']``
     through ``validation`` (frames sharded over the ranks for a sliding-
@@ -426,7 +479,7 @@ def run_video_val(spec, rank, world):
 
 TASKS = {'sharded_match': run_sharded_match, 'ddp': run_ddp,
          'ddp_bf16': run_ddp_bf16, 'ddp_gan': run_ddp_gan,
-         'video_val': run_video_val}
+         'video_val': run_video_val, 'realesr': run_realesr}
 
 
 def main():
