@@ -15,6 +15,8 @@ in the loop.
     python3 chip_smoke.py --ddp  # only the two-rank phase (17)
     python3 chip_smoke.py --bf16 # only the bf16 phases (11a-11e)
     python3 chip_smoke.py --dcn  # only K3, K5 and their module path (7)
+    python3 chip_smoke.py --k2   # K2 (4, 5, the weight split), the video
+                                 # scatter, then --dcn's phases
     python3 chip_smoke.py --cli  # only the CLI phase (11f)
     python3 chip_smoke.py --gan  # only the GAN phases (11g)
     python3 chip_smoke.py --ref  # only the single-ref phases (11h)
@@ -1015,7 +1017,9 @@ def phase_mdcn(dcn, n=T, shapes=EVAL_SHAPES, dtype=torch.float32,
 
         rows = n_maps * h * w
         geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, w))
-        wt = weight.reshape(9 * c, cout).t().contiguous()
+        # the operand the kernel reads: at f32 the weight's TF32 planes
+        wt = dcn._weight_operand(weight.reshape(9 * c, cout).t()
+                                 .contiguous())
         out_buf = torch.empty((rows, cout), dtype=dtype, device='cuda')
         fused = dcn._fused_args(x, offset, weight, geom)
 
@@ -1174,7 +1178,8 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
     partial = torch.empty((splits, 9 * c + 1, c), device='cuda')
     total = torch.empty((9 * c + 1, c), device='cuda')
     head = (cot.data_ptr(), x.data_ptr(), offset.data_ptr(), mask.data_ptr())
-    dgrad = (*head, weight.data_ptr(), g_off.data_ptr(), g_mask.data_ptr())
+    w_op = dcn._weight_operand(weight)  # at f32 its TF32 planes
+    dgrad = (*head, w_op.data_ptr(), g_off.data_ptr(), g_mask.data_ptr())
     launch = {
         'dgrad': lambda: k_dgrad(*dgrad, *fused),
         'dgrad_scatter': lambda: k_scatter(*dgrad, g_x.data_ptr(), *fused),
@@ -1282,7 +1287,7 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
     near = _near_offsets(torch.Generator().manual_seed(SEED + 35), offset)
     fused_near = dcn._fused_args(x, near, weight, geom)
     head_near = (cot.data_ptr(), x.data_ptr(), near.data_ptr(),
-                 mask.data_ptr(), weight.data_ptr(), g_off.data_ptr(),
+                 mask.data_ptr(), w_op.data_ptr(), g_off.data_ptr(),
                  g_mask.data_ptr())
 
     def scatter_near():
@@ -1299,6 +1304,50 @@ def _fused_backward_parts(dcn, x, offset, mask, weight, cot, want):
                    near_offsets_max_abs_err=abs_err)
     del near
     return recs
+
+
+def weight_split_record(dcn):
+    """K2's f32 weight split, ``mdcn_fused_split`` (one launch before each
+    f32 forward and dgrad, of K3 and K5 too), against its plain version
+    ``dcn._split_tf32_ref``, bit for bit (and hi + lo == w exactly), and
+    timed, at the weights of the eval and training shapes (9 C x Cout, C =
+    Cout = 64, 128, 256: wt for the forward, the HWIO weight for dgrad, the
+    same size). Returns its record of the ``kernels`` line; no phase line of
+    its own."""
+    gen = torch.Generator().manual_seed(SEED + 61)
+    keys = ('ms', 'call_ms', 'plain_ms', 'plain_call_ms', 'bound_ms')
+    total = {key: 0.0 for key in keys}
+    shapes = []
+    for c in sorted({c for c, _ in EVAL_SHAPES + TRAIN_SHAPES}):
+        w = (torch.randn((9 * c, c), generator=gen) * 0.02).cuda()
+        planes = torch.empty((2, *w.shape), device='cuda')
+
+        def kernel():
+            dcn.mdcn_fused_split_kernel(
+                w.data_ptr(), planes.data_ptr(), w.numel(),
+                torch.cuda.current_stream().cuda_stream)
+
+        kernel()
+        want = dcn._split_tf32_ref(w)
+        check(torch.equal(planes.view(torch.int32), want.view(torch.int32)),
+              f'mdcn_fused_split differs from its plain version at C={c}')
+        check(torch.equal(planes[0] + planes[1], w),
+              f'mdcn_fused_split: hi + lo != w at C={c}')
+        times = timed({'ms': kernel,
+                       'plain_ms': lambda: dcn._split_tf32_ref(w)})
+        # w read once, both planes written once; three operations an
+        # element
+        b_ms = bound([(3.0 * w.numel(), PEAK_F32_FLOPS)],
+                     12.0 * w.numel())[0]
+        shapes.append({'c': c, 'cout': c, 'elements': w.numel(), **times,
+                       'bound_ms': b_ms})
+        for key in keys:
+            total[key] += shapes[-1][key]
+        del w, planes, want
+    return {'name': 'mdcn_fused_split', 'max_abs_err': 0.0, **total,
+            'bound_by': 'bytes', 'library_ms': None,
+            'library_call': 'none (no one PyTorch call splits to TF32)',
+            'shapes': shapes, 'timing': TIMING_NOTE}
 
 
 def scatter_atomics_bound(flops, nbytes, x):
@@ -1630,6 +1679,7 @@ def _variant_entries(dcn, variant, dtype):
     return ([f'{prefix}_{part}{tag}'
              for part in ('fwd', 'dgrad', 'wgrad', 'wgrad_sum')],
             f'{prefix}_dgrad_scatter{tag}')
+
 
 
 def _dcn_variant(dcn, kernels, gen, groups, masked, padding, dtype):
@@ -2570,6 +2620,9 @@ def kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act):
             # K2, K3 and K5 at f32 and bf16, e.g. 'mdcn_fused_fwd',
             # 'mdcn_groups_fused_dgrad_bf16', 'deform_conv_fused_wgrad'
             **dcn.FUSED_KERNELS,
+            # their f32 weight's TF32 split, one launch before each f32
+            # forward and dgrad
+            'mdcn_fused_split': dcn.mdcn_fused_split_kernel,
             'deform_sample_fwd': dcn.deform_sample_fwd_kernel,
             'deform_sample_bwd': dcn.deform_sample_bwd_kernel,
             'deform_sample_bwd_scatter': dcn.deform_sample_bwd_scatter_kernel,
@@ -2994,9 +3047,23 @@ def _video_frames(seed, t, h, w):
                        ).permute(0, 2, 3, 1).contiguous().numpy()
 
 
+def _splits_first(name):
+    """Whether the fused entry point ``name`` is an f32 forward or dgrad of
+    K2, K3 or K5, which the weight's TF32 split (``mdcn_fused_split``)
+    precedes at every call."""
+    return (name.startswith(('mdcn_fused_', 'mdcn_groups_fused_',
+                             'deform_conv_fused_'))
+            and not name.endswith('_bf16')
+            and ('_fwd' in name or '_dgrad' in name))
+
+
 def _only(kernels, launches, expect):
     """Every kernel of ``expect`` launched, and no other: serving runs no
-    backward, scatter or other variant."""
+    backward, scatter or other variant. An f32 forward or dgrad of the
+    fused walk brings the weight's split with it."""
+    expect = list(expect)
+    if any(_splits_first(name) for name in expect):
+        expect.append('mdcn_fused_split')
     others = {k: v for k, v in launches.items() if k not in expect and v}
     check(all(launches[k] > 0 for k in expect) and not others,
           f'expected launches of {expect} only, got {launches}')
@@ -4068,8 +4135,8 @@ def phase_ddp(gan_build_model=None):
 # Adam) as other
 OWN_KERNELS = ('prologue_kernel', 'split_tf32_kernel',
                '::Tf32x3>', '::Bf16>',     # fm::match_kernel<...>
-               'mdcn_fused::fwd_kernel',
-               'mdcn_fused::dgrad_kernel', 'mdcn_fused::wgrad_kernel',
+               'mdcn_wgmma::fwd_kernel', 'mdcn_wgmma::dgrad_kernel',
+               'mdcn_wgmma::split_kernel', 'mdcn_fused::wgrad_kernel',
                'mdcn_fused::wgrad_sum_kernel', 'deform_sample_fwd_kernel',
                'deform_sample_bwd_kernel', 'upfirdn2d_tile_kernel',
                'upfirdn2d_gather_kernel', 'fused_leaky_relu_fwd_kernel',
@@ -4086,12 +4153,18 @@ def phase_profile(path, run, top=12):
     emit(profile_record(path, run, top))
 
 
+def _is_k2(name):
+    """Whether a profiled kernel is one of K2's (K3's, K5's): the wgmma
+    walk's forward, dgrad and f32 weight split, wgrad and its sum."""
+    return 'mdcn_wgmma::' in name or 'mdcn_fused::' in name
+
+
 def _is_k2_scatter(name):
     """Whether a profiled kernel is K2's dgrad with the grad-x scatter
-    (``mdcn_fused::dgrad_kernel<T, BN, kScatter, kMask>``, kScatter
+    (``mdcn_wgmma::dgrad_kernel<T, BN, kScatter, kMask>``, kScatter
     true)."""
     import re
-    m = re.search(r'mdcn_fused::dgrad_kernel<([^>]*)>', name)
+    m = re.search(r'mdcn_wgmma::dgrad_kernel<([^>]*)>', name)
     args = [a.strip() for a in m.group(1).split(',')] if m else []
     return len(args) >= 3 and args[2] in ('true', '1')
 
@@ -4118,7 +4191,7 @@ def profile_record(path, run, top=12):
                   if any(mark in key for mark in LIBRARY_MARKS)
                   and not any(name in key for name in OWN_KERNELS))
     scatter = sum(ms for ms, _, key in kernels if _is_k2_scatter(key))
-    k2 = sum(ms for ms, _, key in kernels if 'mdcn_fused::' in key)
+    k2 = sum(ms for ms, _, key in kernels if _is_k2(key))
     return {'phase': 'profile', 'path': path, 'wall_ms': wall_ms,
             'device_busy_ms': busy,
             'device_idle_share': 1 - busy / wall_ms if busy else None,
@@ -4751,7 +4824,7 @@ def _cli_profile_window(model):
            'k1_match_events': sum('match_kernel' in n for n in kernels),
            'k1_prologue_events': sum('prologue_kernel' in n
                                      for n in kernels),
-           'k2_events': sum('mdcn_fused::' in n for n in kernels)}
+           'k2_events': sum(_is_k2(n) for n in kernels)}
     check(out['k1_match_events'] > 0 and out['k1_prologue_events'] > 0
           and out['k2_events'] > 0,
           f'the profiler window\'s trace names no K1 or K2 kernel: {out}')
@@ -6073,10 +6146,11 @@ def phase_video_scatter(dcn, dtype=torch.float32):
         nbytes = size * (cot.numel() + 2 * x.numel() + 2 * mask.numel()
                          + weight.numel()) + 4.0 * 2 * randn4.numel()
         b_ms, b_by = bound(flops, nbytes)
+        w_op = dcn._weight_operand(weight)  # at f32 its TF32 planes
         for spread, offset in (('randn4', randn4), ('near', near)):
             fused = dcn._fused_args(x, offset, weight, geom)
             head = (cot.data_ptr(), x.data_ptr(), offset.data_ptr(),
-                    mask.data_ptr(), weight.data_ptr(), g_off.data_ptr(),
+                    mask.data_ptr(), w_op.data_ptr(), g_off.data_ptr(),
                     g_mask.data_ptr())
             errs, abs_err = _scatter_vs_plain(
                 dcn, lambda: k_scatter(*head, g_x.data_ptr(), *fused), cot,
@@ -9132,6 +9206,8 @@ def phase_eval_parity(build_model, dyn_agg_cls, correlation, dcn, kernels):
             want = {name: per * n for parts, per in ((('match',), 1),
                                                     (('k2',), 3))
                     for name in _entries(parts, dtype)}
+            if dtype == torch.float32:  # the weight's split, a forward each
+                want['mdcn_fused_split'] = 3 * n
             check(all(launches[k] == v for k, v in want.items())
                   and sum(launches.values()) == sum(want.values()),
                   f'eval_parity {dtype}: launches {launches}, want {want}')
@@ -9318,6 +9394,7 @@ def main():
         k2['train_shape'] = phase_mdcn(dcn, n=TRAIN_B * T, shapes=TRAIN_SHAPES)
         k2['video_shapes'] = phase_mdcn(dcn, video=True)
         k2b = phase_mdcn_backward(dcn)
+        k2_split = weight_split_record(dcn)
         k4f, k4b = phase_deform_sample(dcn)
         torch.cuda.empty_cache()
         kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
@@ -9392,7 +9469,8 @@ def main():
             (k6, 'feature_match.cu', K6_TPU),
             *bf16_described,
             (k6b, 'feature_match_bf16.cu', K6_TPU),
-            *((rec, 'mdcn_fused.cu', K2_TPU) for rec in [k2, *k2b]),
+            *((rec, 'mdcn_fused.cu', K2_TPU)
+              for rec in [k2, *k2b, k2_split]),
             *dcn_described,
             (k4f, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
             (k4b, 'deform_sample.cu', 'mrefsr_tpu/ops/dcn.py:296'),
@@ -9400,6 +9478,12 @@ def main():
               for rec in k7),
             *((rec, 'fused_act.cu', 'mrefsr_tpu/ops/fused_act.py:12')
               for rec in k8))
+        for path in ('slice', 'train_dcn', 'eval_parity'):
+            check(by_path[path]['mdcn_fused_split'] > 0,
+                  f'the f32 path {path} launched no mdcn_fused_split')
+        for path in ('slice_bf16', 'train_dcn_bf16', 'eval_parity_bf16'):
+            check(by_path[path]['mdcn_fused_split'] == 0,
+                  f'the bf16 path {path} launched mdcn_fused_split')
         emit({'kernels': _described(described, by_path), 'card': smi})
         print(smi, flush=True)
         emit({'ok': True, 'device': device})
@@ -9441,6 +9525,43 @@ def main_bf16():
     described, by_path, _ = bf16_phases(correlation, dcn, arch, build_model,
                                         kernels)
     emit({'kernels': _described(described, by_path), 'card': smi})
+    print(smi, flush=True)
+
+
+def main_k2():
+    """``--k2``: the device, the build, K2's forward at the eval, training
+    and video shapes and its backward at the training shapes, f32 and bf16,
+    the f32 weight split, the scatter dgrad at the video shapes, then K3
+    and K5 (``--dcn``'s phases), and their entries of the ``kernels``
+    line; no ``ok`` line."""
+    from mrefsr_tpu_torch.archs import arch_util
+    from mrefsr_tpu_torch.archs import ref_mrapa_restoration_arch as arch
+    from mrefsr_tpu_torch.ops import _build, correlation, dcn, fused_act
+    import importlib
+    ops_upfirdn2d = importlib.import_module('mrefsr_tpu_torch.ops.upfirdn2d')
+    _, smi = phase_device()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    phase_build(_build.build)
+    described = []
+    for dtype, source in ((torch.float32, 'mdcn_fused.cu'),
+                          (BF16, 'mdcn_bf16.cu')):
+        k2 = phase_mdcn(dcn, dtype=dtype)
+        k2['train_shape'] = phase_mdcn(dcn, n=TRAIN_B * T,
+                                       shapes=TRAIN_SHAPES, dtype=dtype)
+        if dtype == torch.float32:
+            k2['video_shapes'] = phase_mdcn(dcn, video=True)
+        described += [(rec, source, K2_TPU)
+                      for rec in [k2, *phase_mdcn_backward(dcn, dtype)]]
+        if dtype == torch.float32:
+            described.append((weight_split_record(dcn), source, K2_TPU))
+        phase_video_scatter(dcn, dtype)
+        torch.cuda.empty_cache()
+    kernels = kernel_objects(correlation, dcn, ops_upfirdn2d, fused_act)
+    dcn_described, by_path = dcn_phases(arch_util, arch, dcn, kernels)
+    emit({'kernels': _described(described + dcn_described, by_path),
+          'card': smi})
     print(smi, flush=True)
 
 
@@ -9665,6 +9786,8 @@ if __name__ == '__main__':
         main_bf16()
     elif sys.argv[1:2] == ['--dcn']:
         main_dcn()
+    elif sys.argv[1:2] == ['--k2']:
+        main_k2()
     elif sys.argv[1:2] == ['--cli']:
         main_cli()
     elif sys.argv[1:2] == ['--gan']:

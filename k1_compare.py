@@ -435,6 +435,10 @@ SCATTER_OFFSETS = {
 def scatter_functions(smoke, dcn):
     """``--scatter``: see the module docstring."""
     here = _timers_here()
+    # the weight the checkout's forward and dgrad entry points read: at
+    # f32 its TF32 planes where the checkout splits them, else
+    # the weight itself
+    operand = getattr(dcn, '_weight_operand', lambda w: w)
     for dtype in (torch.float32, smoke.BF16):
         k_fwd, k_dgrad, k_scatter, k_wgrad, _ = dcn._fused_kernels(dtype)
         tol = here._k2_tol(dtype)
@@ -454,8 +458,9 @@ def scatter_functions(smoke, dcn):
                 g_off, g_mask = torch.empty_like(offset), \
                     torch.empty_like(mask)
                 g_x = torch.zeros_like(x, dtype=torch.float32)
+                w_op = operand(weight)
                 head = (cot.data_ptr(), x.data_ptr(), offset.data_ptr(),
-                        mask.data_ptr(), weight.data_ptr(), g_off.data_ptr(),
+                        mask.data_ptr(), w_op.data_ptr(), g_off.data_ptr(),
                         g_mask.data_ptr())
                 errs, _ = here._scatter_vs_plain(
                     dcn, lambda: k_scatter(*head, g_x.data_ptr(), *fused),
@@ -475,7 +480,8 @@ def scatter_functions(smoke, dcn):
                         n, h, w, 9, c, cout, dtype)
                     partial = torch.empty((splits, 9 * c + 1, cout),
                                           device='cuda')
-                    wt = weight.reshape(9 * c, cout).t().contiguous()
+                    wt = operand(weight.reshape(9 * c, cout).t()
+                                 .contiguous())
                     out = torch.empty_like(cot)
                     calls['fwd_ms'] = lambda: k_fwd(
                         x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
@@ -486,7 +492,8 @@ def scatter_functions(smoke, dcn):
                 rec.update(zip(calls, here.device_ms_each(
                     list(calls.values()))))
                 smoke.emit(rec)
-                del x, offset, mask, weight, cot, g_off, g_mask, g_x, calls
+                del x, offset, mask, weight, w_op, cot, g_off, g_mask, g_x
+                del calls
                 torch.cuda.empty_cache()
     k3_functions(smoke, dcn)
 

@@ -1,12 +1,12 @@
 // The fused deformable convs: the modulated deformable conv (DCNv2) and
 // DCNv1 whose deformable-im2col columns never reach device memory, forward
 // and backward, with the products on the tensor cores: one tile walk for
-// two element types T. mdcn_bf16.cu instantiates it at bf16 (m16n8k16
-// products), mdcn_fused.cu at f32 (3xTF32 on m16n8k8); each says what it
-// replaces and what bounds it. It runs three TPU kernels of the JAX
-// package: K2 (conv groups 1, a mask), K3 (conv groups > 1: the wrapper,
-// ops/dcn.py, hands the walk a block-diagonal weight, exact zeros off the
-// groups' blocks) and K5 (DCNv1: a null mask, read as a mask of ones).
+// two element types T. mdcn_bf16.cu instantiates it at bf16, mdcn_fused.cu
+// at f32 (3xTF32); each says what it replaces and what bounds it. It runs
+// three TPU kernels of the JAX package: K2 (conv groups 1, a mask), K3
+// (conv groups > 1: the wrapper, ops/dcn.py, hands the walk a
+// block-diagonal weight, exact zeros off the groups' blocks) and K5 (DCNv1:
+// a null mask, read as a mask of ones).
 //
 // For output row r = (n, ho, wo), tap k = (ky, kx), input channel c of
 // deform group g = c / cg:
@@ -36,42 +36,23 @@
 //
 // Layouts (contiguous): x (N, H, W, C) T; offset (N, Ho, Wo, dg, K, 2) f32
 // as (dy, dx); mask (N, Ho, Wo, dg, K) T or null; the weight HWIO
-// (K * C, Cout) T
-// for dgrad and transposed, wt (Cout, K * C), for the forward (its B
-// operand wants k contiguous); go and out (rows, Cout) T; grad_offset,
-// grad_mask, grad_x as offset, mask and x (grad_x f32); partial (splits,
-// K * C + 1, Cout) f32, grad weight's rows and then grad bias.
+// (K * C, Cout) T for dgrad and transposed, wt (Cout, K * C), for the
+// forward (its B operand wants k contiguous), at f32 each as its TF32 hi
+// and lo planes (2, ...), split once a call (mdcn_wgmma.cuh's
+// split_kernel); go and out (rows, Cout) T; grad_offset, grad_mask, grad_x
+// as offset, mask and x (grad_x f32); partial (splits, K * C + 1, Cout)
+// f32, grad weight's rows and then grad bias.
 //
-// Design. mma.sync products, two warps along the 64 rows of a tile and the
-// rest along its width (dgrad at f32: see DgradShape). A block's 64 output rows are an 8 x 8 patch of
-// output pixels of one item, not 64 pixels of one image row, so that its
-// samples fall in a window of about (8 + 2 * reach)^2 pixels rather than a
-// strip 64 pixels wide. A thread gathers runs of 16 bytes of one pixel's
-// channels (N = 8 bf16 or 4 f32), and a k-step or chunk is 8 runs: BK = 64
-// bf16 or 32 f32 channels, a staged row of 128 bytes and 16 of padding
-// whatever T, so that the tiles' bytes and their ldmatrix addresses are the
-// same at both types; the deform group is taken per run (a step spans 8
-// groups at cg 8 bf16). A step's corner loads are issued before the
-// products they can overlap and widened into shared memory after.
-//  - Forward: a block owns a patch and all of Cout (BN = Cout rounded up
-//    to 64, 128 or 256, padded with zeros; 256 threads, 512 at BN 256 so
-//    that no thread holds more than 32 accumulators), so each sample is
-//    gathered once. The k loop runs over (tap, BK channels), 2 runs a
-//    thread (1 at 512): the offsets and mask of step s + 2 are read and
-//    the corner loads of step s + 1 issued before step s's products. The
-//    weight tile comes by cp.async; both double-buffered. The sums are
-//    rounded as Prec<T> says, staged in shared memory and stored as
-//    16-byte NHWC runs.
-//  - dgrad: a block owns a patch; its grad_out tile (64 x BN) and its
-//    offsets and masks (one coalesced copy: scattered reads and writes of
-//    them cost as much L2 traffic as the gather) stay in shared memory.
-//    For each (tap, BK channels) it multiplies the tile by W[k, chunk,
-//    :]^T (the next chunk's weight rows load meanwhile), stores gcol in T
-//    into shared memory and runs the col2im arithmetic on it: a thread per
-//    (pixel, run), the group's cg / N runs neighbouring lanes summed by
-//    shuffles, one writer per (pixel, group, tap), whose gradients replace
-//    the staged offset and mask just read; they are written back,
-//    coalesced, at the end.
+// Design. A block's 64 output rows are an 8 x 8 patch of output pixels of
+// one item, not 64 pixels of one image row, so that its samples fall in a
+// window of about (8 + 2 * reach)^2 pixels rather than a strip 64 pixels
+// wide. A thread gathers runs of 16 bytes of one pixel's channels (N = 8
+// bf16 or 4 f32), and a k-step or chunk is 8 runs: BK = 64 bf16 or 32 f32
+// channels, 128 bytes whatever T; the deform group is taken per run (a step
+// spans 8 groups at cg 8 bf16).
+//  - Forward and dgrad run on Hopper's own units: wgmma fed by TMA and by
+//    producer warps through mbarrier rings, the walk of mdcn_wgmma.cuh,
+//    which says how.
 //  - The _scatter dgrad also adds each sample's grad_col run, times its
 //    corner weights and mask, into grad x at its four corners: f32 in
 //    device memory, whatever T, so the additions land by atomics, their
@@ -82,19 +63,21 @@
 //    halves of so that each of their two reductions covers one sector
 //    whole (deform_bilinear.cuh's scatter_corners). What bounds it is the
 //    L2's rate of reductions: at C 64 and dg 8 a (pixel, tap, corner) is
-//    16 of them whatever T, and at bf16 they add their time to the rest of
-//    the dgrad's, which at f32 hides part of them. A window of grad x in
-//    shared memory, summing a patch's corners before they leave, does not
-//    pay on the H100: a shared f32 atomicAdd is a compare-and-swap loop
-//    (ATOMS.CAST.SPIN), and a window made the kernel slower at every shape
-//    and offset spread tried (PERF.md, Findings).
-//  - wgrad: a block owns (tap, BK channels) x all of Cout and a slice of
-//    patches, one patch a step: the gathered column tile and the grad_out
-//    tile are staged row-major and read across (A = col^T, B = go); the
-//    blocks of the first (tap, chunk) also sum the grad_out tile's
-//    columns, rows in order, for grad bias. The wrapper cuts the slices
-//    from the shapes alone, so the sum of the slices' partials (a last
-//    small kernel, in order) does not depend on the card.
+//    16 of them whatever T. A window of grad x in shared memory, summing a
+//    patch's corners before they leave, does not pay on the H100: a shared
+//    f32 atomicAdd is a compare-and-swap loop (ATOMS.CAST.SPIN), and a
+//    window made the kernel slower at every shape and offset spread tried
+//    (PERF.md, Findings).
+//  - wgrad, here, on mma.sync (m16n8k16 bf16, m16n8k8 TF32), two warps
+//    along the 64 rows of a tile and the rest along its width: a block owns
+//    (tap, BK channels) x all of Cout and a slice of patches, one patch a
+//    step: the gathered column tile and the grad_out tile are staged
+//    row-major and read across (A = col^T, B = go); the blocks of the first
+//    (tap, chunk) also sum the grad_out tile's columns, rows in order, for
+//    grad bias. A step's corner loads are issued before the products they
+//    can overlap. The wrapper cuts the slices from the shapes alone, so the
+//    sum of the slices' partials (a last small kernel, in order) does not
+//    depend on the card.
 //  - Index arithmetic: a block walks its patches, and a k-step's tap and
 //    deform group are worked out once a step, so that a sample costs no
 //    integer division.
@@ -134,8 +117,8 @@ constexpr int MAX_STAGED = 144;    // dg * K of a block's staged offsets
 template <typename T>
 struct Prec;
 
-// bf16: one m16n8k16 product, fragments by ldmatrix (transposed where k
-// runs across rows); the forward's sum and gcol rounded to bf16.
+// bf16: wgrad's one m16n8k16 product, fragments by transposed ldmatrix
+// (k runs across rows); the forward's sum and gcol rounded to bf16.
 template <>
 struct Prec<bf16> {
   using Raw = uint4;
@@ -148,40 +131,7 @@ struct Prec<bf16> {
     uint32_t r[2];
   };
 
-  // rows m0 .. m0 + 15, k0 .. k0 + 15 of a tile stored m-major
-  static __device__ __forceinline__ void load_a(A& a, const bf16* s, int ld,
-                                                int m0, int k0, int lane) {
-    tc::ldmatrix_x4(a.r, s + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
-                             k0 + (lane >> 4) * 8);
-  }
-
-  // NT tiles of 8 columns n0 .. n0 + 8 NT - 1 over k0 .. k0 + 15, from a
-  // tile stored n-major (k contiguous)
-  template <int NT>
-  static __device__ __forceinline__ void load_b(B (&b)[NT], const bf16* s,
-                                                int ld, int n0, int k0,
-                                                int lane) {
-    if constexpr (NT % 2 == 0) {
-#pragma unroll
-      for (int ni = 0; ni < NT; ni += 2) {
-        uint32_t r[4];
-        tc::ldmatrix_x4(r, s + (n0 + ni * 8 + (lane & 7) + (lane >> 4) * 8) *
-                                   ld +
-                               k0 + ((lane >> 3) & 1) * 8);
-        b[ni].r[0] = r[0];
-        b[ni].r[1] = r[1];
-        b[ni + 1].r[0] = r[2];
-        b[ni + 1].r[1] = r[3];
-      }
-    } else {
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-        tc::ldmatrix_x2(b[ni].r, s + (n0 + ni * 8 + (lane & 7)) * ld + k0 +
-                                     ((lane >> 3) & 1) * 8);
-    }
-  }
-
-  // The same from tiles stored k-major (a row per k), read across
+  // A and B fragments from tiles stored k-major (a row per k), read across
   template <int MT>
   static __device__ __forceinline__ void load_a_t(A (&a)[MT], const bf16* s,
                                                   int ld, int m0, int k0,
@@ -224,11 +174,6 @@ struct Prec<bf16> {
   static __device__ __forceinline__ void store_run(bf16* p, int, uint4 v) {
     *reinterpret_cast<uint4*>(p) = v;
   }
-  static __device__ __forceinline__ void load_a_planes(A& a, const bf16* s,
-                                                       int, int ld, int m0,
-                                                       int k0, int lane) {
-    load_a(a, s, ld, m0, k0, lane);
-  }
   template <int MT>
   static __device__ __forceinline__ void load_a_t_planes(
       A (&a)[MT], const bf16* s, int, int ld, int m0, int k0, int lane) {
@@ -248,10 +193,10 @@ struct Prec<bf16> {
   }
 };
 
-// f32: 3xTF32, three m16n8k8 products lo*hi + hi*lo + hi*hi (small terms
-// first) of operands split by tc::split_tf32, as they load into registers
-// or, the gathered column tile, once as it is stored (kPlanes); nothing
-// rounded below f32.
+// f32: 3xTF32, three products lo*hi + hi*lo + hi*hi (small terms first)
+// of operands split by tc::split_tf32: wgrad's m16n8k8 split as they load
+// into registers, a gathered column tile once as it is stored (kPlanes);
+// nothing rounded below f32.
 template <>
 struct Prec<float> {
   using Raw = float4;
@@ -270,40 +215,6 @@ struct Prec<float> {
                                                uint32_t (&lo)[K]) {
 #pragma unroll
     for (int i = 0; i < K; ++i) tc::split_tf32(r[i], hi[i], lo[i]);
-  }
-
-  static __device__ __forceinline__ void load_a(A& a, const float* s, int ld,
-                                                int m0, int k0, int lane) {
-    uint32_t r[4];
-    tc::ldmatrix_x4(r, s + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
-                           k0 + (lane >> 4) * 4);
-    split(r, a.hi, a.lo);
-  }
-
-  template <int NT>
-  static __device__ __forceinline__ void load_b(B (&b)[NT], const float* s,
-                                                int ld, int n0, int k0,
-                                                int lane) {
-    if constexpr (NT % 2 == 0) {
-#pragma unroll
-      for (int ni = 0; ni < NT; ni += 2) {
-        uint32_t r[4];
-        tc::ldmatrix_x4(r, s + (n0 + ni * 8 + (lane & 7) + (lane >> 4) * 8) *
-                                   ld +
-                               k0 + ((lane >> 3) & 1) * 4);
-        const uint32_t r0[2] = {r[0], r[1]}, r1[2] = {r[2], r[3]};
-        split(r0, b[ni].hi, b[ni].lo);
-        split(r1, b[ni + 1].hi, b[ni + 1].lo);
-      }
-    } else {
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        uint32_t r[2];
-        tc::ldmatrix_x2(r, s + (n0 + ni * 8 + (lane & 7)) * ld + k0 +
-                               ((lane >> 3) & 1) * 4);
-        split(r, b[ni].hi, b[ni].lo);
-      }
-    }
   }
 
   // Read across by plain 32-bit loads: a row stride of 8 mod 32 words puts
@@ -349,15 +260,6 @@ struct Prec<float> {
     *reinterpret_cast<uint4*>(p) = hi;
     *reinterpret_cast<uint4*>(p + plane) = lo;
   }
-  static __device__ __forceinline__ void load_a_planes(A& a, const float* s,
-                                                       int plane, int ld,
-                                                       int m0, int k0,
-                                                       int lane) {
-    const float* at = s + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
-                      k0 + (lane >> 4) * 4;
-    tc::ldmatrix_x4(a.hi, at);
-    tc::ldmatrix_x4(a.lo, at + plane);
-  }
   template <int MT>
   static __device__ __forceinline__ void load_a_t_planes(
       A (&a)[MT], const float* s, int plane, int ld, int m0, int k0,
@@ -386,22 +288,20 @@ struct Prec<float> {
   }
 };
 
-// Tile widths of type T: a k-step's channels, and the padded rows of a
-// tile read k-contiguous (ldmatrix: 16 bytes of padding put 8 rows on 8
-// distinct 16-byte bank groups) or read across (`LDT`: rows 8 elements
-// longer, which at f32 puts each plain load's 32 lanes on 32 banks and at
-// bf16 is the same 16 bytes).
+// Tile widths of type T: a k-step's channels, 16 bytes of padding of a
+// staged row (dgrad's gcol), and the padded rows of wgrad's tiles read
+// across (`LDT`: rows 8 elements longer, which at f32 puts each plain
+// load's 32 lanes on 32 banks and at bf16 is the same 16 bytes).
 template <typename T>
 struct Tiles {
   static constexpr int N = Prec<T>::N;
   static constexpr int BK = RUNS_K * N;        // 64 bf16, 32 f32
   static constexpr int PAD = 16 / sizeof(T);   // 8 bf16, 4 f32
-  static constexpr int LDK = BK + PAD;         // 144 bytes
   static constexpr int LDT = BK + 8;           // wgrad's column tile
 };
 
-// A block of kThreads: its warps, those along a tile's width beside 2
-// along its rows, and the runs a thread gathers of a k-step's 64 rows x 8.
+// wgrad's block of kThreads: its warps, those along a tile's width beside
+// 2 along its rows, and the runs a thread gathers of a step's 64 rows x 8.
 template <int kThreads_>
 struct Block {
   static constexpr int kThreads = kThreads_;
@@ -410,8 +310,8 @@ struct Block {
   static constexpr int kRuns = BM * RUNS_K / kThreads;
 };
 
-// The block for an output tile BN wide: 512 threads at BN 256 so that no
-// thread holds more than 32 accumulators, else 256.
+// wgrad's block for an output tile BN wide: 512 threads at BN 256 so that
+// no thread holds more than 32 accumulators, else 256.
 template <int BN>
 using Shape = Block<BN == 256 ? 512 : 256>;
 
@@ -573,20 +473,30 @@ struct Sample {
   float m;
 };
 
-// Start the gather of a run of x at pixel o's origin shifted by the step's
-// tap and the offset t; `xn` is the run's channels of pixel (0, 0) of o's
-// item. A dead sample loads nothing and yields zeros.
+// The corners of a sample of pixel o at its origin shifted by the step's
+// tap and the offset t; a dead sample has none inside the map.
+__device__ __forceinline__ deform::Corners corners_of(const Geom& g,
+                                                      const Pixel& o,
+                                                      const Step& st,
+                                                      const Coord& t) {
+  const float fy = (float)(o.y + st.dy) + t.dy;
+  const float fx = (float)(o.x + st.dx) + t.dx;
+  deform::Corners cn = deform::corners_at(fy, fx, g.h, g.w);
+  if (!t.live) cn.in00 = cn.in01 = cn.in10 = cn.in11 = false;
+  return cn;
+}
+
+// Start the gather of a run of x at the sample's corners; `xn` is the
+// run's channels of pixel (0, 0) of o's item. A dead sample loads nothing
+// and yields zeros.
 template <typename T>
 __device__ __forceinline__ void issue(Sample<T>& p, const Geom& g,
                                      const typename Prec<T>::Raw* __restrict__ xn,
                                      const Pixel& o, const Step& st,
                                      const Coord& t) {
   using Raw = typename Prec<T>::Raw;
-  const float fy = (float)(o.y + st.dy) + t.dy;
-  const float fx = (float)(o.x + st.dx) + t.dx;
   deform::Corners& cn = p.cn;
-  cn = deform::corners_at(fy, fx, g.h, g.w);
-  if (!t.live) cn.in00 = cn.in01 = cn.in10 = cn.in11 = false;
+  cn = corners_of(g, o, st, t);
   p.m = t.m;
   // corner (0, 0) and its neighbours one run-row and one pixel-row on; the
   // clamped corners keep these indices within an int
@@ -642,352 +552,6 @@ __device__ __forceinline__ void accumulate(float (&acc)[MT][NT][4],
   } else {
     step(acc);
   }
-}
-
-// ------------------------------------------------------------------ forward
-
-// 128 registers a thread at most: two blocks of 256 threads an SM, or one
-// of 512
-template <typename T, int BN, bool kMask>
-__global__ void __launch_bounds__(Shape<BN>::kThreads, BN == 256 ? 1 : 2)
-fwd_kernel(const typename Prec<T>::Raw* __restrict__ x,
-           const float* __restrict__ offset, const T* __restrict__ mask,
-           const T* __restrict__ wt, const T* __restrict__ bias,
-           T* __restrict__ out, Geom g) {
-  using S = Shape<BN>;
-  using P = Prec<T>;
-  using Raw = typename P::Raw;
-  constexpr int BK = Tiles<T>::BK, LDK = Tiles<T>::LDK, N = P::N;
-  constexpr int WN = BN / S::kWarpsN;  // warp tile 32 x WN
-  constexpr int MT = 2, NT = WN / 8, RUNS = S::kRuns;
-  constexpr int LDO = BN + 8;
-  constexpr int A_PLANE = BM * LDK, A_STAGE = P::kPlanes * A_PLANE;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* a_s = (T*)smem;               // [2][planes][BM][LDK]
-  T* b_s = a_s + 2 * A_STAGE;      // [2][BN][LDK]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / S::kWarpsN, wn = warp % S::kWarpsN;
-  const int gid = lane >> 2, tig = lane & 3;
-  const Patch pt = patch_of(g, blockIdx.x);
-  const int nchunk = (g.c + BK - 1) / BK;
-  const int steps = g.taps * nchunk;
-  const size_t wrow = (size_t)g.taps * g.c;  // a row of wt
-
-  // this thread's slots of a k-step: pixels rr[q], run j
-  const int j = tid & 7;
-  int rr[RUNS];
-  Pixel px[RUNS];
-  const Raw* xn[RUNS];
-#pragma unroll
-  for (int q = 0; q < RUNS; ++q) {
-    rr[q] = (tid >> 3) + (S::kThreads / 8) * q;
-    px[q] = pixel_of(g, pt, rr[q]);
-    xn[q] = item_run(x, g, px[q], j);
-  }
-  auto step = [&](int s) {
-    return step_of<T>(g, s / nchunk, s % nchunk, j);
-  };
-
-  auto load_w = [&](int s, int stage) {
-    const int k = s / nchunk, c0 = (s % nchunk) * BK;
-    T* dst = b_s + stage * BN * LDK;
-    for (int i = tid; i < BN * RUNS_K; i += S::kThreads) {
-      const int n = i >> 3, c = c0 + (i & 7) * N;
-      const bool in = n < g.cout && c < g.c;
-      cp_async16(dst + n * LDK + (i & 7) * N,
-                 in ? wt + n * wrow + (size_t)k * g.c + c : wt, in ? 16 : 0);
-    }
-  };
-  auto coords = [&](Coord(&t)[RUNS], int s) {
-    const Step st = step(s);
-#pragma unroll
-    for (int q = 0; q < RUNS; ++q)
-      t[q] = coord_of<T, kMask>(g, px[q], st, offset, mask);
-  };
-  auto gather = [&](Sample<T>(&p)[RUNS], int s, const Coord(&t)[RUNS]) {
-    const Step st = step(s);
-#pragma unroll
-    for (int q = 0; q < RUNS; ++q)
-      issue<T>(p[q], g, xn[q] + st.ci * RUNS_K, px[q], st, t[q]);
-  };
-  auto store_a = [&](int stage, const Sample<T>(&p)[RUNS]) {
-#pragma unroll
-    for (int q = 0; q < RUNS; ++q)
-      P::store_run(a_s + stage * A_STAGE + rr[q] * LDK + j * N, A_PLANE,
-                   finish<T>(p[q]));
-  };
-
-  float acc[MT][NT][4];
-  zero(acc);
-
-  // two steps ahead: offsets (s + 2), corner loads (s + 1), products (s)
-  Coord next[RUNS];
-  Sample<T> p[RUNS];
-  coords(next, 0);
-  gather(p, 0, next);
-  if (steps > 1) coords(next, 1);
-  load_w(0, 0);
-  cp_async_commit();
-  store_a(0, p);
-
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait_all();
-    __syncthreads();  // stage s & 1 is complete; stage (s + 1) & 1 is free
-    const bool more = s + 1 < steps;
-    if (more) {
-      load_w(s + 1, (s + 1) & 1);
-      cp_async_commit();
-      gather(p, s + 1, next);
-      if (s + 2 < steps) coords(next, s + 2);
-    }
-    const T* A_ = a_s + (s & 1) * A_STAGE;
-    const T* B_ = b_s + (s & 1) * BN * LDK;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += P::KP) {
-      typename P::A a[MT];
-      typename P::B b[NT];
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-        P::load_a_planes(a[mi], A_, A_PLANE, LDK, wm * 32 + mi * 16, kk,
-                         lane);
-      P::template load_b<NT>(b, B_, LDK, wn * WN, kk, lane);
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni) P::mma(acc[mi][ni], a[mi], b[ni]);
-    }
-    if (more) store_a((s + 1) & 1, p);
-  }
-
-  // epilogue: the sums as T has them, plus the bias; staged; 16-byte
-  // stores
-  __syncthreads();
-  T* o_s = (T*)smem;  // [BM][LDO], over the operand stages
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      const int col = wn * WN + ni * 8 + tig * 2;
-      const float b0 = bias && col < g.cout ? P::widen(bias[col]) : 0.f;
-      const float b1 =
-          bias && col + 1 < g.cout ? P::widen(bias[col + 1]) : 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wm * 32 + mi * 16 + h * 8 + gid;
-        float v0 = P::sum_out(acc[mi][ni][2 * h]);
-        float v1 = P::sum_out(acc[mi][ni][2 * h + 1]);
-        if (bias) {
-          v0 += b0;
-          v1 += b1;
-        }
-        P::store2(o_s + row * LDO + col, v0, v1);
-      }
-    }
-  __syncthreads();
-  const int runs = g.cout / N;
-  Raw* out4 = reinterpret_cast<Raw*>(out);
-  for (int i = tid; i < BM * runs; i += S::kThreads) {
-    const int r = i / runs, q = i % runs;
-    const Pixel o = pixel_of(g, pt, r);
-    if (o.live)
-      out4[(size_t)o.r * runs + q] =
-          *reinterpret_cast<const Raw*>(o_s + r * LDO + q * N);
-  }
-}
-
-// -------------------------------------------------------------------- dgrad
-
-// dgrad's block and product, a 64 x BK tile a step. At bf16 Shape<BN>'s
-// block, 2 warps along the tile's rows and the rest along its BK channels
-// while the warp tiles stay 8 channels wide or more. At f32 256 threads
-// whatever BN (its accumulators are one step's: few), 4 warps along the
-// rows and 2 along the 32 channels: each fragment of the grad_out tile,
-// which every step reads whole, is loaded by 2 warps, not 4. And the
-// planes of that tile: at f32 and BN 128 split once into hi and lo
-// planes, else split as fragments load (at BN 256 shared memory cannot
-// hold both planes; at BN 64 they would leave room for one block an SM,
-// not two, and cost more than the splits they save).
-template <typename T, int BN>
-struct DgradShape {
-  using S = Block<Prec<T>::kPlanes == 2 ? 256 : Shape<BN>::kThreads>;
-  static constexpr int kWarps = S::kWarps;
-  static constexpr int kN =
-      Prec<T>::kPlanes == 2 ? kWarps / 4
-      : kWarps / 2 < Tiles<T>::BK / 8 ? kWarps / 2 : Tiles<T>::BK / 8;
-  static constexpr int kM = kWarps / kN;
-  static constexpr int kGoPlanes = Prec<T>::kPlanes == 2 && BN == 128 ? 2 : 1;
-};
-
-template <typename T, int BN, bool kScatter, bool kMask>
-__global__ void __launch_bounds__(DgradShape<T, BN>::S::kThreads,
-                                  BN == 256 ? 1 : 2)
-dgrad_kernel(const T* __restrict__ go, const typename Prec<T>::Raw* __restrict__ x,
-             const float* __restrict__ offset, const T* __restrict__ mask,
-             const T* __restrict__ w, float* __restrict__ grad_offset,
-             T* __restrict__ grad_mask, float* __restrict__ grad_x, Geom g) {
-  using Wp = DgradShape<T, BN>;
-  using S = typename Wp::S;
-  using P = Prec<T>;
-  using Raw = typename P::Raw;
-  constexpr int BK = Tiles<T>::BK, LDK = Tiles<T>::LDK, N = P::N;
-  constexpr int WM = BM / Wp::kM, WN = BK / Wp::kN;
-  constexpr int MT = WM / 16, NT = WN / 8, RUNS = S::kRuns;
-  constexpr int LDO = BN + Tiles<T>::PAD, GO_PLANE = BM * LDO;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* go_s = (T*)smem;                       // [planes][BM][LDO]
-  T* w_s = go_s + Wp::kGoPlanes * GO_PLANE;  // [2][BK][LDO]
-  T* gc_s = w_s + 2 * BK * LDO;     // [BM][LDK]
-  // the patch's offsets and masks, each replaced by its gradient once read
-  float* off_s = (float*)(gc_s + BM * LDK);  // [BM][dg][K][2]
-  T* msk_s = (T*)(off_s + BM * g.dg * g.taps * 2);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / Wp::kN, wn = warp % Wp::kN;
-  const int gid = lane >> 2, tig = lane & 3;
-  const Patch pt = patch_of(g, blockIdx.x);
-  const int nchunk = (g.c + BK - 1) / BK;
-  const int steps = g.taps * nchunk;
-  const int per_px = g.dg * g.taps;
-  const int seg = g.cg / N;  // runs of a deform group: neighbouring lanes
-
-  // this thread's col2im slots: pixels rr[q], run j of a chunk
-  const int j = tid & 7;
-  const bool writer = (j & (seg - 1)) == 0;  // the first run of its group
-  int rr[RUNS];
-  Pixel px[RUNS];
-  const Raw* xn[RUNS];
-#pragma unroll
-  for (int q = 0; q < RUNS; ++q) {
-    rr[q] = (tid >> 3) + (S::kThreads / 8) * q;
-    px[q] = pixel_of(g, pt, rr[q]);
-    xn[q] = item_run(x, g, px[q], j);
-  }
-
-  // the grad_out tile, zeros outside the map and past Cout
-  for (int i = tid; i < BM * (BN / N); i += S::kThreads) {
-    const int r = i / (BN / N), q = i % (BN / N);
-    const Pixel o = pixel_of(g, pt, r);
-    const bool in = o.live && q * N < g.cout;
-    cp_async16(go_s + r * LDO + q * N,
-               in ? go + (size_t)o.r * g.cout + q * N : go, in ? 16 : 0);
-  }
-  auto load_w = [&](int s, int stage) {
-    const int k = s / nchunk, c0 = (s % nchunk) * BK;
-    T* dst = w_s + stage * BK * LDO;
-    for (int i = tid; i < BK * (BN / N); i += S::kThreads) {
-      const int cc = i / (BN / N), q = i % (BN / N);
-      const bool in = c0 + cc < g.c && q * N < g.cout;
-      cp_async16(dst + cc * LDO + q * N,
-                 in ? w + ((size_t)k * g.c + c0 + cc) * g.cout + q * N : w,
-                 in ? 16 : 0);
-    }
-  };
-  move_offsets<T, kMask>(off_s, msk_s, const_cast<float*>(offset),
-                         const_cast<T*>(mask), pt, g, true, tid,
-                         S::kThreads);
-  load_w(0, 0);
-  cp_async_commit();
-
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait_all();
-    __syncthreads();  // this chunk's weights (and at s 0 the rest) are in
-    if constexpr (Wp::kGoPlanes == 2) {
-      if (s == 0) {  // the grad_out tile, split in place into two planes
-        for (int i = tid; i < BM * (BN / N); i += S::kThreads) {
-          T* at = go_s + (i / (BN / N)) * LDO + (i % (BN / N)) * N;
-          P::store_run(at, GO_PLANE, *reinterpret_cast<const Raw*>(at));
-        }
-        __syncthreads();
-      }
-    }
-    if (s + 1 < steps) {
-      load_w(s + 1, (s + 1) & 1);
-      cp_async_commit();
-    }
-
-    // the corner loads of this chunk's samples fly during the products
-    const Step st = step_of<T>(g, s / nchunk, s % nchunk, j);
-    Sample<T> p[RUNS];
-    bool live[RUNS];
-    int at[RUNS];
-#pragma unroll
-    for (int q = 0; q < RUNS; ++q) {
-      at[q] = rr[q] * per_px + st.og;
-      live[q] = px[q].live && st.in;
-      const Coord t{live[q] ? off_s[2 * at[q]] : 0.f,
-                    live[q] ? off_s[2 * at[q] + 1] : 0.f,
-                    !live[q] ? 0.f : kMask ? P::widen(msk_s[at[q]]) : 1.f,
-                    live[q]};
-      issue<T>(p[q], g, xn[q] + st.ci * RUNS_K, px[q], st, t);
-    }
-
-    // grad_col tile = go (BM x BN) . W[k, chunk, :]^T, stored in T
-    const T* W = w_s + (s & 1) * BK * LDO;
-    float acc[MT][NT][4];
-    zero(acc);
-#pragma unroll 4
-    for (int kk = 0; kk < BN; kk += P::KP) {
-      typename P::A a[MT];
-      typename P::B b[NT];
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        if constexpr (Wp::kGoPlanes == 2)
-          P::load_a_planes(a[mi], go_s, GO_PLANE, LDO, wm * WM + mi * 16, kk,
-                           lane);
-        else
-          P::load_a(a[mi], go_s, LDO, wm * WM + mi * 16, kk, lane);
-      }
-      P::template load_b<NT>(b, W, LDO, wn * WN, kk, lane);
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni) P::mma(acc[mi][ni], a[mi], b[ni]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = wm * WM + mi * 16 + h * 8 + gid;
-          const int col = wn * WN + ni * 8 + tig * 2;
-          P::store2(gc_s + row * LDK + col, acc[mi][ni][2 * h],
-                    acc[mi][ni][2 * h + 1]);
-        }
-    __syncthreads();  // grad_col staged
-
-    // col2im on the staged grad_col
-#pragma unroll
-    for (int q = 0; q < RUNS; ++q) {
-      float gc[N];
-      deform::Run<T>::unpack(
-          *reinterpret_cast<const Raw*>(gc_s + rr[q] * LDK + j * N), gc);
-      const deform::Values<T> v = deform::widen_corners<T>(p[q].raw);
-      const deform::CoordGrad cg = deform::coord_grad<T>(gc, v, p[q].cn);
-      const float dfy = deform::segment_sum(cg.dfy, seg);
-      const float dfx = deform::segment_sum(cg.dfx, seg);
-      if constexpr (kMask) {
-        const float value = deform::segment_sum(cg.value, seg);
-        if (live[q] && writer) {
-          off_s[2 * at[q]] = p[q].m * dfy;  // read once, at this step
-          off_s[2 * at[q] + 1] = p[q].m * dfx;
-          msk_s[at[q]] = deform::Run<T>::narrow(value);
-        }
-      } else if (live[q] && writer) {  // no mask: no grad mask, no scaling
-        off_s[2 * at[q]] = dfy;
-        off_s[2 * at[q] + 1] = dfx;
-      }
-      if constexpr (kScatter)  // every lane: bf16 pairs trade by shuffles
-        deform::scatter_corners(
-            grad_x + (size_t)px[q].n * g.h * g.w * g.c +
-                (st.ci * RUNS_K + j) * N,
-            p[q].cn, gc, p[q].m, g.w, g.c, live[q]);
-    }
-  }
-  __syncthreads();  // every gradient of the patch is staged
-  move_offsets<T, kMask>(off_s, msk_s, grad_offset, grad_mask, pt, g, false,
-                         tid, S::kThreads);
 }
 
 // -------------------------------------------------------------------- wgrad
@@ -1187,40 +751,6 @@ int allow_smem(Kernel kernel, size_t smem) {
 }
 
 template <typename T, int BN>
-int fwd(const void* x, const void* offset, const void* mask, const void* wt,
-        const void* bias, void* out, const Geom& g, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)2 * (Prec<T>::kPlanes * BM + BN) * Tiles<T>::LDK * sizeof(T);
-  // no mask (K5): the kernels that read none
-  auto kernel = mask ? fwd_kernel<T, BN, true> : fwd_kernel<T, BN, false>;
-  if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<g.patches, Shape<BN>::kThreads, smem, stream>>>(
-      (const typename Prec<T>::Raw*)x, (const float*)offset, (const T*)mask,
-      (const T*)wt, (const T*)bias, (T*)out, g);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int BN, bool kScatter>
-int dgrad(const void* go, const void* x, const void* offset, const void* mask,
-          const void* w, void* grad_offset, void* grad_mask, void* grad_x,
-          const Geom& g, cudaStream_t stream) {
-  const size_t smem =
-      ((size_t)(DgradShape<T, BN>::kGoPlanes * BM + 2 * Tiles<T>::BK) *
-           (BN + Tiles<T>::PAD) +
-       BM * Tiles<T>::LDK) * sizeof(T) +
-      (mask ? staged_offset_bytes<T, true>(g)
-            : staged_offset_bytes<T, false>(g));
-  auto kernel = mask ? dgrad_kernel<T, BN, kScatter, true>
-                     : dgrad_kernel<T, BN, kScatter, false>;
-  if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<g.patches, DgradShape<T, BN>::S::kThreads, smem, stream>>>(
-      (const T*)go, (const typename Prec<T>::Raw*)x, (const float*)offset,
-      (const T*)mask, (const T*)w, (float*)grad_offset, (T*)grad_mask,
-      (float*)grad_x, g);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int BN>
 int wgrad(const void* go, const void* x, const void* offset, const void* mask,
           void* partial, int splits, int split_patches, const Geom& g,
           cudaStream_t stream) {
@@ -1253,42 +783,6 @@ int wgrad(const void* go, const void* x, const void* offset, const void* mask,
 // the map; every patch in one slice), (K * C + 1) x Cout floats a slice,
 // grad weight's rows and then grad bias; the sum adds the slices' n floats
 // into grad_w.
-template <typename T>
-int fwd_launch(const void* x, const void* offset, const void* mask,
-               const void* wt, const void* bias, void* out, const Geom& g,
-               void* stream) {
-  if (!supported<T>(g, false) || !aligned16(x) || !aligned16(wt) ||
-      !aligned16(out) || ((uintptr_t)offset & 7))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (tile_width(g.cout)) {
-    case 64: return fwd<T, 64>(x, offset, mask, wt, bias, out, g, s);
-    case 128: return fwd<T, 128>(x, offset, mask, wt, bias, out, g, s);
-    default: return fwd<T, 256>(x, offset, mask, wt, bias, out, g, s);
-  }
-}
-
-template <typename T>
-int dgrad_launch(const void* go, const void* x, const void* offset,
-                 const void* mask, const void* w, void* grad_offset,
-                 void* grad_mask, void* grad_x, const Geom& g, void* stream) {
-  if (!supported<T>(g, true) || !aligned16(go) || !aligned16(x) ||
-      !aligned16(w) || ((uintptr_t)offset & 7) || (mask && !grad_mask))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define MDCN_DGRAD(BN)                                                       \
-  (grad_x ? dgrad<T, BN, true>(go, x, offset, mask, w, grad_offset,          \
-                               grad_mask, grad_x, g, s)                      \
-          : dgrad<T, BN, false>(go, x, offset, mask, w, grad_offset,         \
-                                grad_mask, nullptr, g, s))
-  switch (tile_width(g.cout)) {
-    case 64: return MDCN_DGRAD(64);
-    case 128: return MDCN_DGRAD(128);
-    default: return MDCN_DGRAD(256);
-  }
-#undef MDCN_DGRAD
-}
-
 template <typename T>
 int wgrad_launch(const void* go, const void* x, const void* offset,
                  const void* mask, void* partial, int splits,

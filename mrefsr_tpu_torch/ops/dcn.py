@@ -12,12 +12,17 @@ columns into shared memory and contract them there on the tensor cores, in
 one launch per call, as the JAX package's scans contract each tap's slab
 in their own bodies: no column matrix, no chunks, no matmul.
 ``csrc/mdcn_fused.cu`` (float32, 3xTF32) and ``csrc/mdcn_bf16.cu``
-(bfloat16) instantiate one walk, ``csrc/mdcn_fused.cuh``. The forward is
-``mdcn_fused_fwd``; the backward ``mdcn_fused_dgrad`` (grad offset, grad
-mask and, in its ``_scatter`` variant, grad x) and ``mdcn_fused_wgrad``
-(per-slice partials of grad weight and grad bias), then
-``mdcn_fused_wgrad_sum`` adds the partials in a fixed order; the bf16
-entry points carry a ``_bf16`` suffix. The walk runs three TPU kernels of
+(bfloat16) instantiate one walk: the forward and dgrad on Hopper's wgmma,
+fed by TMA and by producer warps that gather the columns
+(``csrc/mdcn_wgmma.cuh``), wgrad on ``mma.sync`` (``csrc/mdcn_fused.cuh``).
+The forward is ``mdcn_fused_fwd``; the backward ``mdcn_fused_dgrad`` (grad
+offset, grad mask and, in its ``_scatter`` variant, grad x) and
+``mdcn_fused_wgrad`` (per-slice partials of grad weight and grad bias),
+then ``mdcn_fused_wgrad_sum`` adds the partials in a fixed order; the bf16
+entry points carry a ``_bf16`` suffix. At float32 the forward and dgrad
+take the weight as its TF32 hi and lo planes, which ``mdcn_fused_split``
+(:data:`mdcn_fused_split_kernel`, plain version :func:`_split_tf32_ref`)
+writes once a call. The walk runs three TPU kernels of
 the JAX package, each with Kernels of its own (:data:`FUSED_KERNELS`) so
 that their launches count apart:
 
@@ -41,9 +46,10 @@ plus the f32 pre-offsets gives (a bf16 offset is widened exactly).
 Coordinates are f32 whatever the types. At bf16 the sampled corners are
 widened to f32, combined in f32 and rounded to bf16 once per column
 element (the kernels and the plain versions alike); the contraction sums
-bf16 x bf16 products in f32 (the fused kernel's ``mma.sync``, the plain
-version's ``torch.mm`` / ``torch.bmm``) and rounds once to bf16, and the
-bias is added after that rounding, as at the JAX package's dcn.py:104-107.
+bf16 x bf16 products in f32 (the fused kernels' ``wgmma`` and
+``mma.sync``, the plain version's ``torch.mm`` / ``torch.bmm``) and rounds
+once to bf16, and the bias is added after that rounding, as at the JAX
+package's dcn.py:104-107.
 In the backward the grad columns (grad out x W^T) are summed in f32 and
 rounded to bf16 before the bilinear derivative, where JAX's vjp and
 ``torch.mm`` round them; grad offset is f32, grad mask bf16 rounded once;
@@ -104,6 +110,10 @@ FUSED_KERNELS = {
     for name in VARIANTS.values()
     for library, suffix in _FUSED_TYPES.values()
     for part, argtypes in _FUSED_PARTS.items()}
+# float32 only: the weight's TF32 hi and lo planes, which the float32
+# forward and dgrad read (w, planes, n, stream), for K2, K3 and K5 alike
+mdcn_fused_split_kernel = Kernel('mdcn_fused', 'mdcn_fused_split_launch',
+                                 [_P, _P, ctypes.c_longlong, _P])
 # the fused kernels' widest output tile, and the deform groups x taps whose
 # offsets a dgrad block stages in shared memory
 FUSED_MAX_COUT = 256
@@ -232,9 +242,11 @@ def _check_fused_inputs(x, offset, mask, weight, bias=None, go=None,
                         backward=False):
     """The fused kernels' rules beyond :func:`_check_cuda_inputs`'s, for K2,
     K3 and K5 alike: x, mask (or none), weight, bias and grad out all
-    float32 or all bfloat16 (the offset float32); Cout a multiple of 8 (the
-    products' 8-wide tiles, 16-byte runs of the output, grad out and weight
-    rows) and at most :data:`FUSED_MAX_COUT` (the widest output tile);
+    float32 or all bfloat16 (the offset float32); Cout a multiple of 8
+    (16-byte runs of the output, grad out and weight rows, and the row
+    strides of the TMA boxes, which must be multiples of 16 bytes) and at
+    most :data:`FUSED_MAX_COUT` (the widest output tile: the forward's
+    wgmma is at most 256 wide);
     deform_groups * kh * kw at most :data:`FUSED_MAX_STAGED` (the offsets a
     block stages); for the backward a deform group's runs of 16 bytes
     (C/deform_groups/4 at float32, /8 at bfloat16) a power of two <= 8
@@ -253,7 +265,7 @@ def _check_fused_inputs(x, offset, mask, weight, bias=None, go=None,
                          f'{x.device}')
     if cout % 8:
         raise ValueError(f'the fused DCN kernels need Cout to be a '
-                         f'multiple of 8 (8-wide product tiles), got '
+                         f'multiple of 8 (16-byte rows), got '
                          f'Cout={cout}')
     if cout > FUSED_MAX_COUT:
         raise ValueError(f'the fused DCN kernels take Cout at most '
@@ -404,6 +416,29 @@ def _mdcn_forward(x, offset, mask, weight, bias, geom, im2col, groups=1):
     return out.reshape(n, ho, wo, cout)
 
 
+def _split_tf32_ref(w):
+    """Plain version of ``mdcn_fused_split``: the float32 ``w`` as its
+    3xTF32 planes ``(2, *w.shape)``, hi = w rounded to TF32, ties away from
+    zero (half of the dropped 13 bits added to the bits, then cleared), lo
+    = w - hi, exact in float32, so that hi + lo == w."""
+    bits = w.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.stack([hi, w - hi])
+
+
+def _weight_operand(w):
+    """The weight the fused forward (``w`` is wt, ``(Cout, K * C)``) or
+    dgrad (the HWIO weight, ``(K * C, Cout)``) reads: at bfloat16 ``w``
+    itself; at float32 its TF32 hi and lo planes, split by one launch of
+    ``mdcn_fused_split`` into a scratch of twice its size."""
+    if w.dtype != torch.float32:
+        return w
+    planes = torch.empty((2, *w.shape), dtype=torch.float32, device=w.device)
+    mdcn_fused_split_kernel(w.data_ptr(), planes.data_ptr(), w.numel(),
+                            torch.cuda.current_stream().cuda_stream)
+    return planes
+
+
 def _fused_args(x, offset, weight, geom):
     """The geometry and stream arguments of the fused kernels."""
     (kh, kw), (sh, sw), (ph, pw), (dh, dw), (ho, wo) = geom
@@ -429,6 +464,7 @@ def _mdcn_fused_forward_cuda(x, offset, mask, weight, bias, geom, groups=1):
         .contiguous()
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
+        wt = _weight_operand(wt)
         kernels[0](x.data_ptr(), offset.data_ptr(), _ptr(mask), wt.data_ptr(),
                    _ptr(None if bias is None else bias.contiguous()),
                    out.data_ptr(), *_fused_args(x, offset, weight, geom))
@@ -462,7 +498,8 @@ def _mdcn_fused_backward_cuda(go, x, offset, mask, weight, geom, need_x,
                               need_sample, need_params, groups=1):
     """The backward of K2, K3 or K5, float32 or bfloat16: its
     ``mdcn_fused_dgrad`` (the ``_scatter`` variant where x needs a
-    gradient) when x, the offset or the mask needs one, then its
+    gradient; at float32 after ``mdcn_fused_split`` of the weight) when x,
+    the offset or the mask needs one, then its
     ``mdcn_fused_wgrad`` and the ordered sum of its partials when the
     weight or the bias does. ``go`` is the ``(rows, Cout)`` grad out.
     Returns grad x (float32), grad offset (float32), grad mask (x's type;
@@ -483,8 +520,9 @@ def _mdcn_fused_backward_cuda(go, x, offset, mask, weight, geom, need_x,
         if need_sample or need_x:
             grad_offset = torch.empty_like(offset)
             grad_mask = None if mask is None else torch.empty_like(mask)
+            w = _weight_operand(full)
             head = (go.data_ptr(), x.data_ptr(), offset.data_ptr(),
-                    _ptr(mask), full.data_ptr(), grad_offset.data_ptr(),
+                    _ptr(mask), w.data_ptr(), grad_offset.data_ptr(),
                     _ptr(grad_mask))
             if need_x:
                 grad_x = torch.zeros_like(x, dtype=torch.float32)

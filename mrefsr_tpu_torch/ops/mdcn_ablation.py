@@ -1,8 +1,9 @@
 """Where the fused K2's time goes: ``mdcn_fused_fwd``, ``mdcn_fused_dgrad``
-and ``mdcn_fused_wgrad`` (the walk of ``csrc/mdcn_fused.cuh``, at f32 from
-``csrc/mdcn_fused.cu`` or at bf16 from ``csrc/mdcn_bf16.cu``) at the stage-3
-training shapes, each kernel launched alone, built as is and with one part
-of its work taken out.
+and ``mdcn_fused_wgrad`` (the forward and dgrad on the wgmma walk of
+``csrc/mdcn_wgmma.cuh``, wgrad on ``csrc/mdcn_fused.cuh``'s, at f32 from
+``csrc/mdcn_fused.cu`` or at bf16 from ``csrc/mdcn_bf16.cu``) at the
+stage-3 training shapes, each kernel launched alone, built as is and with
+one part of its work taken out.
 
     python3 -m mrefsr_tpu_torch.ops.mdcn_ablation            # f32
     python3 -m mrefsr_tpu_torch.ops.mdcn_ablation --bf16
@@ -12,12 +13,15 @@ headers with a part cut by text edits, each beside a copy of the entry
 points' source in a directory of its own under ``build/``: ``gather`` (no
 corner loads: every sample reads as outside the map), ``offsets`` (no
 offset or mask reads: the gathers' per sample, dgrad's staging of a
-patch), ``operands`` (no weight tiles in dgrad, no grad-out tiles in
-wgrad), ``products`` (no ``mma.sync``, and so no fragment loads or
-splits), ``splits`` (f32 only: the TF32 split left out, hi = x, lo = 0)
-and ``gather+products``. A cut variant computes wrong values; only its
-time counts. Prints one JSON line per shape and variant, the median ms of
-7 launches after a warm-up, then the card's name and power limit.
+patch), ``operands`` (no TMA loads of the weight in the forward and
+dgrad, nor of dgrad's grad-out tile, the barriers arriving without them;
+no grad-out tiles in wgrad), ``products`` (no ``wgmma`` and no
+``mma.sync``), ``splits`` (f32 only: the TF32 split left out, hi = x, lo =
+0) and ``gather+products``. A cut variant computes wrong values; only its
+time counts. At f32 the forward and dgrad read the weight's planes, split
+beforehand by the checkout's own ``mdcn_fused_split``. Prints one JSON line
+per shape and variant, the median ms of 7 launches after a warm-up, then
+the card's name and power limit.
 
     python3 -m mrefsr_tpu_torch.ops.mdcn_ablation --scatter [--bf16]
 
@@ -28,16 +32,25 @@ text edit (these variants compute right values): ``scalar atomics`` (each
 16-byte vector reduction split into four scalar atomic adds) and
 ``unpaired`` (at bf16, each lane reducing its own two half sectors, no
 trade between the lanes of a pair).
+
+    python3 -m mrefsr_tpu_torch.ops.mdcn_ablation --sass
+
+builds ``mdcn_fused.cu`` and ``mdcn_bf16.cu`` as the port does and prints,
+for every kernel of the two libraries, its registers and spills as ptxas
+reports them and how many ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)
+instructions ``cuobjdump -sass`` finds in it: one JSON line a kernel.
 """
 import ctypes
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
 
 import torch
 
-from ._build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc
+from ._build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc, build
 
 SHAPES = ((256, 40), (128, 80), (64, 160))     # (C, H) at B 6 x 5 refs
 ITEMS, DG = 30, 8
@@ -54,15 +67,29 @@ CUTS = {
                  '    } else {\n      copy_span(offset + 2 * at',
                  '    } else if (!in) {\n      copy_span(offset + 2 * at',
                  1)],
-    'operands': [('mdcn_fused.cuh',
-                  '      const bool in = c0 + cc < g.c && q * N < g.cout;',
-                  '      const bool in = false;', 1),
+    'operands': [('mdcn_wgmma.cuh',
+                  '      mbar_expect_tx(&full[stage], R::B_BYTES);',
+                  '      mbar_arrive(&full[stage]);\n      return;', 1),
+                 ('mdcn_wgmma.cuh',
+                  '      mbar_expect_tx(&w_full[stage], D::W_STAGE);',
+                  '      mbar_arrive(&w_full[stage]);\n      return;', 1),
+                 ('mdcn_wgmma.cuh',
+                  '      mbar_expect_tx(&go_full, slabs * SLAB);',
+                  '      mbar_arrive(&go_full);\n      if (false)', 1),
                  ('mdcn_fused.cuh',
                   '      const bool in = o.live && q * N < g.cout;\n'
                   '      cp_async16(dst + r * LDO',
                   '      const bool in = false;\n'
                   '      cp_async16(dst + r * LDO', 1)],
-    'products': [('mdcn_fused.cuh', 'P::mma(', 'if (false) P::mma(', 3)],
+    'products': [('mdcn_wgmma.cuh', 'bf16_ss(d, ', 'if (false) bf16_ss(d, ',
+                  1),
+                 ('mdcn_wgmma.cuh', 'tf32_ss(d, ', 'if (false) tf32_ss(d, ',
+                  3),
+                 ('mdcn_wgmma.cuh', 'bf16_ss(acc, ',
+                  'if (false) bf16_ss(acc, ', 1),
+                 ('mdcn_wgmma.cuh', 'tf32_rs(acc, ',
+                  'if (false) tf32_rs(acc, ', 3),
+                 ('mdcn_fused.cuh', 'P::mma(', 'if (false) P::mma(', 1)],
     'splits': [('mma_sync.cuh',
                 '  hi = (x + 0x1000u) & 0xFFFFE000u;\n'
                 '  lo = __float_as_uint(__uint_as_float(x) - '
@@ -91,7 +118,7 @@ SCATTER_SHAPES = (('edvr_m_l1', 20, 64, 64, 64, 64, 8),
 
 def _headers(cuts):
     texts = {name: (CSRC / name).read_text()
-             for name in ('mdcn_fused.cuh', 'mma_sync.cuh',
+             for name in ('mdcn_fused.cuh', 'mdcn_wgmma.cuh', 'mma_sync.cuh',
                           'deform_bilinear.cuh')}
     for cut in cuts:
         for name, old, new, count in CUTS[cut]:
@@ -193,8 +220,9 @@ def scatter(dcn, bf16):
             args = dcn._fused_args(x, offset, weight, geom)
             g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
             g_x = torch.zeros_like(x, dtype=torch.float32)
+            w = dcn._weight_operand(weight)  # f32: its TF32 planes
             head = (go.data_ptr(), x.data_ptr(), offset.data_ptr(),
-                    mask.data_ptr(), weight.data_ptr(), g_off.data_ptr(),
+                    mask.data_ptr(), w.data_ptr(), g_off.data_ptr(),
                     g_mask.data_ptr(), g_x.data_ptr())
             for name, launch in entries.items():
                 print(json.dumps({
@@ -204,14 +232,65 @@ def scatter(dcn, bf16):
                     'scatter_ms': _ms(lambda: _check(launch(*head,
                                                             *args)))}),
                       flush=True)
-            del x, offset, mask, weight, go, g_off, g_mask, g_x
+            del x, offset, mask, weight, w, go, g_off, g_mask, g_x
             torch.cuda.empty_cache()
+
+
+def _demangled(names):
+    """``names`` through ``cu++filt`` where the toolkit has it."""
+    filt = os.path.join(os.path.dirname(_nvcc()), 'cu++filt')
+    if not os.path.exists(filt):
+        return list(names)
+    out = subprocess.run([filt, *names], capture_output=True, text=True)
+    lines = out.stdout.splitlines()
+    return lines if len(lines) == len(names) else list(names)
+
+
+def sass():
+    """``--sass``: see the module docstring."""
+    info = build(['mdcn_fused', 'mdcn_bf16'])
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), 'cuobjdump')
+    for lib, rec in info.items():
+        regs, name = {}, None
+        for line in rec['log'].splitlines():
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                continue
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                          r'loads', line)
+            if m and name:
+                regs.setdefault(name, {})['spill_bytes'] = [
+                    int(m.group(1)), int(m.group(2))]
+            m = re.search(r'Used (\d+) registers', line)
+            if m and name:
+                regs.setdefault(name, {})['registers'] = int(m.group(1))
+        text = subprocess.run([cuobjdump, '-sass', str(rec['path'])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, name = {}, None
+        for line in text.splitlines():
+            m = re.search(r'Function : (\S+)', line)
+            if m:
+                name = m.group(1)
+                counts[name] = {'HGMMA': 0, 'HMMA': 0}
+            elif name and 'HGMMA' in line:
+                counts[name]['HGMMA'] += 1
+            elif name and 'HMMA' in line:
+                counts[name]['HMMA'] += 1
+        for mangled, readable in zip(counts, _demangled(list(counts))):
+            print(json.dumps({'library': lib, 'kernel': readable,
+                              **counts[mangled], **regs.get(mangled, {})}),
+                  flush=True)
 
 
 def main(argv=None):
     from . import dcn
     argv = sys.argv[1:] if argv is None else argv
     bf16 = '--bf16' in argv
+    if '--sass' in argv:
+        sass()
+        return
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
     if '--scatter' in argv:
@@ -242,7 +321,9 @@ def main(argv=None):
         args = dcn._fused_args(x, offset, weight, geom)
         splits, split_patches = dcn._wgrad_slices(ITEMS, h, h, 9, c, c,
                                                   dtype)
-        wt = weight.reshape(9 * c, c).t().contiguous()
+        # at f32 the weight's TF32 planes, as the wrapper hands them over
+        wt = dcn._weight_operand(weight.reshape(9 * c, c).t().contiguous())
+        w = dcn._weight_operand(weight.reshape(9 * c, c))
         out = torch.empty_like(go)
         partial = torch.empty((splits, 9 * c + 1, c), device='cuda')
         g_off, g_mask = torch.empty_like(offset), torch.empty_like(mask)
@@ -256,12 +337,12 @@ def main(argv=None):
                     x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
                     wt.data_ptr(), None, out.data_ptr(), *args))),
                 'dgrad_ms': _ms(lambda: _check(dgrad(
-                    *head, weight.data_ptr(), g_off.data_ptr(),
+                    *head, w.data_ptr(), g_off.data_ptr(),
                     g_mask.data_ptr(), *args))),
                 'wgrad_ms': _ms(lambda: _check(wgrad(
                     *head, partial.data_ptr(), splits, split_patches,
                     *args)))}), flush=True)
-        del x, offset, mask, weight, go, partial, g_off, g_mask, out, wt
+        del x, offset, mask, weight, go, partial, g_off, g_mask, out, wt, w
         torch.cuda.empty_cache()
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,

@@ -339,13 +339,16 @@ def _fused_geom(args):
 def _stand_in_kernels(monkeypatch):
     """PyTorch stand-ins for the C entry points of the fused kernels
     (``csrc/mdcn_fused.cu``, ``csrc/mdcn_bf16.cu``) behind every Kernel of
-    ``dcn.FUSED_KERNELS`` (K2, K3 and K5), with their contracts: pointers
+    ``dcn.FUSED_KERNELS`` (K2, K3 and K5) and ``dcn.mdcn_fused_split_kernel``
+    (launches named ``'mdcn_fused_split'``), with their contracts: pointers
     in, the geometry as ints; the mask pointer null for DCNv1 (a mask of
     ones: dgrad's grad-mask pointer null with it, nothing written there);
     the weight ``(K * C, Cout)``, for K3 the block-diagonal expansion of
-    the grouped one, all of C a row. The forward rounds the columns once
-    to x's type, sums their product with the weight in f32, rounds to x's
-    type and adds the bias there (at f32: the f32 sum plus the bias); dgrad
+    the grouped one, all of C a row, and at f32 the forward's and dgrad's
+    weight its TF32 hi and lo planes, which the split writes (its plain
+    version, ``dcn._split_tf32_ref``) and which add up to it exactly. The
+    forward rounds the columns once to x's type, sums their product with
+    the weight in f32, rounds to x's type and adds the bias there (at f32: the f32 sum plus the bias); dgrad
     writes grad offset and grad mask by :func:`fused_dgrad_math` (and adds
     grad x in its scatter variant); wgrad writes the f32 partials of the
     whole ``(K * C, Cout)`` grad weight and, in the row after, grad bias of
@@ -361,9 +364,23 @@ def _stand_in_kernels(monkeypatch):
         tensors[ptr] = t
         return ptr
 
+    def weight_of(w, x):
+        """The weight a forward or dgrad entry point reads: at f32 the sum
+        of its two planes (exact), at bf16 itself."""
+        if x.dtype != torch.float32:
+            return w
+        assert w.shape[0] == 2
+        return w[0] + w[1]
+
+    def fused_split(w, planes, n, _stream):
+        assert w.dtype == planes.dtype == torch.float32
+        assert planes.shape == (2, *w.shape) and w.numel() == n
+        planes.copy_(dcn._split_tf32_ref(w))
+
     def fused_fwd(x, offset, mask, wt, bias, out, *rest):
         rows, cout, geom = _fused_geom(rest)
         kh, kw = geom[0]
+        wt = weight_of(wt, x)
         assert wt.shape == (cout, kh * kw * x.shape[3])
         col = dcn._im2col_ref(x, offset, mask, 0, rows, geom)
         y = (col.reshape(rows, -1).float() @ wt.float().t()).to(x.dtype)
@@ -374,6 +391,7 @@ def _stand_in_kernels(monkeypatch):
         grad_x = rest[0] if len(rest) == 18 else None
         _, cout, geom = _fused_geom(rest[-17:])
         assert (mask is None) == (grad_mask is None)
+        weight = weight_of(weight, x)
         assert weight.shape == (*geom[0], x.shape[3], cout)
         gx, goff, gmask = fused_dgrad_math(go, x, offset, mask, weight, geom)
         grad_offset.copy_(goff)
@@ -435,15 +453,21 @@ def _stand_in_kernels(monkeypatch):
                 name = f'{prefix}_{part}{suffix}'
                 monkeypatch.setitem(dcn.FUSED_KERNELS, name,
                                     entry(name, part))
+    parts['split'] = (fused_split, 2)
+    monkeypatch.setattr(dcn, 'mdcn_fused_split_kernel',
+                        entry('mdcn_fused_split', 'split'))
     return launched
 
 
 def fused_launches(groups, masked, grad_x, suffix=''):
     """The entry points one forward and one backward of the CUDA path
-    launch: the fused ones of K2, K3 or K5, the scatter only for grad x."""
+    launch: the fused ones of K2, K3 or K5, the scatter only for grad x;
+    at f32 the weight's split before the forward and before dgrad."""
     prefix = dcn.VARIANTS[dcn._variant(True if masked else None, groups)]
     scatter = '_scatter' if grad_x else ''
-    return [f'{prefix}_fwd{suffix}', f'{prefix}_dgrad{scatter}{suffix}',
+    split = [] if suffix else ['mdcn_fused_split']
+    return [*split, f'{prefix}_fwd{suffix}',
+            *split, f'{prefix}_dgrad{scatter}{suffix}',
             f'{prefix}_wgrad{suffix}', f'{prefix}_wgrad_sum{suffix}']
 
 
@@ -567,11 +591,11 @@ def test_k3_is_k2_on_the_channel_slices(monkeypatch, groups, dg, masked):
 def test_mdcn_f32_function_launches_the_fused_entry_points(monkeypatch,
                                                            grad_x):
     """The Function of the CUDA path at f32 (K2), with PyTorch stand-ins
-    for the C entry points: one launch of the fused forward per call
-    however small the column cap (no chunks, no column matrix, no matmul);
-    then one of dgrad (its scatter variant only where x needs a gradient)
-    and one of wgrad; then one of the ordered sum of the grad-weight and
-    grad-bias partials; none of mdcn.cu's entry points or the bf16 ones;
+    for the C entry points: one launch of the weight's TF32 split and one
+    of the fused forward per call however small the column cap (no chunks,
+    no column matrix, no matmul); then one of the split and one of dgrad
+    (its scatter variant only where x needs a gradient) and one of wgrad;
+    then one of the ordered sum of the grad-weight and grad-bias partials; none of mdcn.cu's entry points or the bf16 ones;
     and agreement with ``jax.grad`` at f32's 1e-5 of each gradient's
     largest entry (the stand-ins sum exact f32 products, in another order
     than XLA's)."""
@@ -594,7 +618,7 @@ def _check_f32_function_launches(monkeypatch, grad_x, cout):
             for i, a in enumerate(inputs)]
     geom = dcn._geometry(*args[:4], 1, 1, 1, 1, 2)
     out = dcn._ModulatedDeformConv2d.apply(*args, geom, 1)
-    assert launched == ['mdcn_fused_fwd']
+    assert launched == ['mdcn_fused_split', 'mdcn_fused_fwd']
     (out * torch.from_numpy(cot)).sum().backward()
     assert launched == fused_launches(1, True, grad_x)
     kw = dict(deform_groups=2)

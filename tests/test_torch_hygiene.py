@@ -452,6 +452,7 @@ KERNELS = (correlation.feature_match_prologue_kernel,
            correlation.feature_match_bf16_kernel,
            correlation.feature_match_sharded_bf16_kernel,
            *dcn.FUSED_KERNELS.values(),
+           dcn.mdcn_fused_split_kernel,
            dcn.deform_sample_fwd_bf16_kernel,
            dcn.deform_sample_bwd_bf16_kernel,
            dcn.deform_sample_bwd_scatter_bf16_kernel,
@@ -827,11 +828,14 @@ def test_kernel_argtypes_match_the_c_signature(kernel):
 def test_every_c_entry_point_has_a_kernel():
     """The scan reads the macro-made signatures (mdcn_fused.cuh's
     FUSED_ARGS in mdcn_fused.cu and mdcn_bf16.cu,
-    upfirdn2d.cu's UPFIRDN2D_ENTRY, fused_act.cu's FUSED_BWD_ENTRY), and
-    every launch entry point is bound by a Kernel."""
+    upfirdn2d.cu's UPFIRDN2D_ENTRY, fused_act.cu's FUSED_BWD_ENTRY) and
+    the f32 weight split's, and every launch entry point is bound by a
+    Kernel."""
     found = _c_entry_points()
     assert len(found['mdcn_fused_wgrad_launch']) == 7 + 17
     assert len(found['mdcn_fused_wgrad_bf16_launch']) == 7 + 17
+    assert found['mdcn_fused_split_launch'] == [
+        'const void* w', 'void* planes', 'long long n', 'void* stream']
     assert len(found['upfirdn2d_bwd2_launch']) == 16
     assert len(found['fused_leaky_relu_bwd2_launch']) == 13
     launches = {name for name in found if name.endswith('_launch')}
