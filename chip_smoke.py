@@ -4136,7 +4136,7 @@ def phase_ddp(gan_build_model=None):
 OWN_KERNELS = ('prologue_kernel', 'split_tf32_kernel',
                '::Tf32x3>', '::Bf16>',     # fm::match_kernel<...>
                'mdcn_wgmma::fwd_kernel', 'mdcn_wgmma::dgrad_kernel',
-               'mdcn_wgmma::split_kernel', 'mdcn_fused::wgrad_kernel',
+               'mdcn_wgmma::split_kernel', 'mdcn_wgmma::wgrad_kernel',
                'mdcn_fused::wgrad_sum_kernel', 'deform_sample_fwd_kernel',
                'deform_sample_bwd_kernel', 'upfirdn2d_tile_kernel',
                'upfirdn2d_gather_kernel', 'fused_leaky_relu_fwd_kernel',
@@ -4155,7 +4155,7 @@ def phase_profile(path, run, top=12):
 
 def _is_k2(name):
     """Whether a profiled kernel is one of K2's (K3's, K5's): the wgmma
-    walk's forward, dgrad and f32 weight split, wgrad and its sum."""
+    walk's forward, dgrad, wgrad and f32 weight split, and wgrad's sum."""
     return 'mdcn_wgmma::' in name or 'mdcn_fused::' in name
 
 

@@ -27,13 +27,16 @@ shape back to back, the function and then the match kernel alone, while
 
 With ``--k2`` it runs instead: the device and build phases; K2 through the
 checkout's ``modulated_deform_conv2d`` (``k2_function`` lines), forward at
-the CUFED5 eval, the stage-3 training and the video nets' shapes in f32
-and at the eval and training shapes in bf16, and the backward as the
-training step takes it (x frozen) at the training shapes, each with the
-peak memory of the call; the f32 and bf16 requests with a profile each;
-the f32 ``dcn`` and ``flow`` steps and the bf16 ``dcn`` step; a BasicVSR++
-chunk and an EDVR-M window; and the two-rank ``ddp`` phase. The K2 inputs
-are made here, from a seed, so that every checkout gets the same.
+the CUFED5 eval, the stage-3 training and the video nets' shapes in f32 and
+at the eval and training shapes in bf16, and the backward as the training
+step takes it (x frozen) at the training shapes, each with the peak memory
+of the call; wgrad alone (``mdcn_fused_wgrad`` and its bf16 twin, launched
+through the checkout's ``dcn._fused_kernels`` on the checkout's slices) at
+the training and video shapes in f32 and bf16 (``k2_wgrad`` lines, a line
+of sums a group); the f32 and bf16 requests with a profile each; the f32
+``dcn`` and ``flow`` steps and the bf16 ``dcn`` step; a BasicVSR++ chunk
+and an EDVR-M window; and the two-rank ``ddp`` phase. The K2 inputs are
+made here, from a seed, so that every checkout gets the same.
 
 With ``--k7`` it runs instead: the device and build phases; K7 through the
 checkout's ``upfirdn2d`` and K8 through its ``fused_leaky_relu``
@@ -236,12 +239,49 @@ def k2_functions(smoke, dcn):
                         'group': group, 'case': 'shapes summed', **total})
 
 
+def k2_wgrad(smoke, dcn):
+    """K2's wgrad alone, ``mdcn_fused_wgrad`` (or its bf16 twin) on its
+    slices, at the training and video shapes of ``K2_SHAPES``, f32 and
+    bf16: one line a shape and a line of sums a group."""
+    gen = torch.Generator().manual_seed(smoke.SEED + 44)
+    for dtype in (torch.float32, smoke.BF16):
+        wgrad = dcn._fused_kernels(dtype)[3]
+        for group in ('train', 'video'):
+            total = 0.0
+            for n, c, cout, h, w, dg in K2_SHAPES[group]:
+                x, offset, mask, weight, _ = _k2_inputs(gen, n, c, cout, h,
+                                                        w, dg, dtype)
+                go = torch.randn((n * h * w, cout), generator=gen).to(
+                    dtype).cuda()
+                geom = ((3, 3), (1, 1), (1, 1), (1, 1), (h, w))
+                args = dcn._fused_args(x, offset, weight, geom)
+                splits, split_patches = dcn._wgrad_slices(n, h, w, 9, c,
+                                                          cout, dtype)
+                partial = torch.empty((splits, 9 * c + 1, cout),
+                                      device='cuda')
+                head = (go.data_ptr(), x.data_ptr(), offset.data_ptr(),
+                        mask.data_ptr(), partial.data_ptr(), splits,
+                        split_patches)
+                ms = median_ms(lambda: wgrad(*head, *args))
+                smoke.emit({'phase': 'k2_wgrad', 'dtype': str(dtype),
+                            'group': group, 'n': n, 'c': c, 'cout': cout,
+                            'h': h, 'w': w, 'deform_groups': dg,
+                            'splits': splits, 'ms': ms})
+                total += ms
+                del x, offset, mask, weight, go, partial
+                torch.cuda.empty_cache()
+            smoke.emit({'phase': 'k2_wgrad', 'dtype': str(dtype),
+                        'group': group, 'case': 'shapes summed',
+                        'ms': total})
+
+
 def main_k2(smoke, build_model, arch, correlation, dcn, kernels):
     """``--k2``: see the module docstring."""
     from mrefsr_tpu_torch.archs import arch_util, edvr_arch
     from mrefsr_tpu_torch.inference import (inference_basicvsr,
                                             inference_basicvsrpp)
     k2_functions(smoke, dcn)
+    k2_wgrad(smoke, dcn)
     torch.cuda.empty_cache()
     for dtype in (torch.float32, smoke.BF16):
         _, model, batch = smoke.phase_slice(build_model, arch.DynAgg,

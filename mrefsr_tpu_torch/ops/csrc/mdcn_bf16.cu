@@ -1,9 +1,9 @@
 // K2, K3 and K5 at bf16, fused: the modulated deformable conv (DCNv2) with
 // any number of conv groups and DCNv1 (no mask), whose deformable-im2col
 // columns never reach device memory, forward and backward, with the
-// products on the tensor cores: the walk at T = bf16, the forward and
-// dgrad on wgmma (m64nNk16, bf16 in, f32 sums) fed by TMA and producer
-// warps (mdcn_wgmma.cuh), wgrad on mma.sync m16n8k16 (mdcn_fused.cuh).
+// products on the tensor cores: the walk at T = bf16, the forward, dgrad
+// and wgrad on wgmma (m64nNk16, bf16 in, f32 sums) fed by TMA and producer
+// warps (mdcn_wgmma.cuh).
 //
 // Replaces mrefsr_tpu/ops/dcn.py::_mdcn_slab_scan (dcn.py:111-160, K2),
 // _mdcn_tap_scan (:214-246, K3, on the block-diagonal weight the wrapper
@@ -77,7 +77,7 @@ int mdcn_fused_wgrad_bf16_launch(const void* go, const void* x,
                                  const void* offset, const void* mask,
                                  void* partial, int splits,
                                  int split_patches, FUSED_ARGS) {
-  return mdcn_fused::wgrad_launch<bf16>(go, x, offset, mask, partial, splits,
+  return mdcn_wgmma::wgrad_launch<bf16>(go, x, offset, mask, partial, splits,
                                         split_patches, FUSED_GEOM(bf16),
                                         stream);
 }

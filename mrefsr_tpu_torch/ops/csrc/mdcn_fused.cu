@@ -1,9 +1,8 @@
 // K2, K3 and K5 at f32, fused: the modulated deformable conv (DCNv2) with
 // any number of conv groups and DCNv1 (no mask), whose deformable-im2col
 // columns never reach device memory, forward and backward, with the
-// contraction in the kernel on the TF32 tensor cores as 3xTF32: the walks
-// of mdcn_wgmma.cuh (forward, dgrad) and mdcn_fused.cuh (wgrad) at T =
-// float.
+// contraction in the kernel on the TF32 tensor cores as 3xTF32: the walk
+// of mdcn_wgmma.cuh at T = float.
 //
 // Replaces mrefsr_tpu/ops/dcn.py::_mdcn_slab_scan (dcn.py:111-160, K2:
 // conv groups 1), _mdcn_tap_scan (:214-246, K3: conv groups > 1, here on
@@ -27,10 +26,10 @@
 // dropped lo*lo and what the tensor cores drop of lo leave about 2^-21 of
 // |a||b| a product, in either direction, below the f32 sums' own error at
 // these depths (9 C <= 2304). The tensor cores' f32 sums truncate: wgrad,
-// whose chains of sums run over a slice's thousands of rows, adds each
-// patch's products to its running sums on the CUDA cores
-// (Prec<float>::kStepSums); the forward's and dgrad's chains are at most
-// 2304 and 256 deep.
+// whose chains of sums run over a slice's thousands of rows, adds a span
+// of patches' products to its running sums on the CUDA cores
+// (mdcn_wgmma.cuh's WGRAD_SPAN); the forward's and dgrad's chains are at
+// most 2304 and 256 deep.
 //
 // Bound on the H100 (67 TFLOP/s f32 on the CUDA cores, 495 TF32 on the
 // tensor cores, 3.35 TB/s): operations. One CUFED5 request's forward
@@ -44,19 +43,16 @@
 // channels (4 channels a load). So the gather should set the pace at C 64
 // and 128, and the products at C 256, as at bf16.
 //
-// What the design does about it. The forward and dgrad run on Hopper's
-// units (mdcn_wgmma.cuh): wgmma at the TF32 rate, three m64nNk8 products a
-// k group, the gather in producer warps beside them. wgmma reads B from
-// shared memory, so the weight's hi and lo planes are split once a call by
-// mdcn_fused_split into a scratch the wrapper allocates (4.7 MB for the
-// 2.4 MB weight at C 256);
-// the forward's gathered columns are split as the producers store them;
-// dgrad's grad-out tile is split as its fragments load into registers, A
-// of wgmma sitting in registers. wgrad (mdcn_fused.cuh) stays on mma.sync:
-// its tiles are split once as they are stored where several warps read
-// them, as fragments load where one or two do, and its fragments, whose k
-// (the patch's pixels) runs across rows, come by plain loads from rows
-// padded to 8 mod 32 words (ldmatrix cannot transpose 32-bit elements).
+// What the design does about it. The forward, dgrad and wgrad run on
+// Hopper's units (mdcn_wgmma.cuh): wgmma at the TF32 rate, three
+// m64nNk8 products a k group, the gather in producer warps beside them.
+// wgmma reads B from shared memory, so the weight's hi and lo planes are
+// split once a call by mdcn_fused_split into a scratch the wrapper
+// allocates (4.7 MB for the 2.4 MB weight at C 256); the forward's
+// gathered columns are split as the producers store them, and wgrad's
+// too, stored transposed (TF32 wgmma reads shared memory K-major only, and
+// wgrad's K is the pixels); dgrad's and wgrad's grad-out tiles are split
+// as their fragments load into registers, A of wgmma sitting in registers.
 #include "mdcn_wgmma.cuh"
 
 // The entry points of the walk's launches at f32: every tensor float32;
@@ -97,7 +93,7 @@ int mdcn_fused_wgrad_launch(const void* go, const void* x,
                             const void* offset, const void* mask,
                             void* partial, int splits, int split_patches,
                             FUSED_ARGS) {
-  return mdcn_fused::wgrad_launch<float>(go, x, offset, mask, partial,
+  return mdcn_wgmma::wgrad_launch<float>(go, x, offset, mask, partial,
                                          splits, split_patches,
                                          FUSED_GEOM(float), stream);
 }

@@ -50,9 +50,9 @@
 // bf16 or 4 f32), and a k-step or chunk is 8 runs: BK = 64 bf16 or 32 f32
 // channels, 128 bytes whatever T; the deform group is taken per run (a step
 // spans 8 groups at cg 8 bf16).
-//  - Forward and dgrad run on Hopper's own units: wgmma fed by TMA and by
-//    producer warps through mbarrier rings, the walk of mdcn_wgmma.cuh,
-//    which says how.
+//  - Forward, dgrad and wgrad run on Hopper's own units: wgmma fed by TMA
+//    and by producer warps through mbarrier rings, the walk of
+//    mdcn_wgmma.cuh, which says how.
 //  - The _scatter dgrad also adds each sample's grad_col run, times its
 //    corner weights and mask, into grad x at its four corners: f32 in
 //    device memory, whatever T, so the additions land by atomics, their
@@ -68,16 +68,12 @@
 //    f32 atomicAdd is a compare-and-swap loop (ATOMS.CAST.SPIN), and a
 //    window made the kernel slower at every shape and offset spread tried
 //    (PERF.md, Findings).
-//  - wgrad, here, on mma.sync (m16n8k16 bf16, m16n8k8 TF32), two warps
-//    along the 64 rows of a tile and the rest along its width: a block owns
-//    (tap, BK channels) x all of Cout and a slice of patches, one patch a
-//    step: the gathered column tile and the grad_out tile are staged
-//    row-major and read across (A = col^T, B = go); the blocks of the first
-//    (tap, chunk) also sum the grad_out tile's columns, rows in order, for
-//    grad bias. A step's corner loads are issued before the products they
-//    can overlap. The wrapper cuts the slices from the shapes alone, so the
-//    sum of the slices' partials (a last small kernel, in order) does not
-//    depend on the card.
+//  - wgrad: a block owns (tap, BK channels) x all of Cout and a slice of
+//    patches; the blocks of the first (tap, chunk) also sum the grad_out
+//    tile's columns, rows in order, for grad bias. The wrapper cuts the
+//    slices from the shapes alone, so the sum of the slices' partials (a
+//    last small kernel, wgrad_sum_kernel, in order) does not depend on the
+//    card.
 //  - Index arithmetic: a block walks its patches, and a k-step's tap and
 //    deform group are worked out once a step, so that a sample costs no
 //    integer division.
@@ -98,14 +94,13 @@
 #include <stdint.h>
 
 #include "deform_bilinear.cuh"
-#include "mma_sync.cuh"
+#include "tc_helpers.cuh"
 
 namespace mdcn_fused {
 
 using bf16 = __nv_bfloat16;
 using tc::cp_async16;
 using tc::cp_async_commit;
-using tc::cp_async_wait_all;
 
 constexpr int PATCH = 8;           // a block's rows: an 8 x 8 pixel patch
 constexpr int BM = PATCH * PATCH;  // 64
@@ -117,67 +112,16 @@ constexpr int MAX_STAGED = 144;    // dg * K of a block's staged offsets
 template <typename T>
 struct Prec;
 
-// bf16: wgrad's one m16n8k16 product, fragments by transposed ldmatrix
-// (k runs across rows); the forward's sum and gcol rounded to bf16.
+// bf16: the forward's sum and gcol rounded to bf16.
 template <>
 struct Prec<bf16> {
   using Raw = uint4;
   static constexpr int N = 8;   // channels of a run
-  static constexpr int KP = 16;  // depth of one product
-  struct A {
-    uint32_t r[4];
-  };
-  struct B {
-    uint32_t r[2];
-  };
 
-  // A and B fragments from tiles stored k-major (a row per k), read across
-  template <int MT>
-  static __device__ __forceinline__ void load_a_t(A (&a)[MT], const bf16* s,
-                                                  int ld, int m0, int k0,
-                                                  int lane) {
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-      tc::ldmatrix_x4_trans(a[mi].r, s + (k0 + (lane & 7) + (lane >> 4) * 8) *
-                                             ld +
-                                         m0 + mi * 16 +
-                                         ((lane >> 3) & 1) * 8);
-  }
-
-  template <int NT>
-  static __device__ __forceinline__ void load_b_t(B (&b)[NT], const bf16* s,
-                                                  int ld, int n0, int k0,
-                                                  int lane) {
-    static_assert(NT % 2 == 0, "pairs of n tiles");
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t r[4];
-      tc::ldmatrix_x4_trans(r, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                       ld +
-                                   n0 + np * 16 + (lane >> 4) * 8);
-      b[2 * np].r[0] = r[0];
-      b[2 * np].r[1] = r[1];
-      b[2 * np + 1].r[0] = r[2];
-      b[2 * np + 1].r[1] = r[3];
-    }
-  }
-
-  static __device__ __forceinline__ void mma(float (&c)[4], const A& a,
-                                             const B& b) {
-    tc::mma_bf16(c, a.r, b.r);
-  }
-
-  // Sums kept in the products' own accumulators (see Prec<float>).
-  static constexpr bool kStepSums = false;
   // The gathered column tile: one plane, stored as it is.
   static constexpr int kPlanes = 1;
   static __device__ __forceinline__ void store_run(bf16* p, int, uint4 v) {
     *reinterpret_cast<uint4*>(p) = v;
-  }
-  template <int MT>
-  static __device__ __forceinline__ void load_a_t_planes(
-      A (&a)[MT], const bf16* s, int, int ld, int m0, int k0, int lane) {
-    load_a_t<MT>(a, s, ld, m0, k0, lane);
   }
 
   static __device__ __forceinline__ float widen(bf16 v) {
@@ -194,61 +138,16 @@ struct Prec<bf16> {
 };
 
 // f32: 3xTF32, three products lo*hi + hi*lo + hi*hi (small terms first)
-// of operands split by tc::split_tf32: wgrad's m16n8k8 split as they load
-// into registers, a gathered column tile once as it is stored (kPlanes);
+// of operands split by tc::split_tf32: a gathered column tile split once as
+// it is stored (kPlanes), grad out and the weight as mdcn_wgmma.cuh says;
 // nothing rounded below f32.
 template <>
 struct Prec<float> {
   using Raw = float4;
   static constexpr int N = 4;
-  static constexpr int KP = 8;
-  struct A {
-    uint32_t hi[4], lo[4];
-  };
-  struct B {
-    uint32_t hi[2], lo[2];
-  };
 
-  template <int K>
-  static __device__ __forceinline__ void split(const uint32_t (&r)[K],
-                                               uint32_t (&hi)[K],
-                                               uint32_t (&lo)[K]) {
-#pragma unroll
-    for (int i = 0; i < K; ++i) tc::split_tf32(r[i], hi[i], lo[i]);
-  }
-
-  // Read across by plain 32-bit loads: a row stride of 8 mod 32 words puts
-  // the 32 lanes of each load on 32 banks.
-  template <int NT>
-  static __device__ __forceinline__ void load_b_t(B (&b)[NT], const float* s,
-                                                  int ld, int n0, int k0,
-                                                  int lane) {
-    const int gid = lane >> 2, tig = lane & 3;
-    const float* p = s + (k0 + tig) * ld + n0 + gid;
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      const uint32_t r[2] = {__float_as_uint(p[ni * 8]),
-                             __float_as_uint(p[4 * ld + ni * 8])};
-      split(r, b[ni].hi, b[ni].lo);
-    }
-  }
-
-  static __device__ __forceinline__ void mma(float (&c)[4], const A& a,
-                                             const B& b) {
-    tc::mma_tf32(c, a.lo, b.hi);
-    tc::mma_tf32(c, a.hi, b.lo);
-    tc::mma_tf32(c, a.hi, b.hi);
-  }
-
-  // The tensor cores' f32 sums truncate, and over a wgrad slice's
-  // thousands of k-steps their error builds up to 1e-4 of the sum (a
-  // forward's few hundred stay below 2e-5): there each k-step's products
-  // go into a fresh accumulator, added to the running sums on the CUDA
-  // cores, rounded to nearest.
-  static constexpr bool kStepSums = true;
-  // The gathered column tile, which every warp along the output's width
-  // reads: split once, as it is stored, into a hi plane and, `plane`
-  // elements on, a lo plane; its fragments load both, split already.
+  // The gathered column tile, which the tensor cores read: split once, as
+  // it is stored, into a hi plane and, `plane` elements on, a lo plane.
   static constexpr int kPlanes = 2;
   static __device__ __forceinline__ void store_run(float* p, int plane,
                                                    float4 v) {
@@ -260,26 +159,6 @@ struct Prec<float> {
     *reinterpret_cast<uint4*>(p) = hi;
     *reinterpret_cast<uint4*>(p + plane) = lo;
   }
-  template <int MT>
-  static __device__ __forceinline__ void load_a_t_planes(
-      A (&a)[MT], const float* s, int plane, int ld, int m0, int k0,
-      int lane) {
-    const int gid = lane >> 2, tig = lane & 3;
-    const float* p = s + (k0 + tig) * ld + m0 + gid;
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      load_t(a[mi].hi, p + mi * 16, ld);
-      load_t(a[mi].lo, p + plane + mi * 16, ld);
-    }
-  }
-  // a0 .. a3 of an A fragment read across, `q` at [k0 + tig][m0 + gid]
-  static __device__ __forceinline__ void load_t(uint32_t (&r)[4],
-                                                const float* q, int ld) {
-    r[0] = __float_as_uint(q[0]);
-    r[1] = __float_as_uint(q[8]);
-    r[2] = __float_as_uint(q[4 * ld]);
-    r[3] = __float_as_uint(q[4 * ld + 8]);
-  }
 
   static __device__ __forceinline__ float widen(float v) { return v; }
   static __device__ __forceinline__ float sum_out(float acc) { return acc; }
@@ -288,32 +167,14 @@ struct Prec<float> {
   }
 };
 
-// Tile widths of type T: a k-step's channels, 16 bytes of padding of a
-// staged row (dgrad's gcol), and the padded rows of wgrad's tiles read
-// across (`LDT`: rows 8 elements longer, which at f32 puts each plain
-// load's 32 lanes on 32 banks and at bf16 is the same 16 bytes).
+// Tile widths of type T: a k-step's channels, and 16 bytes of padding of
+// a staged row (dgrad's gcol).
 template <typename T>
 struct Tiles {
   static constexpr int N = Prec<T>::N;
   static constexpr int BK = RUNS_K * N;        // 64 bf16, 32 f32
   static constexpr int PAD = 16 / sizeof(T);   // 8 bf16, 4 f32
-  static constexpr int LDT = BK + 8;           // wgrad's column tile
 };
-
-// wgrad's block of kThreads: its warps, those along a tile's width beside
-// 2 along its rows, and the runs a thread gathers of a step's 64 rows x 8.
-template <int kThreads_>
-struct Block {
-  static constexpr int kThreads = kThreads_;
-  static constexpr int kWarps = kThreads / 32;
-  static constexpr int kWarpsN = kThreads / 64;
-  static constexpr int kRuns = BM * RUNS_K / kThreads;
-};
-
-// wgrad's block for an output tile BN wide: 512 threads at BN 256 so that
-// no thread holds more than 32 accumulators, else 256.
-template <int BN>
-using Shape = Block<BN == 256 ? 512 : 256>;
 
 struct Geom {
   int rows, h, w, c, cout, ho, wo, kh, kw, sh, sw, ph, pw, dh, dw, dg;
@@ -524,180 +385,7 @@ __device__ __forceinline__ const Raw* item_run(const Raw* x, const Geom& g,
   return x + (size_t)o.n * g.h * g.w * g.cv + j;
 }
 
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-}
-
-// acc += the products `step` adds into an accumulator: into acc itself,
-// or, where Prec<T>::kStepSums, into a fresh one added to acc after
-template <typename T, int MT, int NT, typename Step>
-__device__ __forceinline__ void accumulate(float (&acc)[MT][NT][4],
-                                           Step step) {
-  if constexpr (Prec<T>::kStepSums) {
-    float part[MT][NT][4];
-    zero(part);
-    step(part);
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
-  } else {
-    step(acc);
-  }
-}
-
-// -------------------------------------------------------------------- wgrad
-
-template <typename T, int BN, bool kMask>
-__global__ void __launch_bounds__(Shape<BN>::kThreads, BN == 256 ? 1 : 2)
-wgrad_kernel(const T* __restrict__ go, const typename Prec<T>::Raw* __restrict__ x,
-             const float* __restrict__ offset, const T* __restrict__ mask,
-             float* __restrict__ partial, int split_patches, Geom g) {
-  using S = Shape<BN>;
-  using P = Prec<T>;
-  using Raw = typename P::Raw;
-  constexpr int BK = Tiles<T>::BK, LDC = Tiles<T>::LDT, N = P::N;
-  constexpr int WM = BK / 2, WN = BN / S::kWarpsN;  // warp tile WM x WN
-  constexpr int MT = WM / 16, NT = WN / 8, RUNS = S::kRuns;
-  constexpr int LDO = BN + 8;
-  constexpr int C_PLANE = BM * LDC, C_STAGE = P::kPlanes * C_PLANE;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* col_s = (T*)smem;               // [2][planes][BM][LDC]
-  T* go_s = col_s + 2 * C_STAGE;     // [2][BM][LDO]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / S::kWarpsN, wn = warp % S::kWarpsN;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nchunk = (g.c + BK - 1) / BK;
-  const int k = blockIdx.x / nchunk, c0 = (blockIdx.x % nchunk) * BK;
-  const int p_begin = blockIdx.y * split_patches;
-  const int steps = max(0, min(g.patches - p_begin, split_patches));
-  // the first (tap, chunk) also sums grad out's columns: grad bias
-  const bool bias_sums = blockIdx.x == 0 && tid < g.cout;
-
-  // this thread's slots of a patch: pixels rr[q], run j of the chunk
-  const int j = tid & 7;
-  const Step st = step_of<T>(g, k, c0 / BK, j);
-  int rr[RUNS];
-#pragma unroll
-  for (int q = 0; q < RUNS; ++q) rr[q] = (tid >> 3) + (S::kThreads / 8) * q;
-
-  auto coords = [&](Coord(&t)[RUNS], const Patch& pt) {
-#pragma unroll
-    for (int q = 0; q < RUNS; ++q)
-      t[q] = coord_of<T, kMask>(g, pixel_of(g, pt, rr[q]), st, offset,
-                                mask);
-  };
-  auto gather = [&](Sample<T>(&p)[RUNS], const Patch& pt,
-                    const Coord(&t)[RUNS]) {
-#pragma unroll
-    for (int q = 0; q < RUNS; ++q) {
-      const Pixel o = pixel_of(g, pt, rr[q]);
-      issue<T>(p[q], g, item_run(x, g, o, c0 / N + j), o, st, t[q]);
-    }
-  };
-  auto load_go = [&](const Patch& pt, int stage) {
-    T* dst = go_s + stage * BM * LDO;
-    for (int i = tid; i < BM * (BN / N); i += S::kThreads) {
-      const int r = i / (BN / N), q = i % (BN / N);
-      const Pixel o = pixel_of(g, pt, r);
-      const bool in = o.live && q * N < g.cout;
-      cp_async16(dst + r * LDO + q * N,
-                 in ? go + (size_t)o.r * g.cout + q * N : go, in ? 16 : 0);
-    }
-  };
-  auto store_col = [&](int stage, const Sample<T>(&p)[RUNS]) {
-#pragma unroll
-    for (int q = 0; q < RUNS; ++q)
-      P::store_run(col_s + stage * C_STAGE + rr[q] * LDC + j * N, C_PLANE,
-                   finish<T>(p[q]));
-  };
-
-  float acc[MT][NT][4];
-  zero(acc);
-  float bias_sum = 0.f;
-
-  if (steps > 0) {
-    // two patches ahead: offsets (s + 2, patch pc), corner loads and the
-    // grad_out tile (s + 1, patch pg), products (s)
-    Patch pc = patch_of(g, p_begin), pg = pc;
-    Coord next[RUNS];
-    Sample<T> p[RUNS];
-    coords(next, pc);
-    gather(p, pg, next);
-    if (steps > 1) {
-      next_patch(g, pc);
-      coords(next, pc);
-    }
-    load_go(pg, 0);
-    cp_async_commit();
-    store_col(0, p);
-
-    for (int s = 0; s < steps; ++s) {
-      cp_async_wait_all();
-      __syncthreads();
-      const bool more = s + 1 < steps;
-      if (more) {
-        next_patch(g, pg);
-        load_go(pg, (s + 1) & 1);
-        cp_async_commit();
-        gather(p, pg, next);
-        if (s + 2 < steps) {
-          next_patch(g, pc);
-          coords(next, pc);
-        }
-      }
-      const T* A_ = col_s + (s & 1) * C_STAGE;
-      const T* B_ = go_s + (s & 1) * BM * LDO;
-      if (bias_sums) {  // rows in order; zeros outside the map
-#pragma unroll 8
-        for (int r = 0; r < BM; ++r) bias_sum += P::widen(B_[r * LDO + tid]);
-      }
-      accumulate<T>(acc, [&](float(&sum)[MT][NT][4]) {
-#pragma unroll
-        for (int kk = 0; kk < BM; kk += P::KP) {
-          typename P::A a[MT];
-          typename P::B b[NT];
-          P::template load_a_t_planes<MT>(a, A_, C_PLANE, LDC, wm * WM, kk,
-                                          lane);
-          P::template load_b_t<NT>(b, B_, LDO, wn * WN, kk, lane);
-#pragma unroll
-          for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < NT; ++ni)
-              P::mma(sum[mi][ni], a[mi], b[ni]);
-        }
-      });
-      if (more) store_col((s + 1) & 1, p);
-    }
-  }
-
-  // this slice's partial of rows (k, c0 .. c0 + BK - 1) x Cout, and of
-  // grad bias, the row after the last (tap, channel)
-  float* out = partial + (size_t)blockIdx.y * (g.taps * g.c + 1) * g.cout;
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int cc = c0 + wm * WM + mi * 16 + h * 8 + gid;
-        const int col = wn * WN + ni * 8 + tig * 2;
-        if (cc < g.c && col < g.cout)
-          *reinterpret_cast<float2*>(
-              out + ((size_t)k * g.c + cc) * g.cout + col) =
-              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-  if (bias_sums) out[(size_t)g.taps * g.c * g.cout + tid] = bias_sum;
-}
+// ------------------------------------------------------------- wgrad's sum
 
 // grad_w[i] = partial[0][i] + partial[1][i] + ..., in this order
 __global__ void __launch_bounds__(256)
@@ -750,23 +438,6 @@ int allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int BN>
-int wgrad(const void* go, const void* x, const void* offset, const void* mask,
-          void* partial, int splits, int split_patches, const Geom& g,
-          cudaStream_t stream) {
-  const size_t smem = (size_t)2 * BM *
-                      (Prec<T>::kPlanes * Tiles<T>::LDT + BN + 8) *
-                      sizeof(T);
-  auto kernel =
-      mask ? wgrad_kernel<T, BN, true> : wgrad_kernel<T, BN, false>;
-  if (int err = allow_smem(kernel, smem)) return err;
-  const dim3 grid(g.taps * ((g.c + Tiles<T>::BK - 1) / Tiles<T>::BK), splits);
-  kernel<<<grid, Shape<BN>::kThreads, smem, stream>>>(
-      (const T*)go, (const typename Prec<T>::Raw*)x, (const float*)offset,
-      (const T*)mask, (float*)partial, split_patches, g);
-  return (int)cudaGetLastError();
-}
-
 // The entry points' bodies; each .cu names them. Pointers are device
 // pointers of contiguous tensors (x, wt, weight, go and out 16-byte
 // aligned; offset 8-byte aligned); bias may be null, and so may mask (no
@@ -783,25 +454,6 @@ int wgrad(const void* go, const void* x, const void* offset, const void* mask,
 // the map; every patch in one slice), (K * C + 1) x Cout floats a slice,
 // grad weight's rows and then grad bias; the sum adds the slices' n floats
 // into grad_w.
-template <typename T>
-int wgrad_launch(const void* go, const void* x, const void* offset,
-                 const void* mask, void* partial, int splits,
-                 int split_patches, const Geom& g, void* stream) {
-  if (!supported<T>(g, false) || !aligned16(go) || !aligned16(x) ||
-      ((uintptr_t)offset & 7) || splits < 1 || split_patches < 1 ||
-      (long long)splits * split_patches < g.patches)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (tile_width(g.cout)) {
-    case 64: return wgrad<T, 64>(go, x, offset, mask, partial, splits,
-                                 split_patches, g, s);
-    case 128: return wgrad<T, 128>(go, x, offset, mask, partial, splits,
-                                   split_patches, g, s);
-    default: return wgrad<T, 256>(go, x, offset, mask, partial, splits,
-                                  split_patches, g, s);
-  }
-}
-
 inline int wgrad_sum_launch(const void* partial, void* grad_w, int splits,
                             int n, void* stream) {
   if (splits < 1 || n < 1) return (int)cudaErrorInvalidValue;

@@ -1,13 +1,13 @@
-// The Hopper walk of the fused deformable conv's forward and dgrad (K2, K3
-// and K5; mdcn_fused.cuh says what they compute and holds what this walk
-// shares with wgrad): wgmma fed by TMA (the weight, grad out) and by
+// The Hopper walk of the fused deformable conv's forward, dgrad and wgrad
+// (K2, K3 and K5; mdcn_fused.cuh says what they compute and holds the
+// gather's arithmetic): wgmma fed by TMA (the weight, grad out) and by
 // producer warps (the gathered columns), through mbarrier rings in shared
 // memory. mdcn_fused.cu instantiates it at f32 (3xTF32), mdcn_bf16.cu at
 // bf16.
 //
 // A block is producer warpgroups and then one consumer warpgroup, one
 // block an SM; it walks 8 x 8 patches of output pixels, 64 rows (one
-// wgmma M tile) each.
+// wgmma M tile, or at wgrad the k loop's 64) each.
 //  - Forward. Persistent: block b walks patches b, b + gridDim.x, ..., its
 //    steps one sequence through the ring, so that the producers gather the
 //    next patch while the consumer finishes this one. The consumer owns all
@@ -54,6 +54,31 @@
 //    copies fit. Grad offset and grad mask keep one writer each and the
 //    wgmma sums run in a fixed order: the results are the same from run to
 //    run.
+//  - wgrad. A block owns one (tap, chunk) and walks the patches of its
+//    slice, one a step (the slices and their ordered sum: mdcn_fused.cuh).
+//    A stage of its ring is the patch's grad-out tile, by dgrad's TMA
+//    boxes, and its column tile, gathered by producers as the forward's
+//    are; the consumer's k loop runs over the patch's 64 pixels:
+//    gW[(k, c), o] += col[pixel, c] go[pixel, o]. At bf16 A = col^T (M the
+//    chunk's 64 channels) is the forward's stage as stored and B = go (N
+//    Cout) the TMA tile, both MN-major, which wgmma reads at 16-bit types
+//    through its transpose immediates: wgmma.m64nBNk16, four a patch, the
+//    sums kept in the accumulators across the slice. At f32 TF32 wgmma
+//    reads shared memory K-major only, and K is the pixels: A = go^T (M
+//    Cout, in tiles of 64) comes from registers, loaded from the TMA tile
+//    and split as it loads, and B is the columns stored transposed by the
+//    producers (a channel's 64 pixels one row of two 128-byte K atoms, hi
+//    and lo planes): three wgmma.m64n32k8 a k step. Two permutations keep
+//    shared memory conflict-free: K position s of each 8 holds pixel
+//    wpix(s) (the even pixels, then the odd), and row m of a warp's 16 is
+//    Cout 2 (m % 8) + m / 8, so that each A load is one 8-byte pair and
+//    every load and store of a warp meets 32 banks. The tensor cores'
+//    f32 sums truncate, and over a slice's thousands of k steps their
+//    error reached 1e-4 of the sum: the products of WGRAD_SPAN patches go
+//    into fresh accumulators, which are then added to running sums in
+//    shared memory on the CUDA cores, rounded to nearest. The blocks of the
+//    first (tap, chunk) also sum grad out's staged columns, rows in order:
+//    grad bias.
 // The weight's f32 planes: hi = tf32_rna(w) and lo = w - hi (tc::
 // split_tf32), split by split_kernel into a scratch the wrapper allocates
 // (a B operand must come from shared memory, so it cannot be split as
@@ -157,9 +182,10 @@ __device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map,
 
 // --------------------------------------------------------------- products
 // d (64 x N f32) = a . b^T + (accumulate ? d : 0), a and b K-major in
-// shared memory (descriptors) or a in registers; thread (warp w, lane
-// 4 gid + tig) holds d[4 j + e] at row 16 w + gid and d[4 j + 2 + e] at row
-// 16 w + gid + 8, column 8 j + 2 tig + e.
+// shared memory (descriptors) or a in registers; at bf16 kTrans 1 reads
+// both MN-major (wgmma's transpose immediates, 16-bit types only); thread
+// (warp w, lane 4 gid + tig) holds d[4 j + e] at row 16 w + gid and
+// d[4 j + 2 + e] at row 16 w + gid + 8, column 8 j + 2 tig + e.
 __device__ __forceinline__ void tf32_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -240,6 +266,19 @@ __device__ __forceinline__ void tf32_ss(float (&d)[128], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+__device__ __forceinline__ void tf32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 __device__ __forceinline__ void tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -257,6 +296,7 @@ __device__ __forceinline__ void tf32_rs(float (&d)[32], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+template <int kTrans = 0>
 __device__ __forceinline__ void bf16_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -264,16 +304,17 @@ __device__ __forceinline__ void bf16_ss(float (&d)[32], uint64_t a, uint64_t b, 
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTrans));
 }
 
+template <int kTrans = 0>
 __device__ __forceinline__ void bf16_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -283,7 +324,7 @@ __device__ __forceinline__ void bf16_ss(float (&d)[64], uint64_t a, uint64_t b, 
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, %67, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -295,9 +336,10 @@ __device__ __forceinline__ void bf16_ss(float (&d)[64], uint64_t a, uint64_t b, 
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTrans));
 }
 
+template <int kTrans = 0>
 __device__ __forceinline__ void bf16_ss(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -311,7 +353,7 @@ __device__ __forceinline__ void bf16_ss(float (&d)[128], uint64_t a, uint64_t b,
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      "%128, %129, p, 1, 1, %131, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -334,7 +376,7 @@ __device__ __forceinline__ void bf16_ss(float (&d)[128], uint64_t a, uint64_t b,
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTrans));
 }
 
 // One stage of the forward's products: four k steps of 32 bytes of the A
@@ -949,6 +991,391 @@ dgrad_kernel(const __grid_constant__ CUtensorMap tm_go,
   }
 }
 
+// -------------------------------------------------------------------- wgrad
+
+// wgrad's roles: 256 producers at BN 256 (bf16: 128 accumulators a
+// thread; f32: 64 fresh sums and 32 registers of A fragments) and at f32
+// BN 128, else 512. (Two consumer warpgroups at f32, each over half the m
+// tiles, spilled at the 128 registers of a 512-thread block and ran
+// slower.)
+template <typename T, int BN>
+using WgradRoles =
+    Roles<BN == 256 || (sizeof(T) == 4 && BN == 128) ? 256 : 512>;
+
+// f32: the patches whose products go into fresh accumulators before these
+// are added to the running sums (tests/test_torch_dcn_wgmma.py emulates the
+// arithmetic and holds it to JAX's vjp)
+constexpr int WGRAD_SPAN = 4;
+
+// wgrad's ring at type T and width BN: a stage is the patch's grad-out tile
+// (TMA boxes of 128 bytes of Cout, 64 pixel rows each) and its column tile
+// (8 KB a plane: at bf16 the forward's, a pixel's 64 channels a row; at
+// f32 transposed, a channel's 64 pixels a row of two K atoms), as deep as
+// 96 KB hold (2 stages at least, 6 at most); at f32 then the running sums,
+// 16 f32 an m tile of each consumer thread, a thread's own column.
+template <typename T, int BN>
+struct WgradRing {
+  static constexpr int GO_BYTES = BN * BM * (int)sizeof(T);
+  static constexpr int COL_PLANE = SLAB;
+  static constexpr int ATOM = Tiles<T>::BK * ROW;  // f32: 32 rows of a K atom
+  static constexpr int STAGE_BYTES = GO_BYTES + Prec<T>::kPlanes * COL_PLANE;
+  static constexpr int FIT = 96 * 1024 / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 2 ? 2 : FIT < 6 ? FIT : 6;
+  static constexpr int SUMS =
+      sizeof(T) == 4 ? BN / 64 * 16 * CONSUMER_WARPS * 32 : 0;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + SUMS * 4 + 1024;
+};
+
+// f32: the pixel at K position s of the transposed column tile: in each 8
+// positions the even pixels, then the odd
+__device__ __forceinline__ int wpix(int s) {
+  return (s & ~7) | ((s & 3) << 1) | ((s >> 2) & 1);
+}
+
+// f32: the byte offset of (channel row c, K position s) in a plane of the
+// transposed column tile: two K atoms of 32 rows, each 128-byte swizzled
+__device__ __forceinline__ uint32_t col_t_at(int c, int s) {
+  return (s >> 5) * (32 * ROW) + sw128(c, (s & 31) >> 2) + 4 * (s & 3);
+}
+
+// the byte offset of (pixel px, Cout o) in a grad-out tile as TMA writes
+// it: slabs of 128 bytes of Cout, 64 pixel rows each, swizzled
+template <typename T>
+__device__ __forceinline__ uint32_t go_at(int px, int o) {
+  constexpr int E = ROW / (int)sizeof(T), V = 16 / (int)sizeof(T);
+  return (o / E) * SLAB + sw128(px, (o % E) / V) + (o % V) * sizeof(T);
+}
+
+// f32: run j of the pixel at K position s (channels 4 j .. 4 j + 3 of the
+// chunk) into the transposed tile at `col`, split into its hi and lo
+// planes, one f32 a store. The run's values go out rotated by (j / 2) % 4,
+// so that each store of a warp (8 runs of 4 K positions) meets 32 banks.
+__device__ __forceinline__ void store_run_t(unsigned char* col, int s, int j,
+                                            float4 v) {
+  float r[4] = {v.x, v.y, v.z, v.w};
+  const int rot = (j >> 1) & 3;
+  if (rot & 1) {
+    const float t = r[0];
+    r[0] = r[1], r[1] = r[2], r[2] = r[3], r[3] = t;
+  }
+  if (rot & 2) {
+    float t = r[0];
+    r[0] = r[2], r[2] = t;
+    t = r[1];
+    r[1] = r[3], r[3] = t;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t hi, lo;
+    tc::split_tf32(__float_as_uint(r[i]), hi, lo);
+    const uint32_t at = col_t_at(4 * j + ((i + rot) & 3), s);
+    *reinterpret_cast<uint32_t*>(col + at) = hi;
+    *reinterpret_cast<uint32_t*>(col + SLAB + at) = lo;
+  }
+}
+
+// wgmma's descriptor of an MN-major tile of 16-bit elements (read with the
+// transpose immediate): 64 of M or N a 128-byte row, K down the rows,
+// 128-byte swizzled, 1024-byte aligned; SBO 1024 bytes (8 rows of K), LBO
+// `lbo` bytes from one 64-wide atom of M or N to the next.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr,
+                                                  uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// A block owns one (tap k, chunk ci of BK channels) and walks the patches
+// of its slice, one a step; blockIdx.y is the slice.
+template <typename T, int BN, bool kMask>
+__global__ void __launch_bounds__(WgradRoles<T, BN>::THREADS, 1)
+wgrad_kernel(const __grid_constant__ CUtensorMap tm_go,
+             const typename Prec<T>::Raw* __restrict__ x,
+             const float* __restrict__ offset, const T* __restrict__ mask,
+             float* __restrict__ partial, int split_patches, Geom g) {
+  using R = WgradRing<T, BN>;
+  using P = Prec<T>;
+  constexpr bool kF32 = sizeof(T) == 4;
+  using Ro = WgradRoles<T, BN>;
+  constexpr int BK = Tiles<T>::BK, RUNS = Ro::RUNS;
+  constexpr int PRODUCERS = Ro::PRODUCERS, PRODUCER_WARPS = Ro::PRODUCER_WARPS;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[R::STAGES];
+  __shared__ __align__(8) uint64_t empty[R::STAGES];
+  // the ring, 1024-byte aligned (the swizzle's period)
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const uint32_t ring = raw + pad;
+  unsigned char* ring_p = smem_raw + pad;
+
+  const int nchunk = (g.c + BK - 1) / BK;
+  const int k = blockIdx.x / nchunk, ci = blockIdx.x % nchunk;
+  const int p_begin = blockIdx.y * split_patches;
+  const int steps = max(0, min(g.patches - p_begin, split_patches));
+  const int slabs = (g.cout * (int)sizeof(T) + ROW - 1) / ROW;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(&full[s], PRODUCER_WARPS + 1);  // the runs, then the TMA
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < PRODUCERS) {
+    const int tid = threadIdx.x, lane = tid & 31, j = tid & 7;
+    const Step st = step_of<T>(g, k, ci, j);
+    // this thread's slots of a step: row sl[q] of the column tile (at f32
+    // its K position), pixel rr[q] of the patch, run j
+    int sl[RUNS], rr[RUNS];
+#pragma unroll
+    for (int q = 0; q < RUNS; ++q) {
+      sl[q] = (tid >> 3) + (PRODUCERS / 8) * q;
+      rr[q] = kF32 ? wpix(sl[q]) : sl[q];
+    }
+    auto coords = [&](Coord(&t)[RUNS], const Patch& pt) {
+#pragma unroll
+      for (int q = 0; q < RUNS; ++q)
+        t[q] = coord_of<T, kMask>(g, pixel_of(g, pt, rr[q]), st, offset,
+                                  mask);
+    };
+    auto gather = [&](Sample<T>(&p)[RUNS], const Patch& pt,
+                      const Coord(&t)[RUNS]) {
+#pragma unroll
+      for (int q = 0; q < RUNS; ++q) {
+        const Pixel o = pixel_of(g, pt, rr[q]);
+        issue<T>(p[q], g, item_run(x, g, o, j) + ci * RUNS_K, o, st, t[q]);
+      }
+    };
+    // step t's grad-out tile, by TMA into the stage at a
+    auto load_go = [&](int t, int stage, uint32_t a) {
+      const Patch pt = patch_of(g, p_begin + t);
+      mbar_expect_tx(&full[stage], slabs * SLAB);
+      for (int q = 0; q < slabs; ++q)
+        tma_4d(a + q * SLAB, &tm_go, &full[stage],
+               q * (ROW / (int)sizeof(T)), pt.x, pt.y, pt.n);
+    };
+
+    // offsets two steps ahead, corner loads one step ahead, as the
+    // forward's producers
+    Patch pc = patch_of(g, p_begin), pg = pc;
+    Coord next[RUNS];
+    Sample<T> pa[RUNS], pb[RUNS];
+    auto ahead = [&](Sample<T>(&p)[RUNS], int t) {  // step t's loads
+      gather(p, pg, next);
+      next_patch(g, pg);
+      if (t + 1 < steps) {
+        coords(next, pc);
+        next_patch(g, pc);
+      }
+    };
+    if (steps > 0) {
+      coords(next, pc);
+      next_patch(g, pc);
+      ahead(pa, 0);
+    }
+    if (steps > 1) ahead(pb, 1);
+    auto body = [&](int t, Sample<T>(&cur)[RUNS]) {
+      const int stage = t % R::STAGES;
+      mbar_wait(&empty[stage], ((t / R::STAGES) & 1) ^ 1);
+      if (tid == 0) load_go(t, stage, ring + stage * R::STAGE_BYTES);
+      unsigned char* col = ring_p + stage * R::STAGE_BYTES + R::GO_BYTES;
+#pragma unroll
+      for (int q = 0; q < RUNS; ++q) {
+        if constexpr (kF32)
+          store_run_t(col, sl[q], j, finish<T>(cur[q]));
+        else
+          P::store_run((T*)(col + sw128(sl[q], j)), 0, finish<T>(cur[q]));
+      }
+      fence_proxy_async();  // the runs, for the tensor cores' reads
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[stage]);
+      if (t + 2 < steps) ahead(cur, t + 2);
+    };
+    for (int t = 0; t < steps; t += 2) {
+      body(t, pa);
+      if (t + 1 < steps) body(t + 1, pb);
+    }
+  } else {
+    const int ct = threadIdx.x - PRODUCERS, lane = ct & 31, cw = ct >> 5;
+    const int gid = lane >> 2, tig = lane & 3;
+    constexpr int CT = CONSUMER_WARPS * 32;
+    // grad bias: the blocks of the first (tap, chunk) sum Cout 2 ct and
+    // 2 ct + 1 of each staged tile, rows in order, both from one load a row
+    // (one 16-byte chunk of a row holds them), once a patch beside the
+    // patch's last products
+    const bool bias_block = blockIdx.x == 0;
+    const int bias_o = 2 * ct;
+    float bias_sum[2] = {0.f, 0.f};
+    auto sum_bias = [&](const unsigned char* go) {
+      if (bias_o >= g.cout) return;
+      const unsigned char* p = go + go_at<T>(0, bias_o);
+      const int chunk = (bias_o % (ROW / (int)sizeof(T))) / (16 / sizeof(T));
+      float s0 = bias_sum[0], s1 = bias_sum[1];
+      for (int i = 0; i < BM / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          // row 8 i + j: its chunk at chunk ^ j (go_at's swizzle)
+          const unsigned char* q =
+              p + i * 8 * ROW + j * ROW + ((chunk ^ j) - chunk) * 16;
+          if constexpr (sizeof(T) == 4) {
+            const float2 w = *reinterpret_cast<const float2*>(q);
+            s0 += w.x;
+            s1 += w.y;
+          } else {
+            const __nv_bfloat162 w =
+                *reinterpret_cast<const __nv_bfloat162*>(q);
+            s0 += __low2float(w);
+            s1 += __high2float(w);
+          }
+        }
+      bias_sum[0] = s0, bias_sum[1] = s1;
+    };
+    // the stage of step t back to the producers, every warp's reads of it
+    // done
+    auto release = [&](int t) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[t % R::STAGES]);
+    };
+    float* out = partial + (size_t)blockIdx.y * (g.taps * g.c + 1) * g.cout;
+    if constexpr (!kF32) {
+      // bf16: A = the column tile, B = the grad-out tile, both MN-major; a
+      // wgmma takes 16 pixels, 2048 bytes of each tile
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int t = 0; t < steps; ++t) {
+        const int stage = t % R::STAGES;
+        mbar_wait(&full[stage], (t / R::STAGES) & 1);
+        const uint32_t go = ring + stage * R::STAGE_BYTES;
+        const uint32_t col = go + R::GO_BYTES;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)
+          bf16_ss<1>(acc, desc_mn_sw128(col + kk * 2048, SLAB),
+                     desc_mn_sw128(go + kk * 2048, SLAB),
+                     t == 0 && kk == 0 ? 0 : 1);
+        wgmma_commit();
+        if (bias_block) sum_bias(ring_p + stage * R::STAGE_BYTES);
+        // one group in flight: the step before this one is read
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (t > 0) release(t - 1);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      // rows: channels of the chunk; columns: Cout
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = ci * BK + cw * 16 + h * 8 + gid;
+        if (c >= g.c) continue;
+        float* row = out + ((size_t)k * g.c + c) * g.cout;
+#pragma unroll
+        for (int jn = 0; jn < BN / 8; ++jn) {
+          const int o = jn * 8 + tig * 2;  // cout is a multiple of 8
+          if (o < g.cout)
+            *reinterpret_cast<float2*>(row + o) =
+                make_float2(acc[4 * jn + 2 * h], acc[4 * jn + 2 * h + 1]);
+        }
+      }
+    } else {
+      // f32: A = go^T from registers (M tiles of 64 Cout, row m of a warp's
+      // 16 is Cout 2 (m % 8) + m / 8: a0 a1 and a2 a3 are neighbours, one
+      // 8-byte load each), B = the transposed columns (N 32 channels). A
+      // commit group is one k step: lo*hi, hi*lo, hi*hi, each over the m
+      // tiles in turn (independent chains of wgmma). Its A fragments are
+      // all loaded before it is issued, and it is waited out before the
+      // next group's load: where A registers are written while a group is
+      // in flight, ptxas serializes every wgmma (each waits for the one
+      // before), even for registers no group in flight reads.
+      constexpr int MT = BN / 64;
+      float* sums = reinterpret_cast<float*>(ring_p +
+                                             R::STAGES * R::STAGE_BYTES);
+#pragma unroll
+      for (int i = 0; i < MT * 16; ++i) sums[i * CT + ct] = 0.f;
+      float fresh[MT][16] = {};
+      uint32_t fr[MT][2][4];  // [m tile][hi, lo][a]
+      const int o_row = 16 * cw + 2 * gid;  // Cout of rows gid, gid + 8: +1
+      for (int t = 0; t < steps; ++t) {
+        const int stage = t % R::STAGES;
+        mbar_wait(&full[stage], (t / R::STAGES) & 1);
+        const unsigned char* go = ring_p + stage * R::STAGE_BYTES;
+        const uint32_t col = ring + stage * R::STAGE_BYTES + R::GO_BYTES;
+        const bool start = t % WGRAD_SPAN == 0;
+#pragma unroll
+        for (int kk = 0; kk < BM / 8; ++kk) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            // K positions 8 kk + tig and + 4: pixels 8 kk + 2 tig, + 1
+            const int px = 8 * kk + 2 * tig, o = 64 * mt + o_row;
+            const uint2 v0 =
+                *reinterpret_cast<const uint2*>(go + go_at<float>(px, o));
+            const uint2 v1 =
+                *reinterpret_cast<const uint2*>(go + go_at<float>(px + 1, o));
+            const uint32_t r[4] = {v0.x, v0.y, v1.x, v1.y};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              tc::split_tf32(r[e], fr[mt][0][e], fr[mt][1][e]);
+            fence_regs(fresh[mt]);
+          }
+          wgmma_fence();
+          const uint32_t bh = col + (kk >> 2) * R::ATOM + (kk & 3) * K_STEP;
+          const int acc = start && kk == 0 ? 0 : 1;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            tf32_rs(fresh[mt], fr[mt][1], desc_sw128(bh), acc);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            tf32_rs(fresh[mt], fr[mt][0], desc_sw128(bh + SLAB), 1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            tf32_rs(fresh[mt], fr[mt][0], desc_sw128(bh), 1);
+          wgmma_commit();
+          if (bias_block && kk == BM / 8 - 1) sum_bias(go);
+          wgmma_wait<0>();
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            fence_regs(fresh[mt]);
+            fence_regs(fr[mt][0]);
+            fence_regs(fr[mt][1]);
+          }
+        }
+        release(t);
+        if ((t + 1) % WGRAD_SPAN == 0 || t + 1 == steps) {
+          // the span's sums into the running ones, rounded to nearest
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+              sums[(mt * 16 + i) * CT + ct] += fresh[mt][i];
+        }
+      }
+      // rows: Cout; columns: channels of the chunk
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int o = 64 * mt + o_row + h;
+              const int c = ci * BK + 8 * jn + 2 * tig + e;
+              if (c < g.c && o < g.cout)
+                out[((size_t)k * g.c + c) * g.cout + o] =
+                    sums[(mt * 16 + 4 * jn + 2 * h + e) * CT + ct];
+            }
+    }
+    if (bias_block && bias_o < g.cout)  // the row after the last (tap, c)
+      *reinterpret_cast<float2*>(out + (size_t)g.taps * g.c * g.cout +
+                                 bias_o) =
+          make_float2(bias_sum[0], bias_sum[1]);
+  }
+}
+
 // ------------------------------------------------------------ weight split
 
 // w (n4 vectors of 4 f32) -> its TF32 hi plane at out[0, n4) and lo plane
@@ -989,6 +1416,20 @@ bool tensor_map(CUtensorMap* map, const void* base, int rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// go (N, Ho, Wo, Cout) seen as (Cout, Wo, Ho, N): a box is 128 bytes of
+// Cout of an 8 x 8 patch (dgrad's and wgrad's grad-out tiles)
+template <typename T>
+bool go_map(CUtensorMap* map, const void* go, const Geom& g) {
+  constexpr size_t sz = sizeof(T);
+  const int items = g.rows / (g.ho * g.wo);
+  const cuuint64_t dims[4] = {(cuuint64_t)g.cout, (cuuint64_t)g.wo,
+                              (cuuint64_t)g.ho, (cuuint64_t)items};
+  const cuuint64_t strides[3] = {g.cout * sz, (cuuint64_t)g.wo * g.cout * sz,
+                                 (cuuint64_t)g.ho * g.wo * g.cout * sz};
+  const cuuint32_t box[4] = {(cuuint32_t)(ROW / sz), PATCH, PATCH, 1};
+  return tensor_map<T>(map, go, 4, dims, strides, box);
+}
+
 template <typename T, int BN>
 int fwd(const void* x, const void* offset, const void* mask, const void* wt,
         const void* bias, void* out, const Geom& g, cudaStream_t stream) {
@@ -1024,15 +1465,6 @@ int dgrad(const void* go, const void* x, const void* offset, const void* mask,
           const Geom& g, cudaStream_t stream) {
   using D = DgradSmem<T>;
   constexpr size_t sz = sizeof(T);
-  // go (N, Ho, Wo, Cout) seen as (Cout, Wo, Ho, N): a box is 128 bytes of
-  // Cout of an 8 x 8 patch
-  const int items = g.rows / (g.ho * g.wo);
-  const cuuint64_t go_dims[4] = {(cuuint64_t)g.cout, (cuuint64_t)g.wo,
-                                 (cuuint64_t)g.ho, (cuuint64_t)items};
-  const cuuint64_t go_strides[3] = {
-      g.cout * sz, (cuuint64_t)g.wo * g.cout * sz,
-      (cuuint64_t)g.ho * g.wo * g.cout * sz};
-  const cuuint32_t go_box[4] = {(cuuint32_t)(ROW / sz), PATCH, PATCH, 1};
   // the weight (K, C, Cout[, plane]) seen as (Cout, C, K[, plane]): a box
   // is 128 bytes of Cout of a chunk's BK channels of one tap
   const cuuint64_t w_dims[4] = {(cuuint64_t)g.cout, (cuuint64_t)g.c,
@@ -1043,7 +1475,7 @@ int dgrad(const void* go, const void* x, const void* offset, const void* mask,
   const cuuint32_t w_box[4] = {(cuuint32_t)(ROW / sz), (cuuint32_t)D::NC,
                                1, 2};
   CUtensorMap tm_go, tm_w;
-  if (!tensor_map<T>(&tm_go, go, 4, go_dims, go_strides, go_box) ||
+  if (!go_map<T>(&tm_go, go, g) ||
       !tensor_map<T>(&tm_w, w, Prec<T>::kPlanes == 2 ? 4 : 3, w_dims,
                      w_strides, w_box))
     return (int)cudaErrorInvalidValue;
@@ -1075,6 +1507,23 @@ int dgrad(const void* go, const void* x, const void* offset, const void* mask,
       tm_go, tm_w, (const typename Prec<T>::Raw*)x, (const float*)offset,
       (const T*)mask, (float*)grad_offset, (T*)grad_mask, (float*)grad_x, g,
       stages, bufs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int BN>
+int wgrad(const void* go, const void* x, const void* offset, const void* mask,
+          void* partial, int splits, int split_patches, const Geom& g,
+          cudaStream_t stream) {
+  using R = WgradRing<T, BN>;
+  CUtensorMap tm_go;
+  if (!go_map<T>(&tm_go, go, g)) return (int)cudaErrorInvalidValue;
+  auto kernel =
+      mask ? wgrad_kernel<T, BN, true> : wgrad_kernel<T, BN, false>;
+  if (int err = allow_smem(kernel, R::SMEM)) return err;
+  const dim3 grid(g.taps * ((g.c + Tiles<T>::BK - 1) / Tiles<T>::BK), splits);
+  kernel<<<grid, WgradRoles<T, BN>::THREADS, R::SMEM, stream>>>(
+      tm_go, (const typename Prec<T>::Raw*)x, (const float*)offset,
+      (const T*)mask, (float*)partial, split_patches, g);
   return (int)cudaGetLastError();
 }
 
@@ -1112,6 +1561,25 @@ int dgrad_launch(const void* go, const void* x, const void* offset,
                                 grad_mask, nullptr, g, s))
   return g.cout > 128 ? MDCN_DGRAD(256) : MDCN_DGRAD(128);
 #undef MDCN_DGRAD
+}
+
+template <typename T>
+int wgrad_launch(const void* go, const void* x, const void* offset,
+                 const void* mask, void* partial, int splits,
+                 int split_patches, const Geom& g, void* stream) {
+  if (!supported<T>(g, false) || !aligned16(go) || !aligned16(x) ||
+      ((uintptr_t)offset & 7) || splits < 1 || split_patches < 1 ||
+      (long long)splits * split_patches < g.patches)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (tile_width(g.cout)) {
+    case 64: return wgrad<T, 64>(go, x, offset, mask, partial, splits,
+                                 split_patches, g, s);
+    case 128: return wgrad<T, 128>(go, x, offset, mask, partial, splits,
+                                   split_patches, g, s);
+    default: return wgrad<T, 256>(go, x, offset, mask, partial, splits,
+                                  split_patches, g, s);
+  }
 }
 
 // planes (2, n) f32 = the TF32 split of w (n f32, a multiple of 4), both

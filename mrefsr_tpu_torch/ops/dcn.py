@@ -12,9 +12,9 @@ columns into shared memory and contract them there on the tensor cores, in
 one launch per call, as the JAX package's scans contract each tap's slab
 in their own bodies: no column matrix, no chunks, no matmul.
 ``csrc/mdcn_fused.cu`` (float32, 3xTF32) and ``csrc/mdcn_bf16.cu``
-(bfloat16) instantiate one walk: the forward and dgrad on Hopper's wgmma,
-fed by TMA and by producer warps that gather the columns
-(``csrc/mdcn_wgmma.cuh``), wgrad on ``mma.sync`` (``csrc/mdcn_fused.cuh``).
+(bfloat16) instantiate one walk: the forward, dgrad and wgrad on Hopper's
+wgmma, fed by TMA and by producer warps that gather the columns
+(``csrc/mdcn_wgmma.cuh``).
 The forward is ``mdcn_fused_fwd``; the backward ``mdcn_fused_dgrad`` (grad
 offset, grad mask and, in its ``_scatter`` variant, grad x) and
 ``mdcn_fused_wgrad`` (per-slice partials of grad weight and grad bias),
@@ -46,8 +46,8 @@ plus the f32 pre-offsets gives (a bf16 offset is widened exactly).
 Coordinates are f32 whatever the types. At bf16 the sampled corners are
 widened to f32, combined in f32 and rounded to bf16 once per column
 element (the kernels and the plain versions alike); the contraction sums
-bf16 x bf16 products in f32 (the fused kernels' ``wgmma`` and
-``mma.sync``, the plain version's ``torch.mm`` / ``torch.bmm``) and rounds
+bf16 x bf16 products in f32 (the fused kernels' ``wgmma``, the plain
+version's ``torch.mm`` / ``torch.bmm``) and rounds
 once to bf16, and the bias is added after that rounding, as at the JAX
 package's dcn.py:104-107.
 In the backward the grad columns (grad out x W^T) are summed in f32 and
@@ -120,10 +120,10 @@ FUSED_MAX_COUT = 256
 FUSED_MAX_STAGED = 144
 # a fused block's output rows: an 8 x 8 patch of pixels
 PATCH = 8
-# wgrad's blocks of (tap, 8 runs of channels) x slice of patches: about three
-# waves of blocks on the H100's 132 SMs (two blocks an SM below Cout 256,
-# one of 512 threads at 256), the slices cut from the shapes alone so that
-# the sum's order is the same on any card
+# wgrad's blocks of (tap, 8 runs of channels) x slice of patches: about
+# 3 x 132 blocks at Cout 256 and twice as many below (the wgmma walk runs one
+# block an SM: three or six waves on the H100's 132 SMs), the slices cut
+# from the shapes alone so that the sum's order is the same on any card
 WGRAD_WAVES = 3
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_void_p]  # n, h, w, c, dg, stream
 deform_sample_fwd_kernel = Kernel('deform_sample', 'deform_sample_fwd_launch',

@@ -1,7 +1,6 @@
 """Where the fused K2's time goes: ``mdcn_fused_fwd``, ``mdcn_fused_dgrad``
-and ``mdcn_fused_wgrad`` (the forward and dgrad on the wgmma walk of
-``csrc/mdcn_wgmma.cuh``, wgrad on ``csrc/mdcn_fused.cuh``'s, at f32 from
-``csrc/mdcn_fused.cu`` or at bf16 from ``csrc/mdcn_bf16.cu``) at the
+and ``mdcn_fused_wgrad`` (the wgmma walk of ``csrc/mdcn_wgmma.cuh``, at f32
+from ``csrc/mdcn_fused.cu`` or at bf16 from ``csrc/mdcn_bf16.cu``) at the
 stage-3 training shapes, each kernel launched alone, built as is and with
 one part of its work taken out.
 
@@ -12,16 +11,16 @@ Needs one CUDA device and ``nvcc``. The variants are copies of the walk's
 headers with a part cut by text edits, each beside a copy of the entry
 points' source in a directory of its own under ``build/``: ``gather`` (no
 corner loads: every sample reads as outside the map), ``offsets`` (no
-offset or mask reads: the gathers' per sample, dgrad's staging of a
-patch), ``operands`` (no TMA loads of the weight in the forward and
-dgrad, nor of dgrad's grad-out tile, the barriers arriving without them;
-no grad-out tiles in wgrad), ``products`` (no ``wgmma`` and no
-``mma.sync``), ``splits`` (f32 only: the TF32 split left out, hi = x, lo =
-0) and ``gather+products``. A cut variant computes wrong values; only its
-time counts. At f32 the forward and dgrad read the weight's planes, split
-beforehand by the checkout's own ``mdcn_fused_split``. Prints one JSON line
-per shape and variant, the median ms of 7 launches after a warm-up, then
-the card's name and power limit.
+offset or mask reads: the gathers' per sample, dgrad's staging of a patch),
+``operands`` (no TMA loads of the weight in the forward and dgrad, nor of
+dgrad's and wgrad's grad-out tiles, the barriers arriving without them),
+``products`` (no ``wgmma``), ``splits`` (f32 only: the TF32 split left out,
+hi = x, lo = 0) and ``gather+products``. A cut variant computes wrong
+values; only its time counts. At f32 the forward and dgrad read the
+weight's planes, split beforehand by the checkout's own
+``mdcn_fused_split``. Prints one JSON line per shape and variant, the
+median ms of 7 launches after a warm-up, then the card's name and power
+limit.
 
     python3 -m mrefsr_tpu_torch.ops.mdcn_ablation --scatter [--bf16]
 
@@ -37,8 +36,10 @@ trade between the lanes of a pair).
 
 builds ``mdcn_fused.cu`` and ``mdcn_bf16.cu`` as the port does and prints,
 for every kernel of the two libraries, its registers and spills as ptxas
-reports them and how many ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)
-instructions ``cuobjdump -sass`` finds in it: one JSON line a kernel.
+reports them and how many ``HGMMA`` (wgmma), ``HMMA`` (mma.sync) and
+``WARPGROUP.DEPBAR`` (waits for wgmma) instructions ``cuobjdump -sass``
+finds in it: one JSON line a kernel. A DEPBAR for every HGMMA means ptxas
+serialized the wgmmas (each waits for the one before).
 """
 import ctypes
 import json
@@ -76,11 +77,9 @@ CUTS = {
                  ('mdcn_wgmma.cuh',
                   '      mbar_expect_tx(&go_full, slabs * SLAB);',
                   '      mbar_arrive(&go_full);\n      if (false)', 1),
-                 ('mdcn_fused.cuh',
-                  '      const bool in = o.live && q * N < g.cout;\n'
-                  '      cp_async16(dst + r * LDO',
-                  '      const bool in = false;\n'
-                  '      cp_async16(dst + r * LDO', 1)],
+                 ('mdcn_wgmma.cuh',
+                  '      mbar_expect_tx(&full[stage], slabs * SLAB);',
+                  '      mbar_arrive(&full[stage]);\n      return;', 1)],
     'products': [('mdcn_wgmma.cuh', 'bf16_ss(d, ', 'if (false) bf16_ss(d, ',
                   1),
                  ('mdcn_wgmma.cuh', 'tf32_ss(d, ', 'if (false) tf32_ss(d, ',
@@ -89,8 +88,11 @@ CUTS = {
                   'if (false) bf16_ss(acc, ', 1),
                  ('mdcn_wgmma.cuh', 'tf32_rs(acc, ',
                   'if (false) tf32_rs(acc, ', 3),
-                 ('mdcn_fused.cuh', 'P::mma(', 'if (false) P::mma(', 1)],
-    'splits': [('mma_sync.cuh',
+                 ('mdcn_wgmma.cuh', 'bf16_ss<1>(acc, ',
+                  'if (false) bf16_ss<1>(acc, ', 1),
+                 ('mdcn_wgmma.cuh', 'tf32_rs(fresh[mt], ',
+                  'if (false) tf32_rs(fresh[mt], ', 3)],
+    'splits': [('tc_helpers.cuh',
                 '  hi = (x + 0x1000u) & 0xFFFFE000u;\n'
                 '  lo = __float_as_uint(__uint_as_float(x) - '
                 '__uint_as_float(hi));',
@@ -118,7 +120,7 @@ SCATTER_SHAPES = (('edvr_m_l1', 20, 64, 64, 64, 64, 8),
 
 def _headers(cuts):
     texts = {name: (CSRC / name).read_text()
-             for name in ('mdcn_fused.cuh', 'mdcn_wgmma.cuh', 'mma_sync.cuh',
+             for name in ('mdcn_fused.cuh', 'mdcn_wgmma.cuh', 'tc_helpers.cuh',
                           'deform_bilinear.cuh')}
     for cut in cuts:
         for name, old, new, count in CUTS[cut]:
@@ -273,11 +275,13 @@ def sass():
             m = re.search(r'Function : (\S+)', line)
             if m:
                 name = m.group(1)
-                counts[name] = {'HGMMA': 0, 'HMMA': 0}
+                counts[name] = {'HGMMA': 0, 'HMMA': 0, 'DEPBAR': 0}
             elif name and 'HGMMA' in line:
                 counts[name]['HGMMA'] += 1
             elif name and 'HMMA' in line:
                 counts[name]['HMMA'] += 1
+            elif name and 'WARPGROUP.DEPBAR' in line:
+                counts[name]['DEPBAR'] += 1
         for mangled, readable in zip(counts, _demangled(list(counts))):
             print(json.dumps({'library': lib, 'kernel': readable,
                               **counts[mangled], **regs.get(mangled, {})}),

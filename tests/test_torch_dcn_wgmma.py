@@ -1,10 +1,12 @@
-"""The wgmma walk of K2's forward and dgrad (``csrc/mdcn_wgmma.cuh``) on the
-CPU: its f32 arithmetic (3xTF32) emulated in numpy against JAX's f32
-``modulated_deform_conv2d``, the plain version of the weight's TF32 split
-(``mdcn_fused_split``) bit for bit, and the producers' swizzled stores
-against the canonical 128-byte swizzle that TMA writes and the wgmma
-descriptors read. No kernel runs here: the kernels themselves are held to
-their plain versions on the card by ``chip_smoke.py``."""
+"""The wgmma walk of K2's forward, dgrad and wgrad (``csrc/mdcn_wgmma.cuh``)
+on the CPU: its f32 arithmetic (3xTF32; at wgrad with the tensor cores'
+truncating sums and the span of fresh accumulators) emulated in numpy
+against JAX's f32 ``modulated_deform_conv2d`` and its vjp, the plain
+version of the weight's TF32 split (``mdcn_fused_split``) bit for bit, and
+the producers' swizzled stores and the wgmma descriptors' address maps
+against the canonical 128-byte swizzle that TMA writes and wgmma reads. No
+kernel runs here: the kernels themselves are held to their plain versions
+on the card by ``chip_smoke.py``."""
 import re
 
 import jax
@@ -154,3 +156,223 @@ def test_producer_stores_are_the_canonical_swizzle():
     assert re.search(r'uint32_t sw128\(int r, int j\) \{\s*return r \* ROW '
                      r'\+ \(\(j \^ \(r & 7\)\) << 4\);', text)
     assert re.search(r'constexpr int ROW = 128;', text)
+
+
+# ------------------------------------------------------------------ wgrad
+
+WGRAD_SPAN = 4   # mdcn_wgmma.cuh's WGRAD_SPAN
+SLAB = 64 * 128  # a 64-row tile of 128-byte rows
+
+
+def _header():
+    return (_build.CSRC / 'mdcn_wgmma.cuh').read_text()
+
+
+def _trunc_f32(x):
+    """float64 -> float32 rounded toward zero: the tensor cores' f32 sum."""
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(r, np.float32(0)), r)
+
+
+def _wgrad_walk(col, go, span):
+    """The f32 wgrad's sums for one slice as the walk takes them:
+    ``col`` (rows, channels) and ``go`` (rows, Cout), rows in patch order,
+    64 a patch. A = go^T and B = the columns, each split into TF32 hi and lo
+    (the tensor cores reading lo's top 19 bits); for each 8-deep k step of
+    each patch the products lo*hi, hi*lo, hi*hi in turn, each group of 8
+    summed exactly and added to the fresh f32 sums rounded toward zero; the
+    fresh sums start at zero every ``span`` patches and are then added to
+    the running sums rounded to nearest. Returns (channels, Cout) f32."""
+    a_hi = _tf32_rna(go)
+    a_lo = _tf32_trunc(go - a_hi)
+    b_hi = _tf32_rna(col)
+    b_lo = _tf32_trunc(col - b_hi)
+    terms = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))
+    patches = col.shape[0] // 64
+    run = np.zeros((col.shape[1], go.shape[1]), np.float32)
+    fresh = np.zeros_like(run)
+    for p in range(patches):
+        if p % span == 0:
+            fresh[:] = 0
+        for kk in range(8):
+            idx = slice(64 * p + 8 * kk, 64 * p + 8 * kk + 8)
+            for a, b in terms:
+                part = b[idx].astype(np.float64).T @ a[idx].astype(
+                    np.float64)
+                fresh = _trunc_f32(fresh.astype(np.float64) + part)
+        if (p + 1) % span == 0 or p + 1 == patches:
+            run = (run + fresh).astype(np.float32)
+    return run
+
+
+def test_wgrad_span_is_the_headers():
+    assert re.search(rf'constexpr int WGRAD_SPAN = {WGRAD_SPAN};', _header())
+
+
+@pytest.mark.parametrize('c', [64, 128, 256])
+def test_wgrad_walk_holds_k2_tolerance(c):
+    """The f32 wgrad's arithmetic, emulated over one slice as long as the
+    stage-3 training shape's at this width (``dcn._wgrad_slices``: 273, 137
+    and 150 patches at C 64, 128 and 256; here one 8 x 8 item a patch), dg
+    8: grad weight (one tap, 16 Cout) and grad bias (the rows summed in
+    order, rounded to nearest) within K2_REL_TOL of JAX's f32 vjp of
+    ``modulated_deform_conv2d``. At the longest slice a walk without fresh
+    accumulators (one span of the whole slice) falls outside it."""
+    _, patches = dcn._wgrad_slices(30, 160 * 64 // c, 160 * 64 // c, 9, c,
+                                   c, torch.float32)
+    cout, dg, tap = 16, 8, 4
+    rng = np.random.RandomState(c)
+    x = rng.randn(patches, 8, 8, c).astype(np.float32)
+    offset = (rng.randn(patches, 8, 8, dg, 9, 2) * 1.5).astype(np.float32)
+    mask = rng.rand(patches, 8, 8, dg, 9).astype(np.float32)
+    weight = (rng.randn(3, 3, c, cout) * 0.02).astype(np.float32)
+    bias = (rng.randn(cout) * 0.1).astype(np.float32)
+    go = rng.randn(patches, 8, 8, cout).astype(np.float32)
+
+    def conv(w, b):
+        return jax_dcn.modulated_deform_conv2d(
+            jnp.asarray(x), jnp.asarray(offset), jnp.asarray(mask), w, b,
+            deform_groups=dg)
+
+    _, vjp = jax.vjp(conv, jnp.asarray(weight), jnp.asarray(bias))
+    want_w, want_b = (np.asarray(g) for g in vjp(jnp.asarray(go)))
+    want_w = want_w.reshape(9, c, cout)[tap]
+    rows = patches * 64
+    geom = ((3, 3), (1, 1), (1, 1), (1, 1), (8, 8))
+    col = dcn._im2col_ref(torch.from_numpy(x), torch.from_numpy(offset),
+                          torch.from_numpy(mask), 0, rows, geom)
+    col = col.reshape(rows, 9, c)[:, tap].numpy()
+    go2d = go.reshape(rows, cout)
+    scale = np.abs(want_w).max()
+    err = np.abs(_wgrad_walk(col, go2d, WGRAD_SPAN) - want_w).max()
+    assert err <= K2_REL_TOL * scale, err / scale
+    got_b = np.cumsum(go2d, axis=0, dtype=np.float32)[-1]
+    assert np.abs(got_b - want_b).max() <= K2_REL_TOL * np.abs(
+        want_b).max()
+    if c == 64:
+        err_one = np.abs(_wgrad_walk(col, go2d, patches) - want_w).max()
+        assert err_one > K2_REL_TOL * scale, err_one / scale
+
+
+def _wpix(s):
+    """mdcn_wgmma.cuh's ``wpix``: the pixel at K position s."""
+    return (s & ~7) | ((s & 3) << 1) | ((s >> 2) & 1)
+
+
+def _col_t_at(c, s):
+    """mdcn_wgmma.cuh's ``col_t_at``: (channel row c, K position s) of a
+    plane of the f32 transposed column tile."""
+    return (s >> 5) * (32 * 128) + _producer_store(c, (s & 31) >> 2) \
+        + 4 * (s & 3)
+
+
+def _go_at(px, o, size):
+    """mdcn_wgmma.cuh's ``go_at<T>``: (pixel px, Cout o) of the grad-out
+    tile as TMA writes it, T of ``size`` bytes."""
+    e, v = 128 // size, 16 // size
+    return (o // e) * SLAB + _producer_store(px, (o % e) // v) \
+        + (o % v) * size
+
+
+def test_wgrad_f32_column_tile_is_the_canonical_k_major_swizzle():
+    """The f32 producers' transposed stores: (channel c, K position s) goes
+    where the canonical K-major 128-byte swizzle of a tile of 32 rows puts
+    it, in two K atoms of 32 positions (the TF32 wgmma's B, 32 bytes of K a
+    step), a bijection onto the plane's 2048 words; K position s holds the
+    pixel the consumer's A fragments read there (k tig and tig + 4 of step
+    kk: pixels 8 kk + 2 tig and + 1); and the header computes both maps as
+    mirrored here."""
+    seen = set()
+    for c in range(32):
+        for s in range(64):
+            at = _col_t_at(c, s)
+            assert at == (s // 32) * 32 * 128 + _canonical_sw128(
+                c, (s % 32) // 4) + 4 * (s % 4)
+            seen.add(at // 4)
+    assert seen == set(range(2048))
+    assert sorted(_wpix(s) for s in range(64)) == list(range(64))
+    for kk in range(8):
+        for tig in range(4):
+            assert _wpix(8 * kk + tig) == 8 * kk + 2 * tig
+            assert _wpix(8 * kk + tig + 4) == 8 * kk + 2 * tig + 1
+    text = _header()
+    assert re.search(r'return \(s & ~7\) \| \(\(s & 3\) << 1\) \| '
+                     r'\(\(s >> 2\) & 1\);', text)
+    assert re.search(r'return \(s >> 5\) \* \(32 \* ROW\) \+ '
+                     r'sw128\(c, \(s & 31\) >> 2\) \+ 4 \* \(s & 3\);', text)
+    assert re.search(r'return \(o / E\) \* SLAB \+ sw128\(px, \(o % E\) / '
+                     r'V\) \+ \(o % V\) \* sizeof\(T\);', text)
+
+
+@pytest.mark.parametrize('producers', [256, 512])
+def test_wgrad_f32_shared_memory_meets_32_banks(producers):
+    """Each of a producer warp's four stores of a step (8 runs of 4 K
+    positions, each value rotated by (j / 2) % 4) meets 32 banks, one word
+    each; each of the consumer's 8-byte A loads (Cout 2 gid, + 1 of pixel
+    8 kk + 2 tig, or + 1) meets each bank twice: 256 bytes in the least
+    two passes."""
+    for warp in range(producers // 32):
+        for q in range(64 * 8 // producers):
+            for i in range(4):
+                banks = []
+                for lane in range(32):
+                    tid, j = 32 * warp + lane, lane & 7
+                    s = (tid >> 3) + producers // 8 * q
+                    rot = (j >> 1) & 3
+                    banks.append(_col_t_at(4 * j + ((i + rot) & 3), s) // 4
+                                 % 32)
+                assert sorted(banks) == list(range(32))
+    for cw in range(4):
+        for mt in range(4):
+            for kk in range(8):
+                for pair in range(2):
+                    words = []
+                    for lane in range(32):
+                        gid, tig = lane >> 2, lane & 3
+                        at = _go_at(8 * kk + 2 * tig + pair,
+                                    64 * mt + 16 * cw + 2 * gid, 4)
+                        assert at % 8 == 0
+                        words += [at // 4, at // 4 + 1]
+                    counts = np.bincount([w % 32 for w in words],
+                                         minlength=32)
+                    assert (counts == 2).all()
+
+
+def _canonical_mn_sw128(start, lbo, sbo, mn, k):
+    """The canonical MN-major layout of 16-bit elements with the 128-byte
+    swizzle that a wgmma descriptor (start, LBO, SBO) reads with the
+    transpose immediate: 8 elements a 16-byte chunk, 8 chunks (64 of M or
+    N) a 128-byte row, atoms of 64 LBO bytes apart along M or N; K down the
+    rows, 8 rows SBO bytes apart; then bits 4-6 XORed with bits 7-9 (the
+    tile 1024-byte aligned)."""
+    linear = start + (mn % 8) * 2 + (mn % 64) // 8 * 16 + (mn // 64) * lbo \
+        + (k % 8) * 128 + (k // 8) * sbo
+    return linear ^ (((linear >> 7) & 7) << 4)
+
+
+def test_wgrad_bf16_descriptors_read_the_stored_tiles():
+    """bf16 wgrad's operands, both MN-major: A = the column tile (M the
+    chunk's 64 channels, K the pixels) as the producers store it (pixel r,
+    channel 8 j + e at sw128(r, j) + 2 e), and B = the grad-out tile (N
+    Cout, K the pixels) as TMA writes it (slabs of 64 Cout, 8 KB apart),
+    each read by wgmma k step kk (16 pixels) through a descriptor at + kk *
+    2048 with SBO 1024 and LBO one slab: every element where the descriptor
+    reads it; and the header builds the descriptor and calls wgmma so."""
+    for kk in range(4):
+        for k in range(16):
+            r = 16 * kk + k
+            for m in range(64):
+                at = _producer_store(r, m // 8) + 2 * (m % 8)
+                assert at == _canonical_mn_sw128(2048 * kk, SLAB, 1024, m, k)
+            for o in range(256):
+                assert _go_at(r, o, 2) == _canonical_mn_sw128(
+                    2048 * kk, SLAB, 1024, o, k)
+    text = _header()
+    assert re.search(r'\(\(uint64_t\)\(\(lbo >> 4\) & 0x3FFF\) << 16\) \|\s*'
+                     r'\(\(uint64_t\)\(1024 >> 4\) << 32\) \| '
+                     r'\(\(uint64_t\)1 << 62\);', text)
+    assert re.search(r'bf16_ss<1>\(acc, desc_mn_sw128\(col \+ kk \* 2048, '
+                     r'SLAB\),\s*desc_mn_sw128\(go \+ kk \* 2048, SLAB\),',
+                     text)
+    assert re.search(r'"%32, %33, p, 1, 1, %35, %35;', text)
